@@ -1,0 +1,3 @@
+from .common import Embedding, Linear
+
+__all__ = ["Embedding", "Linear"]

@@ -1,0 +1,96 @@
+"""Builds the port's CUDA kernels into plain-C shared libraries.
+
+Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into ``paddle_tpu_torch/_build/lib<name>-<hash>.so`` the first time it is
+needed, and loaded with ``ctypes``. The file name carries a hash of the
+source and flags, so an edited kernel is rebuilt and a stale library is
+never loaded. The build needs the CUDA toolkit (``nvcc`` on ``PATH`` or
+under ``/usr/local/cuda``) and nothing else: no ``ninja``, no PyTorch
+headers. A failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = {"decode_attention_paged": "decode_attention_paged.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# argtypes of each library's entry point: every pointer and the stream
+# go as c_void_p (a plain int would be cut to 32 bits)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRY = {
+    "decode_attention_paged": (
+        "paddle_decode_attention_paged",
+        [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        "kernels are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile every named kernel that is not built yet, all ``nvcc``
+    processes started together. Returns ``{name: compiler log}`` for the
+    kernels compiled by this call (ptxas register and shared-memory
+    report); raises RuntimeError naming the kernel on a failed build."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str):
+    """The kernel's C entry point, building its library first if needed."""
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    symbol, argtypes = _ENTRY[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,0 +1,107 @@
+"""The weight bridge from the JAX package.
+
+``from_jax_state`` takes the JAX modules' ``state_dict()`` as numpy
+arrays, keyed as ``paddle_tpu``'s ``Layer.named_parameters`` names them
+(``ln_scales.0``, ``qkv_weights.0``, ..., ``weight``, ``bias``), and
+returns the port's FusedMultiTransformer, Embedding and Linear head with
+the same values. It is the only path by which weights cross; a caller
+without JAX builds the same dicts from numpy directly (``random_state``).
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+from .device import resolve_device
+from .incubate.nn.layer import FusedMultiTransformer
+from .nn.layer.common import Embedding, Linear
+
+__all__ = ["from_jax_state", "random_state"]
+
+
+def _tensor(arr, device, dtype):
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":   # ml_dtypes bf16: reinterpret the bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _load(module, state, device, dtype):
+    own = dict(module.named_parameters())
+    if set(own) != set(state):
+        raise ValueError(
+            f"{type(module).__name__}: state keys differ — missing "
+            f"{sorted(set(own) - set(state))}, unexpected "
+            f"{sorted(set(state) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            t = _tensor(state[name], device, dtype)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{type(module).__name__}.{name}: shape "
+                                 f"{tuple(t.shape)} != {tuple(p.shape)}")
+            owner, _, leaf = name.rpartition(".")
+            module.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+                t, requires_grad=False)
+
+
+def from_jax_state(fmt_np, embed_np, head_np, activation="gelu",
+                   normalize_before=True, epsilon=1e-5, device=None,
+                   dtype=None):
+    """Returns ``(fmt, embed, head)`` on ``device`` (default ``cuda``),
+    in ``dtype`` (default: the arrays' own). Shapes are read from the
+    arrays; the three scalars the arrays cannot carry are arguments."""
+    dev = resolve_device(device)
+    layers = [int(m.group(1)) for k in fmt_np
+              if (m := re.fullmatch(r"qkv_weights\.(\d+)", k))]
+    _, nh, _, e = np.shape(fmt_np["qkv_weights.0"])
+    ff = np.shape(fmt_np["ffn1_weights.0"])[1]
+    v = np.shape(embed_np["weight"])[0]
+    fmt = FusedMultiTransformer(e, nh, ff, activation=activation,
+                                normalize_before=normalize_before,
+                                epsilon=epsilon, num_layers=len(layers),
+                                device="meta")
+    embed = Embedding(v, e, device="meta")
+    head = Linear(e, np.shape(head_np["weight"])[1],
+                  bias_attr=None if "bias" in head_np else False,
+                  device="meta")
+    for module, state in ((fmt, fmt_np), (embed, embed_np),
+                          (head, head_np)):
+        _load(module, state, dev, dtype)
+    return fmt, embed, head
+
+
+def random_state(rng, embed_dim, num_heads, dim_feedforward, num_layers,
+                 vocab):
+    """Random numpy state dicts for ``from_jax_state``, keyed as the JAX
+    layers name them: LN scales near 1, small nonzero biases, matrices
+    scaled by 1/sqrt(fan_in), a normal(0, 1) embedding. ``rng`` is a
+    ``numpy.random.Generator``."""
+    e, h, ff = embed_dim, num_heads, dim_feedforward
+    hd = e // h
+    shapes = {"ln_scales": (e,), "ln_biases": (e,),
+              "qkv_weights": (3, h, hd, e), "qkv_biases": (3, h, hd),
+              "linear_weights": (e, e), "linear_biases": (e,),
+              "ffn_ln_scales": (e,), "ffn_ln_biases": (e,),
+              "ffn1_weights": (e, ff), "ffn1_biases": (ff,),
+              "ffn2_weights": (ff, e), "ffn2_biases": (e,)}
+    fmt = {}
+    for name, shape in shapes.items():
+        for i in range(num_layers):
+            z = rng.standard_normal(shape, dtype=np.float32)
+            if "scales" in name:
+                a = 1 + 0.1 * z
+            elif "biases" in name:
+                a = 0.1 * z
+            else:
+                a = z / np.float32(np.sqrt(shape[-2]))
+            fmt[f"{name}.{i}"] = a.astype(np.float32)
+    embed = {"weight": rng.standard_normal((vocab, e), dtype=np.float32)}
+    head = {"weight": rng.standard_normal((e, vocab), dtype=np.float32)
+            / np.float32(np.sqrt(e))}
+    return fmt, embed, head

@@ -1,0 +1,169 @@
+"""The port's ServingEngine against the JAX package's, on the CPU.
+
+Same bridged weights, same requests (prompts longer than the C=16 budget
+columns, so prefill spans several dispatches), default configuration
+(paged pool, row-layout token budget, greedy): the greedy tokens must be
+identical. Also: the metric reconciliations of check_serving_metrics,
+the constructor's refusals of paths outside the slice, the default
+device, and that the port never imports JAX or paddle_tpu.
+"""
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.weights import from_jax_state
+
+E, H, FF, L, V = 64, 4, 128, 2, 256
+PKG = pathlib.Path(__file__).resolve().parents[1] / "paddle_tpu_torch"
+
+
+def _models():
+    """The bench toy model with every parameter redrawn from numpy."""
+    import paddle_tpu as paddle
+    from paddle_tpu.incubate.nn import FusedMultiTransformer
+    from paddle_tpu.nn.layer.common import Embedding, Linear
+    paddle.seed(0)
+    embed = Embedding(V, E)
+    fmt = FusedMultiTransformer(E, H, FF, num_layers=L,
+                                normalize_before=True)
+    head = Linear(E, V, bias_attr=False)
+    rng = np.random.default_rng(0)
+    for lay in (fmt, embed, head):
+        sd = {}
+        for k, v in lay.state_dict().items():
+            shape = tuple(v.shape)
+            z = rng.standard_normal(shape)
+            a = (1 + 0.1 * z if "scales" in k else 0.1 * z if "biases" in k
+                 else z if lay is embed else z / np.sqrt(shape[-2]))
+            sd[k] = a.astype(np.float32)
+        lay.set_state_dict(sd)
+    fmt.eval()
+    states = [{k: np.asarray(v._data) for k, v in lay.state_dict().items()}
+              for lay in (fmt, embed, head)]
+    return (fmt, embed, head), from_jax_state(*states, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+def _requests():
+    rng = np.random.default_rng(11)
+    # (prompt length, max_new_tokens, eos, min_length)
+    spec = [(5, 6, None, 0), (20, 8, None, 0), (40, 5, None, 0),
+            (3, 10, None, 0), (33, 7, None, 0), (70, 9, None, 0),
+            (17, 12, 144, 0), (9, 12, 144, 12)]
+    return [(rng.integers(0, V, n), m, eos, ml) for n, m, eos, ml in spec]
+
+
+def _serve(eng, reqs):
+    rids = [eng.submit(p, max_new_tokens=m, eos_token_id=eos, min_length=ml)
+            for p, m, eos, ml in reqs]
+    eng.run()
+    return [eng.results[r]["tokens"].tolist() for r in rids]
+
+
+def test_greedy_tokens_match_jax(models, serving_metrics_ok):
+    from paddle_tpu.inference.serving import ServingEngine as JaxEngine
+    jmods, tmods = models
+    reqs = _requests()
+    want = _serve(JaxEngine(*jmods, num_slots=4, max_seq_len=128), reqs)
+    eng = ServingEngine(*tmods, num_slots=4, max_seq_len=128, device="cpu")
+    got = _serve(eng, reqs)
+    assert got == want
+    # the streams are not degenerate, and every request ran to its budget
+    # or to eos (the min_length request may not stop early)
+    assert len({t for toks in got for t in toks}) > 20
+    assert len(got[-1]) == 12
+    m = serving_metrics_ok(eng)
+    assert m["requests_finished"] == len(reqs)
+    assert m["budget_steps"] > 0 and m["budget_prefill_tokens"] == sum(
+        len(p) for p, *_ in reqs)
+    assert m["kv_blocks_used"] == 0          # every slot freed its blocks
+
+
+def test_pool_accounting_midflight(models, serving_metrics_ok):
+    _, tmods = models
+    eng = ServingEngine(*tmods, num_slots=2, max_seq_len=128,
+                        device="cpu")
+    for p, m, *_ in _requests()[:4]:
+        eng.submit(p, max_new_tokens=m)
+    for _ in range(3):
+        eng.step()
+        m = serving_metrics_ok(eng)
+        assert m["kv_blocks_used"] > 0
+        assert 0 < eng.occupancy <= 1.0
+    eng.run()
+    assert serving_metrics_ok(eng)["requests_finished"] == 4
+
+
+def test_slo_verdicts_reconcile(models, serving_metrics_ok):
+    from paddle_tpu_torch.inference.telemetry import SloPolicy
+    _, tmods = models
+    eng = ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
+                        slo=SloPolicy(e2e_s=1e-9))
+    _serve(eng, _requests()[:3])
+    m = serving_metrics_ok(eng)
+    assert m["slo_ok"] == 0
+    assert m["slo_violated_queue"] + m["slo_violated_service"] == 3
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"do_sample": True}, {"spec_k": 2}, {"prefix_cache_blocks": 4},
+    {"flat_budget": True}, {"token_budget": 0}, {"paged": False},
+    {"weight_quant": "int8"}, {"kv_quant": "int8"}, {"role": "prefill"},
+    {"use_rotary": True}, {"enable_repetition_penalty": True}])
+def test_out_of_slice_options_raise(models, kwargs):
+    _, tmods = models
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
+                      **kwargs)
+
+
+def test_in_slice_spellings_are_accepted(models):
+    _, tmods = models
+    eng = ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
+                        paged=True, spec_k=0, flat_budget=False,
+                        role="mixed", weight_quant="none", kv_quant="none")
+    assert eng.token_budget == 2 * 16 and eng._budget_cols == 16
+
+
+def test_default_device_needs_a_card(models, monkeypatch):
+    _, tmods = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(*tmods, num_slots=2, max_seq_len=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_state({}, {}, {})
+
+
+def test_submit_validation(models):
+    _, tmods = models
+    eng = ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu")
+    with pytest.raises(ValueError, match="Smax"):
+        eng.submit(np.zeros(100, np.int64), max_new_tokens=29)
+    with pytest.raises(ValueError, match="token ids"):
+        eng.submit(np.array([V]), max_new_tokens=2)
+    with pytest.raises(ValueError, match="empty"):
+        eng.submit(np.zeros(0, np.int64))
+
+
+def test_port_never_imports_jax_or_paddle_tpu():
+    for path in PKG.rglob("*.py"):
+        src = path.read_text()
+        for bad in ("import jax", "from jax", "paddle_tpu.",
+                    "import paddle_tpu\n", "from paddle_tpu "):
+            assert bad not in src, f"{path}: {bad!r}"
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.weights, paddle_tpu_torch.ops._build; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=PKG.parent)

@@ -39,10 +39,9 @@ from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
+from paddle_tpu_torch.profile_serving import E, FF, H, V, gpt2_workload
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
-# GPT-2-124M widths (bench_serving.py's full-size serving model)
-E, H, FF, L, V = 768, 12, 3072, 12, 50304
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
 BF16_FLOPS_PER_S = 989e12
 
@@ -134,21 +133,13 @@ def serve(eng, reqs):
 
 def phase_engine(seed):
     log("== phase 3: ServingEngine at GPT-2-124M width, bf16, L=12")
-    rng = np.random.default_rng(seed)
-    mods = from_jax_state(*random_state(rng, E, H, FF, L, V),
-                          device="cuda", dtype=torch.bfloat16)
-    eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
-    # warm-up request: cuBLAS handles and allocator pools, not measured
-    serve(eng, [(rng.integers(0, V, 40), 4)])
-    reqs = [(rng.integers(0, V, int(rng.integers(32, 513))),
-             int(rng.integers(32, 129))) for _ in range(16)]
+    fresh, reqs = gpt2_workload(seed)
     forms = collections.Counter()
     kernel = da.decode_attention_paged
 
     def spy(qt, *a, **k):
         forms[qt.shape[2]] += 1
         return kernel(qt, *a, **k)
-    fresh = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
     torch.cuda.reset_peak_memory_stats()
     da.decode_attention_paged = spy
     for name in da.LAUNCHES:
@@ -265,9 +256,15 @@ def phase_timing(seed):
             def run_plain(i=0):
                 return da.decode_attention_paged_reference(
                     qt, pool, tables, i % n_layers, lens)
-            got = da.decode_attention_paged(*args)
-            want = da.decode_attention_paged_reference(*args)
-            err = (got.float() - want.float()).abs().max().item()
+            got = da.decode_attention_paged(*args).float()
+            want = da.decode_attention_paged_reference(*args).float()
+            err = (got - want).abs().max().item()
+            tol = TOLERANCES["attention_bf16"]
+            if not torch.allclose(got, want, **tol):
+                raise SystemExit(
+                    f"kernel disagrees with its plain version at cache_lens "
+                    f"{ln}, Sq {sq}: max_abs_err {err:.3e} (atol "
+                    f"{tol['atol']}, rtol {tol['rtol']})")
             ms = time_ms(run_kernel, 200)
             plain_ms = time_ms(run_plain, 20)
             # SDPA over the row's gathered prefix, gather not timed
@@ -335,6 +332,8 @@ def main(argv=None):
 
     main_row = next(r for r in rows if r["cache_lens"] == 1024
                     and r["sq"] == 1)
+    # the error over every main-path shape, each checked in phase 5
+    main_row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     log(f"  worst phase-2 errors: {worst}")
     kernels = [{
         "name": "decode_attention_paged", "route": "cuda",

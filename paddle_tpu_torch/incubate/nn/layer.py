@@ -14,13 +14,14 @@ one (``qkv_weights.0``, ``ffn1_biases.3``, ...):
   ffn1_weights / ffn1_biases     [E, FF] / [FF]
   ffn2_weights / ffn2_biases     [FF, E] / [E]
 
-The serving path reads these lists through
-``inference.generation.FusedDecoder``, which stacks them per layer; the
-module itself has no forward of its own in this port.
+The parameters are allocated uninitialised (nothing at all on
+``device="meta"``); their values arrive through
+``paddle_tpu_torch.weights.from_jax_state``. The serving path reads
+these lists through ``inference.generation.FusedDecoder``, which stacks
+them per layer; the module itself has no forward of its own in this
+port.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
@@ -31,8 +32,7 @@ __all__ = ["FusedMultiTransformer"]
 class FusedMultiTransformer(nn.Module):
     def __init__(self, embed_dim, num_heads, dim_feedforward,
                  activation="gelu", normalize_before=True, epsilon=1e-5,
-                 num_layers=1, dtype=torch.float32, device=None,
-                 generator=None):
+                 num_layers=1, dtype=torch.float32, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
@@ -46,28 +46,22 @@ class FusedMultiTransformer(nn.Module):
         self.activation = activation
         self.epsilon = epsilon
 
-        def plist(shape, fill=None):
-            def one():
-                if fill is not None:
-                    w = torch.full(shape, float(fill), dtype=torch.float32)
-                else:   # Xavier normal over the last two axes, as in JAX
-                    fan_in, fan_out = shape[-2], shape[-1]
-                    w = torch.randn(shape, generator=generator) * math.sqrt(
-                        2.0 / (fan_in + fan_out))
-                return nn.Parameter(w.to(device=device, dtype=dtype),
-                                    requires_grad=False)
-            return nn.ParameterList([one() for _ in range(self.num_layers)])
+        def plist(*shape):   # uninitialised: values come from the bridge
+            return nn.ParameterList([
+                nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                             requires_grad=False)
+                for _ in range(self.num_layers)])
 
         e, hd = embed_dim, self.head_dim
-        self.ln_scales = plist((e,), 1.0)
-        self.ln_biases = plist((e,), 0.0)
-        self.qkv_weights = plist((3, num_heads, hd, e))
-        self.qkv_biases = plist((3, num_heads, hd), 0.0)
-        self.linear_weights = plist((e, e))
-        self.linear_biases = plist((e,), 0.0)
-        self.ffn_ln_scales = plist((e,), 1.0)
-        self.ffn_ln_biases = plist((e,), 0.0)
-        self.ffn1_weights = plist((e, dim_feedforward))
-        self.ffn1_biases = plist((dim_feedforward,), 0.0)
-        self.ffn2_weights = plist((dim_feedforward, e))
-        self.ffn2_biases = plist((e,), 0.0)
+        self.ln_scales = plist(e)
+        self.ln_biases = plist(e)
+        self.qkv_weights = plist(3, num_heads, hd, e)
+        self.qkv_biases = plist(3, num_heads, hd)
+        self.linear_weights = plist(e, e)
+        self.linear_biases = plist(e)
+        self.ffn_ln_scales = plist(e)
+        self.ffn_ln_biases = plist(e)
+        self.ffn1_weights = plist(e, dim_feedforward)
+        self.ffn1_biases = plist(dim_feedforward)
+        self.ffn2_weights = plist(dim_feedforward, e)
+        self.ffn2_biases = plist(e)

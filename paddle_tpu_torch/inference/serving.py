@@ -410,7 +410,9 @@ class ServingEngine:
         pf_rows = [s for s in range(b) if self._pf_left[s] > 0]
         if not dec_rows and not pf_rows:
             return 0
-        if not pf_rows and len(dec_rows) < len(dec_rows) * self.decode_chunk:
+        # the JAX engine also weighs the draft columns here; they come
+        # back with spec decoding (ROADMAP Queue 1 item 6(d))
+        if not pf_rows and self.decode_chunk > 1:
             return self._decode_one_chunk()
         budget = self.token_budget - len(dec_rows)
         toks = np.zeros((b, c), np.int64)

@@ -3,14 +3,11 @@
 Counterparts of ``paddle_tpu/nn/layer/common.py``: ``Linear`` keeps its
 weight as ``[in, out]`` and computes ``y = x @ W + b`` (not
 ``nn.Linear``'s ``[out, in]``), so weights cross from the JAX package
-without a transpose. Parameters start from an explicit ``generator``
-(the JAX package's initializers: normal(0, 1) for the embedding, Xavier
-normal for the linear weight, zeros for the bias); real weights arrive
-through ``paddle_tpu_torch.weights.from_jax_state``.
+without a transpose. Parameters are allocated uninitialised (nothing at
+all on ``device="meta"``); their values arrive through
+``paddle_tpu_torch.weights.from_jax_state``.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
@@ -19,22 +16,20 @@ import torch.nn.functional as F
 __all__ = ["Embedding", "Linear"]
 
 
-def _randn(shape, std, dtype, device, generator):
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-    return w.to(device=device, dtype=dtype)
+def _param(shape, dtype, device):
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 class Embedding(nn.Module):
     """Token embedding, weight ``[num_embeddings, embedding_dim]``."""
 
     def __init__(self, num_embeddings, embedding_dim, dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(
-            _randn((num_embeddings, embedding_dim), 1.0, dtype, device,
-                   generator), requires_grad=False)
+        self.weight = _param((num_embeddings, embedding_dim), dtype, device)
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
@@ -45,17 +40,13 @@ class Linear(nn.Module):
     ``bias_attr=False`` drops the bias, as in Paddle."""
 
     def __init__(self, in_features, out_features, bias_attr=None,
-                 dtype=torch.float32, device=None, generator=None):
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        std = math.sqrt(2.0 / (in_features + out_features))
-        self.weight = nn.Parameter(
-            _randn((in_features, out_features), std, dtype, device,
-                   generator), requires_grad=False)
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(out_features, dtype=dtype, device=device),
-            requires_grad=False)
+        self.weight = _param((in_features, out_features), dtype, device)
+        self.bias = (None if bias_attr is False
+                     else _param((out_features,), dtype, device))
 
     def forward(self, x):
         y = x @ self.weight

@@ -1,15 +1,12 @@
 """Where the serving engine's time goes on the card.
 
-    python -m paddle_tpu_torch.profile_serving [--seed N] [--layers L]
+    python -m paddle_tpu_torch.profile_serving [--seed N]
 
-Builds the engine at GPT-2-124M width (E=768, H=12, FF=3072, V=50304,
-bf16, random weights from --seed; L=12 unless --layers cuts depth),
-serves one warm-up request, then serves 16 greedy requests (prompts of
-32-512 tokens, 32-128 new tokens; the chip_smoke.py phase-3 recipe)
-under ``torch.profiler``. Prints one JSON object: wall time, the union
-of the device's kernel intervals (busy) and the idle share, device time
-by kernel name, host time by dispatch kind (budget / decode), and the
-engine's metrics. Needs a CUDA card.
+Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
+3 also serves, under ``torch.profiler``. Prints one JSON object: wall
+time, the union of the device's kernel intervals (busy) and the idle
+share, device time by kernel name, host time by dispatch kind (budget /
+decode), and the engine's metrics. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -25,7 +22,26 @@ import torch
 from .inference import ServingEngine
 from .weights import from_jax_state, random_state
 
-E, H, FF, V = 768, 12, 3072, 50304
+# GPT-2-124M widths (bench_serving.py's full-size serving model)
+E, H, FF, L, V = 768, 12, 3072, 12, 50304
+
+
+def gpt2_workload(seed):
+    """Returns ``(engine, reqs)``: a fresh ``ServingEngine(num_slots=8,
+    max_seq_len=1024)`` over a GPT-2-124M-width bf16 model on the card
+    (random weights from ``seed``), and 16 greedy ``(prompt, max_new)``
+    pairs with prompts of 32-512 tokens and 32-128 new tokens. One
+    warm-up request (cuBLAS handles, allocator pools) was served on
+    another engine over the same weights first."""
+    rng = np.random.default_rng(seed)
+    mods = from_jax_state(*random_state(rng, E, H, FF, L, V),
+                          dtype=torch.bfloat16)
+    warm = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
+    warm.submit(rng.integers(0, V, 40), max_new_tokens=4)
+    warm.run()
+    reqs = [(rng.integers(0, V, int(rng.integers(32, 513))),
+             int(rng.integers(32, 129))) for _ in range(16)]
+    return ServingEngine(*mods, num_slots=8, max_seq_len=1024), reqs
 
 
 def _busy_us(intervals):
@@ -44,22 +60,13 @@ def _busy_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
-    rng = np.random.default_rng(args.seed)
-    mods = from_jax_state(*random_state(rng, E, H, FF, args.layers, V),
-                          dtype=torch.bfloat16)
-    warm = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
-    warm.submit(rng.integers(0, V, 40), max_new_tokens=4)
-    warm.run()
-    del warm
-    eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
-    for _ in range(16):
-        eng.submit(rng.integers(0, V, int(rng.integers(32, 513))),
-                   max_new_tokens=int(rng.integers(32, 129)))
+    eng, reqs = gpt2_workload(args.seed)
+    for prompt, max_new in reqs:
+        eng.submit(prompt, max_new_tokens=max_new)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -87,7 +94,7 @@ def main(argv=None):
         host[st["kind"]][1] += 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "layers": args.layers,
+        "device": torch.cuda.get_device_name(0), "layers": L,
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": (1 - busy_s / wall_s) if wall_s else None,
         "kernel_events": len(intervals),

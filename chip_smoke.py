@@ -4,20 +4,27 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, in order; any failure exits non-zero:
-  1. print the card, build every kernel from the sources in this checkout;
+  1. print the card, build every kernel from the sources in this checkout
+     (all nvcc processes started together);
   2. each kernel against its plain PyTorch version on the card (bf16 and
-     fp32 with TF32 off; ragged lengths, sentinel table entries, GQA,
-     several block sizes, a layer index > 0);
+     fp32 with TF32 off): the paged kernel over ragged lengths, sentinel
+     table entries, GQA, several block sizes and a layer index > 0; the
+     flat kernel over pad chunks, unaligned chunk bases straddling a
+     block edge and an unmapped entry; flash attention causal and not,
+     sq < sk, GQA, S in {37, 255, 1000}, D in {64, 128}, lse included;
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
-     V=50304, pre-LN, gelu, bf16, random weights from --seed) serves 16
-     greedy requests through the paged pool and the token-budget
-     scheduler; kernel launch counts are zeroed just before and read
-     just after, and both kernel forms (Sq=16 block, Sq=1 decode) must
-     have run;
-  4. the same engine at L=2, fp32, on the card and on the CPU (plain
-     attention there): greedy tokens must be identical;
-  5. kernel timing at the engine's decode shape beside its bound, the
-     plain version and SDPA on a pre-gathered dense view.
+     V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
+     same 16 greedy requests under each scheduler: the row-layout token
+     budget, the flat token budget and the phase scheduler's bulk
+     prefill. Kernel launch counts are zeroed just before each run and
+     read just after; the row run must launch both paged forms (Sq=16
+     block, Sq=1 decode), the flat run the flat and the paged kernel, the
+     phase run flash attention and the paged kernel;
+  4. the same engine at L=2, fp32, under the three schedulers on the card
+     and the row scheduler on the CPU (plain attention there): greedy
+     tokens must be identical;
+  5. each kernel timed at the shapes its path gives it, beside its bound,
+     its plain version and one PyTorch call (SDPA) computing the same.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -39,11 +46,18 @@ from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
-from paddle_tpu_torch.profile_serving import E, FF, H, V, gpt2_workload
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
+                                              gpt2_workload)
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
 BF16_FLOPS_PER_S = 989e12
+# (slot, base, count) per flat chunk: aligned, partial, an unaligned base
+# straddling a block edge, a pad chunk, one over an unmapped entry (slot
+# 2, position 21), deep chunks
+FLAT_CASE = [(0, 0, 8), (0, 8, 5), (1, 13, 8), (2, 0, 0), (2, 21, 3),
+             (1, 448, 8), (1, 456, 8), (0, 900, 2)]
 
 
 def log(msg=""):
@@ -85,7 +99,7 @@ def attention_case(rng, *, b, h, hk, sq, d, bt, nblk, n_layers,
 
 
 def phase_kernels(rng):
-    log("== phase 2: kernel vs plain version on the card")
+    log("== phase 2: kernels vs plain versions on the card")
     worst = {}
     for dtype, tname in ((torch.bfloat16, "attention_bf16"),
                          (torch.float32, "attention_fp32")):
@@ -101,19 +115,88 @@ def phase_kernels(rng):
                         dtype=dtype, sentinel_inside=True)
                     got = da.decode_attention_paged(*args)
                     want = da.decode_attention_paged_reference(*args)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    tol = TOLERANCES[tname]
-                    ok = torch.allclose(got.float(), want.float(), **tol)
-                    log(f"  {str(dtype):15s} Sq={sq:2d} group={group} "
-                        f"Bt={bt:2d}: max_abs_err={err:.3e} "
-                        f"(atol={tol['atol']}, rtol={tol['rtol']}) "
-                        f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise SystemExit("kernel disagrees with its plain "
-                                         "version")
-                    worst[tname] = max(worst.get(tname, 0.0), err)
+                    check(f"paged {str(dtype):15s} Sq={sq:2d} "
+                          f"group={group} Bt={bt:2d}", got, want, tname,
+                          worst)
+    for dtype, tname in ((torch.bfloat16, "attention_bf16"),
+                         (torch.float32, "attention_fp32")):
+        for group in (1, 2):
+            for bt in (16, 64):
+                args = flat_case(rng, FLAT_CASE, h=4, hk=4 // group, d=64,
+                                 bt=bt, nblk=1024 // bt, n_layers=2,
+                                 layer=1, dtype=dtype, unmapped=(2, 21))
+                got = da.decode_attention_paged_flat(*args)
+                want = da.decode_attention_paged_flat_reference(*args)
+                check(f"flat  {str(dtype):15s} group={group} Bt={bt:2d}",
+                      got, want, tname, worst)
+                pads = [8 * i + r for i, (_, _, n) in enumerate(FLAT_CASE)
+                        for r in range(n, 8)]
+                if got[pads].any():
+                    raise SystemExit("flat kernel: pad rows are not 0")
+        for d in (64, 128):
+            for s, sk, group, causal in ((37, 37, 1, True),
+                                         (255, 255, 2, True),
+                                         (1000, 1000, 1, True),
+                                         (255, 255, 1, False),
+                                         (37, 1000, 2, True),
+                                         (255, 1000, 1, False)):
+                q, k, v = (randn(rng, (1, hh, n, d), dtype)
+                           for hh, n in ((4, s), (4 // group, sk),
+                                         (4 // group, sk)))
+                o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                o_ref, lse_ref = fa.flash_attention_reference(q, k, v,
+                                                              causal)
+                name = (f"flash {str(dtype):15s} D={d} Sq={s} Sk={sk} "
+                        f"group={group} causal={int(causal)}")
+                check(name, o, o_ref, tname, worst)
+                check(name + " lse", lse, lse_ref, tname, worst)
     return worst
+
+
+def check(name, got, want, tname, worst):
+    """Fail unless got matches want within TOLERANCES[tname]."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOLERANCES[tname]
+    ok = torch.allclose(got.float(), want.float(), **tol)
+    log(f"  {name}: max_abs_err={err:.3e} (atol={tol['atol']}, "
+        f"rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    worst[tname] = max(worst.get(tname, 0.0), err)
+
+
+def randn(rng, shape, dtype):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def flat_case(rng, chunks, *, h, hk, d, bt, nblk, n_layers, layer, dtype,
+              unmapped=None):
+    """Random q [8 * len(chunks), H, D], pool and tables for the flat
+    kernel: every slot maps the blocks its chunks reach, in shuffled
+    order; ``unmapped`` = (slot, position) leaves that entry at the
+    sentinel, which reads block NB - 1."""
+    nslots = max(c[0] for c in chunks) + 1
+    top = [0] * nslots
+    for s, base, n in chunks:
+        top[s] = max(top[s], base + max(n, 1))
+    nb = nslots * nblk + 1
+    perm = rng.permutation(nb)
+    tables = np.full((nslots, nblk), nb, np.int32)
+    k = 0
+    for s in range(nslots):
+        need = min(-(-top[s] // bt), nblk)
+        tables[s, :need] = perm[k:k + need]
+        k += need
+    if unmapped is not None:
+        tables[unmapped[0], unmapped[1] // bt] = nb
+    meta = (torch.tensor(col, dtype=torch.int32, device="cuda")
+            for col in zip(*chunks))
+    return (randn(rng, (8 * len(chunks), h, d), dtype),
+            randn(rng, (n_layers, 2, nb, hk, bt, d), dtype),
+            torch.from_numpy(tables).cuda(), *meta, layer)
 
 
 def serve(eng, reqs):
@@ -132,8 +215,32 @@ def serve(eng, reqs):
 
 
 def phase_engine(seed):
-    log("== phase 3: ServingEngine at GPT-2-124M width, bf16, L=12")
-    fresh, reqs = gpt2_workload(seed)
+    log("== phase 3: ServingEngine at GPT-2-124M width, bf16, L=12, under "
+        "the row, flat and phase schedulers")
+    launches = {}
+    for name, kwargs in SCHEDULERS.items():
+        launches[name] = serve_counted(seed, name, kwargs)
+    need = {"row": ("decode_attention_paged",),
+            "flat": ("decode_attention_paged_flat", "decode_attention_paged"),
+            "phase": ("flash_attention_fwd", "decode_attention_paged")}
+    for name, kernels in need.items():
+        for k in kernels:
+            if not launches[name][k]:
+                raise SystemExit(f"the {name} run never launched {k}: "
+                                 f"{launches[name]}")
+    return launches
+
+
+def reset_launches():
+    for counts in (da.LAUNCHES, fa.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def serve_counted(seed, name, kwargs):
+    """Serve gpt2_workload under one scheduler with every launch count
+    zeroed just before and read just after; returns the counts."""
+    fresh, reqs = gpt2_workload(seed, **kwargs)
     forms = collections.Counter()
     kernel = da.decode_attention_paged
 
@@ -142,36 +249,37 @@ def phase_engine(seed):
         return kernel(qt, *a, **k)
     torch.cuda.reset_peak_memory_stats()
     da.decode_attention_paged = spy
-    for name in da.LAUNCHES:
-        da.LAUNCHES[name] = 0
+    reset_launches()
     try:
         out, steps, dt = serve(fresh, reqs)
     finally:
         da.decode_attention_paged = kernel
-    launches = dict(da.LAUNCHES)
+    launches = {**da.LAUNCHES, **fa.LAUNCHES}
     m = fresh.metrics()
     for (p, want), (rid, toks) in zip(reqs, out.items()):
         if len(toks) != want:
-            raise SystemExit(f"request {rid} emitted {len(toks)} of {want}")
-    if m["kv_blocks_used"] + m["kv_blocks_free"] != m["kv_blocks_total"]:
-        raise SystemExit(f"kv block accounting broke: {m}")
-    if not forms.get(16) or not forms.get(1):
+            raise SystemExit(f"{name}: request {rid} emitted {len(toks)} of "
+                             f"{want}")
+    if m["kv_blocks_used"] + m["kv_blocks_free"] != m["kv_blocks_total"] \
+            or m["kv_blocks_used"]:
+        raise SystemExit(f"{name}: kv block accounting broke: {m}")
+    if name == "row" and (not forms.get(16) or not forms.get(1)):
         raise SystemExit(f"kernel forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
-    if not launches["decode_attention_paged"]:
-        raise SystemExit("decode_attention_paged never launched")
     n_prompt = sum(len(p) for p, _ in reqs)
     n_new = sum(w for _, w in reqs)
-    log(f"  {len(reqs)} requests, {n_prompt} prompt tokens, {n_new} "
-        f"generated, {steps} steps in {dt:.3f} s")
-    log(f"  generated tokens/s {n_new / dt:.1f}; engine tokens_per_sec "
-        f"{m['tokens_per_sec']}; mean step {1e3 * dt / steps:.2f} ms")
-    log(f"  TTFT p50 {m['ttft_p50_s']:.4f} s, p99 {m['ttft_p99_s']:.4f} s; "
-        f"latency p50 {m['latency_p50_s']:.4f} s")
-    log(f"  budget steps {m['budget_steps']}, utilization "
-        f"{m['budget_utilization']}, kernel forms {dict(forms)}, "
-        f"launches {launches}")
-    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"  [{name}] {len(reqs)} requests, {n_prompt} prompt tokens, "
+        f"{n_new} generated, {steps} steps in {dt:.3f} s")
+    log(f"  [{name}] generated tokens/s {n_new / dt:.1f}; engine "
+        f"tokens_per_sec {m['tokens_per_sec']}; mean step "
+        f"{1e3 * dt / steps:.2f} ms")
+    log(f"  [{name}] TTFT p50 {m['ttft_p50_s']:.4f} s, p99 "
+        f"{m['ttft_p99_s']:.4f} s; latency p50 {m['latency_p50_s']:.4f} s")
+    log(f"  [{name}] budget steps {m['budget_steps']}, utilization "
+        f"{m['budget_utilization']}, padding {m['budget_padding_tokens']}, "
+        f"paged kernel forms {dict(forms)}, launches {launches}")
+    log(f"  [{name}] max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
     return launches
 
 
@@ -194,31 +302,38 @@ def first_gap_margin(mods_cpu, prompt, prefix):
 
 
 def phase_parity(seed):
-    log("== phase 4: card vs CPU at L=2, full width, fp32 (TF32 off)")
+    log("== phase 4: card (row, flat, phase) vs CPU (row) at L=2, full "
+        "width, fp32 (TF32 off)")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
              int(rng.integers(12, 25))) for _ in range(6)]
     outs = {}
-    for dev in ("cuda", "cpu"):
+    for dev, name, kwargs in ([("cuda", n, kw)
+                               for n, kw in SCHEDULERS.items()]
+                              + [("cpu", "row", {})]):
         mods = from_jax_state(*state, device=dev, dtype=torch.float32)
         eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
-                            device=dev)
+                            device=dev, **kwargs)
         t0 = time.perf_counter()
-        outs[dev] = list(serve(eng, reqs)[0].values())
-        log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
-    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
-        if not np.array_equal(a, b):
+        outs[dev, name] = list(serve(eng, reqs)[0].values())
+        log(f"  {dev} {name}: {time.perf_counter() - t0:.2f} s")
+    want = outs["cpu", "row"]
+    for name in SCHEDULERS:
+        for i, (a, b) in enumerate(zip(outs["cuda", name], want)):
+            if np.array_equal(a, b):
+                continue
             j = int(np.argmax(a != b)) if len(a) == len(b) else min(
                 len(a), len(b))
             mods = from_jax_state(*state, device="cpu", dtype=torch.float32)
             margin = first_gap_margin(mods, reqs[i][0], b[:j])
             raise SystemExit(
-                f"request {i}: card and CPU tokens differ at index {j} "
-                f"({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 logit margin "
-                f"there {margin:.3e}")
-    log(f"  {len(reqs)} requests, {sum(len(t) for t in outs['cpu'])} "
-        "tokens: identical")
+                f"request {i}: card ({name}) and CPU (row) tokens differ at "
+                f"index {j} ({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 "
+                f"logit margin there {margin:.3e}")
+    log(f"  {len(reqs)} requests, {sum(len(t) for t in want)} tokens: "
+        "identical across row, flat and phase on the card and row on the "
+        "CPU")
 
 
 def time_ms(fn, reps):
@@ -234,21 +349,137 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the bf16 tensor rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
+              reps):
+    """Check the kernel against its plain version at this shape (bf16
+    tolerance), then time kernel, plain version and library call."""
+    got, want = run_kernel(), run_plain()
+    if isinstance(got, tuple):               # flash: (o, lse)
+        got, want = got[0], want[0]
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = TOLERANCES["attention_bf16"]
+    if not torch.allclose(got, want, **tol):
+        raise SystemExit(
+            f"kernel disagrees with its plain version at {label}: "
+            f"max_abs_err {err:.3e} (atol {tol['atol']}, rtol "
+            f"{tol['rtol']})")
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {**label, "max_abs_err": err, "ms": time_ms(run_kernel, reps),
+           "plain_ms": time_ms(run_plain, max(reps // 10, 5)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(run_library, reps)}
+    log("  " + json.dumps(row))
+    return row
+
+
+def time_flat(rng):
+    """The flat kernel at the flat engine's segment shape: H=12, D=64,
+    Bt=64, bf16, a 64-token segment at base 0 (slot 0) and one at base
+    448 (slot 1), 16 chunks; the library call is SDPA over each
+    segment's slot gathered into a dense view (gather not timed)."""
+    # 48 layers: the blocks the launches cycle through exceed the L2
+    h, d, bt, n_layers, seg = H, E // H, 64, 48, 64
+    bases = (0, 448)
+    chunks = [(s, base + 8 * i, 8) for s, base in enumerate(bases)
+              for i in range(seg // 8)]
+    q, pool, tables, cslot, cbase, cn, _ = flat_case(
+        rng, chunks, h=h, hk=h, d=d, bt=bt, nblk=1024 // bt,
+        n_layers=n_layers, layer=0, dtype=torch.bfloat16)
+    # cycle the layer so each launch reads blocks another layer left cold
+
+    def run_kernel(i=0):
+        return da.decode_attention_paged_flat(q, pool, tables, cslot, cbase,
+                                              cn, i % n_layers)
+
+    def run_plain(i=0):
+        return da.decode_attention_paged_flat_reference(
+            q, pool, tables, cslot, cbase, cn, i % n_layers)
+    s_max = bases[-1] + seg
+    nb = pool.shape[2]
+    kv = pool[:, :, tables[:, :s_max // bt].long().clamp(max=nb - 1)]
+    kv = kv.permute(0, 1, 2, 4, 3, 5, 6).reshape(
+        n_layers, 2, len(bases), h, s_max, d).contiguous()
+    qs = q.reshape(len(bases), seg, h, d).transpose(1, 2)
+    base_t = torch.tensor(bases, device="cuda")[:, None, None, None]
+    mask = (torch.arange(s_max, device="cuda")[None, None, None, :]
+            <= base_t + torch.arange(seg, device="cuda")[:, None])
+
+    def run_sdpa(i=0):
+        kk = kv[i % n_layers]
+        return F.scaled_dot_product_attention(qs, kk[0], kk[1],
+                                              attn_mask=mask)
+    elt = 2
+    n_pos = sum(base + seg for base in bases)      # each slot's prefix once
+    nbytes = (n_pos * h * d * 2 * elt + 2 * q.numel() * elt
+              + tables.numel() * 4 + 3 * cslot.numel() * 4)
+    flops = 4 * d * h * sum(base + r + 1 for base in bases
+                            for r in range(seg))
+    return [timed_row({"bases": list(bases), "segment": seg}, run_kernel,
+                      run_plain, run_sdpa, nbytes, flops, 200)]
+
+
+def time_flash(rng):
+    """Flash attention forward at the bulk prefill's shapes: [1, sb, 12,
+    64] causal bf16 for each power-of-two bucket sb; the library call is
+    SDPA with is_causal=True."""
+    h, d = H, E // H
+    rows = []
+    for sb in (128, 256, 512, 1024):
+        q, k, v = (randn(rng, (1, h, sb, d), torch.bfloat16)
+                   for _ in range(3))
+
+        def run_kernel(i=0, q=q, k=k, v=v):
+            return fa.flash_attention_fwd(q, k, v, causal=True)
+
+        def run_plain(i=0, q=q, k=k, v=v):
+            return fa.flash_attention_reference(q, k, v, True)
+
+        def run_sdpa(i=0, q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        nbytes = 4 * q.numel() * 2 + sb * h * 4     # q, k, v, o; lse
+        flops = 4 * d * h * sb * (sb + 1) // 2
+        rows.append(timed_row({"sb": sb}, run_kernel, run_plain, run_sdpa,
+                              nbytes, flops, 100))
+    return rows
+
+
 def phase_timing(seed):
-    log("== phase 5: kernel timing at the engine's decode shape "
-        "(B=8, H=12, D=64, Bt=64, bf16)")
+    log("== phase 5: kernel timing at the shapes of each path (H=12, "
+        "D=64, bf16)")
     rng = np.random.default_rng(seed + 2)
+    log("  decode_attention_paged at the decode shape (B=8, Bt=64)")
+    rows = {"decode_attention_paged": time_paged(rng)}
+    log("  decode_attention_paged_flat at the flat segment shape")
+    rows["decode_attention_paged_flat"] = time_flat(rng)
+    log("  flash_attention_fwd at the bulk prefill buckets")
+    rows["flash_attention_fwd"] = time_flash(rng)
+    return rows
+
+
+def time_paged(rng):
+    """The paged kernel at the decode shape (B=8, Bt=64, all rows at
+    cache_lens 512 or 1024, Sq 1 or 16); the library call is SDPA over
+    the row's prefix gathered into a dense view (gather not timed)."""
     b, h, d, bt, nblk, n_layers = 8, H, E // H, 64, 32, 12
     rows = []
     for ln in (512, 1024):
         for sq in (1, 16):
-            args = attention_case(rng, b=b, h=h, hk=h, sq=sq, d=d,
-                                  bt=bt, nblk=nblk, n_layers=n_layers,
-                                  layer=0, lens=[ln] * b,
-                                  dtype=torch.bfloat16)
-            qt, pool, tables, _, lens = args
+            qt, pool, tables, _, lens = attention_case(
+                rng, b=b, h=h, hk=h, sq=sq, d=d, bt=bt, nblk=nblk,
+                n_layers=n_layers, layer=0, lens=[ln] * b,
+                dtype=torch.bfloat16)
             # cycle the layer so each launch reads blocks another layer
             # left cold (12 layers of KV exceed the 50 MB L2)
+
             def run_kernel(i=0):
                 return da.decode_attention_paged(qt, pool, tables,
                                                  i % n_layers, lens)
@@ -256,18 +487,6 @@ def phase_timing(seed):
             def run_plain(i=0):
                 return da.decode_attention_paged_reference(
                     qt, pool, tables, i % n_layers, lens)
-            got = da.decode_attention_paged(*args).float()
-            want = da.decode_attention_paged_reference(*args).float()
-            err = (got - want).abs().max().item()
-            tol = TOLERANCES["attention_bf16"]
-            if not torch.allclose(got, want, **tol):
-                raise SystemExit(
-                    f"kernel disagrees with its plain version at cache_lens "
-                    f"{ln}, Sq {sq}: max_abs_err {err:.3e} (atol "
-                    f"{tol['atol']}, rtol {tol['rtol']})")
-            ms = time_ms(run_kernel, 200)
-            plain_ms = time_ms(run_plain, 20)
-            # SDPA over the row's gathered prefix, gather not timed
             s = ln + sq
             kv = pool[:, :, tables[0, :(s - 1) // bt + 1].long()]
             kv = kv.permute(0, 1, 3, 2, 4, 5).reshape(
@@ -280,22 +499,13 @@ def phase_timing(seed):
                 kk = kv[i % n_layers]
                 return F.scaled_dot_product_attention(
                     qt, kk[0], kk[1], attn_mask=mask)
-            library_ms = time_ms(run_sdpa, 200)
             elt = 2
             nbytes = (b * h * s * d * 2 * elt          # K and V read once
                       + 2 * b * h * sq * d * elt       # q in, out
                       + tables.numel() * 4 + b * 4)
             flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
-            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                 flops / BF16_FLOPS_PER_S)
-            row = {"cache_lens": ln, "sq": sq, "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                >= flops / BF16_FLOPS_PER_S
-                                else "operations"),
-                   "library_ms": library_ms}
-            log("  " + json.dumps(row))
-            rows.append(row)
+            rows.append(timed_row({"cache_lens": ln, "sq": sq}, run_kernel,
+                                  run_plain, run_sdpa, nbytes, flops, 200))
     return rows
 
 
@@ -330,19 +540,29 @@ def main(argv=None):
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
-    main_row = next(r for r in rows if r["cache_lens"] == 1024
-                    and r["sq"] == 1)
-    # the error over every main-path shape, each checked in phase 5
-    main_row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     log(f"  worst phase-2 errors: {worst}")
-    kernels = [{
-        "name": "decode_attention_paged", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/decode_attention_paged.cu",
-        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:1027",
-        "launches": launches["decode_attention_paged"],
-        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")},
-    }]
+    # per kernel: the phase-3 run of its own path, the phase-5 shape its
+    # engine spends most time at, and the worst error over its phase-5
+    # shapes (each checked there)
+    table = (("decode_attention_paged", "row", 1027,
+              lambda r: r["cache_lens"] == 1024 and r["sq"] == 1),
+             ("decode_attention_paged_flat", "flat", 1276, lambda r: True),
+             ("flash_attention_fwd", "phase", 222,
+              lambda r: r["sb"] == 512))
+    kernels = []
+    for name, path, line, is_main in table:
+        main_row = next(r for r in rows[name] if is_main(r))
+        src = ("flash_attention.py" if name == "flash_attention_fwd"
+               else "decode_attention.py")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/csrc/{_build.SOURCES[name]}",
+            "replaces": f"paddle_tpu/ops/pallas/{src}:{line}",
+            "launches": launches[path][name],
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

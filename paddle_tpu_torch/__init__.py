@@ -4,8 +4,8 @@ A second package beside ``paddle_tpu/``, mirroring its module paths:
 ``incubate.nn.layer.FusedMultiTransformer`` holds the weights,
 ``inference.generation.FusedDecoder`` runs the step cores,
 ``inference.serving.ServingEngine`` schedules requests over the paged KV
-pool, and ``ops.decode_attention`` holds the hand-written Hopper kernel
-that the attention runs. ``weights.from_jax_state`` is the one way
+pool, and ``ops.decode_attention`` and ``ops.flash_attention`` hold the
+hand-written Hopper kernels that the attention runs. ``weights.from_jax_state`` is the one way
 weights cross from the JAX package. Nothing here imports JAX or
 ``paddle_tpu``.
 """

@@ -4,17 +4,22 @@ Counterpart of the paged, greedy subset of
 ``paddle_tpu/inference/generation.py::FusedDecoder``: the ``_stacked``
 weight layout (qkv fused head-major), ``init_paged_cache``, the per-layer
 step pieces (``ln``, ``qkv_of``, ``proj_ffn_tail``, ``paged_write``,
-``attend``, ``layer_step``), the two hidden cores (``hidden`` for one
-token per row, ``spec_hidden`` for a [B, C] block) and the two
-dispatches the serving engine builds from them (``_build_budget_core``
-and the trailing decode scan ``_make_budget_tail``).
+``attend``, ``layer_step``), the four hidden cores (``hidden`` for one
+token per row, ``spec_hidden`` for a [B, C] block, ``flat_hidden`` for
+the flat budget's ragged [T] stream, ``bulk_hidden`` for a whole prompt)
+and the dispatches the serving engine builds from them
+(``_build_budget_core``, ``_build_flat_budget_core`` and the trailing
+decode scan ``_make_budget_tail``).
 
 Where JAX traced a pure function, the port runs eagerly: the layer loop
 is a Python loop, and the KV pool is updated IN PLACE (a write through
 the block table lands in ``caches["kv"]`` directly, where JAX returned a
-new array). Attention goes through
-``ops.decode_attention.decode_attention_paged`` — the CUDA kernel on the
-card, its plain version on the CPU.
+new array). Attention goes through the wrappers of ``ops`` — the CUDA
+kernels on the card, their plain versions on the CPU:
+``decode_attention.decode_attention_paged`` (decode rows, budget
+blocks), ``decode_attention.decode_attention_paged_flat`` (the flat
+stream's segments) and ``flash_attention.flash_attention`` (bulk
+prefill). Each is looked up on its module at call time.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops import decode_attention as _attn
+from ..ops import flash_attention as _fa
 
 __all__ = ["FusedDecoder"]
 
@@ -221,6 +227,84 @@ class FusedDecoder:
             x = self.layer_step(x, p, caches, l, lens, targets)
         return x
 
+    # ------------------------------------------------ flat budget stream
+    def flat_targets(self, caches, tslot, tpos, b):
+        """``write_targets`` of the flat stream: token i writes its slot
+        tslot[i]'s position tpos[i]. Pad tokens carry the slot sentinel
+        b and drop, as does a position past the table or an unmapped
+        entry (never clamped into block NB - 1)."""
+        rows = caches["tbl"][tslot.clamp(max=b - 1)]
+        tv = torch.where(tslot < b, tpos, torch.full_like(tpos, self.smax))
+        return self.write_targets(dict(caches, tbl=rows), tv)
+
+    def flat_write(self, caches, l, targets, kv_new):
+        """Scatter the stream's K/V kv_new [2, 1, H, T, D] of layer l into
+        the pool, in place: each token is a row of one position."""
+        self.paged_write(caches, l, targets,
+                         kv_new[:, 0].transpose(1, 2)[:, :, :, None])
+
+    def flat_attend_seg(self, q_s, caches, l, cmeta, b):
+        """The segment region's attention: q_s [Ts, H, D] in aligned
+        single-slot chunks with cmeta = (cslot, cbase, cn) int32 per
+        chunk. The kernel takes every block size the engine makes, so
+        there is no gather fallback on the card."""
+        cslot, cbase, cn = cmeta
+        return _attn.decode_attention_paged_flat(
+            q_s.contiguous(), caches["kv"], caches["tbl"],
+            cslot.clamp(max=b - 1), cbase, cn, l)
+
+    def flat_layer_step(self, x, p, caches, l, tpos, targets, cmeta, b):
+        """One layer over the whole [1, T] stream: dense ops on every
+        token, K/V written to (slot, pos), then attention by region —
+        tokens [0, b) are the decode region (token i is slot i, through
+        decode_attention_paged over all b rows; idle rows' outputs are
+        discarded by the caller), the rest go through the flat kernel."""
+        f = self.fmt
+        nh, hd = f.num_heads, f.head_dim
+        residual = x
+        h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
+        t_all = h.shape[1]
+        q, k, v = self.qkv_of(h, p)                   # [1, T, H, D]
+        kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
+        self.flat_write(caches, l, targets, kv_new)
+        ad = self.attend(q[0, :b][:, None], caches, l, tpos[:b])
+        parts = [ad.reshape(1, b, nh * hd)]
+        if t_all > b:
+            a_s = self.flat_attend_seg(q[0, b:], caches, l, cmeta, b)
+            parts.append(a_s.reshape(1, t_all - b, nh * hd))
+        return self.proj_ffn_tail(residual, torch.cat(parts, 1), p)
+
+    def flat_hidden(self, stk, caches, toks, tslot, tpos, cmeta, b):
+        """toks/tslot/tpos [T], the flat stream (decode region [0, b) plus
+        aligned segments) -> x [1, T, E], every valid token's K/V landed
+        at (slot, pos)."""
+        x = self.embed(toks[None, :])
+        targets = self.flat_targets(caches, tslot, tpos, b)
+        for l, p in enumerate(self._layers(stk)):
+            x = self.flat_layer_step(x, p, caches, l, tpos, targets, cmeta,
+                                     b)
+        return x
+
+    # ------------------------------------------------------- bulk prefill
+    def bulk_hidden(self, stk, toks):
+        """Whole-prompt prefill, no rotary: toks [B, S] at positions 0..S-1
+        through the layer stack with causal flash attention. Returns
+        (x [B, S, E], kv_all [L, 2, B, H, S, D]); writing kv_all into a
+        cache is the caller's."""
+        f = self.fmt
+        x = self.embed(toks)
+        kvs = []
+        for p in self._layers(stk):
+            residual = x
+            h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
+            bsz, sl = h.shape[:2]
+            q, k, v = self.qkv_of(h, p)
+            o = _fa.flash_attention(q, k, v, causal=True)
+            x = self.proj_ffn_tail(
+                residual, o.reshape(bsz, sl, f.num_heads * f.head_dim), p)
+            kvs.append(torch.stack([k.transpose(1, 2), v.transpose(1, 2)]))
+        return x, torch.stack(kvs)
+
     def head_logits(self, x):
         return self.head(x)
 
@@ -288,3 +372,35 @@ class FusedDecoder:
                 min_len)
             return tok0, emit0, ys, tok, lens, active, nt
         return budget
+
+    def _build_flat_budget_core(self, b, scan_tail=0):
+        """The token-flattened budget step, greedy, without drafts: one
+        ragged [T] stream (decode region [0, b), then segments aligned to
+        FLAT_CHUNK), each slot's next token sampled from its last valid
+        stream index ``last_idx``, then ``scan_tail`` trailing decode
+        steps. ``emit0`` and ``adv`` come from the packer. Returns
+        flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
+        tok_in, last_idx, emit0, adv, lens, nt, max_nt, eos_ids, min_len)
+        -> (tok0, emit0, ys, tok, lens, active, nt), as the row core."""
+        b = int(b)
+        tail = self._make_budget_tail(int(scan_tail))
+
+        def flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
+                        tok_in, last_idx, emit0, adv, lens, nt, max_nt,
+                        eos_ids, min_len):
+            x = self.flat_hidden(stk, caches, toks, tslot, tpos,
+                                 (cslot, cbase, cn), b)
+            xl = x[0, last_idx][:, None]
+            logits = self.head_logits(xl).reshape(b, -1)
+            logits = _penalize_slots(logits, nt, min_len, eos_ids)
+            tok0 = logits.argmax(-1).to(tok_in.dtype)
+            hit_eos = (eos_ids >= 0) & (tok0 == eos_ids)
+            lens = lens + adv
+            nt = nt + emit0.to(nt.dtype)
+            active = emit0 & ~hit_eos & (nt < max_nt)
+            tok = torch.where(emit0, tok0, tok_in)
+            (tok, lens, active, nt), ys = tail(
+                stk, caches, tok, lens, active, nt, max_nt, eos_ids,
+                min_len)
+            return tok0, emit0, ys, tok, lens, active, nt
+        return flat_budget

@@ -1,17 +1,20 @@
-"""Host allocator of the paged KV pool.
+"""Host allocator of the paged KV pool, and the flat stream's gather.
 
 Counterpart of ``paddle_tpu/inference/paged_kv.py::BlockPool`` (the
 allocator only): a free list plus per-block refcounts over the one
 device pool ``[L, 2, NB, H, Bt, D]`` that
 ``FusedDecoder.init_paged_cache`` allocates. Position ``s`` of slot
 ``b`` lives in block ``tables[b, s // Bt]`` at offset ``s % Bt``;
-unmapped table entries hold the sentinel ``num_blocks``.
+unmapped table entries hold the sentinel ``num_blocks``. Also
+``flat_gather_view`` (fp pools), the dense view the plain flat attention
+builds on.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["BlockPool"]
+__all__ = ["BlockPool", "flat_gather_view"]
 
 
 class BlockPool:
@@ -81,3 +84,17 @@ class BlockPool:
                 "kv_blocks_used": self.used,
                 "kv_blocks_free": self.free_count,
                 "kv_blocks_used_peak": self.used_peak}
+
+
+def flat_gather_view(pool_l, tbl, tslot, smax):
+    """Each entry of ``tslot`` (slot ids already clamped into ``tbl``)
+    resolved through its block-table row into a dense [Smax]-position K/V
+    row. pool_l: [2, NB, Hk, Bt, D], one layer of the pool; tbl: [B,
+    Smax/Bt] int32. Returns [2, len(tslot), Hk, Smax, D] float32.
+    Unmapped entries clamp to block NB - 1; the caller's causal mask hides
+    them."""
+    nb, hk, bt, d = pool_l.shape[1:]
+    tc = tbl[tslot].long().clamp(max=nb - 1)          # [T, Smax/Bt]
+    kvg = pool_l[:, tc]                               # [2, T, Nblk, Hk, Bt, D]
+    return kvg.permute(0, 1, 3, 2, 4, 5).reshape(
+        2, tslot.shape[0], hk, smax, d).float()

@@ -1,15 +1,25 @@
 """Continuous-batching serving engine over the paged KV pool.
 
-Counterpart of the default configuration of
-``paddle_tpu/inference/serving.py::ServingEngine``: greedy decoding, the
-paged block pool, and the row-layout token-budget scheduler. Admission
-is bookkeeping (an admitted slot enters ``prefilling``); every step
-packs the decode rows (one input token each) and prefill chunks of up to
-C tokens into one [B, C] budget dispatch, which also runs
-``decode_chunk - 1`` trailing decode steps; a step with only decode rows
-runs the plain ``decode_chunk``-step scan instead, which moves more
-tokens. Host state (lens, counts, block tables) lives in numpy and
-crosses to the device once per dispatch.
+Counterpart of ``paddle_tpu/inference/serving.py::ServingEngine`` with
+greedy decoding over the paged block pool, under one of three
+schedulers:
+
+- the row-layout token budget (the default): admission is bookkeeping
+  (an admitted slot enters ``prefilling``); every step packs the decode
+  rows (one input token each) and prefill chunks of up to C tokens into
+  one [B, C] budget dispatch, which also runs ``decode_chunk - 1``
+  trailing decode steps;
+- the flat token budget (``flat_budget=True``): the same packing as one
+  ragged [T] stream, a B-wide decode region plus prefill segments aligned
+  to ``FLAT_CHUNK`` and uncapped by any column count;
+- the phase scheduler (``token_budget=0``): admission prefills each new
+  request in one causal flash pass over its whole prompt and samples its
+  first token in the same step, then the decode chunk runs.
+
+Under either budget, a step with only decode rows runs the plain
+``decode_chunk``-step scan instead, which moves more tokens. Host state
+(lens, counts, block tables) lives in numpy and crosses to the device
+once per dispatch.
 
 Every constructor argument that selects a path outside this slice
 raises NotImplementedError naming its ROADMAP item; the engine reads no
@@ -24,7 +34,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from .generation import FusedDecoder
+from ..ops.decode_attention import FLAT_CHUNK
+from .generation import FusedDecoder, _penalize_slots
 from .paged_kv import BlockPool
 from .telemetry import DEFAULT_RING, SloPolicy, Telemetry
 
@@ -43,7 +54,6 @@ _OUT_OF_SLICE = {
               "Queue 2, decode_attention_stacked (dense ring)"),
     "kv_pool": ((None,), "Queue 1 item 5 (BlockPool sharing, copy_block)"),
     "kv_pool_blocks": ((None,), "Queue 1 item 6(f) (explicit pool budget)"),
-    "flat_budget": ((None, False), "Queue 1 item 6(e) (flat budget)"),
     "role": ((None, "mixed"), "Queue 1 item 6(f) (prefill/decode roles)"),
     "weight_quant": ((None, "none"), "Queue 1 item 6(g) (quantized serving)"),
     "kv_quant": ((None, "none"), "Queue 1 item 6(g) (quantized serving)"),
@@ -113,19 +123,14 @@ class ServingEngine:
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_cache=prefix_cache, spec_k=spec_k, paged=paged,
                      kv_pool=kv_pool, kv_pool_blocks=kv_pool_blocks,
-                     flat_budget=flat_budget, role=role,
-                     weight_quant=weight_quant, kv_quant=kv_quant)
+                     role=role, weight_quant=weight_quant,
+                     kv_quant=kv_quant)
         for name, value in given.items():
             accepted, item = _OUT_OF_SLICE[name]
             if not any(value is a or value == a for a in accepted):
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}) selects a path the "
                     f"PyTorch port does not have yet: ROADMAP {item}")
-        if token_budget == 0:
-            raise NotImplementedError(
-                "ServingEngine(token_budget=0) selects the phase scheduler, "
-                "which the PyTorch port does not have yet: ROADMAP Queue 1 "
-                "item 6(b)")
         self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
                                 device=device)
         self.device = self.dec.device
@@ -144,13 +149,22 @@ class ServingEngine:
         self._kv_reserved = 0
         tb = int(token_budget if token_budget is not None
                  else b * 4 * self.decode_chunk)
-        if tb < b:
+        if tb < 0:
+            raise ValueError(f"token_budget must be >= 0, got {tb}")
+        if tb and tb < b:
             raise ValueError(
                 f"token_budget={tb} < num_slots={b}: every active decode "
-                "row claims one token per step")
+                "row claims one token per step (token_budget=0 selects "
+                "the phase scheduler)")
         self.token_budget = tb
-        cw = -(-tb // b)
+        cw = -(-tb // b) if tb else 1
         self._budget_cols = 1 << (cw - 1).bit_length()
+        self._flat_budget = bool(flat_budget)
+        if self._flat_budget and not tb:
+            raise ValueError(
+                "flat_budget needs the token-budget scheduler "
+                "(token_budget > 0): token_budget=0 selects the phase "
+                "scheduler, which has no budget step to flatten")
         self.clock = clock or time.perf_counter
         self.telemetry = Telemetry(telemetry_ring)
         self._slo = slo if slo is not None else SloPolicy()
@@ -222,12 +236,20 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self):
-        """One scheduler iteration: admit into free slots, then one
-        budget (or plain decode) dispatch. Returns tokens emitted."""
+        """One scheduler iteration. Token budget: admit into free slots as
+        bookkeeping, then one budget (or plain decode) dispatch. Phase
+        mode (token_budget=0): admission prefills and samples each new
+        request's first token, then one decode chunk runs if any slot
+        decodes. Returns tokens emitted."""
         t0 = self.clock()
         had_work = self.has_work
-        self._admit_chunked()
-        emitted = self._budget_step()
+        if self.token_budget:
+            self._admit_chunked()
+            emitted = self._budget_step()
+        else:
+            emitted = len(self._admit())
+            if self._active.any():
+                emitted += self._decode_one_chunk()
         self._busy_s += self.clock() - t0
         self._tokens_emitted += emitted
         if had_work:
@@ -358,6 +380,15 @@ class ServingEngine:
             if int(row[j]) == nb:
                 row[j] = self._alloc_kv_blocks(1)[0]
 
+    def _map_blocks(self, slot, hi):
+        """Map pool blocks so the slot's table covers positions [0, hi)."""
+        row = self._tables[slot]
+        nb = self.pool.num_blocks
+        need = [j for j in range(-(-int(hi) // self.prefill_cap))
+                if row[j] == nb]
+        if need:
+            row[need] = self._alloc_kv_blocks(len(need))
+
     def _free_slot_blocks(self, slot):
         row = self._tables[slot]
         nb = self.pool.num_blocks
@@ -397,14 +428,154 @@ class ServingEngine:
             self._min_len[s] = req.min_length
             self._active[s] = False          # decoding starts at finish
 
+    # ------------------------------------------------- phase scheduler
+    def _admit(self):
+        """Phase-mode admission: move queued requests into free slots (FIFO)
+        while the pool can reserve their worst-case blocks, prefill each
+        one in its own bulk pass, then sample every admitted slot's first
+        token in one dispatch over all B rows (the host reads only the
+        admitted rows). Returns the admitted requests, each of which just
+        emitted its first token."""
+        free = self._free_slots()
+        batch = []
+        while free and self._queue:
+            head = self._queue[0]
+            need = self._blocks_needed(head.prompt.size, head.max_new_tokens)
+            if self._kv_reserved + need > self.pool.num_blocks:
+                break
+            self._kv_reserved += need
+            req = self._queue.popleft()
+            req.slot, req.state = free.pop(0), "running"
+            self._slot_req[req.slot] = req
+            batch.append(req)
+        if not batch:
+            return []
+        self._admitted += len(batch)
+        t_adm = self.clock()
+        stk = self.dec._stacked()
+        f = self.dec.fmt
+        last_x = torch.zeros((self.num_slots, 1, f.embed_dim),
+                             dtype=f.qkv_weights[0].dtype, device=self.device)
+        for r in batch:
+            r.t_admit = t_adm
+            self._map_blocks(r.slot, r.prompt.size)
+            last_x[r.slot] = self._bulk_admit_row(stk, r)
+        for r in batch:
+            s = r.slot
+            self._lens[s] = r.prompt.size
+            self._nt[s] = 0
+            self._max_nt[s] = r.max_new_tokens
+            self._eos[s] = (-1 if r.eos_token_id is None
+                            else int(r.eos_token_id))
+            self._min_len[s] = r.min_length
+        t0 = self.clock()
+        nxt = self._build_admit_sample()(
+            last_x, self._dev(self._eos), self._dev(self._min_len))
+        nxt = nxt.cpu().numpy()
+        self.telemetry.step_event("admit", t0, self.clock() - t0,
+                                  rows=len(batch), tokens=len(batch))
+        now = self.clock()
+        self._decode_steps += len(batch)     # one sample event per row
+        for r in batch:
+            s = r.slot
+            tok0 = int(nxt[s])
+            r.t_first = now
+            r.tokens.append(tok0)
+            self._nt[s] = 1
+            self._tok[s] = tok0
+            hit_eos = (r.eos_token_id is not None
+                       and tok0 == int(r.eos_token_id))
+            self._active[s] = not hit_eos and r.max_new_tokens > 1
+            if not self._active[s]:
+                self._finish(r, now)
+        return batch
+
+    def _build_admit_sample(self):
+        """The first-token sample on the prefill hidden states: greedy,
+        with each slot's min_length applied at nt = 0."""
+        dec, b = self.dec, self.num_slots
+
+        def admit_sample(last_x, eos_ids, min_len):
+            logits = dec.head_logits(last_x).reshape(b, -1)
+            nt0 = torch.zeros(b, dtype=eos_ids.dtype, device=eos_ids.device)
+            return _penalize_slots(logits, nt0, min_len, eos_ids).argmax(-1)
+        return admit_sample
+
+    def _build_bulk_admit(self, sb):
+        """Bulk prefill of one prompt padded to sb tokens: one causal flash
+        pass over [1, sb], then the prompt's K/V written through the
+        slot's table row, in place. Pad positions >= plen are selected
+        away before the write (JAX drops them with mode="drop"), so the
+        pad needs no blocks. Returns bulk_admit(stk, caches, toks, slot,
+        plen) -> the hidden state of the last prompt token [1, E]."""
+        dec = self.dec
+
+        def bulk_admit(stk, caches, toks, slot, plen):
+            x, kv_all = dec.bulk_hidden(stk, toks)
+            kv = kv_all[:, :, 0]                         # [L, 2, H, sb, D]
+            pool, row = caches["kv"], caches["tbl"][slot].long()
+            nb, bt = pool.shape[2], pool.shape[4]
+            pos = torch.arange(sb, device=kv.device)
+            blk = torch.where(pos < plen, row[pos // bt],
+                              torch.full_like(pos, nb))
+            keep = (blk < nb).nonzero(as_tuple=True)[0]
+            pool_p = pool.permute(2, 4, 0, 1, 3, 5)      # [NB, Bt, L, 2, H, D]
+            pool_p[blk[keep], (pos % bt)[keep]] = kv.permute(
+                3, 0, 1, 2, 4)[keep].to(pool.dtype)
+            return x[0, plen - 1][None]
+        return bulk_admit
+
+    def _bulk_admit_row(self, stk, req):
+        plen = req.prompt.size
+        sb = min(1 << (int(plen) - 1).bit_length(), self.smax)
+        toks = np.zeros((1, sb), np.int64)
+        toks[0, :plen] = req.prompt
+        t0 = self.clock()
+        row_x = self._build_bulk_admit(sb)(stk, self._cache_arg(),
+                                           self._dev(toks), req.slot, plen)
+        self.telemetry.step_event("prefill", t0, self.clock() - t0, rows=1,
+                                  tokens=plen)
+        return row_x
+
     def _dev(self, a, dtype=torch.int64):
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+    def _prefill_allocations(self, pf_rows, budget, col_cap=None):
+        """The prefill share of one budget dispatch, first come first
+        served by request id: each prefilling row takes up to col_cap
+        prompt tokens (the whole remaining budget when None) until the
+        budget runs out. The JAX engine's single-QoS-class case. Returns
+        ([(slot, n), ...] with n > 0, remaining budget)."""
+        allocs = []
+        for s in sorted(pf_rows, key=lambda s: self._slot_req[s].rid):
+            if budget <= 0:
+                break
+            n = min(int(self._pf_left[s]), budget, col_cap or budget)
+            allocs.append((s, n))
+            budget -= n
+        return allocs, budget
+
+    def _map_write_windows(self, adv, pf_n, tail):
+        """Before a budget dispatch, map each packed slot's write window:
+        its adv[s] stream positions plus, for a slot that decodes after
+        the block (active, or finishing its prompt here), the trailing
+        scan's steps — clamped to the admission-time reservation
+        plen + max_new."""
+        for s in range(self.num_slots):
+            if not adv[s]:
+                continue
+            decodes = bool(self._active[s]) or (
+                pf_n[s] and pf_n[s] == self._pf_left[s])
+            hi = int(self._lens[s]) + int(adv[s]) + (tail if decodes else 0)
+            cap_pos = self._slot_req[s].prompt.size + int(self._max_nt[s])
+            self._ensure_writable(s, int(self._lens[s]), min(hi, cap_pos))
 
     def _budget_step(self):
         """One token-budget dispatch: decode inputs are mandatory, prefill
         chunks (oldest request first, at most C each) fill the rest. A
         step with only decode rows runs the plain decode chunk when that
-        moves more tokens. Returns tokens emitted."""
+        moves more tokens. Under flat_budget the block is the flat
+        stream (``_flat_budget_step``). Returns tokens emitted."""
         b, c = self.num_slots, self._budget_cols
         dec_rows = [s for s in range(b) if self._active[s]]
         pf_rows = [s for s in range(b) if self._pf_left[s] > 0]
@@ -414,6 +585,8 @@ class ServingEngine:
         # back with spec decoding (ROADMAP Queue 1 item 6(d))
         if not pf_rows and self.decode_chunk > 1:
             return self._decode_one_chunk()
+        if self._flat_budget:
+            return self._flat_budget_step(dec_rows, pf_rows)
         budget = self.token_budget - len(dec_rows)
         toks = np.zeros((b, c), np.int64)
         seg = np.zeros(b, np.int64)
@@ -423,27 +596,17 @@ class ServingEngine:
             toks[s, 0] = self._tok[s]
             seg[s] = 1
             gen0[s] = 0
-        for s in sorted(pf_rows, key=lambda s: self._slot_req[s].rid):
-            if budget <= 0:
-                break
-            n = min(int(self._pf_left[s]), c, budget)
+        allocs, _ = self._prefill_allocations(pf_rows, budget, col_cap=c)
+        for s, n in allocs:
             req = self._slot_req[s]
             p0 = req.prompt.size - int(self._pf_left[s])
             toks[s, :n] = req.prompt[p0:p0 + n]
             seg[s] = pf_n[s] = n
-            budget -= n
             if n == int(self._pf_left[s]):
                 # the last prompt token's logits sample the first token
                 gen0[s] = n - 1
         tail = max(self.decode_chunk - 1, 0)
-        for s in range(b):
-            if not seg[s]:
-                continue
-            decodes = bool(self._active[s]) or (
-                pf_n[s] and pf_n[s] == self._pf_left[s])
-            hi = int(self._lens[s]) + int(seg[s]) + (tail if decodes else 0)
-            cap_pos = self._slot_req[s].prompt.size + int(self._max_nt[s])
-            self._ensure_writable(s, int(self._lens[s]), min(hi, cap_pos))
+        self._map_write_windows(seg, pf_n, tail)
         core = self.dec._build_budget_core(c, tail)
         t0 = self.clock()
         tok0, emit0, (ys_t, ys_e), tok, lens, active, nt = core(
@@ -455,12 +618,98 @@ class ServingEngine:
                                          active, nt)]
         self.telemetry.step_event("budget", t0, self.clock() - t0,
                                   rows=int((seg > 0).sum()))
-        used = int(seg.sum())
+        self._count_budget(int(seg.sum()), b * c, pf_n, len(dec_rows))
+        return self._harvest_budget_plain(res, pf_n, tail)
+
+    def _count_budget(self, used, computed, pf_n, n_decode):
+        # padding: the positions a dispatch computed beyond the packed ones
         self._budget_steps += 1
         self._budget_tokens_used += used
         self._budget_prefill_tokens += int(pf_n.sum())
-        self._budget_decode_tokens += len(dec_rows)
-        self._budget_padding_tokens += b * c - used
+        self._budget_decode_tokens += n_decode
+        self._budget_padding_tokens += computed - used
+
+    def _flat_budget_step(self, dec_rows, pf_rows):
+        """One token-flattened budget dispatch: a [T = b + ts] stream whose
+        tokens [0, b) are the decode region (token i is slot i's input when
+        it decodes, else the slot sentinel b) and whose segments — prefill
+        chunks, first come first served with no column cap — start on
+        FLAT_CHUNK boundaries. ts comes from an eighth-octave ladder: the
+        aligned width rounded up to a multiple of next_pow2(width) / 8.
+        Returns tokens emitted."""
+        b = self.num_slots
+        budget = self.token_budget - len(dec_rows)
+        pf_n = np.zeros(b, np.int64)
+        segs = []                              # (slot, prompt tokens)
+        allocs, _ = self._prefill_allocations(pf_rows, budget)
+        for s, n in allocs:
+            req = self._slot_req[s]
+            p0 = req.prompt.size - int(self._pf_left[s])
+            segs.append((s, req.prompt[p0:p0 + n]))
+            pf_n[s] = n
+        align = FLAT_CHUNK
+        starts, cursor = [], 0
+        for _, tk in segs:
+            starts.append(cursor)
+            cursor = -(-(cursor + len(tk)) // align) * align
+        if segs:
+            need = max(cursor, align)
+            step = max((1 << (need - 1).bit_length()) // 8, align)
+            ts = -(-need // step) * step
+        else:
+            ts = 0
+        t_total, nc = b + ts, ts // align
+        toks = np.zeros(t_total, np.int64)
+        tslot = np.full(t_total, b, np.int64)       # b: the pad sentinel
+        tpos = np.zeros(t_total, np.int64)
+        cslot = np.zeros(nc, np.int32)
+        cbase = np.zeros(nc, np.int32)
+        cn = np.zeros(nc, np.int32)
+        last_idx = np.zeros(b, np.int64)
+        emit0 = np.zeros(b, bool)
+        adv = np.zeros(b, np.int64)
+        for s in dec_rows:
+            toks[s] = self._tok[s]
+            tslot[s] = s
+            tpos[s] = self._lens[s]
+            last_idx[s] = s
+            emit0[s] = True
+            adv[s] = 1
+        for (s, tk), st in zip(segs, starts):
+            n = len(tk)
+            base = int(self._lens[s])
+            sl = slice(b + st, b + st + n)
+            toks[sl] = tk
+            tslot[sl] = s
+            tpos[sl] = base + np.arange(n)
+            last_idx[s] = b + st + n - 1
+            adv[s] = n
+            # the last prompt token's logits sample the first token;
+            # chunks in the middle of a prompt never emit
+            emit0[s] = pf_n[s] == self._pf_left[s]
+            for ci in range(st // align, (st + n - 1) // align + 1):
+                cslot[ci] = s
+                cbase[ci] = base + (ci * align - st)
+                cn[ci] = min(n - (ci * align - st), align)
+        tail = max(self.decode_chunk - 1, 0)
+        self._map_write_windows(adv, pf_n, tail)
+        core = self.dec._build_flat_budget_core(b, tail)
+        i32 = torch.int32
+        t0 = self.clock()
+        tok0, emit0_d, (ys_t, ys_e), tok, lens, active, nt = core(
+            self.dec._stacked(), self._cache_arg(), self._dev(toks),
+            self._dev(tslot), self._dev(tpos), self._dev(cslot, i32),
+            self._dev(cbase, i32), self._dev(cn, i32), self._dev(self._tok),
+            self._dev(last_idx), self._dev(emit0, torch.bool),
+            self._dev(adv), self._dev(self._lens), self._dev(self._nt),
+            self._dev(self._max_nt), self._dev(self._eos),
+            self._dev(self._min_len))
+        res = [t.cpu().numpy() for t in (tok0, emit0_d, ys_t, ys_e, tok,
+                                         lens, active, nt)]
+        self.telemetry.step_event("budget", t0, self.clock() - t0,
+                                  rows=int((adv > 0).sum()))
+        used = len(dec_rows) + int(pf_n.sum())
+        self._count_budget(used, t_total, pf_n, len(dec_rows))
         return self._harvest_budget_plain(res, pf_n, tail)
 
     def _harvest_budget_plain(self, res, pf_n, tail):

@@ -3,8 +3,8 @@
 Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into ``paddle_tpu_torch/_build/lib<name>-<hash>.so`` the first time it is
 needed, and loaded with ``ctypes``. The file name carries a hash of the
-source and flags, so an edited kernel is rebuilt and a stale library is
-never loaded. The build needs the CUDA toolkit (``nvcc`` on ``PATH`` or
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel is rebuilt and a stale library is never loaded. The build needs the CUDA toolkit (``nvcc`` on ``PATH`` or
 under ``/usr/local/cuda``) and nothing else: no ``ninja``, no PyTorch
 headers. A failed build raises; there is no fallback.
 """
@@ -22,7 +22,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = {"decode_attention_paged": "decode_attention_paged.cu"}
+SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
+           "decode_attention_paged_flat": "decode_attention_paged_flat.cu",
+           "flash_attention_fwd": "flash_attention_fwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -33,6 +35,12 @@ _ENTRY = {
     "decode_attention_paged": (
         "paddle_decode_attention_paged",
         [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
+    "decode_attention_paged_flat": (
+        "paddle_decode_attention_paged_flat",
+        [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+    "flash_attention_fwd": (
+        "paddle_flash_attention_fwd",
+        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
 }
 
 
@@ -49,7 +57,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -1,0 +1,207 @@
+// Device-side pieces shared by the flat paged attention and the flash
+// attention forward kernels: dtype conversion, warp reductions, staging of
+// a K/V tile into shared memory, and one warp's online-softmax update of
+// R query rows against one staged tile.
+//
+// Layout of the shared-memory operands a kernel hands to tile_update:
+//   qs  [R][Dp]        the warp's query rows in fp32, zero past D
+//   ks  [kTile][Dp+1]  the tile's keys in fp32 (odd row stride: each lane's
+//   vs  [kTile][Dp+1]  dot product reads its own bank), zero past D and n
+//   ps  [R][kTile]     the warp's p scratch
+// Dp is D rounded up to a multiple of 4, so query rows load as float4.
+//
+// Rounding follows the TPU kernels: scores, the running max m and the sum
+// l are fp32; p is rounded to the value dtype before the PV product while
+// l sums the unrounded p; the caller divides by l at the end.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace paddle_attn {
+
+constexpr int kTile = 32;  // KV positions per staged tile, one per lane
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__host__ __device__ __forceinline__ int round4(int d) { return (d + 3) & ~3; }
+
+// Block-wide: rows [0, n) of src (row stride D) into dst (row stride ld) as
+// fp32; columns [D, Dp) and rows [n, rows) are zero-filled, so padding
+// never carries NaN bit patterns into a product.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int n,
+                                           int rows, int D, int Dp, int ld) {
+  for (int i = threadIdx.x; i < rows * Dp; i += blockDim.x) {
+    const int r = i / Dp;
+    const int d = i - r * Dp;
+    dst[r * ld + d] = (r < n && d < D) ? to_f(src[(size_t)r * D + d]) : 0.f;
+  }
+}
+
+// Block-wide: one K/V tile, rows [0, n) of ksrc and vsrc (row stride D,
+// the same offsets in both) into ks and vs as stage_rows does. With vec
+// (D a multiple of 16 bytes' worth of T, both sources 16-byte aligned) the
+// loads are 16-byte vectors issued kBatch at a time per thread, so many
+// are in flight at once: a loop of one dependent load per iteration pays
+// the memory latency per element, which is what bounds a small tile.
+template <typename T>
+__device__ __forceinline__ void stage_kv(float* ks, float* vs,
+                                         const T* ksrc, const T* vsrc, int n,
+                                         int D, int Dp, int ld, int vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kBatch = 4;
+  if (!vec) {
+    stage_rows(ks, ksrc, n, kTile, D, Dp, ld);
+    stage_rows(vs, vsrc, n, kTile, D, Dp, ld);
+    return;
+  }
+  const int per_row = D / kVec;  // here Dp == D
+  const int nvec = kTile * per_row;
+  for (int i0 = threadIdx.x; i0 < nvec; i0 += blockDim.x * kBatch) {
+    uint4 kr[kBatch], vr[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int iv = i0 + j * blockDim.x;
+      if (iv < nvec && iv / per_row < n) {
+        kr[j] = *reinterpret_cast<const uint4*>(ksrc + (size_t)iv * kVec);
+        vr[j] = *reinterpret_cast<const uint4*>(vsrc + (size_t)iv * kVec);
+      } else {
+        kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int iv = i0 + j * blockDim.x;
+      if (iv < nvec) {
+        const int r = iv / per_row;
+        float* kd = ks + r * ld + (iv - r * per_row) * kVec;
+        float* vd = vs + r * ld + (iv - r * per_row) * kVec;
+        const T* ke = reinterpret_cast<const T*>(&kr[j]);
+        const T* ve = reinterpret_cast<const T*>(&vr[j]);
+#pragma unroll
+        for (int t = 0; t < kVec; ++t) {
+          kd[t] = to_f(ke[t]);
+          vd[t] = to_f(ve[t]);
+        }
+      }
+    }
+  }
+}
+
+// Whether stage_kv may take 16-byte vectors for rows of D elements of T.
+template <typename T>
+inline int vec_ok(int D, const void* a, const void* b) {
+  return D % (16 / (int)sizeof(T)) == 0 &&
+         (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
+                 16 ==
+             0;
+}
+
+// One warp: R query rows against one staged tile of n (<= kTile) positions
+// whose first global position is c0. Row rr attends position c0 + c iff
+// c < n and c0 + c <= limit[rr]; a row with limit[rr] < c0 is left as it
+// is. DPL: output dims per lane (D <= 32 * DPL).
+template <typename T, int R, int DPL>
+__device__ __forceinline__ void tile_update(
+    const float* __restrict__ qs, const float* __restrict__ ks,
+    const float* __restrict__ vs, float* __restrict__ ps, int D, int Dp,
+    int c0, int n, const int (&limit)[R], float scale, float (&m)[R],
+    float (&l)[R], float (&acc)[R][DPL]) {
+  const int lane = threadIdx.x & 31;
+  const int ld = Dp + 1;
+  float s[R];
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) s[rr] = 0.f;
+  const float* kr = ks + lane * ld;
+  for (int d = 0; d < Dp; d += 4) {
+    const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const float4 qv = *reinterpret_cast<const float4*>(qs + rr * Dp + d);
+      s[rr] = fmaf(qv.x, k0, s[rr]);
+      s[rr] = fmaf(qv.y, k1, s[rr]);
+      s[rr] = fmaf(qv.z, k2, s[rr]);
+      s[rr] = fmaf(qv.w, k3, s[rr]);
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
+    if (limit[rr] < c0) continue;  // uniform across the warp
+    const bool valid = lane < n && c0 + lane <= limit[rr];
+    const float sc = valid ? s[rr] * scale : kNegInf;
+    const float m_new = fmaxf(m[rr], warp_max(sc));
+    const float alpha = expf(m[rr] - m_new);
+    const float p = valid ? expf(sc - m_new) : 0.f;
+    l[rr] = l[rr] * alpha + warp_sum(p);
+    m[rr] = m_new;
+    ps[rr * kTile + lane] = to_f(from_f<T>(p));
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
+  }
+  __syncwarp();
+  for (int c = 0; c < n; c += 4) {
+    float v[4][DPL];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        v[j][i] = d < D ? vs[(c + j) * ld + d] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      if (limit[rr] < c0) continue;
+      const float4 p4 = *reinterpret_cast<const float4*>(ps + rr * kTile + c);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        float a = acc[rr][i];
+        a = fmaf(p4.x, v[0][i], a);
+        a = fmaf(p4.y, v[1][i], a);
+        a = fmaf(p4.z, v[2][i], a);
+        a = fmaf(p4.w, v[3][i], a);
+        acc[rr][i] = a;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+}  // namespace paddle_attn

@@ -1,9 +1,12 @@
 """Where the serving engine's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--seed N]
+        [--scheduler row|flat|phase]
 
 Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
-3 also serves, under ``torch.profiler``. Prints one JSON object: wall
+3 also serves, under ``torch.profiler`` and the chosen scheduler (the
+row-layout token budget by default, ``flat_budget=True``, or the phase
+scheduler ``token_budget=0``). Prints one JSON object: wall
 time, the union of the device's kernel intervals (busy) and the idle
 share, device time by kernel name, host time by dispatch kind (budget /
 decode), and the engine's metrics. Needs a CUDA card.
@@ -24,24 +27,31 @@ from .weights import from_jax_state, random_state
 
 # GPT-2-124M widths (bench_serving.py's full-size serving model)
 E, H, FF, L, V = 768, 12, 3072, 12, 50304
+# scheduler name -> ServingEngine keyword arguments
+SCHEDULERS = {"row": {}, "flat": {"flat_budget": True},
+              "phase": {"token_budget": 0}}
 
 
-def gpt2_workload(seed):
+def gpt2_workload(seed, **engine_kwargs):
     """Returns ``(engine, reqs)``: a fresh ``ServingEngine(num_slots=8,
-    max_seq_len=1024)`` over a GPT-2-124M-width bf16 model on the card
-    (random weights from ``seed``), and 16 greedy ``(prompt, max_new)``
-    pairs with prompts of 32-512 tokens and 32-128 new tokens. One
-    warm-up request (cuBLAS handles, allocator pools) was served on
-    another engine over the same weights first."""
+    max_seq_len=1024, **engine_kwargs)`` over a GPT-2-124M-width bf16
+    model on the card (random weights from ``seed``), and 16 greedy
+    ``(prompt, max_new)`` pairs with prompts of 32-512 tokens and 32-128
+    new tokens. One warm-up request (cuBLAS handles, allocator pools) was
+    served on another engine of the same configuration over the same
+    weights first. ``engine_kwargs`` selects the scheduler, e.g.
+    ``flat_budget=True`` or ``token_budget=0``."""
     rng = np.random.default_rng(seed)
     mods = from_jax_state(*random_state(rng, E, H, FF, L, V),
                           dtype=torch.bfloat16)
-    warm = ServingEngine(*mods, num_slots=8, max_seq_len=1024)
+    warm = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
+                         **engine_kwargs)
     warm.submit(rng.integers(0, V, 40), max_new_tokens=4)
     warm.run()
     reqs = [(rng.integers(0, V, int(rng.integers(32, 513))),
              int(rng.integers(32, 129))) for _ in range(16)]
-    return ServingEngine(*mods, num_slots=8, max_seq_len=1024), reqs
+    return ServingEngine(*mods, num_slots=8, max_seq_len=1024,
+                         **engine_kwargs), reqs
 
 
 def _busy_us(intervals):
@@ -60,11 +70,13 @@ def _busy_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheduler", choices=sorted(SCHEDULERS),
+                    default="row")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
-    eng, reqs = gpt2_workload(args.seed)
+    eng, reqs = gpt2_workload(args.seed, **SCHEDULERS[args.scheduler])
     for prompt, max_new in reqs:
         eng.submit(prompt, max_new_tokens=max_new)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -95,6 +107,7 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "layers": L,
+        "scheduler": args.scheduler,
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": (1 - busy_s / wall_s) if wall_s else None,
         "kernel_events": len(intervals),

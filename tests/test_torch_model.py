@@ -2,10 +2,12 @@
 
 The weight bridge must be exact (every parameter bit-equal), the stacked
 layout bit-equal to the JAX ``FusedDecoder._stacked()`` (qkv fused
-head-major), and one decode step (``hidden``) and one token-budget block
-(``spec_hidden``) must give the JAX logits within atol = rtol = 1e-4
-(TOLERANCES["logits_fp32"]) and write the same K/V into the pool. Bench
-toy dims: E=64, H=4, FF=128, L=2, V=256, fp32.
+head-major), and one decode step (``hidden``), one token-budget block
+(``spec_hidden``) and one flat budget stream (``flat_hidden``) must give
+the JAX logits within atol = rtol = 1e-4 (TOLERANCES["logits_fp32"]) and
+write the same K/V into the pool; the bulk prefill (``bulk_hidden``) must
+give the JAX hidden states and K/V stack within the same tolerance.
+Bench toy dims: E=64, H=4, FF=128, L=2, V=256, fp32.
 """
 import jax
 import jax.numpy as jnp
@@ -219,3 +221,67 @@ def test_budget_core_tokens_match_jax(models):
     flat = got[:2] + got[2] + got[3:]
     for g, w in zip(flat, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_flat_hidden_matches_jax(models):
+    """One flat stream over the 3-slot pool: slot 0 decodes at 70 in the
+    decode region, slot 1 prefills a 13-token segment from position 3
+    (two chunks, the second partial), slot 2 is idle (sentinel), and the
+    segment region ends in a pad chunk."""
+    jmods, tmods = models
+    pool, tables = _pool_and_tables(4)
+    b, fc = 3, 8
+    rng = np.random.default_rng(13)
+    t = b + 3 * fc
+    toks = rng.integers(0, V, t).astype(np.int32)
+    tslot = np.full(t, b, np.int32)
+    tpos = np.zeros(t, np.int32)
+    tslot[0], tpos[0] = 0, 70
+    tslot[b:b + 13] = 1
+    tpos[b:b + 13] = 3 + np.arange(13)
+    cslot = np.array([1, 1, 0], np.int32)
+    cbase = np.array([3, 11, 0], np.int32)
+    cn = np.array([8, 5, 0], np.int32)
+    dec, core, e_arrays, h_arrays = _jax_core(jmods)
+    x, jc = jax.jit(core.flat_hidden, static_argnums=(7,))(
+        dec._stacked(), e_arrays,
+        {"kv": jnp.asarray(pool), "tbl": jnp.asarray(tables)},
+        *map(jnp.asarray, (toks, tslot, tpos)),
+        tuple(map(jnp.asarray, (cslot, cbase, cn))), b)
+    want = np.asarray(core.head_logits(h_arrays, x))
+    tdec = TorchDecoder(*tmods, SMAX, device="cpu")
+    caches = _torch_caches(pool, tables)
+    with torch.no_grad():
+        xt = tdec.flat_hidden(
+            tdec._stacked(), caches,
+            *(torch.from_numpy(a).long() for a in (toks, tslot, tpos)),
+            tuple(map(torch.from_numpy, (cslot, cbase, cn))), b)
+        got = tdec.head_logits(xt).numpy()
+    assert got.shape == want.shape == (1, t, V)
+    # the decode row and the segment tokens (pad tokens' outputs are
+    # discarded by the engine)
+    rows = [0] + list(range(b, b + 13))
+    np.testing.assert_allclose(got[0, rows], want[0, rows],
+                               **TOLERANCES["logits_fp32"])
+    np.testing.assert_allclose(caches["kv"].numpy(), np.asarray(jc["kv"]),
+                               **TOLERANCES["logits_fp32"])
+    assert np.array_equal(caches["kv"].numpy()[:, :, -1], pool[:, :, -1])
+
+
+def test_bulk_hidden_matches_jax(models):
+    jmods, tmods = models
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, V, (2, 37)).astype(np.int32)
+    dec, core, e_arrays, _ = _jax_core(jmods)
+    x, kv_all = jax.jit(core.bulk_hidden)(dec._stacked(), e_arrays,
+                                          jnp.asarray(toks))
+    tdec = TorchDecoder(*tmods, SMAX, device="cpu")
+    with torch.no_grad():
+        xt, kvt = tdec.bulk_hidden(tdec._stacked(),
+                                   torch.from_numpy(toks).long())
+    assert xt.shape == x.shape == (2, 37, E)
+    assert kvt.shape == kv_all.shape == (L, 2, 2, H, 37, E // H)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(x),
+                               **TOLERANCES["logits_fp32"])
+    np.testing.assert_allclose(kvt.numpy(), np.asarray(kv_all),
+                               **TOLERANCES["logits_fp32"])

@@ -1,11 +1,14 @@
 """The port's ServingEngine against the JAX package's, on the CPU.
 
 Same bridged weights, same requests (prompts longer than the C=16 budget
-columns, so prefill spans several dispatches), default configuration
-(paged pool, row-layout token budget, greedy): the greedy tokens must be
-identical. Also: the metric reconciliations of check_serving_metrics,
-the constructor's refusals of paths outside the slice, the default
-device, and that the port never imports JAX or paddle_tpu.
+columns, so prefill spans several dispatches), greedy: the tokens must be
+identical to the JAX engine's under each of the port's three schedulers
+— the default row-layout token budget, the flat token budget
+(``flat_budget=True``, whose budget counters and step kinds must equal
+JAX's too) and the phase scheduler (``token_budget=0``, bulk prefill).
+Also: the metric reconciliations of check_serving_metrics, the
+constructor's refusals of paths outside the slice, the default device,
+and that the port never imports JAX or paddle_tpu.
 """
 import pathlib
 import subprocess
@@ -88,6 +91,72 @@ def test_greedy_tokens_match_jax(models, serving_metrics_ok):
     assert m["kv_blocks_used"] == 0          # every slot freed its blocks
 
 
+@pytest.fixture(scope="module")
+def row_tokens(models):
+    """The port's default (row-layout) engine on the shared requests."""
+    _, tmods = models
+    return _serve(ServingEngine(*tmods, num_slots=4, max_seq_len=128,
+                                device="cpu"), _requests())
+
+
+BUDGET_COUNTERS = ("budget_steps", "budget_tokens_used",
+                   "budget_prefill_tokens", "budget_decode_tokens",
+                   "budget_padding_tokens", "decode_steps",
+                   "tokens_emitted", "requests_finished")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"flat_budget": True, "prefill_cap": 16},   # the flat kernel's path
+    {"token_budget": 0},                        # phase mode, bulk prefill
+], ids=["flat", "phase"])
+def test_scheduler_matches_jax_and_row(models, row_tokens, kwargs,
+                                       serving_metrics_ok):
+    """The same requests through the JAX engine and the port's engine
+    with the same scheduler option: identical greedy tokens, equal to the
+    port's row engine too; identical budget counters and step kinds."""
+    from paddle_tpu.inference.serving import ServingEngine as JaxEngine
+    jmods, tmods = models
+    reqs = _requests()[:5] + _requests()[6:]
+    jeng = JaxEngine(*jmods, num_slots=4, max_seq_len=128, **kwargs)
+    want = _serve(jeng, reqs)
+    eng = ServingEngine(*tmods, num_slots=4, max_seq_len=128, device="cpu",
+                        **kwargs)
+    got = _serve(eng, reqs)
+    assert got == want
+    assert got == row_tokens[:5] + row_tokens[6:]
+    m, jm = serving_metrics_ok(eng), jeng.metrics()
+    assert {k: m[k] for k in BUDGET_COUNTERS} == \
+        {k: jm[k] for k in BUDGET_COUNTERS}
+    assert [st["kind"] for st in eng.telemetry.steps] == \
+        [st["kind"] for st in jeng.telemetry.steps]
+    assert m["kv_blocks_used"] == 0
+    if kwargs.get("flat_budget"):
+        # the flat stream packs prompts without a column cap
+        assert m["budget_padding_tokens"] < m["budget_tokens_used"]
+    else:
+        assert m["budget_steps"] == 0
+
+
+def test_phase_first_step_emits(models, serving_metrics_ok):
+    """token_budget=0: admission prefills and samples the first token in
+    the same step."""
+    _, tmods = models
+    eng = ServingEngine(*tmods, num_slots=1, max_seq_len=128, device="cpu",
+                        token_budget=0)
+    p, *_ = _requests()[1]
+    eng.submit(p, max_new_tokens=4)
+    assert eng.step() >= 1
+    eng.run()
+    assert serving_metrics_ok(eng)["requests_finished"] == 1
+
+
+def test_flat_budget_needs_a_token_budget(models):
+    _, tmods = models
+    with pytest.raises(ValueError, match="token_budget"):
+        ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
+                      flat_budget=True, token_budget=0)
+
+
 def test_pool_accounting_midflight(models, serving_metrics_ok):
     _, tmods = models
     eng = ServingEngine(*tmods, num_slots=2, max_seq_len=128,
@@ -116,7 +185,7 @@ def test_slo_verdicts_reconcile(models, serving_metrics_ok):
 
 @pytest.mark.parametrize("kwargs", [
     {"do_sample": True}, {"spec_k": 2}, {"prefix_cache_blocks": 4},
-    {"flat_budget": True}, {"token_budget": 0}, {"paged": False},
+    {"kv_pool_blocks": 64}, {"max_pending": 4}, {"paged": False},
     {"weight_quant": "int8"}, {"kv_quant": "int8"}, {"role": "prefill"},
     {"use_rotary": True}, {"enable_repetition_penalty": True}])
 def test_out_of_slice_options_raise(models, kwargs):
@@ -161,7 +230,8 @@ def test_port_never_imports_jax_or_paddle_tpu():
                     "import paddle_tpu\n", "from paddle_tpu "):
             assert bad not in src, f"{path}: {bad!r}"
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.weights, paddle_tpu_torch.ops._build; "
+            "paddle_tpu_torch.weights, paddle_tpu_torch.ops._build, "
+            "paddle_tpu_torch.ops.flash_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu']; "
             "assert not bad, bad")

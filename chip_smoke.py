@@ -7,24 +7,35 @@ Phases, in order; any failure exits non-zero:
   1. print the card, build every kernel from the sources in this checkout
      (all nvcc processes started together);
   2. each kernel against its plain PyTorch version on the card (bf16 and
-     fp32 with TF32 off): the paged kernel over ragged lengths, sentinel
-     table entries, GQA, several block sizes and a layer index > 0; the
-     flat kernel over pad chunks, unaligned chunk bases straddling a
-     block edge and an unmapped entry; flash attention causal and not,
-     sq < sk, GQA, S in {37, 255, 1000}, D in {64, 128}, lse included;
+     fp32 with TF32 off): the paged kernel and its int8 flavor over ragged
+     lengths, sentinel table entries, GQA, several block sizes and a
+     layer index > 0; the flat kernel and its int8 flavor over pad
+     chunks, unaligned chunk bases straddling a block edge and an
+     unmapped entry; flash attention causal and not, sq < sk, GQA, S in
+     {37, 255, 1000}, D in {64, 128}, lse included; the int4 dequant-
+     matmul at M in {1, 8, 37, 128, 512} for each of GPT-2's four (K, O),
+     the transposed qkv view included;
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
      same 16 greedy requests under each scheduler: the row-layout token
      budget, the flat token budget and the phase scheduler's bulk
-     prefill. Kernel launch counts are zeroed just before each run and
-     read just after; the row run must launch both paged forms (Sq=16
-     block, Sq=1 decode), the flat run the flat and the paged kernel, the
-     phase run flash attention and the paged kernel;
+     prefill, each fp and with kv_quant="int8", weight_quant="int4", and
+     the row budget with weight_quant="int8". Kernel launch counts are
+     zeroed just before each run and read just after; the row runs must
+     launch both paged forms (Sq=16 block, Sq=1 decode), the flat runs
+     the flat and the paged kernel, the phase runs flash attention and
+     the paged kernel — on an int8 pool always the int8 flavors and
+     never an fp attention kernel — and every int4 run the dequant-
+     matmul. The pool and weight bytes are read from the arrays;
   4. the same engine at L=2, fp32, under the three schedulers on the card
-     and the row scheduler on the CPU (plain attention there): greedy
-     tokens must be identical;
+     and the row scheduler on the CPU (plain versions there), fp and with
+     kv_quant="int8", weight_quant="int4", and the row scheduler with
+     weight_quant="int8" on both: greedy tokens must be identical within
+     each flavor (under an int8 pool the card's phase scheduler against
+     the CPU's phase scheduler: its bulk prefill attends exact K/V);
   5. each kernel timed at the shapes its path gives it, beside its bound,
-     its plain version and one PyTorch call (SDPA) computing the same.
+     its plain version and one PyTorch call (SDPA, or a matmul on a
+     weight dequantized once) computing the same.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import subprocess
 import sys
@@ -43,10 +55,13 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
+from paddle_tpu_torch.inference.generation import (_absmax_int4,
+                                                   _absmax_int8, _pack_int4)
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
                                               gpt2_workload)
 from paddle_tpu_torch.weights import from_jax_state, random_state
@@ -58,9 +73,19 @@ BF16_FLOPS_PER_S = 989e12
 # 2, position 21), deep chunks
 FLAT_CASE = [(0, 0, 8), (0, 8, 5), (1, 13, 8), (2, 0, 0), (2, 21, 3),
              (1, 448, 8), (1, 456, 8), (0, 900, 2)]
+# quantized flavors served beside the fp one
+QUANT = {"kv8-w4": {"kv_quant": "int8", "weight_quant": "int4"},
+         "w8": {"weight_quant": "int8"}}
+# GPT-2's four layer matmuls: name -> (K, O)
+MATMULS = {"qkv": (E, 3 * E), "lin": (E, E), "f1": (E, FF), "f2": (FF, E)}
+
+
+T0 = time.perf_counter()
 
 
 def log(msg=""):
+    if msg.startswith("=="):              # phase headers carry the clock
+        msg += f"  [{time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -115,9 +140,14 @@ def phase_kernels(rng):
                         dtype=dtype, sentinel_inside=True)
                     got = da.decode_attention_paged(*args)
                     want = da.decode_attention_paged_reference(*args)
-                    check(f"paged {str(dtype):15s} Sq={sq:2d} "
-                          f"group={group} Bt={bt:2d}", got, want, tname,
-                          worst)
+                    label = (f"{str(dtype):15s} Sq={sq:2d} group={group} "
+                             f"Bt={bt:2d}")
+                    check(f"paged    {label}", got, want, tname, worst)
+                    qargs = (args[0], *quantize_pool(args[1]), *args[2:])
+                    check(f"paged_i8 {label}",
+                          da.decode_attention_paged_i8(*qargs),
+                          da.decode_attention_paged_i8_reference(*qargs),
+                          tname, worst)
     for dtype, tname in ((torch.bfloat16, "attention_bf16"),
                          (torch.float32, "attention_fp32")):
         for group in (1, 2):
@@ -125,14 +155,22 @@ def phase_kernels(rng):
                 args = flat_case(rng, FLAT_CASE, h=4, hk=4 // group, d=64,
                                  bt=bt, nblk=1024 // bt, n_layers=2,
                                  layer=1, dtype=dtype, unmapped=(2, 21))
-                got = da.decode_attention_paged_flat(*args)
-                want = da.decode_attention_paged_flat_reference(*args)
-                check(f"flat  {str(dtype):15s} group={group} Bt={bt:2d}",
-                      got, want, tname, worst)
+                label = f"{str(dtype):15s} group={group} Bt={bt:2d}"
+                qargs = (args[0], *quantize_pool(args[1]), *args[2:])
                 pads = [8 * i + r for i, (_, _, n) in enumerate(FLAT_CASE)
                         for r in range(n, 8)]
-                if got[pads].any():
-                    raise SystemExit("flat kernel: pad rows are not 0")
+                for kname, kernel, plain, kargs in (
+                        ("flat   ", da.decode_attention_paged_flat,
+                         da.decode_attention_paged_flat_reference, args),
+                        ("flat_i8", da.decode_attention_paged_flat_i8,
+                         da.decode_attention_paged_flat_i8_reference,
+                         qargs)):
+                    got = kernel(*kargs)
+                    check(f"{kname} {label}", got, plain(*kargs), tname,
+                          worst)
+                    if got[pads].any():
+                        raise SystemExit(f"{kname} kernel: pad rows are "
+                                         "not 0")
         for d in (64, 128):
             for s, sk, group, causal in ((37, 37, 1, True),
                                          (255, 255, 2, True),
@@ -150,7 +188,37 @@ def phase_kernels(rng):
                         f"group={group} causal={int(causal)}")
                 check(name, o, o_ref, tname, worst)
                 check(name + " lse", lse, lse_ref, tname, worst)
+    for dtype, tname in ((torch.bfloat16, "matmul_bf16"),
+                         (torch.float32, "matmul_fp32")):
+        for name, (k, o) in MATMULS.items():
+            wp, s = packed_weight(rng, k, o, transposed=name == "qkv")
+            for m in (1, 8, 37, 128, 512):
+                a = randn(rng, (m, k), dtype)
+                check(f"dequant_matmul {str(dtype):15s} {name:3s} K={k} "
+                      f"O={o} M={m}", fdm.fused_dequant_matmul(a, wp, s),
+                      fdm.fused_dequant_matmul_reference(a, wp, s), tname,
+                      worst)
     return worst
+
+
+def quantize_pool(pool):
+    """An fp pool's int8 flavor by the engine's write recipe: int8 codes
+    and per-position scales [L, 2, NB, Hk, 1, Bt]."""
+    kv, sc = _absmax_int8(pool, -1)
+    return kv, sc.transpose(-1, -2).contiguous()
+
+
+def packed_weight(rng, k, o, transposed):
+    """A random [K, O] weight quantized and packed to int4 as the stack
+    does: contiguous [K/2, O] (lin, f1, f2), or for qkv the transpose of
+    a packed [O, K/2], which is the view qkv_of hands the kernel.
+    Returns (packed, scales [1, O])."""
+    w = randn(rng, (o, k) if transposed else (k, o), torch.float32) / k ** .5
+    if transposed:
+        q, s = _absmax_int4(w, -1)
+        return _pack_int4(q, -1).T, s.T.contiguous()
+    q, s = _absmax_int4(w, 0)
+    return _pack_int4(q, 0), s
 
 
 def check(name, got, want, tname, worst):
@@ -216,45 +284,81 @@ def serve(eng, reqs):
 
 def phase_engine(seed):
     log("== phase 3: ServingEngine at GPT-2-124M width, bf16, L=12, under "
-        "the row, flat and phase schedulers")
-    launches = {}
-    for name, kwargs in SCHEDULERS.items():
-        launches[name] = serve_counted(seed, name, kwargs)
-    need = {"row": ("decode_attention_paged",),
-            "flat": ("decode_attention_paged_flat", "decode_attention_paged"),
-            "phase": ("flash_attention_fwd", "decode_attention_paged")}
-    for name, kernels in need.items():
-        for k in kernels:
-            if not launches[name][k]:
-                raise SystemExit(f"the {name} run never launched {k}: "
-                                 f"{launches[name]}")
-    return launches
+        "the row, flat and phase schedulers, fp and quantized")
+    runs = {}
+    for flavor in ("", "-kv8-w4"):
+        for sched, kwargs in SCHEDULERS.items():
+            runs[sched + flavor] = serve_counted(
+                seed, sched + flavor,
+                {**kwargs, **QUANT.get(flavor[1:], {})})
+    runs["row-w8"] = serve_counted(seed, "row-w8", QUANT["w8"])
+    for name, run in runs.items():
+        kv8, w4 = "kv8" in name, "w4" in name
+        paged = "decode_attention_paged" + ("_i8" if kv8 else "")
+        need = {"row": [paged],
+                "flat": [paged.replace("paged", "paged_flat"), paged],
+                "phase": ["flash_attention_fwd", paged]}[name.split("-")[0]]
+        need += ["fused_dequant_matmul"] if w4 else []
+        banned = (["decode_attention_paged", "decode_attention_paged_flat"]
+                  if kv8 else [])
+        got = run["launches"]
+        if not all(got[k] for k in need) or any(got[k] for k in banned):
+            raise SystemExit(f"the {name} run must launch {need} and none "
+                             f"of {banned}: {got}")
+    check_bytes(runs)
+    return {name: run["launches"] for name, run in runs.items()}
+
+
+def check_bytes(runs):
+    """The pool and stacked-weight bytes of the quantized runs against
+    the fp run's, each exactly what the shapes give."""
+    f = runs["row"]
+    pos = 12 * 2 * (8 * 1024 // 64) * H * 64      # L, kv, NB, H, Bt
+    d = E // H
+    bias_ln = 12 * 2 * (3 * E + E + FF + E + 4 * E)  # bf16 biases, LN
+    mats = 12 * (3 * E * E + E * E + E * FF + FF * E)
+    scales = 12 * 4 * (3 * E + E + FF + E)           # fp32 [L, 1, O]
+    want = {("row", "pool"): pos * d * 2,
+            ("row-kv8-w4", "pool"): pos * (d + 4),
+            ("row", "stack"): bias_ln + 2 * mats,
+            ("row-w8", "stack"): bias_ln + mats + scales,
+            ("row-kv8-w4", "stack"): bias_ln + mats // 2 + scales}
+    for (name, what), n in want.items():
+        got = runs[name][what + "_bytes"]
+        if got != n:
+            raise SystemExit(f"{name} {what} bytes {got}, the shapes give "
+                             f"{n}")
+        log(f"  {name} {what} bytes {got} ({got / f[what + '_bytes']:.4f}"
+            " of the fp run's)")
 
 
 def reset_launches():
-    for counts in (da.LAUNCHES, fa.LAUNCHES):
+    for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def serve_counted(seed, name, kwargs):
-    """Serve gpt2_workload under one scheduler with every launch count
-    zeroed just before and read just after; returns the counts."""
+    """Serve gpt2_workload under one scheduler and flavor with every
+    launch count zeroed just before and read just after; returns the
+    counts, the pool and stacked-weight bytes and the peak memory."""
     fresh, reqs = gpt2_workload(seed, **kwargs)
     forms = collections.Counter()
-    kernel = da.decode_attention_paged
+    attr = ("decode_attention_paged_i8" if kwargs.get("kv_quant") == "int8"
+            else "decode_attention_paged")
+    kernel = getattr(da, attr)
 
     def spy(qt, *a, **k):
         forms[qt.shape[2]] += 1
         return kernel(qt, *a, **k)
     torch.cuda.reset_peak_memory_stats()
-    da.decode_attention_paged = spy
+    setattr(da, attr, spy)
     reset_launches()
     try:
         out, steps, dt = serve(fresh, reqs)
     finally:
-        da.decode_attention_paged = kernel
-    launches = {**da.LAUNCHES, **fa.LAUNCHES}
+        setattr(da, attr, kernel)
+    launches = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
     m = fresh.metrics()
     for (p, want), (rid, toks) in zip(reqs, out.items()):
         if len(toks) != want:
@@ -263,7 +367,7 @@ def serve_counted(seed, name, kwargs):
     if m["kv_blocks_used"] + m["kv_blocks_free"] != m["kv_blocks_total"] \
             or m["kv_blocks_used"]:
         raise SystemExit(f"{name}: kv block accounting broke: {m}")
-    if name == "row" and (not forms.get(16) or not forms.get(1)):
+    if name.startswith("row") and (not forms.get(16) or not forms.get(1)):
         raise SystemExit(f"kernel forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
     n_prompt = sum(len(p) for p, _ in reqs)
@@ -278,16 +382,23 @@ def serve_counted(seed, name, kwargs):
     log(f"  [{name}] budget steps {m['budget_steps']}, utilization "
         f"{m['budget_utilization']}, padding {m['budget_padding_tokens']}, "
         f"paged kernel forms {dict(forms)}, launches {launches}")
-    log(f"  [{name}] max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} bytes")
-    return launches
+    peak = torch.cuda.max_memory_allocated()
+    pool_b = sum(a.nbytes for a in fresh._caches.values())
+    stack_b = sum(a.nbytes for a in fresh.dec._stacked().values())
+    log(f"  [{name}] max_memory_allocated {peak} bytes, allocated at the "
+        f"end {torch.cuda.memory_allocated()} bytes; pool {pool_b} bytes, "
+        f"stacked weights {stack_b} bytes")
+    return {"launches": launches, "pool_bytes": pool_b,
+            "stack_bytes": stack_b, "peak": peak}
 
 
-def first_gap_margin(mods_cpu, prompt, prefix):
-    """Top-2 logit margin of the CPU model after prompt + prefix (the
-    context at the first differing token), through a fresh pool."""
+def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
+    """Top-2 logit margin of the CPU model (quantized as ``flavor``
+    says) after prompt + prefix (the context at the first differing
+    token), through a fresh pool."""
     ctx = np.concatenate([prompt, np.asarray(prefix, np.int64)])
-    dec = FusedDecoder(*mods_cpu, max_seq_len=len(ctx) + 1, device="cpu")
+    dec = FusedDecoder(*mods_cpu, max_seq_len=len(ctx) + 1, device="cpu",
+                       **flavor)
     pool = BlockPool(dec.smax // 64, 64, dec.smax)
     caches = dec.init_paged_cache(pool)
     caches["tbl"] = torch.arange(pool.num_blocks, dtype=torch.int32)[None]
@@ -302,48 +413,71 @@ def first_gap_margin(mods_cpu, prompt, prefix):
 
 
 def phase_parity(seed):
-    log("== phase 4: card (row, flat, phase) vs CPU (row) at L=2, full "
-        "width, fp32 (TF32 off)")
+    log("== phase 4: card vs CPU (row) at L=2, full width, fp32 (TF32 "
+        "off), per flavor")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
              int(rng.integers(12, 25))) for _ in range(6)]
-    outs = {}
-    for dev, name, kwargs in ([("cuda", n, kw)
-                               for n, kw in SCHEDULERS.items()]
-                              + [("cpu", "row", {})]):
-        mods = from_jax_state(*state, device=dev, dtype=torch.float32)
-        eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
-                            device=dev, **kwargs)
-        t0 = time.perf_counter()
-        outs[dev, name] = list(serve(eng, reqs)[0].values())
-        log(f"  {dev} {name}: {time.perf_counter() - t0:.2f} s")
-    want = outs["cpu", "row"]
-    for name in SCHEDULERS:
-        for i, (a, b) in enumerate(zip(outs["cuda", name], want)):
-            if np.array_equal(a, b):
-                continue
-            j = int(np.argmax(a != b)) if len(a) == len(b) else min(
-                len(a), len(b))
-            mods = from_jax_state(*state, device="cpu", dtype=torch.float32)
-            margin = first_gap_margin(mods, reqs[i][0], b[:j])
-            raise SystemExit(
-                f"request {i}: card ({name}) and CPU (row) tokens differ at "
-                f"index {j} ({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 "
-                f"logit margin there {margin:.3e}")
-    log(f"  {len(reqs)} requests, {sum(len(t) for t in want)} tokens: "
-        "identical across row, flat and phase on the card and row on the "
-        "CPU")
+    flavors = {"fp": ({}, list(SCHEDULERS)),
+               "kv8-w4": (QUANT["kv8-w4"], list(SCHEDULERS)),
+               "w8": (QUANT["w8"], ["row"])}
+    for fname, (flavor, scheds) in flavors.items():
+        # an int8 pool makes the phase scheduler a computation of its own:
+        # its bulk prefill attends the prompt over exact K/V and quantizes
+        # only what it writes, where the budget schedulers' prefill chunks
+        # attend the int8 pool, so the card's phase run is held to the
+        # CPU's phase run (the JAX engine's design; tests hold both to it)
+        kv8 = flavor.get("kv_quant") == "int8"
+        oracle = {n: "phase" if kv8 and n == "phase" else "row"
+                  for n in scheds}
+        cpu = sorted(set(oracle.values()), reverse=True)
+        outs = {}
+        for dev, name in ([("cuda", n) for n in scheds]
+                          + [("cpu", n) for n in cpu]):
+            mods = from_jax_state(*state, device=dev, dtype=torch.float32)
+            eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
+                                device=dev, **SCHEDULERS[name], **flavor)
+            t0 = time.perf_counter()
+            outs[dev, name] = list(serve(eng, reqs)[0].values())
+            log(f"  [{fname}] {dev} {name}: {time.perf_counter() - t0:.2f} s")
+        for name in scheds:
+            want = outs["cpu", oracle[name]]
+            for i, (a, b) in enumerate(zip(outs["cuda", name], want)):
+                if np.array_equal(a, b):
+                    continue
+                j = int(np.argmax(a != b)) if len(a) == len(b) else min(
+                    len(a), len(b))
+                mods = from_jax_state(*state, device="cpu",
+                                      dtype=torch.float32)
+                margin = first_gap_margin(mods, reqs[i][0], b[:j], **flavor)
+                raise SystemExit(
+                    f"[{fname}] request {i}: card ({name}) and CPU "
+                    f"({oracle[name]}) tokens differ at index {j} "
+                    f"({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 logit "
+                    f"margin there {margin:.3e}")
+        log(f"  [{fname}] {len(reqs)} requests, "
+            f"{sum(len(t) for t in outs['cpu', 'row'])} tokens: each of "
+            f"{', '.join(scheds)} on the card identical to "
+            f"{' / '.join(cpu)} on the CPU")
 
 
 def time_ms(fn, reps):
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed between two events, so the host's time between launches
+    (longer than a short kernel) is not counted."""
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(reps):
-        fn(i)
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -358,7 +492,7 @@ def bound(nbytes, flops):
 
 
 def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
-              reps):
+              reps, tname="attention_bf16"):
     """Check the kernel against its plain version at this shape (bf16
     tolerance), then time kernel, plain version and library call."""
     got, want = run_kernel(), run_plain()
@@ -366,7 +500,7 @@ def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
         got, want = got[0], want[0]
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
-    tol = TOLERANCES["attention_bf16"]
+    tol = TOLERANCES[tname]
     if not torch.allclose(got, want, **tol):
         raise SystemExit(
             f"kernel disagrees with its plain version at {label}: "
@@ -381,11 +515,12 @@ def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
     return row
 
 
-def time_flat(rng):
-    """The flat kernel at the flat engine's segment shape: H=12, D=64,
-    Bt=64, bf16, a 64-token segment at base 0 (slot 0) and one at base
-    448 (slot 1), 16 chunks; the library call is SDPA over each
-    segment's slot gathered into a dense view (gather not timed)."""
+def time_flat(rng, quant=False):
+    """The flat kernel (``quant``: its int8 flavor) at the flat engine's
+    segment shape: H=12, D=64, Bt=64, bf16, a 64-token segment at base 0
+    (slot 0) and one at base 448 (slot 1), 16 chunks; the library call
+    is SDPA over each segment's slot gathered (and dequantized) into a
+    dense bf16 view (gather not timed)."""
     # 48 layers: the blocks the launches cycle through exceed the L2
     h, d, bt, n_layers, seg = H, E // H, 64, 48, 64
     bases = (0, 448)
@@ -395,14 +530,23 @@ def time_flat(rng):
         rng, chunks, h=h, hk=h, d=d, bt=bt, nblk=1024 // bt,
         n_layers=n_layers, layer=0, dtype=torch.bfloat16)
     # cycle the layer so each launch reads blocks another layer left cold
+    if quant:
+        kv8, sc = quantize_pool(pool)
+        pool = (kv8.float() * sc.transpose(-1, -2)).to(pool.dtype)
+        kernel = functools.partial(da.decode_attention_paged_flat_i8, q, kv8,
+                                   sc)
+        plain = functools.partial(
+            da.decode_attention_paged_flat_i8_reference, q, kv8, sc)
+    else:
+        kernel = functools.partial(da.decode_attention_paged_flat, q, pool)
+        plain = functools.partial(da.decode_attention_paged_flat_reference,
+                                  q, pool)
 
     def run_kernel(i=0):
-        return da.decode_attention_paged_flat(q, pool, tables, cslot, cbase,
-                                              cn, i % n_layers)
+        return kernel(tables, cslot, cbase, cn, i % n_layers)
 
     def run_plain(i=0):
-        return da.decode_attention_paged_flat_reference(
-            q, pool, tables, cslot, cbase, cn, i % n_layers)
+        return plain(tables, cslot, cbase, cn, i % n_layers)
     s_max = bases[-1] + seg
     nb = pool.shape[2]
     kv = pool[:, :, tables[:, :s_max // bt].long().clamp(max=nb - 1)]
@@ -419,7 +563,8 @@ def time_flat(rng):
                                               attn_mask=mask)
     elt = 2
     n_pos = sum(base + seg for base in bases)      # each slot's prefix once
-    nbytes = (n_pos * h * d * 2 * elt + 2 * q.numel() * elt
+    per_pos = 2 * (d + 4) if quant else 2 * d * elt   # K and V (+ scales)
+    nbytes = (n_pos * h * per_pos + 2 * q.numel() * elt
               + tables.numel() * 4 + 3 * cslot.numel() * 4)
     flops = 4 * d * h * sum(base + r + 1 for base in bases
                             for r in range(seg))
@@ -462,13 +607,53 @@ def phase_timing(seed):
     rows["decode_attention_paged_flat"] = time_flat(rng)
     log("  flash_attention_fwd at the bulk prefill buckets")
     rows["flash_attention_fwd"] = time_flash(rng)
+    log("  decode_attention_paged_i8 at the decode shape (B=8, Bt=64)")
+    rows["decode_attention_paged_i8"] = time_paged(rng, quant=True)
+    log("  decode_attention_paged_flat_i8 at the flat segment shape")
+    rows["decode_attention_paged_flat_i8"] = time_flat(rng, quant=True)
+    log("  fused_dequant_matmul at decode (M=8), the row block (M=128) and "
+        "bulk prefill (M=512)")
+    rows["fused_dequant_matmul"] = time_dequant_matmul(rng)
     return rows
 
 
-def time_paged(rng):
-    """The paged kernel at the decode shape (B=8, Bt=64, all rows at
-    cache_lens 512 or 1024, Sq 1 or 16); the library call is SDPA over
-    the row's prefix gathered into a dense view (gather not timed)."""
+def time_dequant_matmul(rng):
+    """The int4 dequant-matmul at each of GPT-2's four (K, O) for M in
+    {8, 128, 512}, bf16 activations; the launches cycle over enough
+    weight copies (about 100 MB) that each finds its weight cold in the
+    50 MB L2, as the engine's 12 layers do. The library call is
+    torch.matmul on the weight dequantized to bf16 once, outside the
+    timing."""
+    rows = []
+    for name, (k, o) in MATMULS.items():
+        n = min(64, -(-100_000_000 // (k * o // 2)))
+        ws = [packed_weight(rng, k, o, transposed=name == "qkv")
+              for _ in range(n)]
+        wd = [(fdm.unpack_int4(wp).float() * s).to(torch.bfloat16)
+              for wp, s in ws]
+        for m in (8, 128, 512):
+            a = randn(rng, (m, k), torch.bfloat16)
+
+            def run_kernel(i=0, a=a):
+                return fdm.fused_dequant_matmul(a, *ws[i % n])
+
+            def run_plain(i=0, a=a):
+                return fdm.fused_dequant_matmul_reference(a, *ws[i % n])
+
+            def run_matmul(i=0, a=a):
+                return a @ wd[i % n]
+            nbytes = m * k * 2 + k * o // 2 + o * 4 + m * o * 2
+            rows.append(timed_row({"matmul": name, "m": m}, run_kernel,
+                                  run_plain, run_matmul, nbytes,
+                                  2 * m * k * o, 200, tname="matmul_bf16"))
+    return rows
+
+
+def time_paged(rng, quant=False):
+    """The paged kernel (``quant``: its int8 flavor) at the decode shape
+    (B=8, Bt=64, all rows at cache_lens 512 or 1024, Sq 1 or 16); the
+    library call is SDPA over the row's prefix gathered (and
+    dequantized) into a dense bf16 view (gather not timed)."""
     b, h, d, bt, nblk, n_layers = 8, H, E // H, 64, 32, 12
     rows = []
     for ln in (512, 1024):
@@ -479,14 +664,24 @@ def time_paged(rng):
                 dtype=torch.bfloat16)
             # cycle the layer so each launch reads blocks another layer
             # left cold (12 layers of KV exceed the 50 MB L2)
+            if quant:
+                kv8, sc = quantize_pool(pool)
+                pool = (kv8.float() * sc.transpose(-1, -2)).to(pool.dtype)
+                kernel = functools.partial(da.decode_attention_paged_i8, qt,
+                                           kv8, sc)
+                plain = functools.partial(
+                    da.decode_attention_paged_i8_reference, qt, kv8, sc)
+            else:
+                kernel = functools.partial(da.decode_attention_paged, qt,
+                                           pool)
+                plain = functools.partial(
+                    da.decode_attention_paged_reference, qt, pool)
 
-            def run_kernel(i=0):
-                return da.decode_attention_paged(qt, pool, tables,
-                                                 i % n_layers, lens)
+            def run_kernel(i=0, kernel=kernel):
+                return kernel(tables, i % n_layers, lens)
 
-            def run_plain(i=0):
-                return da.decode_attention_paged_reference(
-                    qt, pool, tables, i % n_layers, lens)
+            def run_plain(i=0, plain=plain):
+                return plain(tables, i % n_layers, lens)
             s = ln + sq
             kv = pool[:, :, tables[0, :(s - 1) // bt + 1].long()]
             kv = kv.permute(0, 1, 3, 2, 4, 5).reshape(
@@ -495,12 +690,13 @@ def time_paged(rng):
             mask = (torch.arange(s, device="cuda")[None, :]
                     <= ln + torch.arange(sq, device="cuda")[:, None])
 
-            def run_sdpa(i=0):
+            def run_sdpa(i=0, kv=kv, mask=mask):
                 kk = kv[i % n_layers]
                 return F.scaled_dot_product_attention(
                     qt, kk[0], kk[1], attn_mask=mask)
             elt = 2
-            nbytes = (b * h * s * d * 2 * elt          # K and V read once
+            per_pos = 2 * (d + 4) if quant else 2 * d * elt  # K, V (+ sc)
+            nbytes = (b * h * s * per_pos              # K and V read once
                       + 2 * b * h * sq * d * elt       # q in, out
                       + tables.numel() * 4 + b * 4)
             flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
@@ -541,23 +737,31 @@ def main(argv=None):
     rows = phase_timing(args.seed)
 
     log(f"  worst phase-2 errors: {worst}")
+    log("== done")
     # per kernel: the phase-3 run of its own path, the phase-5 shape its
     # engine spends most time at, and the worst error over its phase-5
     # shapes (each checked there)
-    table = (("decode_attention_paged", "row", 1027,
-              lambda r: r["cache_lens"] == 1024 and r["sq"] == 1),
-             ("decode_attention_paged_flat", "flat", 1276, lambda r: True),
-             ("flash_attention_fwd", "phase", 222,
-              lambda r: r["sb"] == 512))
+    decode = (lambda r: r["cache_lens"] == 1024 and r["sq"] == 1)
+    table = (("decode_attention_paged", "row", "decode_attention.py:1027",
+              decode),
+             ("decode_attention_paged_flat", "flat",
+              "decode_attention.py:1276", lambda r: True),
+             ("flash_attention_fwd", "phase", "flash_attention.py:222",
+              lambda r: r["sb"] == 512),
+             ("decode_attention_paged_i8", "row-kv8-w4",
+              "decode_attention.py:1115", decode),
+             ("decode_attention_paged_flat_i8", "flat-kv8-w4",
+              "decode_attention.py:1406", lambda r: True),
+             ("fused_dequant_matmul", "row-kv8-w4",
+              "fused_dequant_matmul.py:126",
+              lambda r: r["matmul"] == "f1" and r["m"] == 8))
     kernels = []
-    for name, path, line, is_main in table:
+    for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))
-        src = ("flash_attention.py" if name == "flash_attention_fwd"
-               else "decode_attention.py")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{_build.SOURCES[name]}",
-            "replaces": f"paddle_tpu/ops/pallas/{src}:{line}",
+            "replaces": f"paddle_tpu/ops/pallas/{where}",
             "launches": launches[path][name],
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},

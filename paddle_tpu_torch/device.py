@@ -22,6 +22,17 @@ TOLERANCES = {
     "attention_bf16": {"atol": 2e-2, "rtol": 2e-2},
     # fp32 logits through two layers of products summed in another order
     "logits_fp32": {"atol": 1e-4, "rtol": 1e-4},
+    # the int4 dequant-matmul in fp32: exact integer weights, products
+    # summed in another order (a [K] dot in two nibble halves on the TPU
+    # kernel, one pass here)
+    "matmul_fp32": {"atol": 1e-5, "rtol": 1e-5},
+    # the same in bf16 or fp16 on the card: one rounding of the output
+    # (2^-8 relative) on either side of a sum taken in another order
+    "matmul_bf16": {"atol": 1e-2, "rtol": 1e-2},
+    # an int8 pool's scales: absmax / 127 of K/V rows computed by two
+    # frameworks in fp32 (the rows agree within logits_fp32, so their
+    # absmax does too)
+    "kv_int8_scales": {"atol": 1e-6, "rtol": 1e-4},
 }
 
 

@@ -20,6 +20,18 @@ kernels on the card, their plain versions on the CPU:
 blocks), ``decode_attention.decode_attention_paged_flat`` (the flat
 stream's segments) and ``flash_attention.flash_attention`` (bulk
 prefill). Each is looked up on its module at call time.
+
+Quantized serving: ``weight_quant="int8"|"int4"`` quantizes the stacked
+layer weights per (layer, out-channel) with the module-level absmax
+recipes (``_absmax_int8``, ``_absmax_int4``, ``_pack_int4``), bit-equal
+to JAX's; ``mm_p`` applies int8 weights as a matmul on the integer
+values with the scale after it, and int4 weights (packed two nibbles a
+byte along the contracted axis) through ``ops.fused_dequant_matmul``.
+``kv_quant="int8"`` gives the pool an int8 flavor with fp32 scales per
+(layer, kv, block, head, position); every write quantizes its new rows
+with ``_absmax_int8`` and the reads take
+``decode_attention.decode_attention_paged_i8`` and
+``decode_attention_paged_flat_i8``. The LM head stays fp.
 """
 from __future__ import annotations
 
@@ -29,10 +41,45 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import decode_attention as _attn
 from ..ops import flash_attention as _fa
+from ..ops import fused_dequant_matmul as _fdm
 
 __all__ = ["FusedDecoder"]
 
 NEG_INF = -1e30
+
+
+def _absmax_int8(w, axis, qmax=127):
+    """Per-slice absmax int8 quantization, the one recipe of every
+    quantized site (weight stacks and K/V writes): scales = absmax / qmax
+    over ``axis`` in fp32 (kept as a size-1 axis), values = round-half-
+    to-even of w / max(scale, 1e-8) clipped to [-qmax, qmax]. Returns
+    (int8 tensor, fp32 scales)."""
+    a = w.float()
+    s = a.abs().amax(dim=axis, keepdim=True) / qmax
+    q = torch.round(a / s.clamp(min=1e-8)).clamp(-qmax, qmax)
+    return q.to(torch.int8), s
+
+
+def _absmax_int4(w, axis):
+    """``_absmax_int8`` at 4 bits (scales absmax / 7, values in [-7, 7]),
+    held in int8 until ``_pack_int4``."""
+    return _absmax_int8(w, axis, qmax=7)
+
+
+def _pack_int4(q, axis):
+    """Pack adjacent pairs of int4-valued int8 entries along ``axis`` (of
+    even length) into one byte each: the low nibble holds the even
+    index, the high nibble the odd one. Returns a contiguous int8 tensor
+    with ``axis`` halved."""
+    axis = axis % q.dim()
+    if q.shape[axis] % 2:
+        raise ValueError(
+            f"_pack_int4: axis {axis} has odd length {q.shape[axis]} — "
+            "int4 packing pairs adjacent contracted elements")
+    lead = (slice(None),) * axis
+    lo = q[lead + (slice(0, None, 2),)]
+    hi = q[lead + (slice(1, None, 2),)]
+    return ((lo & 0x0F) | (hi << 4)).to(torch.int8).contiguous()
 
 
 def _penalize_slots(logits, nt, min_len, eos_ids):
@@ -53,11 +100,15 @@ class FusedDecoder:
             raise NotImplementedError(
                 "use_rotary: rotary embeddings are not ported yet "
                 "(ROADMAP Queue 1 item 3, rope_block)")
-        if weight_quant not in (None, "none") or kv_quant not in (None,
-                                                                  "none"):
-            raise NotImplementedError(
-                "weight_quant/kv_quant: quantized serving is not ported "
-                "yet (ROADMAP Queue 1 item 6(g))")
+        if weight_quant not in (None, "none", "int8", "int4"):
+            raise ValueError(
+                f"weight_quant={weight_quant!r}: expected 'none', "
+                "'int8' or 'int4'")
+        if kv_quant not in (None, "none", "int8"):
+            raise ValueError(
+                f"kv_quant={kv_quant!r}: expected 'none' or 'int8' — "
+                "the KV pool has no int4 flavor (per-row absmax at 4 "
+                "bits clips decode tails; weights are where int4 pays)")
         if fmt.activation != "gelu":
             raise NotImplementedError(
                 f"activation {fmt.activation!r}: the port has gelu only")
@@ -68,40 +119,96 @@ class FusedDecoder:
         # the JAX ring rounds capacity up to a 128-multiple; the port keeps
         # the same Smax so block tables have the same width
         self.smax = -(-int(max_seq_len) // 128) * 128
+        self._weight_quant_arg = weight_quant
+        self._kv_quant_arg = kv_quant
         self._stk_cache = None
+        if self._weight_quant_mode() == "int4":
+            self._validate_int4_dims()
 
     # ------------------------------------------------------------ weights
+    def _weight_quant_mode(self) -> str:
+        """The stacked weights' flavor: 'none', 'int8' or 'int4' (from the
+        constructor argument only; None means 'none')."""
+        return self._weight_quant_arg or "none"
+
+    def _int8_cache(self) -> bool:
+        """Whether the KV pool is int8 with fp32 per-position scales."""
+        return self._kv_quant_arg == "int8"
+
+    def _validate_int4_dims(self):
+        """int4 packs two adjacent contracted-axis elements per byte, so
+        every contracted axis of the stacked weights must be even:
+        embed_dim (qkv_w, f1_w), num_heads*head_dim (lin_w) and ffn_dim
+        (f2_w)."""
+        f = self.fmt
+        e = int(f.qkv_weights[0].shape[-1])
+        ff = int(f.ffn1_weights[0].shape[-1])
+        heads = f.num_heads * f.head_dim
+        bad = [n for n, v in (("embed_dim", e),
+                              ("num_heads*head_dim", heads),
+                              ("ffn_dim", ff)) if v % 2]
+        if bad:
+            raise ValueError(
+                "weight_quant='int4' needs even contracted axes to pack "
+                f"two nibbles per byte; odd: {', '.join(bad)} "
+                f"(embed_dim={e}, num_heads*head_dim={heads}, "
+                f"ffn_dim={ff})")
+
     def _stacked(self):
         """Per-layer weights stacked on a leading [L] axis, with qkv fused
         HEAD-MAJOR: [3, nh, hd, E] per layer becomes [L, nh*3*hd, E] (bias
         [L, nh*3*hd]), which ``qkv_of`` unfuses with a (nh, 3, hd)
-        reshape. Cached until a parameter is replaced or edited."""
+        reshape. Under weight_quant the four matrices become int8 (int4:
+        packed along the contracted axis) with fp32 scales ``*_w_s`` [L,
+        1, O]; the biases and LN parameters stay fp. Cached until a
+        parameter is replaced or edited, or the mode changes."""
         f = self.fmt
-        sig = tuple((id(p), p._version) for p in f.parameters())
+        mode = self._weight_quant_mode()
+        sig = (mode, tuple((id(p), p._version) for p in f.parameters()))
         if self._stk_cache is not None and self._stk_cache[0] == sig:
             return self._stk_cache[1]
         self._stk_cache = None
 
         def stk(plist):
             return torch.stack([p.detach() for p in plist])
-        qkv5 = stk(f.qkv_weights)                  # [L, 3, nh, hd, E]
-        qkvb4 = stk(f.qkv_biases)                  # [L, 3, nh, hd]
-        nl = qkv5.shape[0]
+        e = f.qkv_weights[0].shape[-1]
+        # the four matrices per layer: qkv fused head-major [nh*3*hd, E]
+        # (used as h @ W.T), lin/f1/f2 [I, O] (used as h @ W)
+        mats = {"qkv_w": [p.detach().transpose(0, 1).reshape(-1, e)
+                          for p in f.qkv_weights],
+                "lin_w": f.linear_weights, "f1_w": f.ffn1_weights,
+                "f2_w": f.ffn2_weights}
         out = {
             "ln_s": stk(f.ln_scales), "ln_b": stk(f.ln_biases),
-            "qkv_w": qkv5.transpose(1, 2).reshape(nl, -1, qkv5.shape[-1]),
-            "qkv_b": qkvb4.transpose(1, 2).reshape(nl, -1),
-            "lin_w": stk(f.linear_weights), "lin_b": stk(f.linear_biases),
+            "qkv_b": stk(f.qkv_biases).transpose(1, 2).reshape(
+                f.num_layers, -1),
+            "lin_b": stk(f.linear_biases),
             "fln_s": stk(f.ffn_ln_scales), "fln_b": stk(f.ffn_ln_biases),
-            "f1_w": stk(f.ffn1_weights), "f1_b": stk(f.ffn1_biases),
-            "f2_w": stk(f.ffn2_weights), "f2_b": stk(f.ffn2_biases),
+            "f1_b": stk(f.ffn1_biases), "f2_b": stk(f.ffn2_biases),
         }
+        if mode == "none":
+            out.update((k, stk(ws)) for k, ws in mats.items())
+        else:
+            recipe = _absmax_int8 if mode == "int8" else _absmax_int4
+            for k, ws in mats.items():
+                # one layer at a time, so the fp32 temporaries of the
+                # recipe never exceed one layer's matrix; the scales
+                # become [L, 1, O] and int4 packs the contracted axis
+                axis = 1 if k == "qkv_w" else 0
+                qs, ss = [], []
+                for w in ws:
+                    q, sc = recipe(w.detach(), axis)
+                    qs.append(_pack_int4(q, axis) if mode == "int4" else q)
+                    ss.append(sc.T if axis else sc)
+                out[k], out[k + "_s"] = torch.stack(qs), torch.stack(ss)
         self._stk_cache = (sig, out)
         return out
 
     def init_paged_cache(self, pool, dtype=None):
-        """The one KV pool {"kv": [L, 2, NB, H, Bt, D]} for a BlockPool.
-        The engine adds this dispatch's block tables as "tbl"."""
+        """The one KV pool {"kv": [L, 2, NB, H, Bt, D]} for a BlockPool;
+        under kv_quant="int8" "kv" is int8 and "sc" [L, 2, NB, H, 1, Bt]
+        holds its fp32 scales, block for block. The engine adds this
+        dispatch's block tables as "tbl"."""
         f = self.fmt
         if pool.smax != self.smax:
             raise ValueError(
@@ -110,6 +217,12 @@ class FusedDecoder:
         dtype = dtype or f.qkv_weights[0].dtype
         shape = (f.num_layers, 2, pool.num_blocks, f.num_heads,
                  pool.block_tokens, f.head_dim)
+        if self._int8_cache():
+            return {"kv": torch.zeros(shape, dtype=torch.int8,
+                                      device=self.device),
+                    "sc": torch.zeros(shape[:4] + (1, pool.block_tokens),
+                                      dtype=torch.float32,
+                                      device=self.device)}
         return {"kv": torch.zeros(shape, dtype=dtype, device=self.device)}
 
     # ---------------------------------------------------- step pieces
@@ -122,10 +235,26 @@ class FusedDecoder:
         out = (x32 - mu) * torch.rsqrt(var + self.fmt.epsilon)
         return (out * s + b).to(x.dtype)
 
+    @staticmethod
+    def mm_p(a, w, s=None):
+        """a @ W for a stacked weight of any flavor. int8: the matmul on
+        the integer values, then the per-out-channel scale (cast to a's
+        dtype, as JAX does). int4 arrives packed — a packed weight's
+        contracted axis is half the activation's — and goes through the
+        fused dequant-matmul kernel (fp32 accumulation, scale on the
+        accumulator). fp: a plain matmul."""
+        if s is None:
+            return a @ w
+        if 2 * w.shape[0] == a.shape[-1]:
+            return _fdm.fused_dequant_matmul(a, w, s.reshape(1, -1),
+                                             out_dtype=a.dtype)
+        return (a @ w.to(a.dtype)) * s.to(a.dtype)
+
     def qkv_of(self, h, p):
         # [B, T, E] -> q, k, v [B, T, nh, hd] from the head-major fused qkv
         f = self.fmt
-        qkv = h @ p["qkv_w"].T + p["qkv_b"].to(h.dtype)
+        qkv = self.mm_p(h, p["qkv_w"].T, p.get("qkv_w_s")) \
+            + p["qkv_b"].to(h.dtype)
         qkv = qkv.reshape(h.shape[0], h.shape[1], f.num_heads, 3,
                           f.head_dim)
         return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
@@ -133,15 +262,15 @@ class FusedDecoder:
     def proj_ffn_tail(self, residual, attn_flat, p):
         # out-projection + residual + FFN, pre- or post-LN
         pre_ln = self.fmt.normalize_before
-        x = residual + (attn_flat @ p["lin_w"]
+        x = residual + (self.mm_p(attn_flat, p["lin_w"], p.get("lin_w_s"))
                         + p["lin_b"].to(attn_flat.dtype))
         if not pre_ln:
             x = self.ln(x, p["ln_s"], p["ln_b"])
         residual = x
         h = self.ln(x, p["fln_s"], p["fln_b"]) if pre_ln else x
-        h = h @ p["f1_w"] + p["f1_b"].to(h.dtype)
+        h = self.mm_p(h, p["f1_w"], p.get("f1_w_s")) + p["f1_b"].to(h.dtype)
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-        h = h @ p["f2_w"] + p["f2_b"].to(h.dtype)
+        h = self.mm_p(h, p["f2_w"], p.get("f2_w_s")) + p["f2_b"].to(h.dtype)
         x = residual + h
         if not pre_ln:
             x = self.ln(x, p["fln_s"], p["fln_b"])
@@ -172,21 +301,34 @@ class FusedDecoder:
 
     def paged_write(self, caches, l, targets, kv_new):
         """Scatter the new K/V rows kv_new [2, B, H, Sq, D] of layer l into
-        the pool, in place, through ``write_targets``."""
+        the pool, in place, through ``write_targets``. An int8 pool takes
+        each row quantized (``_absmax_int8`` over D) and its scale, at the
+        same targets."""
         blk, off, keep = targets
-        vals = kv_new.permute(1, 3, 0, 2, 4)          # [B, Sq, 2, H, D]
-        if len(keep) == 1:                            # tv was [B]
-            vals = vals[:, 0]
+
+        def rows(a):              # [2, B, H, Sq, ...] -> the kept rows
+            a = a.permute(1, 3, 0, 2, *range(4, a.dim()))  # [B, Sq, 2, H, .]
+            return (a[:, 0] if len(keep) == 1 else a)[keep]   # tv was [B]
         pool_l = caches["kv"][l].permute(1, 3, 0, 2, 4)   # [NB, Bt, 2, H, D]
-        pool_l[blk, off] = vals[keep].to(pool_l.dtype)
+        if "sc" in caches:
+            q_new, sc_new = _absmax_int8(kv_new, -1)
+            pool_l[blk, off] = rows(q_new)
+            sc_l = caches["sc"][l, :, :, :, 0].permute(1, 3, 0, 2)
+            sc_l[blk, off] = rows(sc_new[..., 0])     # [NB, Bt, 2, H]
+            return
+        pool_l[blk, off] = rows(kv_new).to(pool_l.dtype)
 
     def attend(self, q, caches, l, t):
         # q: [B, Sq, H, D]; t: [B] base positions — query row j attends
         # cache positions <= t + j. Looked up on the module at call time.
         qt = q.transpose(1, 2).contiguous()
         tb = t.to(torch.int32).contiguous()
-        o = _attn.decode_attention_paged(qt, caches["kv"], caches["tbl"], l,
-                                         tb)
+        if "sc" in caches:
+            o = _attn.decode_attention_paged_i8(qt, caches["kv"], caches["sc"],
+                                                caches["tbl"], l, tb)
+        else:
+            o = _attn.decode_attention_paged(qt, caches["kv"], caches["tbl"],
+                                             l, tb)
         return o.transpose(1, 2)
 
     def layer_step(self, x, p, caches, l, t, targets):
@@ -249,6 +391,10 @@ class FusedDecoder:
         chunk. The kernel takes every block size the engine makes, so
         there is no gather fallback on the card."""
         cslot, cbase, cn = cmeta
+        if "sc" in caches:
+            return _attn.decode_attention_paged_flat_i8(
+                q_s.contiguous(), caches["kv"], caches["sc"], caches["tbl"],
+                cslot.clamp(max=b - 1), cbase, cn, l)
         return _attn.decode_attention_paged_flat(
             q_s.contiguous(), caches["kv"], caches["tbl"],
             cslot.clamp(max=b - 1), cbase, cn, l)

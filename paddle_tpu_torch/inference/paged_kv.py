@@ -6,8 +6,8 @@ device pool ``[L, 2, NB, H, Bt, D]`` that
 ``FusedDecoder.init_paged_cache`` allocates. Position ``s`` of slot
 ``b`` lives in block ``tables[b, s // Bt]`` at offset ``s % Bt``;
 unmapped table entries hold the sentinel ``num_blocks``. Also
-``flat_gather_view`` (fp pools), the dense view the plain flat attention
-builds on.
+``flat_gather_view``, the dense view the plain flat attentions build on
+(fp pools, and int8 pools with their scales).
 """
 from __future__ import annotations
 
@@ -86,15 +86,20 @@ class BlockPool:
                 "kv_blocks_used_peak": self.used_peak}
 
 
-def flat_gather_view(pool_l, tbl, tslot, smax):
+def flat_gather_view(pool_l, tbl, tslot, smax, sc_l=None):
     """Each entry of ``tslot`` (slot ids already clamped into ``tbl``)
     resolved through its block-table row into a dense [Smax]-position K/V
     row. pool_l: [2, NB, Hk, Bt, D], one layer of the pool; tbl: [B,
-    Smax/Bt] int32. Returns [2, len(tslot), Hk, Smax, D] float32.
-    Unmapped entries clamp to block NB - 1; the caller's causal mask hides
+    Smax/Bt] int32; sc_l: optional [2, NB, Hk, 1, Bt] fp32 scales of an
+    int8 pool. Returns [2, len(tslot), Hk, Smax, D] float32, dequantized
+    (values times their position's scale) when sc_l is given. Unmapped
+    entries clamp to block NB - 1; the caller's causal mask hides
     them."""
     nb, hk, bt, d = pool_l.shape[1:]
     tc = tbl[tslot].long().clamp(max=nb - 1)          # [T, Smax/Bt]
     kvg = pool_l[:, tc]                               # [2, T, Nblk, Hk, Bt, D]
-    return kvg.permute(0, 1, 3, 2, 4, 5).reshape(
+    kvg = kvg.permute(0, 1, 3, 2, 4, 5).reshape(
         2, tslot.shape[0], hk, smax, d).float()
+    if sc_l is None:
+        return kvg
+    return kvg * flat_gather_view(sc_l.transpose(-1, -2), tbl, tslot, smax)

@@ -16,6 +16,10 @@ schedulers:
   request in one causal flash pass over its whole prompt and samples its
   first token in the same step, then the decode chunk runs.
 
+Each scheduler also serves quantized: ``kv_quant="int8"`` (an int8 pool
+with per-position scales) and ``weight_quant="int8"|"int4"``, alone or
+together (see ``generation``).
+
 Under either budget, a step with only decode rows runs the plain
 ``decode_chunk``-step scan instead, which moves more tokens. Host state
 (lens, counts, block tables) lives in numpy and crosses to the device
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.decode_attention import FLAT_CHUNK
-from .generation import FusedDecoder, _penalize_slots
+from .generation import FusedDecoder, _absmax_int8, _penalize_slots
 from .paged_kv import BlockPool
 from .telemetry import DEFAULT_RING, SloPolicy, Telemetry
 
@@ -55,8 +59,6 @@ _OUT_OF_SLICE = {
     "kv_pool": ((None,), "Queue 1 item 5 (BlockPool sharing, copy_block)"),
     "kv_pool_blocks": ((None,), "Queue 1 item 6(f) (explicit pool budget)"),
     "role": ((None, "mixed"), "Queue 1 item 6(f) (prefill/decode roles)"),
-    "weight_quant": ((None, "none"), "Queue 1 item 6(g) (quantized serving)"),
-    "kv_quant": ((None, "none"), "Queue 1 item 6(g) (quantized serving)"),
 }
 
 
@@ -123,8 +125,7 @@ class ServingEngine:
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_cache=prefix_cache, spec_k=spec_k, paged=paged,
                      kv_pool=kv_pool, kv_pool_blocks=kv_pool_blocks,
-                     role=role, weight_quant=weight_quant,
-                     kv_quant=kv_quant)
+                     role=role)
         for name, value in given.items():
             accepted, item = _OUT_OF_SLICE[name]
             if not any(value is a or value == a for a in accepted):
@@ -132,7 +133,8 @@ class ServingEngine:
                     f"ServingEngine({name}={value!r}) selects a path the "
                     f"PyTorch port does not have yet: ROADMAP {item}")
         self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
-                                device=device)
+                                weight_quant=weight_quant,
+                                kv_quant=kv_quant, device=device)
         self.device = self.dec.device
         self.num_slots = b = int(num_slots)
         self.smax = self.dec.smax
@@ -310,7 +312,8 @@ class ServingEngine:
             "kv_cow_copies": 0,
             "kv_shard_count": 1,
             "kv_shard_heads": self.dec.fmt.num_heads,
-            "kv_shard_pool_bytes": self._caches["kv"].nbytes,
+            "kv_shard_pool_bytes": sum(a.nbytes
+                                       for a in self._caches.values()),
             "weight_shard_count": 1,
             "weight_bytes_per_device": w_bytes,
             "weight_bytes_replicated": w_bytes,
@@ -504,9 +507,10 @@ class ServingEngine:
     def _build_bulk_admit(self, sb):
         """Bulk prefill of one prompt padded to sb tokens: one causal flash
         pass over [1, sb], then the prompt's K/V written through the
-        slot's table row, in place. Pad positions >= plen are selected
-        away before the write (JAX drops them with mode="drop"), so the
-        pad needs no blocks. Returns bulk_admit(stk, caches, toks, slot,
+        slot's table row, in place (an int8 pool takes each row quantized
+        with ``_absmax_int8`` and its scale). Pad positions >= plen are
+        selected away before the write (JAX drops them with mode="drop"),
+        so the pad needs no blocks. Returns bulk_admit(stk, caches, toks, slot,
         plen) -> the hidden state of the last prompt token [1, E]."""
         dec = self.dec
 
@@ -519,9 +523,13 @@ class ServingEngine:
             blk = torch.where(pos < plen, row[pos // bt],
                               torch.full_like(pos, nb))
             keep = (blk < nb).nonzero(as_tuple=True)[0]
+            blk, off = blk[keep], (pos % bt)[keep]
             pool_p = pool.permute(2, 4, 0, 1, 3, 5)      # [NB, Bt, L, 2, H, D]
-            pool_p[blk[keep], (pos % bt)[keep]] = kv.permute(
-                3, 0, 1, 2, 4)[keep].to(pool.dtype)
+            if "sc" in caches:
+                kv, sc = _absmax_int8(kv, -1)
+                sc_p = caches["sc"][:, :, :, :, 0].permute(2, 4, 0, 1, 3)
+                sc_p[blk, off] = sc[..., 0].permute(3, 0, 1, 2)[keep]
+            pool_p[blk, off] = kv.permute(3, 0, 1, 2, 4)[keep].to(pool.dtype)
             return x[0, plen - 1][None]
         return bulk_admit
 

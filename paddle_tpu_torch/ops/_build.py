@@ -24,7 +24,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "decode_attention_paged_flat": "decode_attention_paged_flat.cu",
-           "flash_attention_fwd": "flash_attention_fwd.cu"}
+           "flash_attention_fwd": "flash_attention_fwd.cu",
+           "decode_attention_paged_i8": "decode_attention_paged_i8.cu",
+           "decode_attention_paged_flat_i8":
+               "decode_attention_paged_flat_i8.cu",
+           "fused_dequant_matmul": "fused_dequant_matmul.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,6 +45,15 @@ _ENTRY = {
     "flash_attention_fwd": (
         "paddle_flash_attention_fwd",
         [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "decode_attention_paged_i8": (
+        "paddle_decode_attention_paged_i8",
+        [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+    "decode_attention_paged_flat_i8": (
+        "paddle_decode_attention_paged_flat_i8",
+        [_P] * 8 + [_I] * 9 + [_F, _I, _P]),
+    "fused_dequant_matmul": (
+        "paddle_fused_dequant_matmul",
+        [_P] * 5 + [_I] * 8 + [_P]),
 }
 
 

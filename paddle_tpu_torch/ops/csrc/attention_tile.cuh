@@ -1,7 +1,7 @@
-// Device-side pieces shared by the flat paged attention and the flash
-// attention forward kernels: dtype conversion, warp reductions, staging of
-// a K/V tile into shared memory, and one warp's online-softmax update of
-// R query rows against one staged tile.
+// Device-side pieces shared by the flat paged attention, the int8 paged
+// attentions and the flash attention forward kernels: dtype conversion,
+// warp reductions, staging of a K/V tile into shared memory, and one
+// warp's online-softmax update of R query rows against one staged tile.
 //
 // Layout of the shared-memory operands a kernel hands to tile_update:
 //   qs  [R][Dp]        the warp's query rows in fp32, zero past D
@@ -12,7 +12,11 @@
 //
 // Rounding follows the TPU kernels: scores, the running max m and the sum
 // l are fp32; p is rounded to the value dtype before the PV product while
-// l sums the unrounded p; the caller divides by l at the end.
+// l sums the unrounded p; the caller divides by l at the end. An int8
+// pool stages its integer values as fp32 (exact) and hands tile_update
+// the tile's per-position scales: the score becomes (q . k) * scale *
+// k_scale and the PV product takes p * v_scale rounded to the value dtype,
+// while l still sums the unscaled p (the TPU kernels' column-wise dequant).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +35,9 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -137,13 +144,16 @@ inline int vec_ok(int D, const void* a, const void* b) {
 // One warp: R query rows against one staged tile of n (<= kTile) positions
 // whose first global position is c0. Row rr attends position c0 + c iff
 // c < n and c0 + c <= limit[rr]; a row with limit[rr] < c0 is left as it
-// is. DPL: output dims per lane (D <= 32 * DPL).
-template <typename T, int R, int DPL>
+// is. DPL: output dims per lane (D <= 32 * DPL). T is the value dtype p
+// is rounded to. With kScaled, ksc and vsc [kTile] are the tile's K and V
+// scales (an int8 pool).
+template <typename T, int R, int DPL, bool kScaled = false>
 __device__ __forceinline__ void tile_update(
     const float* __restrict__ qs, const float* __restrict__ ks,
     const float* __restrict__ vs, float* __restrict__ ps, int D, int Dp,
     int c0, int n, const int (&limit)[R], float scale, float (&m)[R],
-    float (&l)[R], float (&acc)[R][DPL]) {
+    float (&l)[R], float (&acc)[R][DPL], const float* __restrict__ ksc = nullptr,
+    const float* __restrict__ vsc = nullptr) {
   const int lane = threadIdx.x & 31;
   const int ld = Dp + 1;
   float s[R];
@@ -165,13 +175,16 @@ __device__ __forceinline__ void tile_update(
   for (int rr = 0; rr < R; ++rr) {
     if (limit[rr] < c0) continue;  // uniform across the warp
     const bool valid = lane < n && c0 + lane <= limit[rr];
-    const float sc = valid ? s[rr] * scale : kNegInf;
+    float sc = valid ? s[rr] * scale : kNegInf;
+    if constexpr (kScaled) sc = valid ? sc * ksc[lane] : kNegInf;
     const float m_new = fmaxf(m[rr], warp_max(sc));
     const float alpha = expf(m[rr] - m_new);
     const float p = valid ? expf(sc - m_new) : 0.f;
     l[rr] = l[rr] * alpha + warp_sum(p);
     m[rr] = m_new;
-    ps[rr * kTile + lane] = to_f(from_f<T>(p));
+    float pv = p;
+    if constexpr (kScaled) pv = p * vsc[lane];
+    ps[rr * kTile + lane] = to_f(from_f<T>(pv));
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
   }

@@ -1,0 +1,209 @@
+// Flat-stream paged attention over an int8 KV pool, for Hopper (sm_90a),
+// plain C interface.
+//
+// Replaces paddle_tpu/ops/pallas/decode_attention.py::
+// decode_attention_paged_flat_i8 (_paged_flat_i8_kernel): the
+// token-flattened budget dispatch's ragged [T] query stream, in 8-token
+// chunks that each belong to one slot (chunk ci holds the queries at
+// positions cbase[ci] .. cbase[ci] + cn[ci] - 1 of slot cslot[ci]), attends
+// its slot's table-resolved int8 K/V with per-position fp32 scales.
+//
+//   q      [T, H, D]                 fp32, bf16 or fp16; T % 8 == 0, D <= 256
+//   pool   [L, 2, NB, Hk, Bt, D]     int8
+//   scales [L, 2, NB, Hk, 1, Bt]     fp32, resolved through the same entry
+//   tables [rows, nblk] int32        unmapped entries hold the sentinel NB
+//   cslot, cbase, cn [T / 8] int32   per-chunk slot, base position, count
+//   out    [T, H, D]                 q's dtype
+//
+// Semantics kept from the TPU kernel: those of the fp flat kernel (a chunk
+// reads blocks up to (cbase + max(cn, 1) - 1) / Bt and no further; an
+// unmapped entry reads block min(entry, NB - 1); rows r >= cn and pad
+// chunks return exactly 0; the slot id is clamped into the table) with the
+// int8 dequant of decode_attention_paged_i8: score (q . k) * scale *
+// k_scale in fp32, p * v_scale rounded to q's dtype before the PV
+// product, l summing the unscaled p.
+//
+// What bounds it on the card: bytes. Each chunk reads its slot's prefix
+// once per head for 8 query rows (one byte per element plus a 4-byte scale
+// per position), 4*D flops per position and row, far below the ~295
+// flop/byte ridge. Design: the fp flat kernel's, one thread block per
+// (chunk, head); K/V tiles of 32 positions (or one block when Bt < 32)
+// staged as fp32 in shared memory with 16-byte loads (16 int8 values
+// each) issued in batches, the tile's 32 K and 32 V scales beside them,
+// and four warps that each own two of the chunk's rows with an fp32
+// online softmax in registers (attention_tile.cuh). Chunks of one slot
+// re-read its prefix (from L2); a split over the walk and tensor-core
+// products are left for later work.
+#include "attention_tile.cuh"
+
+namespace {
+
+using namespace paddle_attn;
+
+constexpr int kChunk = 8;  // FLAT_CHUNK
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = kChunk / kWarps;
+
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kWarps * 32)
+    flat_i8_kernel(const T* __restrict__ q, const int8_t* __restrict__ pool,
+                   const float* __restrict__ scales,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ cslot,
+                   const int* __restrict__ cbase, const int* __restrict__ cn,
+                   T* __restrict__ out, int H, int D, int NB, int Hk, int Bt,
+                   int nblk, int n_rows, int layer, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int Dp = round4(D);
+  const int ld = Dp + 1;
+  float* ks = smem;                   // [kTile][Dp + 1]
+  float* vs = ks + kTile * ld;        // [kTile][Dp + 1]
+  float* qs = vs + kTile * ld;        // [kChunk][Dp]
+  float* ps = qs + kChunk * Dp;       // [kChunk][kTile]
+  float* kss = ps + kChunk * kTile;   // [kTile] K scales
+  float* vss = kss + kTile;           // [kTile] V scales
+
+  const int ci = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int hk = h / (H / Hk);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = cn[ci];
+  const int base = cbase[ci];
+  const int slot = min(max(cslot[ci], 0), n_rows - 1);
+  const int* tbl = tables + (size_t)slot * nblk;
+
+  // the chunk's rows of head h: row r at q[(ci * 8 + r) * H + h]
+  for (int i = threadIdx.x; i < kChunk * Dp; i += blockDim.x) {
+    const int r = i / Dp;
+    const int d = i - r * Dp;
+    qs[i] = (r < n && d < D)
+                ? to_f(q[((size_t)(ci * kChunk + r) * H + h) * D + d])
+                : 0.f;
+  }
+
+  int limit[kRowsPerWarp];
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    limit[rr] = r < n ? base + r : -1;
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
+  }
+
+  if (n > 0) {  // uniform across the block
+    const int tk = Bt < kTile ? Bt : kTile;
+    const size_t splane = (size_t)NB * Hk * Bt;  // positions per K/V plane
+    const int8_t* k_base = pool + (size_t)layer * 2 * splane * D;
+    const int8_t* v_base = k_base + splane * D;
+    const float* ks_base = scales + (size_t)layer * 2 * splane;
+    const float* vs_base = ks_base + splane;
+    const int last_pos = min(base + n - 1, nblk * Bt - 1);
+    for (int c0 = 0; c0 <= last_pos; c0 += tk) {
+      const int blk = min(tbl[c0 / Bt], NB - 1);
+      const size_t off = ((size_t)blk * Hk + hk) * Bt + (c0 % Bt);
+      __syncthreads();  // everyone is done with the previous tile
+      stage_kv(ks, vs, k_base + off * D, v_base + off * D, tk, D, Dp, ld,
+               vec);
+      if (threadIdx.x < kTile) {
+        const int c = threadIdx.x;
+        kss[c] = c < tk ? ks_base[off + c] : 0.f;
+        vss[c] = c < tk ? vs_base[off + c] : 0.f;
+      }
+      __syncthreads();
+      tile_update<T, kRowsPerWarp, DPL, true>(
+          qs + warp * kRowsPerWarp * Dp, ks, vs,
+          ps + warp * kRowsPerWarp * kTile, D, Dp, c0, tk, limit, scale, m,
+          l, acc, kss, vss);
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    const float denom = l[rr] == 0.f ? 1.f : l[rr];
+    T* o = out + ((size_t)(ci * kChunk + r) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) o[d] = from_f<T>(acc[rr][i] / denom);
+    }
+  }
+}
+
+template <typename T, int DPL>
+cudaError_t launch(const void* q, const void* pool, const void* scales,
+                   const void* tables, const void* cslot, const void* cbase,
+                   const void* cn, void* out, int T_, int H, int D, int NB,
+                   int Hk, int Bt, int nblk, int n_rows, int layer,
+                   float scale, cudaStream_t stream) {
+  const int Dp = round4(D);
+  const size_t smem = (size_t)(2 * kTile * (Dp + 1) + kChunk * Dp +
+                               kChunk * kTile + 2 * kTile) *
+                      sizeof(float);
+  auto kernel = flat_i8_kernel<T, DPL>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(T_ / kChunk) * H, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(pool),
+      static_cast<const float*>(scales), static_cast<const int*>(tables),
+      static_cast<const int*>(cslot), static_cast<const int*>(cbase),
+      static_cast<const int*>(cn), static_cast<T*>(out), H, D, NB, Hk, Bt,
+      nblk, n_rows, layer, scale, vec_ok<int8_t>(D, pool, pool));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* pool, const void* scales,
+                     const void* tables, const void* cslot, const void* cbase,
+                     const void* cn, void* out, int T_, int H, int D, int NB,
+                     int Hk, int Bt, int nblk, int n_rows, int layer,
+                     float scale, cudaStream_t stream) {
+#define PADDLE_FLAT_I8_LAUNCH(DPL)                                           \
+  launch<T, DPL>(q, pool, scales, tables, cslot, cbase, cn, out, T_, H, D,  \
+                 NB, Hk, Bt, nblk, n_rows, layer, scale, stream)
+  if (D <= 32) return PADDLE_FLAT_I8_LAUNCH(1);
+  if (D <= 64) return PADDLE_FLAT_I8_LAUNCH(2);
+  if (D <= 128) return PADDLE_FLAT_I8_LAUNCH(4);
+  return PADDLE_FLAT_I8_LAUNCH(8);
+#undef PADDLE_FLAT_I8_LAUNCH
+}
+
+}  // namespace
+
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// cudaError_t (0 on success); the caller has validated shapes, devices and
+// layout.
+extern "C" int paddle_decode_attention_paged_flat_i8(
+    const void* q, const void* pool, const void* scales, const void* tables,
+    const void* cslot, const void* cbase, const void* cn, void* out, int T,
+    int H, int D, int NB, int Hk, int Bt, int nblk, int n_rows, int layer,
+    float scale, int dtype, void* stream) {
+  if (T < kChunk || T % kChunk || H < 1 || D < 1 || D > 256 || Hk < 1 ||
+      H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1 ||
+      n_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch_d<float>(q, pool, scales, tables, cslot, cbase, cn,
+                                  out, T, H, D, NB, Hk, Bt, nblk, n_rows,
+                                  layer, scale, s);
+    case 1:
+      return (int)launch_d<__nv_bfloat16>(q, pool, scales, tables, cslot,
+                                          cbase, cn, out, T, H, D, NB, Hk, Bt,
+                                          nblk, n_rows, layer, scale, s);
+    case 2:
+      return (int)launch_d<__half>(q, pool, scales, tables, cslot, cbase, cn,
+                                   out, T, H, D, NB, Hk, Bt, nblk, n_rows,
+                                   layer, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,12 +1,15 @@
 """Where the serving engine's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--seed N]
-        [--scheduler row|flat|phase]
+        [--scheduler row|flat|phase] [--kv-quant none|int8]
+        [--weight-quant none|int8|int4]
 
 Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
 3 also serves, under ``torch.profiler`` and the chosen scheduler (the
 row-layout token budget by default, ``flat_budget=True``, or the phase
-scheduler ``token_budget=0``). Prints one JSON object: wall
+scheduler ``token_budget=0``) and quantization (fp by default; the
+``kv_quant`` and ``weight_quant`` options of ``ServingEngine``). Prints
+one JSON object: wall
 time, the union of the device's kernel intervals (busy) and the idle
 share, device time by kernel name, host time by dispatch kind (budget /
 decode), and the engine's metrics. Needs a CUDA card.
@@ -40,7 +43,8 @@ def gpt2_workload(seed, **engine_kwargs):
     new tokens. One warm-up request (cuBLAS handles, allocator pools) was
     served on another engine of the same configuration over the same
     weights first. ``engine_kwargs`` selects the scheduler, e.g.
-    ``flat_budget=True`` or ``token_budget=0``."""
+    ``flat_budget=True`` or ``token_budget=0``, and the quantization,
+    e.g. ``kv_quant="int8", weight_quant="int4"``."""
     rng = np.random.default_rng(seed)
     mods = from_jax_state(*random_state(rng, E, H, FF, L, V),
                           dtype=torch.bfloat16)
@@ -72,11 +76,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", choices=sorted(SCHEDULERS),
                     default="row")
+    ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--weight-quant", choices=("none", "int8", "int4"),
+                    default="none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
-    eng, reqs = gpt2_workload(args.seed, **SCHEDULERS[args.scheduler])
+    eng, reqs = gpt2_workload(args.seed, **SCHEDULERS[args.scheduler],
+                              kv_quant=args.kv_quant,
+                              weight_quant=args.weight_quant)
     for prompt, max_new in reqs:
         eng.submit(prompt, max_new_tokens=max_new)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -107,7 +116,8 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "layers": L,
-        "scheduler": args.scheduler,
+        "scheduler": args.scheduler, "kv_quant": args.kv_quant,
+        "weight_quant": args.weight_quant,
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": (1 - busy_s / wall_s) if wall_s else None,
         "kernel_events": len(intervals),

@@ -186,11 +186,36 @@ def test_slo_verdicts_reconcile(models, serving_metrics_ok):
 @pytest.mark.parametrize("kwargs", [
     {"do_sample": True}, {"spec_k": 2}, {"prefix_cache_blocks": 4},
     {"kv_pool_blocks": 64}, {"max_pending": 4}, {"paged": False},
-    {"weight_quant": "int8"}, {"kv_quant": "int8"}, {"role": "prefill"},
-    {"use_rotary": True}, {"enable_repetition_penalty": True}])
+    {"role": "prefill"}, {"use_rotary": True},
+    {"enable_repetition_penalty": True}])
 def test_out_of_slice_options_raise(models, kwargs):
     _, tmods = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
+                      **kwargs)
+
+
+def _odd_model():
+    """E = 33 (3 heads of 11) and FF = 65: every contracted axis that
+    int4 packs is odd."""
+    from paddle_tpu_torch.weights import random_state
+    return from_jax_state(*random_state(np.random.default_rng(4), 33, 3, 65,
+                                        1, 40), device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"weight_quant": "int2"}, "weight_quant"),
+    ({"kv_quant": "fp8"}, "kv_quant"),
+    ({"kv_quant": "int4"}, "kv_quant"),
+    ({"weight_quant": "int4", "odd": True}, "even"),
+], ids=["int2_weights", "fp8_kv", "int4_kv", "int4_odd_axes"])
+def test_quant_options_fail_at_construction(models, kwargs, match):
+    """As the JAX engine does: unknown modes, an int4 KV pool and int4
+    weights whose contracted axes cannot pack raise ValueError in the
+    constructor."""
+    kwargs = dict(kwargs)
+    tmods = _odd_model() if kwargs.pop("odd", False) else models[1]
+    with pytest.raises(ValueError, match=match):
         ServingEngine(*tmods, num_slots=2, max_seq_len=128, device="cpu",
                       **kwargs)
 

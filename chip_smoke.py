@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (paddle_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernels-only]
 
 Phases, in order; any failure exits non-zero:
   1. print the card, build every kernel from the sources in this checkout
@@ -14,25 +14,40 @@ Phases, in order; any failure exits non-zero:
      unmapped entry; flash attention causal and not, sq < sk, GQA, S in
      {37, 255, 1000}, D in {64, 128}, lse included; the int4 dequant-
      matmul at M in {1, 8, 37, 128, 512} for each of GPT-2's four (K, O),
-     the transposed qkv view included;
+     the transposed qkv view included; the dense-ring kernels (stacked,
+     stacked_i8 at Smax 128 and 1024, Sq 1, 16 and 128, GQA groups 1 and
+     2; the fused write kernels at lens 0, mid-tile, Smax - 1 and Smax,
+     their ring and scales after the call byte-equal to the plain
+     write's). --kernels-only stops here (exit 0, no result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
      same 16 greedy requests under each scheduler: the row-layout token
      budget, the flat token budget and the phase scheduler's bulk
      prefill, each fp and with kv_quant="int8", weight_quant="int4", and
-     the row budget with weight_quant="int8". Kernel launch counts are
-     zeroed just before each run and read just after; the row runs must
-     launch both paged forms (Sq=16 block, Sq=1 decode), the flat runs
-     the flat and the paged kernel, the phase runs flash attention and
-     the paged kernel — on an int8 pool always the int8 flavors and
-     never an fp attention kernel — and every int4 run the dequant-
-     matmul. The pool and weight bytes are read from the arrays;
+     the row budget with weight_quant="int8"; then over the dense ring
+     (paged=False) under each scheduler, fp, and the row budget with
+     kv_quant="int8". Kernel launch counts are zeroed just before each
+     run and read just after; the row runs must launch both forms of
+     their read kernel (Sq=16 block, Sq=1 decode), the flat runs the flat
+     and the paged kernel (a ring: the stacked kernel; its segments are
+     torch ops), the phase runs flash attention and the read kernel — on
+     an int8 cache always the int8 flavors and never an fp attention
+     kernel, over a ring never a paged kernel and vice versa — and every
+     int4 run the dequant-matmul. The pool, ring and weight bytes are
+     read from the arrays;
+  3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
+     rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
+     kv_quant="int8", each with cache_write_kernel off and on; every
+     run launches exactly its one ring kernel 12 times per hidden pass;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
      weight_quant="int8" on both: greedy tokens must be identical within
      each flavor (under an int8 pool the card's phase scheduler against
-     the CPU's phase scheduler: its bulk prefill attends exact K/V);
+     the CPU's phase scheduler: its bulk prefill attends exact K/V); the
+     dense engines (row, flat, phase fp; row int8 ring) against the
+     CPU's dense row engine of the same flavor; generate_fused fp and
+     int8 ring, cache_write_kernel off and on, against the CPU's;
   5. each kernel timed at the shapes its path gives it, beside its bound,
      its plain version and one PyTorch call (SDPA, or a matmul on a
      weight dequantized once) computing the same.
@@ -56,7 +71,8 @@ import torch.nn.functional as F
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
 from paddle_tpu_torch.inference.generation import (_absmax_int4,
-                                                   _absmax_int8, _pack_int4)
+                                                   _absmax_int8, _pack_int4,
+                                                   generate_fused)
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
@@ -76,6 +92,15 @@ FLAT_CASE = [(0, 0, 8), (0, 8, 5), (1, 13, 8), (2, 0, 0), (2, 21, 3),
 # quantized flavors served beside the fp one
 QUANT = {"kv8-w4": {"kv_quant": "int8", "weight_quant": "int4"},
          "w8": {"weight_quant": "int8"}}
+# the engine over the dense ring: run name -> (scheduler, keyword args)
+DENSE = {"row-dense": ("row", {"paged": False}),
+         "flat-dense": ("flat", {"paged": False}),
+         "phase-dense": ("phase", {"paged": False}),
+         "row-dense-kv8": ("row", {"paged": False, "kv_quant": "int8"})}
+# one-shot generate_fused: run name -> keyword args
+GENERATE = {"gen": {}, "gen-kw": {"cache_write_kernel": True},
+            "gen-kv8": {"kv_quant": "int8"},
+            "gen-kv8-kw": {"kv_quant": "int8", "cache_write_kernel": True}}
 # GPT-2's four layer matmuls: name -> (K, O)
 MATMULS = {"qkv": (E, 3 * E), "lin": (E, E), "f1": (E, FF), "f2": (FF, E)}
 
@@ -198,7 +223,74 @@ def phase_kernels(rng):
                       f"O={o} M={m}", fdm.fused_dequant_matmul(a, wp, s),
                       fdm.fused_dequant_matmul_reference(a, wp, s), tname,
                       worst)
+    stacked_kernels(rng, worst)
     return worst
+
+
+def stacked_kernels(rng, worst):
+    """The four dense-ring kernels against their plain versions: reads at
+    Smax 128 and 1024, Sq 1, 16 and 128, GQA groups 1 and 2, lens at 0,
+    mid-tile, Smax - Sq and past the middle; the write kernels at lens 0,
+    mid-tile, Smax - 1 and Smax (the dropped write), with the ring and
+    scales after the call byte-equal to the plain write's."""
+    b, h, d, n_layers, layer = 4, 4, 64, 2, 1
+    for dtype, tname in ((torch.bfloat16, "attention_bf16"),
+                         (torch.float32, "attention_fp32")):
+        for smax in (128, 1024):
+            for group in (1, 2):
+                hk = h // group
+                ring = randn(rng, (n_layers, 2, b, hk, smax, d), dtype)
+                kv8, sc = _absmax_int8(ring, -1)
+                sc = sc.transpose(-1, -2).contiguous()
+                for sq in (1, 16, 128):
+                    qt = randn(rng, (b, h, sq, d), dtype)
+                    lens = torch.tensor([0, 37, smax - sq, smax // 2 + 5],
+                                        dtype=torch.int32, device="cuda")
+                    label = (f"{str(dtype):15s} Smax={smax:4d} Sq={sq:3d} "
+                             f"group={group}")
+                    check(f"stacked          {label}",
+                          da.decode_attention_stacked(qt, ring, layer, lens),
+                          da.decode_attention_stacked_reference(
+                              qt, ring, layer, lens), tname, worst)
+                    check(f"stacked_i8       {label}",
+                          da.decode_attention_stacked_i8(qt, kv8, sc, layer,
+                                                         lens),
+                          da.decode_attention_stacked_i8_reference(
+                              qt, kv8, sc, layer, lens), tname, worst)
+                qt = randn(rng, (b, h, 1, d), dtype)
+                kv_new = randn(rng, (2, b, hk, 1, d), torch.float32)
+                lens = torch.tensor([0, 37, smax - 1, smax],
+                                    dtype=torch.int32, device="cuda")
+                label = f"{str(dtype):15s} Smax={smax:4d} group={group}"
+                rings = [ring.clone() for _ in range(2)]
+                _, got = da.decode_attention_stacked_write(
+                    qt, kv_new, rings[0], layer, lens)
+                _, want = da.decode_attention_stacked_write_reference(
+                    qt, kv_new, rings[1], layer, lens)
+                check(f"stacked_write    {label}", got, want, tname, worst)
+                same_bytes(f"stacked_write    {label} ring", *rings)
+                i8s = [(kv8.clone(), sc.clone()) for _ in range(2)]
+                *_, got = da.decode_attention_stacked_i8_write(
+                    qt, kv_new, *i8s[0], layer, lens)
+                *_, want = da.decode_attention_stacked_i8_write_reference(
+                    qt, kv_new, *i8s[1], layer, lens)
+                check(f"stacked_i8_write {label}", got, want, tname, worst)
+                same_bytes(f"stacked_i8_write {label} ring", i8s[0][0],
+                           i8s[1][0])
+                same_bytes(f"stacked_i8_write {label} scales", i8s[0][1],
+                           i8s[1][1])
+                if torch.equal(rings[0], ring) or not torch.equal(
+                        rings[0][:, :, 3], ring[:, :, 3]):
+                    raise SystemExit(f"stacked_write {label}: rows 0-2 must "
+                                     "land and the full row 3 must drop")
+
+
+def same_bytes(name, got, want):
+    """Fail unless the two tensors hold the same bytes."""
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+        raise SystemExit(f"{name}: differs from the plain version's bytes")
+    log(f"  {name}: byte-equal ok")
 
 
 def quantize_pool(pool):
@@ -292,15 +384,25 @@ def phase_engine(seed):
                 seed, sched + flavor,
                 {**kwargs, **QUANT.get(flavor[1:], {})})
     runs["row-w8"] = serve_counted(seed, "row-w8", QUANT["w8"])
+    for name, (sched, kwargs) in DENSE.items():
+        runs[name] = serve_counted(seed, name,
+                                   {**SCHEDULERS[sched], **kwargs})
     for name, run in runs.items():
-        kv8, w4 = "kv8" in name, "w4" in name
-        paged = "decode_attention_paged" + ("_i8" if kv8 else "")
-        need = {"row": [paged],
-                "flat": [paged.replace("paged", "paged_flat"), paged],
-                "phase": ["flash_attention_fwd", paged]}[name.split("-")[0]]
+        kv8, w4, dense = "kv8" in name, "w4" in name, "dense" in name
+        read = ("decode_attention_stacked" if dense
+                else "decode_attention_paged") + ("_i8" if kv8 else "")
+        need = {"row": [read],
+                # a ring's flat segments are torch ops (JAX: XLA ops)
+                "flat": [read] if dense else [
+                    read.replace("paged", "paged_flat"), read],
+                "phase": ["flash_attention_fwd", read]}[name.split("-")[0]]
         need += ["fused_dequant_matmul"] if w4 else []
-        banned = (["decode_attention_paged", "decode_attention_paged_flat"]
-                  if kv8 else [])
+        # a pool never runs a ring kernel nor a ring a pool kernel, an
+        # int8 cache never an fp attention kernel, and the engine never
+        # the fused write kernels
+        banned = [k for k in da.LAUNCHES
+                  if ("stacked" in k) != dense or (kv8 and "_i8" not in k)
+                  or "write" in k]
         got = run["launches"]
         if not all(got[k] for k in need) or any(got[k] for k in banned):
             raise SystemExit(f"the {name} run must launch {need} and none "
@@ -322,7 +424,10 @@ def check_bytes(runs):
             ("row-kv8-w4", "pool"): pos * (d + 4),
             ("row", "stack"): bias_ln + 2 * mats,
             ("row-w8", "stack"): bias_ln + mats + scales,
-            ("row-kv8-w4", "stack"): bias_ln + mats // 2 + scales}
+            ("row-kv8-w4", "stack"): bias_ln + mats // 2 + scales,
+            # the ring holds B x Smax positions, as many as the pool
+            ("row-dense", "pool"): pos * d * 2,
+            ("row-dense-kv8", "pool"): pos * (d + 4)}
     for (name, what), n in want.items():
         got = runs[name][what + "_bytes"]
         if got != n:
@@ -330,6 +435,50 @@ def check_bytes(runs):
                              f"{n}")
         log(f"  {name} {what} bytes {got} ({got / f[what + '_bytes']:.4f}"
             " of the fp run's)")
+
+
+def phase_generate(seed):
+    log("== phase 3b: generate_fused at GPT-2-124M width, bf16, L=12: B=8, "
+        "256-token prompts, 128 new tokens, max_seq_len=1024, fp and "
+        "kv_quant='int8', cache_write_kernel off and on")
+    rng = np.random.default_rng(seed + 3)
+    mods = from_jax_state(*random_state(rng, E, H, FF, 12, V),
+                          dtype=torch.bfloat16)
+    ids = rng.integers(0, V, (8, 256))
+    prompt, new = ids.shape[1], 128
+    # warm-up: cuBLAS handles, allocator pools
+    generate_fused(mods[0], ids[:, :4], *mods[1:], max_new_tokens=2)
+    launches = {}
+    for name, kwargs in GENERATE.items():
+        dec = FusedDecoder(*mods, 1024, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = dec.generate(ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: v for k, v in da.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        ring_b = sum(a.nbytes for a in dec.ring_caches(
+            dec.init_cache(ids.shape[0])).values())
+        kernel = ("decode_attention_stacked" + ("_i8" if "kv8" in name
+                                                else "")
+                  + ("_write" if "kw" in name else ""))
+        # one launch per layer of each of the prompt + new - 1 hidden
+        # passes, and no other attention kernel
+        want = {kernel: 12 * (prompt + new - 1)}
+        if tuple(out.shape) != (8, prompt + new) or got != want \
+                or fa.LAUNCHES["flash_attention_fwd"]:
+            raise SystemExit(f"[{name}] output {tuple(out.shape)}, "
+                             f"launches {got}: want (8, {prompt + new}) "
+                             f"and {want}")
+        log(f"  [{name}] {out.shape[0]} x ({prompt} + {new}) tokens in "
+            f"{dt:.3f} s: generated tokens/s {8 * new / dt:.1f}, hidden "
+            f"passes/s {(prompt + new - 1) / dt:.1f}; max_memory_allocated "
+            f"{peak} bytes, ring {ring_b} bytes; launches {got}")
+        launches[name] = dict(da.LAUNCHES)
+    return launches
 
 
 def reset_launches():
@@ -344,8 +493,9 @@ def serve_counted(seed, name, kwargs):
     counts, the pool and stacked-weight bytes and the peak memory."""
     fresh, reqs = gpt2_workload(seed, **kwargs)
     forms = collections.Counter()
-    attr = ("decode_attention_paged_i8" if kwargs.get("kv_quant") == "int8"
-            else "decode_attention_paged")
+    dense = kwargs.get("paged") is False
+    attr = (("decode_attention_stacked" if dense else "decode_attention_paged")
+            + ("_i8" if kwargs.get("kv_quant") == "int8" else ""))
     kernel = getattr(da, attr)
 
     def spy(qt, *a, **k):
@@ -364,11 +514,11 @@ def serve_counted(seed, name, kwargs):
         if len(toks) != want:
             raise SystemExit(f"{name}: request {rid} emitted {len(toks)} of "
                              f"{want}")
-    if m["kv_blocks_used"] + m["kv_blocks_free"] != m["kv_blocks_total"] \
-            or m["kv_blocks_used"]:
+    if not dense and (m["kv_blocks_used"] + m["kv_blocks_free"]
+                      != m["kv_blocks_total"] or m["kv_blocks_used"]):
         raise SystemExit(f"{name}: kv block accounting broke: {m}")
     if name.startswith("row") and (not forms.get(16) or not forms.get(1)):
-        raise SystemExit(f"kernel forms launched: {dict(forms)}; need "
+        raise SystemExit(f"{attr} forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
     n_prompt = sum(len(p) for p, _ in reqs)
     n_new = sum(w for _, w in reqs)
@@ -381,13 +531,14 @@ def serve_counted(seed, name, kwargs):
         f"{m['ttft_p99_s']:.4f} s; latency p50 {m['latency_p50_s']:.4f} s")
     log(f"  [{name}] budget steps {m['budget_steps']}, utilization "
         f"{m['budget_utilization']}, padding {m['budget_padding_tokens']}, "
-        f"paged kernel forms {dict(forms)}, launches {launches}")
+        f"{attr} forms (Sq: launches) {dict(forms)}, launches {launches}")
     peak = torch.cuda.max_memory_allocated()
     pool_b = sum(a.nbytes for a in fresh._caches.values())
     stack_b = sum(a.nbytes for a in fresh.dec._stacked().values())
     log(f"  [{name}] max_memory_allocated {peak} bytes, allocated at the "
-        f"end {torch.cuda.memory_allocated()} bytes; pool {pool_b} bytes, "
-        f"stacked weights {stack_b} bytes")
+        f"end {torch.cuda.memory_allocated()} bytes; "
+        f"{'ring' if dense else 'pool'} {pool_b} bytes, stacked weights "
+        f"{stack_b} bytes")
     return {"launches": launches, "pool_bytes": pool_b,
             "stack_bytes": stack_b, "peak": peak}
 
@@ -421,7 +572,9 @@ def phase_parity(seed):
              int(rng.integers(12, 25))) for _ in range(6)]
     flavors = {"fp": ({}, list(SCHEDULERS)),
                "kv8-w4": (QUANT["kv8-w4"], list(SCHEDULERS)),
-               "w8": (QUANT["w8"], ["row"])}
+               "w8": (QUANT["w8"], ["row"]),
+               "dense": ({"paged": False}, list(SCHEDULERS)),
+               "dense-kv8": ({"paged": False, "kv_quant": "int8"}, ["row"])}
     for fname, (flavor, scheds) in flavors.items():
         # an int8 pool makes the phase scheduler a computation of its own:
         # its bulk prefill attends the prompt over exact K/V and quantizes
@@ -450,7 +603,9 @@ def phase_parity(seed):
                     len(a), len(b))
                 mods = from_jax_state(*state, device="cpu",
                                       dtype=torch.float32)
-                margin = first_gap_margin(mods, reqs[i][0], b[:j], **flavor)
+                margin = first_gap_margin(
+                    mods, reqs[i][0], b[:j],
+                    **{k: v for k, v in flavor.items() if k != "paged"})
                 raise SystemExit(
                     f"[{fname}] request {i}: card ({name}) and CPU "
                     f"({oracle[name]}) tokens differ at index {j} "
@@ -460,6 +615,41 @@ def phase_parity(seed):
             f"{sum(len(t) for t in outs['cpu', 'row'])} tokens: each of "
             f"{', '.join(scheds)} on the card identical to "
             f"{' / '.join(cpu)} on the CPU")
+    parity_generate(state, rng)
+
+
+def parity_generate(state, rng):
+    """generate over the ring, fp and kv_quant="int8": the card's tokens
+    with cache_write_kernel off and on against the CPU's (write, then
+    read) of the same flavor."""
+    ids = rng.integers(0, V, (4, 48))
+    for fname, flavor in (("fp", {}), ("kv8", {"kv_quant": "int8"})):
+        outs = {}
+        for dev, kw in (("cuda", False), ("cuda", True), ("cpu", False)):
+            mods = from_jax_state(*state, device=dev, dtype=torch.float32)
+            t0 = time.perf_counter()
+            outs[dev, kw] = generate_fused(
+                mods[0], ids, *mods[1:], max_new_tokens=24,
+                max_seq_len=1024, cache_write_kernel=kw, device=dev,
+                **flavor).numpy()[:, 48:]
+            log(f"  [generate {fname}] {dev} cache_write_kernel={kw}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        want = outs["cpu", False]
+        for kw in (False, True):
+            got = outs["cuda", kw]
+            if np.array_equal(got, want):
+                continue
+            i = int(np.argmax((got != want).any(axis=1)))
+            j = int(np.argmax(got[i] != want[i]))
+            mods = from_jax_state(*state, device="cpu", dtype=torch.float32)
+            margin = first_gap_margin(mods, ids[i], want[i, :j], **flavor)
+            raise SystemExit(
+                f"[generate {fname}] row {i}: card (cache_write_kernel="
+                f"{kw}) and CPU tokens differ at index {j} "
+                f"({got[i, j:j + 4]} vs {want[i, j:j + 4]}); CPU top-2 "
+                f"logit margin there {margin:.3e}")
+        log(f"  [generate {fname}] {want.size} tokens: the card's with "
+            "cache_write_kernel off and on identical to the CPU's")
 
 
 def time_ms(fn, reps):
@@ -614,6 +804,78 @@ def phase_timing(seed):
     log("  fused_dequant_matmul at decode (M=8), the row block (M=128) and "
         "bulk prefill (M=512)")
     rows["fused_dequant_matmul"] = time_dequant_matmul(rng)
+    for quant in (False, True):
+        for write in (False, True):
+            name = ("decode_attention_stacked" + ("_i8" if quant else "")
+                    + ("_write" if write else ""))
+            log(f"  {name} at the ring's decode shape (B=8, Smax=1024)")
+            rows[name] = time_stacked(rng, quant, write)
+    return rows
+
+
+def time_stacked(rng, quant, write):
+    """A dense-ring kernel (``quant``: the int8 flavor; ``write``: the
+    fused write+attend) at generate's decode shape: B=8, H=12, D=64,
+    Smax=1024, bf16, the layer cycled over 12 (the rings exceed the L2),
+    every row at cache_lens 1023 with Sq=1 (the main shape), then at 512
+    with Sq=16 (Sq=1 for the write kernels, which write row 512 on every
+    launch). The library call is SDPA over the same positions (for the
+    write kernels the prefix plus the new token) sliced from the ring
+    into a contiguous bf16 view, dequantized for int8 (not timed)."""
+    b, h, d, smax, n_layers = 8, H, E // H, 1024, 12
+    ring = randn(rng, (n_layers, 2, b, h, smax, d), torch.bfloat16)
+    cache = (ring,)
+    if quant:
+        kv8, sc = _absmax_int8(ring, -1)
+        cache = (kv8, sc.transpose(-1, -2).contiguous())
+        ring = (kv8.float() * sc).to(torch.bfloat16)
+    fn = ("decode_attention_stacked" + ("_i8" if quant else "")
+          + ("_write" if write else ""))
+    kernel, plain = getattr(da, fn), getattr(da, fn + "_reference")
+    rows = []
+    for ln, sq in ((1023, 1), (512, 1 if write else 16)):
+        qt = randn(rng, (b, h, sq, d), torch.bfloat16)
+        lens = torch.full((b,), ln, dtype=torch.int32, device="cuda")
+        head = ()
+        if write:     # the new K/V arrive in the dtype the wrapper takes
+            head = (randn(rng, (2, b, h, 1, d),
+                          torch.float32 if quant else torch.bfloat16),)
+
+        def run_kernel(i=0, qt=qt, lens=lens, head=head):
+            out = kernel(qt, *head, *cache, i % n_layers, lens)
+            return out[-1] if write else out
+
+        def run_plain(i=0, qt=qt, lens=lens, head=head):
+            out = plain(qt, *head, *cache, i % n_layers, lens)
+            return out[-1] if write else out
+        s = ln + sq
+        if write:     # the prefix from the ring, the new token from kv_new
+            new = head[0].to(torch.bfloat16)
+            if quant:
+                nq, ns = _absmax_int8(head[0], -1)
+                new = (nq.float() * ns).to(torch.bfloat16)
+            kv = torch.cat([ring[:, :, :, :, :ln],
+                            new[None].expand(n_layers, -1, -1, -1, -1, -1)],
+                           dim=4).contiguous()
+        else:
+            kv = ring[:, :, :, :, :s].contiguous()
+        mask = (torch.arange(s, device="cuda")[None, :]
+                <= ln + torch.arange(sq, device="cuda")[:, None])
+
+        def run_sdpa(i=0, qt=qt, kv=kv, mask=mask):
+            kk = kv[i % n_layers]
+            return F.scaled_dot_product_attention(qt, kk[0], kk[1],
+                                                  attn_mask=mask)
+        per_pos = 2 * (d + 4) if quant else 2 * d * 2   # K and V (+ scales)
+        n_read = ln if write else s                     # positions read
+        nbytes = (b * h * n_read * per_pos + 2 * b * h * sq * d * 2
+                  + b * 4)
+        if write:     # kv_new in, the new row (+ scales) out
+            nbytes += head[0].numel() * head[0].element_size() \
+                + b * h * per_pos
+        flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
+        rows.append(timed_row({"cache_lens": ln, "sq": sq}, run_kernel,
+                              run_plain, run_sdpa, nbytes, flops, 200))
     return rows
 
 
@@ -708,6 +970,8 @@ def time_paged(rng, quant=False):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-2 only: build and check the kernels")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -732,7 +996,12 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     worst = phase_kernels(rng)
+    if args.kernels_only:
+        log(f"  worst phase-2 errors: {worst}; --kernels-only: phases 3-5 "
+            "not run")
+        return 0
     launches = phase_engine(args.seed)
+    launches.update(phase_generate(args.seed))
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
@@ -742,6 +1011,7 @@ def main(argv=None):
     # engine spends most time at, and the worst error over its phase-5
     # shapes (each checked there)
     decode = (lambda r: r["cache_lens"] == 1024 and r["sq"] == 1)
+    ring_main = (lambda r: r["cache_lens"] == 1023 and r["sq"] == 1)
     table = (("decode_attention_paged", "row", "decode_attention.py:1027",
               decode),
              ("decode_attention_paged_flat", "flat",
@@ -754,7 +1024,15 @@ def main(argv=None):
               "decode_attention.py:1406", lambda r: True),
              ("fused_dequant_matmul", "row-kv8-w4",
               "fused_dequant_matmul.py:126",
-              lambda r: r["matmul"] == "f1" and r["m"] == 8))
+              lambda r: r["matmul"] == "f1" and r["m"] == 8),
+             ("decode_attention_stacked", "gen", "decode_attention.py:401",
+              ring_main),
+             ("decode_attention_stacked_i8", "gen-kv8",
+              "decode_attention.py:502", ring_main),
+             ("decode_attention_stacked_write", "gen-kw",
+              "decode_attention.py:669", ring_main),
+             ("decode_attention_stacked_i8_write", "gen-kv8-kw",
+              "decode_attention.py:843", ring_main))
     kernels = []
     for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))

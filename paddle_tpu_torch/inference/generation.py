@@ -1,25 +1,39 @@
-"""FusedDecoder: the step cores of the serving path.
+"""FusedDecoder: the step cores of the serving path and one-shot
+generation.
 
-Counterpart of the paged, greedy subset of
-``paddle_tpu/inference/generation.py::FusedDecoder``: the ``_stacked``
-weight layout (qkv fused head-major), ``init_paged_cache``, the per-layer
-step pieces (``ln``, ``qkv_of``, ``proj_ffn_tail``, ``paged_write``,
-``attend``, ``layer_step``), the four hidden cores (``hidden`` for one
-token per row, ``spec_hidden`` for a [B, C] block, ``flat_hidden`` for
-the flat budget's ragged [T] stream, ``bulk_hidden`` for a whole prompt)
-and the dispatches the serving engine builds from them
-(``_build_budget_core``, ``_build_flat_budget_core`` and the trailing
-decode scan ``_make_budget_tail``).
+Counterpart of the greedy subset of
+``paddle_tpu/inference/generation.py::FusedDecoder`` and
+``generate_fused``: the ``_stacked`` weight layout (qkv fused
+head-major), the two KV layouts (``init_paged_cache``, the block pool
+the engine defaults to, and ``init_cache``, the dense ring [L, 2, B, H,
+Smax, D] of ``generate`` and ``ServingEngine(paged=False)``), the
+per-layer step pieces (``ln``, ``qkv_of``, ``proj_ffn_tail``,
+``kv_write``, ``attend``, ``write_attend``, ``layer_step``), the four
+hidden cores (``hidden`` for one token per row, ``spec_hidden`` for a
+[B, C] block, ``flat_hidden`` for the flat budget's ragged [T] stream,
+``bulk_hidden`` for a whole prompt), the dispatches the serving engine
+builds from them (``_build_budget_core``, ``_build_flat_budget_core``
+and the trailing decode scan ``_make_budget_tail``), and ``generate``.
+
+The step pieces take the caches as a dict: ``{"kv"(, "sc")}`` is a dense
+ring (int8 with fp32 scales [L, 2, B, H, 1, Smax] under
+``kv_quant="int8"``), and the paged pool's dict also carries the
+dispatch's block tables as ``"tbl"``.
 
 Where JAX traced a pure function, the port runs eagerly: the layer loop
-is a Python loop, and the KV pool is updated IN PLACE (a write through
-the block table lands in ``caches["kv"]`` directly, where JAX returned a
-new array). Attention goes through the wrappers of ``ops`` — the CUDA
-kernels on the card, their plain versions on the CPU:
-``decode_attention.decode_attention_paged`` (decode rows, budget
-blocks), ``decode_attention.decode_attention_paged_flat`` (the flat
-stream's segments) and ``flash_attention.flash_attention`` (bulk
-prefill). Each is looked up on its module at call time.
+is a Python loop, and the KV cache is updated IN PLACE (a write through
+the block table, or at a ring position, lands in ``caches["kv"]``
+directly, where JAX returned a new array). Attention goes through the
+wrappers of ``ops`` — the CUDA kernels on the card, their plain versions
+on the CPU: ``decode_attention.decode_attention_paged`` and
+``decode_attention_stacked`` (decode rows and budget blocks over the pool
+and the ring), ``decode_attention.decode_attention_paged_flat`` (the flat
+stream's segments over the pool; over a ring they stay torch ops, as
+JAX's are XLA ops), ``flash_attention.flash_attention`` (bulk prefill)
+and, with ``cache_write_kernel=True`` (JAX:
+``PADDLE_TPU_KERNEL_CACHE_WRITE=1``), ``decode_attention_stacked_write``
+for a ring's one-token steps. Each is looked up on its module at call
+time.
 
 Quantized serving: ``weight_quant="int8"|"int4"`` quantizes the stacked
 layer weights per (layer, out-channel) with the module-level absmax
@@ -27,14 +41,17 @@ recipes (``_absmax_int8``, ``_absmax_int4``, ``_pack_int4``), bit-equal
 to JAX's; ``mm_p`` applies int8 weights as a matmul on the integer
 values with the scale after it, and int4 weights (packed two nibbles a
 byte along the contracted axis) through ``ops.fused_dequant_matmul``.
-``kv_quant="int8"`` gives the pool an int8 flavor with fp32 scales per
-(layer, kv, block, head, position); every write quantizes its new rows
-with ``_absmax_int8`` and the reads take
-``decode_attention.decode_attention_paged_i8`` and
-``decode_attention_paged_flat_i8``. The LM head stays fp.
+``kv_quant="int8"`` gives the pool and the ring an int8 flavor with fp32
+scales per (layer, kv, block or row, head, position); every write
+quantizes its new rows with ``_absmax_int8`` and the reads take
+``decode_attention.decode_attention_paged_i8``,
+``decode_attention_paged_flat_i8`` and ``decode_attention_stacked_i8``
+(``decode_attention_stacked_i8_write`` quantizes in the kernel). The LM
+head stays fp.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,7 +60,7 @@ from ..ops import decode_attention as _attn
 from ..ops import flash_attention as _fa
 from ..ops import fused_dequant_matmul as _fdm
 
-__all__ = ["FusedDecoder"]
+__all__ = ["FusedDecoder", "generate_fused"]
 
 NEG_INF = -1e30
 
@@ -55,7 +72,11 @@ def _absmax_int8(w, axis, qmax=127):
     to-even of w / max(scale, 1e-8) clipped to [-qmax, qmax]. Returns
     (int8 tensor, fp32 scales)."""
     a = w.float()
-    s = a.abs().amax(dim=axis, keepdim=True) / qmax
+    # divide by a tensor on a's device: CUDA turns a division by a host
+    # scalar into a multiplication by its reciprocal, which can round the
+    # last bit differently from JAX's (and the kernels') true division
+    s = a.abs().amax(dim=axis, keepdim=True) / torch.full(
+        (), qmax, dtype=torch.float32, device=a.device)
     q = torch.round(a / s.clamp(min=1e-8)).clamp(-qmax, qmax)
     return q.to(torch.int8), s
 
@@ -91,15 +112,25 @@ def _penalize_slots(logits, nt, min_len, eos_ids):
 
 
 class FusedDecoder:
-    """Greedy paged decode around a FusedMultiTransformer, an embedding
-    and an LM head (moved to ``device``, default ``cuda``)."""
+    """Greedy decode around a FusedMultiTransformer, an embedding and an
+    LM head (moved to ``device``, default ``cuda``), over the paged pool
+    or the dense ring. ``cache_write_kernel=True`` is the JAX package's
+    ``PADDLE_TPU_KERNEL_CACHE_WRITE=1``: a ring's one-token steps land
+    their K/V inside the fused write+attend kernels instead of a write
+    followed by the read kernel. ``head_quant="int8"`` (JAX:
+    ``PADDLE_TPU_DECODE_INT8_HEAD=1``) is not ported yet."""
 
     def __init__(self, fmt, embed, head, max_seq_len, use_rotary=False,
-                 weight_quant=None, kv_quant=None, device=None):
+                 weight_quant=None, kv_quant=None, cache_write_kernel=False,
+                 head_quant=None, device=None):
         if use_rotary:
             raise NotImplementedError(
                 "use_rotary: rotary embeddings are not ported yet "
                 "(ROADMAP Queue 1 item 3, rope_block)")
+        if head_quant not in (None, "none"):
+            raise NotImplementedError(
+                f"head_quant={head_quant!r}: the int8 LM head is not ported "
+                "yet (ROADMAP Queue 1 item 3, _maybe_quant_head)")
         if weight_quant not in (None, "none", "int8", "int4"):
             raise ValueError(
                 f"weight_quant={weight_quant!r}: expected 'none', "
@@ -121,6 +152,7 @@ class FusedDecoder:
         self.smax = -(-int(max_seq_len) // 128) * 128
         self._weight_quant_arg = weight_quant
         self._kv_quant_arg = kv_quant
+        self.cache_write_kernel = bool(cache_write_kernel)
         self._stk_cache = None
         if self._weight_quant_mode() == "int4":
             self._validate_int4_dims()
@@ -203,6 +235,31 @@ class FusedDecoder:
                 out[k], out[k + "_s"] = torch.stack(qs), torch.stack(ss)
         self._stk_cache = (sig, out)
         return out
+
+    def init_cache(self, batch, dtype=None):
+        """The dense ring [L, 2, batch, H, Smax, D] in the weights' dtype
+        (or ``dtype``), zeroed; under kv_quant="int8" the pair (int8 ring,
+        fp32 scales [L, 2, batch, H, 1, Smax]), positions on the scales'
+        last axis. ``ring_caches`` turns either into the step pieces'
+        dict."""
+        f = self.fmt
+        dtype = dtype or f.qkv_weights[0].dtype
+        shape = (f.num_layers, 2, int(batch), f.num_heads, self.smax,
+                 f.head_dim)
+        if self._int8_cache():
+            return (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    torch.zeros(shape[:4] + (1, self.smax),
+                                dtype=torch.float32, device=self.device))
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    @staticmethod
+    def ring_caches(cache):
+        """``init_cache``'s ring (or int8 pair) as the caches dict the step
+        pieces take: {"kv": ring(, "sc": scales)}; the tensors are shared,
+        not copied."""
+        if isinstance(cache, tuple):
+            return {"kv": cache[0], "sc": cache[1]}
+        return {"kv": cache}
 
     def init_paged_cache(self, pool, dtype=None):
         """The one KV pool {"kv": [L, 2, NB, H, Bt, D]} for a BlockPool;
@@ -289,57 +346,129 @@ class FusedDecoder:
         blk = blk.reshape(tv.shape)
         return torch.where(ji < nblk, blk, torch.full_like(blk, nb)), tv % bt
 
-    def write_targets(self, caches, tv):
-        """(block, offset, selector) of the writes that land: positions
-        resolving to the sentinel are dropped here, as JAX's scatter
-        with mode="drop" drops them (a write never lands in block NB-1 by
-        clamping). Computed once per hidden pass; every layer reuses it."""
+    def write_targets(self, caches, tv, slots=None):
+        """Where the writes of positions tv ([B] or [B, Sq], or one int
+        for every row) land: positions resolving to nowhere are dropped
+        here, as JAX's scatter with mode="drop" drops them (a write is
+        never clamped into a neighbour). Paged: (block, offset, selector)
+        through the table rows ``slots`` index (default: row b of the
+        table for row b of tv); a position past the table or an unmapped
+        entry drops. Ring: (row, position, selector), row ``slots``
+        (default b), a position >= Smax drops; an int t is a slice write
+        at t (None: dropped). Computed once per hidden pass; every layer
+        reuses it."""
+        if "tbl" not in caches:
+            if isinstance(tv, int):
+                return tv if tv < self.smax else None
+            if slots is None:
+                slots = torch.arange(tv.shape[0], device=tv.device)
+                if tv.dim() == 2:
+                    slots = slots[:, None].expand_as(tv)
+            keep = (tv < self.smax).nonzero(as_tuple=True)
+            return slots[keep].long(), tv[keep].long(), keep
+        tbl = caches["tbl"] if slots is None else caches["tbl"][slots]
         nb = caches["kv"].shape[2]
-        blk, off = self._paged_blk_off(caches["tbl"], tv, nb)
+        blk, off = self._paged_blk_off(tbl, tv, nb)
         keep = (blk < nb).nonzero(as_tuple=True)
         return blk[keep], off[keep].long(), keep
 
-    def paged_write(self, caches, l, targets, kv_new):
-        """Scatter the new K/V rows kv_new [2, B, H, Sq, D] of layer l into
-        the pool, in place, through ``write_targets``. An int8 pool takes
-        each row quantized (``_absmax_int8`` over D) and its scale, at the
-        same targets."""
+    def kv_write(self, caches, l, targets, kv_new):
+        """Land the new K/V rows kv_new [2, B, H, Sq, D] of layer l in the
+        pool or the ring, in place, at ``write_targets``. An int8 cache
+        takes each row quantized (``_absmax_int8`` over D) and its scale,
+        at the same targets."""
+        if targets is None:
+            return
+        if "sc" in caches:
+            kv_new, sc_new = _absmax_int8(kv_new, -1)
+        if isinstance(targets, int):     # a ring's slice write at t
+            caches["kv"][l, :, :, :, targets] = kv_new[:, :, :, 0]
+            if "sc" in caches:
+                caches["sc"][l, :, :, :, 0, targets] = sc_new[:, :, :, 0, 0]
+            return
         blk, off, keep = targets
 
         def rows(a):              # [2, B, H, Sq, ...] -> the kept rows
             a = a.permute(1, 3, 0, 2, *range(4, a.dim()))  # [B, Sq, 2, H, .]
             return (a[:, 0] if len(keep) == 1 else a)[keep]   # tv was [B]
-        pool_l = caches["kv"][l].permute(1, 3, 0, 2, 4)   # [NB, Bt, 2, H, D]
+        # [NB, Bt, 2, H, D] of the pool, [B, Smax, 2, H, D] of a ring
+        kv_l = caches["kv"][l].permute(1, 3, 0, 2, 4)
+        kv_l[blk, off] = rows(kv_new).to(kv_l.dtype)
         if "sc" in caches:
-            q_new, sc_new = _absmax_int8(kv_new, -1)
-            pool_l[blk, off] = rows(q_new)
             sc_l = caches["sc"][l, :, :, :, 0].permute(1, 3, 0, 2)
-            sc_l[blk, off] = rows(sc_new[..., 0])     # [NB, Bt, 2, H]
-            return
-        pool_l[blk, off] = rows(kv_new).to(pool_l.dtype)
+            sc_l[blk, off] = rows(sc_new[..., 0])
+
+    @staticmethod
+    def _lens_arg(t, b, device):
+        # int32 [B] positions for the kernels: t is [B] or one int
+        if isinstance(t, int):
+            return torch.full((b,), t, dtype=torch.int32, device=device)
+        return t.to(torch.int32).contiguous()
 
     def attend(self, q, caches, l, t):
-        # q: [B, Sq, H, D]; t: [B] base positions — query row j attends
-        # cache positions <= t + j. Looked up on the module at call time.
+        # q: [B, Sq, H, D]; t: [B] base positions (or one int) — query row
+        # j attends cache positions <= t + j. Looked up on the module at
+        # call time.
         qt = q.transpose(1, 2).contiguous()
-        tb = t.to(torch.int32).contiguous()
-        if "sc" in caches:
-            o = _attn.decode_attention_paged_i8(qt, caches["kv"], caches["sc"],
+        tb = self._lens_arg(t, q.shape[0], q.device)
+        kv = caches["kv"]
+        if "tbl" not in caches:
+            if "sc" in caches:
+                o = _attn.decode_attention_stacked_i8(qt, kv, caches["sc"],
+                                                      l, tb)
+            else:
+                o = _attn.decode_attention_stacked(qt, kv, l, tb)
+        elif "sc" in caches:
+            o = _attn.decode_attention_paged_i8(qt, kv, caches["sc"],
                                                 caches["tbl"], l, tb)
         else:
-            o = _attn.decode_attention_paged(qt, caches["kv"], caches["tbl"],
-                                             l, tb)
+            o = _attn.decode_attention_paged(qt, kv, caches["tbl"], l, tb)
+        return o.transpose(1, 2)
+
+    def _fused_write(self, caches, b, dtype):
+        """Whether a one-token step over ``caches`` lands its K/V inside
+        the fused write+attend kernels: cache_write_kernel on, a ring,
+        and a shape they take (JAX's ``kw_on`` and its gate)."""
+        if not self.cache_write_kernel or "tbl" in caches:
+            return False
+        f = self.fmt
+        q_shape = (b, 1, f.num_heads, f.head_dim)
+        if "sc" in caches:
+            return _attn.stacked_i8_write_is_supported(
+                q_shape, tuple(caches["kv"].shape), dtype)
+        return _attn.stacked_write_is_supported(
+            q_shape, tuple(caches["kv"].shape), dtype, caches["kv"].dtype)
+
+    def write_attend(self, q, kv_new, caches, l, t):
+        """The fused write+attend of one token per row over a ring: q [B,
+        1, H, D], kv_new [2, B, H, 1, D]; row b's K/V land at t[b] inside
+        the kernel (int8: quantized there) and q attends the prefix < t[b]
+        plus itself."""
+        qt = q.transpose(1, 2).contiguous()
+        tb = self._lens_arg(t, q.shape[0], q.device)
+        if "sc" in caches:
+            *_, o = _attn.decode_attention_stacked_i8_write(
+                qt, kv_new, caches["kv"], caches["sc"], l, tb)
+        else:
+            _, o = _attn.decode_attention_stacked_write(
+                qt, kv_new, caches["kv"], l, tb)
         return o.transpose(1, 2)
 
     def layer_step(self, x, p, caches, l, t, targets):
+        """One layer over [B, Sq] tokens at base positions t: K/V written at
+        ``targets`` then attended, or with targets "fused" through
+        ``write_attend``."""
         f = self.fmt
         residual = x
         h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
         b, kp = h.shape[0], h.shape[1]
         q, k, v = self.qkv_of(h, p)
         kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
-        self.paged_write(caches, l, targets, kv_new)
-        attn = self.attend(q, caches, l, t)
+        if isinstance(targets, str):
+            attn = self.write_attend(q, kv_new, caches, l, t)
+        else:
+            self.kv_write(caches, l, targets, kv_new)
+            attn = self.attend(q, caches, l, t)
         return self.proj_ffn_tail(
             residual, attn.reshape(b, kp, f.num_heads * f.head_dim), p)
 
@@ -348,11 +477,15 @@ class FusedDecoder:
                 for i in range(self.fmt.num_layers)]
 
     def hidden(self, stk, caches, tok, t):
-        """tok [B], t [B] per-row positions -> x [B, 1, E]; every row's K/V
-        is written at its position t (unless it resolves to the
-        sentinel)."""
+        """tok [B], t [B] per-row positions or one int (a ring only) -> x
+        [B, 1, E]; every row's K/V is written at its position t (unless it
+        resolves to nowhere)."""
         x = self.embed(tok[:, None])
-        targets = self.write_targets(caches, t)
+        if self._fused_write(caches, x.shape[0], x.dtype):
+            targets = "fused"
+        else:
+            targets = self.write_targets(caches, t)
+        t = self._lens_arg(t, x.shape[0], x.device)
         for l, p in enumerate(self._layers(stk)):
             x = self.layer_step(x, p, caches, l, t, targets)
         return x
@@ -374,30 +507,41 @@ class FusedDecoder:
         """``write_targets`` of the flat stream: token i writes its slot
         tslot[i]'s position tpos[i]. Pad tokens carry the slot sentinel
         b and drop, as does a position past the table or an unmapped
-        entry (never clamped into block NB - 1)."""
-        rows = caches["tbl"][tslot.clamp(max=b - 1)]
+        entry (never clamped into block NB - 1) or a position >= Smax of
+        a ring."""
         tv = torch.where(tslot < b, tpos, torch.full_like(tpos, self.smax))
-        return self.write_targets(dict(caches, tbl=rows), tv)
+        return self.write_targets(caches, tv, slots=tslot.clamp(max=b - 1))
 
     def flat_write(self, caches, l, targets, kv_new):
-        """Scatter the stream's K/V kv_new [2, 1, H, T, D] of layer l into
-        the pool, in place: each token is a row of one position."""
-        self.paged_write(caches, l, targets,
-                         kv_new[:, 0].transpose(1, 2)[:, :, :, None])
+        """Land the stream's K/V kv_new [2, 1, H, T, D] of layer l, in
+        place: each token is a row of one position."""
+        self.kv_write(caches, l, targets,
+                      kv_new[:, 0].transpose(1, 2)[:, :, :, None])
 
     def flat_attend_seg(self, q_s, caches, l, cmeta, b):
         """The segment region's attention: q_s [Ts, H, D] in aligned
         single-slot chunks with cmeta = (cslot, cbase, cn) int32 per
-        chunk. The kernel takes every block size the engine makes, so
-        there is no gather fallback on the card."""
+        chunk. Over the pool the flat kernel takes every block size the
+        engine makes, so there is no gather fallback on the card. Over a
+        ring the segments are torch ops, as JAX's are XLA ops: the plain
+        flat attention with the ring read as a pool of one block per slot
+        (``ring_table``)."""
         cslot, cbase, cn = cmeta
+        slot = cslot.clamp(max=b - 1)
+        if "tbl" not in caches:
+            tbl = _attn.ring_table(b, q_s.device)
+            if "sc" in caches:
+                return _attn.decode_attention_paged_flat_i8_reference(
+                    q_s, caches["kv"], caches["sc"], tbl, slot, cbase, cn, l)
+            return _attn.decode_attention_paged_flat_reference(
+                q_s, caches["kv"], tbl, slot, cbase, cn, l)
         if "sc" in caches:
             return _attn.decode_attention_paged_flat_i8(
                 q_s.contiguous(), caches["kv"], caches["sc"], caches["tbl"],
-                cslot.clamp(max=b - 1), cbase, cn, l)
+                slot, cbase, cn, l)
         return _attn.decode_attention_paged_flat(
-            q_s.contiguous(), caches["kv"], caches["tbl"],
-            cslot.clamp(max=b - 1), cbase, cn, l)
+            q_s.contiguous(), caches["kv"], caches["tbl"], slot, cbase, cn,
+            l)
 
     def flat_layer_step(self, x, p, caches, l, tpos, targets, cmeta, b):
         """One layer over the whole [1, T] stream: dense ops on every
@@ -550,3 +694,117 @@ class FusedDecoder:
                 min_len)
             return tok0, emit0, ys, tok, lens, active, nt
         return flat_budget
+
+    # ------------------------------------------------- one-shot generation
+    def _refuse_out_of_slice(self, do_sample, num_beams, prefix_cache,
+                             spec_k, repetition_penalty):
+        for name, off, item in (
+                ("do_sample", not do_sample, "item 4 (sampling parity)"),
+                ("num_beams", num_beams <= 1, "item 3 (beam search)"),
+                ("prefix_cache", prefix_cache is None,
+                 "item 6(c) (prefix caching)"),
+                ("spec_k", not spec_k, "item 6(d) (speculative decoding)"),
+                ("repetition_penalty", repetition_penalty == 1.0,
+                 "item 3 (_penalize)")):
+            if not off:
+                raise NotImplementedError(
+                    f"generate({name}=...) selects a path the PyTorch port "
+                    f"does not have yet: ROADMAP Queue 1 {item}")
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=20, eos_token_id=None,
+                 do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
+                 num_beams=1, length_penalty=1.0, min_length=0,
+                 repetition_penalty=1.0, prefix_cache=None, spec_k=0):
+        """Greedy generation over a dense ring of B rows: the prompt
+        [B, S] is prefilled one position at a time (the JAX package's
+        chunked prefill scan; its chunk ladder only groups dispatches),
+        the LM head samples the first token from the last hidden state,
+        then decode runs in chunks of 8 steps with eos (64 without),
+        checking between chunks whether every row has finished. A
+        finished row emits eos; min_length suppresses eos while fewer
+        tokens exist. Returns int64 [B, S + generated] on the CPU: when
+        every row has finished, cut after the step where the last row
+        emitted its first eos."""
+        self._refuse_out_of_slice(do_sample, num_beams, prefix_cache, spec_k,
+                                  repetition_penalty)
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids).astype(np.int64)
+        if ids.ndim != 2 or ids.shape[1] < 1:
+            raise ValueError(f"input_ids must be [B, S >= 1], got "
+                             f"{ids.shape}")
+        b, prompt = ids.shape
+        if prompt + max_new_tokens > self.smax:
+            raise ValueError(f"max_seq_len {self.smax} < prompt {prompt} + "
+                             f"max_new_tokens {max_new_tokens}")
+        stk = self._stacked()
+        caches = self.ring_caches(self.init_cache(b))
+        toks = torch.from_numpy(ids).to(self.device)
+        for pos in range(prompt):
+            last_x = self.hidden(stk, caches, toks[:, pos], pos)
+        eos = None if eos_token_id is None else int(eos_token_id)
+        eos_ids = torch.full((b,), -1 if eos is None else eos,
+                             dtype=torch.int64, device=self.device)
+        min_len = torch.full_like(eos_ids, int(min_length))
+
+        def next_token(x, nt):
+            logits = self.head_logits(x).reshape(b, -1)
+            return _penalize_slots(logits, torch.full_like(eos_ids, nt),
+                                   min_len, eos_ids).argmax(-1)
+        nxt = next_token(last_x, 0)
+        parts = [nxt[:, None]]
+        finished = (nxt == eos) if eos is not None else None
+        remaining = max_new_tokens - 1
+        if eos is not None and bool(finished.all()):
+            remaining = 0                 # every row ended at prefill
+        cap = 8 if eos is not None else 64
+        t = prompt
+        while remaining > 0:
+            chunk = cap
+            while chunk > remaining:
+                chunk //= 2
+            for _ in range(chunk):
+                x = self.hidden(stk, caches, nxt, t)
+                nxt = next_token(x, t - prompt + 1)
+                if eos is not None:
+                    nxt = torch.where(finished, torch.full_like(nxt, eos),
+                                      nxt)
+                    finished = finished | (nxt == eos)
+                parts.append(nxt[:, None])
+                t += 1
+            remaining -= chunk
+            if eos is not None and bool(finished.all()):
+                break
+        gen = torch.cat(parts, 1).cpu().numpy()
+        if eos is not None and bool(finished.all()):
+            first_eos = np.argmax(gen == eos, axis=1)   # rows all have one
+            gen = gen[:, :int(first_eos.max()) + 1]
+        return torch.from_numpy(np.concatenate([ids, gen], axis=1))
+
+
+def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
+                   max_seq_len=None, eos_token_id=None, do_sample=False,
+                   top_k=0, top_p=1.0, temperature=1.0, use_rotary=False,
+                   num_beams=1, length_penalty=1.0, min_length=0,
+                   repetition_penalty=1.0, prefix_cache=None, spec_k=0,
+                   weight_quant=None, kv_quant=None, cache_write_kernel=False,
+                   head_quant=None, device=None):
+    """One-shot generation over FusedDecoder: a decoder whose ring holds
+    ``max_seq_len`` positions (default prompt + max_new_tokens), then
+    ``generate``. The quantization and ``cache_write_kernel`` keywords
+    stand for the JAX package's environment knobs
+    (PADDLE_TPU_DECODE_INT8_CACHE, ..._INT8_WEIGHTS / ..._INT4_WEIGHTS,
+    PADDLE_TPU_KERNEL_CACHE_WRITE)."""
+    prompt = np.shape(input_ids.cpu() if torch.is_tensor(input_ids)
+                      else input_ids)[1]
+    dec = FusedDecoder(fmt, embed, head,
+                       max_seq_len or prompt + max_new_tokens,
+                       use_rotary=use_rotary, weight_quant=weight_quant,
+                       kv_quant=kv_quant,
+                       cache_write_kernel=cache_write_kernel,
+                       head_quant=head_quant, device=device)
+    return dec.generate(input_ids, max_new_tokens, eos_token_id, do_sample,
+                        top_k, top_p, temperature, num_beams=num_beams,
+                        length_penalty=length_penalty, min_length=min_length,
+                        repetition_penalty=repetition_penalty,
+                        prefix_cache=prefix_cache, spec_k=spec_k)

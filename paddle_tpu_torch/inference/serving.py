@@ -1,8 +1,10 @@
-"""Continuous-batching serving engine over the paged KV pool.
+"""Continuous-batching serving engine over the paged KV pool or the dense
+KV ring.
 
 Counterpart of ``paddle_tpu/inference/serving.py::ServingEngine`` with
-greedy decoding over the paged block pool, under one of three
-schedulers:
+greedy decoding over the paged block pool (the default) or, with
+``paged=False``, a dense ring of one Smax-position row per slot, under
+one of three schedulers:
 
 - the row-layout token budget (the default): admission is bookkeeping
   (an admitted slot enters ``prefilling``); every step packs the decode
@@ -23,7 +25,9 @@ together (see ``generation``).
 Under either budget, a step with only decode rows runs the plain
 ``decode_chunk``-step scan instead, which moves more tokens. Host state
 (lens, counts, block tables) lives in numpy and crosses to the device
-once per dispatch.
+once per dispatch. A dense engine has no pool: no block reservation, no
+tables, and ``metrics()`` reports the ``kv_blocks_*`` and ``kv_shard_*``
+gauges as None.
 
 Every constructor argument that selects a path outside this slice
 raises NotImplementedError naming its ROADMAP item; the engine reads no
@@ -54,8 +58,6 @@ _OUT_OF_SLICE = {
     "prefix_cache_blocks": ((0, None), "Queue 1 item 6(c) (prefix caching)"),
     "prefix_cache": ((None,), "Queue 1 item 6(c) (prefix caching)"),
     "spec_k": ((None, 0), "Queue 1 item 6(d) (speculative decoding)"),
-    "paged": ((None, True),
-              "Queue 2, decode_attention_stacked (dense ring)"),
     "kv_pool": ((None,), "Queue 1 item 5 (BlockPool sharing, copy_block)"),
     "kv_pool_blocks": ((None,), "Queue 1 item 6(f) (explicit pool budget)"),
     "role": ((None, "mixed"), "Queue 1 item 6(f) (prefill/decode roles)"),
@@ -123,7 +125,7 @@ class ServingEngine:
                      enable_repetition_penalty=enable_repetition_penalty,
                      use_rotary=use_rotary, max_pending=max_pending,
                      prefix_cache_blocks=prefix_cache_blocks,
-                     prefix_cache=prefix_cache, spec_k=spec_k, paged=paged,
+                     prefix_cache=prefix_cache, spec_k=spec_k,
                      kv_pool=kv_pool, kv_pool_blocks=kv_pool_blocks,
                      role=role)
         for name, value in given.items():
@@ -132,6 +134,15 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}) selects a path the "
                     f"PyTorch port does not have yet: ROADMAP {item}")
+        self.paged = paged is None or bool(paged)
+        if weight_quant == "int4" and not self.paged:
+            # JAX's refusal: int4 packed weights are a paged-serving memory
+            # feature; the dense ring costs B x Smax regardless
+            raise ValueError(
+                "weight_quant='int4' with a dense KV ring: this engine "
+                "resolved to the dense layout (paged=False) — int4 packed "
+                "weights are a paged-serving memory feature; use "
+                "paged=True or drop weight_quant")
         self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
                                 weight_quant=weight_quant,
                                 kv_quant=kv_quant, device=device)
@@ -147,7 +158,8 @@ class ServingEngine:
         self.prefill_cap = cap
         # the pool block size IS prefill_cap; the default pool holds
         # B x Smax/Bt blocks, so every admissible request fits
-        self.pool = BlockPool(b * (self.smax // cap), cap, self.smax)
+        self.pool = (BlockPool(b * (self.smax // cap), cap, self.smax)
+                     if self.paged else None)
         self._kv_reserved = 0
         tb = int(token_budget if token_budget is not None
                  else b * 4 * self.decode_chunk)
@@ -172,9 +184,13 @@ class ServingEngine:
         self._slo = slo if slo is not None else SloPolicy()
         self._results_cap = self.telemetry.ring or DEFAULT_RING
 
-        self._caches = self.dec.init_paged_cache(self.pool)
-        self._tables = np.full((b, self.smax // cap), self.pool.num_blocks,
-                               np.int32)
+        if self.paged:
+            self._caches = self.dec.init_paged_cache(self.pool)
+            self._tables = np.full((b, self.smax // cap),
+                                   self.pool.num_blocks, np.int32)
+        else:
+            self._caches = self.dec.ring_caches(self.dec.init_cache(b))
+            self._tables = None
         self._lens = np.zeros(b, np.int64)
         self._active = np.zeros(b, bool)
         self._nt = np.zeros(b, np.int64)
@@ -266,6 +282,8 @@ class ServingEngine:
 
     def metrics(self):
         tele = self.telemetry
+        # a dense ring has no pool: its block and shard gauges are None
+        pool, paged = self.pool, self.paged
         w_bytes = sum(a.numel() * a.element_size()
                       for a in self._weight_arrays())
         used, pad = self._budget_tokens_used, self._budget_padding_tokens
@@ -306,14 +324,15 @@ class ServingEngine:
             "tokens_per_step": (
                 round(self._tokens_emitted / self._decode_steps, 4)
                 if self._decode_steps else None),
-            "kv_blocks_total": self.pool.num_blocks,
-            "kv_blocks_used": self.pool.used,
-            "kv_blocks_free": self.pool.free_count,
+            "kv_blocks_total": pool.num_blocks if paged else None,
+            "kv_blocks_used": pool.used if paged else None,
+            "kv_blocks_free": pool.free_count if paged else None,
             "kv_cow_copies": 0,
-            "kv_shard_count": 1,
-            "kv_shard_heads": self.dec.fmt.num_heads,
-            "kv_shard_pool_bytes": sum(a.nbytes
-                                       for a in self._caches.values()),
+            "kv_shard_count": 1 if paged else None,
+            "kv_shard_heads": self.dec.fmt.num_heads if paged else None,
+            "kv_shard_pool_bytes": (sum(a.nbytes
+                                        for a in self._caches.values())
+                                    if paged else None),
             "weight_shard_count": 1,
             "weight_bytes_per_device": w_bytes,
             "weight_bytes_replicated": w_bytes,
@@ -348,9 +367,24 @@ class ServingEngine:
 
     # ------------------------------------------------------- paged plumbing
     def _cache_arg(self):
-        # the pool plus this dispatch's block tables (host data)
+        # the ring as it is, or the pool plus this dispatch's block tables
+        # (host data)
+        if not self.paged:
+            return self._caches
         return dict(self._caches, tbl=torch.from_numpy(self._tables).to(
             self.device))
+
+    def _reserve(self, req):
+        """Reserve the queue head's worst-case pool blocks; False (and no
+        reservation) when the pool cannot cover them. A ring reserves
+        nothing: every slot owns Smax positions."""
+        if not self.paged:
+            return True
+        need = self._blocks_needed(req.prompt.size, req.max_new_tokens)
+        if self._kv_reserved + need > self.pool.num_blocks:
+            return False
+        self._kv_reserved += need
+        return True
 
     def _blocks_needed(self, plen, max_new):
         return -(-(int(plen) + int(max_new)) // self.prefill_cap)
@@ -370,11 +404,11 @@ class ServingEngine:
                 + int(self._max_nt[slot]))
 
     def _ensure_writable(self, slot, lo, hi):
-        """Map every unmapped block of the write window [lo, hi). Blocks
-        are never shared in this slice (no prefix cache, no fork), so no
-        copy-on-write is needed."""
+        """Map every unmapped block of the write window [lo, hi) (a ring has
+        nothing to map). Blocks are never shared in this slice (no prefix
+        cache, no fork), so no copy-on-write is needed."""
         hi = min(int(hi), self.smax)
-        if hi <= lo:
+        if hi <= lo or not self.paged:
             return
         row = self._tables[slot]
         nb = self.pool.num_blocks
@@ -385,6 +419,8 @@ class ServingEngine:
 
     def _map_blocks(self, slot, hi):
         """Map pool blocks so the slot's table covers positions [0, hi)."""
+        if not self.paged:
+            return
         row = self._tables[slot]
         nb = self.pool.num_blocks
         need = [j for j in range(-(-int(hi) // self.prefill_cap))
@@ -393,6 +429,8 @@ class ServingEngine:
             row[need] = self._alloc_kv_blocks(len(need))
 
     def _free_slot_blocks(self, slot):
+        if not self.paged:
+            return
         row = self._tables[slot]
         nb = self.pool.num_blocks
         mapped = [int(x) for x in row[row < nb]]
@@ -411,12 +449,7 @@ class ServingEngine:
         steps."""
         free = self._free_slots()
         t_adm = self.clock()
-        while free and self._queue:
-            head = self._queue[0]
-            need = self._blocks_needed(head.prompt.size, head.max_new_tokens)
-            if self._kv_reserved + need > self.pool.num_blocks:
-                break
-            self._kv_reserved += need
+        while free and self._queue and self._reserve(self._queue[0]):
             req = self._queue.popleft()
             s = free.pop(0)
             req.slot, req.state, req.t_admit = s, "running", t_adm
@@ -441,12 +474,7 @@ class ServingEngine:
         emitted its first token."""
         free = self._free_slots()
         batch = []
-        while free and self._queue:
-            head = self._queue[0]
-            need = self._blocks_needed(head.prompt.size, head.max_new_tokens)
-            if self._kv_reserved + need > self.pool.num_blocks:
-                break
-            self._kv_reserved += need
+        while free and self._queue and self._reserve(self._queue[0]):
             req = self._queue.popleft()
             req.slot, req.state = free.pop(0), "running"
             self._slot_req[req.slot] = req
@@ -506,17 +534,26 @@ class ServingEngine:
 
     def _build_bulk_admit(self, sb):
         """Bulk prefill of one prompt padded to sb tokens: one causal flash
-        pass over [1, sb], then the prompt's K/V written through the
-        slot's table row, in place (an int8 pool takes each row quantized
-        with ``_absmax_int8`` and its scale). Pad positions >= plen are
+        pass over [1, sb], then the prompt's K/V written in place (an int8
+        cache takes each row quantized with ``_absmax_int8`` and its
+        scale). Through the slot's table row, pad positions >= plen are
         selected away before the write (JAX drops them with mode="drop"),
-        so the pad needs no blocks. Returns bulk_admit(stk, caches, toks, slot,
-        plen) -> the hidden state of the last prompt token [1, E]."""
+        so the pad needs no blocks; a ring takes positions [0, sb) of the
+        slot's row, pad included, as JAX's does: write-then-attend
+        overwrites each pad position before any query reads it. Returns
+        bulk_admit(stk, caches, toks, slot, plen) -> the hidden state of the
+        last prompt token [1, E]."""
         dec = self.dec
 
         def bulk_admit(stk, caches, toks, slot, plen):
             x, kv_all = dec.bulk_hidden(stk, toks)
             kv = kv_all[:, :, 0]                         # [L, 2, H, sb, D]
+            if "tbl" not in caches:
+                if "sc" in caches:
+                    kv, sc = _absmax_int8(kv, -1)
+                    caches["sc"][:, :, slot, :, 0, :sb] = sc[..., 0]
+                caches["kv"][:, :, slot, :, :sb] = kv
+                return x[0, plen - 1][None]
             pool, row = caches["kv"], caches["tbl"][slot].long()
             nb, bt = pool.shape[2], pool.shape[4]
             pos = torch.arange(sb, device=kv.device)
@@ -820,8 +857,10 @@ class ServingEngine:
         self._slot_req[s] = None
         self._active[s] = False
         self._pf_left[s] = 0
-        self._kv_reserved -= self._blocks_needed(req.prompt.size,
-                                                 req.max_new_tokens)
+        if self.paged:
+            self._kv_reserved -= self._blocks_needed(req.prompt.size,
+                                                     req.max_new_tokens)
         # the table row resets to the sentinel, so the idle row's writes
-        # drop instead of landing
+        # drop instead of landing; a ring's idle row keeps rewriting its
+        # frozen position, which the next admission overwrites
         self._free_slot_blocks(s)

@@ -28,7 +28,13 @@ SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "decode_attention_paged_i8": "decode_attention_paged_i8.cu",
            "decode_attention_paged_flat_i8":
                "decode_attention_paged_flat_i8.cu",
-           "fused_dequant_matmul": "fused_dequant_matmul.cu"}
+           "fused_dequant_matmul": "fused_dequant_matmul.cu",
+           "decode_attention_stacked": "decode_attention_stacked.cu",
+           "decode_attention_stacked_i8": "decode_attention_stacked_i8.cu",
+           "decode_attention_stacked_write":
+               "decode_attention_stacked_write.cu",
+           "decode_attention_stacked_i8_write":
+               "decode_attention_stacked_i8_write.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -54,6 +60,18 @@ _ENTRY = {
     "fused_dequant_matmul": (
         "paddle_fused_dequant_matmul",
         [_P] * 5 + [_I] * 8 + [_P]),
+    "decode_attention_stacked": (
+        "paddle_decode_attention_stacked",
+        [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    "decode_attention_stacked_i8": (
+        "paddle_decode_attention_stacked_i8",
+        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "decode_attention_stacked_write": (
+        "paddle_decode_attention_stacked_write",
+        [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "decode_attention_stacked_i8_write": (
+        "paddle_decode_attention_stacked_i8_write",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
 }
 
 

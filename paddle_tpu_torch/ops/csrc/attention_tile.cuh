@@ -1,7 +1,8 @@
 // Device-side pieces shared by the flat paged attention, the int8 paged
-// attentions and the flash attention forward kernels: dtype conversion,
-// warp reductions, staging of a K/V tile into shared memory, and one
-// warp's online-softmax update of R query rows against one staged tile.
+// attentions, the flash attention forward and the dense-ring (stacked)
+// kernels: dtype conversion, warp reductions, staging of a K/V tile into
+// shared memory, one warp's online-softmax update of R query rows against
+// one staged tile, and the walk of those updates over a contiguous row.
 //
 // Layout of the shared-memory operands a kernel hands to tile_update:
 //   qs  [R][Dp]        the warp's query rows in fp32, zero past D
@@ -215,6 +216,39 @@ __device__ __forceinline__ void tile_update(
     }
   }
   __syncwarp();
+}
+
+// Block-wide: the tile walk over positions [0, last_pos] of one contiguous
+// K/V row (a dense ring row: position c at kr + c * D and vr + c * D), 32
+// positions at a time: stage the tile (the last one short, so no position
+// past last_pos is ever read), then each warp's tile_update of its R query
+// rows (qs, ps: the warp's slices). C is the stored dtype, T the value
+// dtype p is rounded to. With kScaled, ksr and vsr hold each position's K
+// and V scale (an int8 ring), staged into kss and vss beside the tile.
+template <typename T, typename C, int R, int DPL, bool kScaled>
+__device__ __forceinline__ void walk_row(
+    float* ks, float* vs, float* kss, float* vss, const float* qs, float* ps,
+    const C* __restrict__ kr, const C* __restrict__ vr,
+    const float* __restrict__ ksr, const float* __restrict__ vsr,
+    int last_pos, int D, int Dp, int vec, const int (&limit)[R], float scale,
+    float (&m)[R], float (&l)[R], float (&acc)[R][DPL]) {
+  const int ld = Dp + 1;
+  for (int c0 = 0; c0 <= last_pos; c0 += kTile) {
+    const int n = min(kTile, last_pos + 1 - c0);
+    __syncthreads();  // everyone is done with the previous tile
+    stage_kv(ks, vs, kr + (size_t)c0 * D, vr + (size_t)c0 * D, n, D, Dp, ld,
+             vec);
+    if constexpr (kScaled) {
+      if (threadIdx.x < kTile) {
+        const int c = threadIdx.x;
+        kss[c] = c < n ? ksr[c0 + c] : 0.f;
+        vss[c] = c < n ? vsr[c0 + c] : 0.f;
+      }
+    }
+    __syncthreads();
+    tile_update<T, R, DPL, kScaled>(qs, ks, vs, ps, D, Dp, c0, n, limit,
+                                    scale, m, l, acc, kss, vss);
+  }
 }
 
 }  // namespace paddle_attn

@@ -1,5 +1,5 @@
-"""Paged flash-decode attention: the CUDA kernels' wrappers and their
-plain PyTorch versions.
+"""Flash-decode attention over the paged KV pool and the dense KV ring:
+the CUDA kernels' wrappers and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/decode_attention.py``'s
 ``decode_attention_paged``, with the same signature and layouts:
@@ -20,10 +20,26 @@ block for block, resolved through the same table entry. Their scores are
 ``(q . k_int) * scale * k_scale`` and the PV product takes ``p * v_scale``
 rounded to the query dtype; the output is in the query dtype.
 
+The dense ring ``[L, 2, B, Hk, Smax, D]`` (``FusedDecoder.init_cache``;
+Smax a multiple of 128) has the counterparts of the JAX stacked kernels:
+``decode_attention_stacked`` (query row r of row b attends layer
+``layer``'s positions <= lens[b] + r), ``decode_attention_stacked_i8``
+(an int8 ring with fp32 scales [L, 2, B, Hk, 1, Smax], positions on the
+last axis), and the fused write+attend kernels for one new token per row,
+``decode_attention_stacked_write`` and ``decode_attention_stacked_i8_write``
+(which quantizes the new row itself): the new K/V row lands in the ring
+IN PLACE at lens[b] (dropped when lens[b] == Smax), and the query attends
+the prefix < lens[b] plus the new token, seeded from ``kv_new``. The ring
+is a pool of B blocks of Smax positions with one block per row, so the
+plain versions reuse the paged ones through that table.
+
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
 ``csrc/decode_attention_paged_i8.cu``,
-``csrc/decode_attention_paged_flat_i8.cu``) on the current stream or
+``csrc/decode_attention_paged_flat_i8.cu``,
+``csrc/decode_attention_stacked.cu``, ``csrc/decode_attention_stacked_i8.cu``,
+``csrc/decode_attention_stacked_write.cu``,
+``csrc/decode_attention_stacked_i8_write.cu``) on the current stream or
 raises; on a CPU tensor it computes the plain version, which is what the
 CPU tests compare against the JAX function.
 """
@@ -39,7 +55,17 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_paged_i8", "decode_attention_paged_i8_reference",
            "paged_i8_is_supported", "decode_attention_paged_flat_i8",
            "decode_attention_paged_flat_i8_reference",
-           "paged_flat_i8_is_supported", "FLAT_CHUNK", "LAUNCHES"]
+           "paged_flat_i8_is_supported", "decode_attention_stacked",
+           "decode_attention_stacked_reference", "stacked_is_supported",
+           "decode_attention_stacked_i8",
+           "decode_attention_stacked_i8_reference",
+           "stacked_i8_is_supported", "decode_attention_stacked_write",
+           "decode_attention_stacked_write_reference",
+           "stacked_write_is_supported",
+           "decode_attention_stacked_i8_write",
+           "decode_attention_stacked_i8_write_reference",
+           "stacked_i8_write_is_supported", "ring_table", "FLAT_CHUNK",
+           "LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_SQ, MAX_D = 128, 256
@@ -49,7 +75,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # plain version on CPU tensors does not count)
 LAUNCHES = {"decode_attention_paged": 0, "decode_attention_paged_flat": 0,
             "decode_attention_paged_i8": 0,
-            "decode_attention_paged_flat_i8": 0}
+            "decode_attention_paged_flat_i8": 0,
+            "decode_attention_stacked": 0, "decode_attention_stacked_i8": 0,
+            "decode_attention_stacked_write": 0,
+            "decode_attention_stacked_i8_write": 0}
 
 # the flat stream's query-chunk size: the packer aligns every segment start
 # to it, so each chunk belongs to one slot
@@ -113,12 +142,21 @@ def _check_layer(name, pool, layer):
 
 
 def _check_scales(name, pool, pool_scales):
+    # a pool's [L, 2, NB, Hk, 1, Bt] or a ring's [L, 2, B, Hk, 1, Smax]
     want = tuple(pool.shape[:4]) + (1, pool.shape[4])
     if tuple(pool_scales.shape) != want \
             or pool_scales.dtype != torch.float32:
         raise ValueError(
-            f"{name}: pool_scales must be fp32 [L, 2, NB, Hk, 1, Bt] = "
-            f"{want}, got {pool_scales.dtype} {tuple(pool_scales.shape)}")
+            f"{name}: scales must be fp32 [L, 2, NB, Hk, 1, Bt] (a ring's "
+            f"[L, 2, B, Hk, 1, Smax]) = {want}, got {pool_scales.dtype} "
+            f"{tuple(pool_scales.shape)}")
+
+
+def _all_cpu(*tensors):
+    """Whether every tensor lies on the CPU: the wrappers then compute
+    their plain versions (a CUDA tensor among them launches, or
+    raises)."""
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _launch(name, named, out, ints, scale, dtype):
@@ -155,8 +193,7 @@ def decode_attention_paged(qt, pool, tables, layer, cache_lens, scale=None):
     b, h, sq, d = qt.shape
     if scale is None:
         scale = d ** -0.5
-    if qt.device.type == "cpu" and len({t.device for t in (
-            qt, pool, tables, cache_lens)}) == 1:
+    if _all_cpu(qt, pool, tables, cache_lens):
         return decode_attention_paged_reference(qt, pool, tables, layer,
                                                 cache_lens, scale)
     _, _, nb, hk, bt, _ = pool.shape
@@ -189,16 +226,25 @@ def decode_attention_paged_reference(qt, pool, tables, layer, cache_lens,
     kv = pool[int(layer)][:, tc]                  # [2, B, nblk, Hk, Bt, D]
     kv = kv.permute(0, 1, 3, 2, 4, 5).reshape(2, b, hk, nblk * bt, d)
     kv = kv.repeat_interleave(h // hk, dim=2)     # [2, B, H, Smax, D]
-    s = torch.einsum("bhqd,bhsd->bhqs", qt.float(), kv[0].float()) * scale
     mask = _row_mask(cache_lens, sq, nblk * bt, qt.device)
+    return _fp_attend(qt.float(), kv.float(), mask, scale, pool.dtype,
+                      qt.dtype)
+
+
+def _fp_attend(q, kv, mask, scale, p_dtype, out_dtype):
+    """The fp kernels' arithmetic on dense views: q [..., R, D] fp32, kv
+    [2, ..., S, D] fp32, mask [..., R, S]. Scores and an fp32 softmax
+    whose sum l takes the unrounded p, then p rounded to p_dtype (the
+    value dtype) before the PV product; rows that attend nothing return
+    0."""
+    s = q @ kv[0].transpose(-1, -2) * scale
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhqs,bhsd->bhqd", p.to(pool.dtype).float(),
-                     kv[1].float())
-    o = o / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
-    return o.to(qt.dtype)
+    o = (p.to(p_dtype).float() @ kv[1]) / torch.where(
+        lsum == 0, torch.ones_like(lsum), lsum)
+    return o.to(out_dtype)
 
 
 def decode_attention_paged_i8(qt, pool_i8, pool_scales, tables, layer,
@@ -212,8 +258,7 @@ def decode_attention_paged_i8(qt, pool_i8, pool_scales, tables, layer,
     b, h, sq, d = qt.shape
     if scale is None:
         scale = d ** -0.5
-    if qt.device.type == "cpu" and len({t.device for t in (
-            qt, pool_i8, pool_scales, tables, cache_lens)}) == 1:
+    if _all_cpu(qt, pool_i8, pool_scales, tables, cache_lens):
         return decode_attention_paged_i8_reference(
             qt, pool_i8, pool_scales, tables, layer, cache_lens, scale)
     _, _, nb, hk, bt, _ = pool_i8.shape
@@ -328,8 +373,7 @@ def decode_attention_paged_flat(q, pool, tables, chunk_slot, chunk_base,
         scale = d ** -0.5
     meta = (("chunk_slot", chunk_slot), ("chunk_base", chunk_base),
             ("chunk_n", chunk_n))
-    if q.device.type == "cpu" and len({x.device for x in (
-            q, pool, tables, chunk_slot, chunk_base, chunk_n)}) == 1:
+    if _all_cpu(q, pool, tables, chunk_slot, chunk_base, chunk_n):
         return decode_attention_paged_flat_reference(
             q, pool, tables, chunk_slot, chunk_base, chunk_n, layer, scale)
     _, _, nb, hk, bt, _ = pool.shape
@@ -368,15 +412,9 @@ def decode_attention_paged_flat_reference(q, pool, tables, chunk_slot,
     kv = flat_gather_view(pool[int(layer)], tables, slot, smax)
     kv = kv.repeat_interleave(h // hk, dim=2)      # [2, nc, H, Smax, D]
     qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
-    s = torch.einsum("chrd,chsd->chrs", qc, kv[0]) * scale
     mask = _chunk_mask(chunk_base, chunk_n, smax, q.device)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    lsum = p.sum(-1, keepdim=True)
-    o = torch.einsum("chrs,chsd->chrd", p.to(pool.dtype).float(), kv[1])
-    o = o / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
-    return o.transpose(1, 2).reshape(t, h, d).to(q.dtype)
+    o = _fp_attend(qc, kv, mask, scale, pool.dtype, q.dtype)
+    return o.transpose(1, 2).reshape(t, h, d)
 
 
 def decode_attention_paged_flat_i8(q, pool_i8, pool_scales, tables,
@@ -394,9 +432,8 @@ def decode_attention_paged_flat_i8(q, pool_i8, pool_scales, tables,
         scale = d ** -0.5
     meta = (("chunk_slot", chunk_slot), ("chunk_base", chunk_base),
             ("chunk_n", chunk_n))
-    if q.device.type == "cpu" and len({x.device for x in (
-            q, pool_i8, pool_scales, tables, chunk_slot, chunk_base,
-            chunk_n)}) == 1:
+    if _all_cpu(q, pool_i8, pool_scales, tables, chunk_slot, chunk_base,
+                chunk_n):
         return decode_attention_paged_flat_i8_reference(
             q, pool_i8, pool_scales, tables, chunk_slot, chunk_base, chunk_n,
             layer, scale)
@@ -425,3 +462,268 @@ def decode_attention_paged_flat_i8_reference(q, pool_i8, pool_scales,
     qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
     o = _i8_attend(qc, kvi, sc, mask, scale, q.dtype)
     return o.transpose(1, 2).reshape(t, h, d)
+
+
+# ------------------------------------------------------------ dense ring
+def stacked_is_supported(q_shape, caches_shape, dtype,
+                         cache_dtype=None) -> bool:
+    """q: [B, Sq, H, D] (the model layout, as the JAX gate takes it);
+    caches: [L, 2, B, Hk, Smax, D]. The kernel takes Sq <= 128, D <= 256,
+    Hk | H, Smax a multiple of 128 (the decoder rounds the ring up to one
+    at init) and a ring in the query's dtype (fp32, bf16 or fp16)."""
+    if len(q_shape) != 4 or len(caches_shape) != 6:
+        return False
+    _, sq, h, d = q_shape
+    hk, smax = caches_shape[3], caches_shape[4]
+    if not (1 <= sq <= MAX_SQ and 1 <= d <= MAX_D) \
+            or caches_shape[5] != d:
+        return False
+    if hk < 1 or h % hk or smax < 1 or smax % 128:
+        return False
+    if cache_dtype is not None and cache_dtype != dtype:
+        return False
+    return dtype in _DTYPE_CODE
+
+
+def stacked_i8_is_supported(q_shape, caches_shape, dtype) -> bool:
+    """The int8 ring flavor: the layout rules of ``stacked_is_supported``;
+    the compute dtype is the query's."""
+    return stacked_is_supported(q_shape, caches_shape, dtype)
+
+
+def stacked_write_is_supported(q_shape, caches_shape, dtype,
+                               cache_dtype=None) -> bool:
+    """``stacked_is_supported`` plus the write kernels' one new token per
+    call (Sq == 1)."""
+    return len(q_shape) == 4 and q_shape[1] == 1 and stacked_is_supported(
+        q_shape, caches_shape, dtype, cache_dtype)
+
+
+def stacked_i8_write_is_supported(q_shape, caches_shape, dtype) -> bool:
+    """The int8 flavor of ``stacked_write_is_supported``."""
+    return stacked_write_is_supported(q_shape, caches_shape, dtype)
+
+
+def ring_table(b, device):
+    """The dense ring seen as a pool: B blocks of Smax positions, block b
+    holding row b. A [B, 1] int32 table for the paged plain versions."""
+    return torch.arange(b, dtype=torch.int32, device=device)[:, None]
+
+
+def _check_stacked(name, qt, ring, layer, cache_lens, ring_dtype,
+                   write=False):
+    if qt.dim() != 4 or ring.dim() != 6:
+        raise ValueError(
+            f"{name}: qt must be [B, H, Sq, D] and the ring "
+            f"[L, 2, B, Hk, Smax, D], got {tuple(qt.shape)} and "
+            f"{tuple(ring.shape)}")
+    b, h, sq, d = qt.shape
+    if ring.dtype != ring_dtype:
+        raise ValueError(
+            f"{name}: the ring must be {ring_dtype} for a {qt.dtype} "
+            f"query, got {ring.dtype} (mixed query and ring dtypes are not "
+            "taken: casting the ring would copy every layer)")
+    if write and sq != 1:
+        raise ValueError(f"{name}: one new token per call (got Sq={sq}); "
+                         "gate with stacked_write_is_supported")
+    if ring.shape[2] != b or not stacked_is_supported(
+            (b, sq, h, d), tuple(ring.shape), qt.dtype):
+        raise ValueError(
+            f"{name}: unsupported shapes/dtypes q {tuple(qt.shape)} "
+            f"{qt.dtype}, ring {tuple(ring.shape)} {ring.dtype} (see "
+            "stacked_is_supported)")
+    if tuple(cache_lens.shape) != (b,) or cache_lens.dtype != torch.int32:
+        raise ValueError(
+            f"{name}: cache_lens must be int32 [B], got {cache_lens.dtype} "
+            f"{tuple(cache_lens.shape)}")
+    _check_layer(name, ring, layer)
+
+
+def _check_kv_new(name, kv_new, ring):
+    want = (2, ring.shape[2], ring.shape[3], 1, ring.shape[5])
+    if tuple(kv_new.shape) != want:
+        raise ValueError(f"{name}: kv_new must be [2, B, Hk, 1, D] = "
+                         f"{want}, got {tuple(kv_new.shape)}")
+
+
+def decode_attention_stacked(qt, caches, layer, cache_lens, scale=None):
+    """qt [B, H, Sq, D], caches [L, 2, B, Hk, Smax, D] in qt's dtype ->
+    [B, H, Sq, D]: query row r of row b attends layer ``layer``'s
+    positions <= cache_lens[b] + r (the new tokens' K/V already
+    written)."""
+    name = "decode_attention_stacked"
+    _check_stacked(name, qt, caches, layer, cache_lens, qt.dtype)
+    b, h, sq, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    if _all_cpu(qt, caches, cache_lens):
+        return decode_attention_stacked_reference(qt, caches, layer,
+                                                  cache_lens, scale)
+    _, _, _, hk, smax, _ = caches.shape
+    return _launch(name, [("qt", qt), ("caches", caches),
+                          ("cache_lens", cache_lens)], torch.empty_like(qt),
+                   (b, h, sq, d, hk, smax, int(layer)), scale, qt.dtype)
+
+
+def decode_attention_stacked_reference(qt, caches, layer, cache_lens,
+                                       scale=None):
+    """The plain version: the ring read as a pool of one Smax-position
+    block per row (``ring_table``) by ``decode_attention_paged_reference``."""
+    return decode_attention_paged_reference(
+        qt, caches, ring_table(qt.shape[0], qt.device), layer, cache_lens,
+        scale)
+
+
+def decode_attention_stacked_i8(qt, caches_i8, cache_scales, layer,
+                                cache_lens, scale=None):
+    """The int8 ring flavor of ``decode_attention_stacked``: caches_i8
+    [L, 2, B, Hk, Smax, D] int8 with per-position fp32 scales
+    cache_scales [L, 2, B, Hk, 1, Smax]. Returns [B, H, Sq, D] in the
+    query dtype."""
+    name = "decode_attention_stacked_i8"
+    _check_stacked(name, qt, caches_i8, layer, cache_lens, torch.int8)
+    _check_scales(name, caches_i8, cache_scales)
+    b, h, sq, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    if _all_cpu(qt, caches_i8, cache_scales, cache_lens):
+        return decode_attention_stacked_i8_reference(
+            qt, caches_i8, cache_scales, layer, cache_lens, scale)
+    _, _, _, hk, smax, _ = caches_i8.shape
+    return _launch(name, [("qt", qt), ("caches_i8", caches_i8),
+                          ("cache_scales", cache_scales),
+                          ("cache_lens", cache_lens)], torch.empty_like(qt),
+                   (b, h, sq, d, hk, smax, int(layer)), scale, qt.dtype)
+
+
+def decode_attention_stacked_i8_reference(qt, caches_i8, cache_scales,
+                                          layer, cache_lens, scale=None):
+    """The plain version: ``decode_attention_paged_i8_reference`` over the
+    ring as a pool of one block per row."""
+    return decode_attention_paged_i8_reference(
+        qt, caches_i8, cache_scales, ring_table(qt.shape[0], qt.device),
+        layer, cache_lens, scale)
+
+
+def _new_token_mask(cache_lens, smax, device):
+    # [B, 1, 1, Smax + 1]: the prefix < lens plus the new token's column,
+    # which the plain write versions append at index Smax
+    pos = torch.arange(smax + 1, device=device)
+    lens = cache_lens.long()[:, None]
+    return ((pos < lens) | (pos == smax))[:, None, None, :]
+
+
+def _land_rows(ring, layer, cache_lens, rows, scales=None, row_scales=None):
+    """rows [2, B, Hk, D] into ring[layer, :, b, :, lens[b]] (and
+    row_scales [2, B, Hk] into scales[layer, :, b, :, 0, lens[b]]), in
+    place; a full row (lens[b] == Smax) drops its write: it stores back
+    what its last position holds, so no host sync picks the rows."""
+    smax = ring.shape[4]
+    lens = cache_lens.long()
+    keep = lens < smax
+    pos = lens.clamp(max=smax - 1)
+    b = torch.arange(lens.shape[0], device=lens.device)
+
+    def land(dst, new):           # dst [B, Smax, ...], new [B, ...]
+        sel = keep.reshape((-1,) + (1,) * (new.dim() - 1))
+        dst[b, pos] = torch.where(sel, new.to(dst.dtype), dst[b, pos])
+    land(ring[int(layer)].permute(1, 3, 0, 2, 4), rows.transpose(0, 1))
+    if scales is not None:
+        land(scales[int(layer), :, :, :, 0].permute(1, 3, 0, 2),
+             row_scales.transpose(0, 1))
+
+
+def decode_attention_stacked_write(qt, kv_new, caches, layer, cache_lens,
+                                   scale=None):
+    """qt [B, H, 1, D]; kv_new [2, B, Hk, 1, D], the new token's K/V of
+    layer ``layer`` (cast to the ring's dtype); caches [L, 2, B, Hk, Smax,
+    D] in qt's dtype, updated IN PLACE: row b's K/V land at position
+    cache_lens[b] (dropped when it is Smax). Returns (caches, attn
+    [B, H, 1, D]): the new query over the prefix < cache_lens[b] plus the
+    new token itself."""
+    name = "decode_attention_stacked_write"
+    _check_stacked(name, qt, caches, layer, cache_lens, qt.dtype,
+                   write=True)
+    _check_kv_new(name, kv_new, caches)
+    b, h, _, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    kvn = kv_new.to(caches.dtype).contiguous()
+    if _all_cpu(qt, kvn, caches, cache_lens):
+        return decode_attention_stacked_write_reference(
+            qt, kvn, caches, layer, cache_lens, scale)
+    _, _, _, hk, smax, _ = caches.shape
+    out = _launch(name, [("qt", qt), ("kv_new", kvn), ("caches", caches),
+                         ("cache_lens", cache_lens)], torch.empty_like(qt),
+                  (b, h, d, hk, smax, int(layer)), scale, qt.dtype)
+    return caches, out
+
+
+def decode_attention_stacked_write_reference(qt, kv_new, caches, layer,
+                                             cache_lens, scale=None):
+    """The plain version: attention over layer ``layer``'s prefix <
+    cache_lens with the new token's K/V appended (in the ring's dtype),
+    p rounded to the ring dtype before the PV product; then the K/V
+    rows land in place (a full row drops them)."""
+    b, h, _, d = qt.shape
+    hk, smax = caches.shape[3], caches.shape[4]
+    if scale is None:
+        scale = d ** -0.5
+    kvn = kv_new.to(caches.dtype)
+    kv = torch.cat([caches[int(layer)], kvn], dim=3)   # [2, B, Hk, S+1, D]
+    kv = kv.repeat_interleave(h // hk, dim=2).float()
+    mask = _new_token_mask(cache_lens, smax, qt.device)
+    out = _fp_attend(qt.float(), kv, mask, scale, caches.dtype, qt.dtype)
+    _land_rows(caches, layer, cache_lens, kvn[:, :, :, 0])
+    return caches, out
+
+
+def decode_attention_stacked_i8_write(qt, kv_new, caches_i8, cache_scales,
+                                      layer, cache_lens, scale=None):
+    """The int8 ring flavor of ``decode_attention_stacked_write``: the new
+    K/V rows (kv_new, taken as fp32) are quantized with the engine's
+    per-row absmax recipe and land with their scales, in place. Returns
+    (caches_i8, cache_scales, attn [B, H, 1, D] in the query dtype)."""
+    name = "decode_attention_stacked_i8_write"
+    _check_stacked(name, qt, caches_i8, layer, cache_lens, torch.int8,
+                   write=True)
+    _check_scales(name, caches_i8, cache_scales)
+    _check_kv_new(name, kv_new, caches_i8)
+    b, h, _, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    kvn = kv_new.float().contiguous()
+    if _all_cpu(qt, kvn, caches_i8, cache_scales, cache_lens):
+        return decode_attention_stacked_i8_write_reference(
+            qt, kvn, caches_i8, cache_scales, layer, cache_lens, scale)
+    _, _, _, hk, smax, _ = caches_i8.shape
+    out = _launch(name, [("qt", qt), ("kv_new", kvn),
+                         ("caches_i8", caches_i8),
+                         ("cache_scales", cache_scales),
+                         ("cache_lens", cache_lens)], torch.empty_like(qt),
+                  (b, h, d, hk, smax, int(layer)), scale, qt.dtype)
+    return caches_i8, cache_scales, out
+
+
+def decode_attention_stacked_i8_write_reference(qt, kv_new, caches_i8,
+                                                cache_scales, layer,
+                                                cache_lens, scale=None):
+    """The plain version: the new rows quantized by ``_absmax_int8`` and
+    appended to layer ``layer``'s prefix < cache_lens, the int8 kernels'
+    arithmetic (``_i8_attend``); then the rows and scales land in place
+    (a full row drops them)."""
+    from ..inference.generation import _absmax_int8
+    b, h, _, d = qt.shape
+    hk, smax = caches_i8.shape[3], caches_i8.shape[4]
+    if scale is None:
+        scale = d ** -0.5
+    qn, sn = _absmax_int8(kv_new, -1)           # [2, B, Hk, 1, D], [.., 1]
+    kvi = torch.cat([caches_i8[int(layer)], qn], dim=3).float()
+    sc = torch.cat([cache_scales[int(layer)].transpose(-1, -2), sn], dim=3)
+    g = h // hk
+    mask = _new_token_mask(cache_lens, smax, qt.device)
+    out = _i8_attend(qt.float(), kvi.repeat_interleave(g, dim=2),
+                     sc.repeat_interleave(g, dim=2), mask, scale, qt.dtype)
+    _land_rows(caches_i8, layer, cache_lens, qn[:, :, :, 0], cache_scales,
+               sn[:, :, :, 0, 0])
+    return caches_i8, cache_scales, out

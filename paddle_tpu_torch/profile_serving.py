@@ -2,14 +2,15 @@
 
     python -m paddle_tpu_torch.profile_serving [--seed N]
         [--scheduler row|flat|phase] [--kv-quant none|int8]
-        [--weight-quant none|int8|int4]
+        [--weight-quant none|int8|int4] [--paged 1|0]
 
 Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
 3 also serves, under ``torch.profiler`` and the chosen scheduler (the
 row-layout token budget by default, ``flat_budget=True``, or the phase
 scheduler ``token_budget=0``) and quantization (fp by default; the
-``kv_quant`` and ``weight_quant`` options of ``ServingEngine``). Prints
-one JSON object: wall
+``kv_quant`` and ``weight_quant`` options of ``ServingEngine``) over
+the paged pool or, with ``--paged 0``, the dense ring. Prints one JSON
+object: wall
 time, the union of the device's kernel intervals (busy) and the idle
 share, device time by kernel name, host time by dispatch kind (budget /
 decode), and the engine's metrics. Needs a CUDA card.
@@ -79,13 +80,16 @@ def main(argv=None):
     ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
     ap.add_argument("--weight-quant", choices=("none", "int8", "int4"),
                     default="none")
+    ap.add_argument("--paged", type=int, choices=(0, 1), default=1,
+                    help="0: the dense KV ring (ServingEngine(paged=False))")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
         return 2
     eng, reqs = gpt2_workload(args.seed, **SCHEDULERS[args.scheduler],
                               kv_quant=args.kv_quant,
-                              weight_quant=args.weight_quant)
+                              weight_quant=args.weight_quant,
+                              paged=bool(args.paged))
     for prompt, max_new in reqs:
         eng.submit(prompt, max_new_tokens=max_new)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -117,7 +121,7 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "layers": L,
         "scheduler": args.scheduler, "kv_quant": args.kv_quant,
-        "weight_quant": args.weight_quant,
+        "weight_quant": args.weight_quant, "paged": bool(args.paged),
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": (1 - busy_s / wall_s) if wall_s else None,
         "kernel_events": len(intervals),

@@ -18,7 +18,12 @@ Phases, in order; any failure exits non-zero:
      stacked_i8 at Smax 128 and 1024, Sq 1, 16 and 128, GQA groups 1 and
      2; the fused write kernels at lens 0, mid-tile, Smax - 1 and Smax,
      their ring and scales after the call byte-equal to the plain
-     write's). --kernels-only stops here (exit 0, no result line);
+     write's); the training kernels (the dropout keep bits byte-equal to
+     the plain version's; flash forward with dropout and the dK/dV and dQ
+     kernels, bf16 and fp32, causal and not, Sq = Sk, Sq < Sk and Sq > Sk,
+     GQA, D 64 and 128, dropout 0 and 0.1; LayerNorm forward and backward
+     at N 8192, 1001 and 37). --kernels-only stops here (exit 0, no
+     result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
      same 16 greedy requests under each scheduler: the row-layout token
@@ -39,6 +44,13 @@ Phases, in order; any failure exits non-zero:
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
      run launches exactly its one ring kernel 12 times per hidden pass;
+  3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
+     (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
+     with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
+     10 timed on one repeated batch; the losses must be finite and fall,
+     and each step must launch exactly 12 flash forward, 12 dK/dV, 12 dQ,
+     25 LayerNorm forward and 25 LayerNorm backward kernels and no other
+     kernel of the port;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -47,10 +59,13 @@ Phases, in order; any failure exits non-zero:
      the CPU's phase scheduler: its bulk prefill attends exact K/V); the
      dense engines (row, flat, phase fp; row int8 ring) against the
      CPU's dense row engine of the same flavor; generate_fused fp and
-     int8 ring, cache_write_kernel off and on, against the CPU's;
+     int8 ring, cache_write_kernel off and on, against the CPU's; GPT-2
+     training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps: losses,
+     step-1 gradients and step-3 parameters against the CPU's;
   5. each kernel timed at the shapes its path gives it, beside its bound,
-     its plain version and one PyTorch call (SDPA, or a matmul on a
-     weight dequantized once) computing the same.
+     its plain version and one PyTorch call (SDPA forward or backward,
+     ATen's LayerNorm forward or backward, or a matmul on a weight
+     dequantized once) computing the same.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -78,8 +93,13 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
+from paddle_tpu_torch.ops import layer_norm as ln
+from paddle_tpu_torch.models.gpt import gpt2_124m
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
                                               gpt2_workload)
+from paddle_tpu_torch.profile_train import (BATCH, SEQ, gpt2_train_workload,
+                                            train_step)
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
@@ -224,7 +244,70 @@ def phase_kernels(rng):
                       fdm.fused_dequant_matmul_reference(a, wp, s), tname,
                       worst)
     stacked_kernels(rng, worst)
+    training_kernels(rng, worst)
     return worst
+
+
+# flash attention cases of the training kernels: (B, H, Hk, Sq, Sk, D,
+# causal) — Sq = Sk, Sq < Sk and Sq > Sk (rows that see no key), GQA,
+# ragged tiles, D 64 and 128, GPT-2's [1, 12, 1024, 64]
+FLASH_BWD_CASES = [(2, 4, 4, 37, 37, 64, True), (1, 4, 2, 255, 255, 64, True),
+                   (1, 4, 4, 200, 333, 64, False),
+                   (1, 4, 2, 100, 257, 128, True),
+                   (1, 4, 4, 300, 129, 64, True),
+                   (1, 12, 12, 1024, 1024, 64, True)]
+
+
+def training_kernels(rng, worst):
+    """The training path's kernels against their plain versions: the
+    dropout keep bits byte-equal to the plain version's; flash forward
+    (with dropout) and the dK/dV and dQ kernels at FLASH_BWD_CASES, bf16
+    and fp32, dropout 0 and 0.1 (one seed for forward and backward);
+    LayerNorm forward and backward at N = 8192 and odd N, D 768 and 64."""
+    for b, h, sq, sk, p in ((2, 4, 37, 70, 0.1), (1, 12, 1024, 1024, 0.1),
+                            (1, 3, 5, 9, 0.5)):
+        seed = int(rng.integers(1 << 63))
+        same_bytes(f"dropout keep bits [{b}, {h}, {sq}, {sk}] p={p}",
+                   fa.dropout_keep(seed, b, h, sq, sk, p, "cuda"),
+                   fa.dropout_keep(seed, b, h, sq, sk, p, "cpu").cuda())
+    for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for b, h, hk, sq, sk, d, causal in FLASH_BWD_CASES:
+            q, do = (randn(rng, (b, h, sq, d), dtype) for _ in range(2))
+            k, v = (randn(rng, (b, hk, sk, d), dtype) for _ in range(2))
+            for p in (0.0, 0.1):
+                seed = int(rng.integers(1 << 63))
+                name = (f"flash {str(dtype):15s} B={b} H={h} Hk={hk} Sq={sq} "
+                        f"Sk={sk} D={d} causal={int(causal)} p={p}")
+                o, lse = fa.flash_attention_fwd(q, k, v, causal, None, p,
+                                                seed)
+                o_ref, lse_ref = fa.flash_attention_reference(
+                    q, k, v, causal, None, p, seed)
+                check(name + " o", o, o_ref, "attention_" + tname, worst)
+                check(name + " lse", lse, lse_ref, "attention_" + tname,
+                      worst)
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                             None, p, seed)
+                want = fa.flash_attention_bwd_reference(
+                    q, k, v, o, lse, do, causal, None, p, seed)
+                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                    check(f"{name} {gname}", g, w, "attention_grad_" + tname,
+                          worst)
+    for dtype, tname in ((torch.bfloat16, "layer_norm_bf16"),
+                         (torch.float32, "layer_norm_fp32")):
+        for n, d in ((8192, 768), (1001, 768), (37, 64)):
+            x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
+            gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+            beta = (0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+            name = f"layer_norm {str(dtype):15s} N={n} D={d}"
+            y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta)
+            want = ln.layer_norm_fwd_reference(x, gamma, beta)
+            for part, g, w in zip(("y", "mean", "rstd"), (y, mean, rstd),
+                                  want):
+                check(f"{name} {part}", g, w, tname, worst)
+            got = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+            want = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+            for part, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
+                check(f"{name} {part}", g, w, tname, worst)
 
 
 def stacked_kernels(rng, worst):
@@ -482,7 +565,7 @@ def phase_generate(seed):
 
 
 def reset_launches():
-    for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES):
+    for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -543,6 +626,113 @@ def serve_counted(seed, name, kwargs):
             "stack_bytes": stack_b, "peak": peak}
 
 
+# per training step: the flash forward and both backward kernels once per
+# layer, the LayerNorm kernels once per LayerNorm (two a block and ln_f)
+TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                  "flash_attention_bwd_dq": 12, "layer_norm_fwd": 25,
+                  "layer_norm_bwd": 25}
+
+
+def phase_train(seed, steps=10, warmup=2):
+    log(f"== phase 3c: GPT-2 124M training (L=12, E=768, H=12, V=50304) "
+        f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
+        f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
+        "batch")
+    model, opt, x, y = gpt2_train_workload(seed)
+    for _ in range(warmup):
+        train_step(model, opt, x, y).item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(train_step(model, opt, x, y).item())   # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = {**fa.LAUNCHES, **ln.LAUNCHES, **da.LAUNCHES, **fdm.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    got = {k: v for k, v in launches.items() if v}
+    log(f"  losses {losses}")
+    med = float(np.median(times))
+    log(f"  step ms {[round(1e3 * t, 3) for t in times]}; median "
+        f"{1e3 * med:.3f} ms, tokens/s {BATCH * SEQ / med:.1f}; "
+        f"max_memory_allocated {peak} bytes")
+    log(f"  launches over {steps} steps {got}; per step "
+        f"{ {k: v / steps for k, v in got.items()} }")
+    if got != want:
+        raise SystemExit(f"training launches {got}, want exactly {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0] \
+            or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise SystemExit(f"training losses must be finite and decrease over "
+                         f"the repeated batch: {losses}")
+    return launches
+
+
+def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
+    """GPT-2 124M widths at L=2, fp32 (TF32 off), dropout 0: the same
+    weights and batch trained 3 AdamW steps on the card and on the CPU
+    (plain versions there); losses and step-1 gradients within
+    TOLERANCES["train_loss_fp32"] and ["train_grads_fp32"], step-3
+    parameters within ["train_params_fp32"] but for the share of
+    elements that ["train_params_outliers"] allows."""
+    ids = np.random.default_rng(seed + 4).integers(0, 50000,
+                                                   (batch, seq + 1))
+    state = gpt2_124m(num_layers=2, dropout=0.0, device="cpu",
+                      seed=seed).state_dict()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = gpt2_124m(num_layers=2, dropout=0.0, device=dev, seed=seed)
+        model.load_state_dict(state)
+        opt = AdamW(lr, parameters=model.named_parameters())
+        x, y = (torch.from_numpy(a).to(dev) for a in (ids[:, :-1],
+                                                      ids[:, 1:]))
+        t0 = time.perf_counter()
+        losses, grads = [], None
+        for i in range(steps):
+            loss = model(x, labels=y)
+            loss.backward()
+            if i == 0:
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs[dev] = (losses, grads, {n: p.detach().cpu() for n, p in
+                                     model.named_parameters()})
+        log(f"  [train] {dev}: {steps} steps in "
+            f"{time.perf_counter() - t0:.2f} s, losses {losses}")
+    (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
+    for what, got, want, tname in (
+            ("losses", {"loss": torch.tensor(lc)},
+             {"loss": torch.tensor(lh)}, "train_loss_fp32"),
+            ("step-1 gradients", gc, gh, "train_grads_fp32")):
+        tol = TOLERANCES[tname]
+        worst = max(((got[n] - want[n]).abs().max().item(), n) for n in want)
+        bad = [n for n in want if not torch.allclose(got[n], want[n], **tol)]
+        log(f"  [train] {what} card vs CPU: worst {worst[0]:.3e} at "
+            f"{worst[1]} (atol {tol['atol']}, rtol {tol['rtol']}) "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        if bad:
+            raise SystemExit(f"training on the card and the CPU differ: "
+                             f"{what} {bad}")
+    tol, out = TOLERANCES["train_params_fp32"], TOLERANCES[
+        "train_params_outliers"]
+    outside = {n: int((~torch.isclose(pc[n], ph[n], **tol)).sum())
+               for n in ph}
+    n_out, n_all = sum(outside.values()), sum(t.numel() for t in ph.values())
+    worst = max(((pc[n] - ph[n]).abs().max().item(), n) for n in ph)
+    cap = out["per_step_lr"] * lr * steps
+    ok = n_out <= out["share"] * n_all and worst[0] <= cap
+    log(f"  [train] step-3 parameters card vs CPU: {n_out} of {n_all} "
+        f"elements outside atol {tol['atol']}, rtol {tol['rtol']} (share "
+        f"{n_out / n_all:.2e}, allowed {out['share']}): "
+        f"{ {n: k for n, k in outside.items() if k} }; worst {worst[0]:.3e} "
+        f"at {worst[1]} (cap {cap:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("training on the card and the CPU differ: step-3 "
+                         "parameters")
+
+
 def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
     """Top-2 logit margin of the CPU model (quantized as ``flavor``
     says) after prompt + prefix (the context at the first differing
@@ -565,7 +755,7 @@ def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
 
 def phase_parity(seed):
     log("== phase 4: card vs CPU (row) at L=2, full width, fp32 (TF32 "
-        "off), per flavor")
+        "off), per flavor; then GPT-2 training, 3 AdamW steps")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
@@ -616,6 +806,7 @@ def phase_parity(seed):
             f"{', '.join(scheds)} on the card identical to "
             f"{' / '.join(cpu)} on the CPU")
     parity_generate(state, rng)
+    phase_train_parity(seed)
 
 
 def parity_generate(state, rng):
@@ -810,7 +1001,138 @@ def phase_timing(seed):
                     + ("_write" if write else ""))
             log(f"  {name} at the ring's decode shape (B=8, Smax=1024)")
             rows[name] = time_stacked(rng, quant, write)
+    log(f"  flash attention forward and backward at the training shape "
+        f"[{BATCH}, {H}, {SEQ}, {E // H}] causal, dropout 0 and 0.1")
+    rows.update(time_flash_train(rng))
+    log(f"  layer_norm_fwd and layer_norm_bwd at [{BATCH * SEQ}, {E}]")
+    rows.update(time_layer_norm(rng))
     return rows
+
+
+def time_loop_ms(fn, reps):
+    """ms per call over ``reps`` calls between two events, host gaps
+    included: for calls of a millisecond or more (the plain versions, and
+    SDPA's backward through autograd, which a CUDA graph does not
+    capture), where the gaps are a small share."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_flash_train(rng):
+    """The flash kernels at GPT-2's training shape [8, 12, 1024, 64],
+    causal, bf16, dropout 0 and 0.1 (one seed for forward and backward):
+    the dK/dV and dQ kernels, each against the plain backward (which
+    computes all three gradients) and SDPA's flash backend's backward
+    (all three, through autograd); the forward against the plain forward
+    and SDPA's forward. Bounds: each kernel's own bytes and products."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h, s, d = BATCH, H, SEQ, E // H
+    q, k, v, do = (randn(rng, (b, h, s, d), torch.bfloat16)
+                   for _ in range(4))
+    pairs = b * h * s * (s + 1) // 2        # attended (row, key) pairs
+    tile = b * h * s * d * 2                # one bf16 [B, H, S, D]
+    rows = {"flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": [],
+            "flash_attention_fwd_train": []}
+    tol = TOLERANCES["attention_grad_bf16"]
+    for p in (0.0, 0.1):
+        seed = int(rng.integers(1 << 63))
+        o, lse = fa.flash_attention_fwd(q, k, v, True, None, p, seed)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, True, None, p, seed)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True,
+                                                None, p, seed)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 dropout_p=p)
+
+            def sdpa_fwd(i=0):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      dropout_p=p)
+            fwd_library_ms = time_loop_ms(sdpa_fwd, 20)
+        library_ms = time_loop_ms(lambda i=0: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 20)
+        plain_ms = time_loop_ms(lambda i=0: fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, True, None, p, seed), 3)
+        for name, run, parts, nbytes, flops in (
+                ("flash_attention_bwd_dkv",
+                 lambda i=0: fa.flash_attention_bwd_dkv(*args), want[1:],
+                 6 * tile + 2 * b * h * s * 4, 8 * d * pairs),
+                ("flash_attention_bwd_dq",
+                 lambda i=0: (fa.flash_attention_bwd_dq(*args),), want[:1],
+                 5 * tile + 2 * b * h * s * 4, 6 * d * pairs)):
+            got = run()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, parts))
+            if not all(torch.allclose(g.float(), w.float(), **tol)
+                       for g, w in zip(got, parts)):
+                raise SystemExit(f"{name} disagrees with its plain version at "
+                                 f"the training shape, dropout {p}: "
+                                 f"max_abs_err {err:.3e}")
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = {"dropout": p, "max_abs_err": err, "ms": time_ms(run, 20),
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+            log(f"  {name} " + json.dumps(row))
+            rows[name].append(row)
+        run_fwd = functools.partial(fa.flash_attention_fwd, q, k, v, True,
+                                    None, p, seed)
+        fwd_ref = fa.flash_attention_reference(q, k, v, True, None, p, seed)
+        err = (run_fwd()[0].float() - fwd_ref[0].float()).abs().max().item()
+        bound_ms, bound_by = bound(4 * tile + b * h * s * 4, 4 * d * pairs)
+        row = {"dropout": p, "max_abs_err": err,
+               "ms": time_ms(lambda i=0: run_fwd(), 20),
+               "plain_ms": time_loop_ms(
+                   lambda i=0: fa.flash_attention_reference(
+                       q, k, v, True, None, p, seed), 3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": fwd_library_ms}
+        log("  flash_attention_fwd (training shape) " + json.dumps(row))
+        rows["flash_attention_fwd_train"].append(row)
+    return rows
+
+
+def time_layer_norm(rng):
+    """LayerNorm forward and backward at the training shape [8192, 768],
+    bf16, the launches cycled over 8 inputs (200 MB, past the L2); the
+    library calls are ATen's LayerNorm forward and backward
+    (native_layer_norm, native_layer_norm_backward)."""
+    n, d, copies = BATCH * SEQ, E, 8
+    xs = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
+    dys = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
+    gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(torch.bfloat16)
+    beta = (0.1 * randn(rng, (d,), torch.float32)).to(torch.bfloat16)
+    stats = [ln.layer_norm_fwd(x, gamma, beta)[1:] for x in xs]
+    aten = [torch.ops.aten.native_layer_norm(x, [d], gamma, beta, 1e-5)[1:]
+            for x in xs]
+    row_bytes, vec = n * d * 2, d * 2
+    fwd = timed_row(
+        {"n": n, "d": d},
+        lambda i=0: ln.layer_norm_fwd(xs[i % copies], gamma, beta),
+        lambda i=0: ln.layer_norm_fwd_reference(xs[i % copies], gamma, beta),
+        lambda i=0: F.layer_norm(xs[i % copies], (d,), gamma, beta),
+        2 * row_bytes + 2 * vec + 2 * n * 4, 8 * n * d, 200,
+        tname="layer_norm_bf16")
+    bwd = timed_row(
+        {"n": n, "d": d},
+        lambda i=0: ln.layer_norm_bwd(xs[i % copies], gamma,
+                                      *stats[i % copies], dys[i % copies]),
+        lambda i=0: ln.layer_norm_bwd_reference(
+            xs[i % copies], gamma, *stats[i % copies], dys[i % copies]),
+        lambda i=0: torch.ops.aten.native_layer_norm_backward(
+            dys[i % copies], xs[i % copies], [d], *aten[i % copies], gamma,
+            beta, [True, True, True]),
+        3 * row_bytes + 3 * vec + 2 * n * 4, 12 * n * d, 200,
+        tname="layer_norm_bf16")
+    return {"layer_norm_fwd": [fwd], "layer_norm_bwd": [bwd]}
 
 
 def time_stacked(rng, quant, write):
@@ -1002,6 +1324,7 @@ def main(argv=None):
         return 0
     launches = phase_engine(args.seed)
     launches.update(phase_generate(args.seed))
+    launches["train"] = phase_train(args.seed)
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
@@ -1032,7 +1355,15 @@ def main(argv=None):
              ("decode_attention_stacked_write", "gen-kw",
               "decode_attention.py:669", ring_main),
              ("decode_attention_stacked_i8_write", "gen-kv8-kw",
-              "decode_attention.py:843", ring_main))
+              "decode_attention.py:843", ring_main),
+             # the training kernels: at dropout 0.1, the training default
+             ("flash_attention_bwd_dkv", "train", "flash_attention.py:555",
+              lambda r: r["dropout"] == 0.1),
+             ("flash_attention_bwd_dq", "train", "flash_attention.py:589",
+              lambda r: r["dropout"] == 0.1),
+             ("layer_norm_fwd", "train", "layer_norm.py:91", lambda r: True),
+             ("layer_norm_bwd", "train", "layer_norm.py:129",
+              lambda r: True))
     kernels = []
     for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))

@@ -33,6 +33,46 @@ TOLERANCES = {
     # frameworks in fp32 (the rows agree within logits_fp32, so their
     # absmax does too)
     "kv_int8_scales": {"atol": 1e-6, "rtol": 1e-4},
+    # flash attention gradients in fp32: the same arithmetic (p recomputed
+    # from lse, three or four products over up to 1024 keys or rows) summed
+    # in another order, and dk, dv summed over a GQA group
+    "attention_grad_fp32": {"atol": 1e-4, "rtol": 1e-4},
+    # the same in bf16 on the card, kernel vs plain: both round p m to dO's
+    # dtype and ds to q's before the products and the outputs to bf16
+    # (2^-8 relative), but a p recomputed in another summation order can
+    # round ds to the neighbouring bf16 value
+    "attention_grad_bf16": {"atol": 2e-2, "rtol": 2e-2},
+    # LayerNorm in fp32: row statistics and dgamma / dbeta sums over up to
+    # 8192 rows of O(1) terms, taken in another order (blocks of 32 rows
+    # and a sum of partials on the card, one reduction in the plain one)
+    "layer_norm_fp32": {"atol": 1e-4, "rtol": 1e-4},
+    # LayerNorm in bf16 on the card: one rounding of y and dx (2^-8
+    # relative) on either side of statistics summed in another order, and
+    # dgamma / dbeta rounded to bf16 after an fp32 sum
+    "layer_norm_bf16": {"atol": 2e-2, "rtol": 2e-2},
+    # GPT training in fp32, the port against the JAX package on the CPU
+    # and the card's run against the CPU's. The loss: a mean over B * S
+    # tokens of logsumexp minus a logit, through the same products summed
+    # in another order (gpt2_tiny: 1.4e-6 on 6.95)
+    "train_loss_fp32": {"atol": 1e-5, "rtol": 1e-5},
+    # every gradient of step 1: sums of the same products in another
+    # order, largest O(1) (gpt2_tiny: 1.1e-7 at most)
+    "train_grads_fp32": {"atol": 1e-6, "rtol": 1e-5},
+    # the parameters after 3 AdamW steps. Adam divides each moment by
+    # sqrt(v) + 1e-8, so where a gradient is rounding noise the noise is
+    # what moves the weight: the K third of qkv_proj.bias has a zero
+    # gradient in exact arithmetic (softmax ignores a shift shared by a
+    # row's scores), ~2e-11 of noise here, and moves by lr * noise / eps
+    # per step (gpt2_tiny at lr 1e-3: 9.3e-6 there, 3e-6 elsewhere)
+    "train_params_fp32": {"atol": 5e-5, "rtol": 1e-5},
+    # the same at GPT-2 124M widths (54M parameters at L=2), where more
+    # elements have a gradient within rounding noise of zero: fp32 against
+    # fp64 on the CPU, 3 steps at lr 1e-3, put 55 elements (1e-6 of them,
+    # most in the K third of qkv_proj.bias) outside train_params_fp32, by
+    # up to 2.1e-4. At most this share of a model's elements may fall
+    # outside it, and each by at most per_step_lr * lr per step (Adam's
+    # step: m / sqrt(v) stays near 1 when noise drives it)
+    "train_params_outliers": {"share": 1e-4, "per_step_lr": 2.0},
 }
 
 

@@ -1,3 +1,5 @@
-from .layer.common import Embedding, Linear
+from . import functional
+from .layer.common import Dropout, Embedding, Linear
+from .layer.norm import LayerNorm
 
-__all__ = ["Embedding", "Linear"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "functional"]

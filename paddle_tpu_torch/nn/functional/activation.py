@@ -1,0 +1,14 @@
+"""Activations. Counterpart of ``paddle_tpu/nn/functional/activation.py``
+(``gelu`` only, the one GPT uses)."""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+__all__ = ["gelu"]
+
+
+def gelu(x, approximate=False):
+    """GELU; ``approximate=True`` is the tanh form
+    0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), as ``jax.nn.gelu``
+    computes it."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")

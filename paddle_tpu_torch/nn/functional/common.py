@@ -1,0 +1,44 @@
+"""``linear`` and ``dropout`` in Paddle's semantics. Counterpart of
+``paddle_tpu/nn/functional/common.py``.
+
+Every random draw takes an explicit ``torch.Generator`` (None: PyTorch's
+default CPU generator). A draw is one 63-bit seed taken from that
+generator on the host (``draw_seed``), so no draw waits for the card;
+a dropout mask is then drawn on the tensor's device from a generator
+seeded with it, and attention dropout hands the seed to its kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["draw_seed", "dropout", "keep_mask", "linear"]
+
+
+def draw_seed(generator=None) -> int:
+    """One seed in [0, 2**63 - 1) from ``generator`` (a CPU generator)."""
+    return int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
+
+
+def keep_mask(shape, p, generator, device):
+    """A bool mask of ``shape`` on ``device``, each entry kept (True) with
+    probability 1 - p, drawn from one seed of ``generator``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(draw_seed(generator))
+    return torch.rand(shape, generator=g, device=device) >= p
+
+
+def linear(x, weight, bias=None):
+    """``y = x @ W + b`` with W ``[in, out]`` (Paddle's layout)."""
+    y = x @ weight
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """``upscale_in_train`` dropout: in training, zero each element with
+    probability p and scale the kept ones by 1 / (1 - p); in inference,
+    the identity."""
+    if not training or p == 0.0:
+        return x
+    keep = keep_mask(x.shape, p, generator, x.device)
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,3 +1,4 @@
-from .common import Embedding, Linear
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm
 
-__all__ = ["Embedding", "Linear"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear"]

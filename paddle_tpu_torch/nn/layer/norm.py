@@ -1,0 +1,28 @@
+"""LayerNorm. Counterpart of ``paddle_tpu/nn/layer/norm.py::LayerNorm``:
+weight ones and bias zeros over ``normalized_shape``, both trainable."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..functional import norm
+
+__all__ = ["LayerNorm"]
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-5, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(self.normalized_shape, dtype=dtype, device=device))
+        self.bias = nn.Parameter(
+            torch.zeros(self.normalized_shape, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return norm.layer_norm(x, self.normalized_shape, self.weight,
+                               self.bias, self.epsilon)

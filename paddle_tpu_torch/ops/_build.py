@@ -34,13 +34,22 @@ SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "decode_attention_stacked_write":
                "decode_attention_stacked_write.cu",
            "decode_attention_stacked_i8_write":
-               "decode_attention_stacked_i8_write.cu"}
+               "decode_attention_stacked_i8_write.cu",
+           "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
+           "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
+           "layer_norm_fwd": "layer_norm_fwd.cu",
+           "layer_norm_bwd": "layer_norm_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # argtypes of each library's entry point: every pointer and the stream
-# go as c_void_p (a plain int would be cut to 32 bits)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# go as c_void_p (a plain int would be cut to 32 bits); dropout's seed
+# words and threshold as c_uint32
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint32
+# the attention kernels' dropout arguments: on/off, seed low and high
+# words, keep threshold, 1 / (1 - p)
+_DROP = [_I, _U, _U, _U, _F]
 _ENTRY = {
     "decode_attention_paged": (
         "paddle_decode_attention_paged",
@@ -50,7 +59,7 @@ _ENTRY = {
         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention_fwd": (
         "paddle_flash_attention_fwd",
-        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 5 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
     "decode_attention_paged_i8": (
         "paddle_decode_attention_paged_i8",
         [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
@@ -72,7 +81,23 @@ _ENTRY = {
     "decode_attention_stacked_i8_write": (
         "paddle_decode_attention_stacked_i8_write",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_bwd_dkv": (
+        "paddle_flash_attention_bwd_dkv",
+        [_P] * 8 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
+    "flash_attention_bwd_dq": (
+        "paddle_flash_attention_bwd_dq",
+        [_P] * 7 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
+    "layer_norm_fwd": (
+        "paddle_layer_norm_fwd", [_P] * 6 + [_I, _I, _F, _I, _P]),
+    "layer_norm_bwd": (
+        "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 3 + [_P]),
+    # a second entry of flash_attention_fwd's library: the keep bits its
+    # dropout draws, for checks against the plain version
+    "flash_dropout_mask": (
+        "paddle_flash_dropout_mask", [_P] + [_I] * 4 + [_U] * 3 + [_P]),
 }
+# entries that live in another entry's library
+_LIBRARY = {"flash_dropout_mask": "flash_attention_fwd"}
 
 
 def _nvcc() -> str:
@@ -127,8 +152,9 @@ def build_all(names=None) -> dict:
 @functools.lru_cache(maxsize=None)
 def load(name: str):
     """The kernel's C entry point, building its library first if needed."""
-    build_all([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib_name = _LIBRARY.get(name, name)
+    build_all([lib_name])
+    lib = ctypes.CDLL(str(_lib_path(lib_name)))
     symbol, argtypes = _ENTRY[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes

@@ -1,8 +1,9 @@
 // Device-side pieces shared by the flat paged attention, the int8 paged
-// attentions, the flash attention forward and the dense-ring (stacked)
-// kernels: dtype conversion, warp reductions, staging of a K/V tile into
-// shared memory, one warp's online-softmax update of R query rows against
-// one staged tile, and the walk of those updates over a contiguous row.
+// attentions, the flash attention kernels and the dense-ring (stacked)
+// kernels: staging of a K/V tile into shared memory, one warp's
+// online-softmax update of R query rows against one staged tile, and the
+// walk of those updates over a contiguous row (dtype conversion and warp
+// reductions come from numeric.cuh, attention dropout from dropout.cuh).
 //
 // Layout of the shared-memory operands a kernel hands to tile_update:
 //   qs  [R][Dp]        the warp's query rows in fp32, zero past D
@@ -18,6 +19,8 @@
 // the tile's per-position scales: the score becomes (q . k) * scale *
 // k_scale and the PV product takes p * v_scale rounded to the value dtype,
 // while l still sums the unscaled p (the TPU kernels' column-wise dequant).
+// With attention dropout (the flash forward) the PV product takes p times
+// the keep multiplier (dropout.cuh), and l again sums the raw p.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,47 +29,13 @@
 
 #include <cstdint>
 
+#include "dropout.cuh"
+#include "numeric.cuh"
+
 namespace paddle_attn {
 
 constexpr int kTile = 32;  // KV positions per staged tile, one per lane
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(int8_t x) {
-  return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __host__ __device__ __forceinline__ int round4(int d) { return (d + 3) & ~3; }
 
@@ -147,16 +116,25 @@ inline int vec_ok(int D, const void* a, const void* b) {
 // c < n and c0 + c <= limit[rr]; a row with limit[rr] < c0 is left as it
 // is. DPL: output dims per lane (D <= 32 * DPL). T is the value dtype p
 // is rounded to. With kScaled, ksc and vsc [kTile] are the tile's K and V
-// scales (an int8 pool).
-template <typename T, int R, int DPL, bool kScaled = false>
+// scales (an int8 pool). With kDrop, the rows are rows row0 .. row0 + R - 1
+// (row0 and R multiples of 4) of head bh, and drop says which p are kept.
+template <typename T, int R, int DPL, bool kScaled = false, bool kDrop = false>
 __device__ __forceinline__ void tile_update(
     const float* __restrict__ qs, const float* __restrict__ ks,
     const float* __restrict__ vs, float* __restrict__ ps, int D, int Dp,
     int c0, int n, const int (&limit)[R], float scale, float (&m)[R],
     float (&l)[R], float (&acc)[R][DPL], const float* __restrict__ ksc = nullptr,
-    const float* __restrict__ vsc = nullptr) {
+    const float* __restrict__ vsc = nullptr, const DropParams* drop = nullptr,
+    uint32_t bh = 0, int row0 = 0) {
   const int lane = threadIdx.x & 31;
   const int ld = Dp + 1;
+  uint4 bits[kDrop ? R / 4 : 1];
+  if constexpr (kDrop) {
+    static_assert(R % 4 == 0, "dropout draws come four rows at a time");
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+      bits[j] = drop_bits(*drop, bh, (row0 >> 2) + j, c0 + lane);
+  }
   float s[R];
 #pragma unroll
   for (int rr = 0; rr < R; ++rr) s[rr] = 0.f;
@@ -185,6 +163,9 @@ __device__ __forceinline__ void tile_update(
     m[rr] = m_new;
     float pv = p;
     if constexpr (kScaled) pv = p * vsc[lane];
+    if constexpr (kDrop)
+      pv = word(bits[rr >> 2], rr & 3) >= drop->thresh ? pv * drop->inv_keep
+                                                       : 0.f;
     ps[rr * kTile + lane] = to_f(from_f<T>(pv));
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;

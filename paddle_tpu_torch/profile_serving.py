@@ -59,7 +59,7 @@ def gpt2_workload(seed, **engine_kwargs):
                          **engine_kwargs), reqs
 
 
-def _busy_us(intervals):
+def busy_us(intervals):
     """Length of the union of [start, end) intervals, in microseconds."""
     total, end_max = 0.0, None
     for start, end in sorted(intervals):
@@ -112,7 +112,7 @@ def main(argv=None):
         intervals.append((ev.time_range.start, ev.time_range.end))
         by_kernel[ev.name][0] += dur
         by_kernel[ev.name][1] += 1
-    busy_s = _busy_us(intervals) * 1e-6
+    busy_s = busy_us(intervals) * 1e-6
     host = collections.defaultdict(lambda: [0.0, 0])
     for st in eng.telemetry.steps:
         host[st["kind"]][0] += st["dur_s"]

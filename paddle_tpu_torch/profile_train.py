@@ -1,0 +1,121 @@
+"""Where a GPT-2 training step's time goes on the card.
+
+    python -m paddle_tpu_torch.profile_train [--seed N] [--steps N]
+        [--warmup N]
+
+Trains ``gpt2_train_workload``, the configuration that ``chip_smoke.py``
+phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
+B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), for
+``--warmup`` steps, then ``--steps`` more under ``torch.profiler``. Prints
+one JSON object: per profiled step its wall time, the union of the
+device's kernel intervals inside it (busy) and the idle share; then, over
+the profiled steps, device time and launches per step by kernel name.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import sys
+
+import numpy as np
+import torch
+
+from .models.gpt import gpt2_124m
+from .optimizer import AdamW
+from .profile_serving import busy_us
+
+# bench_gpt2's headline configuration (bench.py:463)
+BATCH, SEQ, VOCAB_SAMPLED, LR = 8, 1024, 50000, 1e-4
+
+
+def gpt2_train_workload(seed, device=None):
+    """Returns ``(model, opt, x, y)``: GPT-2 124M (L=12, E=768, H=12,
+    V=50304, dropout 0.1) with random weights from ``seed`` on ``device``
+    (default the card) in bf16; AdamW at lr 1e-4 (weight_decay 0.01) with
+    fp32 masters; and one batch of token ids [8, 1024] drawn below 50000
+    and its next-token labels, as bench_gpt2 draws them."""
+    model = gpt2_124m(device=device, seed=seed)
+    model.to(torch.bfloat16)
+    opt = AdamW(LR, parameters=model.named_parameters(),
+                multi_precision=True)
+    ids = np.random.default_rng(seed).integers(0, VOCAB_SAMPLED,
+                                               (BATCH, SEQ + 1))
+    dev = model.gpt.wte.weight.device
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    return model, opt, x, y
+
+
+def train_step(model, opt, x, y):
+    """One step: forward with labels, backward, AdamW, clear the grads.
+    Returns the loss (a device scalar)."""
+    loss = model(x, labels=y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: needs a CUDA card", file=sys.stderr)
+        return 2
+    model, opt, x, y = gpt2_train_workload(args.seed)
+    for _ in range(args.warmup):
+        train_step(model, opt, x, y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    losses = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(args.steps):
+            with torch.profiler.record_function(f"train_step_{i}"):
+                losses.append(train_step(model, opt, x, y).item())
+                torch.cuda.synchronize()
+    windows, kernels = [], []
+    for ev in prof.events():
+        rng = (ev.time_range.start, ev.time_range.end)
+        cuda = ev.device_type == torch.autograd.DeviceType.CUDA
+        if ev.name.startswith("train_step_"):
+            # a step's host range; its copy on the device timeline (a
+            # user annotation, not a kernel) is left out
+            if not cuda:
+                windows.append(rng)
+        elif cuda:
+            kernels.append((ev.name, *rng))
+    windows.sort()
+    steps = []
+    for start, end in windows:
+        inside = [(s, e) for _, s, e in kernels if start <= s < end]
+        wall = (end - start) * 1e-6
+        busy = busy_us(inside) * 1e-6
+        steps.append({"wall_s": wall, "device_busy_s": busy,
+                      "device_idle_share": 1 - busy / wall,
+                      "kernel_events": len(inside)})
+    by_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for name, s, e in kernels:
+        by_kernel[name][0] += e - s
+        by_kernel[name][1] += 1
+    n = max(len(windows), 1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "config": {"batch": BATCH, "seq": SEQ, "layers": 12,
+                   "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1},
+        "losses": losses, "steps": steps,
+        "device_time_per_step_by_kernel": [
+            {"name": name[:90], "s": us * 1e-6 / n, "launches": cnt / n}
+            for name, (us, cnt) in top],
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,8 +4,11 @@
 arrays, keyed as ``paddle_tpu``'s ``Layer.named_parameters`` names them
 (``ln_scales.0``, ``qkv_weights.0``, ..., ``weight``, ``bias``), and
 returns the port's FusedMultiTransformer, Embedding and Linear head with
-the same values. It is the only path by which weights cross; a caller
-without JAX builds the same dicts from numpy directly (``random_state``).
+the same values, frozen for serving. ``gpt_from_jax_state`` does the same
+for the training model ``GPTForCausalLM`` (``gpt.wte.weight``,
+``gpt.h.0.ln1.weight``, ...), its parameters trainable. These are the
+only paths by which weights cross; a caller without JAX builds the same
+dicts from numpy directly (``random_state``).
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ from torch import nn
 
 from .device import resolve_device
 from .incubate.nn.layer import FusedMultiTransformer
+from .models.gpt import GPTForCausalLM
 from .nn.layer.common import Embedding, Linear
 
-__all__ = ["from_jax_state", "random_state"]
+__all__ = ["from_jax_state", "gpt_from_jax_state", "random_state"]
 
 
 def _tensor(arr, device, dtype):
@@ -32,7 +36,7 @@ def _tensor(arr, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _load(module, state, device, dtype):
+def _load(module, state, device, dtype, trainable=False):
     own = dict(module.named_parameters())
     if set(own) != set(state):
         raise ValueError(
@@ -47,7 +51,7 @@ def _load(module, state, device, dtype):
                                  f"{tuple(t.shape)} != {tuple(p.shape)}")
             owner, _, leaf = name.rpartition(".")
             module.get_submodule(owner)._parameters[leaf] = nn.Parameter(
-                t, requires_grad=False)
+                t, requires_grad=trainable)
 
 
 def from_jax_state(fmt_np, embed_np, head_np, activation="gelu",
@@ -74,6 +78,17 @@ def from_jax_state(fmt_np, embed_np, head_np, activation="gelu",
                           (head, head_np)):
         _load(module, state, dev, dtype)
     return fmt, embed, head
+
+
+def gpt_from_jax_state(state_np, config, device=None, dtype=None):
+    """The JAX ``GPTForCausalLM``'s ``state_dict()`` as numpy arrays ->
+    the port's ``GPTForCausalLM(config)`` on ``device`` (default ``cuda``)
+    holding the same values, trainable, in ``dtype`` (default: the
+    arrays' own). The tied head needs no entry of its own."""
+    dev = resolve_device(device)
+    model = GPTForCausalLM(config, device="meta")
+    _load(model, state_np, dev, dtype, trainable=True)
+    return model
 
 
 def random_state(rng, embed_dim, num_heads, dim_feedforward, num_layers,

@@ -91,9 +91,14 @@ def test_row_that_attends_nothing():
 
 
 def test_dropout_raises():
+    # dropout_p in (0, 1) runs (tests/test_torch_flash_bwd.py); a rate
+    # that keeps nothing, or none at all, is refused
     q, k, v = map(torch.from_numpy, _inputs(0, 1, 8, 8, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(q, k, v, dropout_p=0.1)
+    assert fa.flash_attention(q, k, v, dropout_p=0.1,
+                              dropout_seed=3).shape == q.shape
+    for p in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout_p"):
+            fa.flash_attention(q, k, v, dropout_p=p)
 
 
 @pytest.mark.parametrize("bad", ["heads", "dtype", "head_dim"])

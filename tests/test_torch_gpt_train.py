@@ -1,0 +1,247 @@
+"""GPT-2 training in the port against the JAX package.
+
+The JAX ``gpt2_tiny(dropout=0.0)`` (E=64, L=2, H=2, V=1024), fp32, is
+built from ``paddle.seed(0)`` and its ``state_dict()`` moved into the port
+with ``weights.gpt_from_jax_state``. The same numpy batch (B=2, S=32) then
+goes through both: the logits, and 3 AdamW steps (lr 1e-3, weight_decay
+0.01) — the loss of each step, every gradient of step 1 and every
+parameter after step 3 — held to ``TOLERANCES["logits_fp32"]``,
+``["train_loss_fp32"]``, ``["train_grads_fp32"]`` and
+``["train_params_fp32"]``. The JAX side runs twice: through its
+composites, and with ``PADDLE_TPU_FORCE_PALLAS=1`` (its flash attention
+and LayerNorm Pallas kernels in interpret mode). The port runs on the CPU,
+where attention and LayerNorm take their kernels' plain versions.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.models.gpt import gpt2_tiny as jax_gpt2_tiny
+from paddle_tpu_torch import TOLERANCES
+from paddle_tpu_torch.models.gpt import GPTConfig, gpt2_tiny
+from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.weights import gpt_from_jax_state
+
+B, S, STEPS, LR, WD = 2, 32, 3, 1e-3, 0.01
+TINY = {"vocab_size": 1024, "hidden_size": 64, "num_layers": 2,
+        "num_heads": 2, "max_position": 128}
+
+
+def _batch():
+    ids = np.random.default_rng(0).integers(0, TINY["vocab_size"],
+                                            (B, S + 1))
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _jax_run(force_pallas):
+    """(state, logits, losses, step-1 grads, final params) of the JAX
+    model, as numpy."""
+    old = os.environ.get("PADDLE_TPU_FORCE_PALLAS")
+    if force_pallas:
+        os.environ["PADDLE_TPU_FORCE_PALLAS"] = "1"
+    try:
+        paddle.seed(0)
+        m = jax_gpt2_tiny(dropout=0.0)
+        state = {k: np.array(v.numpy()) for k, v in m.state_dict().items()}
+        x, y = (paddle.to_tensor(a.astype(np.int32)) for a in _batch())
+        logits = m(x).numpy()
+        opt = paddle.optimizer.AdamW(learning_rate=LR, weight_decay=WD,
+                                     parameters=m.parameters())
+        losses, grads = [], None
+        for i in range(STEPS):
+            loss = m(x, labels=y)
+            loss.backward()
+            if i == 0:
+                grads = {n: p.grad.numpy() for n, p in m.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.numpy()))
+        params = {n: p.numpy() for n, p in m.named_parameters()}
+    finally:
+        if force_pallas:
+            if old is None:
+                del os.environ["PADDLE_TPU_FORCE_PALLAS"]
+            else:
+                os.environ["PADDLE_TPU_FORCE_PALLAS"] = old
+    return state, logits, losses, grads, params
+
+
+def _port_run(state):
+    model = gpt_from_jax_state(state, GPTConfig(**TINY, dropout=0.0),
+                               device="cpu")
+    x, y = (torch.from_numpy(a) for a in _batch())
+    with torch.no_grad():
+        logits = model(x).numpy()
+    opt = AdamW(LR, parameters=model.named_parameters(), weight_decay=WD)
+    losses, grads = [], None
+    for i in range(STEPS):
+        loss = model(x, labels=y)
+        loss.backward()
+        if i == 0:
+            grads = {n: p.grad.clone().numpy()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    params = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    return logits, losses, grads, params
+
+
+@pytest.fixture(scope="module", params=["composite", "pallas"])
+def runs(request):
+    jax_out = _jax_run(request.param == "pallas")
+    return jax_out[1:], _port_run(jax_out[0])
+
+
+def test_state_names_and_shapes(runs):
+    """The port's GPT has the JAX model's parameter names and shapes."""
+    (*_, want), _ = runs
+    port = gpt2_tiny(dropout=0.0, device="cpu")
+    assert {n: tuple(p.shape) for n, p in port.named_parameters()} \
+        == {n: w.shape for n, w in want.items()}
+    assert all(p.requires_grad for p in port.parameters())
+
+
+def test_logits(runs):
+    (want, *_), (got, *_) = runs
+    assert got.shape == (B, S, TINY["vocab_size"])
+    np.testing.assert_allclose(got, want, **TOLERANCES["logits_fp32"])
+
+
+def test_losses(runs):
+    (_, want, *_), (_, got, *_) = runs
+    np.testing.assert_allclose(got, want, **TOLERANCES["train_loss_fp32"])
+    assert got[-1] < got[0]
+
+
+def test_grads_after_step_1(runs):
+    (*_, want, _), (*_, got, _) = runs
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], err_msg=name,
+                                   **TOLERANCES["train_grads_fp32"])
+
+
+def test_params_after_step_3(runs):
+    (*_, want), (*_, got) = runs
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], err_msg=name,
+                                   **TOLERANCES["train_params_fp32"])
+
+
+def test_tied_head_collects_both_grads():
+    """The head is wte transposed, not a copy: wte's gradient equals the
+    sum of the embedding's and the head's, each taken alone."""
+    torch.manual_seed(0)
+    model = gpt2_tiny(dropout=0.0, device="cpu", seed=1)
+    x, y = (torch.from_numpy(a) for a in _batch())
+    model(x, labels=y).backward()
+    both = model.gpt.wte.weight.grad.clone()
+    head_only = torch.autograd.grad(
+        torch.nn.functional.cross_entropy(
+            (model.gpt(x).detach() @ model.gpt.wte.weight.t()).reshape(
+                -1, TINY["vocab_size"]), y.reshape(-1)),
+        model.gpt.wte.weight)[0]
+    assert not torch.allclose(both, head_only)
+    emb_only = both - head_only
+    # the rows of tokens absent from the batch get only the head's part
+    absent = torch.ones(TINY["vocab_size"], dtype=torch.bool)
+    absent[x.reshape(-1)] = False
+    assert torch.all(emb_only[absent].abs() < 1e-6)
+    assert emb_only[~absent].abs().sum() > 0
+
+
+def test_fused_ffn_flag_raises(monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", "1")
+    model = gpt2_tiny(dropout=0.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(torch.from_numpy(_batch()[0]))
+
+
+def test_dropout_training_is_seeded():
+    """dropout 0.1 (attention and residual) on the CPU: finite losses,
+    the same for the same seed, different for another, and inference
+    (eval) deterministic."""
+    x, y = (torch.from_numpy(a) for a in _batch())
+    losses = [gpt2_tiny(device="cpu", seed=s)(x, labels=y).item()
+              for s in (3, 3, 4)]
+    assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
+    model = gpt2_tiny(device="cpu", seed=3).eval()
+    with torch.no_grad():
+        assert torch.equal(model(x), model(x))
+
+
+def _numpy_adam(w, grads, lr, wd=0.0, l2=0.0, b1=0.9, b2=0.999, eps=1e-8):
+    """Paddle's Adam update in numpy fp32 for one parameter: ``l2`` folded
+    into the gradient (Adam's weight_decay), ``wd`` decoupled (AdamW's)."""
+    f = np.float32
+    m = np.zeros_like(w)
+    v = np.zeros_like(w)
+    b1p = b2p = f(1)
+    for g in grads:
+        g = g + f(l2) * w
+        b1p, b2p = f(b1p * f(b1)), f(b2p * f(b2))
+        m = f(b1) * m + f(1 - b1) * g
+        v = f(b2) * v + f(1 - b2) * g * g
+        w = w - f(lr) * ((m / (f(1) - b1p)) / (np.sqrt(v / (f(1) - b2p))
+                                                + f(eps)) + f(wd) * w)
+    return w
+
+
+@pytest.mark.parametrize("decay", [True, False])
+def test_adamw_update_and_options(decay):
+    """AdamW against Paddle's formula in numpy over 4 steps;
+    apply_decay_param_fun sees the parameter's name and lr_ratio scales
+    its rate."""
+    rng = np.random.default_rng(1)
+    w0 = rng.standard_normal((5, 3)).astype(np.float32)
+    grads = [rng.standard_normal((5, 3)).astype(np.float32)
+             for _ in range(4)]
+    p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    seen = []
+    opt = AdamW(0.01, parameters=[("w", p)], weight_decay=0.1,
+                apply_decay_param_fun=lambda n: seen.append(n) or decay,
+                lr_ratio=lambda _: 0.5)
+    for g in grads:
+        p.grad = torch.from_numpy(g)
+        opt.step()
+        opt.clear_grad()
+        assert p.grad is None
+    assert seen == ["w"] * 4
+    want = _numpy_adam(w0, grads, 0.005, wd=0.1 if decay else 0.0)
+    np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_adam_folds_l2_decay_into_the_gradient():
+    rng = np.random.default_rng(2)
+    w0 = rng.standard_normal((4, 4)).astype(np.float32)
+    grads = [rng.standard_normal((4, 4)).astype(np.float32)
+             for _ in range(3)]
+    q = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    adam = Adam(0.01, parameters=[q], weight_decay=0.1)
+    for g in grads:
+        q.grad = torch.from_numpy(g)
+        adam.step()
+    np.testing.assert_allclose(q.detach().numpy(),
+                               _numpy_adam(w0, grads, 0.01, l2=0.1),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_multi_precision_keeps_fp32_masters():
+    """bf16 parameters with multi_precision: the update runs on fp32
+    masters, which the bf16 parameters are rounded from after each step
+    (small steps that a bf16 weight alone would lose accumulate)."""
+    p = torch.nn.Parameter(torch.ones(64, dtype=torch.bfloat16))
+    opt = AdamW(1e-4, parameters=[p], weight_decay=0.0,
+                multi_precision=True)
+    for _ in range(3):
+        p.grad = torch.ones(64, dtype=torch.bfloat16)
+        opt.step()
+    master = opt._master_weights[id(p)]
+    assert master.dtype == torch.float32 and p.dtype == torch.bfloat16
+    np.testing.assert_allclose(master.numpy(), 1 - 3e-4, rtol=1e-5)
+    assert torch.equal(p, master.to(torch.bfloat16))

@@ -22,7 +22,12 @@ Phases, in order; any failure exits non-zero:
      the plain version's; flash forward with dropout and the dK/dV and dQ
      kernels, bf16 and fp32, causal and not, Sq = Sk, Sq < Sk and Sq > Sk,
      GQA, D 64 and 128, dropout 0 and 0.1; LayerNorm forward and backward
-     at N 8192, 1001 and 37). --kernels-only stops here (exit 0, no
+     at N 8192, 1001 and 37); the fused FFN forward, dx and dW kernels
+     (fp32 and bf16, both activations, (K, F) in (128, 256), (768, 3072)
+     and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
+     decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
+     D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 and 1024, lens 0,
+     mid-tile and Smax - Sq). --kernels-only stops here (exit 0, no
      result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
@@ -51,6 +56,17 @@ Phases, in order; any failure exits non-zero:
      and each step must launch exactly 12 flash forward, 12 dK/dV, 12 dQ,
      25 LayerNorm forward and 25 LayerNorm backward kernels and no other
      kernel of the port;
+  3d. the same training under PADDLE_TPU_FUSED_FFN=1 and
+     PADDLE_TPU_FUSED_FFN_BWD=1: each step must also launch exactly 12
+     fused FFN forward, 12 dx and 12 dW kernels; its step time and peak
+     memory are printed beside 3c's;
+  3e. FusedMultiTransformer at the same width (L=12, gelu, pre-LN, bf16,
+     random weights) over per-layer caches [2, 8, 12, 1024, 64]: a
+     128-token chunk at time_step 0, then 127 one-token steps, each call
+     launching exactly 12 decode_attention_bhsd and no other attention
+     kernel, outputs finite; then one FusedFeedForward forward and
+     backward under the fused FFN flags, launching each fused FFN kernel
+     once;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -60,12 +76,16 @@ Phases, in order; any failure exits non-zero:
      dense engines (row, flat, phase fp; row int8 ring) against the
      CPU's dense row engine of the same flavor; generate_fused fp and
      int8 ring, cache_write_kernel off and on, against the CPU's; GPT-2
-     training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps: losses,
-     step-1 gradients and step-3 parameters against the CPU's;
+     training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps, without
+     and with the fused FFN: losses, step-1 gradients and step-3
+     parameters against the CPU's; FusedMultiTransformer at L=2, fp32: a
+     16-token chunk then 8 steps, outputs and caches after every call
+     against the CPU's;
   5. each kernel timed at the shapes its path gives it, beside its bound,
      its plain version and one PyTorch call (SDPA forward or backward,
      ATen's LayerNorm forward or backward, or a matmul on a weight
-     dequantized once) computing the same.
+     dequantized once) computing the same; for the fused FFN three calls
+     (addmm, gelu, addmm) and autograd's backward of them.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -73,8 +93,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -84,6 +106,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch import TOLERANCES
+from paddle_tpu_torch.incubate.nn import FusedFeedForward
 from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
 from paddle_tpu_torch.inference.generation import (_absmax_int4,
                                                    _absmax_int8, _pack_int4,
@@ -93,13 +116,14 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
+from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
                                               gpt2_workload)
-from paddle_tpu_torch.profile_train import (BATCH, SEQ, gpt2_train_workload,
-                                            train_step)
+from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS, SEQ,
+                                            gpt2_train_workload, train_step)
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
@@ -245,7 +269,90 @@ def phase_kernels(rng):
                       worst)
     stacked_kernels(rng, worst)
     training_kernels(rng, worst)
+    ffn_kernels(rng, worst)
+    bhsd_kernels(rng, worst)
     return worst
+
+
+# the fused FFN's (K, F): a small one, GPT-2's and a LLaMA-like 2816
+FFN_SHAPES = ((128, 256), (768, 3072), (1024, 2816))
+
+
+def ffn_inputs(rng, m, k, f, dtype):
+    """x, g [M, K] normal; W1 [K, F] and W2 [F, K] scaled by 1/sqrt(fan
+    in); biases 0.1 normal: (x, g, w1, b1, w2, b2) in dtype."""
+    x, g = (randn(rng, (m, k), dtype) for _ in range(2))
+    w1 = (randn(rng, (k, f), torch.float32) / k ** 0.5).to(dtype)
+    w2 = (randn(rng, (f, k), torch.float32) / f ** 0.5).to(dtype)
+    b1 = (0.1 * randn(rng, (f,), torch.float32)).to(dtype)
+    b2 = (0.1 * randn(rng, (k,), torch.float32)).to(dtype)
+    return x, g, w1, b1, w2, b2
+
+
+def ffn_kernels(rng, worst):
+    """The three fused FFN kernels against their plain versions at
+    FFN_SHAPES, M 8, 136 and 8192, both activations, fp32 and bf16: the
+    output, dx, dW1, dW2 and db1 each (bf16 dW1 and dW2 to their own
+    tolerance: sums over M of a factor rounded to bf16)."""
+    for dtype, tname, wname in (
+            (torch.float32, "ffn_fp32_large", "ffn_fp32_large"),
+            (torch.bfloat16, "ffn_bf16", "ffn_wgrad_bf16")):
+        for k, f in FFN_SHAPES:
+            for m in (8, 136, 8192):
+                x, g, w1, b1, w2, b2 = ffn_inputs(rng, m, k, f, dtype)
+                for act in ("gelu_tanh", "gelu"):
+                    name = (f"fused_ffn {str(dtype):14s} M={m:4d} K={k:4d} "
+                            f"F={f} {act:9s}")
+                    check(f"{name} out", ffn.fused_ffn_fwd(x, w1, b1, w2, b2,
+                                                           act),
+                          ffn.fused_ffn_fwd_reference(x, w1, b1, w2, b2, act),
+                          tname, worst)
+                    check(f"{name} dx", ffn.fused_ffn_bwd_dx(x, g, w1, b1, w2,
+                                                             act),
+                          ffn.fused_ffn_bwd_dx_reference(x, g, w1, b1, w2,
+                                                         act), tname, worst)
+                    got = ffn.fused_ffn_bwd_dw(x, g, w1, b1, w2, act)
+                    want = ffn.fused_ffn_bwd_dw_reference(x, g, w1, b1, w2,
+                                                          act)
+                    for part, a, b, tn in zip(("dW1", "dW2", "db1"), got,
+                                              want, (wname, wname, tname)):
+                        check(f"{name} {part}", a, b, tn, worst)
+
+
+def bhsd_kernels(rng, worst):
+    """decode_attention_bhsd against its plain version, in both layouts
+    (``decode_attention_bhsd`` and ``decode_attention``): B 1 and 8, H
+    12, Hk 12 and 6, D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 (not a
+    tile multiple) and 1024, lens 0, mid-tile and Smax - Sq."""
+    h = 12
+    for dtype, tname in ((torch.bfloat16, "attention_bf16"),
+                         (torch.float32, "attention_fp32")):
+        for b in (1, 8):
+            for hk in (12, 6):
+                for d in (64, 128):
+                    for smax in (32, 1000, 1024):
+                        k, v = (randn(rng, (b, hk, smax, d), dtype)
+                                for _ in range(2))
+                        for sq in (1, 4, 128):
+                            if sq > smax:
+                                continue
+                            top = smax - sq
+                            lens = ([top] if b == 1 else
+                                    [0, min(13, top), top, top // 2] * 2)
+                            lens = torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+                            qt = randn(rng, (b, h, sq, d), dtype)
+                            label = (f"bhsd {str(dtype):14s} B={b} Hk={hk:2d} "
+                                     f"D={d:3d} Smax={smax:4d} Sq={sq:3d}")
+                            want = da.decode_attention_bhsd_reference(
+                                qt, k, v, lens)
+                            check(label, da.decode_attention_bhsd(
+                                qt, k, v, lens), want, tname, worst)
+                            got = da.decode_attention(
+                                qt.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), lens)
+                            check(label + " [B, S, H, D]",
+                                  got.transpose(1, 2), want, tname, worst)
 
 
 # flash attention cases of the training kernels: (B, H, Hk, Sq, Sk, D,
@@ -405,6 +512,12 @@ def check(name, got, want, tname, worst):
     log(f"  {name}: max_abs_err={err:.3e} (atol={tol['atol']}, "
         f"rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
     if not ok:
+        a, b = got.float().flatten(), want.float().flatten()
+        excess = (a - b).abs() - (tol["atol"] + tol["rtol"] * b.abs())
+        i = int(excess.argmax())
+        log(f"  {name}: {int((excess > 0).sum())} of {b.numel()} elements "
+            f"outside; the worst at flat index {i}: got {a[i].item():.6e}, "
+            f"want {b[i].item():.6e}")
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     worst[tname] = max(worst.get(tname, 0.0), err)
 
@@ -565,7 +678,8 @@ def phase_generate(seed):
 
 
 def reset_launches():
-    for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES):
+    for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
+                   ffn.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -633,11 +747,36 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
                   "layer_norm_bwd": 25}
 
 
-def phase_train(seed, steps=10, warmup=2):
-    log(f"== phase 3c: GPT-2 124M training (L=12, E=768, H=12, V=50304) "
-        f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
-        f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
-        "batch")
+# phase 3d's step adds the three fused FFN kernels once per layer
+FFN_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "fused_ffn_fwd": 12,
+                      "fused_ffn_bwd_dx": 12, "fused_ffn_bwd_dw": 12}
+
+
+@contextlib.contextmanager
+def environ(flags):
+    """The environment variables ``flags`` set inside, restored after."""
+    old = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def all_launches():
+    return {**fa.LAUNCHES, **ln.LAUNCHES, **da.LAUNCHES, **fdm.LAUNCHES,
+            **ffn.LAUNCHES}
+
+
+def train_run(seed, steps, warmup, per_step):
+    """Train gpt2_train_workload: ``warmup`` steps, then ``steps`` timed
+    with every launch count zeroed just before and read just after; fail
+    unless they are exactly ``per_step`` a step and the losses are finite
+    and fall. Returns (launches, median step s, peak bytes)."""
     model, opt, x, y = gpt2_train_workload(seed)
     for _ in range(warmup):
         train_step(model, opt, x, y).item()
@@ -649,9 +788,9 @@ def phase_train(seed, steps=10, warmup=2):
         t0 = time.perf_counter()
         losses.append(train_step(model, opt, x, y).item())   # synchronizes
         times.append(time.perf_counter() - t0)
-    launches = {**fa.LAUNCHES, **ln.LAUNCHES, **da.LAUNCHES, **fdm.LAUNCHES}
+    launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    want = {k: n * steps for k, n in per_step.items()}
     got = {k: v for k, v in launches.items() if v}
     log(f"  losses {losses}")
     med = float(np.median(times))
@@ -666,13 +805,107 @@ def phase_train(seed, steps=10, warmup=2):
             or not np.mean(losses[-3:]) < np.mean(losses[:3]):
         raise SystemExit(f"training losses must be finite and decrease over "
                          f"the repeated batch: {losses}")
+    return launches, med, peak
+
+
+def phase_train(seed, steps=10, warmup=2):
+    log(f"== phase 3c: GPT-2 124M training (L=12, E=768, H=12, V=50304) "
+        f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
+        f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
+        "batch")
+    return train_run(seed, steps, warmup, TRAIN_LAUNCHES)
+
+
+def phase_train_ffn(seed, base, steps=10, warmup=2):
+    log("== phase 3d: phase 3c's training with PADDLE_TPU_FUSED_FFN=1 and "
+        "PADDLE_TPU_FUSED_FFN_BWD=1 (GPTMLP through the fused FFN kernels)")
+    with environ(FUSED_FFN_FLAGS):
+        launches, med, peak = train_run(seed, steps, warmup,
+                                        FFN_TRAIN_LAUNCHES)
+    _, base_med, base_peak = base
+    log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
+        f"{1e3 * base_med:.3f} ms ({med / base_med:.3f}x), tokens/s "
+        f"{BATCH * SEQ / med:.1f} / {BATCH * SEQ / base_med:.1f}; peak "
+        f"{peak} / {base_peak} bytes ({peak - base_peak:+d})")
+    return launches, med, peak
+
+
+def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
+    log(f"== phase 3e: FusedMultiTransformer at GPT-2-124M width (E={E}, "
+        f"H={H}, FF={FF}, L={n_layers}, gelu, pre-LN, bf16, random weights): "
+        f"B={b}, a {chunk}-token chunk at time_step 0, then {steps} "
+        f"one-token steps over caches [2, {b}, {H}, {smax}, {E // H}]; then "
+        "one FusedFeedForward forward and backward with the fused FFN flags")
+    state = random_state(np.random.default_rng(seed + 6), E, H, FF,
+                         n_layers, 8)
+    fmt, _, _ = from_jax_state(*state, dtype=torch.bfloat16)
+    caches = [torch.zeros((2, b, H, smax, E // H), dtype=torch.bfloat16,
+                          device="cuda") for _ in range(n_layers)]
+    xs = randn(np.random.default_rng(seed + 7), (b, chunk + steps, E),
+               torch.bfloat16)
+    attention = [k for k in all_launches() if "attention" in k]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    times = []
+    with torch.no_grad():
+        for i in range(steps + 1):
+            ts, n = (0, chunk) if i == 0 else (chunk + i - 1, 1)
+            before = all_launches()
+            t0 = time.perf_counter()
+            out, caches = fmt(xs[:, ts:ts + n], caches=caches, time_step=ts)
+            finite &= torch.isfinite(out).all()
+            if i in (0, steps):
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = all_launches()
+            got = {k: after[k] - before[k] for k in attention
+                   if after[k] != before[k]}
+            if got != {"decode_attention_bhsd": n_layers}:
+                raise SystemExit(f"FusedMultiTransformer call {i} launched "
+                                 f"{got}, want exactly {n_layers} "
+                                 "decode_attention_bhsd")
+    torch.cuda.synchronize()
+    decode_s = sum(times[1:])
+    launches = all_launches()
+    if not bool(finite) or not all(bool(torch.isfinite(c).all())
+                                   for c in caches):
+        raise SystemExit("FusedMultiTransformer: non-finite outputs or "
+                         "caches")
+    log(f"  chunk (time_step 0, S={chunk}) {1e3 * times[0]:.3f} ms; "
+        f"{steps} decode steps in {decode_s:.4f} s, "
+        f"{1e3 * decode_s / steps:.3f} ms a step (host clock, the last "
+        f"synchronized); launches {launches}")
+    ff = FusedFeedForward(E, FF, dropout_rate=0.0, activation="gelu",
+                          normalize_before=True, dtype=torch.bfloat16,
+                          seed=seed)
+    x = randn(np.random.default_rng(seed + 8), (b, chunk, E),
+              torch.bfloat16).requires_grad_()
+    reset_launches()
+    with environ(FUSED_FFN_FLAGS):
+        y = ff(x)
+        y.backward(torch.ones_like(y))
+    got = {k: v for k, v in ffn.LAUNCHES.items() if v}
+    # pre-LN leaves ln2 unused, as in the JAX layer
+    grads = [x.grad] + [p.grad for n, p in ff.named_parameters()
+                        if not n.startswith("ln2")]
+    log(f"  FusedFeedForward [{b}, {chunk}, {E}] forward + backward: fused "
+        f"FFN launches {got}")
+    if got != {k: 1 for k in ffn.LAUNCHES}:
+        raise SystemExit(f"FusedFeedForward launched {got}, want each fused "
+                         "FFN kernel once")
+    if not torch.isfinite(y).all() or not all(
+            g is not None and bool(torch.isfinite(g).all()) for g in grads):
+        raise SystemExit("FusedFeedForward: non-finite output or gradients")
     return launches
 
 
-def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
+def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3,
+                       label="train", kernels=()):
     """GPT-2 124M widths at L=2, fp32 (TF32 off), dropout 0: the same
     weights and batch trained 3 AdamW steps on the card and on the CPU
-    (plain versions there); losses and step-1 gradients within
+    (plain versions there), the card's run launching each of ``kernels``;
+    losses and step-1 gradients within
     TOLERANCES["train_loss_fp32"] and ["train_grads_fp32"], step-3
     parameters within ["train_params_fp32"] but for the share of
     elements that ["train_params_outliers"] allows."""
@@ -687,6 +920,7 @@ def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
         opt = AdamW(lr, parameters=model.named_parameters())
         x, y = (torch.from_numpy(a).to(dev) for a in (ids[:, :-1],
                                                       ids[:, 1:]))
+        reset_launches()
         t0 = time.perf_counter()
         losses, grads = [], None
         for i in range(steps):
@@ -699,8 +933,11 @@ def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
             losses.append(loss.item())
         runs[dev] = (losses, grads, {n: p.detach().cpu() for n, p in
                                      model.named_parameters()})
-        log(f"  [train] {dev}: {steps} steps in "
+        log(f"  [{label}] {dev}: {steps} steps in "
             f"{time.perf_counter() - t0:.2f} s, losses {losses}")
+        if dev == "cuda" and not all(all_launches()[k] for k in kernels):
+            raise SystemExit(f"[{label}] the card's run launched "
+                             f"{all_launches()}, want each of {kernels}")
     (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
     for what, got, want, tname in (
             ("losses", {"loss": torch.tensor(lc)},
@@ -709,7 +946,7 @@ def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
         tol = TOLERANCES[tname]
         worst = max(((got[n] - want[n]).abs().max().item(), n) for n in want)
         bad = [n for n in want if not torch.allclose(got[n], want[n], **tol)]
-        log(f"  [train] {what} card vs CPU: worst {worst[0]:.3e} at "
+        log(f"  [{label}] {what} card vs CPU: worst {worst[0]:.3e} at "
             f"{worst[1]} (atol {tol['atol']}, rtol {tol['rtol']}) "
             f"{'ok' if not bad else 'FAIL ' + str(bad)}")
         if bad:
@@ -723,7 +960,7 @@ def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3):
     worst = max(((pc[n] - ph[n]).abs().max().item(), n) for n in ph)
     cap = out["per_step_lr"] * lr * steps
     ok = n_out <= out["share"] * n_all and worst[0] <= cap
-    log(f"  [train] step-3 parameters card vs CPU: {n_out} of {n_all} "
+    log(f"  [{label}] step-3 parameters card vs CPU: {n_out} of {n_all} "
         f"elements outside atol {tol['atol']}, rtol {tol['rtol']} (share "
         f"{n_out / n_all:.2e}, allowed {out['share']}): "
         f"{ {n: k for n, k in outside.items() if k} }; worst {worst[0]:.3e} "
@@ -755,7 +992,8 @@ def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
 
 def phase_parity(seed):
     log("== phase 4: card vs CPU (row) at L=2, full width, fp32 (TF32 "
-        "off), per flavor; then GPT-2 training, 3 AdamW steps")
+        "off), per flavor; then GPT-2 training, 3 AdamW steps, without and "
+        "with the fused FFN; then FusedMultiTransformer's cache decode")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
@@ -807,6 +1045,57 @@ def phase_parity(seed):
             f"{' / '.join(cpu)} on the CPU")
     parity_generate(state, rng)
     phase_train_parity(seed)
+    with environ(FUSED_FFN_FLAGS):
+        phase_train_parity(seed, label="train-ffn", kernels=tuple(
+            ffn.LAUNCHES))
+    parity_fmt(seed)
+
+
+def parity_fmt(seed, b=2, chunk=16, steps=8, smax=256, n_layers=2):
+    """FusedMultiTransformer at GPT-2-124M width, L=2, fp32, on the card
+    and on the CPU (plain versions there) from the same weights, inputs
+    and zeroed caches [2, B, H, Smax, D]: a 16-token chunk at time_step 0,
+    then 8 one-token steps; every step's output and caches within
+    TOLERANCES["logits_fp32"], and the card launching L
+    decode_attention_bhsd a call."""
+    state = random_state(np.random.default_rng(seed + 9), E, H, FF,
+                         n_layers, 8)
+    xs = np.random.default_rng(seed + 10).standard_normal(
+        (b, chunk + steps, E)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        fmt, _, _ = from_jax_state(*state, device=dev)
+        caches = [torch.zeros((2, b, H, smax, E // H), device=dev)
+                  for _ in range(n_layers)]
+        x = torch.from_numpy(xs).to(dev)
+        reset_launches()
+        seq = []
+        with torch.no_grad():
+            for i in range(steps + 1):
+                ts, n = (0, chunk) if i == 0 else (chunk + i - 1, 1)
+                out, caches = fmt(x[:, ts:ts + n], caches=caches,
+                                  time_step=ts)
+                # copies: on the CPU .cpu() would alias the caches, which
+                # the next step updates in place
+                seq.append([t.cpu().clone() for t in (out, *caches)])
+        runs[dev] = seq
+        if dev == "cuda" and da.LAUNCHES["decode_attention_bhsd"] \
+                != n_layers * (steps + 1):
+            raise SystemExit(f"[fmt] the card launched {all_launches()}, "
+                             f"want {n_layers * (steps + 1)} "
+                             "decode_attention_bhsd")
+    tol = TOLERANCES["logits_fp32"]
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        for name, g, w in zip(["out"] + [f"cache {j}" for j in
+                                         range(n_layers)], got, want):
+            worst = max(worst, (g - w).abs().max().item())
+            if not torch.allclose(g, w, **tol):
+                raise SystemExit(f"[fmt] step {i} {name}: card and CPU "
+                                 "differ beyond logits_fp32")
+    log(f"  [fmt] L={n_layers} fp32, a {chunk}-token chunk then {steps} "
+        f"steps: outputs and caches card vs CPU worst {worst:.3e} (atol "
+        f"{tol['atol']}, rtol {tol['rtol']}) ok")
 
 
 def parity_generate(state, rng):
@@ -1006,7 +1295,124 @@ def phase_timing(seed):
     rows.update(time_flash_train(rng))
     log(f"  layer_norm_fwd and layer_norm_bwd at [{BATCH * SEQ}, {E}]")
     rows.update(time_layer_norm(rng))
+    log(f"  the fused FFN kernels at the training shape M={BATCH * SEQ}, "
+        f"K={E}, F={FF}, gelu_tanh")
+    rows.update(time_ffn(rng))
+    log("  decode_attention_bhsd at fused_multi_transformer's decode shape "
+        "(B=8, Smax=1024)")
+    rows["decode_attention_bhsd"] = time_bhsd(rng)
     return rows
+
+
+def time_ffn(rng, act="gelu_tanh"):
+    """The three fused FFN kernels at GPT-2's training shape (M = 8192, K
+    = 768, F = 3072) in bf16 (the tensor-core instantiations; the rows),
+    then their fp32 instantiations (fp32 cores; logged, and their ms kept
+    as fp32_ms in the bf16 rows). The library time is three calls,
+    torch.addmm + F.gelu(tanh) + torch.addmm, for the forward, and
+    autograd's backward of that composite (all five gradients) for dx and
+    dw alike. Bounds: the products of the TPU kernel's algorithm (2, 3
+    and 4 of 2 M K F operations) at the bf16 tensor rate, not this
+    design's recompute; dw's time includes summing its row-split
+    partials."""
+    rows = time_ffn_dtype(rng, act, torch.bfloat16)
+    log("  the fp32 instantiations (fp32 cores; phase 4's) at the same shape")
+    fp32 = time_ffn_dtype(rng, act, torch.float32)
+    for name, row in fp32.items():
+        rows[name][0]["fp32_ms"] = row[0]["ms"]
+    return rows
+
+
+def time_ffn_dtype(rng, act, dtype):
+    """The three fused FFN kernels at GPT-2's training shape in ``dtype``,
+    each checked against its plain version, then timed beside it and the
+    library calls."""
+    m, k, f = BATCH * SEQ, E, FF
+    x, g, w1, b1, w2, b2 = ffn_inputs(rng, m, k, f, dtype)
+    xg, w1g, b1g, w2g, b2g = (a.detach().requires_grad_()
+                              for a in (x, w1, b1, w2, b2))
+
+    def composite(a, w1, b1, w2, b2):
+        t = F.gelu(torch.addmm(b1, a, w1), approximate="tanh")
+        return torch.addmm(b2, t, w2)
+    out = composite(xg, w1g, b1g, w2g, b2g)
+    fwd_library = time_ms(lambda i=0: composite(x, w1, b1, w2, b2), 20)
+    bwd_library = time_loop_ms(lambda i=0: torch.autograd.grad(
+        out, (xg, w1g, b1g, w2g, b2g), g, retain_graph=True), 20)
+    elt, mkf = x.element_size(), m * k * f
+    wide = dtype == torch.float32
+    rows = {}
+    for name, kernel, plain, nbytes, flops, tname in (
+            ("fused_ffn_fwd",
+             lambda i=0: ffn.fused_ffn_fwd(x, w1, b1, w2, b2, act),
+             lambda i=0: ffn.fused_ffn_fwd_reference(x, w1, b1, w2, b2, act),
+             (2 * m * k + 2 * k * f + f + k) * elt, 4 * mkf,
+             "ffn_fp32_large" if wide else "ffn_bf16"),
+            ("fused_ffn_bwd_dx",
+             lambda i=0: ffn.fused_ffn_bwd_dx(x, g, w1, b1, w2, act),
+             lambda i=0: ffn.fused_ffn_bwd_dx_reference(x, g, w1, b1, w2,
+                                                        act),
+             (3 * m * k + 2 * k * f + f) * elt, 6 * mkf,
+             "ffn_fp32_large" if wide else "ffn_bf16"),
+            ("fused_ffn_bwd_dw",
+             lambda i=0: ffn.fused_ffn_bwd_dw(x, g, w1, b1, w2, act),
+             lambda i=0: ffn.fused_ffn_bwd_dw_reference(x, g, w1, b1, w2,
+                                                        act),
+             (2 * m * k + 4 * k * f + f) * elt + f * 4, 8 * mkf,
+             "ffn_fp32_large" if wide else "ffn_wgrad_bf16")):
+        got, want = kernel(), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        tol = TOLERANCES[tname]
+        db1_tol = "ffn_fp32_large" if wide else "ffn_bf16"
+        if not all(torch.allclose(a.float(), b.float(), **TOLERANCES[tn])
+                   for a, b, tn in zip(got, want, (tname, tname, db1_tol))):
+            raise SystemExit(f"{name} disagrees with its plain version at "
+                             f"the training shape: max_abs_err {err:.3e} "
+                             f"(atol {tol['atol']})")
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {"dtype": str(dtype), "m": m, "k": k, "f": f,
+               "max_abs_err": err,
+               "ms": time_ms(kernel, 5), "plain_ms": time_loop_ms(plain, 3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": fwd_library if name == "fused_ffn_fwd"
+               else bwd_library}
+        log(f"  {name} " + json.dumps(row))
+        rows[name] = [row]
+    return rows
+
+
+def time_bhsd(rng):
+    """decode_attention_bhsd at fused_multi_transformer's decode shape:
+    B=8, H=12, D=64, Smax=1024, bf16, every row at cache_lens 1023 with
+    Sq=1, the layer cycled over 12 caches (past the L2); the library call
+    is SDPA over the same 1024 positions with the prefix mask."""
+    b, h, d, smax, n_layers, ln, sq = 8, H, E // H, 1024, 12, 1023, 1
+    kv = randn(rng, (n_layers, 2, b, h, smax, d), torch.bfloat16)
+    qt = randn(rng, (b, h, sq, d), torch.bfloat16)
+    lens = torch.full((b,), ln, dtype=torch.int32, device="cuda")
+    s = ln + sq
+    mask = (torch.arange(s, device="cuda")[None, :]
+            <= ln + torch.arange(sq, device="cuda")[:, None])
+
+    def run_kernel(i=0):
+        c = kv[i % n_layers]
+        return da.decode_attention_bhsd(qt, c[0], c[1], lens)
+
+    def run_plain(i=0):
+        c = kv[i % n_layers]
+        return da.decode_attention_bhsd_reference(qt, c[0], c[1], lens)
+
+    def run_sdpa(i=0):
+        c = kv[i % n_layers]
+        return F.scaled_dot_product_attention(qt, c[0, :, :, :s],
+                                              c[1, :, :, :s], attn_mask=mask)
+    nbytes = b * h * s * 2 * d * 2 + 2 * b * h * sq * d * 2 + b * 4
+    flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
+    return [timed_row({"cache_lens": ln, "sq": sq}, run_kernel, run_plain,
+                      run_sdpa, nbytes, flops, 200)]
 
 
 def time_loop_ms(fn, reps):
@@ -1324,7 +1730,10 @@ def main(argv=None):
         return 0
     launches = phase_engine(args.seed)
     launches.update(phase_generate(args.seed))
-    launches["train"] = phase_train(args.seed)
+    base = phase_train(args.seed)
+    launches["train"] = base[0]
+    launches["train-ffn"] = phase_train_ffn(args.seed, base)[0]
+    launches["fmt"] = phase_fmt(args.seed)
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
@@ -1363,6 +1772,16 @@ def main(argv=None):
               lambda r: r["dropout"] == 0.1),
              ("layer_norm_fwd", "train", "layer_norm.py:91", lambda r: True),
              ("layer_norm_bwd", "train", "layer_norm.py:129",
+              lambda r: True),
+             # this slice's: the fused FFN in phase 3d's training, the
+             # one-layer decode in phase 3e's FusedMultiTransformer
+             ("fused_ffn_fwd", "train-ffn", "fused_ffn.py:90",
+              lambda r: True),
+             ("fused_ffn_bwd_dx", "train-ffn", "fused_ffn.py:273",
+              lambda r: True),
+             ("fused_ffn_bwd_dw", "train-ffn", "fused_ffn.py:289",
+              lambda r: True),
+             ("decode_attention_bhsd", "fmt", "decode_attention.py:230",
               lambda r: True))
     kernels = []
     for name, path, where, is_main in table:

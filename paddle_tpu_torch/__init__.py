@@ -1,14 +1,17 @@
-"""PyTorch/CUDA port of paddle_tpu's serving path and GPT-2 training.
+"""PyTorch/CUDA port of paddle_tpu's serving path, GPT-2 training and fused
+layers.
 
 A second package beside ``paddle_tpu/``, mirroring its module paths:
 ``incubate.nn.layer.FusedMultiTransformer`` holds the serving weights,
 ``inference.generation.FusedDecoder`` runs the step cores,
 ``inference.serving.ServingEngine`` schedules requests over the paged KV
 pool (fp or int8); ``models.gpt.GPTForCausalLM`` with ``nn`` (functional
-and layers) and ``optimizer.AdamW`` trains; and ``ops.decode_attention``,
-``ops.flash_attention``, ``ops.layer_norm`` and
-``ops.fused_dequant_matmul`` hold the hand-written Hopper kernels that
-attention, LayerNorm and the int4 weight matmuls run.
+and layers) and ``optimizer.AdamW`` trains; ``incubate.nn`` has the fused
+layers (``FusedFeedForward``, ``FusedMultiTransformer`` with its KV-cache
+forward) and their functionals; and ``ops.decode_attention``,
+``ops.flash_attention``, ``ops.layer_norm``, ``ops.fused_dequant_matmul``
+and ``ops.fused_ffn`` hold the hand-written Hopper kernels that
+attention, LayerNorm, the int4 weight matmuls and the fused FFN run.
 ``weights.from_jax_state`` and ``weights.gpt_from_jax_state`` are the
 ways weights cross from the JAX package. Nothing here imports JAX or
 ``paddle_tpu``.

@@ -73,6 +73,30 @@ TOLERANCES = {
     # outside it, and each by at most per_step_lr * lr per step (Adam's
     # step: m / sqrt(v) stays near 1 when noise drives it)
     "train_params_outliers": {"share": 1e-4, "per_step_lr": 2.0},
+    # the fused FFN in fp32 against the JAX package on the CPU (M up to 64,
+    # K 128, F 256 or 512): the same products summed in another order
+    # (measured: under 2e-6 on O(1) outputs and gradients)
+    "ffn_fp32": {"atol": 1e-5, "rtol": 1e-5},
+    # the fused FFN kernels in fp32 on the card against their plain
+    # versions, at up to M 8192, K 1024, F 3072: dots K or F deep, and the
+    # weight gradients sums over up to 8192 rows of O(1) terms (|dW| up to
+    # ~100), taken in another order (blocks of rows and partial sums on
+    # the card, one product on cuBLAS)
+    "ffn_fp32_large": {"atol": 1e-3, "rtol": 1e-4},
+    # the same in bf16 (and the port against JAX in bf16 on the CPU): one
+    # rounding of each output (2^-8 relative) after fp32 sums in another
+    # order, and the activation and dpre rounded to bf16 from a pre
+    # computed in another order, which can land on the neighbouring bf16
+    # value
+    "ffn_bf16": {"atol": 2e-2, "rtol": 2e-2},
+    # the bf16 weight gradients dW1 = x^T dpre and dW2 = t^T g, sums over
+    # the M rows of products whose factor dpre or t was rounded to bf16:
+    # where that factor's fp32 value (pre summed K deep in another order)
+    # lies by a rounding boundary, the two sides round it to neighbouring
+    # bf16 values, and every element of its dW row moves by 2^-8 |t| |g|,
+    # up to ~0.1 for |t| ~ 4 and |g| ~ 5 (at K = 1024, M = 136 this put
+    # elements of |dW2| < 5 outside ffn_bf16 by up to 0.125)
+    "ffn_wgrad_bf16": {"atol": 0.125, "rtol": 2e-2},
 }
 
 

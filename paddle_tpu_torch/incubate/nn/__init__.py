@@ -1,3 +1,4 @@
-from .layer import FusedMultiTransformer
+from . import functional
+from .layer import FusedFeedForward, FusedMultiTransformer
 
-__all__ = ["FusedMultiTransformer"]
+__all__ = ["FusedFeedForward", "FusedMultiTransformer", "functional"]

@@ -1,7 +1,17 @@
-"""FusedMultiTransformer: the weights of the fused decoder stack.
+"""FusedFeedForward and FusedMultiTransformer. Counterparts of
+``paddle_tpu/incubate/nn/layer.py``'s layers of the same names, with
+their parameter names and shapes.
 
-Counterpart of ``paddle_tpu/incubate/nn/layer.py::FusedMultiTransformer``
-with the same per-layer parameter lists, names and shapes, so that
+``FusedFeedForward`` is the transformer FFN block of
+``incubate.nn.functional.fused_feedforward``: ``linear1_weight`` [d_model,
+dim_feedforward], ``linear2_weight`` [dim_feedforward, d_model], their
+biases and the two LayerNorms' ``ln1_scale`` / ``ln1_bias`` /
+``ln2_scale`` / ``ln2_bias`` [d_model], trainable, initialised as the
+JAX layer does (Xavier-normal weights from ``seed``, drawn on the CPU;
+zero biases, unit scales).
+
+``FusedMultiTransformer`` has the same per-layer parameter lists, names
+and shapes as the JAX layer, so that
 ``state_dict()`` keys match the JAX layer's ``named_parameters`` one for
 one (``qkv_weights.0``, ``ffn1_biases.3``, ...):
 
@@ -18,15 +28,76 @@ The parameters are allocated uninitialised (nothing at all on
 ``device="meta"``); their values arrive through
 ``paddle_tpu_torch.weights.from_jax_state``. The serving path reads
 these lists through ``inference.generation.FusedDecoder``, which stacks
-them per layer; the module itself has no forward of its own in this
-port.
+them per layer; ``forward`` is ``fused_multi_transformer`` over them
+(the KV-cache decode included).
+
+Both take ``device``: None means the card (``resolve_device``);
+``"meta"`` allocates nothing (for a state loaded afterwards).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
-__all__ = ["FusedMultiTransformer"]
+from ...device import resolve_device
+from . import functional as IF
+
+__all__ = ["FusedFeedForward", "FusedMultiTransformer"]
+
+
+class FusedFeedForward(nn.Module):
+    def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
+                 epsilon=1e-5, activation="relu", act_dropout_rate=None,
+                 normalize_before=False, dtype=torch.float32, device=None,
+                 seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.generator = torch.Generator()
+        self.generator.manual_seed(seed)
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
+
+        self.linear1_weight = param(d_model, dim_feedforward)
+        self.linear1_bias = param(dim_feedforward)
+        self.linear2_weight = param(dim_feedforward, d_model)
+        self.linear2_bias = param(d_model)
+        self.ln1_scale = param(d_model)
+        self.ln1_bias = param(d_model)
+        self.ln2_scale = param(d_model)
+        self.ln2_bias = param(d_model)
+        self.dropout_rate = dropout_rate
+        self.act_dropout_rate = (dropout_rate if act_dropout_rate is None
+                                 else act_dropout_rate)
+        self.activation = activation
+        self.normalize_before = normalize_before
+        self.epsilon = epsilon
+        if dev.type != "meta":
+            self.init_weights()
+
+    @torch.no_grad()
+    def init_weights(self):
+        """The JAX layer's initialisers: Xavier-normal weights (std
+        sqrt(2 / (fan_in + fan_out))) drawn from ``self.generator`` on the
+        CPU, zero biases, unit LayerNorm scales."""
+        for name, p in self.named_parameters():
+            if name.endswith("weight"):
+                std = math.sqrt(2.0 / (p.shape[0] + p.shape[1]))
+                p.copy_(torch.empty(p.shape).normal_(
+                    0.0, std, generator=self.generator))
+            else:
+                p.fill_(1.0 if name.endswith("scale") else 0.0)
+
+    def forward(self, src, cache=None):
+        return IF.fused_feedforward(
+            src, self.linear1_weight, self.linear2_weight, self.linear1_bias,
+            self.linear2_bias, self.ln1_scale, self.ln1_bias, self.ln2_scale,
+            self.ln2_bias, self.act_dropout_rate, self.dropout_rate,
+            self.activation, self.epsilon, self.epsilon,
+            self.normalize_before, training=self.training,
+            generator=self.generator)
 
 
 class FusedMultiTransformer(nn.Module):
@@ -34,6 +105,7 @@ class FusedMultiTransformer(nn.Module):
                  activation="gelu", normalize_before=True, epsilon=1e-5,
                  num_layers=1, dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
                              f"num_heads {num_heads}")
@@ -65,3 +137,25 @@ class FusedMultiTransformer(nn.Module):
         self.ffn1_biases = plist(dim_feedforward)
         self.ffn2_weights = plist(dim_feedforward, e)
         self.ffn2_biases = plist(e)
+
+    def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
+                rotary_embs=None, rotary_emb_dims=0, seq_lens=None,
+                time_step=None):
+        """``fused_multi_transformer`` over this stack; returns ``(out,
+        caches)`` when ``caches`` is given (updated in place when
+        ``time_step`` is), else ``out``."""
+        out, new_caches = IF.fused_multi_transformer(
+            src, list(self.ln_scales), list(self.ln_biases),
+            list(self.qkv_weights), list(self.qkv_biases),
+            list(self.linear_weights), list(self.linear_biases),
+            list(self.ffn_ln_scales), list(self.ffn_ln_biases),
+            list(self.ffn1_weights), list(self.ffn1_biases),
+            list(self.ffn2_weights), list(self.ffn2_biases),
+            pre_layer_norm=self.normalize_before, epsilon=self.epsilon,
+            cache_kvs=caches, pre_caches=pre_caches,
+            rotary_embs=rotary_embs, time_step=time_step,
+            attn_mask=attn_mask, activation=self.activation,
+            training=self.training)
+        if caches is not None:
+            return out, new_caches
+        return out

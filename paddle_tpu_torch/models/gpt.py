@@ -6,7 +6,10 @@ positions, pre-LN blocks, ``[in, out]`` projections, the LM head tied to
 name. Attention goes through ``nn.functional.scaled_dot_product_attention``
 (the flash attention kernels, forward and backward, dropout in them) and
 every LayerNorm through the LayerNorm kernels; the projections are
-``torch.matmul`` on cuBLAS, as the JAX package leaves them to XLA.
+``torch.matmul`` on cuBLAS, as the JAX package leaves them to XLA, except
+that under ``PADDLE_TPU_FUSED_FFN=1`` the MLP is ``ops.fused_ffn`` (the
+fused FFN kernels; ``PADDLE_TPU_FUSED_FFN_BWD=1`` also takes its backward
+kernels), as in the JAX model.
 
 Every random draw of a model comes from its ``generator``, a CPU
 ``torch.Generator`` seeded from ``seed``: the initial weights (drawn on the
@@ -25,6 +28,7 @@ from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
+from ..ops.fused_ffn import fused_ffn
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt2_124m", "gpt2_tiny"]
@@ -82,11 +86,14 @@ class GPTMLP(nn.Module):
         self.fc2 = _linear(c.intermediate_size, c.hidden_size, device, dtype)
 
     def forward(self, x):
-        if os.environ.get("PADDLE_TPU_FUSED_FFN") == "1":
-            raise NotImplementedError(
-                "PADDLE_TPU_FUSED_FFN=1: the fused FFN kernels (rows 13-14, "
-                "fused_ffn forward and backward) are not ported yet (ROADMAP "
-                "Queue 2, fused_ffn); unset it to run fc2(gelu(fc1(x)))")
+        if os.environ.get("PADDLE_TPU_FUSED_FFN") == "1" \
+                and type(self.fc1) is Linear and type(self.fc2) is Linear:
+            # the fused FFN kernels (ops.fused_ffn): the [M, F] gelu
+            # intermediate is never stored. The JAX branch also asks
+            # no_mp_mesh(); the port has no model-parallel mesh, so that
+            # always holds here.
+            return fused_ffn(x, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias)
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
 
 

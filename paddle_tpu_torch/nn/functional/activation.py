@@ -1,14 +1,19 @@
 """Activations. Counterpart of ``paddle_tpu/nn/functional/activation.py``
-(``gelu`` only, the one GPT uses)."""
+(``gelu`` and ``relu``: GPT's and ``fused_feedforward``'s default)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-__all__ = ["gelu"]
+__all__ = ["gelu", "relu"]
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """GELU; ``approximate=True`` is the tanh form
     0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), as ``jax.nn.gelu``
     computes it."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x, name=None):
+    """max(x, 0)."""
+    return F.relu(x)

@@ -44,11 +44,13 @@ def _sdpa_ref(q, k, v, mask, dropout_p, causal, generator=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, *,
                                  generator=None):
-    """Attention on [B, S, H, D]; ``dropout_p`` drops attention
-    probabilities with a mask drawn from ``generator`` (a CPU
-    ``torch.Generator``; None: PyTorch's default). The caller passes 0
-    outside training."""
+    """Attention on [B, S, H, D], in the JAX package's parameter order;
+    ``dropout_p`` drops attention probabilities while ``training`` (with
+    ``training=False`` it is 0), with a mask drawn from ``generator`` (a
+    CPU ``torch.Generator``; None: PyTorch's default)."""
+    dropout_p = float(dropout_p) if training else 0.0
     if attn_mask is None and query.shape[2] % key.shape[2] == 0 \
             and fa.is_supported(tuple(query.shape), query.dtype):
         seed = draw_seed(generator) if dropout_p > 0.0 else 0

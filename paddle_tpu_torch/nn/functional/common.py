@@ -33,12 +33,27 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias.to(y.dtype)
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """``upscale_in_train`` dropout: in training, zero each element with
-    probability p and scale the kept ones by 1 / (1 - p); in inference,
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """Paddle's dropout, in the JAX package's parameter order. In
+    training, each element (or, with ``axis``, each slice along those
+    dims: the mask is broadcast over the others) is zeroed with
+    probability p; ``upscale_in_train`` scales the kept ones by
+    1 / (1 - p), any other mode keeps them as they are. In inference
+    ``downscale_in_infer`` scales by 1 - p and ``upscale_in_train`` is
     the identity."""
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
         return x
-    keep = keep_mask(x.shape, p, generator, x.device)
-    return torch.where(keep, x / (1.0 - p),
+    if axis is None:
+        mask_shape = x.shape
+    else:
+        axes = [a % x.dim() for a in ((axis,) if isinstance(axis, int)
+                                      else tuple(axis))]
+        mask_shape = tuple(s if i in axes else 1
+                           for i, s in enumerate(x.shape))
+    keep = keep_mask(mask_shape, p, generator, x.device)
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept,
                        torch.zeros((), dtype=x.dtype, device=x.device))

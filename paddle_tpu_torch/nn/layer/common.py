@@ -59,14 +59,18 @@ class Linear(nn.Module):
 
 
 class Dropout(nn.Module):
-    """``functional.dropout`` (``upscale_in_train``) while
-    ``self.training``, its masks drawn from ``generator`` (a CPU
-    ``torch.Generator``)."""
+    """``functional.dropout`` with the layer's ``axis`` and ``mode``
+    (JAX's arguments), applied as ``self.training`` says; its masks are
+    drawn from ``generator`` (a CPU ``torch.Generator``)."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 generator=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return pf.dropout(x, self.p, self.training, self.generator)
+        return pf.dropout(x, self.p, axis=self.axis, training=self.training,
+                          mode=self.mode, generator=self.generator)

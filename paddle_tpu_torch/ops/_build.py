@@ -38,7 +38,11 @@ SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
            "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
            "layer_norm_fwd": "layer_norm_fwd.cu",
-           "layer_norm_bwd": "layer_norm_bwd.cu"}
+           "layer_norm_bwd": "layer_norm_bwd.cu",
+           "fused_ffn_fwd": "fused_ffn_fwd.cu",
+           "fused_ffn_bwd_dx": "fused_ffn_bwd_dx.cu",
+           "fused_ffn_bwd_dw": "fused_ffn_bwd_dw.cu",
+           "decode_attention_bhsd": "decode_attention_bhsd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -91,6 +95,16 @@ _ENTRY = {
         "paddle_layer_norm_fwd", [_P] * 6 + [_I, _I, _F, _I, _P]),
     "layer_norm_bwd": (
         "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 3 + [_P]),
+    # the fused FFN: pointers, then M, K, F, the block's K columns (BN),
+    # (bwd_dw: the row splits,) the activation and the dtype codes
+    "fused_ffn_fwd": (
+        "paddle_fused_ffn_fwd", [_P] * 6 + [_I] * 6 + [_P]),
+    "fused_ffn_bwd_dx": (
+        "paddle_fused_ffn_bwd_dx", [_P] * 6 + [_I] * 6 + [_P]),
+    "fused_ffn_bwd_dw": (
+        "paddle_fused_ffn_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
+    "decode_attention_bhsd": (
+        "paddle_decode_attention_bhsd", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     # a second entry of flash_attention_fwd's library: the keep bits its
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (

@@ -1,0 +1,178 @@
+// Flash-decode attention over one layer's KV cache in kernel layout, for
+// Hopper (sm_90a), plain C interface.
+//
+// Replaces paddle_tpu/ops/pallas/decode_attention.py::decode_attention_bhsd
+// (_kernel + _online_softmax_block, pallas_call :230), which also serves
+// its decode_attention (the [B, S, H, D] layout, transposed around it):
+// the new queries of each row attend, block-causally, to the row's prefix
+// of the layer's cache, held as two tensors (the fused_multi_transformer
+// cache's K and V halves).
+//
+//   q      [B, H, Sq, D]       (Sq <= 128, D <= 256)
+//   k, v   [B, Hk, Smax, D]    same dtype as q (fp32, bf16 or fp16)
+//   lens   [B] int32           query row r attends positions <= lens+r
+//   out    [B, H, Sq, D]       q's dtype
+//
+// Semantics kept from the TPU kernel: scores and the softmax state are
+// fp32, p is rounded to the value dtype before the PV product while l sums
+// the unrounded p; a row whose softmax sum is 0 returns 0; positions past
+// the last attendable one are never read (the TPU kernel's last-valid-block
+// clamp; here the walk stops there). The cache ends at Smax: no position
+// past it exists (the write-then-attend caller keeps lens + Sq <= Smax).
+//
+// What bounds it on the card: bytes. A decode step reads the row's valid
+// prefix once per head and does 4*D flops per position and query row, far
+// below the H100's ~295 flop/byte ridge. Design: decode_attention_stacked's
+// (one thread block per (row, head); a cache row [Smax, D] of one (row, kv
+// head) is contiguous in each of K and V, so the walk stages 32 positions
+// at a time straight from the two tensors as fp32 with 16-byte loads, four
+// per thread in flight (attention_tile.cuh); four warps each own four
+// query rows of a 16-row pass with an fp32 online softmax in registers).
+// GQA heads of one KV head re-read the same row (from L2); split-K over
+// long rows, tensor-core products and TMA are left for later work.
+#include "attention_tile.cuh"
+
+namespace {
+
+using namespace paddle_attn;
+
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRowsPerPass = kWarps * kRowsPerWarp;
+
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kWarps * 32)
+    bhsd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ lens,
+                T* __restrict__ out, int H, int Sq, int D, int Hk, int Smax,
+                float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int Dp = round4(D);
+  const int ld = Dp + 1;
+  float* ks = smem;                    // [kTile][Dp + 1]
+  float* vs = ks + kTile * ld;         // [kTile][Dp + 1]
+  float* qs = vs + kTile * ld;         // [kRowsPerPass][Dp]
+  float* ps = qs + kRowsPerPass * Dp;  // [kRowsPerPass][kTile]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int hk = h / (H / Hk);
+  const int len = lens[b];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const size_t row = ((size_t)b * Hk + hk) * Smax * D;
+  const T* kr = k + row;
+  const T* vr = v + row;
+  const T* q_bh = q + ((size_t)b * H + h) * Sq * D;
+  T* o_bh = out + ((size_t)b * H + h) * Sq * D;
+
+  for (int r0 = 0; r0 < Sq; r0 += kRowsPerPass) {
+    const int nrows = min(kRowsPerPass, Sq - r0);
+    __syncthreads();  // the previous pass is done with qs
+    for (int i = threadIdx.x; i < kRowsPerPass * Dp; i += blockDim.x) {
+      const int r = i / Dp;
+      const int d = i - r * Dp;
+      qs[i] = (r < nrows && d < D) ? to_f(q_bh[(size_t)(r0 + r) * D + d])
+                                   : 0.f;
+    }
+
+    int limit[kRowsPerWarp];
+    float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      limit[rr] = r < nrows ? len + r0 + r : -1;
+      m[rr] = kNegInf;
+      l[rr] = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
+    }
+
+    // the last position any row of this pass attends; the cache ends at Smax
+    const int last_pos = min(len + r0 + nrows - 1, Smax - 1);
+    walk_row<T, T, kRowsPerWarp, DPL, false>(
+        ks, vs, nullptr, nullptr, qs + warp * kRowsPerWarp * Dp,
+        ps + warp * kRowsPerWarp * kTile, kr, vr, nullptr, nullptr, last_pos,
+        D, Dp, vec, limit, scale, m, l, acc);
+
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      if (r < nrows) {
+        const float denom = l[rr] == 0.f ? 1.f : l[rr];
+        T* o = o_bh + (size_t)(r0 + r) * D;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) o[d] = from_f<T>(acc[rr][i] / denom);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int DPL>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* lens, void* out, int B, int H, int Sq, int D,
+                   int Hk, int Smax, float scale, cudaStream_t stream) {
+  const int Dp = round4(D);
+  const size_t smem = (size_t)(2 * kTile * (Dp + 1) + kRowsPerPass * Dp +
+                               kRowsPerPass * kTile) *
+                      sizeof(float);
+  auto kernel = bhsd_kernel<T, DPL>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<B * H, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(lens),
+      static_cast<T*>(out), H, Sq, D, Hk, Smax, scale, vec_ok<T>(D, k, v));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* lens, void* out, int B, int H, int Sq,
+                     int D, int Hk, int Smax, float scale,
+                     cudaStream_t stream) {
+#define PADDLE_BHSD_LAUNCH(DPL) \
+  launch<T, DPL>(q, k, v, lens, out, B, H, Sq, D, Hk, Smax, scale, stream)
+  if (D <= 32) return PADDLE_BHSD_LAUNCH(1);
+  if (D <= 64) return PADDLE_BHSD_LAUNCH(2);
+  if (D <= 128) return PADDLE_BHSD_LAUNCH(4);
+  return PADDLE_BHSD_LAUNCH(8);
+#undef PADDLE_BHSD_LAUNCH
+}
+
+}  // namespace
+
+// dtype (of q, k, v and out): 0 = float32, 1 = bfloat16, 2 = float16.
+// Returns a cudaError_t (0 on success); the caller has validated shapes,
+// devices and layout.
+extern "C" int paddle_decode_attention_bhsd(const void* q, const void* k,
+                                            const void* v, const void* lens,
+                                            void* out, int B, int H, int Sq,
+                                            int D, int Hk, int Smax,
+                                            float scale, int dtype,
+                                            void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
+      H % Hk || Smax < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch_d<float>(q, k, v, lens, out, B, H, Sq, D, Hk, Smax,
+                                  scale, s);
+    case 1:
+      return (int)launch_d<__nv_bfloat16>(q, k, v, lens, out, B, H, Sq, D,
+                                          Hk, Smax, scale, s);
+    case 2:
+      return (int)launch_d<__half>(q, k, v, lens, out, B, H, Sq, D, Hk, Smax,
+                                   scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

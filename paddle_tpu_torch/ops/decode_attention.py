@@ -20,6 +20,12 @@ block for block, resolved through the same table entry. Their scores are
 ``(q . k_int) * scale * k_scale`` and the PV product takes ``p * v_scale``
 rounded to the query dtype; the output is in the query dtype.
 
+The one-layer cache of ``fused_multi_transformer`` has the counterparts
+of the JAX ``decode_attention_bhsd`` (queries ``[B, H, Sq, D]`` over K and
+V caches ``[B, Hk, Smax, D]``, two tensors, with per-row lens: query row
+r attends positions <= lens[b] + r) and ``decode_attention``, the same
+in the model layout (``[B, Sq, H, D]`` over ``[B, Smax, Hk, D]``).
+
 The dense ring ``[L, 2, B, Hk, Smax, D]`` (``FusedDecoder.init_cache``;
 Smax a multiple of 128) has the counterparts of the JAX stacked kernels:
 ``decode_attention_stacked`` (query row r of row b attends layer
@@ -35,6 +41,7 @@ plain versions reuse the paged ones through that table.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
+``csrc/decode_attention_bhsd.cu``,
 ``csrc/decode_attention_paged_i8.cu``,
 ``csrc/decode_attention_paged_flat_i8.cu``,
 ``csrc/decode_attention_stacked.cu``, ``csrc/decode_attention_stacked_i8.cu``,
@@ -65,7 +72,8 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_stacked_i8_write",
            "decode_attention_stacked_i8_write_reference",
            "stacked_i8_write_is_supported", "ring_table", "FLAT_CHUNK",
-           "LAUNCHES"]
+           "decode_attention", "decode_attention_bhsd",
+           "decode_attention_bhsd_reference", "is_supported", "LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_SQ, MAX_D = 128, 256
@@ -78,7 +86,8 @@ LAUNCHES = {"decode_attention_paged": 0, "decode_attention_paged_flat": 0,
             "decode_attention_paged_flat_i8": 0,
             "decode_attention_stacked": 0, "decode_attention_stacked_i8": 0,
             "decode_attention_stacked_write": 0,
-            "decode_attention_stacked_i8_write": 0}
+            "decode_attention_stacked_i8_write": 0,
+            "decode_attention_bhsd": 0}
 
 # the flat stream's query-chunk size: the packer aligns every segment start
 # to it, so each chunk belongs to one slot
@@ -462,6 +471,74 @@ def decode_attention_paged_flat_i8_reference(q, pool_i8, pool_scales,
     qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
     o = _i8_attend(qc, kvi, sc, mask, scale, q.dtype)
     return o.transpose(1, 2).reshape(t, h, d)
+
+
+# ------------------------------------------------------- one-layer cache
+def is_supported(q_shape, cache_shape, dtype) -> bool:
+    """The JAX gate of ``decode_attention``: q [B, Sq, H, D], cache [B,
+    Smax, Hk, D] (the model layout); Sq <= 128, D <= 256, Hk | H, fp32,
+    bf16 or fp16."""
+    if len(q_shape) != 4 or len(cache_shape) != 4:
+        return False
+    if q_shape[-1] > MAX_D or q_shape[1] > MAX_SQ:
+        return False
+    if q_shape[2] % cache_shape[2] != 0:
+        return False
+    return dtype in _DTYPE_CODE
+
+
+def decode_attention_bhsd(qt, kt, vt, cache_lens, scale=None):
+    """qt [B, H, Sq, D], kt and vt [B, Hk, Smax, D] -> [B, H, Sq, D] in
+    qt's dtype: query row r of row b attends positions <= cache_lens[b] +
+    r of its KV head (the new tokens' K/V already written; positions end
+    at Smax). A cache in another dtype is cast to qt's first, as the JAX
+    function does."""
+    name = "decode_attention_bhsd"
+    if qt.dim() != 4 or kt.dim() != 4 or kt.shape != vt.shape:
+        raise ValueError(f"{name}: qt must be [B, H, Sq, D] and kt, vt one "
+                         f"[B, Hk, Smax, D], got {tuple(qt.shape)}, "
+                         f"{tuple(kt.shape)}, {tuple(vt.shape)}")
+    b, h, sq, d = qt.shape
+    _, hk, smax, _ = kt.shape
+    if kt.shape[0] != b or kt.shape[3] != d or smax < 1 or not is_supported(
+            (b, sq, h, d), (b, smax, hk, d), qt.dtype) or sq < 1:
+        raise ValueError(f"{name}: unsupported q {tuple(qt.shape)} "
+                         f"{qt.dtype}, cache {tuple(kt.shape)} (see "
+                         "is_supported)")
+    if tuple(cache_lens.shape) != (b,):
+        raise ValueError(f"{name}: cache_lens must be [B], got "
+                         f"{tuple(cache_lens.shape)}")
+    kt, vt = kt.to(qt.dtype), vt.to(qt.dtype)
+    lens = cache_lens.to(torch.int32)
+    if scale is None:
+        scale = d ** -0.5
+    if _all_cpu(qt, kt, vt, lens):
+        return decode_attention_bhsd_reference(qt, kt, vt, lens, scale)
+    return _launch(name, [("qt", qt), ("kt", kt), ("vt", vt),
+                          ("cache_lens", lens)], torch.empty_like(qt),
+                   (b, h, sq, d, hk, smax), scale, qt.dtype)
+
+
+def decode_attention_bhsd_reference(qt, kt, vt, cache_lens, scale=None):
+    """The plain version: each query head reads its KV head's dense [Smax,
+    D] rows, masked block-causally, through ``_fp_attend``."""
+    b, h, sq, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    kv = torch.stack([kt, vt]).to(qt.dtype).repeat_interleave(
+        h // kt.shape[1], dim=2)                  # [2, B, H, Smax, D]
+    mask = _row_mask(cache_lens, sq, kt.shape[2], qt.device)
+    return _fp_attend(qt.float(), kv.float(), mask, scale, qt.dtype,
+                      qt.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_lens, scale=None):
+    """``decode_attention_bhsd`` in the model layout: q [B, Sq, H, D],
+    caches [B, Smax, Hk, D] -> [B, Sq, H, D]."""
+    qt, kt, vt = (a.transpose(1, 2).contiguous()
+                  for a in (q, k_cache, v_cache))
+    return decode_attention_bhsd(qt, kt, vt, cache_lens, scale).transpose(
+        1, 2)
 
 
 # ------------------------------------------------------------ dense ring

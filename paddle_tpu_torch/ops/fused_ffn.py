@@ -1,0 +1,352 @@
+"""The fused transformer FFN: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the autograd Function that joins them.
+
+Counterpart of ``paddle_tpu/ops/pallas/fused_ffn.py``'s ``fused_ffn``:
+
+    out = act(x @ W1 + b1) @ W2 + b2,   x [..., K], W1 [K, F], W2 [F, K]
+
+with ``act`` GPT-2's tanh gelu (``"gelu_tanh"``) or the exact gelu
+(``"gelu"``), computed in fp32; the [M, F] intermediate never reaches
+device memory. The route is the JAX function's: the composite
+(``_composite``) where its gate fails (``ffn_is_supported``, or no row
+or F tile from ``_pick_bm`` / ``_pick_bf``), else the fused path. Only
+the inputs are saved for the backward, which recomputes the
+intermediate: under ``PADDLE_TPU_FUSED_FFN_BWD=1`` (read when the
+backward runs) and the same gate with ``_pick_bm_bwd``, the dx and the
+dW1 / dW2 / db1 kernels, else the composite backward, plain matmuls with
+fp32 sums (the JAX package leaves that one to XLA). db2 is the fp32 sum
+of the output gradient either way.
+
+On a CUDA tensor ``fused_ffn_fwd``, ``fused_ffn_bwd_dx`` and
+``fused_ffn_bwd_dw`` launch ``csrc/fused_ffn_fwd.cu``,
+``csrc/fused_ffn_bwd_dx.cu`` and ``csrc/fused_ffn_bwd_dw.cu`` on the
+current stream or raise; on a CPU tensor they compute the plain versions,
+which keep the TPU kernels' roundings (the activation rounded to x's
+dtype before the second product, dpre rounded before its products, db1
+from the fp32 dpre).
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from . import _build
+
+__all__ = ["fused_ffn", "ffn_is_supported", "fused_ffn_fwd",
+           "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
+           "fused_ffn_fwd_reference", "fused_ffn_bwd_dx_reference",
+           "fused_ffn_bwd_dw_reference", "kernel_is_supported", "LAUNCHES"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ACT_CODE = {"gelu_tanh": 0, "gelu": 1}
+# a block of the dW kernel owns 32 F columns and walks its rows 64 at a
+# time (32 in fp32); about this many blocks keep the card's 132 SMs busy
+# for four waves
+_DW_BF, _DW_ROWS, _DW_TARGET_BLOCKS = 32, 64, 528
+
+# kernel launches, counted where a kernel is launched (the plain versions
+# on CPU tensors do not count)
+LAUNCHES = {"fused_ffn_fwd": 0, "fused_ffn_bwd_dx": 0, "fused_ffn_bwd_dw": 0}
+
+
+def _gelu_tanh(x):
+    # GPT-2's approximate gelu, in fp32
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+def _gelu_erf(x):
+    # the exact gelu (the reference fused_feedforward op's "gelu")
+    return 0.5 * x * (1.0 + torch.erf(x * (2.0 ** -0.5)))
+
+
+_ACTS = {"gelu_tanh": _gelu_tanh, "gelu": _gelu_erf}
+
+
+def _dgelu(pre, activation):
+    if activation == "gelu_tanh":
+        c = math.sqrt(2.0 / math.pi)
+        u = c * (pre + 0.044715 * pre ** 3)
+        th = torch.tanh(u)
+        return 0.5 * (1.0 + th) + 0.5 * pre * (1.0 - th * th) * c * (
+            1.0 + 3 * 0.044715 * pre ** 2)
+    # exact gelu: d/dx = Phi(x) + x * phi(x)
+    return (0.5 * (1.0 + torch.erf(pre * (2.0 ** -0.5)))
+            + pre * torch.exp(-0.5 * pre * pre)
+            * (1.0 / math.sqrt(2.0 * math.pi)))
+
+
+def ffn_is_supported(m, k, f, dtype) -> bool:
+    """The JAX function's gate: K and F multiples of 128, at least 8 rows,
+    fp32, bf16 or fp16."""
+    if k % 128 or f % 128:
+        return False
+    if m < 8:
+        return False
+    return dtype in _DTYPE_CODE
+
+
+def _itemsize(dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _pick_bf(f):
+    """The TPU kernels' F tile (it must divide F)."""
+    return next((c for c in (512, 256, 128) if f % c == 0), None)
+
+
+def _pick_bm(m, k, f, bf, dtype):
+    """The TPU forward's row tile: the largest of 1024 .. 8 dividing M
+    whose tiles fit its 12 MB VMEM budget, else None (the composite)."""
+    itemsize = _itemsize(dtype)
+    for bm in (1024, 512, 256, 128, 64, 32, 16, 8):
+        if m % bm:
+            continue
+        vmem = (bm * k * itemsize + 2 * k * bf * itemsize + bm * bf * 4
+                + bm * k * 4)
+        if vmem <= 12 * 1024 * 1024:
+            return bm
+    return None
+
+
+def _pick_bm_bwd(m, k, bf, dtype, which):
+    """The TPU backward kernels' row tile, ``which`` in {"dx", "dw"}."""
+    itemsize = _itemsize(dtype)
+    for bm in (512, 256, 128, 64, 32, 16, 8):
+        if m % bm:
+            continue
+        vmem = 2 * bm * k * itemsize + 2 * k * bf * itemsize + 3 * bm * bf * 4
+        if which == "dx":
+            vmem += bm * bf * itemsize + bm * k * 4
+        else:
+            vmem += 2 * bm * bf * itemsize + 2 * k * bf * 4 + bf * 4
+        if vmem <= 12 * 1024 * 1024:
+            return bm
+    return None
+
+
+def _composite(x2, w1, b1, w2, b2, activation="gelu_tanh"):
+    """The JAX function's composite forward, its roundings included."""
+    t = _ACTS[activation]((x2 @ w1 + b1).float()).to(x2.dtype)
+    return t @ w2 + b2
+
+
+def _composite_bwd(x2, g2, w1, b1, w2, activation):
+    """The JAX function's composite backward: the intermediate recomputed,
+    the grads as matmuls of the stored dtypes' values with fp32 sums.
+    Returns (dx2, dW1, db1, dW2) in the inputs' dtypes."""
+    x32, g32, w1_32, w2_32 = (a.float() for a in (x2, g2, w1, w2))
+    pre = x32 @ w1_32 + b1.float()
+    t = _ACTS[activation](pre)
+    dpre = (g32 @ w2_32.t()) * _dgelu(pre, activation)
+    dpre_r = dpre.to(x2.dtype).float()
+    dx = dpre_r @ w1_32.t()
+    dw1 = x32.t() @ dpre_r
+    dw2 = t.to(x2.dtype).float().t() @ g32
+    return (dx.to(x2.dtype), dw1.to(w1.dtype), dpre.sum(0).to(b1.dtype),
+            dw2.to(w2.dtype))
+
+
+class _FusedFFN(torch.autograd.Function):
+    """``fused_ffn`` with JAX's custom VJP: the inputs are the only
+    residuals."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, activation):
+        k, f = x.shape[-1], w1.shape[1]
+        x2 = x.reshape(-1, k)
+        m = x2.shape[0]
+        bf = _pick_bf(f)
+        bm = _pick_bm(m, k, f, bf or 128, x.dtype)
+        if not ffn_is_supported(m, k, f, x.dtype) or bm is None or bf is None:
+            out = _composite(x2, w1, b1, w2, b2, activation)
+        else:
+            out = fused_ffn_fwd(x2.contiguous(), w1, b1, w2, b2, activation)
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.activation = activation
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        act = ctx.activation
+        k, f = x.shape[-1], w1.shape[1]
+        x2 = x.reshape(-1, k).contiguous()
+        g2 = g.reshape(-1, k).contiguous()
+        m = x2.shape[0]
+        db2 = g2.float().sum(0).to(b2.dtype)
+        bf = _pick_bf(f)
+        bm_dx = _pick_bm_bwd(m, k, bf or 128, x.dtype, "dx")
+        bm_dw = _pick_bm_bwd(m, k, bf or 128, x.dtype, "dw")
+        if (os.environ.get("PADDLE_TPU_FUSED_FFN_BWD") == "1"
+                and ffn_is_supported(m, k, f, x.dtype)
+                and bm_dx is not None and bm_dw is not None
+                and bf is not None):
+            dx = fused_ffn_bwd_dx(x2, g2, w1, b1, w2, act)
+            dw1, dw2, db1 = fused_ffn_bwd_dw(x2, g2, w1, b1, w2, act)
+            db1 = db1.to(b1.dtype)
+        else:
+            dx, dw1, db1, dw2 = _composite_bwd(x2, g2, w1, b1, w2, act)
+        return dx.reshape(x.shape), dw1, db1, dw2, db2, None
+
+
+def fused_ffn(x, w1, b1, w2, b2, activation="gelu_tanh"):
+    """out = act(x @ w1 + b1) @ w2 + b2 with act in {"gelu_tanh",
+    "gelu"}; x [..., K] is flattened to [M, K] inside. Differentiable."""
+    if activation not in _ACTS:
+        raise ValueError(f"fused_ffn: activation {activation!r} is not one "
+                         f"of {sorted(_ACTS)}")
+    return _FusedFFN.apply(x, w1, b1, w2, b2, activation)
+
+
+# ----------------------------------------------------------------- kernels
+def kernel_is_supported(m, k, f, dtype) -> bool:
+    """What the kernels take: M >= 1 rows, K and F multiples of 128, fp32,
+    bf16 or fp16 (every shape ``ffn_is_supported`` passes)."""
+    return m >= 1 and k >= 128 and k % 128 == 0 and f >= 128 \
+        and f % 128 == 0 and dtype in _DTYPE_CODE
+
+
+def _block_cols(k, sizes):
+    """The K columns of a kernel block: the largest of ``sizes`` dividing
+    K (a multiple of 128, so 128 always does)."""
+    return next(c for c in sizes if k % c == 0)
+
+
+def _check(name, x2, w1, b1, w2, b2=None, g2=None, activation="gelu_tanh"):
+    if x2.dim() != 2 or w1.dim() != 2:
+        raise ValueError(f"{name}: x must be [M, K] and w1 [K, F], got "
+                         f"{tuple(x2.shape)} and {tuple(w1.shape)}")
+    m, k = x2.shape
+    f = w1.shape[1]
+    want = {"w1": (k, f), "b1": (f,), "w2": (f, k), "b2": (k,),
+            "g": (m, k)}
+    named = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "g": g2}
+    for arg, t in named.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != want[arg] or t.dtype != x2.dtype \
+                or t.device != x2.device:
+            raise ValueError(
+                f"{name}: {arg} must be {want[arg]} {x2.dtype} on "
+                f"{x2.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not kernel_is_supported(m, k, f, x2.dtype):
+        raise ValueError(f"{name}: unsupported x {tuple(x2.shape)} "
+                         f"{x2.dtype}, F={f} (see kernel_is_supported)")
+    if activation not in _ACT_CODE:
+        raise ValueError(f"{name}: activation {activation!r} is not one of "
+                         f"{sorted(_ACT_CODE)}")
+    return m, k, f
+
+
+def _launch(name, tensors, ints, activation, dtype):
+    """Launch kernel ``name`` on the current stream of the tensors' card:
+    the pointers of ``tensors`` (each contiguous), the int arguments, the
+    activation and dtype codes. Raises on a refused launch."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: argument {i} must be contiguous")
+    rc = _build.load(name)(*(t.data_ptr() for t in tensors), *ints,
+                           _ACT_CODE[activation], _DTYPE_CODE[dtype],
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: kernel launch failed with CUDA error {rc} ("
+            + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in tensors)
+            + ")")
+    LAUNCHES[name] += 1
+
+
+def fused_ffn_fwd(x2, w1, b1, w2, b2, activation="gelu_tanh"):
+    """x2 [M, K], w1 [K, F], b1 [F], w2 [F, K], b2 [K] of one dtype ->
+    act(x2 @ w1 + b1) @ w2 + b2 [M, K] in that dtype."""
+    m, k, f = _check("fused_ffn_fwd", x2, w1, b1, w2, b2,
+                     activation=activation)
+    if x2.device.type == "cpu":
+        return fused_ffn_fwd_reference(x2, w1, b1, w2, b2, activation)
+    out = torch.empty_like(x2)
+    _launch("fused_ffn_fwd", [x2, w1, b1, w2, b2, out],
+            (m, k, f, _block_cols(k, (768, 512, 384, 256, 128))),
+            activation, x2.dtype)
+    return out
+
+
+def fused_ffn_bwd_dx(x2, g2, w1, b1, w2, activation="gelu_tanh"):
+    """dx [M, K] of ``fused_ffn_fwd`` from its inputs and the output
+    gradient g2 [M, K], in x2's dtype."""
+    m, k, f = _check("fused_ffn_bwd_dx", x2, w1, b1, w2, g2=g2,
+                     activation=activation)
+    if x2.device.type == "cpu":
+        return fused_ffn_bwd_dx_reference(x2, g2, w1, b1, w2, activation)
+    dx = torch.empty_like(x2)
+    _launch("fused_ffn_bwd_dx", [x2, g2, w1, b1, w2, dx],
+            (m, k, f, _block_cols(k, (768, 512, 384, 256, 128))),
+            activation, x2.dtype)
+    return dx
+
+
+def _dw_splits(m, k, f, bn):
+    """Row ranges of the dW kernel: enough blocks for about four waves,
+    at most one range per 64 rows."""
+    base = (f // _DW_BF) * (k // bn)
+    return max(1, min(-(-m // _DW_ROWS), -(-_DW_TARGET_BLOCKS // base)))
+
+
+def fused_ffn_bwd_dw(x2, g2, w1, b1, w2, activation="gelu_tanh"):
+    """(dW1 [K, F] in w1's dtype, dW2 [F, K] in w2's dtype, db1 [F] fp32)
+    of ``fused_ffn_fwd`` from its inputs and the output gradient g2."""
+    m, k, f = _check("fused_ffn_bwd_dw", x2, w1, b1, w2, g2=g2,
+                     activation=activation)
+    if x2.device.type == "cpu":
+        return fused_ffn_bwd_dw_reference(x2, g2, w1, b1, w2, activation)
+    bn = _block_cols(k, (512, 384, 256, 128))
+    splits = _dw_splits(m, k, f, bn)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    dw1p = torch.empty((splits, k, f), **f32)
+    dw2p = torch.empty((splits, f, k), **f32)
+    db1p = torch.empty((splits, f), **f32)
+    _launch("fused_ffn_bwd_dw", [x2, g2, w1, b1, w2, dw1p, dw2p, db1p],
+            (m, k, f, bn, splits), activation, x2.dtype)
+    # the S partial sums, summed in a fixed order
+    return (dw1p.sum(0).to(w1.dtype), dw2p.sum(0).to(w2.dtype),
+            db1p.sum(0))
+
+
+def fused_ffn_fwd_reference(x2, w1, b1, w2, b2, activation="gelu_tanh"):
+    """The plain version of ``fused_ffn_fwd``, the TPU kernel's
+    arithmetic: fp32 products, act in fp32 rounded to x's dtype, one
+    rounding of the output."""
+    pre = x2.float() @ w1.float() + b1.float()
+    t = _ACTS[activation](pre).to(x2.dtype).float()
+    return (t @ w2.float() + b2.float()).to(x2.dtype)
+
+
+def _recompute(x2, g2, w1, b1, w2, activation):
+    """pre and dt [M, F] in fp32, as both backward kernels recompute them."""
+    pre = x2.float() @ w1.float() + b1.float()
+    return pre, g2.float() @ w2.float().t()
+
+
+def fused_ffn_bwd_dx_reference(x2, g2, w1, b1, w2, activation="gelu_tanh"):
+    """The plain version of ``fused_ffn_bwd_dx``: dpre = dt * act'(pre)
+    rounded to x's dtype, dx = dpre @ w1^T summed in fp32."""
+    pre, dt = _recompute(x2, g2, w1, b1, w2, activation)
+    dpre = (dt * _dgelu(pre, activation)).to(x2.dtype).float()
+    return (dpre @ w1.float().t()).to(x2.dtype)
+
+
+def fused_ffn_bwd_dw_reference(x2, g2, w1, b1, w2, activation="gelu_tanh"):
+    """The plain version of ``fused_ffn_bwd_dw``: dW1 = x^T dpre, dW2 =
+    t^T g with t and dpre rounded to x's dtype, db1 the fp32 sum of the
+    unrounded dpre."""
+    pre, dt = _recompute(x2, g2, w1, b1, w2, activation)
+    t = _ACTS[activation](pre).to(x2.dtype).float()
+    dpre32 = dt * _dgelu(pre, activation)
+    dpre = dpre32.to(x2.dtype).float()
+    return ((x2.float().t() @ dpre).to(w1.dtype),
+            (t.t() @ g2.float()).to(w2.dtype), dpre32.sum(0))

@@ -20,7 +20,8 @@ parameter's device; the update runs in place under ``torch.no_grad``.
 
 Not ported yet (ROADMAP Queue 1 item 10): learning-rate schedulers,
 ``grad_clip``, the other optimizers, ``state_dict``, ``minimize``,
-``L2Decay`` objects (a float is the decay coefficient).
+``L2Decay`` objects and callables as ``weight_decay`` (a real number is
+the decay coefficient; anything else is refused at construction).
 """
 from __future__ import annotations
 
@@ -30,6 +31,16 @@ import numpy as np
 import torch
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
+
+
+def _check_weight_decay(weight_decay):
+    """Refuse a ``weight_decay`` that is not a real coefficient."""
+    if not isinstance(weight_decay, numbers.Real):
+        raise NotImplementedError(
+            f"weight_decay={weight_decay!r}: only a real coefficient is "
+            "ported; L2Decay objects, callables and a parameter's own "
+            "regularizer are not ported yet (ROADMAP Queue 1 item 10(e), "
+            "regularizer)")
 
 
 class Optimizer:
@@ -50,6 +61,8 @@ class Optimizer:
             raise NotImplementedError(
                 "grad_clip is not ported yet (ROADMAP Queue 1 item 10, "
                 "optimizer)")
+        if weight_decay is not None:
+            _check_weight_decay(weight_decay)
         self._lr = float(learning_rate)
         self._params = [p if isinstance(p, tuple)
                         else (getattr(p, "name", None), p)
@@ -149,6 +162,7 @@ class AdamW(Adam):
                  multi_precision=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, multi_precision)
+        _check_weight_decay(weight_decay)
         self._wd_coeff = float(weight_decay)
         self._apply_decay_fn = apply_decay_param_fun
         self._lr_ratio = lr_ratio

@@ -1,11 +1,13 @@
 """Where a GPT-2 training step's time goes on the card.
 
     python -m paddle_tpu_torch.profile_train [--seed N] [--steps N]
-        [--warmup N]
+        [--warmup N] [--fused-ffn]
 
 Trains ``gpt2_train_workload``, the configuration that ``chip_smoke.py``
 phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
-B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), for
+B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), or
+with ``--fused-ffn`` phase 3d's (the same under ``FUSED_FFN_FLAGS``: the
+MLP through the fused FFN kernels, forward and backward), for
 ``--warmup`` steps, then ``--steps`` more under ``torch.profiler``. Prints
 one JSON object: per profiled step its wall time, the union of the
 device's kernel intervals inside it (busy) and the idle share; then, over
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import sys
 
 import numpy as np
@@ -28,6 +31,10 @@ from .profile_serving import busy_us
 
 # bench_gpt2's headline configuration (bench.py:463)
 BATCH, SEQ, VOCAB_SAMPLED, LR = 8, 1024, 50000, 1e-4
+# the environment under which GPTMLP runs the fused FFN kernels, forward
+# and backward (read at each forward and backward)
+FUSED_FFN_FLAGS = {"PADDLE_TPU_FUSED_FFN": "1",
+                   "PADDLE_TPU_FUSED_FFN_BWD": "1"}
 
 
 def gpt2_train_workload(seed, device=None):
@@ -63,10 +70,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--fused-ffn", action="store_true",
+                    help="train with FUSED_FFN_FLAGS set")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.fused_ffn:
+        os.environ.update(FUSED_FFN_FLAGS)
     model, opt, x, y = gpt2_train_workload(args.seed)
     for _ in range(args.warmup):
         train_step(model, opt, x, y)
@@ -108,7 +119,8 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "config": {"batch": BATCH, "seq": SEQ, "layers": 12,
-                   "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1},
+                   "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1,
+                   "fused_ffn": args.fused_ffn},
         "losses": losses, "steps": steps,
         "device_time_per_step_by_kernel": [
             {"name": name[:90], "s": us * 1e-6 / n, "launches": cnt / n}

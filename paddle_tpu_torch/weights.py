@@ -6,9 +6,11 @@ arrays, keyed as ``paddle_tpu``'s ``Layer.named_parameters`` names them
 returns the port's FusedMultiTransformer, Embedding and Linear head with
 the same values, frozen for serving. ``gpt_from_jax_state`` does the same
 for the training model ``GPTForCausalLM`` (``gpt.wte.weight``,
-``gpt.h.0.ln1.weight``, ...), its parameters trainable. These are the
-only paths by which weights cross; a caller without JAX builds the same
-dicts from numpy directly (``random_state``).
+``gpt.h.0.ln1.weight``, ...), its parameters trainable, and
+``feedforward_from_jax_state`` for ``FusedFeedForward``'s eight
+parameters (``linear1_weight``, ..., ``ln2_bias``), trainable. These are
+the only paths by which weights cross; a caller without JAX builds the
+same dicts from numpy directly (``random_state``).
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ import torch
 from torch import nn
 
 from .device import resolve_device
-from .incubate.nn.layer import FusedMultiTransformer
+from .incubate.nn.layer import FusedFeedForward, FusedMultiTransformer
 from .models.gpt import GPTForCausalLM
 from .nn.layer.common import Embedding, Linear
 
-__all__ = ["from_jax_state", "gpt_from_jax_state", "random_state"]
+__all__ = ["from_jax_state", "gpt_from_jax_state",
+           "feedforward_from_jax_state", "random_state"]
 
 
 def _tensor(arr, device, dtype):
@@ -89,6 +92,25 @@ def gpt_from_jax_state(state_np, config, device=None, dtype=None):
     model = GPTForCausalLM(config, device="meta")
     _load(model, state_np, dev, dtype, trainable=True)
     return model
+
+
+def feedforward_from_jax_state(state_np, dropout_rate=0.1, epsilon=1e-5,
+                               activation="relu", act_dropout_rate=None,
+                               normalize_before=False, device=None,
+                               dtype=None, seed=0):
+    """The JAX ``FusedFeedForward``'s ``state_dict()`` as numpy arrays ->
+    the port's ``FusedFeedForward`` on ``device`` (default ``cuda``)
+    holding the same values, trainable, in ``dtype`` (default: the
+    arrays' own). d_model and dim_feedforward are read from
+    ``linear1_weight``; the scalars the arrays cannot carry are arguments
+    (``seed`` keys the dropout masks)."""
+    dev = resolve_device(device)
+    d_model, dff = np.shape(state_np["linear1_weight"])
+    ffn = FusedFeedForward(d_model, dff, dropout_rate, epsilon, activation,
+                           act_dropout_rate, normalize_before,
+                           device="meta", seed=seed)
+    _load(ffn, state_np, dev, dtype, trainable=True)
+    return ffn
 
 
 def random_state(rng, embed_dim, num_heads, dim_feedforward, num_layers,

@@ -7,11 +7,19 @@ goes through both: the logits, and 3 AdamW steps (lr 1e-3, weight_decay
 0.01) — the loss of each step, every gradient of step 1 and every
 parameter after step 3 — held to ``TOLERANCES["logits_fp32"]``,
 ``["train_loss_fp32"]``, ``["train_grads_fp32"]`` and
-``["train_params_fp32"]``. The JAX side runs twice: through its
-composites, and with ``PADDLE_TPU_FORCE_PALLAS=1`` (its flash attention
-and LayerNorm Pallas kernels in interpret mode). The port runs on the CPU,
-where attention and LayerNorm take their kernels' plain versions.
+``["train_params_fp32"]``. The JAX side runs three ways: through its
+composites; with ``PADDLE_TPU_FORCE_PALLAS=1`` (its flash attention and
+LayerNorm Pallas kernels in interpret mode); and with
+``PADDLE_TPU_FUSED_FFN=1`` and ``PADDLE_TPU_FUSED_FFN_BWD=1`` on the same
+model at hidden 128 (FF 512), where JAX's fused FFN gate holds (K and F
+multiples of 128, B * S a multiple of 8) and its fused FFN forward and
+backward kernels run (``gpt2_tiny``'s hidden 64 would send it to the
+composite). The port runs on the CPU under the same flags, where
+attention, LayerNorm and the fused FFN take their kernels' plain
+versions.
 """
+import contextlib
+import functools
 import os
 
 import numpy as np
@@ -19,32 +27,74 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
-from paddle_tpu.models.gpt import gpt2_tiny as jax_gpt2_tiny
+from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
+from paddle_tpu.ops.pallas import fused_ffn as jax_ffn
 from paddle_tpu_torch import TOLERANCES
-from paddle_tpu_torch.models.gpt import GPTConfig, gpt2_tiny
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt2_tiny
+from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.weights import gpt_from_jax_state
 
 B, S, STEPS, LR, WD = 2, 32, 3, 1e-3, 0.01
 TINY = {"vocab_size": 1024, "hidden_size": 64, "num_layers": 2,
         "num_heads": 2, "max_position": 128}
+# each run: the model's configuration and the flags both sides run under
+RUNS = {"composite": (TINY, {}),
+        "pallas": (TINY, {"PADDLE_TPU_FORCE_PALLAS": "1"}),
+        "fused_ffn": ({**TINY, "hidden_size": 128},
+                      {"PADDLE_TPU_FUSED_FFN": "1",
+                       "PADDLE_TPU_FUSED_FFN_BWD": "1"})}
+FUSED_FFN_NAMES = ("fused_ffn_fwd", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw")
 
 
-def _batch():
-    ids = np.random.default_rng(0).integers(0, TINY["vocab_size"],
-                                            (B, S + 1))
+@contextlib.contextmanager
+def _environ(flags):
+    old = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _counting(module, names):
+    """Count the calls of ``module``'s functions ``names`` inside."""
+    counts = dict.fromkeys(names, 0)
+    real = {n: getattr(module, n) for n in names}
+
+    def spy(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return real[name](*a, **k)
+        return call
+    for n in names:
+        setattr(module, n, spy(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+
+
+def _batch(vocab=TINY["vocab_size"]):
+    ids = np.random.default_rng(0).integers(0, vocab, (B, S + 1))
     return ids[:, :-1], ids[:, 1:]
 
 
-def _jax_run(force_pallas):
-    """(state, logits, losses, step-1 grads, final params) of the JAX
-    model, as numpy."""
-    old = os.environ.get("PADDLE_TPU_FORCE_PALLAS")
-    if force_pallas:
-        os.environ["PADDLE_TPU_FORCE_PALLAS"] = "1"
-    try:
+def _jax_run(mode):
+    """(state, logits, losses, step-1 grads, final params, JAX fused FFN
+    kernel calls) of the JAX model, as numpy."""
+    cfg, flags = RUNS[mode]
+    with _environ(flags), _counting(jax_ffn, ("_fwd_kernel_call",
+                                              "_bwd_kernel_calls")) as calls:
         paddle.seed(0)
-        m = jax_gpt2_tiny(dropout=0.0)
+        m = JaxGPT(JaxGPTConfig(**cfg, dropout=0.0))
         state = {k: np.array(v.numpy()) for k, v in m.state_dict().items()}
         x, y = (paddle.to_tensor(a.astype(np.int32)) for a in _batch())
         logits = m(x).numpy()
@@ -60,46 +110,58 @@ def _jax_run(force_pallas):
             opt.clear_grad()
             losses.append(float(loss.numpy()))
         params = {n: p.numpy() for n, p in m.named_parameters()}
-    finally:
-        if force_pallas:
-            if old is None:
-                del os.environ["PADDLE_TPU_FORCE_PALLAS"]
-            else:
-                os.environ["PADDLE_TPU_FORCE_PALLAS"] = old
-    return state, logits, losses, grads, params
+    return state, logits, losses, grads, params, dict(calls)
 
 
-def _port_run(state):
-    model = gpt_from_jax_state(state, GPTConfig(**TINY, dropout=0.0),
+def _port_run(state, mode):
+    """(logits, losses, step-1 grads, final params, fused FFN calls)."""
+    cfg, flags = RUNS[mode]
+    model = gpt_from_jax_state(state, GPTConfig(**cfg, dropout=0.0),
                                device="cpu")
     x, y = (torch.from_numpy(a) for a in _batch())
-    with torch.no_grad():
-        logits = model(x).numpy()
-    opt = AdamW(LR, parameters=model.named_parameters(), weight_decay=WD)
-    losses, grads = [], None
-    for i in range(STEPS):
-        loss = model(x, labels=y)
-        loss.backward()
-        if i == 0:
-            grads = {n: p.grad.clone().numpy()
-                     for n, p in model.named_parameters()}
-        opt.step()
-        opt.clear_grad()
-        losses.append(loss.item())
+    with _environ(flags), _counting(ffn, FUSED_FFN_NAMES) as calls:
+        with torch.no_grad():
+            logits = model(x).numpy()
+        opt = AdamW(LR, parameters=model.named_parameters(), weight_decay=WD)
+        losses, grads = [], None
+        for i in range(STEPS):
+            loss = model(x, labels=y)
+            loss.backward()
+            if i == 0:
+                grads = {n: p.grad.clone().numpy()
+                         for n, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
     params = {n: p.detach().numpy() for n, p in model.named_parameters()}
-    return logits, losses, grads, params
+    return logits, losses, grads, params, dict(calls)
 
 
-@pytest.fixture(scope="module", params=["composite", "pallas"])
+@functools.lru_cache(maxsize=None)
+def _results(mode):
+    """Both sides' runs under ``mode``, computed once per module."""
+    jax_out = _jax_run(mode)
+    return jax_out[1:], _port_run(jax_out[0], mode)
+
+
+@pytest.fixture(scope="module", params=list(RUNS))
 def runs(request):
-    jax_out = _jax_run(request.param == "pallas")
-    return jax_out[1:], _port_run(jax_out[0])
+    jax_out, port_out = _results(request.param)
+    return jax_out[:4], port_out[:4]
 
 
-def test_state_names_and_shapes(runs):
+@pytest.fixture(scope="module")
+def fused_calls():
+    """The fused FFN calls counted in both sides' ``fused_ffn`` runs."""
+    jax_out, port_out = _results("fused_ffn")
+    return jax_out[4], port_out[4]
+
+
+def test_state_names_and_shapes(runs, request):
     """The port's GPT has the JAX model's parameter names and shapes."""
     (*_, want), _ = runs
-    port = gpt2_tiny(dropout=0.0, device="cpu")
+    cfg, _ = RUNS[request.node.callspec.params["runs"]]
+    port = GPTForCausalLM(GPTConfig(**cfg, dropout=0.0), device="cpu")
     assert {n: tuple(p.shape) for n, p in port.named_parameters()} \
         == {n: w.shape for n, w in want.items()}
     assert all(p.requires_grad for p in port.parameters())
@@ -154,11 +216,18 @@ def test_tied_head_collects_both_grads():
     assert emb_only[~absent].abs().sum() > 0
 
 
-def test_fused_ffn_flag_raises(monkeypatch):
-    monkeypatch.setenv("PADDLE_TPU_FUSED_FFN", "1")
-    model = gpt2_tiny(dropout=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.from_numpy(_batch()[0]))
+def test_fused_ffn_flag_takes_the_fused_ffn(fused_calls):
+    """Under PADDLE_TPU_FUSED_FFN=1 (and _BWD=1) at hidden 128 both sides
+    run their fused FFN: JAX its Pallas forward and backward kernels, the
+    port fused_ffn's forward, dx and dW plain versions, once per layer
+    and pass (the logits, then 3 steps)."""
+    jax_calls, port_calls = fused_calls
+    assert jax_calls["_fwd_kernel_call"] > 0
+    assert jax_calls["_bwd_kernel_calls"] > 0
+    n = TINY["num_layers"]
+    assert port_calls == {"fused_ffn_fwd": n * (1 + STEPS),
+                          "fused_ffn_bwd_dx": n * STEPS,
+                          "fused_ffn_bwd_dw": n * STEPS}
 
 
 def test_dropout_training_is_seeded():
@@ -229,6 +298,23 @@ def test_adam_folds_l2_decay_into_the_gradient():
     np.testing.assert_allclose(q.detach().numpy(),
                                _numpy_adam(w0, grads, 0.01, l2=0.1),
                                rtol=1e-6, atol=1e-6)
+
+
+class _L2Decay:
+    """What the JAX optimizers read from a ``paddle.regularizer.L2Decay``:
+    its coefficient, as ``_coeff``."""
+    _coeff = 0.1
+
+
+@pytest.mark.parametrize("opt_cls", [Adam, AdamW])
+@pytest.mark.parametrize("decay", [_L2Decay(), lambda g, w: g + 0.1 * w],
+                         ids=["l2decay", "callable"])
+def test_weight_decay_objects_are_refused(opt_cls, decay):
+    """A weight_decay that is not a real number is refused when the
+    optimizer is built, naming its ROADMAP item, not at the first step."""
+    p = torch.nn.Parameter(torch.ones(3))
+    with pytest.raises(NotImplementedError, match=r"10\(e\)"):
+        opt_cls(0.01, parameters=[p], weight_decay=decay)
 
 
 def test_multi_precision_keeps_fp32_masters():

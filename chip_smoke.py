@@ -27,8 +27,10 @@ Phases, in order; any failure exits non-zero:
      and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
      decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
      D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 and 1024, lens 0,
-     mid-tile and Smax - Sq). --kernels-only stops here (exit 0, no
-     result line);
+     mid-tile and Smax - Sq); the RMSNorm forward and backward kernels (D
+     64, 97, 128, 4096, 5120, 8192 and 16384, N 1, 7, 33 and 4096, fp32,
+     bf16 and fp16, eps 1e-5 and 1e-6; y, rstd, dx and dgamma each).
+     --kernels-only stops here (exit 0, no result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
      same 16 greedy requests under each scheduler: the row-layout token
@@ -67,6 +69,14 @@ Phases, in order; any failure exits non-zero:
      kernel, outputs finite; then one FusedFeedForward forward and
      backward under the fused FFN flags, launching each fused FFN kernel
      once;
+  3f. LLaMA training at LLaMA-2-7B width (profile_train.
+     llama_train_workload: hidden 4096, 32 heads, head_dim 128,
+     intermediate 11008, vocab 32000, rms_eps 1e-5, L=4,
+     tensor_parallel=True; B=1, S=4096; bf16 with fp32 AdamW masters, lr
+     1e-4): 2 warm-up steps, then 10 timed on one repeated batch; the
+     losses must be finite and fall, and each step must launch exactly 9
+     RMSNorm forward, 9 RMSNorm backward, 4 flash forward, 4 dK/dV and 4
+     dQ kernels and no other kernel of the port;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -80,12 +90,16 @@ Phases, in order; any failure exits non-zero:
      and with the fused FFN: losses, step-1 gradients and step-3
      parameters against the CPU's; FusedMultiTransformer at L=2, fp32: a
      16-token chunk then 8 steps, outputs and caches after every call
-     against the CPU's;
+     against the CPU's; LLaMA training at phase 3f's widths, L=1, B=1,
+     S=128, fp32, 3 AdamW steps: logits, losses, step-1 gradients and
+     step-3 parameters against the CPU's;
   5. each kernel timed at the shapes its path gives it, beside its bound,
      its plain version and one PyTorch call (SDPA forward or backward,
-     ATen's LayerNorm forward or backward, or a matmul on a weight
-     dequantized once) computing the same; for the fused FFN three calls
-     (addmm, gelu, addmm) and autograd's backward of them.
+     ATen's LayerNorm forward or backward, F.rms_norm's forward or
+     autograd's backward of it, or a matmul on a weight dequantized once)
+     computing the same; for the fused FFN three calls (addmm, gelu,
+     addmm) and autograd's backward of them; the flash kernels also at
+     phase 3f's [1, 32, 4096, 128].
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -119,11 +133,15 @@ from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.models.gpt import gpt2_124m
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
                                               gpt2_workload)
-from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS, SEQ,
-                                            gpt2_train_workload, train_step)
+from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
+                                            LLAMA_BATCH, LLAMA_CONFIG,
+                                            LLAMA_SEQ, SEQ,
+                                            gpt2_train_workload,
+                                            llama_train_workload, train_step)
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
@@ -271,7 +289,36 @@ def phase_kernels(rng):
     training_kernels(rng, worst)
     ffn_kernels(rng, worst)
     bhsd_kernels(rng, worst)
+    rms_kernels(rng, worst)
     return worst
+
+
+# RMSNorm widths: small, LLaMA-2 7B's, 13B's, 65B's and the gate's
+# largest; 97 takes the kernels' scalar path (not a multiple of a vector)
+RMS_DIMS = (64, 97, 128, 4096, 5120, 8192, 16384)
+
+
+def rms_kernels(rng, worst):
+    """The RMSNorm forward and backward kernels against their plain
+    versions at RMS_DIMS, N 1, 7, 33 and 4096, fp32, bf16 and fp16, eps
+    1e-5 and 1e-6 in turn: y, rstd, dx and dgamma each."""
+    for dtype, tname in ((torch.float32, "layer_norm_fp32"),
+                         (torch.bfloat16, "layer_norm_bf16"),
+                         (torch.float16, "layer_norm_fp16")):
+        for d in RMS_DIMS:
+            for i, n in enumerate((1, 7, 33, 4096)):
+                eps = (1e-5, 1e-6)[i % 2]
+                x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
+                gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+                name = f"rms_norm {str(dtype):14s} N={n:4d} D={d:5d} eps={eps}"
+                y, rstd = ln.rms_norm_fwd(x, gamma, eps)
+                want = ln.rms_norm_fwd_reference(x, gamma, eps)
+                for part, g, w in zip(("y", "rstd"), (y, rstd), want):
+                    check(f"{name} {part}", g, w, tname, worst)
+                got = ln.rms_norm_bwd(x, gamma, rstd, dy)
+                want = ln.rms_norm_bwd_reference(x, gamma, rstd, dy)
+                for part, g, w in zip(("dx", "dgamma"), got, want):
+                    check(f"{name} {part}", g, w, tname, worst)
 
 
 # the fused FFN's (K, F): a small one, GPT-2's and a LLaMA-like 2816
@@ -752,6 +799,17 @@ FFN_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "fused_ffn_fwd": 12,
                       "fused_ffn_bwd_dx": 12, "fused_ffn_bwd_dw": 12}
 
 
+# phase 3f's step at L layers: the RMSNorm kernels once per RMSNorm (two a
+# block and the final norm), the flash forward and both backward kernels
+# once per layer, and no LayerNorm or fused FFN kernel
+LLAMA_LAYERS = LLAMA_CONFIG["num_layers"]
+LLAMA_TRAIN_LAUNCHES = {"rms_norm_fwd": 2 * LLAMA_LAYERS + 1,
+                        "rms_norm_bwd": 2 * LLAMA_LAYERS + 1,
+                        "flash_attention_fwd": LLAMA_LAYERS,
+                        "flash_attention_bwd_dkv": LLAMA_LAYERS,
+                        "flash_attention_bwd_dq": LLAMA_LAYERS}
+
+
 @contextlib.contextmanager
 def environ(flags):
     """The environment variables ``flags`` set inside, restored after."""
@@ -772,14 +830,16 @@ def all_launches():
             **ffn.LAUNCHES}
 
 
-def train_run(seed, steps, warmup, per_step):
-    """Train gpt2_train_workload: ``warmup`` steps, then ``steps`` timed
-    with every launch count zeroed just before and read just after; fail
-    unless they are exactly ``per_step`` a step and the losses are finite
-    and fall. Returns (launches, median step s, peak bytes)."""
-    model, opt, x, y = gpt2_train_workload(seed)
-    for _ in range(warmup):
-        train_step(model, opt, x, y).item()
+def train_run(build, batch_shape, seed, steps, warmup, per_step):
+    """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``,
+    x of ``batch_shape``): ``warmup`` steps, then ``steps`` timed with
+    every launch count zeroed just before and read just after; fail unless
+    they are exactly ``per_step`` a step and the losses are finite and
+    fall. Returns (launches, median step s, peak bytes)."""
+    model, opt, x, y = build(seed)
+    if tuple(x.shape) != tuple(batch_shape):
+        raise SystemExit(f"batch {tuple(x.shape)}, want {batch_shape}")
+    warm = [train_step(model, opt, x, y).item() for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -792,10 +852,10 @@ def train_run(seed, steps, warmup, per_step):
     peak = torch.cuda.max_memory_allocated()
     want = {k: n * steps for k, n in per_step.items()}
     got = {k: v for k, v in launches.items() if v}
-    log(f"  losses {losses}")
+    log(f"  warm-up losses {warm}; losses {losses}")
     med = float(np.median(times))
     log(f"  step ms {[round(1e3 * t, 3) for t in times]}; median "
-        f"{1e3 * med:.3f} ms, tokens/s {BATCH * SEQ / med:.1f}; "
+        f"{1e3 * med:.3f} ms, tokens/s {np.prod(batch_shape) / med:.1f}; "
         f"max_memory_allocated {peak} bytes")
     log(f"  launches over {steps} steps {got}; per step "
         f"{ {k: v / steps for k, v in got.items()} }")
@@ -813,14 +873,16 @@ def phase_train(seed, steps=10, warmup=2):
         f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
         f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
         "batch")
-    return train_run(seed, steps, warmup, TRAIN_LAUNCHES)
+    return train_run(gpt2_train_workload, (BATCH, SEQ), seed, steps, warmup,
+                     TRAIN_LAUNCHES)
 
 
 def phase_train_ffn(seed, base, steps=10, warmup=2):
     log("== phase 3d: phase 3c's training with PADDLE_TPU_FUSED_FFN=1 and "
         "PADDLE_TPU_FUSED_FFN_BWD=1 (GPTMLP through the fused FFN kernels)")
     with environ(FUSED_FFN_FLAGS):
-        launches, med, peak = train_run(seed, steps, warmup,
+        launches, med, peak = train_run(gpt2_train_workload, (BATCH, SEQ),
+                                        seed, steps, warmup,
                                         FFN_TRAIN_LAUNCHES)
     _, base_med, base_peak = base
     log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
@@ -828,6 +890,18 @@ def phase_train_ffn(seed, base, steps=10, warmup=2):
         f"{BATCH * SEQ / med:.1f} / {BATCH * SEQ / base_med:.1f}; peak "
         f"{peak} / {base_peak} bytes ({peak - base_peak:+d})")
     return launches, med, peak
+
+
+def phase_train_llama(seed, steps=10, warmup=2):
+    log(f"== phase 3f: LLaMA training at LLaMA-2-7B width "
+        f"({LLAMA_CONFIG}, tensor_parallel=True) B={LLAMA_BATCH} "
+        f"S={LLAMA_SEQ}, bf16 with fp32 AdamW masters, lr 1e-4; {warmup} "
+        f"warm-up steps, then {steps} timed on one repeated batch")
+    log(f"  card: {card_line()}")
+    launches = train_run(llama_train_workload, (LLAMA_BATCH, LLAMA_SEQ),
+                         seed, steps, warmup, LLAMA_TRAIN_LAUNCHES)[0]
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
@@ -900,28 +974,38 @@ def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
     return launches
 
 
-def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3,
-                       label="train", kernels=()):
-    """GPT-2 124M widths at L=2, fp32 (TF32 off), dropout 0: the same
-    weights and batch trained 3 AdamW steps on the card and on the CPU
-    (plain versions there), the card's run launching each of ``kernels``;
-    losses and step-1 gradients within
+def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
+                       lr=1e-3, label="train", kernels=(), logits=False):
+    """The model ``build(device=, seed=)`` makes (default: GPT-2 124M
+    widths at L=2, dropout 0), fp32 (TF32 off): the same weights and batch
+    of ids below the model's vocabulary trained 3 AdamW steps on the card
+    and on the CPU (plain versions there), the card's run launching each of
+    ``kernels``; with ``logits`` the first forward's logits within
+    TOLERANCES["logits_fp32"]; losses and step-1 gradients within
     TOLERANCES["train_loss_fp32"] and ["train_grads_fp32"], step-3
     parameters within ["train_params_fp32"] but for the share of
     elements that ["train_params_outliers"] allows."""
-    ids = np.random.default_rng(seed + 4).integers(0, 50000,
-                                                   (batch, seq + 1))
-    state = gpt2_124m(num_layers=2, dropout=0.0, device="cpu",
-                      seed=seed).state_dict()
+    build = build or functools.partial(gpt2_124m, num_layers=2, dropout=0.0)
+    cpu_model = build(device="cpu", seed=seed)
+    ids = np.random.default_rng(seed + 4).integers(
+        0, cpu_model.config.vocab_size, (batch, seq + 1))
+    state = cpu_model.state_dict()
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = gpt2_124m(num_layers=2, dropout=0.0, device=dev, seed=seed)
-        model.load_state_dict(state)
+        if dev == "cpu":
+            model = cpu_model
+        else:
+            model = build(device=dev, seed=seed)
+            model.load_state_dict(state)
         opt = AdamW(lr, parameters=model.named_parameters())
         x, y = (torch.from_numpy(a).to(dev) for a in (ids[:, :-1],
                                                       ids[:, 1:]))
         reset_launches()
         t0 = time.perf_counter()
+        first = None
+        if logits:
+            with torch.no_grad():
+                first = model(x).cpu()
         losses, grads = [], None
         for i in range(steps):
             loss = model(x, labels=y)
@@ -932,13 +1016,24 @@ def phase_train_parity(seed, batch=2, seq=128, steps=3, lr=1e-3,
             opt.clear_grad()
             losses.append(loss.item())
         runs[dev] = (losses, grads, {n: p.detach().cpu() for n, p in
-                                     model.named_parameters()})
+                                     model.named_parameters()}, first)
         log(f"  [{label}] {dev}: {steps} steps in "
             f"{time.perf_counter() - t0:.2f} s, losses {losses}")
         if dev == "cuda" and not all(all_launches()[k] for k in kernels):
             raise SystemExit(f"[{label}] the card's run launched "
                              f"{all_launches()}, want each of {kernels}")
-    (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
+        del model, opt
+    if logits:
+        got, want = runs["cuda"][3], runs["cpu"][3]
+        tol = TOLERANCES["logits_fp32"]
+        ok = torch.allclose(got, want, **tol)
+        log(f"  [{label}] logits {tuple(got.shape)} card vs CPU: worst "
+            f"{(got - want).abs().max().item():.3e} (atol {tol['atol']}, "
+            f"rtol {tol['rtol']}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[{label}] logits on the card and the CPU "
+                             "differ")
+    (lc, gc, pc, _), (lh, gh, ph, _) = runs["cuda"], runs["cpu"]
     for what, got, want, tname in (
             ("losses", {"loss": torch.tensor(lc)},
              {"loss": torch.tensor(lh)}, "train_loss_fp32"),
@@ -993,7 +1088,9 @@ def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
 def phase_parity(seed):
     log("== phase 4: card vs CPU (row) at L=2, full width, fp32 (TF32 "
         "off), per flavor; then GPT-2 training, 3 AdamW steps, without and "
-        "with the fused FFN; then FusedMultiTransformer's cache decode")
+        "with the fused FFN; then FusedMultiTransformer's cache decode; "
+        "then LLaMA training at LLaMA-2-7B width, L=1, B=1, S=128, 3 AdamW "
+        "steps")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
@@ -1049,6 +1146,15 @@ def phase_parity(seed):
         phase_train_parity(seed, label="train-ffn", kernels=tuple(
             ffn.LAUNCHES))
     parity_fmt(seed)
+    phase_train_parity(seed, build=llama_one_layer, batch=1,
+                       label="train-llama",
+                       kernels=tuple(LLAMA_TRAIN_LAUNCHES), logits=True)
+
+
+def llama_one_layer(device, seed):
+    """Phase 3f's LLaMA at one layer, fp32: phase 4's parity model."""
+    return LlamaForCausalLM(LlamaConfig(**{**LLAMA_CONFIG, "num_layers": 1}),
+                            device=device, seed=seed)
 
 
 def parity_fmt(seed, b=2, chunk=16, steps=8, smax=256, n_layers=2):
@@ -1180,7 +1286,8 @@ def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
     row = {**label, "max_abs_err": err, "ms": time_ms(run_kernel, reps),
            "plain_ms": time_ms(run_plain, max(reps // 10, 5)),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": time_ms(run_library, reps)}
+           "library_ms": (None if run_library is None
+                          else time_ms(run_library, reps))}
     log("  " + json.dumps(row))
     return row
 
@@ -1269,7 +1376,7 @@ def time_flash(rng):
 
 def phase_timing(seed):
     log("== phase 5: kernel timing at the shapes of each path (H=12, "
-        "D=64, bf16)")
+        "D=64, bf16; then phase 3f's RMSNorm and flash shapes)")
     rng = np.random.default_rng(seed + 2)
     log("  decode_attention_paged at the decode shape (B=8, Bt=64)")
     rows = {"decode_attention_paged": time_paged(rng)}
@@ -1301,6 +1408,17 @@ def phase_timing(seed):
     log("  decode_attention_bhsd at fused_multi_transformer's decode shape "
         "(B=8, Smax=1024)")
     rows["decode_attention_bhsd"] = time_bhsd(rng)
+    n_llama = LLAMA_BATCH * LLAMA_SEQ
+    log(f"  rms_norm_fwd and rms_norm_bwd at phase 3f's [{n_llama}, "
+        f"{LLAMA_CONFIG['hidden_size']}]")
+    rows.update(time_rms_norm(rng))
+    heads = LLAMA_CONFIG["num_heads"]
+    log(f"  flash attention forward and backward at phase 3f's shape "
+        f"[{LLAMA_BATCH}, {heads}, {LLAMA_SEQ}, "
+        f"{LLAMA_CONFIG['hidden_size'] // heads}] causal, dropout 0")
+    rows.update(time_flash_train(
+        rng, (LLAMA_BATCH, heads, LLAMA_SEQ,
+              LLAMA_CONFIG["hidden_size"] // heads), (0.0,), "_llama"))
     return rows
 
 
@@ -1432,23 +1550,26 @@ def time_loop_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def time_flash_train(rng):
-    """The flash kernels at GPT-2's training shape [8, 12, 1024, 64],
-    causal, bf16, dropout 0 and 0.1 (one seed for forward and backward):
-    the dK/dV and dQ kernels, each against the plain backward (which
-    computes all three gradients) and SDPA's flash backend's backward
-    (all three, through autograd); the forward against the plain forward
-    and SDPA's forward. Bounds: each kernel's own bytes and products."""
+def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
+                     suffix=""):
+    """The flash kernels at a training shape [B, H, S, D] (default GPT-2's
+    [8, 12, 1024, 64]), causal, bf16, at each of ``dropouts`` (one seed
+    for forward and backward): the dK/dV and dQ kernels, each against the
+    plain backward (which computes all three gradients) and SDPA's flash
+    backend's backward (all three, through autograd); the forward against
+    the plain forward (o and lse) and SDPA's forward. Bounds: each kernel's own bytes
+    and products. The rows go under each kernel's name plus ``suffix``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    b, h, s, d = BATCH, H, SEQ, E // H
+    b, h, s, d = shape
     q, k, v, do = (randn(rng, (b, h, s, d), torch.bfloat16)
                    for _ in range(4))
     pairs = b * h * s * (s + 1) // 2        # attended (row, key) pairs
     tile = b * h * s * d * 2                # one bf16 [B, H, S, D]
-    rows = {"flash_attention_bwd_dkv": [], "flash_attention_bwd_dq": [],
-            "flash_attention_fwd_train": []}
+    rows = {name + suffix: [] for name in (
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+        "flash_attention_fwd_train")}
     tol = TOLERANCES["attention_grad_bf16"]
-    for p in (0.0, 0.1):
+    for p in dropouts:
         seed = int(rng.integers(1 << 63))
         o, lse = fa.flash_attention_fwd(q, k, v, True, None, p, seed)
         delta = (do.float() * o.float()).sum(-1)
@@ -1487,12 +1608,20 @@ def time_flash_train(rng):
             row = {"dropout": p, "max_abs_err": err, "ms": time_ms(run, 20),
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": library_ms}
-            log(f"  {name} " + json.dumps(row))
-            rows[name].append(row)
+            log(f"  {name} {list(shape)} " + json.dumps(row))
+            rows[name + suffix].append(row)
         run_fwd = functools.partial(fa.flash_attention_fwd, q, k, v, True,
                                     None, p, seed)
         fwd_ref = fa.flash_attention_reference(q, k, v, True, None, p, seed)
-        err = (run_fwd()[0].float() - fwd_ref[0].float()).abs().max().item()
+        fwd_tol = TOLERANCES["attention_bf16"]
+        got = run_fwd()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, fwd_ref))
+        if not all(torch.allclose(g.float(), w.float(), **fwd_tol)
+                   for g, w in zip(got, fwd_ref)):
+            raise SystemExit(f"flash_attention_fwd disagrees with its plain "
+                             f"version at the training shape {list(shape)}, "
+                             f"dropout {p}: max_abs_err (o, lse) {err:.3e}")
         bound_ms, bound_by = bound(4 * tile + b * h * s * 4, 4 * d * pairs)
         row = {"dropout": p, "max_abs_err": err,
                "ms": time_ms(lambda i=0: run_fwd(), 20),
@@ -1501,8 +1630,8 @@ def time_flash_train(rng):
                        q, k, v, True, None, p, seed), 3),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": fwd_library_ms}
-        log("  flash_attention_fwd (training shape) " + json.dumps(row))
-        rows["flash_attention_fwd_train"].append(row)
+        log(f"  flash_attention_fwd {list(shape)} " + json.dumps(row))
+        rows["flash_attention_fwd_train" + suffix].append(row)
     return rows
 
 
@@ -1539,6 +1668,42 @@ def time_layer_norm(rng):
         3 * row_bytes + 3 * vec + 2 * n * 4, 12 * n * d, 200,
         tname="layer_norm_bf16")
     return {"layer_norm_fwd": [fwd], "layer_norm_bwd": [bwd]}
+
+
+def time_rms_norm(rng):
+    """RMSNorm forward and backward at phase 3f's shape [4096, 4096], bf16,
+    eps 1e-5, the launches cycled over 8 inputs (537 MB, past the L2); the
+    library calls are ATen's fused RMSNorm forward and backward
+    (F.rms_norm, _fused_rms_norm_backward), both timed in a CUDA graph as
+    the kernels are. Bounds: x (and dy) read and y (dx) written once, the
+    weight, rstd and dgamma once."""
+    n, d, copies = LLAMA_BATCH * LLAMA_SEQ, LLAMA_CONFIG["hidden_size"], 8
+    eps = LLAMA_CONFIG["rms_eps"]
+    xs = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
+    dys = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
+    gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(torch.bfloat16)
+    rstds = [ln.rms_norm_fwd(x, gamma, eps)[1] for x in xs]
+    aten = [torch.ops.aten._fused_rms_norm(x, [d], gamma, eps)[1] for x in xs]
+    tensor_b, vec_b = n * d * 2, d * 2
+    fwd = timed_row(
+        {"n": n, "d": d},
+        lambda i=0: ln.rms_norm_fwd(xs[i % copies], gamma, eps),
+        lambda i=0: ln.rms_norm_fwd_reference(xs[i % copies], gamma, eps),
+        lambda i=0: F.rms_norm(xs[i % copies], (d,), gamma, eps),
+        2 * tensor_b + vec_b + n * 4, 4 * n * d, 200,
+        tname="layer_norm_bf16")
+    bwd = timed_row(
+        {"n": n, "d": d},
+        lambda i=0: ln.rms_norm_bwd(xs[i % copies], gamma, rstds[i % copies],
+                                    dys[i % copies]),
+        lambda i=0: ln.rms_norm_bwd_reference(
+            xs[i % copies], gamma, rstds[i % copies], dys[i % copies]),
+        lambda i=0: torch.ops.aten._fused_rms_norm_backward(
+            dys[i % copies], xs[i % copies], [d], aten[i % copies], gamma,
+            [True, True]),
+        3 * tensor_b + 2 * vec_b + n * 4, 8 * n * d, 200,
+        tname="layer_norm_bf16")
+    return {"rms_norm_fwd": [fwd], "rms_norm_bwd": [bwd]}
 
 
 def time_stacked(rng, quant, write):
@@ -1734,6 +1899,7 @@ def main(argv=None):
     launches["train"] = base[0]
     launches["train-ffn"] = phase_train_ffn(args.seed, base)[0]
     launches["fmt"] = phase_fmt(args.seed)
+    launches["train-llama"] = phase_train_llama(args.seed)
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
@@ -1782,6 +1948,11 @@ def main(argv=None):
              ("fused_ffn_bwd_dw", "train-ffn", "fused_ffn.py:289",
               lambda r: True),
              ("decode_attention_bhsd", "fmt", "decode_attention.py:230",
+              lambda r: True),
+             # this slice's: RMSNorm in phase 3f's LLaMA training
+             ("rms_norm_fwd", "train-llama", "layer_norm.py:200",
+              lambda r: True),
+             ("rms_norm_bwd", "train-llama", "layer_norm.py:230",
               lambda r: True))
     kernels = []
     for name, path, where, is_main in table:

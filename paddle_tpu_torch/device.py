@@ -50,6 +50,11 @@ TOLERANCES = {
     # relative) on either side of statistics summed in another order, and
     # dgamma / dbeta rounded to bf16 after an fp32 sum
     "layer_norm_bf16": {"atol": 2e-2, "rtol": 2e-2},
+    # RMSNorm in fp16 on the card: one rounding of y, dx and dgamma to
+    # fp16 after fp32 sums taken in another order, which can land on the
+    # neighbouring fp16 value (2^-10 relative at most); rtol allows two
+    # such steps, atol the fp32 noise of a dx or dgamma that cancels to 0
+    "layer_norm_fp16": {"atol": 2e-3, "rtol": 2e-3},
     # GPT training in fp32, the port against the JAX package on the CPU
     # and the card's run against the CPU's. The loss: a mean over B * S
     # tokens of logsumexp minus a logit, through the same products summed

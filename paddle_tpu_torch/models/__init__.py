@@ -1,3 +1,3 @@
-from . import gpt
+from . import gpt, llama
 
-__all__ = ["gpt"]
+__all__ = ["gpt", "llama"]

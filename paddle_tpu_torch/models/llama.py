@@ -1,0 +1,270 @@
+"""LLaMA-2 family for training. Counterpart of ``paddle_tpu/models/llama.py``.
+
+The same modules, parameter names and shapes as the JAX model (RMSNorm,
+rotary embeddings, GQA attention, the SwiGLU MLP, a head tied to the
+embedding or not, ``[in, out]`` projections), so
+``weights.llama_from_jax_state`` moves a JAX state across by name. Every
+RMSNorm goes through the RMSNorm kernels (``nn.functional.rms_norm``),
+attention through ``nn.functional.scaled_dot_product_attention`` (the
+flash attention kernels, forward and backward) and rotary through the
+ported ``fused_rotary_position_embedding``; the projections are
+``torch.matmul`` on cuBLAS, as the JAX package leaves them to XLA.
+
+Both of the JAX model's layouts are ported. ``tensor_parallel=True`` (its
+default) has separate q/k/v/o and gate/up/down projections and the
+vocab-parallel loss; the port has no model-parallel group (ROADMAP Queue
+1 item 8), so they run at world size 1: plain projections, and the dense
+``cross_entropy(..., reduction="none")`` that JAX's
+``ParallelCrossEntropy`` computes below mp 2. ``tensor_parallel=False``
+runs q/k/v as one matmul and gate/up as one (``fused_concat_linear``),
+with the parameters kept separate. ``context_parallel`` and
+``sequence_parallel`` do what the JAX model does without a mesh: dense
+attention and no sharding constraint (ring attention over a mesh's
+``sep`` axis is Queue 1 item 10(d)).
+
+The initial weights are drawn from the model's ``generator``, a CPU
+``torch.Generator`` seeded from ``seed``, so a seed gives the same model on
+every device.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..device import resolve_device
+from ..incubate.nn.functional import fused_rotary_position_embedding
+from ..nn import functional as F
+from ..nn.layer.common import Embedding, Linear
+from ..nn.layer.norm import RMSNorm
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
+           "LlamaModel", "LlamaForCausalLM", "llama2_7b", "llama2_65b",
+           "llama_tiny"]
+
+
+class LlamaConfig:
+    def __init__(self, vocab_size=32000, hidden_size=4096, num_layers=32,
+                 num_heads=32, num_kv_heads=None, intermediate_size=11008,
+                 max_position=4096, rms_eps=1e-5, rope_base=10000.0,
+                 initializer_range=0.02, tensor_parallel=True,
+                 sequence_parallel=False, recompute=False,
+                 tie_word_embeddings=False, context_parallel=False):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position = max_position
+        self.rms_eps = rms_eps
+        self.rope_base = rope_base
+        self.initializer_range = initializer_range
+        self.tensor_parallel = tensor_parallel
+        self.sequence_parallel = sequence_parallel
+        self.recompute = recompute
+        self.tie_word_embeddings = tie_word_embeddings
+        self.context_parallel = context_parallel
+
+
+def _linear(n_in, n_out, device, dtype):
+    return Linear(n_in, n_out, bias_attr=False, dtype=dtype, device=device,
+                  trainable=True)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.num_heads = c.num_heads
+        self.num_kv_heads = c.num_kv_heads
+        self.head_dim = c.hidden_size // c.num_heads
+        self.rope_base = c.rope_base
+        # one matmul for q, k and v (the JAX model's non-TP fast path)
+        self.fused = not c.tensor_parallel
+        h = c.hidden_size
+        kv_out = self.num_kv_heads * self.head_dim
+        self.q_proj = _linear(h, h, device, dtype)
+        self.k_proj = _linear(h, kv_out, device, dtype)
+        self.v_proj = _linear(h, kv_out, device, dtype)
+        self.o_proj = _linear(h, h, device, dtype)
+
+    def forward(self, x, kv_cache=None, time_step=None):
+        """x [B, S, hidden] -> (out [B, S, hidden], kv_cache). With
+        ``kv_cache`` (k, v) [B, S0, H, D] (K/V already repeated over the
+        heads) the new K/V are appended and the queries attend the whole
+        cache without a causal mask; rotary positions start at 0 whatever
+        the cache holds, and ``time_step`` is not read (both as in the JAX
+        model)."""
+        b, s = x.shape[0], x.shape[1]
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        if self.fused:
+            qkv = F.fused_concat_linear(
+                x, [self.q_proj.weight, self.k_proj.weight,
+                    self.v_proj.weight])
+            q = qkv[..., :nh * hd].reshape(b, s, nh, hd)
+            k = qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, s, nkv, hd)
+            v = qkv[..., (nh + nkv) * hd:].reshape(b, s, nkv, hd)
+        else:
+            q = self.q_proj(x).reshape(b, s, nh, hd)
+            k = self.k_proj(x).reshape(b, s, nkv, hd)
+            v = self.v_proj(x).reshape(b, s, nkv, hd)
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, rotary_emb_base=self.rope_base)
+        if nkv != nh:
+            # jnp.repeat(a, rep, axis=2): each kv head next to its copies
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+        if kv_cache is not None:
+            k_cat, v_cat, kv_cache = _append_cache(kv_cache, k, v)
+            out = F.scaled_dot_product_attention(q, k_cat, v_cat)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, nh * hd)), kv_cache
+
+
+def _append_cache(cache, k, v):
+    kc, vc = cache
+    k_cat = torch.cat([kc, k], 1)
+    v_cat = torch.cat([vc, v], 1)
+    return k_cat, v_cat, (k_cat, v_cat)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        h, inter = c.hidden_size, c.intermediate_size
+        # gate and up as one matmul (the JAX model's non-TP fast path)
+        self.fused = not c.tensor_parallel
+        self.gate_proj = _linear(h, inter, device, dtype)
+        self.up_proj = _linear(h, inter, device, dtype)
+        self.down_proj = _linear(inter, h, device, dtype)
+
+    def forward(self, x):
+        if self.fused:
+            inter = self.gate_proj.weight.shape[1]
+            gu = F.fused_concat_linear(
+                x, [self.gate_proj.weight, self.up_proj.weight])
+            return self.down_proj(F.silu(gu[..., :inter]) * gu[..., inter:])
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.input_layernorm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,
+                                       device=device)
+        self.self_attn = LlamaAttention(c, device, dtype)
+        self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_eps,
+                                                dtype=dtype, device=device)
+        self.mlp = LlamaMLP(c, device, dtype)
+        self._recompute = c.recompute
+
+    def _body(self, x):
+        attn_out, _ = self.self_attn(self.input_layernorm(x))
+        x = x + attn_out
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward(self, x):
+        if self._recompute and self.training:
+            # the block's activations are recomputed in the backward
+            # (JAX: fleet.utils.recompute)
+            return checkpoint(self._body, x, use_reentrant=False)
+        return self._body(x)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = c
+        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size, dtype,
+                                      device, trainable=True)
+        self.layers = nn.ModuleList([LlamaBlock(c, device, dtype)
+                                     for _ in range(c.num_layers)])
+        self.norm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,
+                            device=device)
+
+    def forward(self, input_ids):
+        x = self.embed_tokens(input_ids)
+        for blk in self.layers:
+            x = blk(x)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """LLaMA with its LM head (``lm_head``, or the embedding transposed
+    under ``tie_word_embeddings``). With ``labels`` the forward returns the
+    mean cross entropy, or with ``loss_mask`` its mean weighted by the mask
+    (sum(loss m) / max(sum(m), 1)); a label equal to -100 gives a zero term
+    that stays in the unmasked mean's count, as in the JAX model.
+
+    ``device`` None means the card (``resolve_device``); ``"meta"`` builds
+    the modules without storage or initial values (for a state loaded
+    afterwards, ``weights.llama_from_jax_state``)."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
+                 seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = config
+        self.generator = torch.Generator()
+        self.generator.manual_seed(seed)
+        self.llama = LlamaModel(config, dev, dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = _linear(config.hidden_size, config.vocab_size,
+                                   dev, dtype)
+        if dev.type != "meta":
+            self.init_weights()
+
+    @torch.no_grad()
+    def init_weights(self):
+        """The JAX model's initialisers, drawn from ``self.generator`` on
+        the CPU: every embedding and projection normal(0,
+        initializer_range); the RMSNorm weights start at 1 when built."""
+        std = self.config.initializer_range
+        for module in self.modules():
+            if isinstance(module, (Linear, Embedding)):
+                module.weight.copy_(torch.empty(module.weight.shape).normal_(
+                    0.0, std, generator=self.generator))
+
+    def forward(self, input_ids, labels=None, loss_mask=None):
+        h = self.llama(input_ids)
+        if self.config.tie_word_embeddings:
+            logits = F.linear(h, self.llama.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(h)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1), reduction="none")
+        if loss_mask is None:
+            return loss.mean()
+        m = loss_mask.reshape(-1).to(loss.dtype)
+        return (loss * m).sum() / m.sum().clamp(min=1.0)
+
+
+def llama2_7b(device=None, dtype=torch.float32, seed=0, **kw):
+    """LLaMA-2 7B: hidden 4096, 32 layers, 32 heads, intermediate 11008
+    (``kw``: any other LlamaConfig field)."""
+    return LlamaForCausalLM(LlamaConfig(hidden_size=4096, num_layers=32,
+                                        num_heads=32,
+                                        intermediate_size=11008, **kw),
+                            device=device, dtype=dtype, seed=seed)
+
+
+def llama2_65b(device=None, dtype=torch.float32, seed=0, **kw):
+    """LLaMA-2 65B's widths: hidden 8192, 80 layers, 64 heads, intermediate
+    22016."""
+    return LlamaForCausalLM(LlamaConfig(hidden_size=8192, num_layers=80,
+                                        num_heads=64,
+                                        intermediate_size=22016, **kw),
+                            device=device, dtype=dtype, seed=seed)
+
+
+def llama_tiny(vocab_size=256, device=None, dtype=torch.float32, seed=0,
+               **kw):
+    """The JAX package's test model: hidden 64, 2 layers, 4 heads,
+    intermediate 128, 128 positions."""
+    return LlamaForCausalLM(LlamaConfig(
+        vocab_size=vocab_size, hidden_size=64, num_layers=2, num_heads=4,
+        intermediate_size=128, max_position=128, **kw), device=device,
+        dtype=dtype, seed=seed)

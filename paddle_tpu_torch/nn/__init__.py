@@ -1,5 +1,6 @@
 from . import functional
 from .layer.common import Dropout, Embedding, Linear
-from .layer.norm import LayerNorm
+from .layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "functional"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm",
+           "functional"]

@@ -1,10 +1,11 @@
 """Activations. Counterpart of ``paddle_tpu/nn/functional/activation.py``
-(``gelu`` and ``relu``: GPT's and ``fused_feedforward``'s default)."""
+(``gelu`` and ``relu``: GPT's and ``fused_feedforward``'s default;
+``silu`` / ``swish``: LLaMA's SwiGLU)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-__all__ = ["gelu", "relu"]
+__all__ = ["gelu", "relu", "silu", "swish"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -17,3 +18,13 @@ def gelu(x, approximate=False, name=None):
 def relu(x, name=None):
     """max(x, 0)."""
     return F.relu(x)
+
+
+def silu(x, name=None):
+    """x * sigmoid(x)."""
+    return F.silu(x)
+
+
+def swish(x, name=None):
+    """``silu``, as in the JAX package."""
+    return silu(x)

@@ -1,5 +1,5 @@
-"""``linear`` and ``dropout`` in Paddle's semantics. Counterpart of
-``paddle_tpu/nn/functional/common.py``.
+"""``linear``, ``fused_concat_linear`` and ``dropout`` in Paddle's
+semantics. Counterpart of ``paddle_tpu/nn/functional/common.py``.
 
 Every random draw takes an explicit ``torch.Generator`` (None: PyTorch's
 default CPU generator). A draw is one 63-bit seed taken from that
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["draw_seed", "dropout", "keep_mask", "linear"]
+__all__ = ["draw_seed", "dropout", "fused_concat_linear", "keep_mask",
+           "linear"]
 
 
 def draw_seed(generator=None) -> int:
@@ -31,6 +32,26 @@ def linear(x, weight, bias=None):
     """``y = x @ W + b`` with W ``[in, out]`` (Paddle's layout)."""
     y = x @ weight
     return y if bias is None else y + bias.to(y.dtype)
+
+
+def fused_concat_linear(x, weights, biases=None):
+    """One matmul over ``weights`` ([in, out_i] each) concatenated on dim
+    1: the outputs side by side, ``[..., sum(out_i)]``. The parameters
+    stay separate and autograd splits their gradients through the
+    concatenation (LLaMA's fused q/k/v and gate/up). ``biases`` is None,
+    or one per weight; a list mixing None and tensors raises ValueError
+    (pass zeros for the bias-less ones), as in the JAX package."""
+    if biases is not None:
+        n_none = sum(b is None for b in biases)
+        if n_none == len(biases):
+            biases = None
+        elif n_none:
+            raise ValueError(
+                "fused_concat_linear: biases must be all None or all set, "
+                f"got {n_none}/{len(biases)} None. Pass explicit zero "
+                "biases for the bias-less projections.")
+    return linear(x, torch.cat(list(weights), 1),
+                  None if biases is None else torch.cat(list(biases)))
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

@@ -1,11 +1,13 @@
-"""``layer_norm``. Counterpart of ``paddle_tpu/nn/functional/norm.py``.
+"""``layer_norm`` and ``rms_norm``. Counterpart of
+``paddle_tpu/nn/functional/norm.py``.
 
-A last-dim norm whose weight and bias are in x's dtype goes through
-``ops.layer_norm.layer_norm``: the LayerNorm kernels on the card, their
-plain versions on the CPU. The TPU makes its kernel opt-in
-(``PADDLE_TPU_PALLAS_LN``) only because a ``pallas_call`` breaks XLA's
-fusion of the composite; eager PyTorch has no such fusion to lose, so
-here the kernel is the default. Any other call takes the composite.
+A last-dim norm whose weight (and, for ``layer_norm``, bias) is in x's
+dtype goes through ``ops.layer_norm.layer_norm`` or ``.rms_norm``: the
+LayerNorm or RMSNorm kernels on the card, their plain versions on the
+CPU. The TPU makes its kernels opt-in (``PADDLE_TPU_PALLAS_LN``) only
+because a ``pallas_call`` breaks XLA's fusion of the composite; eager
+PyTorch has no such fusion to lose, so here the kernels are the default.
+Any other call takes the composite.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from ...ops import layer_norm as ln
 
-__all__ = ["layer_norm"]
+__all__ = ["layer_norm", "rms_norm"]
 
 
 def _kernel_ok(x, normalized_shape, weight, bias) -> bool:
@@ -42,3 +44,18 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if bias is not None:
         out = out + bias
     return out
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """RMSNorm over the last dim (LLaMA's), statistics in fp32. A weight
+    [D] in x's dtype takes the kernel (x * rstd * weight in fp32, rounded
+    once); otherwise the JAX package's composite, which rounds x * rstd to
+    x's dtype before multiplying by the weight (promoting to its dtype)."""
+    if weight is not None and weight.dtype == x.dtype \
+            and tuple(weight.shape) == (x.shape[-1],) and x.numel() > 0 \
+            and ln.is_supported(tuple(x.shape), x.dtype):
+        return ln.rms_norm(x, weight, epsilon)
+    a = x.float()
+    out = (a * torch.reciprocal(torch.sqrt(
+        (a * a).mean(-1, keepdim=True) + epsilon))).to(x.dtype)
+    return out if weight is None else out * weight

@@ -1,4 +1,4 @@
 from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm"]

@@ -1,5 +1,6 @@
-"""LayerNorm. Counterpart of ``paddle_tpu/nn/layer/norm.py::LayerNorm``:
-weight ones and bias zeros over ``normalized_shape``, both trainable."""
+"""LayerNorm and RMSNorm. Counterparts of ``paddle_tpu/nn/layer/norm.py``'s
+``LayerNorm`` (weight ones and bias zeros over ``normalized_shape``) and
+``RMSNorm`` (weight ones), all trainable."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +8,7 @@ from torch import nn
 
 from ..functional import norm
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -26,3 +27,18 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return norm.layer_norm(x, self.normalized_shape, self.weight,
                                self.bias, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(self.normalized_shape, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return norm.rms_norm(x, self.weight, self.epsilon)

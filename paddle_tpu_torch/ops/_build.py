@@ -42,7 +42,9 @@ SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "fused_ffn_fwd": "fused_ffn_fwd.cu",
            "fused_ffn_bwd_dx": "fused_ffn_bwd_dx.cu",
            "fused_ffn_bwd_dw": "fused_ffn_bwd_dw.cu",
-           "decode_attention_bhsd": "decode_attention_bhsd.cu"}
+           "decode_attention_bhsd": "decode_attention_bhsd.cu",
+           "rms_norm_fwd": "rms_norm_fwd.cu",
+           "rms_norm_bwd": "rms_norm_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -105,6 +107,10 @@ _ENTRY = {
         "paddle_fused_ffn_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
     "decode_attention_bhsd": (
         "paddle_decode_attention_bhsd", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "rms_norm_fwd": (
+        "paddle_rms_norm_fwd", [_P] * 4 + [_I, _I, _F, _I, _P]),
+    "rms_norm_bwd": (
+        "paddle_rms_norm_bwd", [_P] * 6 + [_I] * 3 + [_P]),
     # a second entry of flash_attention_fwd's library: the keep bits its
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (

@@ -1,13 +1,15 @@
-"""Where a GPT-2 training step's time goes on the card.
+"""Where a training step's time goes on the card.
 
-    python -m paddle_tpu_torch.profile_train [--seed N] [--steps N]
-        [--warmup N] [--fused-ffn]
+    python -m paddle_tpu_torch.profile_train [--model gpt2|llama]
+        [--seed N] [--steps N] [--warmup N] [--fused-ffn]
 
 Trains ``gpt2_train_workload``, the configuration that ``chip_smoke.py``
 phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
 B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), or
 with ``--fused-ffn`` phase 3d's (the same under ``FUSED_FFN_FLAGS``: the
-MLP through the fused FFN kernels, forward and backward), for
+MLP through the fused FFN kernels, forward and backward), or with
+``--model llama`` phase 3f's ``llama_train_workload`` (LLaMA-2 7B's
+widths at 4 layers, B=1, S=4096, bf16 with fp32 AdamW masters), for
 ``--warmup`` steps, then ``--steps`` more under ``torch.profiler``. Prints
 one JSON object: per profiled step its wall time, the union of the
 device's kernel intervals inside it (busy) and the idle share; then, over
@@ -26,11 +28,20 @@ import numpy as np
 import torch
 
 from .models.gpt import gpt2_124m
+from .models.llama import LlamaConfig, LlamaForCausalLM
 from .optimizer import AdamW
 from .profile_serving import busy_us
 
 # bench_gpt2's headline configuration (bench.py:463)
 BATCH, SEQ, VOCAB_SAMPLED, LR = 8, 1024, 50000, 1e-4
+# LLaMA-2 7B's published widths (Meta's Llama-2-7b config.json; the JAX
+# llama2_7b) cut to 4 layers so that bf16 weights and grads, fp32 masters
+# and both AdamW moments (16 bytes a parameter, 1.07 B parameters) fit one
+# 80 GB card beside the activations; one sequence of LLaMA-2's context
+LLAMA_CONFIG = {"vocab_size": 32000, "hidden_size": 4096, "num_layers": 4,
+                "num_heads": 32, "intermediate_size": 11008,
+                "max_position": 4096, "rms_eps": 1e-5}
+LLAMA_BATCH, LLAMA_SEQ = 1, 4096
 # the environment under which GPTMLP runs the fused FFN kernels, forward
 # and backward (read at each forward and backward)
 FUSED_FFN_FLAGS = {"PADDLE_TPU_FUSED_FFN": "1",
@@ -55,6 +66,27 @@ def gpt2_train_workload(seed, device=None):
     return model, opt, x, y
 
 
+def llama_train_workload(seed, device=None):
+    """Returns ``(model, opt, x, y)``: ``LlamaForCausalLM(LLAMA_CONFIG)``
+    (the default ``tensor_parallel=True``, as ``llama2_7b`` and
+    bench_llama build it) with random weights from ``seed`` on ``device``
+    (default the card) in bf16; AdamW at lr 1e-4 (weight_decay 0.01) with
+    fp32 masters, as bench_llama builds it (bench.py:645-648); and one
+    batch of token ids [1, 4096] drawn below 32000 and its next-token
+    labels."""
+    model = LlamaForCausalLM(LlamaConfig(**LLAMA_CONFIG), device=device,
+                             seed=seed)
+    model.to(torch.bfloat16)
+    opt = AdamW(LR, parameters=model.named_parameters(),
+                multi_precision=True)
+    ids = np.random.default_rng(seed).integers(
+        0, LLAMA_CONFIG["vocab_size"], (LLAMA_BATCH, LLAMA_SEQ + 1))
+    dev = model.llama.embed_tokens.weight.device
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    return model, opt, x, y
+
+
 def train_step(model, opt, x, y):
     """One step: forward with labels, backward, AdamW, clear the grads.
     Returns the loss (a device scalar)."""
@@ -67,6 +99,7 @@ def train_step(model, opt, x, y):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("gpt2", "llama"), default="gpt2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
@@ -78,7 +111,15 @@ def main(argv=None):
         return 2
     if args.fused_ffn:
         os.environ.update(FUSED_FFN_FLAGS)
-    model, opt, x, y = gpt2_train_workload(args.seed)
+    if args.model == "llama":
+        model, opt, x, y = llama_train_workload(args.seed)
+        config = {**LLAMA_CONFIG, "batch": LLAMA_BATCH, "seq": LLAMA_SEQ,
+                  "dtype": "bfloat16", "masters": "fp32"}
+    else:
+        model, opt, x, y = gpt2_train_workload(args.seed)
+        config = {"batch": BATCH, "seq": SEQ, "layers": 12,
+                  "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1,
+                  "fused_ffn": args.fused_ffn}
     for _ in range(args.warmup):
         train_step(model, opt, x, y)
     torch.cuda.synchronize()
@@ -118,9 +159,7 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "config": {"batch": BATCH, "seq": SEQ, "layers": 12,
-                   "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1,
-                   "fused_ffn": args.fused_ffn},
+        "model": args.model, "config": config,
         "losses": losses, "steps": steps,
         "device_time_per_step_by_kernel": [
             {"name": name[:90], "s": us * 1e-6 / n, "launches": cnt / n}

@@ -8,7 +8,10 @@ the same values, frozen for serving. ``gpt_from_jax_state`` does the same
 for the training model ``GPTForCausalLM`` (``gpt.wte.weight``,
 ``gpt.h.0.ln1.weight``, ...), its parameters trainable, and
 ``feedforward_from_jax_state`` for ``FusedFeedForward``'s eight
-parameters (``linear1_weight``, ..., ``ln2_bias``), trainable. These are
+parameters (``linear1_weight``, ..., ``ln2_bias``), trainable, and
+``llama_from_jax_state`` for ``LlamaForCausalLM``
+(``llama.embed_tokens.weight``, ``llama.layers.0.self_attn.q_proj.weight``,
+..., ``llama.norm.weight``, ``lm_head.weight``), trainable. These are
 the only paths by which weights cross; a caller without JAX builds the
 same dicts from numpy directly (``random_state``).
 """
@@ -23,10 +26,12 @@ from torch import nn
 from .device import resolve_device
 from .incubate.nn.layer import FusedFeedForward, FusedMultiTransformer
 from .models.gpt import GPTForCausalLM
+from .models.llama import LlamaForCausalLM
 from .nn.layer.common import Embedding, Linear
 
 __all__ = ["from_jax_state", "gpt_from_jax_state",
-           "feedforward_from_jax_state", "random_state"]
+           "feedforward_from_jax_state", "llama_from_jax_state",
+           "random_state"]
 
 
 def _tensor(arr, device, dtype):
@@ -90,6 +95,17 @@ def gpt_from_jax_state(state_np, config, device=None, dtype=None):
     arrays' own). The tied head needs no entry of its own."""
     dev = resolve_device(device)
     model = GPTForCausalLM(config, device="meta")
+    _load(model, state_np, dev, dtype, trainable=True)
+    return model
+
+
+def llama_from_jax_state(state_np, config, device=None, dtype=None):
+    """The JAX ``LlamaForCausalLM``'s ``state_dict()`` as numpy arrays ->
+    the port's ``LlamaForCausalLM(config)`` on ``device`` (default
+    ``cuda``) holding the same values, trainable, in ``dtype`` (default:
+    the arrays' own). A tied head needs no entry of its own."""
+    dev = resolve_device(device)
+    model = LlamaForCausalLM(config, device="meta")
     _load(model, state_np, dev, dtype, trainable=True)
     return model
 

@@ -29,7 +29,11 @@ Phases, in order; any failure exits non-zero:
      D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 and 1024, lens 0,
      mid-tile and Smax - Sq); the RMSNorm forward and backward kernels (D
      64, 97, 128, 4096, 5120, 8192 and 16384, N 1, 7, 33 and 4096, fp32,
-     bf16 and fp16, eps 1e-5 and 1e-6; y, rstd, dx and dgamma each).
+     bf16 and fp16, eps 1e-5 and 1e-6; y, rstd, dx and dgamma each); the
+     ring chunk forward, dK/dV and dQ kernels (fp32, bf16 and fp16, D 64
+     and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
+     257, offsets Sk, Sk - 1, 0, -17, -Sq and -Sq - 5; o, lse, dq, dk and
+     dv from cotangents of o and lse, fully masked launches exactly zero).
      --kernels-only stops here (exit 0, no result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
@@ -77,6 +81,15 @@ Phases, in order; any failure exits non-zero:
      losses must be finite and fall, and each step must launch exactly 9
      RMSNorm forward, 9 RMSNorm backward, 4 flash forward, 4 dK/dV and 4
      dQ kernels and no other kernel of the port;
+  3g. ring attention at LLaMA-2-7B attention width ([1, 4096, 32, 128]
+     bf16, random q, k, v from --seed): the ring's schedule for n ranks in
+     one process (one card cannot hold two NCCL ranks) at n = 2 and 4
+     causal and n = 4 not, forward and backward with remat; each run
+     launches exactly 2n^2 ring chunk forward, n^2 dK/dV and n^2 dQ kernels
+     and no other kernel of the port, and matches the dense plain
+     attention over the whole sequence and the flash kernels; its wall,
+     the flash kernels' and SDPA's over the whole sequence and its peak
+     memory are printed;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -92,14 +105,18 @@ Phases, in order; any failure exits non-zero:
      16-token chunk then 8 steps, outputs and caches after every call
      against the CPU's; LLaMA training at phase 3f's widths, L=1, B=1,
      S=128, fp32, 3 AdamW steps: logits, losses, step-1 gradients and
-     step-3 parameters against the CPU's;
+     step-3 parameters against the CPU's; the ring at n = 4 over [2, 256,
+     4, 64] with 2 KV heads, fp32: the card's kernels against the CPU's
+     composite and plain versions, output and gradients;
   5. each kernel timed at the shapes its path gives it, beside its bound,
      its plain version and one PyTorch call (SDPA forward or backward,
      ATen's LayerNorm forward or backward, F.rms_norm's forward or
      autograd's backward of it, or a matmul on a weight dequantized once)
      computing the same; for the fused FFN three calls (addmm, gelu,
      addmm) and autograd's backward of them; the flash kernels also at
-     phase 3f's [1, 32, 4096, 128].
+     phase 3f's [1, 32, 4096, 128]; the ring chunk kernels at phase 3g's
+     chunk [1, 32, 1024, 128], offsets full and 0, beside ATen's flash
+     attention forward and backward.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -132,9 +149,11 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import layer_norm as ln
+from paddle_tpu_torch.ops import ring_chunk_attention as rca
 from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel import context_parallel as cpar
 from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
                                               gpt2_workload)
 from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
@@ -290,6 +309,7 @@ def phase_kernels(rng):
     ffn_kernels(rng, worst)
     bhsd_kernels(rng, worst)
     rms_kernels(rng, worst)
+    ring_kernels(rng, worst)
     return worst
 
 
@@ -319,6 +339,64 @@ def rms_kernels(rng, worst):
                 want = ln.rms_norm_bwd_reference(x, gamma, rstd, dy)
                 for part, g, w in zip(("dx", "dgamma"), got, want):
                     check(f"{name} {part}", g, w, tname, worst)
+
+
+# the ring chunk kernels' (Sq, Sk): ragged, one tile, the LLaMA ring's
+# chunk (S = 4096 over n = 4) and Sq != Sk
+RING_SHAPES = ((37, 37), (256, 256), (1024, 1024), (100, 257))
+
+
+def ring_kernels(rng, worst):
+    """The ring chunk kernels against their plain versions: fp32, bf16
+    and fp16; D 64 and 128; H 8 over Hk 8 and 2; RING_SHAPES; offsets Sk
+    (full), Sk - 1, 0, -17, -Sq and -Sq - 5 (fully masked). The forward's
+    o and lse, then dq, dk and dv from random cotangents of both (dlse !=
+    0) and the kernel's o and lse; fully masked launches exactly o = 0,
+    lse = -1e30 and zero gradients. One log line per shape, the worst
+    error of each output over its offsets."""
+    for dtype, tname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"),
+                         (torch.float16, "fp16")):
+        for d in (64, 128):
+            for hk in (8, 2):
+                for sq, sk in RING_SHAPES:
+                    q, do = (randn(rng, (1, 8, sq, d), dtype)
+                             for _ in range(2))
+                    k, v = (randn(rng, (1, hk, sk, d), dtype)
+                            for _ in range(2))
+                    dlse = randn(rng, (1, 8, sq), torch.float32)
+                    label = (f"ring_chunk {str(dtype):14s} D={d} H=8 "
+                             f"Hk={hk} Sq={sq} Sk={sk}")
+                    errs = {}
+                    for off in (sk, sk - 1, 0, -17, -sq, -sq - 5):
+                        o, lse = rca.ring_chunk_attention_fwd(q, k, v, off)
+                        want = rca.ring_chunk_attention_reference(q, k, v,
+                                                                  off)
+                        delta = (do.float() * o.float()).sum(-1) - dlse
+                        got = (o, lse, rca.ring_chunk_attention_bwd_dq(
+                            q, k, v, do, lse, delta, off),
+                            *rca.ring_chunk_attention_bwd_dkv(
+                                q, k, v, do, lse, delta, off))
+                        want = (*want, *rca.ring_chunk_attention_bwd_reference(
+                            q, k, v, o, lse, do, dlse, off))
+                        for part, g, w in zip(("o", "lse", "dq", "dk", "dv"),
+                                              got, want):
+                            tol = ("attention_" if part in ("o", "lse") else
+                                   "attention_grad_") + tname
+                            errs[part] = max(errs.get(part, 0.0), check(
+                                f"{label} offset={off} {part}", g, w, tol,
+                                worst, quiet=True))
+                            if not torch.isfinite(g).all():
+                                raise SystemExit(f"{label} offset={off} "
+                                                 f"{part}: not finite")
+                        zero = not any(x.any() for x in (o, *got[2:]))
+                        if off <= -sq and not (zero and torch.equal(
+                                lse, torch.full_like(lse, -1e30))):
+                            raise SystemExit(
+                                f"{label} offset={off}: a fully masked "
+                                "launch must give o = 0, lse = -1e30 and "
+                                "zero gradients")
+                    log(f"  {label}: worst over the offsets "
+                        f"{ {p: f'{e:.3e}' for p, e in errs.items()} } ok")
 
 
 # the fused FFN's (K, F): a small one, GPT-2's and a LLaMA-like 2816
@@ -550,14 +628,16 @@ def packed_weight(rng, k, o, transposed):
     return _pack_int4(q, 0), s
 
 
-def check(name, got, want, tname, worst):
-    """Fail unless got matches want within TOLERANCES[tname]."""
+def check(name, got, want, tname, worst, quiet=False):
+    """Fail unless got matches want within TOLERANCES[tname]; returns the
+    largest absolute error (``quiet``: logged only on a failure)."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = TOLERANCES[tname]
     ok = torch.allclose(got.float(), want.float(), **tol)
-    log(f"  {name}: max_abs_err={err:.3e} (atol={tol['atol']}, "
-        f"rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"  {name}: max_abs_err={err:.3e} (atol={tol['atol']}, "
+            f"rtol={tol['rtol']}) {'ok' if ok else 'FAIL'}")
     if not ok:
         a, b = got.float().flatten(), want.float().flatten()
         excess = (a - b).abs() - (tol["atol"] + tol["rtol"] * b.abs())
@@ -567,6 +647,7 @@ def check(name, got, want, tname, worst):
             f"want {b[i].item():.6e}")
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     worst[tname] = max(worst.get(tname, 0.0), err)
+    return err
 
 
 def randn(rng, shape, dtype):
@@ -726,7 +807,7 @@ def phase_generate(seed):
 
 def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
-                   ffn.LAUNCHES):
+                   ffn.LAUNCHES, rca.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -827,18 +908,16 @@ def environ(flags):
 
 def all_launches():
     return {**fa.LAUNCHES, **ln.LAUNCHES, **da.LAUNCHES, **fdm.LAUNCHES,
-            **ffn.LAUNCHES}
+            **ffn.LAUNCHES, **rca.LAUNCHES}
 
 
-def train_run(build, batch_shape, seed, steps, warmup, per_step):
-    """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``,
-    x of ``batch_shape``): ``warmup`` steps, then ``steps`` timed with
-    every launch count zeroed just before and read just after; fail unless
-    they are exactly ``per_step`` a step and the losses are finite and
-    fall. Returns (launches, median step s, peak bytes)."""
+def train_run(build, seed, steps, warmup, per_step):
+    """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``):
+    ``warmup`` steps, then ``steps`` timed with every launch count zeroed
+    just before and read just after; fail unless they are exactly
+    ``per_step`` a step and the losses are finite and fall. Returns
+    (launches, median step s, peak bytes)."""
     model, opt, x, y = build(seed)
-    if tuple(x.shape) != tuple(batch_shape):
-        raise SystemExit(f"batch {tuple(x.shape)}, want {batch_shape}")
     warm = [train_step(model, opt, x, y).item() for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -855,7 +934,7 @@ def train_run(build, batch_shape, seed, steps, warmup, per_step):
     log(f"  warm-up losses {warm}; losses {losses}")
     med = float(np.median(times))
     log(f"  step ms {[round(1e3 * t, 3) for t in times]}; median "
-        f"{1e3 * med:.3f} ms, tokens/s {np.prod(batch_shape) / med:.1f}; "
+        f"{1e3 * med:.3f} ms, tokens/s {x.numel() / med:.1f}; "
         f"max_memory_allocated {peak} bytes")
     log(f"  launches over {steps} steps {got}; per step "
         f"{ {k: v / steps for k, v in got.items()} }")
@@ -873,7 +952,7 @@ def phase_train(seed, steps=10, warmup=2):
         f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
         f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
         "batch")
-    return train_run(gpt2_train_workload, (BATCH, SEQ), seed, steps, warmup,
+    return train_run(gpt2_train_workload, seed, steps, warmup,
                      TRAIN_LAUNCHES)
 
 
@@ -881,9 +960,8 @@ def phase_train_ffn(seed, base, steps=10, warmup=2):
     log("== phase 3d: phase 3c's training with PADDLE_TPU_FUSED_FFN=1 and "
         "PADDLE_TPU_FUSED_FFN_BWD=1 (GPTMLP through the fused FFN kernels)")
     with environ(FUSED_FFN_FLAGS):
-        launches, med, peak = train_run(gpt2_train_workload, (BATCH, SEQ),
-                                        seed, steps, warmup,
-                                        FFN_TRAIN_LAUNCHES)
+        launches, med, peak = train_run(gpt2_train_workload, seed, steps,
+                                        warmup, FFN_TRAIN_LAUNCHES)
     _, base_med, base_peak = base
     log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
         f"{1e3 * base_med:.3f} ms ({med / base_med:.3f}x), tokens/s "
@@ -898,10 +976,112 @@ def phase_train_llama(seed, steps=10, warmup=2):
         f"S={LLAMA_SEQ}, bf16 with fp32 AdamW masters, lr 1e-4; {warmup} "
         f"warm-up steps, then {steps} timed on one repeated batch")
     log(f"  card: {card_line()}")
-    launches = train_run(llama_train_workload, (LLAMA_BATCH, LLAMA_SEQ),
-                         seed, steps, warmup, LLAMA_TRAIN_LAUNCHES)[0]
+    launches = train_run(llama_train_workload, seed, steps, warmup,
+                         LLAMA_TRAIN_LAUNCHES)[0]
     torch.cuda.empty_cache()
     return launches
+
+
+def ring_launches(n):
+    """One forward and backward of the ring over n ranks with remat: the
+    chunk forward n^2 times and again in the backward's recompute, each
+    backward kernel n^2 times, and no other kernel of the port."""
+    return {"ring_chunk_attention_fwd": 2 * n * n,
+            "ring_chunk_attention_bwd_dkv": n * n,
+            "ring_chunk_attention_bwd_dq": n * n}
+
+
+def ring_run(q, k, v, do, n, causal):
+    """One forward and backward of ``_ring_attention_serial`` over n ranks
+    (remat) with every launch count zeroed just before and read just
+    after; fail unless they are exactly ``ring_launches(n)``. Returns (o,
+    (dq, dk, dv), forward ms, backward ms, peak bytes, launches); the times
+    are CUDA events around each half, host included."""
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    events[0].record()
+    o = cpar._ring_attention_serial(qg, kg, vg, n, causal)
+    events[1].record()
+    o.backward(do)
+    events[2].record()
+    torch.cuda.synchronize()
+    launches = {k_: c for k_, c in all_launches().items() if c}
+    if launches != ring_launches(n):
+        raise SystemExit(f"ring n={n} causal={causal}: launched {launches}, "
+                         f"want exactly {ring_launches(n)}")
+    return (o.detach(), (qg.grad, kg.grad, vg.grad),
+            events[0].elapsed_time(events[1]),
+            events[1].elapsed_time(events[2]),
+            torch.cuda.max_memory_allocated(), launches)
+
+
+def phase_ring(seed, reps=3):
+    """Phase 3g: the ring's schedule for n ranks in one process (one card
+    cannot hold two NCCL ranks) at LLaMA-2-7B attention width."""
+    heads = LLAMA_CONFIG["num_heads"]
+    b, s, d = LLAMA_BATCH, LLAMA_SEQ, LLAMA_CONFIG["hidden_size"] // heads
+    log(f"== phase 3g: ring attention (_ring_attention_serial, remat) at "
+        f"LLaMA-2-7B attention width [B={b}, S={s}, H={heads}, D={d}] bf16: "
+        "n = 2 and 4 causal, n = 4 not causal; against the dense plain "
+        "attention and the flash kernels over the whole sequence")
+    log(f"  card: {card_line()}")
+    rng = np.random.default_rng(seed + 11)
+    q, k, v, do = (randn(rng, (b, s, heads, d), torch.bfloat16)
+                   for _ in range(4))
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    main = None
+    for causal in (True, False):
+        # the whole sequence, [B, H, S, D]: the plain version (dense fp32
+        # scores, 2.1 GB) and the flash kernels
+        o_p, lse_p = fa.flash_attention_reference(qt, kt, vt, causal)
+        plain = (o_p, *fa.flash_attention_bwd_reference(qt, kt, vt, o_p,
+                                                        lse_p, dot, causal))
+        del lse_p
+        o_f, lse_f = fa.flash_attention_fwd(qt, kt, vt, causal)
+        flash = (o_f, *fa.flash_attention_bwd(qt, kt, vt, o_f, lse_f, dot,
+                                              causal))
+        whole = {
+            "flash fwd": time_loop_ms(
+                lambda i=0: fa.flash_attention_fwd(qt, kt, vt, causal), reps),
+            "flash bwd": time_loop_ms(
+                lambda i=0: fa.flash_attention_bwd(qt, kt, vt, o_f, lse_f,
+                                                   dot, causal), reps)}
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        whole["SDPA fwd"] = time_loop_ms(
+            lambda i=0: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=causal),
+            reps)
+        whole["SDPA bwd"] = time_loop_ms(lambda i=0: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), reps)
+        del out, qg, kg, vg
+        for n in ((2, 4) if causal else (4,)):
+            label = f"ring n={n} causal={int(causal)}"
+            runs = [ring_run(q, k, v, do, n, causal) for _ in range(reps)]
+            o, grads, _, _, peak, launches = runs[0]
+            got = (o.transpose(1, 2), *(g.transpose(1, 2) for g in grads))
+            for ref_name, ref in (("plain", plain), ("flash", flash)):
+                for part, g, w in zip(("o", "dq", "dk", "dv"), got, ref):
+                    check(f"{label} {part} vs the {ref_name} attention", g,
+                          w, "attention_bf16" if part == "o"
+                          else "attention_grad_bf16", {})
+            fwd_ms = float(np.median([r[2] for r in runs]))
+            bwd_ms = float(np.median([r[3] for r in runs]))
+            log(f"  {label}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} "
+                f"ms (median of {reps}, CUDA events, host included); "
+                f"whole sequence, loops of {reps} between events: "
+                + ", ".join(f"{k_} {t:.3f} ms" for k_, t in whole.items())
+                + f"; ring peak max_memory_allocated {peak} bytes; "
+                f"launches {launches}")
+            if causal and n == 4:
+                main = launches
+            del runs, o, grads, got
+        del plain, flash, o_f, lse_f
+    torch.cuda.empty_cache()
+    return main
 
 
 def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
@@ -1149,6 +1329,50 @@ def phase_parity(seed):
     phase_train_parity(seed, build=llama_one_layer, batch=1,
                        label="train-llama",
                        kernels=tuple(LLAMA_TRAIN_LAUNCHES), logits=True)
+    parity_ring(seed)
+
+
+def parity_ring(seed, n=4, b=2, s=256, h=4, hk=2, d=64):
+    """``_ring_attention_serial`` over n ranks, causal, fp32 (TF32 off) at
+    [B, S, H, D] with GQA: the card's kernels against the CPU's composite
+    and the CPU's plain kernel versions (PADDLE_TPU_RING_KERNEL_CPU=1);
+    outputs within TOLERANCES["attention_fp32"], gradients of sum(o * g)
+    within ["attention_grad_fp32"]."""
+    rng = np.random.default_rng(seed + 12)
+    q, g = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((b, s, hk, d)).astype(np.float32)
+            for _ in range(2))
+    runs = {}
+    for name, dev, flags in (("card", "cuda", {}),
+                             ("cpu composite", "cpu", {}),
+                             ("cpu plain", "cpu",
+                              {"PADDLE_TPU_RING_KERNEL_CPU": "1"})):
+        qt, kt, vt = (torch.from_numpy(x).to(dev).requires_grad_()
+                      for x in (q, k, v))
+        reset_launches()
+        with environ(flags):
+            o = cpar._ring_attention_serial(qt, kt, vt, n, causal=True)
+            (o * torch.from_numpy(g).to(dev)).sum().backward()
+        runs[name] = [x.detach().cpu() for x in (o, qt.grad, kt.grad,
+                                                   vt.grad)]
+        if dev == "cuda" and {k_: c for k_, c in all_launches().items()
+                              if c} != ring_launches(n):
+            raise SystemExit(f"[ring parity] the card launched "
+                             f"{all_launches()}, want {ring_launches(n)}")
+    for ref in ("cpu composite", "cpu plain"):
+        for part, got, want in zip(("o", "dq", "dk", "dv"), runs["card"],
+                                   runs[ref]):
+            tname = "attention_fp32" if part == "o" else "attention_grad_fp32"
+            tol = TOLERANCES[tname]
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **tol)
+            log(f"  [ring parity] n={n} fp32 [{b}, {s}, {h}, {d}] Hk={hk} "
+                f"{part}: card vs {ref} {err:.3e} ({tname}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"[ring parity] {part}: the card and the "
+                                 f"{ref} differ")
 
 
 def llama_one_layer(device, seed):
@@ -1419,6 +1643,10 @@ def phase_timing(seed):
     rows.update(time_flash_train(
         rng, (LLAMA_BATCH, heads, LLAMA_SEQ,
               LLAMA_CONFIG["hidden_size"] // heads), (0.0,), "_llama"))
+    log(f"  the ring chunk kernels at phase 3g's chunk [{LLAMA_BATCH}, "
+        f"{heads}, {LLAMA_SEQ // 4}, {LLAMA_CONFIG['hidden_size'] // heads}] "
+        "(S over n = 4), offsets full and 0")
+    rows.update(time_ring(rng))
     return rows
 
 
@@ -1632,6 +1860,73 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
                "library_ms": fwd_library_ms}
         log(f"  flash_attention_fwd {list(shape)} " + json.dumps(row))
         rows["flash_attention_fwd_train" + suffix].append(row)
+    return rows
+
+
+def time_ring(rng, n=4):
+    """The ring chunk kernels at phase 3g's chunk shape [B, H, S / n, D]
+    (LLaMA-2-7B attention, S = 4096, n = 4) in bf16, at the full offset
+    (Sk) and on the diagonal (0), with random cotangents of o and lse. The
+    forward, dK/dV and dQ kernels in CUDA graphs against their plain
+    versions (forward; the whole backward, a loop of 3 between events) and
+    ATen's flash attention forward and backward in CUDA graphs
+    (_scaled_dot_product_flash_attention, not causal at the full offset and
+    causal at 0; its backward takes no lse cotangent, dlse = 0). Bounds:
+    4, 8 and 6 D-deep products per attended (row, key) pair over the bf16
+    rate, or each input read and output written once."""
+    heads = LLAMA_CONFIG["num_heads"]
+    b, c, d = LLAMA_BATCH, LLAMA_SEQ // n, LLAMA_CONFIG["hidden_size"] // heads
+    q, k, v, do = (randn(rng, (b, heads, c, d), torch.bfloat16)
+                   for _ in range(4))
+    dlse = randn(rng, (b, heads, c), torch.float32)
+    tile, row_b = b * heads * c * d * 2, b * heads * c * 4
+    rows = {name: [] for name in rca.LAUNCHES}
+    tol = TOLERANCES["attention_grad_bf16"]
+    for off in (c, 0):
+        causal = off == 0
+        pairs = b * heads * (c * (c + 1) // 2 if causal else c * c)
+        lib_fwd = functools.partial(
+            torch.ops.aten._scaled_dot_product_flash_attention, q, k, v, 0.0,
+            causal)
+        lib = lib_fwd()
+        rows["ring_chunk_attention_fwd"].append(timed_row(
+            {"offset": off},
+            lambda i=0, off=off: rca.ring_chunk_attention_fwd(q, k, v, off),
+            lambda i=0, off=off: rca.ring_chunk_attention_reference(q, k, v,
+                                                                    off),
+            lambda i=0: lib_fwd(), 4 * tile + row_b, 4 * d * pairs, 20))
+        o, lse = rca.ring_chunk_attention_fwd(q, k, v, off)
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        want = rca.ring_chunk_attention_bwd_reference(q, k, v, o, lse, do,
+                                                      dlse, off)
+        plain_ms = time_loop_ms(
+            lambda i=0: rca.ring_chunk_attention_bwd_reference(
+                q, k, v, o, lse, do, dlse, off), 3)
+        lib_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        library_ms = time_ms(lambda i=0: lib_bwd(
+            do, q, k, v, *lib[:6], 0.0, causal, *lib[6:8]), 20)
+        args = (q, k, v, do, lse, delta, off)
+        for name, run, parts, nbytes, flops in (
+                ("ring_chunk_attention_bwd_dkv",
+                 lambda i=0: rca.ring_chunk_attention_bwd_dkv(*args),
+                 want[1:], 6 * tile + 2 * row_b, 8 * d * pairs),
+                ("ring_chunk_attention_bwd_dq",
+                 lambda i=0: (rca.ring_chunk_attention_bwd_dq(*args),),
+                 want[:1], 5 * tile + 2 * row_b, 6 * d * pairs)):
+            got = run()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, parts))
+            if not all(torch.allclose(g.float(), w.float(), **tol)
+                       for g, w in zip(got, parts)):
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"at the ring's chunk, offset {off}: "
+                                 f"max_abs_err {err:.3e}")
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = {"offset": off, "max_abs_err": err, "ms": time_ms(run, 20),
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+            log(f"  {name} [{b}, {heads}, {c}, {d}] " + json.dumps(row))
+            rows[name].append(row)
     return rows
 
 
@@ -1900,6 +2195,7 @@ def main(argv=None):
     launches["train-ffn"] = phase_train_ffn(args.seed, base)[0]
     launches["fmt"] = phase_fmt(args.seed)
     launches["train-llama"] = phase_train_llama(args.seed)
+    launches["ring"] = phase_ring(args.seed)
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 
@@ -1953,7 +2249,15 @@ def main(argv=None):
              ("rms_norm_fwd", "train-llama", "layer_norm.py:200",
               lambda r: True),
              ("rms_norm_bwd", "train-llama", "layer_norm.py:230",
-              lambda r: True))
+              lambda r: True),
+             # this slice's: the ring chunk in phase 3g's ring (n = 4,
+             # causal), timed at the chunk's full offset
+             ("ring_chunk_attention_fwd", "ring",
+              "ring_chunk_attention.py:240", lambda r: r["offset"] > 0),
+             ("ring_chunk_attention_bwd_dkv", "ring",
+              "ring_chunk_attention.py:299", lambda r: r["offset"] > 0),
+             ("ring_chunk_attention_bwd_dq", "ring",
+              "ring_chunk_attention.py:321", lambda r: r["offset"] > 0))
     kernels = []
     for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))

@@ -1,0 +1,43 @@
+"""Fleet facade. Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``
+for hybrid data and sep (context) parallelism: ``fleet.init`` builds the
+hybrid mesh that ``parallel.current_mesh()`` returns and
+``LlamaForCausalLM(context_parallel=...)`` runs its ring or Ulysses
+attention over. ``distributed_model``, ``distributed_optimizer`` and the
+worker API stay with ROADMAP Queue 1 item 10(e).
+"""
+from __future__ import annotations
+
+import sys
+
+from .base.distributed_strategy import DistributedStrategy
+from .base.topology import CommunicateTopology, HybridCommunicateGroup
+
+__all__ = ["DistributedStrategy", "init", "get_hybrid_communicate_group",
+           "CommunicateTopology", "HybridCommunicateGroup"]
+
+_fleet_state = {"strategy": None, "hcg": None}
+
+
+def init(role_maker=None, is_collective=True, strategy=None,
+         log_level="INFO", device=None):
+    """Initialise the parallel environment on ``device`` (default the
+    card; see ``distributed.init_parallel_env``) and the hybrid mesh of
+    ``strategy.hybrid_configs``. Returns the fleet module."""
+    from ..parallel import init_parallel_env
+    dev = init_parallel_env(device)
+    strategy = strategy or DistributedStrategy()
+    hc = strategy.hybrid_configs
+    topo = CommunicateTopology(
+        hybrid_group_names=("data", "pipe", "sharding", "sep", "model"),
+        dims=(hc.get("dp_degree", 1), hc.get("pp_degree", 1),
+              hc.get("sharding_degree", 1), hc.get("sep_degree", 1),
+              hc.get("mp_degree", 1)))
+    hcg = HybridCommunicateGroup(topo, dev.type)
+    _fleet_state.update(strategy=strategy, hcg=hcg)
+    return sys.modules[__name__]
+
+
+def get_hybrid_communicate_group() -> HybridCommunicateGroup:
+    if _fleet_state["hcg"] is None:
+        init()
+    return _fleet_state["hcg"]

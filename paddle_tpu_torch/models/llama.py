@@ -17,10 +17,12 @@ vocab-parallel loss; the port has no model-parallel group (ROADMAP Queue
 ``cross_entropy(..., reduction="none")`` that JAX's
 ``ParallelCrossEntropy`` computes below mp 2. ``tensor_parallel=False``
 runs q/k/v as one matmul and gate/up as one (``fused_concat_linear``),
-with the parameters kept separate. ``context_parallel`` and
-``sequence_parallel`` do what the JAX model does without a mesh: dense
-attention and no sharding constraint (ring attention over a mesh's
-``sep`` axis is Queue 1 item 10(d)).
+with the parameters kept separate. ``context_parallel`` (True or
+"ring", or "ulysses") runs attention over the active fleet mesh's ``sep``
+axis when its degree is 2 or more (``parallel.context_parallel``: the ring
+chunk kernels, or the flash kernels under Ulysses) and dense attention
+otherwise; ``sequence_parallel`` does what the JAX model does without a
+mesh: no sharding constraint.
 
 The initial weights are drawn from the model's ``generator``, a CPU
 ``torch.Generator`` seeded from ``seed``, so a seed gives the same model on
@@ -79,6 +81,8 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = c.num_kv_heads
         self.head_dim = c.hidden_size // c.num_heads
         self.rope_base = c.rope_base
+        self.context_parallel = c.context_parallel
+        self._ring_cache = None
         # one matmul for q, k and v (the JAX model's non-TP fast path)
         self.fused = not c.tensor_parallel
         h = c.hidden_size
@@ -87,6 +91,29 @@ class LlamaAttention(nn.Module):
         self.k_proj = _linear(h, kv_out, device, dtype)
         self.v_proj = _linear(h, kv_out, device, dtype)
         self.o_proj = _linear(h, h, device, dtype)
+
+    def _ring_fn(self):
+        """Sequence-parallel attention over the active mesh's 'sep' axis
+        (cached per mesh and scheme); None when no mesh with sep >= 2 is
+        active. context_parallel=True/'ring' runs exact ring attention;
+        'ulysses' the head-scatter all-to-all with full-sequence attention
+        per rank (kv_heads % sep == 0)."""
+        from ..parallel import current_mesh
+        mesh = current_mesh()
+        names = getattr(mesh, "mesh_dim_names", None) or ()
+        if "sep" not in names or mesh.shape[names.index("sep")] < 2:
+            return None
+        scheme = ("ulysses" if self.context_parallel == "ulysses"
+                  else "ring")
+        if self._ring_cache is None or self._ring_cache[0] is not mesh \
+                or self._ring_cache[2] != scheme:
+            from ..parallel.context_parallel import (
+                make_ring_attention_fn, make_ulysses_attention_fn)
+            mk = (make_ulysses_attention_fn if scheme == "ulysses"
+                  else make_ring_attention_fn)
+            self._ring_cache = (mesh, mk(mesh, axis_name="sep",
+                                         causal=True), scheme)
+        return self._ring_cache[1]
 
     def forward(self, x, kv_cache=None, time_step=None):
         """x [B, S, hidden] -> (out [B, S, hidden], kv_cache). With
@@ -117,6 +144,8 @@ class LlamaAttention(nn.Module):
         if kv_cache is not None:
             k_cat, v_cat, kv_cache = _append_cache(kv_cache, k, v)
             out = F.scaled_dot_product_attention(q, k_cat, v_cat)
+        elif self.context_parallel and self._ring_fn() is not None:
+            out = self._ring_fn()(q, k, v)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, nh * hd)), kv_cache

@@ -44,7 +44,11 @@ SOURCES = {"decode_attention_paged": "decode_attention_paged.cu",
            "fused_ffn_bwd_dw": "fused_ffn_bwd_dw.cu",
            "decode_attention_bhsd": "decode_attention_bhsd.cu",
            "rms_norm_fwd": "rms_norm_fwd.cu",
-           "rms_norm_bwd": "rms_norm_bwd.cu"}
+           "rms_norm_bwd": "rms_norm_bwd.cu",
+           "ring_chunk_attention_fwd": "ring_chunk_attention_fwd.cu",
+           "ring_chunk_attention_bwd_dkv":
+               "ring_chunk_attention_bwd_dkv.cu",
+           "ring_chunk_attention_bwd_dq": "ring_chunk_attention_bwd_dq.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -111,6 +115,17 @@ _ENTRY = {
         "paddle_rms_norm_fwd", [_P] * 4 + [_I, _I, _F, _I, _P]),
     "rms_norm_bwd": (
         "paddle_rms_norm_bwd", [_P] * 6 + [_I] * 3 + [_P]),
+    # the ring chunk: pointers, B, H, Hk, Sq, Sk, D, the diagonal offset,
+    # the scale and the dtype code
+    "ring_chunk_attention_fwd": (
+        "paddle_ring_chunk_attention_fwd",
+        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "ring_chunk_attention_bwd_dkv": (
+        "paddle_ring_chunk_attention_bwd_dkv",
+        [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "ring_chunk_attention_bwd_dq": (
+        "paddle_ring_chunk_attention_bwd_dq",
+        [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
     # a second entry of flash_attention_fwd's library: the keep bits its
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (

@@ -213,7 +213,8 @@ def _bwd_kernel(name, outs, q, k, v, do, lse, delta, causal, scale,
     if scale is None:
         scale = d ** -0.5
     if q.device.type == "cpu":
-        dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta[..., None], causal,
+        dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta[..., None],
+                                _diagonal(causal, q.shape[2], k.shape[2]),
                                 scale, dropout_p, seed)
         return (dq,) if name.endswith("dq") else (dk, dv)
     stream = _on_card(name, q, k, v, do, lse, delta)
@@ -314,20 +315,23 @@ def _keep_scale(q, k, dropout_p, seed):
     return keep.float() * (1.0 / (1.0 - dropout_p))
 
 
-def _scores(q, k, causal, scale):
+def _diagonal(causal, sq, sk):
+    """The kernels' diagonal offset: row i attends key j iff j <= i +
+    offset (bottom-right when causal; no key lies past Sk)."""
+    return sk - sq if causal else sk
+
+
+def _scores(q, k, offset, scale):
     """fp32 scaled scores [B, H, Sq, Sk] against K repeated over the GQA
-    group, and the bool mask [Sq, Sk] of attended positions."""
+    group, and the bool mask [Sq, Sk] of attended positions (key j <= row
+    i + offset)."""
     h, hk = q.shape[1], k.shape[1]
     sq, sk = q.shape[2], k.shape[2]
     kk = k.repeat_interleave(h // hk, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
-    if causal:
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
-        mask = cols <= rows + (sk - sq)
-    else:
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    return s, mask
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    return s, cols <= rows + offset
 
 
 def flash_attention_reference(q, k, v, causal=False, scale=None,
@@ -336,10 +340,18 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     softmax with the kernel's masking, p times the keep multiplier (under
     dropout) rounded to v's dtype before the PV product, the l == 0 guard,
     lse = m + log(l) with l the sum of the raw p."""
-    h, hk = q.shape[1], k.shape[1]
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s, mask = _scores(q, k, causal, scale)
+    return _fwd_plain(q, k, v, _diagonal(causal, q.shape[2], k.shape[2]),
+                      scale, dropout_p, seed)
+
+
+def _fwd_plain(q, k, v, offset, scale, dropout_p=0.0, seed=0):
+    """The forward's dense fp32 arithmetic under the diagonal ``offset``:
+    (o in q's dtype, lse [B, H, Sq, 1]); a row that attends nothing keeps
+    m = -1e30, so o = 0 and lse = -1e30."""
+    h, hk = q.shape[1], k.shape[1]
+    s, mask = _scores(q, k, offset, scale)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     vv = v.repeat_interleave(h // hk, dim=1)
     m = s.amax(-1, keepdim=True)
@@ -363,14 +375,19 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
-    return _bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p,
-                      seed)
+    return _bwd_plain(q, k, v, do, lse, delta,
+                      _diagonal(causal, q.shape[2], k.shape[2]), scale,
+                      dropout_p, seed)
 
 
-def _bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+def _bwd_plain(q, k, v, do, lse, delta, offset, scale, dropout_p=0.0,
+               seed=0):
+    """The backward's dense fp32 arithmetic; lse and delta [B, H, Sq, 1].
+    A masked p is selected away, never multiplied (at lse = -1e30 its exp
+    is inf)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    s, mask = _scores(q, k, causal, scale)
+    s, mask = _scores(q, k, offset, scale)
     p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
     dm = _keep_scale(q, k, dropout_p, seed)
     vv = v.repeat_interleave(h // hk, dim=1).float()

@@ -19,10 +19,16 @@ Phases, in order; any failure exits non-zero:
      2; the fused write kernels at lens 0, mid-tile, Smax - 1 and Smax,
      their ring and scales after the call byte-equal to the plain
      write's); the training kernels (the dropout keep bits byte-equal to
-     the plain version's; flash forward with dropout and the dK/dV and dQ
-     kernels, bf16 and fp32, causal and not, Sq = Sk, Sq < Sk and Sq > Sk,
-     GQA, D 64 and 128, dropout 0 and 0.1; LayerNorm forward and backward
-     at N 8192, 1001 and 37); the fused FFN forward, dx and dW kernels
+     the plain version's, from the mask kernel and as the forward, dK/dV
+     and dQ kernels draw them in their tiles; flash forward with dropout
+     and the dK/dV and dQ kernels, bf16, fp16 and fp32, causal and not,
+     Sq = Sk, Sq < Sk and Sq > Sk, GQA, D 64 and 128, dropout 0 and 0.1,
+     and at the main shapes, LLaMA's [1, 32, 4096, 128] causal at dropout
+     0 and GPT-2's [8, 12, 1024, 64] causal at 0.1, there o and the
+     gradients over the reference's rms; lse to attention_lse; the
+     backward fed the kernel's o and lse and then the plain forward's;
+     LayerNorm forward and backward at N 8192, 1001 and 37); the fused
+     FFN forward, dx and dW kernels
      (fp32 and bf16, both activations, (K, F) in (128, 256), (768, 3072)
      and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
      decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
@@ -61,7 +67,8 @@ Phases, in order; any failure exits non-zero:
      10 timed on one repeated batch; the losses must be finite and fall,
      and each step must launch exactly 12 flash forward, 12 dK/dV, 12 dQ,
      25 LayerNorm forward and 25 LayerNorm backward kernels and no other
-     kernel of the port;
+     kernel of the port, every flash launch on the tensor-core path
+     (flash_attention.PATH_LAUNCHES);
   3d. the same training under PADDLE_TPU_FUSED_FFN=1 and
      PADDLE_TPU_FUSED_FFN_BWD=1: each step must also launch exactly 12
      fused FFN forward, 12 dx and 12 dW kernels; its step time and peak
@@ -80,13 +87,15 @@ Phases, in order; any failure exits non-zero:
      1e-4): 2 warm-up steps, then 10 timed on one repeated batch; the
      losses must be finite and fall, and each step must launch exactly 9
      RMSNorm forward, 9 RMSNorm backward, 4 flash forward, 4 dK/dV and 4
-     dQ kernels and no other kernel of the port;
+     dQ kernels and no other kernel of the port, the flash ones on the
+     tensor-core path;
   3g. ring attention at LLaMA-2-7B attention width ([1, 4096, 32, 128]
      bf16, random q, k, v from --seed): the ring's schedule for n ranks in
      one process (one card cannot hold two NCCL ranks) at n = 2 and 4
      causal and n = 4 not, forward and backward with remat; each run
      launches exactly 2n^2 ring chunk forward, n^2 dK/dV and n^2 dQ kernels
-     and no other kernel of the port, and matches the dense plain
+     and no other kernel of the port, all on the tensor-core path
+     (ring_chunk_attention.PATH_LAUNCHES), and matches the dense plain
      attention over the whole sequence and the flash kernels; its wall,
      the flash kernels' and SDPA's over the whole sequence and its peak
      memory are printed;
@@ -113,10 +122,12 @@ Phases, in order; any failure exits non-zero:
      ATen's LayerNorm forward or backward, F.rms_norm's forward or
      autograd's backward of it, or a matmul on a weight dequantized once)
      computing the same; for the fused FFN three calls (addmm, gelu,
-     addmm) and autograd's backward of them; the flash kernels also at
-     phase 3f's [1, 32, 4096, 128]; the ring chunk kernels at phase 3g's
-     chunk [1, 32, 1024, 128], offsets full and 0, beside ATen's flash
-     attention forward and backward.
+     addmm) and autograd's backward of them; for the flash and ring chunk
+     kernels the fastest of SDPA's backends and ATen's flash backward,
+     in CUDA graphs as the kernels are; the flash kernels also at phase
+     3f's [1, 32, 4096, 128]; the ring chunk kernels at phase 3g's chunk
+     [1, 32, 1024, 128], offsets full and 0, held there as phase 2 holds
+     the main flash shapes.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -490,40 +501,108 @@ FLASH_BWD_CASES = [(2, 4, 4, 37, 37, 64, True), (1, 4, 2, 255, 255, 64, True),
                    (1, 12, 12, 1024, 1024, 64, True)]
 
 
+# (D, Sq, Sk) of dropout_in_tiles: Sq and Sk at most D, ragged and whole
+# 64-key tiles, Sq off and on a multiple of the four rows of one draw
+DROPOUT_TILE_CASES = ((64, 37, 64), (64, 64, 29), (128, 100, 128),
+                      (128, 128, 100))
+
+
+def dropout_in_tiles(rng):
+    """The keep bits as the flash kernels draw them inside their tiles,
+    byte for byte against dropout_keep (bf16, not causal, B 2, H 3, p 0.1
+    and 0.5, DROPOUT_TILE_CASES). An identity operand makes each draw an
+    output element that is zero exactly where its key is dropped: the
+    forward with v = I[:Sk] gives o[i, j] = p m / l; dK/dV with q = dO =
+    I[:Sq] and delta = 0 gives dv[j, i] = p m and dk[j, i] = p m dP scale;
+    dQ with k = I[:Sk] and delta = 0 gives dq[i, j] = p m dP scale (p > 0
+    and dP almost surely nonzero for random inputs)."""
+    b, h = 2, 3
+    for d, sq, sk in DROPOUT_TILE_CASES:
+        eye = torch.eye(d, dtype=torch.bfloat16, device="cuda")
+
+        def ident(n):
+            return eye[:n].expand(b, h, n, d).contiguous()
+        q, do = (randn(rng, (b, h, sq, d), torch.bfloat16) for _ in range(2))
+        k, v = (randn(rng, (b, h, sk, d), torch.bfloat16) for _ in range(2))
+        zero = torch.zeros((b, h, sq), dtype=torch.float32, device="cuda")
+        for p in (0.1, 0.5):
+            seed = int(rng.integers(1 << 63))
+            keep = fa.dropout_keep(seed, b, h, sq, sk, p, "cpu").cuda()
+            label = f"[{b}, {h}, {sq}, {sk}] D={d} p={p}"
+            o, _ = fa.flash_attention_fwd(q, k, ident(sk), False, None, p,
+                                          seed)
+            same_bytes(f"dropout bits in the forward's tiles {label}",
+                       o[..., :sk] != 0, keep)
+            _, lse = fa.flash_attention_fwd(ident(sq), k, v, False, None, p,
+                                            seed)
+            dk, dv = fa.flash_attention_bwd_dkv(
+                ident(sq), k, v, ident(sq), lse, zero, False, None, p, seed)
+            same_bytes(f"dropout bits in dK/dV's tiles (dv) {label}",
+                       (dv[..., :sq] != 0).transpose(-1, -2), keep)
+            same_bytes(f"dropout bits in dK/dV's tiles (dk) {label}",
+                       (dk[..., :sq] != 0).transpose(-1, -2), keep)
+            _, lse = fa.flash_attention_fwd(q, ident(sk), v, False, None, p,
+                                            seed)
+            dq = fa.flash_attention_bwd_dq(q, ident(sk), v, do, lse, zero,
+                                           False, None, p, seed)
+            same_bytes(f"dropout bits in dQ's tiles {label}",
+                       dq[..., :sk] != 0, keep)
+
+
+# the main paths' flash shapes (B, H, S, D, dropout), causal: LLaMA's at
+# phase 3f and GPT-2's training at phase 3c
+FLASH_MAIN_CASES = ((1, 32, 4096, 128, 0.0), (8, 12, 1024, 64, 0.1))
+
+
 def training_kernels(rng, worst):
     """The training path's kernels against their plain versions: the
-    dropout keep bits byte-equal to the plain version's; flash forward
-    (with dropout) and the dK/dV and dQ kernels at FLASH_BWD_CASES, bf16
-    and fp32, dropout 0 and 0.1 (one seed for forward and backward);
-    LayerNorm forward and backward at N = 8192 and odd N, D 768 and 64."""
+    dropout keep bits byte-equal to the plain version's, from the mask
+    kernel and from inside the flash kernels' tiles (dropout_in_tiles);
+    flash forward (with dropout) and the dK/dV and dQ kernels at
+    FLASH_BWD_CASES, bf16, fp16 and fp32, dropout 0 and 0.1 (one seed for
+    forward and backward), then bf16 at FLASH_MAIN_CASES; LayerNorm forward
+    and backward at N = 8192 and odd N, D 768 and 64. lse is held to
+    attention_lse (fp32 in every dtype); the backward is fed the kernel's
+    o and lse, then the plain forward's, both sides the same each time. At
+    FLASH_MAIN_CASES o and the gradients are held relative to the
+    reference's rms (check_scaled)."""
     for b, h, sq, sk, p in ((2, 4, 37, 70, 0.1), (1, 12, 1024, 1024, 0.1),
                             (1, 3, 5, 9, 0.5)):
         seed = int(rng.integers(1 << 63))
         same_bytes(f"dropout keep bits [{b}, {h}, {sq}, {sk}] p={p}",
                    fa.dropout_keep(seed, b, h, sq, sk, p, "cuda"),
                    fa.dropout_keep(seed, b, h, sq, sk, p, "cpu").cuda())
-    for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        for b, h, hk, sq, sk, d, causal in FLASH_BWD_CASES:
-            q, do = (randn(rng, (b, h, sq, d), dtype) for _ in range(2))
-            k, v = (randn(rng, (b, hk, sk, d), dtype) for _ in range(2))
-            for p in (0.0, 0.1):
-                seed = int(rng.integers(1 << 63))
-                name = (f"flash {str(dtype):15s} B={b} H={h} Hk={hk} Sq={sq} "
-                        f"Sk={sk} D={d} causal={int(causal)} p={p}")
-                o, lse = fa.flash_attention_fwd(q, k, v, causal, None, p,
-                                                seed)
-                o_ref, lse_ref = fa.flash_attention_reference(
-                    q, k, v, causal, None, p, seed)
-                check(name + " o", o, o_ref, "attention_" + tname, worst)
-                check(name + " lse", lse, lse_ref, "attention_" + tname,
-                      worst)
-                got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
-                                             None, p, seed)
-                want = fa.flash_attention_bwd_reference(
-                    q, k, v, o, lse, do, causal, None, p, seed)
-                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                    check(f"{name} {gname}", g, w, "attention_grad_" + tname,
-                          worst)
+    dropout_in_tiles(rng)
+    cases = [(dtype, tname, case, p, check) for dtype, tname in (
+        (torch.bfloat16, "bf16"), (torch.float16, "fp16"),
+        (torch.float32, "fp32")) for case in FLASH_BWD_CASES
+        for p in (0.0, 0.1)]
+    cases += [(torch.bfloat16, "bf16", (b, h, h, s, s, d, True), p,
+               check_scaled) for b, h, s, d, p in FLASH_MAIN_CASES]
+    for dtype, tname, (b, h, hk, sq, sk, d, causal), p, held in cases:
+        q, do = (randn(rng, (b, h, sq, d), dtype) for _ in range(2))
+        k, v = (randn(rng, (b, hk, sk, d), dtype) for _ in range(2))
+        seed = int(rng.integers(1 << 63))
+        name = (f"flash {str(dtype):15s} B={b} H={h} Hk={hk} Sq={sq} "
+                f"Sk={sk} D={d} causal={int(causal)} p={p} "
+                f"({fa.kernel_path(dtype, d)})")
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, None, p, seed)
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, None,
+                                                      p, seed)
+        held(name + " o", o, o_ref, "attention_" + tname, worst)
+        check(name + " lse", lse, lse_ref, "attention_lse", worst)
+        for what, fo, flse in (("", o, lse), (" from plain o, lse", o_ref,
+                                               lse_ref)):
+            got = fa.flash_attention_bwd(q, k, v, fo, flse, do, causal, None,
+                                         p, seed)
+            want = fa.flash_attention_bwd_reference(q, k, v, fo, flse, do,
+                                                    causal, None, p, seed)
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                held(f"{name} {gname}{what}", g, w, "attention_grad_" + tname,
+                     worst)
+            del got, want
+        del q, k, v, do, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
     for dtype, tname in ((torch.bfloat16, "layer_norm_bf16"),
                          (torch.float32, "layer_norm_fp32")):
         for n, d in ((8192, 768), (1001, 768), (37, 64)):
@@ -647,6 +726,22 @@ def check(name, got, want, tname, worst, quiet=False):
             f"want {b[i].item():.6e}")
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     worst[tname] = max(worst.get(tname, 0.0), err)
+    return err
+
+
+def check_scaled(name, got, want, tname, worst, quiet=False):
+    """check() with both sides over the reference's rms: at the main
+    shapes o and the gradients lie far below 1 (o of random inputs over
+    thousands of keys is about 0.03), where TOLERANCES' atol alone would
+    pass a kernel that dropped a key tile. The worst relative error goes
+    under ``tname + "/rms"``."""
+    rms = want.float().pow(2).mean().sqrt().item()
+    if not rms > 0:
+        raise SystemExit(f"{name}: the reference is zero")
+    seen = {}
+    err = check(f"{name} (over rms {rms:.3e})", got.float() / rms,
+                want.float() / rms, tname, seen, quiet)
+    worst[tname + "/rms"] = max(worst.get(tname + "/rms", 0.0), err)
     return err
 
 
@@ -807,9 +902,21 @@ def phase_generate(seed):
 
 def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
-                   ffn.LAUNCHES, rca.LAUNCHES):
+                   ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
+                   rca.PATH_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def check_tensor_core_path(label, module):
+    """Fail unless every launch of ``module``'s kernels since the counts
+    were reset took the tensor-core path (``module.PATH_LAUNCHES``)."""
+    total = sum(module.LAUNCHES.values())
+    paths = dict(module.PATH_LAUNCHES)
+    log(f"  {label}: launches by path {paths}")
+    if paths != {"tc": total, "fp32_cores": 0}:
+        raise SystemExit(f"{label}: {paths} by path for {total} launches; "
+                         "every one must take the tensor-core path")
 
 
 def serve_counted(seed, name, kwargs):
@@ -940,6 +1047,7 @@ def train_run(build, seed, steps, warmup, per_step):
         f"{ {k: v / steps for k, v in got.items()} }")
     if got != want:
         raise SystemExit(f"training launches {got}, want exactly {want}")
+    check_tensor_core_path("flash attention", fa)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0] \
             or not np.mean(losses[-3:]) < np.mean(losses[:3]):
         raise SystemExit(f"training losses must be finite and decrease over "
@@ -1012,6 +1120,7 @@ def ring_run(q, k, v, do, n, causal):
     if launches != ring_launches(n):
         raise SystemExit(f"ring n={n} causal={causal}: launched {launches}, "
                          f"want exactly {ring_launches(n)}")
+    check_tensor_core_path(f"ring n={n} causal={int(causal)}", rca)
     return (o.detach(), (qg.grad, kg.grad, vg.grad),
             events[0].elapsed_time(events[1]),
             events[1].elapsed_time(events[2]),
@@ -1494,7 +1603,9 @@ def bound(nbytes, flops):
 def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
               reps, tname="attention_bf16"):
     """Check the kernel against its plain version at this shape (bf16
-    tolerance), then time kernel, plain version and library call."""
+    tolerance), then time kernel, plain version and library call (a
+    callable, or {name: timer} of which the fastest counts, its name
+    under "library")."""
     got, want = run_kernel(), run_plain()
     if isinstance(got, tuple):               # flash: (o, lse)
         got, want = got[0], want[0]
@@ -1509,11 +1620,101 @@ def timed_row(label, run_kernel, run_plain, run_library, nbytes, flops,
     bound_ms, bound_by = bound(nbytes, flops)
     row = {**label, "max_abs_err": err, "ms": time_ms(run_kernel, reps),
            "plain_ms": time_ms(run_plain, max(reps // 10, 5)),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": (None if run_library is None
-                          else time_ms(run_library, reps))}
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if isinstance(run_library, dict):
+        row["library_ms"], row["library"] = fastest_ms(run_library)
+    else:
+        row["library_ms"] = (None if run_library is None
+                             else time_ms(run_library, reps))
     log("  " + json.dumps(row))
     return row
+
+
+def fastest_ms(timers):
+    """(ms, name) of the fastest of ``timers`` ({name: () -> ms}); a call
+    that refuses these inputs (an SDPA backend that does not support them)
+    is logged and left out."""
+    best = (None, None)
+    for name, timer in timers.items():
+        try:
+            ms = timer()
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            log(f"    library {name}: not timed "
+                f"({str(e).strip().splitlines()[0][:160]})")
+            continue
+        log(f"    library {name}: {ms:.4f} ms")
+        if best[0] is None or ms < best[0]:
+            best = (ms, name)
+    if best[0] is None:
+        raise SystemExit(f"no library call ran: {list(timers)}")
+    return best
+
+
+def time_grad_ms(forward, inputs, grad, reps):
+    """Device ms of one backward through autograd of ``forward(*inputs)``
+    (every input's gradient), replayed from a CUDA graph as time_ms does:
+    the forward runs once on the capture's stream, so the backward it
+    records runs there too."""
+    xs = [x.detach().requires_grad_() for x in inputs]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward(*xs)
+        torch.autograd.grad(out, xs, grad, retain_graph=True)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            torch.autograd.grad(out, xs, grad, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sdpa_timers(q, k, v, do, causal, p, reps):
+    """The PyTorch calls that compute the flash kernels' function on the
+    same [B, H, S, D] inputs (Sq = Sk, where SDPA's top-left causal mask is
+    the kernels' bottom-right one), as timers for fastest_ms, each replayed
+    from a CUDA graph as the kernels are: (forward, backward). Forward:
+    SDPA under its default dispatch and under each of its flash, cuDNN and
+    memory-efficient backends. Backward (none when ``do`` is None): ATen's
+    flash backward called directly, and SDPA's backward through autograd
+    under the default dispatch and the cuDNN backend (all three
+    gradients)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backends = (("default", None), ("flash", SDPBackend.FLASH_ATTENTION),
+                ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                ("efficient", SDPBackend.EFFICIENT_ATTENTION))
+
+    def sdpa(backend):
+        def run(q, k, v):
+            with (contextlib.nullcontext() if backend is None
+                  else sdpa_kernel(backend)):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, dropout_p=p)
+        return run
+    fwd = {f"sdpa {name}": functools.partial(
+        time_ms, lambda i=0, run=sdpa(backend): run(q, k, v), reps)
+        for name, backend in backends}
+    if do is None:
+        return fwd, {}
+    flash = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, p, causal)
+    flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    bwd = {"aten flash backward": functools.partial(
+        time_ms, lambda i=0: flash_bwd(do, q, k, v, *flash[:6], p, causal,
+                                       *flash[6:8]), reps)}
+    for name, backend in backends[:3:2]:
+        bwd[f"sdpa {name} backward (autograd)"] = functools.partial(
+            time_grad_ms, sdpa(backend), (q, k, v), do, reps)
+    return fwd, bwd
 
 
 def time_flat(rng, quant=False):
@@ -1576,7 +1777,7 @@ def time_flat(rng, quant=False):
 def time_flash(rng):
     """Flash attention forward at the bulk prefill's shapes: [1, sb, 12,
     64] causal bf16 for each power-of-two bucket sb; the library call is
-    SDPA with is_causal=True."""
+    the fastest SDPA forward (sdpa_timers)."""
     h, d = H, E // H
     rows = []
     for sb in (128, 256, 512, 1024):
@@ -1589,11 +1790,10 @@ def time_flash(rng):
         def run_plain(i=0, q=q, k=k, v=v):
             return fa.flash_attention_reference(q, k, v, True)
 
-        def run_sdpa(i=0, q=q, k=k, v=v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
         nbytes = 4 * q.numel() * 2 + sb * h * 4     # q, k, v, o; lse
         flops = 4 * d * h * sb * (sb + 1) // 2
-        rows.append(timed_row({"sb": sb}, run_kernel, run_plain, run_sdpa,
+        rows.append(timed_row({"sb": sb}, run_kernel, run_plain,
+                              sdpa_timers(q, k, v, None, True, 0.0, 100)[0],
                               nbytes, flops, 100))
     return rows
 
@@ -1763,9 +1963,8 @@ def time_bhsd(rng):
 
 def time_loop_ms(fn, reps):
     """ms per call over ``reps`` calls between two events, host gaps
-    included: for calls of a millisecond or more (the plain versions, and
-    SDPA's backward through autograd, which a CUDA graph does not
-    capture), where the gaps are a small share."""
+    included: for calls of a millisecond or more (the plain versions),
+    where the gaps are a small share."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1783,11 +1982,12 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
     """The flash kernels at a training shape [B, H, S, D] (default GPT-2's
     [8, 12, 1024, 64]), causal, bf16, at each of ``dropouts`` (one seed
     for forward and backward): the dK/dV and dQ kernels, each against the
-    plain backward (which computes all three gradients) and SDPA's flash
-    backend's backward (all three, through autograd); the forward against
-    the plain forward (o and lse) and SDPA's forward. Bounds: each kernel's own bytes
-    and products. The rows go under each kernel's name plus ``suffix``."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    plain backward (which computes all three gradients) and the fastest
+    library backward (all three gradients; sdpa_timers); the forward
+    against the plain forward (o and lse) and the fastest SDPA forward.
+    Kernels and library calls are CUDA-graph replays. Bounds: each
+    kernel's own bytes and products. The rows go under each kernel's name
+    plus ``suffix``, the library call's name under "library"."""
     b, h, s, d = shape
     q, k, v, do = (randn(rng, (b, h, s, d), torch.bfloat16)
                    for _ in range(4))
@@ -1804,17 +2004,9 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
         args = (q, k, v, do, lse, delta, True, None, p, seed)
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True,
                                                 None, p, seed)
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                                 dropout_p=p)
-
-            def sdpa_fwd(i=0):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      dropout_p=p)
-            fwd_library_ms = time_loop_ms(sdpa_fwd, 20)
-        library_ms = time_loop_ms(lambda i=0: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), 20)
+        fwd_timers, bwd_timers = sdpa_timers(q, k, v, do, True, p, 20)
+        fwd_library_ms, fwd_library = fastest_ms(fwd_timers)
+        library_ms, library = fastest_ms(bwd_timers)
         plain_ms = time_loop_ms(lambda i=0: fa.flash_attention_bwd_reference(
             q, k, v, o, lse, do, True, None, p, seed), 3)
         for name, run, parts, nbytes, flops in (
@@ -1835,7 +2027,8 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
             bound_ms, bound_by = bound(nbytes, flops)
             row = {"dropout": p, "max_abs_err": err, "ms": time_ms(run, 20),
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}
+                   "bound_by": bound_by, "library_ms": library_ms,
+                   "library": library}
             log(f"  {name} {list(shape)} " + json.dumps(row))
             rows[name + suffix].append(row)
         run_fwd = functools.partial(fa.flash_attention_fwd, q, k, v, True,
@@ -1857,7 +2050,7 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
                    lambda i=0: fa.flash_attention_reference(
                        q, k, v, True, None, p, seed), 3),
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": fwd_library_ms}
+               "library_ms": fwd_library_ms, "library": fwd_library}
         log(f"  flash_attention_fwd {list(shape)} " + json.dumps(row))
         rows["flash_attention_fwd_train" + suffix].append(row)
     return rows
@@ -1869,10 +2062,12 @@ def time_ring(rng, n=4):
     (Sk) and on the diagonal (0), with random cotangents of o and lse. The
     forward, dK/dV and dQ kernels in CUDA graphs against their plain
     versions (forward; the whole backward, a loop of 3 between events) and
-    ATen's flash attention forward and backward in CUDA graphs
-    (_scaled_dot_product_flash_attention, not causal at the full offset and
-    causal at 0; its backward takes no lse cotangent, dlse = 0). Bounds:
-    4, 8 and 6 D-deep products per attended (row, key) pair over the bf16
+    the fastest library call (sdpa_timers: not causal at the full offset,
+    causal at 0; the library backward takes no lse cotangent, dlse = 0),
+    all CUDA-graph replays. First o, lse and the gradients (from the
+    kernel's o and lse, then from the plain forward's) are held to their
+    plain versions as phase 2 holds FLASH_MAIN_CASES. Bounds: 4,
+    8 and 6 D-deep products per attended (row, key) pair over the bf16
     rate, or each input read and output written once."""
     heads = LLAMA_CONFIG["num_heads"]
     b, c, d = LLAMA_BATCH, LLAMA_SEQ // n, LLAMA_CONFIG["hidden_size"] // heads
@@ -1881,50 +2076,59 @@ def time_ring(rng, n=4):
     dlse = randn(rng, (b, heads, c), torch.float32)
     tile, row_b = b * heads * c * d * 2, b * heads * c * 4
     rows = {name: [] for name in rca.LAUNCHES}
-    tol = TOLERANCES["attention_grad_bf16"]
+    seen = {}
     for off in (c, 0):
         causal = off == 0
+        label = f"ring chunk [{b}, {heads}, {c}, {d}] offset={off}"
         pairs = b * heads * (c * (c + 1) // 2 if causal else c * c)
-        lib_fwd = functools.partial(
-            torch.ops.aten._scaled_dot_product_flash_attention, q, k, v, 0.0,
-            causal)
-        lib = lib_fwd()
+        fwd_timers, bwd_timers = sdpa_timers(q, k, v, do, causal, 0.0, 20)
+        o, lse = rca.ring_chunk_attention_fwd(q, k, v, off)
+        o_ref, lse_ref = rca.ring_chunk_attention_reference(q, k, v, off)
+        check_scaled(f"{label} o", o, o_ref, "attention_bf16", seen)
+        check(f"{label} lse", lse, lse_ref, "attention_lse", seen)
         rows["ring_chunk_attention_fwd"].append(timed_row(
             {"offset": off},
             lambda i=0, off=off: rca.ring_chunk_attention_fwd(q, k, v, off),
             lambda i=0, off=off: rca.ring_chunk_attention_reference(q, k, v,
                                                                     off),
-            lambda i=0: lib_fwd(), 4 * tile + row_b, 4 * d * pairs, 20))
-        o, lse = rca.ring_chunk_attention_fwd(q, k, v, off)
+            fwd_timers, 4 * tile + row_b, 4 * d * pairs, 20))
         delta = (do.float() * o.float()).sum(-1) - dlse
         want = rca.ring_chunk_attention_bwd_reference(q, k, v, o, lse, do,
                                                       dlse, off)
+        delta_ref = (do.float() * o_ref.float()).sum(-1) - dlse
+        from_ref = (rca.ring_chunk_attention_bwd_dq(
+            q, k, v, do, lse_ref, delta_ref, off),
+            *rca.ring_chunk_attention_bwd_dkv(q, k, v, do, lse_ref,
+                                              delta_ref, off))
+        for j, want_ref in enumerate(rca.ring_chunk_attention_bwd_reference(
+                q, k, v, o_ref, lse_ref, do, dlse, off)):
+            check_scaled(f"{label} {('dq', 'dk', 'dv')[j]} from plain o, lse",
+                         from_ref[j], want_ref, "attention_grad_bf16", seen)
+        del from_ref
         plain_ms = time_loop_ms(
             lambda i=0: rca.ring_chunk_attention_bwd_reference(
                 q, k, v, o, lse, do, dlse, off), 3)
-        lib_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
-        library_ms = time_ms(lambda i=0: lib_bwd(
-            do, q, k, v, *lib[:6], 0.0, causal, *lib[6:8]), 20)
+        library_ms, library = fastest_ms(bwd_timers)
         args = (q, k, v, do, lse, delta, off)
         for name, run, parts, nbytes, flops in (
                 ("ring_chunk_attention_bwd_dkv",
                  lambda i=0: rca.ring_chunk_attention_bwd_dkv(*args),
-                 want[1:], 6 * tile + 2 * row_b, 8 * d * pairs),
+                 (1, 2), 6 * tile + 2 * row_b, 8 * d * pairs),
                 ("ring_chunk_attention_bwd_dq",
                  lambda i=0: (rca.ring_chunk_attention_bwd_dq(*args),),
-                 want[:1], 5 * tile + 2 * row_b, 6 * d * pairs)):
+                 (0,), 5 * tile + 2 * row_b, 6 * d * pairs)):
             got = run()
-            err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(got, parts))
-            if not all(torch.allclose(g.float(), w.float(), **tol)
-                       for g, w in zip(got, parts)):
-                raise SystemExit(f"{name} disagrees with its plain version "
-                                 f"at the ring's chunk, offset {off}: "
-                                 f"max_abs_err {err:.3e}")
+            for g, j in zip(got, parts):
+                gname = ("dq", "dk", "dv")[j]
+                check_scaled(f"{label} {gname}", g, want[j],
+                             "attention_grad_bf16", seen)
+            err = max((g.float() - want[j].float()).abs().max().item()
+                      for g, j in zip(got, parts))
             bound_ms, bound_by = bound(nbytes, flops)
             row = {"offset": off, "max_abs_err": err, "ms": time_ms(run, 20),
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}
+                   "bound_by": bound_by, "library_ms": library_ms,
+                   "library": library}
             log(f"  {name} [{b}, {heads}, {c}, {d}] " + json.dumps(row))
             rows[name].append(row)
     return rows

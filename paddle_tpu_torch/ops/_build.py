@@ -69,7 +69,7 @@ _ENTRY = {
         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention_fwd": (
         "paddle_flash_attention_fwd",
-        [_P] * 5 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
+        [_P] * 5 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
     "decode_attention_paged_i8": (
         "paddle_decode_attention_paged_i8",
         [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
@@ -93,10 +93,10 @@ _ENTRY = {
         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
     "flash_attention_bwd_dkv": (
         "paddle_flash_attention_bwd_dkv",
-        [_P] * 8 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
+        [_P] * 8 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
     "flash_attention_bwd_dq": (
         "paddle_flash_attention_bwd_dq",
-        [_P] * 7 + [_I] * 7 + [_F, _I] + _DROP + [_P]),
+        [_P] * 7 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
     "layer_norm_fwd": (
         "paddle_layer_norm_fwd", [_P] * 6 + [_I, _I, _F, _I, _P]),
     "layer_norm_bwd": (
@@ -116,16 +116,16 @@ _ENTRY = {
     "rms_norm_bwd": (
         "paddle_rms_norm_bwd", [_P] * 6 + [_I] * 3 + [_P]),
     # the ring chunk: pointers, B, H, Hk, Sq, Sk, D, the diagonal offset,
-    # the scale and the dtype code
+    # the scale, the dtype code and the design (1 = tensor cores)
     "ring_chunk_attention_fwd": (
         "paddle_ring_chunk_attention_fwd",
-        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]),
     "ring_chunk_attention_bwd_dkv": (
         "paddle_ring_chunk_attention_bwd_dkv",
-        [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
     "ring_chunk_attention_bwd_dq": (
         "paddle_ring_chunk_attention_bwd_dq",
-        [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
     # a second entry of flash_attention_fwd's library: the keep bits its
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (

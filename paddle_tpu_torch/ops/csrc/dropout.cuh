@@ -59,4 +59,60 @@ __device__ __forceinline__ bool keep(const DropParams& dp, uint32_t bh,
   return word(drop_bits(dp, bh, row >> 2, col), row & 3) >= dp.thresh;
 }
 
+// The keep bits of one 8-key block of a tensor-core score tile whose rows
+// are query rows (the m64nN accumulator of wgmma_tile.cuh: lane l of warp
+// w holds rows row0 + 16 w + l / 4 and that + 8, keys col0 + 2 (l % 4)
+// and that + 1). Bit h = 2 i + c of the result is the element of row i,
+// key c, its accumulator register 4 j + h. The four lanes 4 apart that
+// hold rows 4 r4 .. 4 r4 + 3 need one word each of the same four Philox
+// calls, so each lane makes one call and three shuffles hand the words
+// round: no call is repeated. row0 is a multiple of 4.
+__device__ __forceinline__ uint32_t keep_rows(const DropParams& dp,
+                                              uint32_t bh, int row0,
+                                              int col0, int warp, int lane) {
+  const int kq = (lane >> 2) & 3;  // the word this lane's rows take
+  const int row4 = (row0 >> 2) + 4 * warp + (lane >> 4) + 2 * (kq >> 1);
+  const uint4 bits =
+      drop_bits(dp, bh, row4, col0 + 2 * (lane & 3) + (kq & 1));
+  // call x of the four (x = 2 i + c) is made by the lane with kq == x;
+  // from the lane with kq ^ s comes word kq of call kq ^ s
+  const uint32_t got[4] = {
+      word(bits, kq),
+      __shfl_xor_sync(0xffffffffu, word(bits, kq ^ 1), 4),
+      __shfl_xor_sync(0xffffffffu, word(bits, kq ^ 2), 8),
+      __shfl_xor_sync(0xffffffffu, word(bits, kq ^ 3), 12)};
+  uint32_t mask = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int s = kq ^ h;
+    const uint32_t w = s == 0 ? got[0] : s == 1 ? got[1]
+                                       : s == 2 ? got[2] : got[3];
+    mask |= (uint32_t)(w >= dp.thresh) << h;
+  }
+  return mask;
+}
+
+// The same for a transposed tile whose rows are keys and whose columns are
+// query rows (the dK/dV kernel's S^T): lane l holds keys key0 and key0 + 8
+// and query rows qrow0 + 2 (l % 4) and that + 1 (qrow0 a multiple of 8);
+// bit h = 2 i + c is key i, query row c. The lanes l and l ^ 1 share two
+// Philox calls (one per key, four consecutive query rows each): each makes
+// one and two shuffles swap the halves the other needs.
+__device__ __forceinline__ uint32_t keep_cols(const DropParams& dp,
+                                              uint32_t bh, int qrow0,
+                                              int key0, int lane) {
+  const bool odd = lane & 1;
+  const uint4 bits = drop_bits(dp, bh, (qrow0 >> 2) + ((lane & 3) >> 1),
+                               odd ? key0 + 8 : key0);
+  // even lanes take words 0, 1 of both calls, odd lanes words 2, 3
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? bits.x : bits.z, 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? bits.y : bits.w, 1);
+  const uint32_t w[4] = {odd ? r0 : bits.x, odd ? r1 : bits.y,
+                         odd ? bits.z : r0, odd ? bits.w : r1};
+  uint32_t mask = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) mask |= (uint32_t)(w[h] >= dp.thresh) << h;
+  return mask;
+}
+
 }  // namespace paddle_attn

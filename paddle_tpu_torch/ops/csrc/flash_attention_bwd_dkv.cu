@@ -29,11 +29,11 @@
 // dropout.
 //
 // What bounds it on the card: operations (four S-sized products of D-deep
-// dots per head against 2 * S * D reads); the products run on the fp32
-// cores, so in practice the issue rate of fp32 FMAs and shared-memory
-// loads. Design: flash_bwd_dkv.cuh's (shared with the ring attention chunk
-// backward): one block per (b, kv head, key tile), the GQA group walked in
-// it, no atomics.
+// dots per head against 2 * S * D reads). Design: flash_bwd_dkv.cuh's
+// (shared with the ring attention chunk backward): one block per (b, kv
+// head, key tile), the GQA group walked in it, no atomics; bf16 and fp16
+// at D 64 and 128 on the tensor cores (four wgmma products a q tile, P^T
+// and dS^T as register A operands), fp32 and other D on the fp32 cores.
 #include "flash_bwd_dkv.cuh"
 
 namespace {
@@ -45,24 +45,28 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dk, void* dv, int B, int H, int Hk, int Sq, int Sk,
                      int D, int causal, float scale, DropParams drop,
-                     int dropout, cudaStream_t stream) {
+                     int dropout, bool tc,
+                     cudaStream_t stream) {
   return dropout ? flash_bwd_dkv::launch<T, true, false>(
                        q, k, v, dout, lse, delta, dk, dv, B, H, Hk, Sq, Sk, D,
-                       causal, scale, drop, stream)
+                       causal, scale, drop, tc, stream)
                  : flash_bwd_dkv::launch<T, false, false>(
                        q, k, v, dout, lse, delta, dk, dv, B, H, Hk, Sq, Sk, D,
-                       causal, scale, drop, stream);
+                       causal, scale, drop, tc, stream);
 }
 
 }  // namespace
 
+// tc: 1 = the tensor-core kernel (bf16 / fp16 at D 64 and 128 only; else
+// cudaErrorInvalidValue), 0 = the fp32-core kernel, as the wrapper chose
+// (ops/flash_attention.py's kernel_path).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; dropout as in
 // paddle_flash_attention_fwd. Returns a cudaError_t (0 on success); the
 // caller has validated shapes, devices and layout.
 extern "C" int paddle_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Hk, int Sq, int Sk, int D, int causal, float scale, int dtype,
+    int Hk, int Sq, int Sk, int D, int causal, float scale, int dtype, int tc,
     int dropout, unsigned seed_lo, unsigned seed_hi, unsigned thresh,
     float inv_keep, void* stream) {
   if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Sk < 1 || D < 1 ||
@@ -75,14 +79,14 @@ extern "C" int paddle_flash_attention_bwd_dkv(
   switch (dtype) {
     case 0:
       return (int)launch_t<float>(q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq,
-                                  Sk, D, causal, scale, drop, dropout, s);
+                                  Sk, D, causal, scale, drop, dropout, tc, s);
     case 1:
       return (int)launch_t<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, B, H,
                                           Hk, Sq, Sk, D, causal, scale, drop,
-                                          dropout, s);
+                                          dropout, tc, s);
     case 2:
       return (int)launch_t<__half>(q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq,
-                                   Sk, D, causal, scale, drop, dropout, s);
+                                   Sk, D, causal, scale, drop, dropout, tc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

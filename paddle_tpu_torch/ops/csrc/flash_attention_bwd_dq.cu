@@ -23,10 +23,11 @@
 // dropout.cuh's hash of (seed, b, h, q_pos, k_pos), equal to the forward's.
 //
 // What bounds it on the card: operations (three S-sized products of D-deep
-// dots against 2 * S * D reads per head); the products run on the fp32
-// cores, not the tensor cores, so in practice the issue rate of fp32 FMAs
-// and shared-memory loads. Design: flash_bwd_dq.cuh's (shared with the
-// ring attention chunk backward): one block per (b, h, 64-row q tile).
+// dots against 2 * S * D reads per head). Design: flash_bwd_dq.cuh's
+// (shared with the ring attention chunk backward): one block per (b, h,
+// 64-row q tile); bf16 and fp16 at D 64 and 128 on the tensor cores
+// (three wgmma products a key tile, dS as the register A operand), fp32
+// and other D on the fp32 cores.
 #include "flash_bwd_dq.cuh"
 
 namespace {
@@ -38,26 +39,29 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, int B, int H, int Hk, int Sq, int Sk, int D,
                      int causal, float scale, DropParams drop, int dropout,
-                     cudaStream_t stream) {
+                     bool tc, cudaStream_t stream) {
   return dropout ? flash_bwd_dq::launch<T, true, false>(
                        q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Sk, D,
-                       causal, scale, drop, stream)
+                       causal, scale, drop, tc, stream)
                  : flash_bwd_dq::launch<T, false, false>(
                        q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Sk, D,
-                       causal, scale, drop, stream);
+                       causal, scale, drop, tc, stream);
 }
 
 }  // namespace
 
+// tc: 1 = the tensor-core kernel (bf16 / fp16 at D 64 and 128 only; else
+// cudaErrorInvalidValue), 0 = the fp32-core kernel, as the wrapper chose
+// (ops/flash_attention.py's kernel_path).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; dropout as in
 // paddle_flash_attention_fwd. Returns a cudaError_t (0 on success); the
 // caller has validated shapes, devices and layout.
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Hk,
-    int Sq, int Sk, int D, int causal, float scale, int dtype, int dropout,
-    unsigned seed_lo, unsigned seed_hi, unsigned thresh, float inv_keep,
-    void* stream) {
+    int Sq, int Sk, int D, int causal, float scale, int dtype, int tc,
+    int dropout, unsigned seed_lo, unsigned seed_hi, unsigned thresh,
+    float inv_keep, void* stream) {
   if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Sk < 1 || D < 1 ||
       D > 256)
     return (int)cudaErrorInvalidValue;
@@ -68,14 +72,14 @@ extern "C" int paddle_flash_attention_bwd_dq(
   switch (dtype) {
     case 0:
       return (int)launch_t<float>(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Sk,
-                                  D, causal, scale, drop, dropout, s);
+                                  D, causal, scale, drop, dropout, tc, s);
     case 1:
       return (int)launch_t<__nv_bfloat16>(q, k, v, dout, l, dl, dq, B, H, Hk,
                                           Sq, Sk, D, causal, scale, drop,
-                                          dropout, s);
+                                          dropout, tc, s);
     case 2:
       return (int)launch_t<__half>(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Sk,
-                                   D, causal, scale, drop, dropout, s);
+                                   D, causal, scale, drop, dropout, tc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

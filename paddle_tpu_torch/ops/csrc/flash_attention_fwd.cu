@@ -25,13 +25,11 @@
 // What bounds it on the card: by the roofline, bytes at the bulk
 // prefill's shapes, narrowly (a causal pass does 2*D*S^2 flops per head
 // against 8*S*D bytes of bf16 q, k, v and o, so operations lead only past
-// S = 4 * 295); in practice the arithmetic, since the plain version and
-// SDPA use the tensor cores and this kernel does not.
+// S = 4 * 295), operations at the training shapes (flash_fwd.cuh).
 // Design: flash_fwd.cuh's (shared with the ring attention chunk
-// forward): one thread block per (b, h, 64-row q tile), K/V tiles of 32
-// keys staged as fp32 in shared memory, eight warps of eight rows with
-// their fp32 online softmax in registers, the products on the fp32
-// cores. wgmma on bf16 tiles fed by TMA is the next step.
+// forward): bf16 and fp16 at D 64 and 128 on the tensor cores (wgmma on
+// 16-bit K/V tiles of 64 keys, double-buffered with cp.async, P from
+// registers), fp32 and other D on the fp32 cores.
 #include "flash_fwd.cuh"
 
 namespace {
@@ -42,13 +40,13 @@ template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int H, int Hk, int Sq, int Sk, int D,
                      int causal, float scale, DropParams drop, int dropout,
-                     cudaStream_t stream) {
+                     bool tc, cudaStream_t stream) {
   return dropout ? flash_fwd::launch<T, true, false>(
                        q, k, v, o, lse, B, H, Hk, Sq, Sk, D, causal, scale,
-                       drop, stream)
+                       drop, tc, stream)
                  : flash_fwd::launch<T, false, false>(
                        q, k, v, o, lse, B, H, Hk, Sq, Sk, D, causal, scale,
-                       drop, stream);
+                       drop, tc, stream);
 }
 
 // One thread per (b * H + h, q_pos / 4, k_pos): the keep bits of four rows.
@@ -72,6 +70,9 @@ __global__ void dropout_mask_kernel(uint8_t* __restrict__ mask, int Sq,
 
 }  // namespace
 
+// tc: 1 = the tensor-core kernel (bf16 / fp16 at D 64 and 128 only; else
+// cudaErrorInvalidValue), 0 = the fp32-core kernel, as the wrapper chose
+// (ops/flash_attention.py's kernel_path).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. dropout: 0 = none, else
 // keep iff the draw >= thresh, kept values times inv_keep, the draws keyed
 // by (seed_lo, seed_hi). Returns a cudaError_t (0 on success); the caller
@@ -80,7 +81,8 @@ extern "C" int paddle_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
                                           int B, int H, int Hk, int Sq,
                                           int Sk, int D, int causal,
-                                          float scale, int dtype, int dropout,
+                                          float scale, int dtype, int tc,
+                                          int dropout,
                                           unsigned seed_lo, unsigned seed_hi,
                                           unsigned thresh, float inv_keep,
                                           void* stream) {
@@ -92,13 +94,14 @@ extern "C" int paddle_flash_attention_fwd(const void* q, const void* k,
   switch (dtype) {
     case 0:
       return (int)launch_t<float>(q, k, v, o, lse, B, H, Hk, Sq, Sk, D,
-                                  causal, scale, drop, dropout, s);
+                                  causal, scale, drop, dropout, tc, s);
     case 1:
       return (int)launch_t<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                                          D, causal, scale, drop, dropout, s);
+                                          D, causal, scale, drop, dropout,
+                                          tc, s);
     case 2:
       return (int)launch_t<__half>(q, k, v, o, lse, B, H, Hk, Sq, Sk, D,
-                                   causal, scale, drop, dropout, s);
+                                   causal, scale, drop, dropout, tc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,8 @@
 // The flash backward's dQ half, shared by the flash attention backward
-// (flash_attention_bwd_dq.cu) and the ring attention chunk backward
-// (ring_chunk_attention_bwd_dq.cu). Per query row i:
+// (flash_attention_bwd_dq.cu, replacing paddle_tpu/ops/pallas/
+// flash_attention.py:589 and the dQ of :470) and the ring attention chunk
+// backward (ring_chunk_attention_bwd_dq.cu, replacing
+// ring_chunk_attention.py:321). Per query row i:
 //   p_ij  = exp(scale * q_i . k_j - lse_i)           (masked: 0)
 //   dp_ij = (dO_i . v_j) * keep_ij / (1 - p)          (kDrop; else 1)
 //   ds_ij = p_ij * (dp_ij - delta_i) * scale
@@ -21,14 +23,26 @@
 // lse = -1e30 it would be inf, and inf * 0 NaN). The keep bits are
 // regenerated from dropout.cuh's hash, equal to the forward's.
 //
-// Design: the forward's: one block per (b, h, 64-row q tile), eight warps
-// of eight rows; K/V tiles of 32 keys staged as fp32 (attention_tile.cuh's
-// stage_kv); a lane owns one key of the tile for the scores and dP, then
-// D / 32 output dims for the ds K product, whose fp32 sums live in
-// registers across the walk over key tiles.
+// What bounds it on the card: operations, 6 * D per attended pair (S, dP
+// and dQ): at LLaMA-2-7B's [1, 32, 4096, 128] causal 206 GFLOP, 0.2085 ms
+// at the bf16 peak.
+//
+// Both designs: one block per (b, h, 64-row q tile) walks the key tiles
+// up to its last seen key, the dQ sums in registers. By (dtype, D):
+// - bf16 and fp16 at D 64 and 128: the tensor-core kernel
+//   (flash_bwd_dq_tc below): one warpgroup, Q and dO resident in shared
+//   memory, K/V tiles of 64 keys double-buffered with cp.async; S = Q K^T
+//   and dP = dO V^T on wgmma, dS in the accumulator's registers, then dQ
+//   += dS K on wgmma with dS as the register A operand and K read
+//   MN-major. Dropout as the forward's (keep_rows).
+// - fp32 and other D: the fp32-core kernel (flash_bwd_dq::kernel): eight
+//   warps of eight rows; K/V tiles of 32 keys staged as fp32
+//   (attention_tile.cuh's stage_kv); a lane owns one key of the tile for
+//   the scores and dP, then D / 32 output dims for the ds K product.
 #pragma once
 
 #include "attention_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace paddle_attn {
 
@@ -215,13 +229,15 @@ cudaError_t launch_dpl(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The instantiation for D: DPL = D / 32 rounded up to a power of two.
+// The fp32-core instantiation for D: DPL = D / 32 rounded up to a power of
+// two.
 template <typename T, bool kDrop, bool kRing>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, int B, int H, int Hk, int Sq, int Sk, int D,
-                   int diag, float scale, DropParams drop,
-                   cudaStream_t stream) {
+cudaError_t launch_fp32_cores(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, int B, int H,
+                              int Hk, int Sq, int Sk, int D, int diag,
+                              float scale, DropParams drop,
+                              cudaStream_t stream) {
 #define PADDLE_DQ_LAUNCH(DPL)                                             \
   launch_dpl<T, DPL, kDrop, kRing>(q, k, v, dout, lse, delta, dq, B, H, Hk, \
                                    Sq, Sk, D, diag, scale, drop, stream)
@@ -230,6 +246,207 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (D <= 128) return PADDLE_DQ_LAUNCH(4);
   return PADDLE_DQ_LAUNCH(8);
 #undef PADDLE_DQ_LAUNCH
+}
+
+}  // namespace flash_bwd_dq
+
+// The tensor-core dQ (bf16 / fp16 at D = 64 and 128): one warpgroup a
+// block owns 64 query rows of one head, Q and dO resident in shared
+// memory; K/V tiles of 64 keys double-buffered with cp.async; S = Q K^T
+// and dP = dO V^T on wgmma from shared memory, P from lse in base 2, dS
+// in the accumulator's registers, dQ += dS K on wgmma with dS as the
+// register A operand and K read MN-major.
+namespace flash_bwd_dq_tc {
+
+constexpr int kM = 64;  // query rows a block
+constexpr int kN = 64;  // keys a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr int smem_bytes() {
+  return (2 * kM + 4 * kN) * D * 2 + 1024;  // Q, dO, two stages of K and V
+}
+
+template <typename T, int D, bool kDrop, bool kRing>
+__global__ void __launch_bounds__(wg::kThreads)
+    kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           T* __restrict__ dq, int H, int Hk, int Sq, int Sk, int diag,
+           float scale, DropParams drop) {
+  constexpr int kTileBytes = kN * D * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t qs = (wg::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t dos = qs + kM * D * 2;
+  const uint32_t kv0 = dos + kM * D * 2;  // stage s: K at kv0 + 2 s tile
+
+  const int n_qt = (Sq + kM - 1) / kM;
+  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
+  const int bh = blockIdx.x / n_qt;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hk);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = qt * kM;
+  const int nrows = min(kM, Sq - q0);
+  const bool causal = kRing || diag;
+  const int offset = kRing ? diag : Sk - Sq;
+  const T* k_bh = k + ((size_t)b * Hk + hk) * Sk * D;
+  const T* v_bh = v + ((size_t)b * Hk + hk) * Sk * D;
+
+  const int r_lo = 16 * warp + (lane >> 2);
+  int limit[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    // -1 for rows past Sq: every key masked
+    limit[i] = row >= Sq ? -1
+                         : causal ? min(row + offset, Sk - 1) : Sk - 1;
+    lse2[i] = row < Sq ? lse[(size_t)bh * Sq + row] * kLog2e : 0.f;
+    dl[i] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
+  }
+  const int last = causal ? min(q0 + nrows - 1 + offset, Sk - 1) : Sk - 1;
+  const int n_tiles = last < 0 ? 0 : last / kN + 1;
+
+  const size_t q_off = ((size_t)bh * Sq + q0) * D;
+  wg::load_tile<kM, D>(qs, q + q_off, nrows, tid);
+  wg::load_tile<kM, D>(dos, dout + q_off, nrows, tid);
+  if (n_tiles > 0) {
+    wg::load_tile<kN, D>(kv0, k_bh, min(kN, Sk), tid);
+    wg::load_tile<kN, D>(kv0 + kTileBytes, v_bh, min(kN, Sk), tid);
+  }
+  wg::cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * kN;
+    const uint32_t ks = kv0 + (t & 1) * 2 * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+    if (t + 1 < n_tiles) {
+      const uint32_t kn = kv0 + ((t + 1) & 1) * 2 * kTileBytes;
+      const int n = min(kN, Sk - c0 - kN);
+      wg::load_tile<kN, D>(kn, k_bh + (size_t)(c0 + kN) * D, n, tid);
+      wg::load_tile<kN, D>(kn + kTileBytes, v_bh + (size_t)(c0 + kN) * D, n,
+                           tid);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();
+    __syncthreads();
+
+    float s[32] = {}, dp[32] = {};
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss<T>(s, wg::desc_k<kM>(qs, kk), wg::desc_k<kN>(ks, kk),
+                    kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss<T>(dp, wg::desc_k<kM>(dos, kk), wg::desc_k<kN>(vs, kk),
+                    kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+
+    const bool masked = c0 + kN > Sk || q0 + kM > Sq ||
+                        (causal && c0 + kN - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t kept = 0xfu;
+      if constexpr (kDrop)
+        kept = keep_rows(drop, (uint32_t)bh, q0, c0 + 8 * j, warp, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 4 * j + 2 * i + c;
+          const int col = c0 + 8 * j + 2 * (lane & 3) + c;
+          // a masked element never takes exp2(s - lse): at lse = -1e30
+          // it would be inf
+          const float p =
+              masked && col > limit[i] ? 0.f : exp2f(s[r] * scale2 - lse2[i]);
+          float dpv = dp[r];
+          if constexpr (kDrop)
+            dpv = (kept >> (2 * i + c)) & 1u ? dpv * drop.inv_keep : 0.f;
+          s[r] = p * (dpv - dl[i]) * scale;
+        }
+      }
+    }
+    uint32_t da[4][4];
+    wg::to_frags<T>(s, da);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+      wg::mma_rs<T, D / 2>(acc, da[kk], wg::desc_mn<kN>(ks, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(acc);
+    __syncthreads();
+  }
+  wg::cp_async_wait<0>();
+
+  const float one[2] = {1.f, 1.f};
+  wg::store_rows<T, D / 2>(dq + q_off, D, nrows, acc, one, tid);
+}
+
+template <typename T, int D, bool kDrop, bool kRing>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, int B, int H, int Hk, int Sq, int Sk,
+                     int diag, float scale, DropParams drop,
+                     cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  if (!wg::aligned16(q, k, v, dout)) return cudaErrorMisalignedAddress;
+  auto fn = kernel<T, D, kDrop, kRing>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((Sq + kM - 1) / kM);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  fn<<<(unsigned)blocks, wg::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), H, Hk, Sq, Sk, diag, scale, drop);
+  return cudaGetLastError();
+}
+
+}  // namespace flash_bwd_dq_tc
+
+namespace flash_bwd_dq {
+
+// The dQ kernel in the design the wrapper chose from (dtype, D)
+// (ops/flash_attention.py's kernel_path, the one statement of the rule):
+// tc, the tensor-core kernel, which exists for bf16 and fp16 at D 64 and
+// 128 and fails with cudaErrorInvalidValue elsewhere; else the fp32-core
+// kernel. Nothing here picks a design in the caller's place.
+template <typename T, bool kDrop, bool kRing>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int H, int Hk, int Sq, int Sk, int D,
+                   int diag, float scale, DropParams drop, bool tc,
+                   cudaStream_t stream) {
+  if (!tc)
+    return launch_fp32_cores<T, kDrop, kRing>(q, k, v, dout, lse, delta, dq, B,
+                                              H, Hk, Sq, Sk, D, diag, scale,
+                                              drop, stream);
+  if constexpr (wg::tc_type<T>()) {
+    if (D == 64)
+      return flash_bwd_dq_tc::launch_d<T, 64, kDrop, kRing>(
+          q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Sk, diag, scale, drop,
+          stream);
+    if (D == 128)
+      return flash_bwd_dq_tc::launch_d<T, 128, kDrop, kRing>(
+          q, k, v, dout, lse, delta, dq, B, H, Hk, Sq, Sk, diag, scale, drop,
+          stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace flash_bwd_dq

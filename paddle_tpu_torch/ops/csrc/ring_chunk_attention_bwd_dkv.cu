@@ -23,20 +23,24 @@
 // masks everything writes dk = dv = 0 without reading a q tile.
 //
 // What bounds it on the card: operations (8 * H * Sq * Sk * D at full
-// offset, half on the diagonal); in practice the fp32 cores' FMA issue
-// rate. Design: flash_bwd_dkv.cuh's kernel with the offset an argument:
-// one block per (b, kv head, key tile) that owns its rows (no atomics),
-// walks the GQA group and the q tiles from the first row that sees its
-// first key, with P recomputed from lse.
+// offset, half on the diagonal). Design: flash_bwd_dkv.cuh's kernels with
+// the offset an argument (bf16 and fp16 at D 64 and 128 on the tensor
+// cores, fp32 on the fp32 cores): one block per (b, kv head, key tile)
+// that owns its rows (no atomics), walks the GQA group and the q tiles
+// from the first row that sees its first key, with P recomputed from
+// lse.
 #include "flash_bwd_dkv.cuh"
 
+// tc: 1 = the tensor-core kernel (bf16 / fp16 at D 64 and 128 only; else
+// cudaErrorInvalidValue), 0 = the fp32-core kernel, as the wrapper chose
+// (ops/flash_attention.py's kernel_path).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t (0
 // on success); the caller has validated shapes, devices and layout and
 // clamped the offset to [-Sq, Sk].
 extern "C" int paddle_ring_chunk_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Hk, int Sq, int Sk, int D, int offset, float scale, int dtype,
+    int Hk, int Sq, int Sk, int D, int offset, float scale, int dtype, int tc,
     void* stream) {
   using namespace paddle_attn;
   if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Sk < 1 || D < 1 ||
@@ -49,15 +53,15 @@ extern "C" int paddle_ring_chunk_attention_bwd_dkv(
     case 0:
       return (int)flash_bwd_dkv::launch<float, false, true>(
           q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Sk, D, offset, scale,
-          DropParams{}, s);
+          DropParams{}, tc, s);
     case 1:
       return (int)flash_bwd_dkv::launch<__nv_bfloat16, false, true>(
           q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Sk, D, offset, scale,
-          DropParams{}, s);
+          DropParams{}, tc, s);
     case 2:
       return (int)flash_bwd_dkv::launch<__half, false, true>(
           q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Sk, D, offset, scale,
-          DropParams{}, s);
+          DropParams{}, tc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,11 +21,12 @@
 //
 // What bounds it on the card: operations at the ring's chunk shape
 // ([1, 32, 1024, 128] bf16: 4 * H * Sq * Sk * D = 17.2 GFLOP over 33.8 MB
-// of q, k, v and o); in practice the issue rate of fp32 FMAs, since the
-// products run on the fp32 cores. Design: the flash forward's kernel
-// (flash_fwd.cuh) with the diagonal taken from the argument: one block per
-// (b, h, 64-row q tile), key tiles past a tile's last attended key
-// skipped (a fully masked launch reads no key).
+// of q, k, v and o; 0.0174 ms at the bf16 peak). Design: the flash
+// forward's kernels (flash_fwd.cuh) with the diagonal taken from the
+// argument, so bf16 and fp16 at D 64 and 128 run on the tensor cores
+// (wgmma) and fp32 on the fp32 cores: one block per (b, h, 64-row q
+// tile), key tiles past a tile's last attended key skipped (a fully
+// masked launch reads no key).
 #include "flash_fwd.cuh"
 
 namespace {
@@ -35,14 +36,18 @@ using namespace paddle_attn;
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int H, int Hk, int Sq, int Sk, int D,
-                     int offset, float scale, cudaStream_t stream) {
+                     int offset, float scale, bool tc,
+                     cudaStream_t stream) {
   return flash_fwd::launch<T, false, true>(q, k, v, o, lse, B, H, Hk, Sq, Sk,
                                            D, offset, scale, DropParams{},
-                                           stream);
+                                           tc, stream);
 }
 
 }  // namespace
 
+// tc: 1 = the tensor-core kernel (bf16 / fp16 at D 64 and 128 only; else
+// cudaErrorInvalidValue), 0 = the fp32-core kernel, as the wrapper chose
+// (ops/flash_attention.py's kernel_path).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t (0
 // on success); the caller has validated shapes, devices and layout and
 // clamped the offset to [-Sq, Sk].
@@ -51,7 +56,8 @@ extern "C" int paddle_ring_chunk_attention_fwd(const void* q, const void* k,
                                                void* lse, int B, int H,
                                                int Hk, int Sq, int Sk, int D,
                                                int offset, float scale,
-                                               int dtype, void* stream) {
+                                               int dtype, int tc,
+                                               void* stream) {
   if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Sk < 1 || D < 1 ||
       D > 256 || offset < -Sq || offset > Sk)
     return (int)cudaErrorInvalidValue;
@@ -59,13 +65,13 @@ extern "C" int paddle_ring_chunk_attention_fwd(const void* q, const void* k,
   switch (dtype) {
     case 0:
       return (int)launch_t<float>(q, k, v, o, lse, B, H, Hk, Sq, Sk, D,
-                                  offset, scale, s);
+                                  offset, scale, tc, s);
     case 1:
       return (int)launch_t<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                                          D, offset, scale, s);
+                                          D, offset, scale, tc, s);
     case 2:
       return (int)launch_t<__half>(q, k, v, o, lse, B, H, Hk, Sq, Sk, D,
-                                   offset, scale, s);
+                                   offset, scale, tc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,7 +26,11 @@ masks.
 On a CUDA tensor the wrappers launch the hand-written kernels
 (``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd_dkv.cu`` and
 ``flash_attention_bwd_dq.cu``) on the current stream or raise; on a CPU
-tensor they compute the plain versions.
+tensor they compute the plain versions. ``kernel_path`` picks each
+launch's design from (dtype, D) alone and the C entry points run that one
+or fail: bf16 and fp16 at D 64 and 128 on the tensor cores (``wgmma``,
+``csrc/wgmma_tile.cuh``), every other case on the fp32 cores (fp32 never
+goes through TF32). ``PATH_LAUNCHES`` counts the launches of each.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "dropout_keep", "is_supported", "LAUNCHES"]
+           "dropout_keep", "is_supported", "kernel_path", "LAUNCHES",
+           "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_D = 256
@@ -47,6 +52,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # on CPU tensors do not count)
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
+# the same launches by the design that ran them (kernel_path)
+PATH_LAUNCHES = {"tc": 0, "fp32_cores": 0}
+
+
+def kernel_path(dtype, d) -> str:
+    """The design of the flash and ring chunk kernels for inputs of
+    ``dtype`` and head dim ``d``, the one place the rule is stated: ``"tc"``
+    (wgmma tiles) for bf16 and fp16 at D 64 and 128, else ``"fp32_cores"``.
+    The wrappers pass it to the C entry points, which run that design or
+    fail."""
+    return ("tc" if dtype in (torch.bfloat16, torch.float16)
+            and d in (64, 128) else "fp32_cores")
 
 
 def is_supported(q_shape, dtype) -> bool:
@@ -141,6 +158,12 @@ def _on_card(name, *xs):
     return torch.cuda.current_stream(xs[0].device).cuda_stream
 
 
+def _aligned(*xs):
+    """The tensor-core kernels load 16-byte chunks: a view whose start is
+    not 16-byte aligned is copied (a fresh allocation is)."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
                         seed=0):
     """q [B, H, Sq, D], k/v [B, Hk, Sk, D] -> (o [B, H, Sq, D] in q's
@@ -153,19 +176,23 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, dropout_p=0.0,
         return flash_attention_reference(q, k, v, causal, scale, dropout_p,
                                          seed)
     stream = _on_card("flash_attention_fwd", q, k, v)
+    q, k, v = _aligned(q, k, v)
     hk, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    path = kernel_path(q.dtype, d)
     fn = _build.load("flash_attention_fwd")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, hk, sq, sk, d, int(bool(causal)),
-            float(scale), _DTYPE_CODE[q.dtype], *_drop_args(dropout_p, seed),
-            stream)
+            float(scale), _DTYPE_CODE[q.dtype], int(path == "tc"),
+            *_drop_args(dropout_p, seed), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd: kernel launch failed with CUDA error "
-            f"{rc} (q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+            f"{rc} (q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, "
+            f"{path})")
     LAUNCHES["flash_attention_fwd"] += 1
+    PATH_LAUNCHES[path] += 1
     return o, lse
 
 
@@ -218,18 +245,22 @@ def _bwd_kernel(name, outs, q, k, v, do, lse, delta, causal, scale,
                                 scale, dropout_p, seed)
         return (dq,) if name.endswith("dq") else (dk, dv)
     stream = _on_card(name, q, k, v, do, lse, delta)
+    q, k, v, do = _aligned(q, k, v, do)
     hk, sk = k.shape[1], k.shape[2]
     outs = tuple(torch.empty_like(x) for x in outs)
+    path = kernel_path(q.dtype, d)
     rc = _build.load(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
         b, h, hk, sq, sk, d, int(bool(causal)), float(scale),
-        _DTYPE_CODE[q.dtype], *_drop_args(dropout_p, seed), stream)
+        _DTYPE_CODE[q.dtype], int(path == "tc"),
+        *_drop_args(dropout_p, seed), stream)
     if rc != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with CUDA error {rc} (q "
-            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, {path})")
     LAUNCHES[name] += 1
+    PATH_LAUNCHES[path] += 1
     return outs
 
 

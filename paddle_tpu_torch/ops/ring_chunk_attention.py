@@ -16,26 +16,32 @@ dv are summed over the group in fp32 and cast once). No dropout.
 
 On a CUDA tensor the wrappers launch the hand-written kernels
 (``csrc/ring_chunk_attention_fwd.cu``, ``_bwd_dkv.cu`` and ``_bwd_dq.cu``,
-which share the flash kernels' tile code) on the current stream or
-raise; on a CPU tensor they compute the plain versions.
+the flash kernels' templates with the diagonal an argument) on the
+current stream or raise; on a CPU tensor they compute the plain versions.
+Each launch takes the design ``flash_attention.kernel_path`` picks from
+(dtype, D) (bf16 and fp16 at D 64 and 128 on the tensor cores), which the
+C entry points run or fail; ``PATH_LAUNCHES`` counts the launches of each.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .flash_attention import (_DTYPE_CODE, MAX_D, _bwd_plain, _fwd_plain,
-                              _on_card)
+from .flash_attention import (_DTYPE_CODE, MAX_D, _aligned, _bwd_plain,
+                              _fwd_plain, _on_card, kernel_path)
 
 __all__ = ["ring_chunk_attention", "ring_chunk_attention_fwd",
            "ring_chunk_attention_bwd_dkv", "ring_chunk_attention_bwd_dq",
            "ring_chunk_attention_reference",
-           "ring_chunk_attention_bwd_reference", "is_supported", "LAUNCHES"]
+           "ring_chunk_attention_bwd_reference", "is_supported", "LAUNCHES",
+           "PATH_LAUNCHES"]
 
 # kernel launches, counted where a kernel is launched (the plain versions
 # on CPU tensors do not count)
 LAUNCHES = {"ring_chunk_attention_fwd": 0, "ring_chunk_attention_bwd_dkv": 0,
             "ring_chunk_attention_bwd_dq": 0}
+# the same launches by the design that ran them (flash_attention.kernel_path)
+PATH_LAUNCHES = {"tc": 0, "fp32_cores": 0}
 
 
 def is_supported(q_shape, k_shape, dtype) -> bool:
@@ -125,18 +131,22 @@ def ring_chunk_attention_fwd(q, k, v, offset, scale=None):
     if q.device.type == "cpu":
         return ring_chunk_attention_reference(q, k, v, offset, scale)
     stream = _on_card("ring_chunk_attention_fwd", q, k, v)
+    q, k, v = _aligned(q, k, v)
     hk, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    path = kernel_path(q.dtype, d)
     rc = _build.load("ring_chunk_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, hk, sq, sk, d, _kernel_offset(offset, sq, sk),
-        float(scale), _DTYPE_CODE[q.dtype], stream)
+        float(scale), _DTYPE_CODE[q.dtype], int(path == "tc"), stream)
     if rc != 0:
         raise RuntimeError(
             f"ring_chunk_attention_fwd: kernel launch failed with CUDA error "
-            f"{rc} (q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+            f"{rc} (q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, "
+            f"{path})")
     LAUNCHES["ring_chunk_attention_fwd"] += 1
+    PATH_LAUNCHES[path] += 1
     return o, lse
 
 
@@ -152,18 +162,21 @@ def _bwd_kernel(name, outs, q, k, v, do, lse, delta, offset, scale):
                                 delta[..., None], offset, scale)
         return (dq,) if name.endswith("dq") else (dk, dv)
     stream = _on_card(name, q, k, v, do, lse, delta)
+    q, k, v, do = _aligned(q, k, v, do)
     hk, sk = k.shape[1], k.shape[2]
     outs = tuple(torch.empty_like(x) for x in outs)
+    path = kernel_path(q.dtype, d)
     rc = _build.load(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
         b, h, hk, sq, sk, d, _kernel_offset(offset, sq, sk), float(scale),
-        _DTYPE_CODE[q.dtype], stream)
+        _DTYPE_CODE[q.dtype], int(path == "tc"), stream)
     if rc != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with CUDA error {rc} (q "
-            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})")
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, {path})")
     LAUNCHES[name] += 1
+    PATH_LAUNCHES[path] += 1
     return outs
 
 

@@ -29,7 +29,7 @@ Phases, in order; any failure exits non-zero:
      backward fed the kernel's o and lse and then the plain forward's;
      LayerNorm forward and backward at N 8192, 1001 and 37); the fused
      FFN forward, dx and dW kernels
-     (fp32 and bf16, both activations, (K, F) in (128, 256), (768, 3072)
+     (fp32, bf16 and fp16, both activations, (K, F) in (128, 256), (768, 3072)
      and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
      decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
      D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 and 1024, lens 0,
@@ -71,15 +71,16 @@ Phases, in order; any failure exits non-zero:
      (flash_attention.PATH_LAUNCHES);
   3d. the same training under PADDLE_TPU_FUSED_FFN=1 and
      PADDLE_TPU_FUSED_FFN_BWD=1: each step must also launch exactly 12
-     fused FFN forward, 12 dx and 12 dW kernels; its step time and peak
-     memory are printed beside 3c's;
+     fused FFN forward, 12 dx and 12 dW kernels, every dx and dW launch
+     on the tensor-core path (fused_ffn.PATH_LAUNCHES); its step time and
+     peak memory are printed beside 3c's;
   3e. FusedMultiTransformer at the same width (L=12, gelu, pre-LN, bf16,
      random weights) over per-layer caches [2, 8, 12, 1024, 64]: a
      128-token chunk at time_step 0, then 127 one-token steps, each call
      launching exactly 12 decode_attention_bhsd and no other attention
      kernel, outputs finite; then one FusedFeedForward forward and
      backward under the fused FFN flags, launching each fused FFN kernel
-     once;
+     once, dx and dW on the tensor-core path;
   3f. LLaMA training at LLaMA-2-7B width (profile_train.
      llama_train_workload: hidden 4096, 32 heads, head_dim 128,
      intermediate 11008, vocab 32000, rms_eps 1e-5, L=4,
@@ -122,7 +123,8 @@ Phases, in order; any failure exits non-zero:
      ATen's LayerNorm forward or backward, F.rms_norm's forward or
      autograd's backward of it, or a matmul on a weight dequantized once)
      computing the same; for the fused FFN three calls (addmm, gelu,
-     addmm) and autograd's backward of them; for the flash and ring chunk
+     addmm), and for dx and dW autograd's backward of them for x and for
+     (W1, b1, W2), in CUDA graphs; for the flash and ring chunk
      kernels the fastest of SDPA's backends and ATen's flash backward,
      in CUDA graphs as the kernels are; the flash kernels also at phase
      3f's [1, 32, 4096, 128]; the ring chunk kernels at phase 3g's chunk
@@ -427,12 +429,14 @@ def ffn_inputs(rng, m, k, f, dtype):
 
 def ffn_kernels(rng, worst):
     """The three fused FFN kernels against their plain versions at
-    FFN_SHAPES, M 8, 136 and 8192, both activations, fp32 and bf16: the
-    output, dx, dW1, dW2 and db1 each (bf16 dW1 and dW2 to their own
-    tolerance: sums over M of a factor rounded to bf16)."""
+    FFN_SHAPES, M 8, 136 and 8192, both activations, fp32, bf16 and fp16:
+    the output, dx, dW1, dW2 and db1 each (16-bit dW1 and dW2 to their
+    own tolerance: sums over M of a factor rounded to the dtype; fp16,
+    with 3 more mantissa bits than bf16, to bf16's tolerances)."""
     for dtype, tname, wname in (
             (torch.float32, "ffn_fp32_large", "ffn_fp32_large"),
-            (torch.bfloat16, "ffn_bf16", "ffn_wgrad_bf16")):
+            (torch.bfloat16, "ffn_bf16", "ffn_wgrad_bf16"),
+            (torch.float16, "ffn_bf16", "ffn_wgrad_bf16")):
         for k, f in FFN_SHAPES:
             for m in (8, 136, 8192):
                 x, g, w1, b1, w2, b2 = ffn_inputs(rng, m, k, f, dtype)
@@ -903,15 +907,22 @@ def phase_generate(seed):
 def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
                    ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
-                   rca.PATH_LAUNCHES):
+                   rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
-def check_tensor_core_path(label, module):
-    """Fail unless every launch of ``module``'s kernels since the counts
-    were reset took the tensor-core path (``module.PATH_LAUNCHES``)."""
-    total = sum(module.LAUNCHES.values())
+# the fused FFN kernels that take a design from kernel_path (the forward
+# stays on its wmma kernel)
+FFN_PATH_KERNELS = ("fused_ffn_bwd_dx", "fused_ffn_bwd_dw")
+
+
+def check_tensor_core_path(label, module, kernels=None):
+    """Fail unless every launch of ``module``'s kernels (those named in
+    ``kernels``, else all) since the counts were reset took the
+    tensor-core path (``module.PATH_LAUNCHES``)."""
+    total = sum(n for k, n in module.LAUNCHES.items()
+                if kernels is None or k in kernels)
     paths = dict(module.PATH_LAUNCHES)
     log(f"  {label}: launches by path {paths}")
     if paths != {"tc": total, "fp32_cores": 0}:
@@ -1070,6 +1081,7 @@ def phase_train_ffn(seed, base, steps=10, warmup=2):
     with environ(FUSED_FFN_FLAGS):
         launches, med, peak = train_run(gpt2_train_workload, seed, steps,
                                         warmup, FFN_TRAIN_LAUNCHES)
+    check_tensor_core_path("fused FFN backward", ffn, FFN_PATH_KERNELS)
     _, base_med, base_peak = base
     log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
         f"{1e3 * base_med:.3f} ms ({med / base_med:.3f}x), tokens/s "
@@ -1257,6 +1269,8 @@ def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
     if got != {k: 1 for k in ffn.LAUNCHES}:
         raise SystemExit(f"FusedFeedForward launched {got}, want each fused "
                          "FFN kernel once")
+    check_tensor_core_path("FusedFeedForward backward", ffn,
+                           FFN_PATH_KERNELS)
     if not torch.isfinite(y).all() or not all(
             g is not None and bool(torch.isfinite(g).all()) for g in grads):
         raise SystemExit("FusedFeedForward: non-finite output or gradients")
@@ -1855,12 +1869,12 @@ def time_ffn(rng, act="gelu_tanh"):
     = 768, F = 3072) in bf16 (the tensor-core instantiations; the rows),
     then their fp32 instantiations (fp32 cores; logged, and their ms kept
     as fp32_ms in the bf16 rows). The library time is three calls,
-    torch.addmm + F.gelu(tanh) + torch.addmm, for the forward, and
-    autograd's backward of that composite (all five gradients) for dx and
-    dw alike. Bounds: the products of the TPU kernel's algorithm (2, 3
-    and 4 of 2 M K F operations) at the bf16 tensor rate, not this
-    design's recompute; dw's time includes summing its row-split
-    partials."""
+    torch.addmm + F.gelu(tanh) + torch.addmm, for the forward; for dx
+    autograd's backward of that composite for x alone, for dw the same
+    for (W1, b1, W2), each replayed from a CUDA graph (time_grad_ms).
+    Bounds: the products of the TPU kernel's algorithm (2, 3 and 4 of 2 M
+    K F operations) at the bf16 tensor rate, not this design's
+    recompute; dw's time includes summing its row-split partials."""
     rows = time_ffn_dtype(rng, act, torch.bfloat16)
     log("  the fp32 instantiations (fp32 cores; phase 4's) at the same shape")
     fp32 = time_ffn_dtype(rng, act, torch.float32)
@@ -1883,8 +1897,23 @@ def time_ffn_dtype(rng, act, dtype):
         return torch.addmm(b2, t, w2)
     out = composite(xg, w1g, b1g, w2g, b2g)
     fwd_library = time_ms(lambda i=0: composite(x, w1, b1, w2, b2), 20)
-    bwd_library = time_loop_ms(lambda i=0: torch.autograd.grad(
+    # each backward kernel's yardstick: autograd's backward of the
+    # composite for its own gradients, in CUDA graphs
+    library = {
+        "fused_ffn_fwd": fwd_library,
+        "fused_ffn_bwd_dx": time_grad_ms(
+            lambda a: composite(a, w1, b1, w2, b2), (x,), g, 20),
+        "fused_ffn_bwd_dw": time_grad_ms(
+            lambda w1, b1, w2: composite(x, w1, b1, w2, b2), (w1, b1, w2), g,
+            20)}
+    # the yardstick before PR 10, for continuity: all five gradients, a
+    # host loop
+    all_grads = time_loop_ms(lambda i=0: torch.autograd.grad(
         out, (xg, w1g, b1g, w2g, b2g), g, retain_graph=True), 20)
+    log(f"  {dtype} library: forward {fwd_library:.4f} ms; backward for x "
+        f"{library['fused_ffn_bwd_dx']:.4f}, for (W1, b1, W2) "
+        f"{library['fused_ffn_bwd_dw']:.4f} (CUDA graphs); all five "
+        f"gradients {all_grads:.4f} (host loop)")
     elt, mkf = x.element_size(), m * k * f
     wide = dtype == torch.float32
     rows = {}
@@ -1923,8 +1952,7 @@ def time_ffn_dtype(rng, act, dtype):
                "max_abs_err": err,
                "ms": time_ms(kernel, 5), "plain_ms": time_loop_ms(plain, 3),
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": fwd_library if name == "fused_ffn_fwd"
-               else bwd_library}
+               "library_ms": library[name]}
         log(f"  {name} " + json.dumps(row))
         rows[name] = [row]
     return rows
@@ -2383,7 +2411,8 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in build_logs.items():
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if "registers" in ln or "spill" in ln or "Compiling" in ln \
+                    or "Performance Loss" in ln:
                 log(f"  [{name}] {ln.strip()}")
 
     rng = np.random.default_rng(args.seed)

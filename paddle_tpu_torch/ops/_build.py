@@ -102,13 +102,14 @@ _ENTRY = {
     "layer_norm_bwd": (
         "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 3 + [_P]),
     # the fused FFN: pointers, then M, K, F, the block's K columns (BN),
-    # (bwd_dw: the row splits,) the activation and the dtype codes
+    # (the backward kernels: the F or row ranges,) the activation and the
+    # dtype codes, (the backward kernels: the design, 1 = tensor cores)
     "fused_ffn_fwd": (
         "paddle_fused_ffn_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "fused_ffn_bwd_dx": (
-        "paddle_fused_ffn_bwd_dx", [_P] * 6 + [_I] * 6 + [_P]),
+        "paddle_fused_ffn_bwd_dx", [_P] * 6 + [_I] * 8 + [_P]),
     "fused_ffn_bwd_dw": (
-        "paddle_fused_ffn_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
+        "paddle_fused_ffn_bwd_dw", [_P] * 8 + [_I] * 8 + [_P]),
     "decode_attention_bhsd": (
         "paddle_decode_attention_bhsd", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "rms_norm_fwd": (
@@ -130,9 +131,15 @@ _ENTRY = {
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (
         "paddle_flash_dropout_mask", [_P] + [_I] * 4 + [_U] * 3 + [_P]),
+    # second entries of the fused FFN backward libraries: how many of
+    # their tensor-core clusters the card holds (K, BN, the dtype code)
+    "fused_ffn_bwd_dx_slots": ("paddle_fused_ffn_bwd_dx_slots", [_I] * 3),
+    "fused_ffn_bwd_dw_slots": ("paddle_fused_ffn_bwd_dw_slots", [_I] * 3),
 }
 # entries that live in another entry's library
-_LIBRARY = {"flash_dropout_mask": "flash_attention_fwd"}
+_LIBRARY = {"flash_dropout_mask": "flash_attention_fwd",
+            "fused_ffn_bwd_dx_slots": "fused_ffn_bwd_dx",
+            "fused_ffn_bwd_dw_slots": "fused_ffn_bwd_dw"}
 
 
 def _nvcc() -> str:

@@ -3,8 +3,9 @@
 // derivatives in fp32, rounding through the stored dtype, the staging of a
 // tile of a row-major matrix into shared memory as fp32 (the fp32 kernels,
 // on the CUDA cores), straight or transposed, and its copy in the stored
-// 16-bit dtype (the bf16 / fp16 kernels, whose products run on the tensor
-// cores through nvcuda::wmma).
+// 16-bit dtype (the bf16 / fp16 forward, whose products run on the tensor
+// cores through nvcuda::wmma; the backward's tensor-core kernels load
+// through TMA, tma_tile.cuh, and multiply on wgmma, wgmma_tile.cuh).
 //
 // Activation codes: 0 = GPT-2's tanh gelu, 1 = exact (erf) gelu, the
 // `_ACTS` of paddle_tpu/ops/pallas/fused_ffn.py; the derivatives are its
@@ -44,6 +45,22 @@ __device__ __forceinline__ float act_grad(float x, int act) {
   }
   return 0.5f * (1.f + erff(x * kInvSqrt2)) +
          x * expf(-0.5f * x * x) * kInvSqrt2Pi;
+}
+
+// act(x) into t and act'(x) into a, the same arithmetic as act_fwd and
+// act_grad with the one transcendental (tanh, or erf) shared.
+__device__ __forceinline__ void act_fwd_grad(float x, int act, float& t,
+                                             float& a) {
+  if (act == 0) {
+    const float th = tanhf(kSqrt2OverPi * (x + 0.044715f * x * x * x));
+    t = 0.5f * x * (1.f + th);
+    a = 0.5f * (1.f + th) + 0.5f * x * (1.f - th * th) * kSqrt2OverPi *
+                                (1.f + 3.f * 0.044715f * x * x);
+    return;
+  }
+  const float e = erff(x * kInvSqrt2);
+  t = 0.5f * x * (1.f + e);
+  a = 0.5f * (1.f + e) + x * expf(-0.5f * x * x) * kInvSqrt2Pi;
 }
 
 // v rounded to T and back: the TPU kernels' `.astype(x.dtype)` before a

@@ -1,6 +1,10 @@
 // Hopper's warpgroup tensor-core products (wgmma) and the shared-memory
 // tiles they read, shared by the flash attention kernels' tensor-core
-// path (flash_fwd.cuh, flash_bwd_dkv.cuh, flash_bwd_dq.cuh).
+// path (flash_fwd.cuh, flash_bwd_dkv.cuh, flash_bwd_dq.cuh) and the fused
+// FFN backward's (fused_ffn_bwd_dx.cu, fused_ffn_bwd_dw.cu: the products
+// with the operand orders as template arguments, mma_ss_t and
+// mma_rs128_t; their tiles come in through TMA, tma_tile.cuh, in this
+// layout).
 //
 // A tile holds ROWS rows of D (64 or 128) bf16 or fp16 values as D / 64
 // panels of [ROWS][64], one after the other; a panel row is 128 bytes, and
@@ -360,6 +364,86 @@ __device__ __forceinline__ void mma_rs(float (&d)[NR],
       rs_n128_bf16(d, a, b, acc);
   }
 }
+
+// The fused FFN backward's products (fused_ffn_bwd_dx.cu, _dw.cu), with
+// the operand orders as template arguments (PTX's imm-trans-a / -b, which
+// 16-bit types allow in both operands): 0 K-major, 1 MN-major. An
+// MN-major A is a tile whose rows run along the depth (a W1 chunk [K][F]
+// as the A of W1^T x^T), read through desc_mn as an MN-major B is.
+#define PADDLE_WG_D32                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+      "+f"(d[30]), "+f"(d[31])
+#define PADDLE_WG_D64                                                   \
+  PADDLE_WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),  \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),  \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),  \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),  \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PADDLE_WG_R32                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
+#define PADDLE_WG_R64                                                   \
+  PADDLE_WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "   \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (+)= A B over one k-step of 16, m64n64, A and B in shared memory in
+// the orders TA and TB.
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void mma_ss_t(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{" PADDLE_WG_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : PADDLE_WG_D32
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" PADDLE_WG_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : PADDLE_WG_D32
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (+)= A B over one k-step of 16, m64n128: A in registers, B in shared
+// memory in the order TB.
+template <typename T, int TB>
+__device__ __forceinline__ void mma_rs128_t(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{" PADDLE_WG_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : PADDLE_WG_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" PADDLE_WG_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : PADDLE_WG_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+}
+
+#undef PADDLE_WG_D32
+#undef PADDLE_WG_D64
+#undef PADDLE_WG_R32
+#undef PADDLE_WG_R64
 
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {

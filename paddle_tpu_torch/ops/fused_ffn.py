@@ -23,10 +23,14 @@ On a CUDA tensor ``fused_ffn_fwd``, ``fused_ffn_bwd_dx`` and
 current stream or raise; on a CPU tensor they compute the plain versions,
 which keep the TPU kernels' roundings (the activation rounded to x's
 dtype before the second product, dpre rounded before its products, db1
-from the fp32 dpre).
+from the fp32 dpre). ``kernel_path`` picks the backward kernels' design
+from the dtype alone and their C entry points run that one or fail: bf16
+and fp16 on the tensor cores (``wgmma``, ``csrc/wgmma_tile.cuh``), fp32
+on the fp32 cores. ``PATH_LAUNCHES`` counts their launches by design.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -37,18 +41,32 @@ from . import _build
 __all__ = ["fused_ffn", "ffn_is_supported", "fused_ffn_fwd",
            "fused_ffn_bwd_dx", "fused_ffn_bwd_dw",
            "fused_ffn_fwd_reference", "fused_ffn_bwd_dx_reference",
-           "fused_ffn_bwd_dw_reference", "kernel_is_supported", "LAUNCHES"]
+           "fused_ffn_bwd_dw_reference", "kernel_is_supported",
+           "kernel_path", "LAUNCHES", "PATH_LAUNCHES"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODE = {"gelu_tanh": 0, "gelu": 1}
-# a block of the dW kernel owns 32 F columns and walks its rows 64 at a
-# time (32 in fp32); about this many blocks keep the card's 132 SMs busy
-# for four waves
+# a block of the fp32-core dW kernel owns 32 F columns and walks its rows
+# 32 at a time; about this many blocks keep the card's 132 SMs busy for
+# four waves
 _DW_BF, _DW_ROWS, _DW_TARGET_BLOCKS = 32, 64, 528
+# a block of the tensor-core dW kernel owns 64 F rows and walks its rows
+# 64 at a time; at most this many row ranges (fp32 partials of
+# 2 * K * F * 4 bytes each)
+_DW_TC_TILE, _DW_TC_MAX_SPLITS = 64, 8
+# a cluster of the tensor-core dx kernel owns 128 rows; it walks F in at
+# most this many ranges (fp32 partials of M * K * 4 bytes each)
+_DX_TC_ROWS, _DX_TC_MAX_SPLITS = 128, 4
+# the tensor-core kernels take the fewest ranges whose clusters fill this
+# share of the card's cluster slots, in whole waves
+_TC_FILL = 0.95
 
 # kernel launches, counted where a kernel is launched (the plain versions
 # on CPU tensors do not count)
 LAUNCHES = {"fused_ffn_fwd": 0, "fused_ffn_bwd_dx": 0, "fused_ffn_bwd_dw": 0}
+# the backward kernels' launches by the design that ran them (kernel_path)
+PATH_LAUNCHES = {"tc": 0, "fp32_cores": 0}
+_PATH_CODE = {"tc": 1, "fp32_cores": 0}
 
 
 def _gelu_tanh(x):
@@ -209,6 +227,22 @@ def kernel_is_supported(m, k, f, dtype) -> bool:
         and f % 128 == 0 and dtype in _DTYPE_CODE
 
 
+def kernel_path(dtype, k, f) -> str:
+    """The design of the backward kernels (dx and dW) for inputs of
+    ``dtype`` at K = ``k``, F = ``f`` (multiples of 128, as
+    ``kernel_is_supported`` asks), the one place the rule is stated:
+    ``"tc"`` (wgmma tiles) for bf16 and fp16, ``"fp32_cores"`` for fp32.
+    The wrappers pass it to the C entry points, which run that design or
+    fail."""
+    return "tc" if dtype in (torch.bfloat16, torch.float16) else "fp32_cores"
+
+
+def _tc_cols(k):
+    """The K columns of a tensor-core backward block: 256 where it divides
+    K, else 128 (a warpgroup's m64n128 accumulators, one or two)."""
+    return 256 if k % 256 == 0 else 128
+
+
 def _block_cols(k, sizes):
     """The K columns of a kernel block: the largest of ``sizes`` dividing
     K (a multiple of 128, so 128 always does)."""
@@ -241,25 +275,33 @@ def _check(name, x2, w1, b1, w2, b2=None, g2=None, activation="gelu_tanh"):
     return m, k, f
 
 
-def _launch(name, tensors, ints, activation, dtype):
+def _launch(name, tensors, ints, activation, dtype, path=None):
     """Launch kernel ``name`` on the current stream of the tensors' card:
     the pointers of ``tensors`` (each contiguous), the int arguments, the
-    activation and dtype codes. Raises on a refused launch."""
+    activation and dtype codes, and for the backward kernels the design
+    ``path`` (``kernel_path``'s). Raises on an unknown path and on a
+    refused launch (a misaligned pointer among them: no fallback)."""
+    if path is not None and path not in _PATH_CODE:
+        raise ValueError(f"{name}: unknown kernel path {path!r}, not one of "
+                         f"{sorted(_PATH_CODE)}")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     for i, t in enumerate(tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} must be contiguous")
+    design = () if path is None else (_PATH_CODE[path],)
     rc = _build.load(name)(*(t.data_ptr() for t in tensors), *ints,
                            _ACT_CODE[activation], _DTYPE_CODE[dtype],
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           *design, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with CUDA error {rc} ("
             + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in tensors)
-            + ")")
+            + (")" if path is None else f"; {path})"))
     LAUNCHES[name] += 1
+    if path is not None:
+        PATH_LAUNCHES[path] += 1
 
 
 def fused_ffn_fwd(x2, w1, b1, w2, b2, activation="gelu_tanh"):
@@ -278,40 +320,110 @@ def fused_ffn_fwd(x2, w1, b1, w2, b2, activation="gelu_tanh"):
 
 def fused_ffn_bwd_dx(x2, g2, w1, b1, w2, activation="gelu_tanh"):
     """dx [M, K] of ``fused_ffn_fwd`` from its inputs and the output
-    gradient g2 [M, K], in x2's dtype."""
+    gradient g2 [M, K], in x2's dtype. The tensor-core kernel may walk F
+    in several ranges (``_dx_splits_tc``, from the card's cluster slots);
+    their fp32 partials are summed here in a fixed order, and dx is
+    rounded once from that sum."""
     m, k, f = _check("fused_ffn_bwd_dx", x2, w1, b1, w2, g2=g2,
                      activation=activation)
     if x2.device.type == "cpu":
         return fused_ffn_bwd_dx_reference(x2, g2, w1, b1, w2, activation)
-    dx = torch.empty_like(x2)
+    path = kernel_path(x2.dtype, k, f)
+    if path == "tc":
+        bn = _tc_cols(k)
+        splits = _dx_splits_tc(m, k, f, bn, _slots(
+            "fused_ffn_bwd_dx", x2.device.index, k, bn, x2.dtype))
+    else:
+        bn, splits = _block_cols(k, (768, 512, 384, 256, 128)), 1
+    if splits == 1:
+        dx = torch.empty_like(x2)
+    else:  # fp32 partials over the F ranges, summed in a fixed order
+        dx = torch.empty((splits, m, k), dtype=torch.float32,
+                         device=x2.device)
     _launch("fused_ffn_bwd_dx", [x2, g2, w1, b1, w2, dx],
-            (m, k, f, _block_cols(k, (768, 512, 384, 256, 128))),
-            activation, x2.dtype)
-    return dx
+            (m, k, f, bn, splits), activation, x2.dtype, path)
+    return dx if splits == 1 else dx.sum(0).to(x2.dtype)
+
+
+def _fill_splits(clusters, most, slots):
+    """Of 1 .. most ranges, each range's work a cluster each of
+    ``clusters``: the fewest whose clusters fill at least _TC_FILL of the
+    ``slots`` clusters the card holds at once, in whole waves; if none
+    does, the count that fills them best."""
+    slots = max(1, slots)
+
+    def fill(s):
+        return clusters * s / (-(-clusters * s // slots) * slots)
+    counts = range(1, max(1, most) + 1)
+    return next((s for s in counts if fill(s) >= _TC_FILL),
+                max(counts, key=lambda s: (fill(s), -s)))
+
+
+def _clusters_per_tile(k, bn):
+    """Clusters along K of a tensor-core backward kernel: its K / bn
+    blocks in clusters of the largest divisor up to four (the kernels'
+    rule)."""
+    nblk = k // bn
+    return nblk // next(c for c in (4, 3, 2, 1) if nblk % c == 0)
+
+
+def _dx_splits_tc(m, k, f, bn, slots):
+    """F ranges of the tensor-core dx kernel (_fill_splits), a cluster
+    being one 128-row block's columns."""
+    return _fill_splits(-(-m // _DX_TC_ROWS) * _clusters_per_tile(k, bn),
+                        min(_DX_TC_MAX_SPLITS, f // 64), slots)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(name, index, k, bn, dtype):
+    """Clusters of tensor-core kernel ``name`` (fused_ffn_bwd_dx or _dw)
+    the card holds at once: the occupancy API, through its library."""
+    with torch.cuda.device(index):
+        n = _build.load(name + "_slots")(k, bn, _DTYPE_CODE[dtype])
+    if n < 1:
+        raise RuntimeError(f"{name}: no cluster fits the card (occupancy "
+                           f"query returned {n})")
+    return n
 
 
 def _dw_splits(m, k, f, bn):
-    """Row ranges of the dW kernel: enough blocks for about four waves,
-    at most one range per 64 rows."""
+    """Row ranges of the fp32-core dW kernel: enough blocks for about four
+    waves, at most one range per 64 rows."""
     base = (f // _DW_BF) * (k // bn)
     return max(1, min(-(-m // _DW_ROWS), -(-_DW_TARGET_BLOCKS // base)))
 
 
+def _dw_splits_tc(m, k, f, bn, slots):
+    """Row ranges of the tensor-core dW kernel (_fill_splits), a cluster
+    being one 64-row F tile's columns, at most one range per 64-row
+    step."""
+    return _fill_splits((f // _DW_TC_TILE) * _clusters_per_tile(k, bn),
+                        min(_DW_TC_MAX_SPLITS, -(-m // _DW_TC_TILE)), slots)
+
+
 def fused_ffn_bwd_dw(x2, g2, w1, b1, w2, activation="gelu_tanh"):
     """(dW1 [K, F] in w1's dtype, dW2 [F, K] in w2's dtype, db1 [F] fp32)
-    of ``fused_ffn_fwd`` from its inputs and the output gradient g2."""
+    of ``fused_ffn_fwd`` from its inputs and the output gradient g2. The
+    kernel writes fp32 partials over row ranges (``_dw_splits_tc`` or
+    ``_dw_splits``), summed here in a fixed order."""
     m, k, f = _check("fused_ffn_bwd_dw", x2, w1, b1, w2, g2=g2,
                      activation=activation)
     if x2.device.type == "cpu":
         return fused_ffn_bwd_dw_reference(x2, g2, w1, b1, w2, activation)
-    bn = _block_cols(k, (512, 384, 256, 128))
-    splits = _dw_splits(m, k, f, bn)
+    path = kernel_path(x2.dtype, k, f)
+    if path == "tc":
+        bn = _tc_cols(k)
+        splits = _dw_splits_tc(m, k, f, bn, _slots(
+            "fused_ffn_bwd_dw", x2.device.index, k, bn, x2.dtype))
+    else:
+        bn = _block_cols(k, (512, 384, 256, 128))
+        splits = _dw_splits(m, k, f, bn)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dw1p = torch.empty((splits, k, f), **f32)
     dw2p = torch.empty((splits, f, k), **f32)
     db1p = torch.empty((splits, f), **f32)
     _launch("fused_ffn_bwd_dw", [x2, g2, w1, b1, w2, dw1p, dw2p, db1p],
-            (m, k, f, bn, splits), activation, x2.dtype)
+            (m, k, f, bn, splits), activation, x2.dtype, path)
     # the S partial sums, summed in a fixed order
     return (dw1p.sum(0).to(w1.dtype), dw2p.sum(0).to(w2.dtype),
             db1p.sum(0))

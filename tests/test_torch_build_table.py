@@ -9,6 +9,11 @@
   names or fail), sends bf16 and fp16 at D 64 and 128 to the tensor-core
   kernels and everything else to the fp32-core ones.
 - CPU tensors take the plain versions: no launch and no path is counted.
+- ``fused_ffn.kernel_path``, the fused FFN backward wrappers' statement
+  of the same rule, sends bf16 and fp16 to the tensor-core dx and dW
+  kernels and fp32 to the fp32-core ones; ``_launch`` refuses any other
+  path before it touches a device; the tensor-core blocks' columns and
+  the dW kernel's row ranges follow their stated rules.
 """
 import re
 
@@ -18,6 +23,7 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import ring_chunk_attention as rca
 
 
@@ -79,3 +85,85 @@ def test_cpu_tensors_count_no_launch(dtype, d):
     after = [dict(c) for c in (fa.LAUNCHES, fa.PATH_LAUNCHES, rca.LAUNCHES,
                                rca.PATH_LAUNCHES)]
     assert after == before
+
+
+# ---------------------------------------------------------------- fused FFN
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("k,f", [(128, 256), (768, 3072), (1024, 2816)])
+def test_ffn_kernel_path(dtype, k, f):
+    want = "fp32_cores" if dtype == torch.float32 else "tc"
+    assert ffn.kernel_path(dtype, k, f) == want
+
+
+def _ffn_inputs(dtype, m=24, k=128, f=256):
+    rng = np.random.default_rng(m + k)
+    x, g = (torch.from_numpy(rng.standard_normal((m, k))).to(dtype)
+            for _ in range(2))
+    w1 = torch.from_numpy(rng.standard_normal((k, f)) / k ** 0.5).to(dtype)
+    w2 = torch.from_numpy(rng.standard_normal((f, k)) / f ** 0.5).to(dtype)
+    b1 = torch.from_numpy(0.1 * rng.standard_normal(f)).to(dtype)
+    b2 = torch.from_numpy(0.1 * rng.standard_normal(k)).to(dtype)
+    return x, g, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_ffn_cpu_tensors_count_no_launch(dtype):
+    x, g, w1, b1, w2, b2 = _ffn_inputs(dtype)
+    before = [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)]
+    ffn.fused_ffn_fwd(x, w1, b1, w2, b2)
+    ffn.fused_ffn_bwd_dx(x, g, w1, b1, w2)
+    ffn.fused_ffn_bwd_dw(x, g, w1, b1, w2, "gelu")
+    xr = x.clone().requires_grad_()
+    ffn.fused_ffn(xr, w1, b1, w2, b2).float().sum().backward()
+    assert [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)] == before
+
+
+@pytest.mark.parametrize("path", ["wmma", "TC", "fp32"])
+def test_ffn_launch_refuses_an_unknown_path(path):
+    x, g, w1, b1, w2, _ = _ffn_inputs(torch.bfloat16)
+    dx = torch.empty_like(x)
+    before = [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)]
+    with pytest.raises(ValueError, match="unknown kernel path"):
+        ffn._launch("fused_ffn_bwd_dx", [x, g, w1, b1, w2, dx],
+                    (24, 128, 256, 128), "gelu_tanh", x.dtype, path)
+    assert [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)] == before
+
+
+@pytest.mark.parametrize("k,want", [(128, 128), (256, 256), (384, 128),
+                                    (768, 256), (1024, 256)])
+def test_ffn_tc_block_columns(k, want):
+    # a tensor-core block's columns divide K and are at most 256 (two
+    # m64n128 accumulators a warpgroup)
+    assert ffn._tc_cols(k) == want and k % want == 0
+
+
+@pytest.mark.parametrize("clusters,most,slots", [(64, 4, 39), (48, 8, 39),
+                                                 (48, 8, 44), (1, 4, 39),
+                                                 (8, 4, 39), (144, 3, 66)])
+def test_ffn_split_rule(clusters, most, slots):
+    # the fewest ranges whose clusters fill _TC_FILL of the card's
+    # cluster slots in whole waves, else the best fill (the fewest ranges
+    # on a tie)
+    s = ffn._fill_splits(clusters, most, slots)
+
+    def fill(n):
+        return clusters * n / (-(-clusters * n // slots) * slots)
+    counts = range(1, most + 1)
+    good = [n for n in counts if fill(n) >= ffn._TC_FILL]
+    if good:
+        assert s == good[0]
+    else:
+        best = max(fill(n) for n in counts)
+        assert s == min(n for n in counts if fill(n) == best)
+
+
+def test_ffn_splits_at_gpt2_training_shape():
+    # 39 clusters of three blocks on an H100 (its occupancy query): dx's
+    # 64 row blocks in 3 F ranges, dW's 48 F tiles in 4 row ranges
+    assert ffn._dx_splits_tc(8192, 768, 3072, 256, 39) == 3
+    assert ffn._dw_splits_tc(8192, 768, 3072, 256, 39) == 4
+    # no more ranges than 64-row steps (dW) or F tiles (dx)
+    assert ffn._dw_splits_tc(8, 768, 3072, 256, 39) == 1
+    assert ffn._dx_splits_tc(8, 128, 128, 128, 39) == 2

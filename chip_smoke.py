@@ -9,7 +9,12 @@ Phases, in order; any failure exits non-zero:
   2. each kernel against its plain PyTorch version on the card (bf16 and
      fp32 with TF32 off): the paged kernel and its int8 flavor over ragged
      lengths, sentinel table entries, GQA, several block sizes and a
-     layer index > 0; the flat kernel and its int8 flavor over pad
+     layer index > 0; the paged kernel again over long rows that its split
+     design cuts into several ranges (nblk 64, lens 0, 1, 4000 and 2047,
+     Sq 1, 16 and 128, GQA groups 1, 2 and 4, D 64 and 128, Bt 16 and 64,
+     bf16, fp16 and fp32, a sentinel inside a table), every bf16 and fp16
+     launch on the split path (decode_attention.PATH_LAUNCHES); the flat
+     kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
      unmapped entry; flash attention causal and not, sq < sk, GQA, S in
      {37, 255, 1000}, D in {64, 128}, lse included; the int4 dequant-
@@ -55,8 +60,10 @@ Phases, in order; any failure exits non-zero:
      torch ops), the phase runs flash attention and the read kernel — on
      an int8 cache always the int8 flavors and never an fp attention
      kernel, over a ring never a paged kernel and vice versa — and every
-     int4 run the dequant-matmul. The pool, ring and weight bytes are
-     read from the arrays;
+     int4 run the dequant-matmul; every decode_attention_paged launch of
+     the pool runs takes the split design (decode_attention.
+     PATH_LAUNCHES). The pool, ring and weight bytes are read from the
+     arrays;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
@@ -71,8 +78,8 @@ Phases, in order; any failure exits non-zero:
      (flash_attention.PATH_LAUNCHES);
   3d. the same training under PADDLE_TPU_FUSED_FFN=1 and
      PADDLE_TPU_FUSED_FFN_BWD=1: each step must also launch exactly 12
-     fused FFN forward, 12 dx and 12 dW kernels, every dx and dW launch
-     on the tensor-core path (fused_ffn.PATH_LAUNCHES); its step time and
+     fused FFN forward, 12 dx and 12 dW kernels, every one on the
+     tensor-core path (fused_ffn.PATH_LAUNCHES); its step time and
      peak memory are printed beside 3c's;
   3e. FusedMultiTransformer at the same width (L=12, gelu, pre-LN, bf16,
      random weights) over per-layer caches [2, 8, 12, 1024, 64]: a
@@ -80,7 +87,7 @@ Phases, in order; any failure exits non-zero:
      launching exactly 12 decode_attention_bhsd and no other attention
      kernel, outputs finite; then one FusedFeedForward forward and
      backward under the fused FFN flags, launching each fused FFN kernel
-     once, dx and dW on the tensor-core path;
+     once, all three on the tensor-core path;
   3f. LLaMA training at LLaMA-2-7B width (profile_train.
      llama_train_workload: hidden 4096, 32 heads, head_dim 128,
      intermediate 11008, vocab 32000, rms_eps 1e-5, L=4,
@@ -317,6 +324,7 @@ def phase_kernels(rng):
                       f"O={o} M={m}", fdm.fused_dequant_matmul(a, wp, s),
                       fdm.fused_dequant_matmul_reference(a, wp, s), tname,
                       worst)
+    split_kernels(rng, worst)
     stacked_kernels(rng, worst)
     training_kernels(rng, worst)
     ffn_kernels(rng, worst)
@@ -324,6 +332,36 @@ def phase_kernels(rng):
     rms_kernels(rng, worst)
     ring_kernels(rng, worst)
     return worst
+
+
+def split_kernels(rng, worst):
+    """The paged kernel over long rows that its split design cuts into
+    several ranges (nblk 64: 8 ranges at Bt 16, 32 at Bt 64, for the B *
+    Hk = 4-16 blocks on 132 SMs), a sentinel inside row 1's table, against
+    the plain version; every bf16 and fp16 launch on the split path."""
+    reset_launches()
+    for dtype, tname in ((torch.bfloat16, "attention_bf16"),
+                         (torch.float16, "attention_fp16"),
+                         (torch.float32, "attention_fp32")):
+        for sq in (1, 16, 128):
+            for group in (1, 2, 4):
+                for d in (64, 128):
+                    for bt in (16, 64):
+                        args = attention_case(
+                            rng, b=4, h=4, hk=4 // group, sq=sq, d=d, bt=bt,
+                            nblk=64, n_layers=2, layer=1,
+                            lens=[0, 1, 4000, 2047], dtype=dtype,
+                            sentinel_inside=True)
+                        check(f"paged split {str(dtype):14s} Sq={sq:3d} "
+                              f"group={group} D={d:3d} Bt={bt:2d}",
+                              da.decode_attention_paged(*args),
+                              da.decode_attention_paged_reference(*args),
+                              tname, worst, quiet=True)
+    want = {"split_kv": 2 * 36, "per_head": 36}
+    log(f"  paged split cases: launches by path {dict(da.PATH_LAUNCHES)}")
+    if da.PATH_LAUNCHES != want:
+        raise SystemExit(f"paged split cases: {da.PATH_LAUNCHES} by path, "
+                         f"want {want}")
 
 
 # RMSNorm widths: small, LLaMA-2 7B's, 13B's, 65B's and the gate's
@@ -907,27 +945,26 @@ def phase_generate(seed):
 def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
                    ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
-                   rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES):
+                   rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES, da.PATH_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
-# the fused FFN kernels that take a design from kernel_path (the forward
-# stays on its wmma kernel)
-FFN_PATH_KERNELS = ("fused_ffn_bwd_dx", "fused_ffn_bwd_dw")
+# the fused FFN kernels that take a design from kernel_path
+FFN_PATH_KERNELS = ("fused_ffn_fwd", "fused_ffn_bwd_dx", "fused_ffn_bwd_dw")
 
 
-def check_tensor_core_path(label, module, kernels=None):
+def check_tensor_core_path(label, module, kernels=None, path="tc"):
     """Fail unless every launch of ``module``'s kernels (those named in
-    ``kernels``, else all) since the counts were reset took the
-    tensor-core path (``module.PATH_LAUNCHES``)."""
+    ``kernels``, else all) since the counts were reset took the design
+    ``path`` (the tensor-core one; ``module.PATH_LAUNCHES``)."""
     total = sum(n for k, n in module.LAUNCHES.items()
                 if kernels is None or k in kernels)
     paths = dict(module.PATH_LAUNCHES)
     log(f"  {label}: launches by path {paths}")
-    if paths != {"tc": total, "fp32_cores": 0}:
+    if paths != {p: total if p == path else 0 for p in paths}:
         raise SystemExit(f"{label}: {paths} by path for {total} launches; "
-                         "every one must take the tensor-core path")
+                         f"every one must take the {path} path")
 
 
 def serve_counted(seed, name, kwargs):
@@ -963,6 +1000,9 @@ def serve_counted(seed, name, kwargs):
     if name.startswith("row") and (not forms.get(16) or not forms.get(1)):
         raise SystemExit(f"{attr} forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
+    if attr == "decode_attention_paged":
+        check_tensor_core_path(f"[{name}] {attr}", da,
+                               ("decode_attention_paged",), "split_kv")
     n_prompt = sum(len(p) for p, _ in reqs)
     n_new = sum(w for _, w in reqs)
     log(f"  [{name}] {len(reqs)} requests, {n_prompt} prompt tokens, "
@@ -1081,7 +1121,7 @@ def phase_train_ffn(seed, base, steps=10, warmup=2):
     with environ(FUSED_FFN_FLAGS):
         launches, med, peak = train_run(gpt2_train_workload, seed, steps,
                                         warmup, FFN_TRAIN_LAUNCHES)
-    check_tensor_core_path("fused FFN backward", ffn, FFN_PATH_KERNELS)
+    check_tensor_core_path("fused FFN", ffn, FFN_PATH_KERNELS)
     _, base_med, base_peak = base
     log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
         f"{1e3 * base_med:.3f} ms ({med / base_med:.3f}x), tokens/s "
@@ -1269,7 +1309,7 @@ def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
     if got != {k: 1 for k in ffn.LAUNCHES}:
         raise SystemExit(f"FusedFeedForward launched {got}, want each fused "
                          "FFN kernel once")
-    check_tensor_core_path("FusedFeedForward backward", ffn,
+    check_tensor_core_path("FusedFeedForward", ffn,
                            FFN_PATH_KERNELS)
     if not torch.isfinite(y).all() or not all(
             g is not None and bool(torch.isfinite(g).all()) for g in grads):

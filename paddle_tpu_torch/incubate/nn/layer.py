@@ -100,16 +100,50 @@ class FusedFeedForward(nn.Module):
             generator=self.generator)
 
 
+_FMT_ATTRS = ("ln_scale_attrs", "ln_bias_attrs", "qkv_weight_attrs",
+              "qkv_bias_attrs", "linear_weight_attrs", "linear_bias_attrs",
+              "ffn_ln_scale_attrs", "ffn_ln_bias_attrs", "ffn1_weight_attrs",
+              "ffn1_bias_attrs", "ffn2_weight_attrs", "ffn2_bias_attrs")
+
+
 class FusedMultiTransformer(nn.Module):
+    """The JAX layer's parameters in its order and with its defaults:
+    ``num_layers < 0`` means one layer per ``qkv_weight_attrs`` entry, or
+    one; ``dropout_rate``, ``nranks``, ``trans_qkvw``, ``ring_id`` and
+    ``name`` are taken and, as there, unused. A ``*_attrs`` other than
+    None is not ported yet (ROADMAP Queue 1 item 10(e)): the values come
+    from ``weights.from_jax_state``. ``dtype`` and ``device`` are the
+    port's own, keyword-only."""
+
     def __init__(self, embed_dim, num_heads, dim_feedforward,
-                 activation="gelu", normalize_before=True, epsilon=1e-5,
-                 num_layers=1, dtype=torch.float32, device=None):
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 ln_scale_attrs=None, ln_bias_attrs=None,
+                 qkv_weight_attrs=None, qkv_bias_attrs=None,
+                 linear_weight_attrs=None, linear_bias_attrs=None,
+                 ffn_ln_scale_attrs=None, ffn_ln_bias_attrs=None,
+                 ffn1_weight_attrs=None, ffn1_bias_attrs=None,
+                 ffn2_weight_attrs=None, ffn2_bias_attrs=None,
+                 epsilon=1e-5, num_layers=-1, nranks=1, trans_qkvw=True,
+                 ring_id=-1, name=None, *, dtype=torch.float32, device=None):
         super().__init__()
+        attrs = dict(zip(_FMT_ATTRS, (
+            ln_scale_attrs, ln_bias_attrs, qkv_weight_attrs, qkv_bias_attrs,
+            linear_weight_attrs, linear_bias_attrs, ffn_ln_scale_attrs,
+            ffn_ln_bias_attrs, ffn1_weight_attrs, ffn1_bias_attrs,
+            ffn2_weight_attrs, ffn2_bias_attrs)))
+        given = [k for k, v in attrs.items() if v is not None]
+        if given:
+            raise NotImplementedError(
+                f"FusedMultiTransformer: {', '.join(given)} not ported yet "
+                "(ROADMAP Queue 1 item 10(e)); load the values with "
+                "weights.from_jax_state")
         device = resolve_device(device)
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
                              f"num_heads {num_heads}")
-        self.num_layers = int(num_layers)
+        # JAX: len(qkv_weight_attrs) if given, else 1 (attrs are refused
+        # above)
+        self.num_layers = 1 if num_layers < 0 else int(num_layers)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads

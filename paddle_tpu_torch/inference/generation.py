@@ -118,11 +118,13 @@ class FusedDecoder:
     ``PADDLE_TPU_KERNEL_CACHE_WRITE=1``: a ring's one-token steps land
     their K/V inside the fused write+attend kernels instead of a write
     followed by the read kernel. ``head_quant="int8"`` (JAX:
-    ``PADDLE_TPU_DECODE_INT8_HEAD=1``) is not ported yet."""
+    ``PADDLE_TPU_DECODE_INT8_HEAD=1``) is not ported yet. The arguments
+    before it are JAX's, in JAX's order; ``rope_base`` matters only under
+    ``use_rotary``, which is not ported yet either."""
 
     def __init__(self, fmt, embed, head, max_seq_len, use_rotary=False,
-                 weight_quant=None, kv_quant=None, cache_write_kernel=False,
-                 head_quant=None, device=None):
+                 rope_base=10000.0, weight_quant=None, kv_quant=None,
+                 cache_write_kernel=False, head_quant=None, device=None):
         if use_rotary:
             raise NotImplementedError(
                 "use_rotary: rotary embeddings are not ported yet "

@@ -119,10 +119,10 @@ class GPTModel(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        self.wte = Embedding(c.vocab_size, c.hidden_size, dtype, device,
-                             trainable=True)
-        self.wpe = Embedding(c.max_position, c.hidden_size, dtype, device,
-                             trainable=True)
+        self.wte = Embedding(c.vocab_size, c.hidden_size, dtype=dtype,
+                             device=device, trainable=True)
+        self.wpe = Embedding(c.max_position, c.hidden_size, dtype=dtype,
+                             device=device, trainable=True)
         self.drop = Dropout(c.dropout, generator=generator)
         self.h = nn.ModuleList([GPTBlock(c, generator, device, dtype)
                                 for _ in range(c.num_layers)])

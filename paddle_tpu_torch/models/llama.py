@@ -205,8 +205,9 @@ class LlamaModel(nn.Module):
     def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()
         self.config = c
-        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size, dtype,
-                                      device, trainable=True)
+        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size,
+                                      dtype=dtype, device=device,
+                                      trainable=True)
         self.layers = nn.ModuleList([LlamaBlock(c, device, dtype)
                                      for _ in range(c.num_layers)])
         self.norm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,

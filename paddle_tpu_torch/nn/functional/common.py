@@ -28,7 +28,7 @@ def keep_mask(shape, p, generator, device):
     return torch.rand(shape, generator=g, device=device) >= p
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """``y = x @ W + b`` with W ``[in, out]`` (Paddle's layout)."""
     y = x @ weight
     return y if bias is None else y + bias.to(y.dtype)

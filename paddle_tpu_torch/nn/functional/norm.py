@@ -27,7 +27,8 @@ def _kernel_ok(x, normalized_shape, weight, bias) -> bool:
             and ln.is_supported(tuple(x.shape), x.dtype))
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     normalized_shape = tuple(normalized_shape)

@@ -25,28 +25,57 @@ def _param(shape, dtype, device, trainable=False):
                         requires_grad=trainable)
 
 
-class Embedding(nn.Module):
-    """Token embedding, weight ``[num_embeddings, embedding_dim]``."""
+def _no_initializer(layer, what, attr):
+    """Refuse a ``ParamAttr`` that names an initializer (JAX's layers draw
+    from it; the port's parameters get their values from
+    ``weights.from_jax_state`` or a model's own init)."""
+    if getattr(attr, "initializer", None) is not None:
+        raise NotImplementedError(
+            f"{layer}: {what} with an initializer is not ported yet "
+            "(ROADMAP Queue 1 item 10(e))")
 
-    def __init__(self, num_embeddings, embedding_dim, dtype=torch.float32,
-                 device=None, trainable=False):
+
+class Embedding(nn.Module):
+    """Token embedding, weight ``[num_embeddings, embedding_dim]``, in
+    JAX's parameter order. ``padding_idx``: that row starts at zero and
+    those ids give zeros (no gradient reaches the row from them), as in
+    JAX. ``sparse=True`` is not ported yet."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *,
+                 dtype=torch.float32, device=None, trainable=False):
         super().__init__()
+        if sparse:
+            raise NotImplementedError(
+                "Embedding: sparse=True is not ported yet (ROADMAP Queue 1 "
+                "item 10(e))")
+        _no_initializer("Embedding", "weight_attr", weight_attr)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
         self.weight = _param((num_embeddings, embedding_dim), dtype, device,
                              trainable)
+        if padding_idx is not None and self.weight.device.type != "meta":
+            with torch.no_grad():
+                self.weight[padding_idx] = 0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        out = F.embedding(ids, self.weight)
+        if self.padding_idx is None:
+            return out
+        return out.masked_fill((ids == self.padding_idx)[..., None], 0)
 
 
 class Linear(nn.Module):
-    """``y = x @ W + b`` with ``W: [in_features, out_features]``;
-    ``bias_attr=False`` drops the bias, as in Paddle."""
+    """``y = x @ W + b`` with ``W: [in_features, out_features]``, in JAX's
+    parameter order; ``bias_attr=False`` drops the bias, as in Paddle."""
 
-    def __init__(self, in_features, out_features, bias_attr=None,
-                 dtype=torch.float32, device=None, trainable=False):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, dtype=torch.float32,
+                 device=None, trainable=False):
         super().__init__()
+        _no_initializer("Linear", "weight_attr", weight_attr)
+        _no_initializer("Linear", "bias_attr", bias_attr)
         self.in_features = in_features
         self.out_features = out_features
         self.weight = _param((in_features, out_features), dtype, device,

@@ -61,9 +61,12 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # words, keep threshold, 1 / (1 - p)
 _DROP = [_I, _U, _U, _U, _F]
 _ENTRY = {
+    # the paged kernel: pointers (the split workspace last), B, H, Sq, D,
+    # NB, Hk, Bt, nblk, the layer, the splits and table blocks a split,
+    # the scale, the dtype code and the design (paged_path's)
     "decode_attention_paged": (
         "paddle_decode_attention_paged",
-        [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
+        [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P]),
     "decode_attention_paged_flat": (
         "paddle_decode_attention_paged_flat",
         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
@@ -102,10 +105,10 @@ _ENTRY = {
     "layer_norm_bwd": (
         "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 3 + [_P]),
     # the fused FFN: pointers, then M, K, F, the block's K columns (BN),
-    # (the backward kernels: the F or row ranges,) the activation and the
-    # dtype codes, (the backward kernels: the design, 1 = tensor cores)
+    # the F or row ranges, the activation and the dtype codes, the design
+    # (1 = tensor cores)
     "fused_ffn_fwd": (
-        "paddle_fused_ffn_fwd", [_P] * 6 + [_I] * 6 + [_P]),
+        "paddle_fused_ffn_fwd", [_P] * 6 + [_I] * 8 + [_P]),
     "fused_ffn_bwd_dx": (
         "paddle_fused_ffn_bwd_dx", [_P] * 6 + [_I] * 8 + [_P]),
     "fused_ffn_bwd_dw": (
@@ -131,13 +134,15 @@ _ENTRY = {
     # dropout draws, for checks against the plain version
     "flash_dropout_mask": (
         "paddle_flash_dropout_mask", [_P] + [_I] * 4 + [_U] * 3 + [_P]),
-    # second entries of the fused FFN backward libraries: how many of
-    # their tensor-core clusters the card holds (K, BN, the dtype code)
+    # second entries of the fused FFN libraries: how many of their
+    # tensor-core clusters the card holds (K, BN, the dtype code)
+    "fused_ffn_fwd_slots": ("paddle_fused_ffn_fwd_slots", [_I] * 3),
     "fused_ffn_bwd_dx_slots": ("paddle_fused_ffn_bwd_dx_slots", [_I] * 3),
     "fused_ffn_bwd_dw_slots": ("paddle_fused_ffn_bwd_dw_slots", [_I] * 3),
 }
 # entries that live in another entry's library
 _LIBRARY = {"flash_dropout_mask": "flash_attention_fwd",
+            "fused_ffn_fwd_slots": "fused_ffn_fwd",
             "fused_ffn_bwd_dx_slots": "fused_ffn_bwd_dx",
             "fused_ffn_bwd_dw_slots": "fused_ffn_bwd_dw"}
 

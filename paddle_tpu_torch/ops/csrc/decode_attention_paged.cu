@@ -17,17 +17,30 @@
 // value dtype before the PV product; a row whose softmax sum is 0 returns 0.
 //
 // What bounds it on the card: bytes. A decode step reads the row's whole
-// valid KV prefix once per head and does 4*D flops per position and query
-// row, far below the H100's ~295 flop/byte ridge. This first version is the
-// simple correct design: one thread block per (row, head), K/V staged
-// through shared memory 32 positions at a time as fp32 (row stride D + 1, so
-// the per-lane dot products hit distinct banks), four warps each owning up to
-// four query rows with an fp32 online softmax in registers. GQA heads of one
-// KV head re-read the same blocks (from L2); split-K over long rows, wgmma
-// for Sq = 16 and TMA loads are left for later work.
+// valid KV prefix once per KV head and does 4*D flops per position and
+// query row, far below the H100's ~295 flop/byte ridge; at the serving
+// shape (B 8, H 12, 1025 positions, D 64, bf16) the 25 MB of K and V take
+// 7.5 us at 3.35 TB/s.
+//
+// Two designs; the wrapper picks one (ops/decode_attention.py's
+// paged_path) and passes it as `path`; the entry runs that design or fails:
+// - path 1, "split_kv" (bf16 and fp16, D a multiple of 8): split_decode.cuh.
+//   The KV length is split over S blocks per (row, KV head), S from the
+//   shapes and the SM count (the wrapper's paged_splits), each block
+//   holding the GQA group's query rows, staging K/V tiles in the stored
+//   dtype with 16-byte cp.async copies through a ring of 2-3 stages and
+//   multiplying on mma.sync; a second kernel merges the S partials of each
+//   row from the fp32 workspace `work` in split order.
+// - path 0, "per_head" (fp32, or D not a multiple of 8): the first design,
+//   one thread block per (row, head), K/V staged through shared memory 32
+//   positions at a time as fp32 (row stride D + 1, so the per-lane dot
+//   products hit distinct banks), four warps each owning up to four query
+//   rows with an fp32 online softmax in registers.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "split_decode.cuh"
 
 namespace {
 
@@ -220,16 +233,42 @@ cudaError_t launch_d(const void* q, const void* pool, const void* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t
-// (0 on success); the caller has validated shapes, devices and layout.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. path: 1 = split_kv (bf16
+// or fp16, D a multiple of 8; splits S >= 1 ranges of cb table blocks each,
+// S = ceil(nblk / cb); work: fp32 [S * B * H * Sq * (D + 2)] when S > 1, q,
+// pool and out 16-byte aligned), 0 = per_head (splits 1; work unused); any
+// other pairing returns cudaErrorInvalidValue. Returns a cudaError_t (0 on
+// success); the caller has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_paged(
     const void* q, const void* pool, const void* tables, const void* lens,
-    void* out, int B, int H, int Sq, int D, int NB, int Hk, int Bt, int nblk,
-    int layer, float scale, int dtype, void* stream) {
+    void* out, void* work, int B, int H, int Sq, int D, int NB, int Hk,
+    int Bt, int nblk, int layer, int splits, int cb, float scale, int dtype,
+    int path, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
-      H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1)
+      H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1 ||
+      splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    if (D % 8 || cb < 1 || (nblk + cb - 1) / cb != splits ||
+        (splits > 1 && work == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (!paddle_attn::wg::aligned16(q, pool, out))
+      return (int)cudaErrorMisalignedAddress;
+    switch (dtype) {
+      case 1:
+        return (int)paddle_attn::split::launch_d<__nv_bfloat16>(
+            q, pool, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk,
+            layer, splits, cb, scale, s);
+      case 2:
+        return (int)paddle_attn::split::launch_d<__half>(
+            q, pool, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk,
+            layer, splits, cb, scale, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, pool, tables, lens, out, B, H, Sq, D, NB,

@@ -1,0 +1,538 @@
+// Split-KV flash-decoding over a paged KV pool for Hopper (sm_90a), bf16
+// and fp16: the device code of decode_attention_paged.cu's "split_kv" path,
+// in a header so that the other decode kernels (the int8 pool, the dense
+// ring, the one-layer cache), which launch one block per (row, head) today,
+// can move onto it.
+//
+// The work of one (row b, KV head hk) is split along the KV length into S
+// ranges of cb table blocks (cb * Bt positions); the grid is (B * Hk, S),
+// S chosen by the wrapper from the shapes and the SM count alone, so the
+// launch reads nothing back from the card (CUDA-graph capturable). A block
+// whose range lies wholly past its row's last attendable position writes
+// an empty partial (m = -1e30, l = 0) and exits.
+//
+// A block holds all R = G * Sq query rows of its KV head (G = H / Hk), so
+// each KV position is read once per GQA group. K and V tiles of 64
+// positions are staged in the stored dtype through a ring of stages by
+// 16-byte cp.async copies (every thread issues 8-32 of them a tile, all in
+// flight together), each position resolved through the block table;
+// positions past the range and head dims past D are zero-filled. The
+// products run on the tensor cores: mma.sync m16n8k16 with fp32 sums, Q K^T
+// with the 16-row query groups as A fragments held in registers and K read
+// by ldmatrix, P V with P's accumulator turned into A fragments in place
+// (rounded to the value dtype) and V read by ldmatrix.trans. Rows are padded
+// to 16 per group (an Sq = 1 decode uses one row of each mma; the card's
+// bytes, not its products, bound it).
+//
+// The four warps split a tile between them as WP position slices x (4 / WP)
+// row groups: WP = 4 when R <= 16 (decode: each warp takes its own 16
+// positions of every tile), 2 when R <= 32, else 1 (each warp a 16-row
+// group over the whole tile, in passes over the KV range when R > 64).
+// Warps that share a row group keep their own fp32 online softmax (m, l and
+// the [16, D] accumulator) and merge through shared memory at the end. With
+// S = 1 the block writes the normalised output; otherwise (o unnormalised,
+// m, l) go to an fp32 workspace, and merge_kernel combines the S partials
+// of each query row in split order (deterministic), an all-empty row
+// giving 0.
+//
+// Semantics are decode_attention_paged's: query row r attends positions <=
+// lens[b] + r; an unmapped table entry (the sentinel NB) reads block NB - 1;
+// scores, m and l are fp32; p is rounded to the value dtype before P V and l
+// sums the unrounded p; a row whose sum is 0 returns 0.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "numeric.cuh"
+#include "wgmma_tile.cuh"
+
+namespace paddle_attn {
+
+namespace split {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;  // KV positions a stage
+constexpr float kNeg = -1e30f;
+
+// DP: the head dim padded to the instantiation's width (64, 128 or 256).
+template <int DP>
+struct Cfg {
+  static constexpr int kLd = DP + 8;  // shared row stride: ldmatrix's eight
+                                      // rows land on distinct banks
+  static constexpr int kStages = DP <= 128 ? 3 : 2;
+  static constexpr int kTileBytes = kTile * kLd * 2;  // one K or V tile
+  static constexpr int kSmem = kStages * 2 * kTileBytes;
+  static constexpr int kAcc = DP / 2;  // accumulator floats a lane
+  // the warps' (m, l, acc) exchange reuses the ring
+  static_assert(kWarps * 32 * (kAcc + 4) * 4 <= kSmem, "merge slots fit");
+};
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Where a block's KV lives: the pool's K and V planes of one layer, the
+// row's table, and the pool's shape.
+template <typename T>
+struct PagedKV {
+  const T* k;       // [NB, Hk, Bt, D] of layer `layer`
+  const T* v;
+  const int* tbl;   // [nblk] of row b
+  int NB, Hk, Bt, D;
+};
+
+// Block-wide: positions [p0, p0 + kTile) of KV head hk into a stage (K tile
+// then V tile, [kTile][kLd] each), 16-byte cp.async chunks; positions at or
+// past p_end and dims at or past D zero-filled.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(uint32_t stage,
+                                          const PagedKV<T>& kv, int hk,
+                                          int p0, int p_end) {
+  using C = Cfg<DP>;
+  constexpr int kCpr = DP / 8;  // chunks a row
+  constexpr int kChunks = 2 * kTile * kCpr;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kChunks; i += kThreads) {
+    const int plane = i / (kTile * kCpr);
+    const int rem = i - plane * (kTile * kCpr);
+    const int j = rem / kCpr;
+    const int c = rem - j * kCpr;
+    const int p = p0 + j;
+    const bool ok = p < p_end && c * 8 < kv.D;
+    const T* src = plane ? kv.v : kv.k;
+    if (ok) {
+      const int blk = min(__ldg(kv.tbl + p / kv.Bt), kv.NB - 1);
+      src += ((size_t)(blk * kv.Hk + hk) * kv.Bt + p % kv.Bt) * kv.D + c * 8;
+    }
+    wg::cp_async16(stage + plane * C::kTileBytes + (j * C::kLd + c * 8) * 2,
+                   src, ok);
+  }
+}
+
+// grid (B * Hk, S), kThreads threads, Cfg<DP>::kSmem bytes of shared
+// memory. cb: table blocks a split. With S = 1 writes out; else the
+// partials: o [S, B * H * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
+template <typename T, int DP, int WP>
+__global__ void __launch_bounds__(kThreads)
+    split_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+                 const int* __restrict__ tables, const int* __restrict__ lens,
+                 T* __restrict__ out, float* __restrict__ o_part,
+                 float* __restrict__ ml_part, int B, int H, int Sq, int D,
+                 int NB, int Hk, int Bt, int nblk, int layer, int cb,
+                 float scale) {
+  using C = Cfg<DP>;
+  constexpr int WR = kWarps / WP;   // row groups a pass
+  constexpr int PW = kTile / WP;    // positions a warp takes of a tile
+  constexpr int NT = PW / 8;        // its n8 score tiles
+  constexpr int KS = DP / 16;       // k16 steps of Q K^T
+  static_assert(PW % 16 == 0, "whole k16 steps of P V");
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t ring = wg::smem_u32(smem_raw);
+
+  const int b = blockIdx.x / Hk;
+  const int hk = blockIdx.x - b * Hk;
+  const int s = blockIdx.y;
+  const int S = gridDim.y;
+  const int G = H / Hk;
+  const int R = G * Sq;
+  const int rows = B * H * Sq;  // query rows of the whole call
+  const int len = lens[b];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = warp / WP;
+  const int wp = warp - wr * WP;
+
+  // this split's positions, cut at the last one any row attends
+  const int p_lo = s * cb * Bt;
+  const int p_end = min(min((s + 1) * cb, nblk) * Bt,
+                        min(len + Sq, nblk * Bt));
+  // query row i of this block: head hk * G + i / Sq, row i % Sq; its
+  // index among the call's rows
+  auto row_index = [&](int i) {
+    return (b * H + hk * G + i / Sq) * Sq + i % Sq;
+  };
+  if (p_lo >= p_end) {  // nothing to attend here: an empty partial
+    for (int i = threadIdx.x; i < R; i += kThreads) {
+      float* ml = ml_part + 2 * ((size_t)s * rows + row_index(i));
+      ml[0] = kNeg;
+      ml[1] = 0.f;
+    }
+    return;
+  }
+
+  const size_t plane = (size_t)NB * Hk * Bt * D;
+  const PagedKV<T> kv{pool + (size_t)layer * 2 * plane,
+                      pool + (size_t)layer * 2 * plane + plane,
+                      tables + (size_t)b * nblk, NB, Hk, Bt, D};
+  const int n_tiles = (p_end - p_lo + kTile - 1) / kTile;
+  const int n_groups = (R + 15) / 16;
+
+  for (int rg0 = 0; rg0 < n_groups; rg0 += WR) {
+    const int rg = rg0 + wr;
+    const bool active = rg < n_groups;  // uniform across the warp
+    // this lane's two rows (g and g + 8 of the group): validity and the
+    // last position each attends (-1: none)
+    int lim[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int i = rg * 16 + g + 8 * ri;
+      lim[ri] = (active && i < R) ? len + i % Sq : -1;
+    }
+    // Q as A fragments: rows g / g + 8, dims 16 kk + 2 t (+ 8)
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int i = rg * 16 + g + 8 * ri;
+      const T* qrow = q + (size_t)row_index(i < R ? i : 0) * D;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int d = 16 * kk + 8 * hi + 2 * t;
+          qa[kk][2 * hi + ri] =
+              (lim[ri] >= 0 && d < D)
+                  ? *reinterpret_cast<const uint32_t*>(qrow + d)
+                  : 0u;
+        }
+    }
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    float acc[DP / 8][4];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+#pragma unroll
+    for (int st = 0; st < C::kStages - 1; ++st) {
+      if (st < n_tiles)
+        load_tile<T, DP>(ring + st * 2 * C::kTileBytes, kv, hk,
+                         p_lo + st * kTile, p_end);
+      wg::cp_async_commit();
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      wg::cp_async_wait<C::kStages - 2>();
+      __syncthreads();  // tile it landed; every warp is done with it - 1
+      {
+        const int nx = it + C::kStages - 1;
+        if (nx < n_tiles)
+          load_tile<T, DP>(ring + (nx % C::kStages) * 2 * C::kTileBytes, kv,
+                           hk, p_lo + nx * kTile, p_end);
+        wg::cp_async_commit();
+      }
+      if (!active) continue;
+      const uint32_t ks = ring + (it % C::kStages) * 2 * C::kTileBytes;
+      const uint32_t vs = ks + C::kTileBytes;
+      const int pw0 = wp * PW;  // the warp's first position in the tile
+      const int p_tile = p_lo + it * kTile + pw0;
+
+      // scores of rows g, g + 8 at positions 8 n + 2 t (+ 1)
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 2)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t kb[4];
+          ldsm_x4(ks + ((pw0 + 8 * n + (lane & 7)) * C::kLd + 16 * kk +
+                        8 * (lane >> 3)) * 2,
+                  kb);
+          mma16816<T>(sc[n], qa[kk], kb[0], kb[1]);
+          mma16816<T>(sc[n], qa[kk + 1], kb[2], kb[3]);
+        }
+      uint32_t okm = 0;  // bit 4 n + e: a position the row attends
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p_tile + 8 * n + 2 * t + (e & 1);
+          const bool ok = p < p_end && p <= lim[e >> 1];
+          okm |= (uint32_t)ok << (4 * n + e);
+          sc[n][e] = ok ? sc[n][e] * scale : kNeg;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
+        mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
+        const float m_new = fmaxf(m[ri], mx[ri]);
+        alpha[ri] = expf(m[ri] - m_new);
+        m[ri] = m_new;
+        l[ri] *= alpha[ri];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (okm >> (4 * n + e)) & 1u
+                              ? expf(sc[n][e] - m[e >> 1])
+                              : 0.f;
+          l[e >> 1] += p;  // the unrounded p
+          sc[n][e] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      // P V: p rounded to T as the A fragments of k16 steps of positions
+#pragma unroll
+      for (int kk = 0; kk < PW / 16; ++kk) {
+        const uint32_t pa[4] = {
+            wg::pack2<T>(sc[2 * kk][0], sc[2 * kk][1]),
+            wg::pack2<T>(sc[2 * kk][2], sc[2 * kk][3]),
+            wg::pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+            wg::pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < DP / 8; n += 2) {
+          uint32_t vb[4];
+          ldsm_x4_t(vs + ((pw0 + 16 * kk + 8 * ((lane >> 3) & 1) +
+                           (lane & 7)) * C::kLd +
+                          8 * n + 8 * (lane >> 4)) * 2,
+                    vb);
+          mma16816<T>(acc[n], pa, vb[0], vb[1]);
+          mma16816<T>(acc[n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    wg::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+
+    // l over the row's four lanes
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      l[ri] += __shfl_xor_sync(0xffffffffu, l[ri], 1);
+      l[ri] += __shfl_xor_sync(0xffffffffu, l[ri], 2);
+    }
+    if constexpr (WP > 1) {
+      // the warps of a row group merge in warp wp = 0: each lane's (m, l,
+      // acc) in fragment order, so a lane reads only its own elements
+      float* slot = reinterpret_cast<float*>(smem_raw);
+      constexpr int kSlot = C::kAcc + 4;
+      float* mine = slot + (size_t)(warp * 32 + lane) * kSlot;
+      if (active && wp > 0) {
+        mine[0] = m[0];
+        mine[1] = m[1];
+        mine[2] = l[0];
+        mine[3] = l[1];
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mine[4 + 4 * n + e] = acc[n][e];
+      }
+      __syncthreads();
+      if (active && wp == 0) {
+#pragma unroll
+        for (int w2 = 1; w2 < WP; ++w2) {
+          const float* other = mine + (size_t)w2 * 32 * kSlot;
+          float fa[2], fb[2];
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri) {
+            const float mm = fmaxf(m[ri], other[ri]);
+            fa[ri] = expf(m[ri] - mm);
+            fb[ri] = expf(other[ri] - mm);
+            m[ri] = mm;
+            l[ri] = l[ri] * fa[ri] + other[2 + ri] * fb[ri];
+          }
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[n][e] = acc[n][e] * fa[e >> 1] +
+                          other[4 + 4 * n + e] * fb[e >> 1];
+        }
+      }
+      __syncthreads();  // the slots are free for the next pass's ring
+    }
+    if (active && wp == 0) {
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        if (lim[ri] < 0) continue;
+        const int idx = row_index(rg * 16 + g + 8 * ri);
+        if (S == 1) {
+          const float denom = l[ri] == 0.f ? 1.f : l[ri];
+          T* orow = out + (size_t)idx * D;
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n) {
+            const int d = 8 * n + 2 * t;
+            if (d < D)
+              *reinterpret_cast<uint32_t*>(orow + d) = wg::pack2<T>(
+                  acc[n][2 * ri] / denom, acc[n][2 * ri + 1] / denom);
+          }
+        } else {
+          float* orow = o_part + ((size_t)s * rows + idx) * D;
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n) {
+            const int d = 8 * n + 2 * t;
+            if (d < D)
+              *reinterpret_cast<float2*>(orow + d) =
+                  make_float2(acc[n][2 * ri], acc[n][2 * ri + 1]);
+          }
+          if (t == 0) {
+            float* ml = ml_part + 2 * ((size_t)s * rows + idx);
+            ml[0] = m[ri];
+            ml[1] = l[ri];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One warp a query row: the S partials combined in split order, o / l
+// rounded to T (0 where l is 0). D <= 256. Lane s reads split s's (m, l)
+// (32 splits a pass), so the loads of a row go out together; the o rows of
+// the splits that hold positions are added in split order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    merge_kernel(const float* __restrict__ o_part,
+                 const float* __restrict__ ml_part, T* __restrict__ out,
+                 int rows, int D, int S) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float mmax = kNeg;
+  for (int s = lane; s < S; s += 32)
+    mmax = fmaxf(mmax, ml_part[2 * ((size_t)s * rows + row)]);
+  mmax = warp_max(mmax);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float lsum = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    // this lane's split: its weight, 0 where it is empty (its o unwritten)
+    float w = 0.f;
+    if (s0 + lane < S) {
+      const float* ml = ml_part + 2 * ((size_t)(s0 + lane) * rows + row);
+      if (ml[1] != 0.f) {
+        w = expf(ml[0] - mmax);
+        lsum += w * ml[1];
+      }
+    }
+    const int n = min(32, S - s0);
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      if (wj == 0.f) continue;  // the same for every lane
+      const float* o = o_part + ((size_t)(s0 + j) * rows + row) * D;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) acc[i] += wj * o[d];
+      }
+    }
+  }
+  const float l = warp_sum(lsum);
+  const float denom = l == 0.f ? 1.f : l;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) out[(size_t)row * D + d] = from_f<T>(acc[i] / denom);
+  }
+}
+
+template <typename T, int DP, int WP>
+cudaError_t launch(const void* q, const void* pool, const void* tables,
+                   const void* lens, void* out, void* work, int B, int H,
+                   int Sq, int D, int NB, int Hk, int Bt, int nblk,
+                   int layer, int S, int cb, float scale,
+                   cudaStream_t stream) {
+  auto kernel = split_kernel<T, DP, WP>;
+  constexpr int smem = Cfg<DP>::kSmem;
+  // set on every launch (a function-local static in a header template
+  // would be one object across every library built from it)
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = B * H * Sq;
+  float* o_part = static_cast<float*>(work);
+  float* ml_part = S > 1 ? o_part + (size_t)S * rows * D : nullptr;
+  kernel<<<dim3(B * Hk, S), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pool),
+      static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<T*>(out), o_part, ml_part, B, H, Sq, D, NB, Hk, Bt, nblk,
+      layer, cb, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      o_part, ml_part, static_cast<T*>(out), rows, D, S);
+  return cudaGetLastError();
+}
+
+// The instantiation for D (<= 256, a multiple of 8) and R = (H / Hk) * Sq
+// query rows a block: the warps' split (WP) and the padded width (DP).
+template <typename T, int DP>
+cudaError_t launch_wp(const void* q, const void* pool, const void* tables,
+                      const void* lens, void* out, void* work, int B, int H,
+                      int Sq, int D, int NB, int Hk, int Bt, int nblk,
+                      int layer, int S, int cb, float scale,
+                      cudaStream_t stream) {
+  const int R = H / Hk * Sq;
+  if (R <= 16)
+    return launch<T, DP, 4>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+  if (R <= 32)
+    return launch<T, DP, 2>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+  return launch<T, DP, 1>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                          NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* pool, const void* tables,
+                     const void* lens, void* out, void* work, int B, int H,
+                     int Sq, int D, int NB, int Hk, int Bt, int nblk,
+                     int layer, int S, int cb, float scale,
+                     cudaStream_t stream) {
+  if (D <= 64)
+    return launch_wp<T, 64>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+  if (D <= 128)
+    return launch_wp<T, 128>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                             NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+  return launch_wp<T, 256>(q, pool, tables, lens, out, work, B, H, Sq, D,
+                           NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+}
+
+}  // namespace split
+
+}  // namespace paddle_attn

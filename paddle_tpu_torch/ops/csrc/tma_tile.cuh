@@ -183,6 +183,23 @@ __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map,
         : "memory");
 }
 
+// `bytes` (a multiple of 16) of this CTA's shared memory at src copied to
+// the same offset dst in CTA `rank` of the cluster, reported to that CTA's
+// mbarrier at bar's offset (complete_tx). An async-proxy read: threads'
+// writes to src are fenced (fence_async_smem) and synchronised first.
+__device__ __forceinline__ void copy_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar,
+                                             uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 rd, rb;\n"
+      "mapa.shared::cluster.u32 rd, %0, %4;\n"
+      "mapa.shared::cluster.u32 rb, %3, %4;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [rd], [%1], %2, [rb];\n}\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar), "r"(rank)
+      : "memory");
+}
+
 // Generic-proxy writes to shared memory (a copy by the threads) visible to
 // wgmma, which reads through the async proxy.
 __device__ __forceinline__ void fence_async_smem() {

@@ -1,10 +1,10 @@
 // Hopper's warpgroup tensor-core products (wgmma) and the shared-memory
 // tiles they read, shared by the flash attention kernels' tensor-core
 // path (flash_fwd.cuh, flash_bwd_dkv.cuh, flash_bwd_dq.cuh) and the fused
-// FFN backward's (fused_ffn_bwd_dx.cu, fused_ffn_bwd_dw.cu: the products
-// with the operand orders as template arguments, mma_ss_t and
-// mma_rs128_t; their tiles come in through TMA, tma_tile.cuh, in this
-// layout).
+// FFN kernels' (fused_ffn_fwd.cu, fused_ffn_bwd_dx.cu, fused_ffn_bwd_dw.cu:
+// the products with the operand orders as template arguments, mma_ss_t,
+// mma_ss128_t and mma_rs128_t; their tiles come in through TMA,
+// tma_tile.cuh, in this layout).
 //
 // A tile holds ROWS rows of D (64 or 128) bf16 or fp16 values as D / 64
 // panels of [ROWS][64], one after the other; a panel row is 128 bytes, and
@@ -413,6 +413,27 @@ __device__ __forceinline__ void mma_ss_t(float (&d)[32], uint64_t a,
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{" PADDLE_WG_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : PADDLE_WG_D32
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (+)= A B over one k-step of 16, m64n128, A and B in shared memory in
+// the orders TA and TB (the fused FFN forward's t W2, t a K-major tile).
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void mma_ss128_t(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{" PADDLE_WG_R64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : PADDLE_WG_D64
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" PADDLE_WG_R64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : PADDLE_WG_D64
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
 }
 

@@ -39,6 +39,15 @@ the prefix < lens[b] plus the new token, seeded from ``kv_new``. The ring
 is a pool of B blocks of Smax positions with one block per row, so the
 plain versions reuse the paged ones through that table.
 
+``decode_attention_paged`` has two designs, picked by ``paged_path``
+from the dtype and D alone, the one place the rule is stated: bf16 and
+fp16 at D a multiple of 8 take ``"split_kv"`` (``csrc/split_decode.cuh``:
+the KV length split over ``paged_splits`` blocks per row and KV head,
+each holding the GQA group's query rows, partials merged in split order),
+everything else ``"per_head"`` (one block per row and head, fp32
+staging). ``PATH_LAUNCHES`` counts its launches by design; the C entry
+runs the design it is given or fails.
+
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
 ``csrc/decode_attention_bhsd.cu``,
@@ -52,11 +61,14 @@ CPU tests compare against the JAX function.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
 __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
+           "decode_attention_paged_split_reference",
            "paged_is_supported", "decode_attention_paged_flat",
            "decode_attention_paged_flat_reference", "paged_flat_is_supported",
            "decode_attention_paged_i8", "decode_attention_paged_i8_reference",
@@ -73,7 +85,8 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_stacked_i8_write_reference",
            "stacked_i8_write_is_supported", "ring_table", "FLAT_CHUNK",
            "decode_attention", "decode_attention_bhsd",
-           "decode_attention_bhsd_reference", "is_supported", "LAUNCHES"]
+           "decode_attention_bhsd_reference", "is_supported", "paged_path",
+           "paged_splits", "LAUNCHES", "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_SQ, MAX_D = 128, 256
@@ -88,6 +101,16 @@ LAUNCHES = {"decode_attention_paged": 0, "decode_attention_paged_flat": 0,
             "decode_attention_stacked_write": 0,
             "decode_attention_stacked_i8_write": 0,
             "decode_attention_bhsd": 0}
+# decode_attention_paged's launches by the design that ran them
+# (paged_path)
+PATH_LAUNCHES = {"split_kv": 0, "per_head": 0}
+_PATH_CODE = {"split_kv": 1, "per_head": 0}
+# paged_splits: blocks of the split design a wave counts per SM (a full
+# table's blocks; rows shorter than the table leave the later ranges
+# empty, so the blocks that work are fewer; 8 ran the decode shape
+# fastest of 2, 4, 8 and 16), and the fewest positions a split takes
+_WAVE_BLOCKS_PER_SM = 8
+_MIN_SPLIT_POSITIONS = 128
 
 # the flat stream's query-chunk size: the packer aligns every segment start
 # to it, so each chunk belongs to one slot
@@ -168,12 +191,17 @@ def _all_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch(name, named, out, ints, scale, dtype):
+def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
     """Launch kernel ``name`` on the current stream of ``out``'s card:
     the pointers of ``named`` [(arg, tensor)] (each must be contiguous on
-    that card) then ``out``, the int arguments, the softmax scale and the
-    dtype code. Raises on a refused launch."""
-    devs = {t.device for _, t in named} | {out.device}
+    that card), ``out``, then those of ``extra`` (the paged kernel's
+    workspace), the int arguments, the softmax scale, the dtype code and,
+    for the paged kernel, the design ``path`` (``paged_path``'s). Raises
+    on an unknown path and on a refused launch."""
+    if path is not None and path not in _PATH_CODE:
+        raise ValueError(f"{name}: unknown kernel path {path!r}, not one of "
+                         f"{sorted(_PATH_CODE)}")
+    devs = {t.device for _, t in [*named, *extra]} | {out.device}
     if len(devs) != 1:
         raise ValueError(f"{name}: inputs on several devices {devs}")
     if out.device.type != "cuda":
@@ -182,16 +210,53 @@ def _launch(name, named, out, ints, scale, dtype):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     fn = _build.load(name)
-    rc = fn(*(t.data_ptr() for _, t in named), out.data_ptr(), *ints,
-            float(scale), _DTYPE_CODE[dtype],
+    design = () if path is None else (_PATH_CODE[path],)
+    rc = fn(*(t.data_ptr() for _, t in named), out.data_ptr(),
+            *(t.data_ptr() for _, t in extra), *ints, float(scale),
+            _DTYPE_CODE[dtype], *design,
             torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with CUDA error {rc} ("
             + ", ".join(f"{a} {tuple(t.shape)} {t.dtype}" for a, t in named)
-            + ")")
+            + (")" if path is None else f"; {path})"))
     LAUNCHES[name] += 1
+    if path is not None:
+        PATH_LAUNCHES[path] += 1
     return out
+
+
+def paged_path(dtype, d) -> str:
+    """The design of ``decode_attention_paged`` for queries of ``dtype``
+    at head dim ``d``: ``"split_kv"`` (split_decode.cuh, tensor cores) for
+    bf16 and fp16 at D a multiple of 8, else ``"per_head"``. The wrapper
+    passes it to the C entry, which runs that design or fails."""
+    if dtype in (torch.bfloat16, torch.float16) and d % 8 == 0:
+        return "split_kv"
+    return "per_head"
+
+
+def paged_splits(b, hk, nblk, bt, n_sm):
+    """(S, cb) of the split design: the KV length of each (row, KV head)
+    in S ranges of cb table blocks, from the shapes and the card's SM
+    count only (never from ``cache_lens``: the launch reads nothing back
+    and can be captured in a CUDA graph). S is 1 where the B * Hk blocks
+    already fill a wave (_WAVE_BLOCKS_PER_SM an SM); else the fewest
+    ranges that fill one, no range under _MIN_SPLIT_POSITIONS positions
+    (nor under one table block). S = ceil(nblk / cb), so the ranges cover
+    every block exactly once."""
+    blocks, wave = b * hk, _WAVE_BLOCKS_PER_SM * n_sm
+    if blocks >= wave:
+        return 1, nblk
+    most = max(1, min(nblk, nblk * bt // _MIN_SPLIT_POSITIONS))
+    s = min(most, -(-wave // blocks))
+    cb = -(-nblk // s)
+    return -(-nblk // cb), cb
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_paged(qt, pool, tables, layer, cache_lens, scale=None):
@@ -206,10 +271,18 @@ def decode_attention_paged(qt, pool, tables, layer, cache_lens, scale=None):
         return decode_attention_paged_reference(qt, pool, tables, layer,
                                                 cache_lens, scale)
     _, _, nb, hk, bt, _ = pool.shape
+    nblk = tables.shape[1]
+    path = paged_path(qt.dtype, d)
+    splits, cb = 1, nblk
+    if path == "split_kv" and qt.device.type == "cuda":
+        splits, cb = paged_splits(b, hk, nblk, bt, _sm_count(qt.device.index))
+    # the split partials: o [S, B*H*Sq, D] and (m, l), fp32
+    work = torch.empty((splits * b * h * sq * (d + 2) if splits > 1 else 1,),
+                       dtype=torch.float32, device=qt.device)
     return _launch(name, [("qt", qt), ("pool", pool), ("tables", tables),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
-                   (b, h, sq, d, nb, hk, bt, tables.shape[1], int(layer)),
-                   scale, qt.dtype)
+                   (b, h, sq, d, nb, hk, bt, nblk, int(layer), splits, cb),
+                   scale, qt.dtype, extra=[("work", work)], path=path)
 
 
 def _row_mask(cache_lens, sq, smax, device):
@@ -238,6 +311,49 @@ def decode_attention_paged_reference(qt, pool, tables, layer, cache_lens,
     mask = _row_mask(cache_lens, sq, nblk * bt, qt.device)
     return _fp_attend(qt.float(), kv.float(), mask, scale, pool.dtype,
                       qt.dtype)
+
+
+def decode_attention_paged_split_reference(qt, pool, tables, layer,
+                                           cache_lens, scale=None, splits=1):
+    """The split design's arithmetic in plain PyTorch: the KV length in
+    ``splits`` ranges of cb = ceil(nblk / splits) table blocks, each
+    range's fp32 partial (its own max m, the sum l of the unrounded p, o
+    the PV product of p rounded to the value dtype), then the partials
+    merged in split order with the usual rescaling; a range or row with
+    nothing to attend contributes nothing, and a row with nothing at all
+    returns 0. Equal to ``decode_attention_paged_reference`` but for
+    where p is rounded."""
+    b, h, sq, d = qt.shape
+    _, _, nb, hk, bt, _ = pool.shape
+    nblk = tables.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    cb = -(-nblk // splits)
+    tc = tables.long().clamp(max=nb - 1)
+    kv = pool[int(layer)][:, tc].permute(0, 1, 3, 2, 4, 5).reshape(
+        2, b, hk, nblk * bt, d).repeat_interleave(h // hk, dim=2).float()
+    mask = _row_mask(cache_lens, sq, nblk * bt, qt.device)
+    s = qt.float() @ kv[0].transpose(-1, -2) * scale
+    m_all = torch.full(s.shape[:-1] + (1,), NEG_INF, device=qt.device)
+    parts = []
+    for i in range(-(-nblk // cb)):
+        lo, hi = i * cb * bt, min((i + 1) * cb, nblk) * bt
+        mk = mask[..., lo:hi]
+        sc = torch.where(mk, s[..., lo:hi], torch.full_like(s[..., lo:hi],
+                                                            NEG_INF))
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(mk, torch.exp(sc - m), torch.zeros_like(sc))
+        parts.append((m, p.sum(-1, keepdim=True),
+                      p.to(pool.dtype).float() @ kv[1][..., lo:hi, :]))
+        m_all = torch.maximum(m_all, m)
+    lsum = torch.zeros_like(m_all)
+    o = torch.zeros(qt.shape, device=qt.device)
+    for m, l, part in parts:
+        w = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(l))
+        lsum = lsum + w * l
+        o = o + w * part
+    return (o / torch.where(lsum == 0, torch.ones_like(lsum), lsum)).to(
+        qt.dtype)
 
 
 def _fp_attend(q, kv, mask, scale, p_dtype, out_dtype):

@@ -23,7 +23,7 @@ On a CUDA tensor ``fused_ffn_fwd``, ``fused_ffn_bwd_dx`` and
 current stream or raise; on a CPU tensor they compute the plain versions,
 which keep the TPU kernels' roundings (the activation rounded to x's
 dtype before the second product, dpre rounded before its products, db1
-from the fp32 dpre). ``kernel_path`` picks the backward kernels' design
+from the fp32 dpre). ``kernel_path`` picks all three kernels' design
 from the dtype alone and their C entry points run that one or fail: bf16
 and fp16 on the tensor cores (``wgmma``, ``csrc/wgmma_tile.cuh``), fp32
 on the fp32 cores. ``PATH_LAUNCHES`` counts their launches by design.
@@ -54,9 +54,13 @@ _DW_BF, _DW_ROWS, _DW_TARGET_BLOCKS = 32, 64, 528
 # 64 at a time; at most this many row ranges (fp32 partials of
 # 2 * K * F * 4 bytes each)
 _DW_TC_TILE, _DW_TC_MAX_SPLITS = 64, 8
-# a cluster of the tensor-core dx kernel owns 128 rows; it walks F in at
-# most this many ranges (fp32 partials of M * K * 4 bytes each)
+# a cluster of the tensor-core dx kernel (and of the forward) owns 128
+# rows; it walks F in at most this many ranges (fp32 partials of M * K * 4
+# bytes each)
 _DX_TC_ROWS, _DX_TC_MAX_SPLITS = 128, 4
+# the F columns a range of the tensor-core forward takes at least (two of
+# its 64-column sub-tiles)
+_FWD_TC_MIN_F = 128
 # the tensor-core kernels take the fewest ranges whose clusters fill this
 # share of the card's cluster slots, in whole waves
 _TC_FILL = 0.95
@@ -64,7 +68,7 @@ _TC_FILL = 0.95
 # kernel launches, counted where a kernel is launched (the plain versions
 # on CPU tensors do not count)
 LAUNCHES = {"fused_ffn_fwd": 0, "fused_ffn_bwd_dx": 0, "fused_ffn_bwd_dw": 0}
-# the backward kernels' launches by the design that ran them (kernel_path)
+# the three kernels' launches by the design that ran them (kernel_path)
 PATH_LAUNCHES = {"tc": 0, "fp32_cores": 0}
 _PATH_CODE = {"tc": 1, "fp32_cores": 0}
 
@@ -228,7 +232,7 @@ def kernel_is_supported(m, k, f, dtype) -> bool:
 
 
 def kernel_path(dtype, k, f) -> str:
-    """The design of the backward kernels (dx and dW) for inputs of
+    """The design of the three kernels (forward, dx and dW) for inputs of
     ``dtype`` at K = ``k``, F = ``f`` (multiples of 128, as
     ``kernel_is_supported`` asks), the one place the rule is stated:
     ``"tc"`` (wgmma tiles) for bf16 and fp16, ``"fp32_cores"`` for fp32.
@@ -238,8 +242,9 @@ def kernel_path(dtype, k, f) -> str:
 
 
 def _tc_cols(k):
-    """The K columns of a tensor-core backward block: 256 where it divides
-    K, else 128 (a warpgroup's m64n128 accumulators, one or two)."""
+    """The K columns of a tensor-core block (forward, dx, dW): 256 where
+    it divides K, else 128 (a warpgroup's m64n128 accumulators, one or
+    two)."""
     return 256 if k % 256 == 0 else 128
 
 
@@ -275,13 +280,13 @@ def _check(name, x2, w1, b1, w2, b2=None, g2=None, activation="gelu_tanh"):
     return m, k, f
 
 
-def _launch(name, tensors, ints, activation, dtype, path=None):
+def _launch(name, tensors, ints, activation, dtype, path):
     """Launch kernel ``name`` on the current stream of the tensors' card:
     the pointers of ``tensors`` (each contiguous), the int arguments, the
-    activation and dtype codes, and for the backward kernels the design
-    ``path`` (``kernel_path``'s). Raises on an unknown path and on a
-    refused launch (a misaligned pointer among them: no fallback)."""
-    if path is not None and path not in _PATH_CODE:
+    activation and dtype codes, and the design ``path``
+    (``kernel_path``'s). Raises on an unknown path and on a refused
+    launch (a misaligned pointer among them: no fallback)."""
+    if path not in _PATH_CODE:
         raise ValueError(f"{name}: unknown kernel path {path!r}, not one of "
                          f"{sorted(_PATH_CODE)}")
     dev = tensors[0].device
@@ -290,32 +295,44 @@ def _launch(name, tensors, ints, activation, dtype, path=None):
     for i, t in enumerate(tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} must be contiguous")
-    design = () if path is None else (_PATH_CODE[path],)
     rc = _build.load(name)(*(t.data_ptr() for t in tensors), *ints,
                            _ACT_CODE[activation], _DTYPE_CODE[dtype],
-                           *design, torch.cuda.current_stream(dev).cuda_stream)
+                           _PATH_CODE[path],
+                           torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with CUDA error {rc} ("
             + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in tensors)
-            + (")" if path is None else f"; {path})"))
+            + f"; {path})")
     LAUNCHES[name] += 1
-    if path is not None:
-        PATH_LAUNCHES[path] += 1
+    PATH_LAUNCHES[path] += 1
 
 
 def fused_ffn_fwd(x2, w1, b1, w2, b2, activation="gelu_tanh"):
     """x2 [M, K], w1 [K, F], b1 [F], w2 [F, K], b2 [K] of one dtype ->
-    act(x2 @ w1 + b1) @ w2 + b2 [M, K] in that dtype."""
+    act(x2 @ w1 + b1) @ w2 + b2 [M, K] in that dtype. The tensor-core
+    kernel may walk F in several ranges (``_fwd_splits_tc``, from the
+    card's cluster slots); their fp32 partials (b2 in the first) are
+    summed here in a fixed order and rounded once."""
     m, k, f = _check("fused_ffn_fwd", x2, w1, b1, w2, b2,
                      activation=activation)
     if x2.device.type == "cpu":
         return fused_ffn_fwd_reference(x2, w1, b1, w2, b2, activation)
-    out = torch.empty_like(x2)
+    path = kernel_path(x2.dtype, k, f)
+    if path == "tc":
+        bn = _tc_cols(k)
+        splits = _fwd_splits_tc(m, k, f, bn, _slots(
+            "fused_ffn_fwd", x2.device.index, k, bn, x2.dtype))
+    else:
+        bn, splits = _block_cols(k, (768, 512, 384, 256, 128)), 1
+    if splits == 1:
+        out = torch.empty_like(x2)
+    else:  # fp32 partials over the F ranges, summed in a fixed order
+        out = torch.empty((splits, m, k), dtype=torch.float32,
+                          device=x2.device)
     _launch("fused_ffn_fwd", [x2, w1, b1, w2, b2, out],
-            (m, k, f, _block_cols(k, (768, 512, 384, 256, 128))),
-            activation, x2.dtype)
-    return out
+            (m, k, f, bn, splits), activation, x2.dtype, path)
+    return out if splits == 1 else out.sum(0).to(x2.dtype)
 
 
 def fused_ffn_bwd_dx(x2, g2, w1, b1, w2, activation="gelu_tanh"):
@@ -367,6 +384,19 @@ def _clusters_per_tile(k, bn):
     return nblk // next(c for c in (4, 3, 2, 1) if nblk % c == 0)
 
 
+def _fwd_splits_tc(m, k, f, bn, slots):
+    """F ranges of the tensor-core forward, a cluster being one 128-row
+    block's columns: one where the clusters fill a wave of the card's
+    ``slots`` (at GPT-2's training shape summing three ranges' partials
+    cost more than the 1.64-wave tail they fill), else _fill_splits'
+    count, at most one range per two 64-column sub-tiles."""
+    clusters = -(-m // _DX_TC_ROWS) * _clusters_per_tile(k, bn)
+    if clusters >= slots:
+        return 1
+    return _fill_splits(clusters,
+                        min(_DX_TC_MAX_SPLITS, f // _FWD_TC_MIN_F), slots)
+
+
 def _dx_splits_tc(m, k, f, bn, slots):
     """F ranges of the tensor-core dx kernel (_fill_splits), a cluster
     being one 128-row block's columns."""
@@ -376,8 +406,9 @@ def _dx_splits_tc(m, k, f, bn, slots):
 
 @functools.lru_cache(maxsize=None)
 def _slots(name, index, k, bn, dtype):
-    """Clusters of tensor-core kernel ``name`` (fused_ffn_bwd_dx or _dw)
-    the card holds at once: the occupancy API, through its library."""
+    """Clusters of tensor-core kernel ``name`` (fused_ffn_fwd, _bwd_dx or
+    _bwd_dw) the card holds at once: the occupancy API, through its
+    library."""
     with torch.cuda.device(index):
         n = _build.load(name + "_slots")(k, bn, _DTYPE_CODE[dtype])
     if n < 1:

@@ -117,7 +117,7 @@ def main(argv=None):
     for st in eng.telemetry.steps:
         host[st["kind"]][0] += st["dur_s"]
         host[st["kind"]][1] += 1
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "layers": L,
         "scheduler": args.scheduler, "kv_quant": args.kv_quant,

@@ -9,11 +9,14 @@
   names or fail), sends bf16 and fp16 at D 64 and 128 to the tensor-core
   kernels and everything else to the fp32-core ones.
 - CPU tensors take the plain versions: no launch and no path is counted.
-- ``fused_ffn.kernel_path``, the fused FFN backward wrappers' statement
-  of the same rule, sends bf16 and fp16 to the tensor-core dx and dW
+- ``fused_ffn.kernel_path``, the fused FFN wrappers' statement of the
+  same rule, sends bf16 and fp16 to the tensor-core forward, dx and dW
   kernels and fp32 to the fp32-core ones; ``_launch`` refuses any other
-  path before it touches a device; the tensor-core blocks' columns and
-  the dW kernel's row ranges follow their stated rules.
+  path before it touches a device; the tensor-core blocks' columns, the
+  forward's and dx's F ranges and the dW kernel's row ranges follow their
+  stated rules.
+- ``decode_attention.paged_path`` and the paged kernel's split rule are
+  tested in ``test_torch_split_decode.py``.
 """
 import re
 
@@ -167,3 +170,30 @@ def test_ffn_splits_at_gpt2_training_shape():
     # no more ranges than 64-row steps (dW) or F tiles (dx)
     assert ffn._dw_splits_tc(8, 768, 3072, 256, 39) == 1
     assert ffn._dx_splits_tc(8, 128, 128, 128, 39) == 2
+
+
+def test_ffn_fwd_splits():
+    # the forward's clusters are dx's (one 128-row block's columns): 64
+    # row blocks fill a wave of 39 cluster slots, so one range; fewer
+    # clusters than slots take _fill_splits' count, no more ranges than
+    # F tiles of 128
+    assert ffn._fwd_splits_tc(8192, 768, 3072, 256, 39) == 1
+    assert ffn._fwd_splits_tc(4992, 768, 3072, 256, 39) == 1
+    assert ffn._fwd_splits_tc(4864, 768, 3072, 256, 39) == \
+        ffn._fill_splits(38, 4, 39)
+    assert ffn._fwd_splits_tc(8, 128, 128, 128, 39) == 1
+    assert ffn._fwd_splits_tc(8, 128, 256, 128, 39) == 2
+    assert ffn._fwd_splits_tc(136, 768, 3072, 256, 39) == 4
+    for m, k, f in ((136, 768, 3072), (8192, 1024, 2816), (8, 128, 256)):
+        s = ffn._fwd_splits_tc(m, k, f, ffn._tc_cols(k), 39)
+        assert 1 <= s <= min(ffn._DX_TC_MAX_SPLITS, f // 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ffn_forward_path_on_cpu_counts_nothing(dtype):
+    x, _, w1, b1, w2, b2 = _ffn_inputs(dtype, m=8)
+    before = [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)]
+    got = ffn.fused_ffn_fwd(x, w1, b1, w2, b2, "gelu")
+    assert torch.equal(got, ffn.fused_ffn_fwd_reference(x, w1, b1, w2, b2,
+                                                        "gelu"))
+    assert [dict(c) for c in (ffn.LAUNCHES, ffn.PATH_LAUNCHES)] == before

@@ -13,7 +13,14 @@ Phases, in order; any failure exits non-zero:
      design cuts into several ranges (nblk 64, lens 0, 1, 4000 and 2047,
      Sq 1, 16 and 128, GQA groups 1, 2 and 4, D 64 and 128, Bt 16 and 64,
      bf16, fp16 and fp32, a sentinel inside a table), every bf16 and fp16
-     launch on the split path (decode_attention.PATH_LAUNCHES); the flat
+     launch on the split path (decode_attention.PATH_LAUNCHES); its int8
+     flavor and the int8 dense ring's kernel over the same split design
+     (the pool at nblk 64, lens 0, 1, 4000 and 2047, a sentinel inside a
+     table, Bt 16 and 64; the ring at Smax 128, 1024 and 4096, lens 0,
+     mid-tile, Smax - Sq and past the middle; both over Sq 1, 16 and 128,
+     GQA groups 1, 2 and 4, D 40, 64 and 128, bf16, fp16 and fp32), each
+     kernel's launches by design counted: bf16 and fp16 split, fp32 per
+     head; the flat
      kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
      unmapped entry; flash attention causal and not, sq < sk, GQA, S in
@@ -60,14 +67,15 @@ Phases, in order; any failure exits non-zero:
      torch ops), the phase runs flash attention and the read kernel — on
      an int8 cache always the int8 flavors and never an fp attention
      kernel, over a ring never a paged kernel and vice versa — and every
-     int4 run the dequant-matmul; every decode_attention_paged launch of
-     the pool runs takes the split design (decode_attention.
-     PATH_LAUNCHES). The pool, ring and weight bytes are read from the
-     arrays;
+     int4 run the dequant-matmul; every decode_attention_paged,
+     decode_attention_paged_i8 and decode_attention_stacked_i8 launch
+     takes the split design (decode_attention.PATH_LAUNCHES). The pool,
+     ring and weight bytes are read from the arrays;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
-     run launches exactly its one ring kernel 12 times per hidden pass;
+     run launches exactly its one ring kernel 12 times per hidden pass,
+     the int8 read on the split design;
   3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
      (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
      with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
@@ -325,6 +333,7 @@ def phase_kernels(rng):
                       fdm.fused_dequant_matmul_reference(a, wp, s), tname,
                       worst)
     split_kernels(rng, worst)
+    split_i8_kernels(rng, worst)
     stacked_kernels(rng, worst)
     training_kernels(rng, worst)
     ffn_kernels(rng, worst)
@@ -357,11 +366,81 @@ def split_kernels(rng, worst):
                               da.decode_attention_paged(*args),
                               da.decode_attention_paged_reference(*args),
                               tname, worst, quiet=True)
-    want = {"split_kv": 2 * 36, "per_head": 36}
-    log(f"  paged split cases: launches by path {dict(da.PATH_LAUNCHES)}")
-    if da.PATH_LAUNCHES != want:
-        raise SystemExit(f"paged split cases: {da.PATH_LAUNCHES} by path, "
-                         f"want {want}")
+    check_paths("paged split cases", {"decode_attention_paged": 2 * 36},
+                {"decode_attention_paged": 36})
+
+
+SPLIT_I8_DTYPES = ((torch.bfloat16, "attention_bf16"),
+                   (torch.float16, "attention_fp16"),
+                   (torch.float32, "attention_fp32"))
+SPLIT_I8_DIMS = (40, 64, 128)     # 40: 8-byte int8 rows (D % 16 != 0)
+
+
+def split_i8_kernels(rng, worst):
+    """The int8 pool's and the int8 ring's kernels over long rows that
+    their split design cuts into ranges of 64-position tiles, against the
+    plain versions: the pool at nblk 64 (lens 0, 1, 4000 and 2047, a
+    sentinel inside row 1's table, Bt 16 and 64), the ring at Smax 128,
+    1024 and 4096 (lens 0, mid-tile, Smax - Sq and past the middle); Sq 1,
+    16 and 128, GQA groups 1, 2 and 4, D 40, 64 and 128. Every bf16 and
+    fp16 launch on the split path, every fp32 one on the per-head one."""
+    reset_launches()
+    n = 0
+    for dtype, tname in SPLIT_I8_DTYPES:
+        for sq in (1, 16, 128):
+            for group in (1, 2, 4):
+                for d in SPLIT_I8_DIMS:
+                    for bt in (16, 64):
+                        args = attention_case(
+                            rng, b=4, h=4, hk=4 // group, sq=sq, d=d, bt=bt,
+                            nblk=64, n_layers=2, layer=1,
+                            lens=[0, 1, 4000, 2047], dtype=dtype,
+                            sentinel_inside=True)
+                        qargs = (args[0], *quantize_pool(args[1]), *args[2:])
+                        check(f"paged_i8 split {str(dtype):14s} Sq={sq:3d} "
+                              f"group={group} D={d:3d} Bt={bt:2d}",
+                              da.decode_attention_paged_i8(*qargs),
+                              da.decode_attention_paged_i8_reference(*qargs),
+                              tname, worst, quiet=True)
+                    for smax in (128, 1024, 4096):
+                        ring = randn(rng, (2, 2, 4, 4 // group, smax, d),
+                                     dtype)
+                        kv8, sc = quantize_pool(ring)
+                        qt = randn(rng, (4, 4, sq, d), dtype)
+                        lens = torch.tensor(
+                            [0, 37, smax - sq, smax // 2 + 5],
+                            dtype=torch.int32, device="cuda")
+                        check(f"stacked_i8 split {str(dtype):14s} "
+                              f"Smax={smax:4d} Sq={sq:3d} group={group} "
+                              f"D={d:3d}",
+                              da.decode_attention_stacked_i8(qt, kv8, sc, 1,
+                                                             lens),
+                              da.decode_attention_stacked_i8_reference(
+                                  qt, kv8, sc, 1, lens), tname, worst,
+                              quiet=True)
+                    n += 1
+    n_fp = n // len(SPLIT_I8_DTYPES)        # the fp32 (per-head) share
+    split = {"decode_attention_paged_i8": 2 * (n - n_fp),
+             "decode_attention_stacked_i8": 3 * (n - n_fp)}
+    per_head = {"decode_attention_paged_i8": 2 * n_fp,
+                "decode_attention_stacked_i8": 3 * n_fp}
+    log(f"  int8 split cases: worst {dict(worst)}")
+    check_paths("int8 split cases", split, per_head)
+
+
+def check_paths(label, split, per_head=None):
+    """Fail unless the decode kernels named in ``split`` ({name: n}) made
+    exactly n launches on the split design since the counts were reset,
+    and exactly ``per_head`` ({name: n}, else none) on the per-head one
+    (decode_attention.PATH_LAUNCHES)."""
+    per_head = per_head or {}
+    for name, n in split.items():
+        got = dict(da.PATH_LAUNCHES[name])
+        want = {"split_kv": n, "per_head": per_head.get(name, 0)}
+        log(f"  {label}: {name} launches by path {got}")
+        if got != want:
+            raise SystemExit(f"{label}: {name} launched {got} by path, "
+                             f"want {want}")
 
 
 # RMSNorm widths: small, LLaMA-2 7B's, 13B's, 65B's and the gate's
@@ -934,6 +1013,8 @@ def phase_generate(seed):
             raise SystemExit(f"[{name}] output {tuple(out.shape)}, "
                              f"launches {got}: want (8, {prompt + new}) "
                              f"and {want}")
+        if kernel in da.PATH_LAUNCHES:    # the int8 read: split design
+            check_paths(f"[{name}]", want)
         log(f"  [{name}] {out.shape[0]} x ({prompt} + {new}) tokens in "
             f"{dt:.3f} s: generated tokens/s {8 * new / dt:.1f}, hidden "
             f"passes/s {(prompt + new - 1) / dt:.1f}; max_memory_allocated "
@@ -945,7 +1026,8 @@ def phase_generate(seed):
 def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
                    ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
-                   rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES, da.PATH_LAUNCHES):
+                   rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES,
+                   *da.PATH_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -1000,9 +1082,8 @@ def serve_counted(seed, name, kwargs):
     if name.startswith("row") and (not forms.get(16) or not forms.get(1)):
         raise SystemExit(f"{attr} forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
-    if attr == "decode_attention_paged":
-        check_tensor_core_path(f"[{name}] {attr}", da,
-                               ("decode_attention_paged",), "split_kv")
+    if attr in da.PATH_LAUNCHES:      # every launch on the split design
+        check_paths(f"[{name}]", {attr: da.LAUNCHES[attr]})
     n_prompt = sum(len(p) for p, _ in reqs)
     n_new = sum(w for _, w in reqs)
     log(f"  [{name}] {len(reqs)} requests, {n_prompt} prompt tokens, "
@@ -2279,7 +2360,9 @@ def time_stacked(rng, quant, write):
     Smax=1024, bf16, the layer cycled over 12 (the rings exceed the L2),
     every row at cache_lens 1023 with Sq=1 (the main shape), then at 512
     with Sq=16 (Sq=1 for the write kernels, which write row 512 on every
-    launch). The library call is SDPA over the same positions (for the
+    launch); the int8 read also at 512 with Sq=1 and at 1008 (the ring's
+    last 16 positions) with Sq=16. The library call is SDPA over the same
+    positions (for the
     write kernels the prefix plus the new token) sliced from the ring
     into a contiguous bf16 view, dequantized for int8 (not timed)."""
     b, h, d, smax, n_layers = 8, H, E // H, 1024, 12
@@ -2293,7 +2376,10 @@ def time_stacked(rng, quant, write):
           + ("_write" if write else ""))
     kernel, plain = getattr(da, fn), getattr(da, fn + "_reference")
     rows = []
-    for ln, sq in ((1023, 1), (512, 1 if write else 16)):
+    shapes = [(1023, 1), (512, 1 if write else 16)]
+    if quant and not write:
+        shapes += [(512, 1), (1008, 16)]
+    for ln, sq in shapes:
         qt = randn(rng, (b, h, sq, d), torch.bfloat16)
         lens = torch.full((b,), ln, dtype=torch.int32, device="cuda")
         head = ()
@@ -2534,6 +2620,9 @@ def main(argv=None):
     kernels = []
     for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))
+        # the kernels with two designs: phase 3 held every launch of
+        # their runs to the split one
+        design = {"design": "split_kv"} if name in da.PATH_LAUNCHES else {}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{_build.SOURCES[name]}",
@@ -2542,6 +2631,7 @@ def main(argv=None):
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            **design,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

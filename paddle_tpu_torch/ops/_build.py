@@ -73,9 +73,12 @@ _ENTRY = {
     "flash_attention_fwd": (
         "paddle_flash_attention_fwd",
         [_P] * 5 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
+    # the int8 reads: pointers (the split workspace last), the shape ints,
+    # the layer, the splits and positions a split, the scale, the dtype
+    # code and the design (paged_path's)
     "decode_attention_paged_i8": (
         "paddle_decode_attention_paged_i8",
-        [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+        [_P] * 7 + [_I] * 11 + [_F, _I, _I, _P]),
     "decode_attention_paged_flat_i8": (
         "paddle_decode_attention_paged_flat_i8",
         [_P] * 8 + [_I] * 9 + [_F, _I, _P]),
@@ -87,7 +90,7 @@ _ENTRY = {
         [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
     "decode_attention_stacked_i8": (
         "paddle_decode_attention_stacked_i8",
-        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P]),
     "decode_attention_stacked_write": (
         "paddle_decode_attention_stacked_write",
         [_P] * 5 + [_I] * 6 + [_F, _I, _P]),

@@ -249,24 +249,13 @@ extern "C" int paddle_decode_attention_paged(
       splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == 1) {
-    if (D % 8 || cb < 1 || (nblk + cb - 1) / cb != splits ||
-        (splits > 1 && work == nullptr))
+  if (path == 1) {  // ranges of cb whole table blocks
+    if (cb < 1 || (nblk + cb - 1) / cb != splits)
       return (int)cudaErrorInvalidValue;
-    if (!paddle_attn::wg::aligned16(q, pool, out))
-      return (int)cudaErrorMisalignedAddress;
-    switch (dtype) {
-      case 1:
-        return (int)paddle_attn::split::launch_d<__nv_bfloat16>(
-            q, pool, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk,
-            layer, splits, cb, scale, s);
-      case 2:
-        return (int)paddle_attn::split::launch_d<__half>(
-            q, pool, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk,
-            layer, splits, cb, scale, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    return paddle_attn::split::run<false>(q, pool, nullptr, tables, lens,
+                                          out, work, B, H, Sq, D, NB, Hk, Bt,
+                                          nblk, layer, splits, cb * Bt, scale,
+                                          dtype, s);
   }
   if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {

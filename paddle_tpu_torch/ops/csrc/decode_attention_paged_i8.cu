@@ -24,18 +24,34 @@
 // 0 returns 0.
 //
 // What bounds it on the card: bytes. A decode step reads the row's valid
-// prefix once per head, now one byte per element plus 4 bytes of scale per
+// prefix once per KV head, one byte per element plus 4 bytes of scale per
 // position (68 of 128 bytes per K/V row at D = 64, against bf16), and does
-// 4*D flops per position and query row, far below the ~295 flop/byte ridge.
-// Design: one thread block per (row, head); tiles of 32 positions (or one
-// block when Bt < 32) are staged as fp32 through shared memory, with
-// 16-byte loads that carry 16 int8 values each, four per thread in flight,
-// and the tile's 32 K and 32 V scales staged beside them; four warps each
-// own four query rows of a 16-row pass with an fp32 online softmax in
-// registers (attention_tile.cuh, shared with the fp flat and flash
-// kernels). GQA heads of one KV head re-read the same blocks (from L2);
-// split-K over long rows and tensor-core products are left for later work.
+// 4*D flops per position and query row, far below the ~295 flop/byte ridge;
+// at the serving shape (B 8, H 12, 1025 positions, D 64) the 13.4 MB take
+// 4.0 us at 3.35 TB/s.
+//
+// Two designs; the wrapper picks one (ops/decode_attention.py's paged_path,
+// the rule of the fp pool too) and passes it as `path`; the entry runs that
+// design or fails:
+// - path 1, "split_kv" (bf16 and fp16 queries, D a multiple of 8): the int8
+//   flavor of split_decode.cuh. The KV length is split over S blocks per
+//   (row, KV head), ranges of `span` positions (a multiple of 64) from the
+//   shapes and the SM count (the wrapper's decode_splits), each block
+//   holding the GQA group's query rows, staging the int8 K/V tiles and
+//   their scales by cp.async through a ring of 3-4 stages, converting each
+//   warp's positions to the query dtype in shared memory and multiplying on
+//   mma.sync; a second kernel merges the S partials of each row from the
+//   fp32 workspace `work` in split order.
+// - path 0, "per_head" (fp32 queries, or D not a multiple of 8): the first
+//   design, one thread block per (row, head); tiles of 32 positions (or one
+//   block when Bt < 32) staged as fp32 through shared memory, with 16-byte
+//   loads that carry 16 int8 values each, four per thread in flight, and
+//   the tile's 32 K and 32 V scales staged beside them; four warps each own
+//   four query rows of a 16-row pass with an fp32 online softmax in
+//   registers (attention_tile.cuh, shared with the fp flat and flash
+//   kernels); GQA heads of one KV head re-read the same blocks (from L2).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -179,17 +195,28 @@ cudaError_t launch_d(const void* q, const void* pool, const void* scales,
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t (0 on success); the caller has validated shapes, devices and
-// layout.
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. path: 1 =
+// split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1 ranges of span
+// positions each, S = ceil(nblk * Bt / span); work: fp32 [S * B * H * Sq *
+// (D + 2)] when S > 1; q and out 16-byte aligned, the pool 16 (D a multiple
+// of 16) or 8), 0 = per_head (splits 1; work unused); any other pairing
+// returns cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the
+// caller has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_paged_i8(
     const void* q, const void* pool, const void* scales, const void* tables,
-    const void* lens, void* out, int B, int H, int Sq, int D, int NB, int Hk,
-    int Bt, int nblk, int layer, float scale, int dtype, void* stream) {
+    const void* lens, void* out, void* work, int B, int H, int Sq, int D,
+    int NB, int Hk, int Bt, int nblk, int layer, int splits, int span,
+    float scale, int dtype, int path, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
-      H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1)
+      H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1 ||
+      splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return paddle_attn::split::run<true>(q, pool, scales, tables, lens, out,
+                                         work, B, H, Sq, D, NB, Hk, Bt, nblk,
+                                         layer, splits, span, scale, dtype, s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, pool, scales, tables, lens, out, B, H,

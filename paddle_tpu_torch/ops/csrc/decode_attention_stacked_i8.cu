@@ -18,15 +18,29 @@
 // PV product, while l sums the unscaled p; positions past the last
 // attendable one are never read; a row whose softmax sum is 0 returns 0.
 //
-// What bounds it on the card: bytes, now one byte per element plus 4 bytes
-// of scale per position (68 of 128 bytes per K/V row at D = 64, against
-// bf16), at 4*D flops per position and query row. Design: the fp stacked
-// kernel's (one thread block per (row, head), a 32-position walk over the
-// contiguous ring row, four warps of four query rows), with 16-byte loads
-// that carry 16 int8 values each and the tile's 32 K and 32 V scales
-// staged beside it (attention_tile.cuh's scaled tile update, shared with
-// the int8 paged kernels).
+// What bounds it on the card: bytes, one byte per element plus 4 bytes of
+// scale per position (68 of 128 bytes per K/V row at D = 64, against bf16),
+// at 4*D flops per position and query row.
+//
+// Two designs, as the int8 pool's: the wrapper picks one (ops/
+// decode_attention.py's paged_path) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16 queries, D a multiple of 8): the int8
+//   flavor of split_decode.cuh with the ring read as a pool of B blocks of
+//   Smax positions and no table (row b's block is b): S ranges of `span`
+//   positions (a multiple of 64; the wrapper's decode_splits, the pool's
+//   rule over the same positions) per (row, KV head), each block holding
+//   the GQA group's query rows, int8 tiles and scales staged by cp.async,
+//   converted per warp in shared memory, products on mma.sync, then the
+//   merge of the S fp32 partials in `work`.
+// - path 0, "per_head" (fp32 queries, or D not a multiple of 8): the fp
+//   stacked kernel's design (one thread block per (row, head), a
+//   32-position walk over the contiguous ring row, four warps of four query
+//   rows), with 16-byte loads that carry 16 int8 values each and the tile's
+//   32 K and 32 V scales staged beside it (attention_tile.cuh's scaled tile
+//   update, shared with the int8 paged kernels).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -156,17 +170,28 @@ cudaError_t launch_d(const void* q, const void* ring, const void* scales,
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t (0 on success); the caller has validated shapes, devices and
-// layout.
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. path: 1 =
+// split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1 ranges of span
+// positions each, S = ceil(Smax / span); work: fp32 [S * B * H * Sq * (D +
+// 2)] when S > 1; q and out 16-byte aligned, the ring 16 (D a multiple of
+// 16) or 8), 0 = per_head (splits 1; work unused); any other pairing
+// returns cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the
+// caller has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_stacked_i8(
     const void* q, const void* ring, const void* scales, const void* lens,
-    void* out, int B, int H, int Sq, int D, int Hk, int Smax, int layer,
-    float scale, int dtype, void* stream) {
+    void* out, void* work, int B, int H, int Sq, int D, int Hk, int Smax,
+    int layer, int splits, int span, float scale, int dtype, int path,
+    void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
-      H % Hk || Smax < 1 || layer < 0)
+      H % Hk || Smax < 1 || layer < 0 || splits < 1 || splits > 65535 ||
+      (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)  // the ring as a pool of B blocks of Smax positions
+    return paddle_attn::split::run<true>(q, ring, scales, nullptr, lens, out,
+                                         work, B, H, Sq, D, B, Hk, Smax, 1,
+                                         layer, splits, span, scale, dtype, s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, ring, scales, lens, out, B, H, Sq, D,

@@ -1,28 +1,42 @@
-// Split-KV flash-decoding over a paged KV pool for Hopper (sm_90a), bf16
-// and fp16: the device code of decode_attention_paged.cu's "split_kv" path,
-// in a header so that the other decode kernels (the int8 pool, the dense
-// ring, the one-layer cache), which launch one block per (row, head) today,
-// can move onto it.
+// Split-KV flash-decoding for Hopper (sm_90a), bf16 and fp16 queries: the
+// device code of the "split_kv" design of three kernels, decode_attention_
+// paged.cu (a paged pool in the query's dtype), decode_attention_paged_i8.cu
+// (an int8 pool with per-position fp32 scales) and decode_attention_
+// stacked_i8.cu (the int8 dense ring, read as a pool of B blocks of Smax
+// positions with no table: row b's block is b). The one-layer cache and the
+// fp dense ring, which launch one block per (row, head) today, can move
+// onto it the same way.
 //
 // The work of one (row b, KV head hk) is split along the KV length into S
-// ranges of cb table blocks (cb * Bt positions); the grid is (B * Hk, S),
-// S chosen by the wrapper from the shapes and the SM count alone, so the
-// launch reads nothing back from the card (CUDA-graph capturable). A block
-// whose range lies wholly past its row's last attendable position writes
-// an empty partial (m = -1e30, l = 0) and exits.
+// ranges of `span` positions; the grid is (B * Hk, S), S chosen by the
+// wrapper from the shapes and the SM count alone, so the launch reads
+// nothing back from the card (CUDA-graph capturable). The fp pool cuts its
+// ranges at table blocks (span = cb * Bt), the int8 flavors at 64-position
+// tiles. A block whose range lies wholly past its row's last attendable
+// position writes an empty partial (m = -1e30, l = 0) and exits.
 //
 // A block holds all R = G * Sq query rows of its KV head (G = H / Hk), so
 // each KV position is read once per GQA group. K and V tiles of 64
-// positions are staged in the stored dtype through a ring of stages by
-// 16-byte cp.async copies (every thread issues 8-32 of them a tile, all in
-// flight together), each position resolved through the block table;
-// positions past the range and head dims past D are zero-filled. The
-// products run on the tensor cores: mma.sync m16n8k16 with fp32 sums, Q K^T
-// with the 16-row query groups as A fragments held in registers and K read
-// by ldmatrix, P V with P's accumulator turned into A fragments in place
-// (rounded to the value dtype) and V read by ldmatrix.trans. Rows are padded
-// to 16 per group (an Sq = 1 decode uses one row of each mma; the card's
-// bytes, not its products, bound it).
+// positions are staged through a ring of stages by cp.async copies (every
+// thread issues 8-32 of them a tile, all in flight together), each position
+// resolved through the block table; positions past the range are
+// zero-filled. The fp flavor stages the stored dtype in 16-byte chunks
+// (dims past D zero-filled). The int8 flavor stages the int8 rows in 16-byte
+// chunks (8 where D is not a multiple of 16) and each position's K and V
+// scale by a 4-byte copy beside them (any Bt), in more stages than the fp
+// flavor (the tile is half the bytes); after the wait each warp converts
+// its own 16 positions of the stage into a K and a V tile in the query
+// dtype (exact: |int8| < 2^8) and fences them with __syncwarp (or a named
+// barrier over the warps that share those positions), so both flavors read
+// the same tile layout. The products run on the tensor cores: mma.sync
+// m16n8k16 with fp32 sums, Q K^T with the 16-row query groups as A
+// fragments held in registers and K read by ldmatrix, P V with P's
+// accumulator turned into A fragments in place (rounded to the value
+// dtype) and V read by ldmatrix.trans. Rows are padded to 16 per group (an
+// Sq = 1 decode uses one row of each mma; the card's bytes, not its
+// products, bound it). The int8 flavor multiplies each score column by its
+// K scale after Q K^T and p by its V scale before p is rounded, as the TPU
+// kernel does; K and V themselves are never rescaled.
 //
 // The four warps split a tile between them as WP position slices x (4 / WP)
 // row groups: WP = 4 when R <= 16 (decode: each warp takes its own 16
@@ -35,10 +49,12 @@
 // of each query row in split order (deterministic), an all-empty row
 // giving 0.
 //
-// Semantics are decode_attention_paged's: query row r attends positions <=
-// lens[b] + r; an unmapped table entry (the sentinel NB) reads block NB - 1;
-// scores, m and l are fp32; p is rounded to the value dtype before P V and l
-// sums the unrounded p; a row whose sum is 0 returns 0.
+// Semantics are decode_attention_paged's (and its int8 flavor's): query row
+// r attends positions <= lens[b] + r; an unmapped table entry (the sentinel
+// NB) reads block NB - 1, values and scales alike; scores, m and l are
+// fp32, an int8 score (q . k_int) * scale * k_scale; p (int8: p * v_scale)
+// is rounded to the value (int8: query) dtype before P V and l sums the
+// unrounded, unscaled p; a row whose sum is 0 returns 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,15 +76,28 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;  // KV positions a stage
 constexpr float kNeg = -1e30f;
 
-// DP: the head dim padded to the instantiation's width (64, 128 or 256).
-template <int DP>
+// DP: the head dim padded to the instantiation's width (64, 128 or 256);
+// I8: the int8 flavor.
+template <int DP, bool I8 = false>
 struct Cfg {
   static constexpr int kLd = DP + 8;  // shared row stride: ldmatrix's eight
                                       // rows land on distinct banks
-  static constexpr int kStages = DP <= 128 ? 3 : 2;
-  static constexpr int kTileBytes = kTile * kLd * 2;  // one K or V tile
-  static constexpr int kSmem = kStages * 2 * kTileBytes;
+  static constexpr int kTileBytes = kTile * kLd * 2;  // a K or V tile in T
+  // int8: a stage holds the K and V tiles as staged, rows of DP bytes, and
+  // their scales; the converted K and V tiles follow the ring
+  static constexpr int kI8Tile = kTile * DP;
+  static constexpr int kStages =
+      I8 ? (DP <= 128 ? 4 : 3) : (DP <= 128 ? 3 : 2);
+  static constexpr int kStageBytes =
+      I8 ? 2 * kI8Tile + 2 * kTile * 4 : 2 * kTileBytes;
+  static constexpr int kConv = I8 ? kStages * kStageBytes : 0;  // offset
+  static constexpr int kSmem =
+      kStages * kStageBytes + (I8 ? 2 * kTileBytes : 0);
   static constexpr int kAcc = DP / 2;  // accumulator floats a lane
+  // blocks an SM must hold: the int8 flavor at D 64 asks for four (at
+  // most 128 registers a thread; unbounded it takes more, three blocks an
+  // SM, and runs its decode shapes slower), as the fp flavor gets unasked
+  static constexpr int kMinBlocks = I8 && DP == 64 ? 4 : 1;
   // the warps' (m, l, acc) exchange reuses the ring
   static_assert(kWarps * 32 * (kAcc + 4) * 4 <= kSmem, "merge slots fit");
 };
@@ -109,14 +138,25 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
 }
 
 // Where a block's KV lives: the pool's K and V planes of one layer, the
-// row's table, and the pool's shape.
+// row's table, and the pool's shape; the int8 flavor's K and V scale
+// planes, and the block of a ring (no table).
 template <typename T>
 struct PagedKV {
   const T* k;       // [NB, Hk, Bt, D] of layer `layer`
   const T* v;
-  const int* tbl;   // [nblk] of row b
+  const int* tbl;   // [nblk] of row b; nullptr: block `blk` (a ring)
   int NB, Hk, Bt, D;
+  const float* ks = nullptr;  // [NB, Hk, 1, Bt] of layer `layer` (int8)
+  const float* vs = nullptr;
+  int blk = 0;
 };
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 8 : 0)
+               : "memory");
+}
 
 // Block-wide: positions [p0, p0 + kTile) of KV head hk into a stage (K tile
 // then V tile, [kTile][kLd] each), 16-byte cp.async chunks; positions at or
@@ -146,18 +186,130 @@ __device__ __forceinline__ void load_tile(uint32_t stage,
   }
 }
 
-// grid (B * Hk, S), kThreads threads, Cfg<DP>::kSmem bytes of shared
-// memory. cb: table blocks a split. With S = 1 writes out; else the
-// partials: o [S, B * H * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
-template <typename T, int DP, int WP>
-__global__ void __launch_bounds__(kThreads)
-    split_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+// Block-wide, int8 flavor: positions [p0, p0 + kTile) of KV head hk into a
+// stage (K tile then V tile, [kTile][DP] bytes each, in CB-byte cp.async
+// chunks; then kTile K and kTile V scales by 4-byte copies); positions at
+// or past p_end zero-filled (a zero V scale keeps their p * v_scale 0).
+template <int DP, int CB>
+__device__ __forceinline__ void load_tile_i8(uint32_t stage,
+                                             const PagedKV<int8_t>& kv,
+                                             int hk, int p0, int p_end) {
+  using C = Cfg<DP, true>;
+  constexpr int kCpr = DP / CB;  // chunks a row
+  constexpr int kChunks = 2 * kTile * kCpr;
+  auto row_of = [&](int p) {  // the position's row in its K or V plane
+    const int blk = kv.tbl ? min(__ldg(kv.tbl + p / kv.Bt), kv.NB - 1)
+                           : kv.blk;
+    return (size_t)(blk * kv.Hk + hk) * kv.Bt + p % kv.Bt;
+  };
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kChunks; i += kThreads) {
+    const int plane = i / (kTile * kCpr);
+    const int rem = i - plane * (kTile * kCpr);
+    const int j = rem / kCpr;
+    const int c = rem - j * kCpr;
+    const int p = p0 + j;
+    const bool ok = p < p_end && c * CB < kv.D;
+    const int8_t* src = plane ? kv.v : kv.k;
+    if (ok) src += row_of(p) * kv.D + c * CB;
+    const uint32_t dst = stage + plane * C::kI8Tile + j * DP + c * CB;
+    if constexpr (CB == 16)
+      wg::cp_async16(dst, src, ok);
+    else
+      cp_async8(dst, src, ok);
+  }
+  for (int i = threadIdx.x; i < 2 * kTile; i += kThreads) {
+    const int plane = i / kTile;
+    const int p = p0 + i - plane * kTile;
+    const bool ok = p < p_end;
+    const float* src = plane ? kv.vs : kv.ks;
+    if (ok) src += row_of(p);
+    wg::cp_async4(stage + 2 * C::kI8Tile + i * 4, src, ok);
+  }
+}
+
+// Four int8 values (one 32-bit word) as two packed pairs of T, exactly and
+// without the quarter-rate int-to-float unit: each byte b, biased to b +
+// 128 (xor 0x80), becomes the mantissa of a float whose exponent makes it
+// an integer (fp16: 1024 + b + 128 in the halves of a pair; bf16: 2^23 + b
+// + 128 in an fp32), and one subtraction leaves b. A bf16 is then the upper
+// half of that fp32 (|b| <= 128 fits its 8 significant bits).
+template <typename T>
+__device__ __forceinline__ uint2 i8x4_to(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 bias = __halves2half2(__ushort_as_half(0x6480),
+                                        __ushort_as_half(0x6480));  // 1152
+    uint32_t lo = __byte_perm(u, 0x64646464u, 0x5140);  // bytes 0, 1
+    uint32_t hi = __byte_perm(u, 0x64646464u, 0x5342);  // bytes 2, 3
+    const __half2 l2 = __hsub2(*reinterpret_cast<__half2*>(&lo), bias);
+    const __half2 h2 = __hsub2(*reinterpret_cast<__half2*>(&hi), bias);
+    return make_uint2(*reinterpret_cast<const uint32_t*>(&l2),
+                      *reinterpret_cast<const uint32_t*>(&h2));
+  } else {
+    uint32_t f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[k] = __float_as_uint(
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + k)) -
+          8388736.f);  // 2^23 + 128
+    return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                      __byte_perm(f[2], f[3], 0x7632));
+  }
+}
+
+// Warp-wide: positions [j0, j0 + 16) of a staged int8 stage's K and V tiles
+// into the converted [kTile][kLd] K and V tiles in T at conv (all DP dims;
+// those past D hold finite values that meet zero queries or are never
+// written out).
+template <typename T, int DP>
+__device__ __forceinline__ void convert_i8(uint32_t stage, uint32_t conv,
+                                           int j0, int lane) {
+  using C = Cfg<DP, true>;
+  constexpr int kCpr = DP / 16;  // 16-byte chunks a staged row
+  constexpr int kN = 2 * 16 * kCpr;
+#pragma unroll
+  for (int i = lane; i < kN; i += 32) {
+    const int plane = i / (16 * kCpr);
+    const int rem = i - plane * (16 * kCpr);
+    const int j = j0 + rem / kCpr;
+    const int c = rem % kCpr;
+    uint32_t w[4];
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "r"(stage + plane * C::kI8Tile + j * DP + c * 16)
+                 : "memory");
+    uint2 h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = i8x4_to<T>(w[e]);
+    const uint32_t dst =
+        conv + plane * C::kTileBytes + (j * C::kLd + c * 16) * 2;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(h[0].x), "r"(h[0].y), "r"(h[1].x), "r"(h[1].y)
+                 : "memory");
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + 16),
+                 "r"(h[2].x), "r"(h[2].y), "r"(h[3].x), "r"(h[3].y)
+                 : "memory");
+  }
+}
+
+// grid (B * Hk, S), kThreads threads, Cfg<DP, I8>::kSmem bytes of shared
+// memory. KV: the stored type, T or int8_t (then `scales` [L, 2, NB, Hk, 1,
+// Bt] fp32 beside the pool). tables nullptr: a dense ring, row b's block is
+// b (nblk 1, Bt Smax). span: positions a split. With S = 1 writes out; else
+// the partials: o [S, B * H * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
+template <typename T, typename KV, int DP, int WP>
+__global__ void __launch_bounds__(
+    kThreads, Cfg<DP, std::is_same<KV, int8_t>::value>::kMinBlocks)
+    split_kernel(const T* __restrict__ q, const KV* __restrict__ pool,
+                 const float* __restrict__ scales,
                  const int* __restrict__ tables, const int* __restrict__ lens,
                  T* __restrict__ out, float* __restrict__ o_part,
                  float* __restrict__ ml_part, int B, int H, int Sq, int D,
-                 int NB, int Hk, int Bt, int nblk, int layer, int cb,
+                 int NB, int Hk, int Bt, int nblk, int layer, int span,
                  float scale) {
-  using C = Cfg<DP>;
+  constexpr bool kI8 = std::is_same<KV, int8_t>::value;
+  using C = Cfg<DP, kI8>;
   constexpr int WR = kWarps / WP;   // row groups a pass
   constexpr int PW = kTile / WP;    // positions a warp takes of a tile
   constexpr int NT = PW / 8;        // its n8 score tiles
@@ -182,9 +334,9 @@ __global__ void __launch_bounds__(kThreads)
   const int wp = warp - wr * WP;
 
   // this split's positions, cut at the last one any row attends
-  const int p_lo = s * cb * Bt;
-  const int p_end = min(min((s + 1) * cb, nblk) * Bt,
-                        min(len + Sq, nblk * Bt));
+  const int n_pos = nblk * Bt;
+  const int p_lo = s * span;
+  const int p_end = min(min((s + 1) * span, n_pos), min(len + Sq, n_pos));
   // query row i of this block: head hk * G + i / Sq, row i % Sq; its
   // index among the call's rows
   auto row_index = [&](int i) {
@@ -199,10 +351,29 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  const size_t plane = (size_t)NB * Hk * Bt * D;
-  const PagedKV<T> kv{pool + (size_t)layer * 2 * plane,
-                      pool + (size_t)layer * 2 * plane + plane,
-                      tables + (size_t)b * nblk, NB, Hk, Bt, D};
+  const size_t splane = (size_t)NB * Hk * Bt;  // positions a K or V plane
+  const size_t plane = splane * D;
+  PagedKV<KV> kv{pool + (size_t)layer * 2 * plane,
+                 pool + (size_t)layer * 2 * plane + plane,
+                 tables ? tables + (size_t)b * nblk : nullptr, NB, Hk, Bt, D};
+  if constexpr (kI8) {
+    kv.ks = scales + (size_t)layer * 2 * splane;
+    kv.vs = kv.ks + splane;
+    kv.blk = b;
+  }
+  // D not a multiple of 16 (int8): 8-byte chunks
+  const bool v16 = !kI8 || D % 16 == 0;
+  auto load = [&](int stage_i, int p0) {
+    const uint32_t st = ring + stage_i * C::kStageBytes;
+    if constexpr (kI8) {
+      if (v16)
+        load_tile_i8<DP, 16>(st, kv, hk, p0, p_end);
+      else
+        load_tile_i8<DP, 8>(st, kv, hk, p0, p_end);
+    } else {
+      load_tile<T, DP>(st, kv, hk, p0, p_end);
+    }
+  };
   const int n_tiles = (p_end - p_lo + kTile - 1) / kTile;
   const int n_groups = (R + 15) / 16;
 
@@ -243,9 +414,7 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int st = 0; st < C::kStages - 1; ++st) {
-      if (st < n_tiles)
-        load_tile<T, DP>(ring + st * 2 * C::kTileBytes, kv, hk,
-                         p_lo + st * kTile, p_end);
+      if (st < n_tiles) load(st, p_lo + st * kTile);
       wg::cp_async_commit();
     }
     for (int it = 0; it < n_tiles; ++it) {
@@ -253,15 +422,27 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // tile it landed; every warp is done with it - 1
       {
         const int nx = it + C::kStages - 1;
-        if (nx < n_tiles)
-          load_tile<T, DP>(ring + (nx % C::kStages) * 2 * C::kTileBytes, kv,
-                           hk, p_lo + nx * kTile, p_end);
+        if (nx < n_tiles) load(nx % C::kStages, p_lo + nx * kTile);
         wg::cp_async_commit();
       }
-      if (!active) continue;
-      const uint32_t ks = ring + (it % C::kStages) * 2 * C::kTileBytes;
-      const uint32_t vs = ks + C::kTileBytes;
       const int pw0 = wp * PW;  // the warp's first position in the tile
+      uint32_t ks = ring + (it % C::kStages) * C::kStageBytes;
+      const float* kscl = nullptr;  // int8: the tile's K and V scales
+      if constexpr (kI8) {
+        // this warp converts 16 of its slice's positions; the WR warps
+        // that share the slice (one per row group) then meet
+        convert_i8<T, DP>(ks, ring + C::kConv, pw0 + 16 * wr, lane);
+        if constexpr (WR == 1)
+          __syncwarp();
+        else
+          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wp), "n"(32 * WR)
+                       : "memory");
+        kscl = reinterpret_cast<const float*>(
+            smem_raw + (it % C::kStages) * C::kStageBytes + 2 * C::kI8Tile);
+        ks = ring + C::kConv;
+      }
+      const uint32_t vs = ks + C::kTileBytes;
+      if (!active) continue;
       const int p_tile = p_lo + it * kTile + pw0;
 
       // scores of rows g, g + 8 at positions 8 n + 2 t (+ 1)
@@ -290,7 +471,9 @@ __global__ void __launch_bounds__(kThreads)
           const int p = p_tile + 8 * n + 2 * t + (e & 1);
           const bool ok = p < p_end && p <= lim[e >> 1];
           okm |= (uint32_t)ok << (4 * n + e);
-          sc[n][e] = ok ? sc[n][e] * scale : kNeg;
+          float s_e = sc[n][e] * scale;
+          if constexpr (kI8) s_e = s_e * kscl[pw0 + 8 * n + 2 * t + (e & 1)];
+          sc[n][e] = ok ? s_e : kNeg;
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
         }
       float alpha[2];
@@ -310,8 +493,11 @@ __global__ void __launch_bounds__(kThreads)
           const float p = (okm >> (4 * n + e)) & 1u
                               ? expf(sc[n][e] - m[e >> 1])
                               : 0.f;
-          l[e >> 1] += p;  // the unrounded p
-          sc[n][e] = p;
+          l[e >> 1] += p;  // the unrounded, unscaled p
+          if constexpr (kI8)
+            sc[n][e] = p * kscl[kTile + pw0 + 8 * n + 2 * t + (e & 1)];
+          else
+            sc[n][e] = p;
         }
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n)
@@ -470,14 +656,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DP, int WP>
-cudaError_t launch(const void* q, const void* pool, const void* tables,
-                   const void* lens, void* out, void* work, int B, int H,
-                   int Sq, int D, int NB, int Hk, int Bt, int nblk,
-                   int layer, int S, int cb, float scale,
+template <typename T, typename KV, int DP, int WP>
+cudaError_t launch(const void* q, const void* pool, const void* scales,
+                   const void* tables, const void* lens, void* out,
+                   void* work, int B, int H, int Sq, int D, int NB, int Hk,
+                   int Bt, int nblk, int layer, int S, int span, float scale,
                    cudaStream_t stream) {
-  auto kernel = split_kernel<T, DP, WP>;
-  constexpr int smem = Cfg<DP>::kSmem;
+  auto kernel = split_kernel<T, KV, DP, WP>;
+  constexpr int smem = Cfg<DP, std::is_same<KV, int8_t>::value>::kSmem;
   // set on every launch (a function-local static in a header template
   // would be one object across every library built from it)
   cudaError_t err = cudaFuncSetAttribute(
@@ -487,10 +673,10 @@ cudaError_t launch(const void* q, const void* pool, const void* tables,
   float* o_part = static_cast<float*>(work);
   float* ml_part = S > 1 ? o_part + (size_t)S * rows * D : nullptr;
   kernel<<<dim3(B * Hk, S), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool),
-      static_cast<const int*>(tables), static_cast<const int*>(lens),
-      static_cast<T*>(out), o_part, ml_part, B, H, Sq, D, NB, Hk, Bt, nblk,
-      layer, cb, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(pool),
+      static_cast<const float*>(scales), static_cast<const int*>(tables),
+      static_cast<const int*>(lens), static_cast<T*>(out), o_part, ml_part,
+      B, H, Sq, D, NB, Hk, Bt, nblk, layer, span, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -498,40 +684,69 @@ cudaError_t launch(const void* q, const void* pool, const void* tables,
   return cudaGetLastError();
 }
 
+#define PADDLE_SPLIT_ARGS                                                   \
+  q, pool, scales, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, \
+      layer, S, span, scale, stream
+
 // The instantiation for D (<= 256, a multiple of 8) and R = (H / Hk) * Sq
 // query rows a block: the warps' split (WP) and the padded width (DP).
-template <typename T, int DP>
-cudaError_t launch_wp(const void* q, const void* pool, const void* tables,
-                      const void* lens, void* out, void* work, int B, int H,
-                      int Sq, int D, int NB, int Hk, int Bt, int nblk,
-                      int layer, int S, int cb, float scale,
-                      cudaStream_t stream) {
+template <typename T, typename KV, int DP>
+cudaError_t launch_wp(const void* q, const void* pool, const void* scales,
+                      const void* tables, const void* lens, void* out,
+                      void* work, int B, int H, int Sq, int D, int NB,
+                      int Hk, int Bt, int nblk, int layer, int S, int span,
+                      float scale, cudaStream_t stream) {
   const int R = H / Hk * Sq;
-  if (R <= 16)
-    return launch<T, DP, 4>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
-  if (R <= 32)
-    return launch<T, DP, 2>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
-  return launch<T, DP, 1>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                          NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+  if (R <= 16) return launch<T, KV, DP, 4>(PADDLE_SPLIT_ARGS);
+  if (R <= 32) return launch<T, KV, DP, 2>(PADDLE_SPLIT_ARGS);
+  return launch<T, KV, DP, 1>(PADDLE_SPLIT_ARGS);
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* pool, const void* tables,
-                     const void* lens, void* out, void* work, int B, int H,
-                     int Sq, int D, int NB, int Hk, int Bt, int nblk,
-                     int layer, int S, int cb, float scale,
-                     cudaStream_t stream) {
-  if (D <= 64)
-    return launch_wp<T, 64>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                            NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
-  if (D <= 128)
-    return launch_wp<T, 128>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                             NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
-  return launch_wp<T, 256>(q, pool, tables, lens, out, work, B, H, Sq, D,
-                           NB, Hk, Bt, nblk, layer, S, cb, scale, stream);
+template <typename T, typename KV>
+cudaError_t launch_d(const void* q, const void* pool, const void* scales,
+                     const void* tables, const void* lens, void* out,
+                     void* work, int B, int H, int Sq, int D, int NB, int Hk,
+                     int Bt, int nblk, int layer, int S, int span,
+                     float scale, cudaStream_t stream) {
+  if (D <= 64) return launch_wp<T, KV, 64>(PADDLE_SPLIT_ARGS);
+  if (D <= 128) return launch_wp<T, KV, 128>(PADDLE_SPLIT_ARGS);
+  return launch_wp<T, KV, 256>(PADDLE_SPLIT_ARGS);
 }
+
+// A C entry's split path: S ranges of `span` positions over the nblk * Bt
+// positions of a table (tables nullptr: a dense ring, nblk 1, Bt Smax),
+// for dtype 1 (bf16) or 2 (fp16) queries over KV in T or int8 (scales
+// beside it). Refuses (cudaErrorInvalidValue) what the kernel does not
+// take: D not a multiple of 8, S != ceil(nblk * Bt / span), a missing
+// workspace (S > 1: fp32 [S * B * H * Sq * (D + 2)]), another dtype; q and
+// out must be 16-byte aligned and the KV 16-byte aligned (int8 with D not
+// a multiple of 16: 8), else cudaErrorMisalignedAddress.
+template <bool kI8>
+int run(const void* q, const void* pool, const void* scales,
+        const void* tables, const void* lens, void* out, void* work, int B,
+        int H, int Sq, int D, int NB, int Hk, int Bt, int nblk, int layer,
+        int S, int span, float scale, int dtype, cudaStream_t stream) {
+  if (D % 8 || span < 1 || ((long long)nblk * Bt + span - 1) / span != S ||
+      (S > 1 && work == nullptr) || (kI8 && scales == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool kv_ok = kI8 && D % 16
+                         ? reinterpret_cast<uintptr_t>(pool) % 8 == 0
+                         : wg::aligned16(pool);
+  if (!wg::aligned16(q, out) || !kv_ok) return (int)cudaErrorMisalignedAddress;
+  switch (dtype) {
+    case 1:
+      return (int)launch_d<__nv_bfloat16,
+                           std::conditional_t<kI8, int8_t, __nv_bfloat16>>(
+          PADDLE_SPLIT_ARGS);
+    case 2:
+      return (int)launch_d<__half, std::conditional_t<kI8, int8_t, __half>>(
+          PADDLE_SPLIT_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+#undef PADDLE_SPLIT_ARGS
 
 }  // namespace split
 

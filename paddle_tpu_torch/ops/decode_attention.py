@@ -39,14 +39,18 @@ the prefix < lens[b] plus the new token, seeded from ``kv_new``. The ring
 is a pool of B blocks of Smax positions with one block per row, so the
 plain versions reuse the paged ones through that table.
 
-``decode_attention_paged`` has two designs, picked by ``paged_path``
-from the dtype and D alone, the one place the rule is stated: bf16 and
-fp16 at D a multiple of 8 take ``"split_kv"`` (``csrc/split_decode.cuh``:
-the KV length split over ``paged_splits`` blocks per row and KV head,
-each holding the GQA group's query rows, partials merged in split order),
-everything else ``"per_head"`` (one block per row and head, fp32
-staging). ``PATH_LAUNCHES`` counts its launches by design; the C entry
-runs the design it is given or fails.
+``decode_attention_paged`` and the two int8 reads,
+``decode_attention_paged_i8`` and ``decode_attention_stacked_i8``, have
+two designs each, picked by ``paged_path`` from the dtype and D alone,
+the one place the rule is stated: bf16 and fp16 at D a multiple of 8
+take ``"split_kv"`` (``csrc/split_decode.cuh``: the KV length split into
+ranges, each a block per row and KV head holding the GQA group's query
+rows, partials merged in split order; the fp pool's ranges are
+``paged_splits`` table blocks, the int8 flavors' ``decode_splits``
+64-position tiles, the ring read as a pool of one Smax-position block
+per row), everything else ``"per_head"`` (one block per row and head,
+fp32 staging). ``PATH_LAUNCHES`` counts each kernel's launches by
+design; the C entries run the design they are given or fail.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
@@ -86,7 +90,10 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "stacked_i8_write_is_supported", "ring_table", "FLAT_CHUNK",
            "decode_attention", "decode_attention_bhsd",
            "decode_attention_bhsd_reference", "is_supported", "paged_path",
-           "paged_splits", "LAUNCHES", "PATH_LAUNCHES"]
+           "paged_splits", "decode_splits",
+           "decode_attention_paged_i8_split_reference",
+           "decode_attention_stacked_i8_split_reference", "LAUNCHES",
+           "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_SQ, MAX_D = 128, 256
@@ -101,16 +108,21 @@ LAUNCHES = {"decode_attention_paged": 0, "decode_attention_paged_flat": 0,
             "decode_attention_stacked_write": 0,
             "decode_attention_stacked_i8_write": 0,
             "decode_attention_bhsd": 0}
-# decode_attention_paged's launches by the design that ran them
-# (paged_path)
-PATH_LAUNCHES = {"split_kv": 0, "per_head": 0}
+# the launches of the kernels with two designs, by the design that ran
+# them (paged_path)
+PATH_LAUNCHES = {name: {"split_kv": 0, "per_head": 0}
+                 for name in ("decode_attention_paged",
+                              "decode_attention_paged_i8",
+                              "decode_attention_stacked_i8")}
 _PATH_CODE = {"split_kv": 1, "per_head": 0}
-# paged_splits: blocks of the split design a wave counts per SM (a full
+# the split rule: blocks of the split design a wave counts per SM (a full
 # table's blocks; rows shorter than the table leave the later ranges
-# empty, so the blocks that work are fewer; 8 ran the decode shape
-# fastest of 2, 4, 8 and 16), and the fewest positions a split takes
+# empty, so the blocks that work are fewer; 8 ran the fp decode shape
+# fastest of 2, 4, 8 and 16), the fewest positions a split takes, and
+# the int8 flavors' range unit (the kernel's tile of positions)
 _WAVE_BLOCKS_PER_SM = 8
 _MIN_SPLIT_POSITIONS = 128
+_SPLIT_TILE = 64
 
 # the flat stream's query-chunk size: the packer aligns every segment start
 # to it, so each chunk belongs to one slot
@@ -194,10 +206,11 @@ def _all_cpu(*tensors):
 def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
     """Launch kernel ``name`` on the current stream of ``out``'s card:
     the pointers of ``named`` [(arg, tensor)] (each must be contiguous on
-    that card), ``out``, then those of ``extra`` (the paged kernel's
+    that card), ``out``, then those of ``extra`` (the split design's
     workspace), the int arguments, the softmax scale, the dtype code and,
-    for the paged kernel, the design ``path`` (``paged_path``'s). Raises
-    on an unknown path and on a refused launch."""
+    for a kernel with two designs, the design ``path`` (``paged_path``'s).
+    Raises on an unknown path and on a refused launch (naming the shapes
+    and the path: no other design is tried)."""
     if path is not None and path not in _PATH_CODE:
         raise ValueError(f"{name}: unknown kernel path {path!r}, not one of "
                          f"{sorted(_PATH_CODE)}")
@@ -222,41 +235,78 @@ def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
             + (")" if path is None else f"; {path})"))
     LAUNCHES[name] += 1
     if path is not None:
-        PATH_LAUNCHES[path] += 1
+        PATH_LAUNCHES[name][path] += 1
     return out
 
 
 def paged_path(dtype, d) -> str:
-    """The design of ``decode_attention_paged`` for queries of ``dtype``
-    at head dim ``d``: ``"split_kv"`` (split_decode.cuh, tensor cores) for
-    bf16 and fp16 at D a multiple of 8, else ``"per_head"``. The wrapper
-    passes it to the C entry, which runs that design or fails."""
+    """The design of ``decode_attention_paged``, ``decode_attention_paged_i8``
+    and ``decode_attention_stacked_i8`` for queries of ``dtype`` at head
+    dim ``d``: ``"split_kv"`` (split_decode.cuh, tensor cores) for bf16
+    and fp16 at D a multiple of 8, else ``"per_head"``. The wrappers pass
+    it to the C entries, which run that design or fail."""
     if dtype in (torch.bfloat16, torch.float16) and d % 8 == 0:
         return "split_kv"
     return "per_head"
 
 
-def paged_splits(b, hk, nblk, bt, n_sm):
-    """(S, cb) of the split design: the KV length of each (row, KV head)
-    in S ranges of cb table blocks, from the shapes and the card's SM
-    count only (never from ``cache_lens``: the launch reads nothing back
-    and can be captured in a CUDA graph). S is 1 where the B * Hk blocks
-    already fill a wave (_WAVE_BLOCKS_PER_SM an SM); else the fewest
-    ranges that fill one, no range under _MIN_SPLIT_POSITIONS positions
-    (nor under one table block). S = ceil(nblk / cb), so the ranges cover
-    every block exactly once."""
+def _split_units(b, hk, n_pos, unit, n_sm):
+    """(S, per) of the split design: the n_pos positions of each (row,
+    KV head) in S ranges of ``per`` units of ``unit`` positions, from the
+    shapes and the card's SM count only (never from ``cache_lens``: the
+    launch reads nothing back and can be captured in a CUDA graph). S is
+    1 where the B * Hk blocks already fill a wave (_WAVE_BLOCKS_PER_SM an
+    SM); else the fewest ranges that fill one, no range under
+    _MIN_SPLIT_POSITIONS positions (nor under one unit). S =
+    ceil(units / per), so the ranges cover every position once."""
+    units = -(-n_pos // unit)
     blocks, wave = b * hk, _WAVE_BLOCKS_PER_SM * n_sm
     if blocks >= wave:
-        return 1, nblk
-    most = max(1, min(nblk, nblk * bt // _MIN_SPLIT_POSITIONS))
-    s = min(most, -(-wave // blocks))
-    cb = -(-nblk // s)
-    return -(-nblk // cb), cb
+        return 1, units
+    most = max(1, min(units, n_pos // _MIN_SPLIT_POSITIONS))
+    per = -(-units // min(most, -(-wave // blocks)))
+    return -(-units // per), per
+
+
+def paged_splits(b, hk, nblk, bt, n_sm):
+    """(S, cb) of the fp pool's split design: ranges of cb whole table
+    blocks (``_split_units`` with the block as the unit), S = ceil(nblk /
+    cb), so the ranges cover every block exactly once."""
+    return _split_units(b, hk, nblk * bt, bt, n_sm)
+
+
+def decode_splits(b, hk, n_pos, n_sm):
+    """(S, span) of the int8 flavors' split design: ranges of ``span``
+    positions, whole 64-position tiles of the kernel (``_split_units``
+    with the tile as the unit), over a pool's nblk * Bt positions or a
+    ring's Smax alike. S = ceil(n_pos / span)."""
+    s, per = _split_units(b, hk, n_pos, _SPLIT_TILE, n_sm)
+    return s, per * _SPLIT_TILE
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_work(splits, qt):
+    """The split design's fp32 workspace for queries ``qt`` [B, H, Sq,
+    D]: the partials o [S, B*H*Sq, D] and (m, l) [S, B*H*Sq, 2] (one
+    unused float when S is 1)."""
+    b, h, sq, d = qt.shape
+    return torch.empty((splits * b * h * sq * (d + 2) if splits > 1 else 1,),
+                       dtype=torch.float32, device=qt.device)
+
+
+def _i8_splits(qt, hk, n_pos):
+    """(path, S, span) of an int8 read over n_pos positions a row: the
+    design from ``paged_path``, the ranges from ``decode_splits`` (one
+    range of n_pos for the per-head design)."""
+    b, _, _, d = qt.shape
+    path = paged_path(qt.dtype, d)
+    if path != "split_kv" or qt.device.type != "cuda":
+        return path, 1, n_pos
+    return (path, *decode_splits(b, hk, n_pos, _sm_count(qt.device.index)))
 
 
 def decode_attention_paged(qt, pool, tables, layer, cache_lens, scale=None):
@@ -276,9 +326,7 @@ def decode_attention_paged(qt, pool, tables, layer, cache_lens, scale=None):
     splits, cb = 1, nblk
     if path == "split_kv" and qt.device.type == "cuda":
         splits, cb = paged_splits(b, hk, nblk, bt, _sm_count(qt.device.index))
-    # the split partials: o [S, B*H*Sq, D] and (m, l), fp32
-    work = torch.empty((splits * b * h * sq * (d + 2) if splits > 1 else 1,),
-                       dtype=torch.float32, device=qt.device)
+    work = _split_work(splits, qt)
     return _launch(name, [("qt", qt), ("pool", pool), ("tables", tables),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
                    (b, h, sq, d, nb, hk, bt, nblk, int(layer), splits, cb),
@@ -334,26 +382,38 @@ def decode_attention_paged_split_reference(qt, pool, tables, layer,
         2, b, hk, nblk * bt, d).repeat_interleave(h // hk, dim=2).float()
     mask = _row_mask(cache_lens, sq, nblk * bt, qt.device)
     s = qt.float() @ kv[0].transpose(-1, -2) * scale
-    m_all = torch.full(s.shape[:-1] + (1,), NEG_INF, device=qt.device)
+    return _split_merge(s, mask, kv[1], cb * bt, pool.dtype, qt.dtype)
+
+
+def _split_merge(s, mask, v, span, p_dtype, out_dtype, v_scale=None):
+    """The split design's softmax on dense views: s [..., R, S] the
+    scores (fp32), mask [..., R, S], v [..., S, D] fp32, v_scale (int8)
+    [..., 1, S]. Each range of ``span`` positions keeps its own fp32
+    partial (its max m, the sum l of the unrounded, unscaled p, o the PV
+    product of p (int8: p * v_scale) rounded to p_dtype); the partials
+    merge in split order with the usual rescaling. A range or row with
+    nothing to attend contributes nothing; a row with nothing returns 0."""
+    m_all = torch.full(s.shape[:-1] + (1,), NEG_INF, device=s.device)
     parts = []
-    for i in range(-(-nblk // cb)):
-        lo, hi = i * cb * bt, min((i + 1) * cb, nblk) * bt
+    for lo in range(0, s.shape[-1], span):
+        hi = min(lo + span, s.shape[-1])
         mk = mask[..., lo:hi]
         sc = torch.where(mk, s[..., lo:hi], torch.full_like(s[..., lo:hi],
                                                             NEG_INF))
         m = sc.amax(-1, keepdim=True)
         p = torch.where(mk, torch.exp(sc - m), torch.zeros_like(sc))
+        pv = p if v_scale is None else p * v_scale[..., lo:hi]
         parts.append((m, p.sum(-1, keepdim=True),
-                      p.to(pool.dtype).float() @ kv[1][..., lo:hi, :]))
+                      pv.to(p_dtype).float() @ v[..., lo:hi, :]))
         m_all = torch.maximum(m_all, m)
     lsum = torch.zeros_like(m_all)
-    o = torch.zeros(qt.shape, device=qt.device)
+    o = torch.zeros(s.shape[:-1] + v.shape[-1:], device=s.device)
     for m, l, part in parts:
         w = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(l))
         lsum = lsum + w * l
         o = o + w * part
     return (o / torch.where(lsum == 0, torch.ones_like(lsum), lsum)).to(
-        qt.dtype)
+        out_dtype)
 
 
 def _fp_attend(q, kv, mask, scale, p_dtype, out_dtype):
@@ -387,11 +447,14 @@ def decode_attention_paged_i8(qt, pool_i8, pool_scales, tables, layer,
         return decode_attention_paged_i8_reference(
             qt, pool_i8, pool_scales, tables, layer, cache_lens, scale)
     _, _, nb, hk, bt, _ = pool_i8.shape
+    nblk = tables.shape[1]
+    path, splits, span = _i8_splits(qt, hk, nblk * bt)
     return _launch(name, [("qt", qt), ("pool_i8", pool_i8),
                           ("pool_scales", pool_scales), ("tables", tables),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
-                   (b, h, sq, d, nb, hk, bt, tables.shape[1], int(layer)),
-                   scale, qt.dtype)
+                   (b, h, sq, d, nb, hk, bt, nblk, int(layer), splits, span),
+                   scale, qt.dtype, extra=[("work", _split_work(splits, qt))],
+                   path=path)
 
 
 def _i8_attend(q, kvi, sc, mask, scale, out_dtype):
@@ -438,6 +501,30 @@ def decode_attention_paged_i8_reference(qt, pool_i8, pool_scales, tables,
     kvi, sc = _gather_i8(pool_i8, pool_scales, tables, rows, layer, h)
     mask = _row_mask(cache_lens, sq, kvi.shape[3], qt.device)
     return _i8_attend(qt.float(), kvi, sc, mask, scale, qt.dtype)
+
+
+def decode_attention_paged_i8_split_reference(qt, pool_i8, pool_scales,
+                                              tables, layer, cache_lens,
+                                              scale=None, splits=1):
+    """The int8 split design's arithmetic in plain PyTorch: each row's
+    nblk * Bt positions in ``splits`` ranges of span = ceil(nblk * Bt /
+    splits) positions (the kernel's ranges are whole 64-position tiles,
+    ``decode_splits``), each range's fp32 partial over scores (q . k_int)
+    * scale * k_scale (l sums the unscaled p, o takes p * v_scale rounded
+    to the query dtype), merged in split order (``_split_merge``). Equal
+    to ``decode_attention_paged_i8_reference`` but for where p is
+    rounded."""
+    b, h, sq, d = qt.shape
+    if scale is None:
+        scale = d ** -0.5
+    rows = torch.arange(b, device=qt.device)
+    kvi, sc = _gather_i8(pool_i8, pool_scales, tables, rows, layer, h)
+    n_pos = kvi.shape[3]
+    mask = _row_mask(cache_lens, sq, n_pos, qt.device)
+    s = qt.float() @ kvi[0].transpose(-1, -2) * scale * sc[0].transpose(
+        -1, -2)
+    return _split_merge(s, mask, kvi[1], -(-n_pos // splits), qt.dtype,
+                        qt.dtype, sc[1].transpose(-1, -2))
 
 
 # ------------------------------------------------------------ flat stream
@@ -783,10 +870,13 @@ def decode_attention_stacked_i8(qt, caches_i8, cache_scales, layer,
         return decode_attention_stacked_i8_reference(
             qt, caches_i8, cache_scales, layer, cache_lens, scale)
     _, _, _, hk, smax, _ = caches_i8.shape
+    path, splits, span = _i8_splits(qt, hk, smax)
     return _launch(name, [("qt", qt), ("caches_i8", caches_i8),
                           ("cache_scales", cache_scales),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
-                   (b, h, sq, d, hk, smax, int(layer)), scale, qt.dtype)
+                   (b, h, sq, d, hk, smax, int(layer), splits, span), scale,
+                   qt.dtype, extra=[("work", _split_work(splits, qt))],
+                   path=path)
 
 
 def decode_attention_stacked_i8_reference(qt, caches_i8, cache_scales,
@@ -796,6 +886,17 @@ def decode_attention_stacked_i8_reference(qt, caches_i8, cache_scales,
     return decode_attention_paged_i8_reference(
         qt, caches_i8, cache_scales, ring_table(qt.shape[0], qt.device),
         layer, cache_lens, scale)
+
+
+def decode_attention_stacked_i8_split_reference(qt, caches_i8, cache_scales,
+                                                layer, cache_lens,
+                                                scale=None, splits=1):
+    """The int8 split design over the ring in plain PyTorch:
+    ``decode_attention_paged_i8_split_reference`` over the ring as a pool
+    of one Smax-position block per row."""
+    return decode_attention_paged_i8_split_reference(
+        qt, caches_i8, cache_scales, ring_table(qt.shape[0], qt.device),
+        layer, cache_lens, scale, splits)
 
 
 def _new_token_mask(cache_lens, smax, device):

@@ -16,6 +16,7 @@ chip_smoke.py holds it to the plain version).
   design, the rest the per-head one; CPU tensors count no launch and no
   path; an unknown path is refused before any device is touched.
 """
+import copy
 import functools
 
 import jax.numpy as jnp
@@ -148,7 +149,7 @@ def test_paged_path(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_count_no_launch(dtype):
     args = _torch_args(16, 2, dtype)
-    before = (dict(da.LAUNCHES), dict(da.PATH_LAUNCHES))
+    before = copy.deepcopy((da.LAUNCHES, da.PATH_LAUNCHES))
     got = da.decode_attention_paged(*args)
     assert torch.equal(got, da.decode_attention_paged_reference(*args))
     assert (da.LAUNCHES, da.PATH_LAUNCHES) == before

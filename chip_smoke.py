@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero:
      mid-tile, Smax - Sq and past the middle; both over Sq 1, 16 and 128,
      GQA groups 1, 2 and 4, D 40, 64 and 128, bf16, fp16 and fp32), each
      kernel's launches by design counted: bf16 and fp16 split, fp32 per
-     head; the flat
+     head; the fp dense ring's kernel and decode_attention_bhsd over the
+     same split design (the ring at Smax 128, 1024 and 4096; the one-layer
+     cache at Smax 32, 1000 and 1024 with K and V separate tensors; Sq 1,
+     16 and 128, GQA groups 1, 2 and 4, D 64 and 128, bf16, fp16 and
+     fp32), bf16 and fp16 split, fp32 per head; the flat
      kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
      unmapped entry; flash attention causal and not, sq < sk, GQA, S in
@@ -68,14 +72,15 @@ Phases, in order; any failure exits non-zero:
      an int8 cache always the int8 flavors and never an fp attention
      kernel, over a ring never a paged kernel and vice versa — and every
      int4 run the dequant-matmul; every decode_attention_paged,
-     decode_attention_paged_i8 and decode_attention_stacked_i8 launch
-     takes the split design (decode_attention.PATH_LAUNCHES). The pool,
+     decode_attention_paged_i8, decode_attention_stacked and
+     decode_attention_stacked_i8 launch takes the split design
+     (decode_attention.PATH_LAUNCHES). The pool,
      ring and weight bytes are read from the arrays;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
      run launches exactly its one ring kernel 12 times per hidden pass,
-     the int8 read on the split design;
+     the fp and int8 reads on the split design;
   3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
      (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
      with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
@@ -93,9 +98,10 @@ Phases, in order; any failure exits non-zero:
      random weights) over per-layer caches [2, 8, 12, 1024, 64]: a
      128-token chunk at time_step 0, then 127 one-token steps, each call
      launching exactly 12 decode_attention_bhsd and no other attention
-     kernel, outputs finite; then one FusedFeedForward forward and
-     backward under the fused FFN flags, launching each fused FFN kernel
-     once, all three on the tensor-core path;
+     kernel, every one on the split design, outputs finite; then one
+     FusedFeedForward forward and backward under the fused FFN flags,
+     launching each fused FFN kernel once, all three on the tensor-core
+     path;
   3f. LLaMA training at LLaMA-2-7B width (profile_train.
      llama_train_workload: hidden 4096, 32 heads, head_dim 128,
      intermediate 11008, vocab 32000, rms_eps 1e-5, L=4,
@@ -123,14 +129,17 @@ Phases, in order; any failure exits non-zero:
      the CPU's phase scheduler: its bulk prefill attends exact K/V); the
      dense engines (row, flat, phase fp; row int8 ring) against the
      CPU's dense row engine of the same flavor; generate_fused fp and
-     int8 ring, cache_write_kernel off and on, against the CPU's; GPT-2
+     int8 ring, cache_write_kernel off and on, against the CPU's; every
+     card launch of a two-design read kernel there on the per-head
+     design (fp32 queries); GPT-2
      training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps, without
      and with the fused FFN: losses, step-1 gradients and step-3
      parameters against the CPU's; FusedMultiTransformer at L=2, fp32: a
      16-token chunk then 8 steps, outputs and caches after every call
-     against the CPU's; LLaMA training at phase 3f's widths, L=1, B=1,
-     S=128, fp32, 3 AdamW steps: logits, losses, step-1 gradients and
-     step-3 parameters against the CPU's; the ring at n = 4 over [2, 256,
+     against the CPU's, each launch on the per-head design; LLaMA
+     training at phase 3f's widths, L=1, B=1, S=128, fp32, 3 AdamW steps:
+     logits, losses, step-1 gradients and step-3 parameters against the
+     CPU's; the ring at n = 4 over [2, 256,
      4, 64] with 2 KV heads, fp32: the card's kernels against the CPU's
      composite and plain versions, output and gradients;
   5. each kernel timed at the shapes its path gives it, beside its bound,
@@ -142,7 +151,10 @@ Phases, in order; any failure exits non-zero:
      (W1, b1, W2), in CUDA graphs; for the flash and ring chunk
      kernels the fastest of SDPA's backends and ATen's flash backward,
      in CUDA graphs as the kernels are; the flash kernels also at phase
-     3f's [1, 32, 4096, 128]; the ring chunk kernels at phase 3g's chunk
+     3f's [1, 32, 4096, 128]; the decode reads over a contiguous cache
+     (the fp and int8 ring, the one-layer cache) at lens 1023 with Sq 1
+     and at 512 with Sq 1 and 16; the ring chunk kernels at phase 3g's
+     chunk
      [1, 32, 1024, 128], offsets full and 0, held there as phase 2 holds
      the main flash shapes.
 The last two lines are the card from nvidia-smi and
@@ -334,6 +346,7 @@ def phase_kernels(rng):
                       worst)
     split_kernels(rng, worst)
     split_i8_kernels(rng, worst)
+    split_fp_contiguous_kernels(rng, worst)
     stacked_kernels(rng, worst)
     training_kernels(rng, worst)
     ffn_kernels(rng, worst)
@@ -426,6 +439,64 @@ def split_i8_kernels(rng, worst):
                 "decode_attention_stacked_i8": 3 * n_fp}
     log(f"  int8 split cases: worst {dict(worst)}")
     check_paths("int8 split cases", split, per_head)
+
+
+def split_fp_contiguous_kernels(rng, worst):
+    """The fp ring's and the one-layer cache's kernels over rows that
+    their split design cuts into ranges of 64-position tiles, against the
+    plain versions: the ring at Smax 128, 1024 and 4096 (lens 0, mid-tile,
+    Smax - Sq and past the middle), the one-layer cache at Smax 32, 1000
+    (not a tile multiple) and 1024 with K and V separate tensors (lens 0,
+    mid-tile, Smax - Sq and the middle; Sq <= Smax); Sq 1, 16 and 128, GQA
+    groups 1, 2 and 4, D 64 and 128. Every bf16 and fp16 launch on the
+    split path, every fp32 one on the per-head one."""
+    reset_launches()
+    n = collections.Counter()
+    for dtype, tname in SPLIT_I8_DTYPES:
+        for sq in (1, 16, 128):
+            for group in (1, 2, 4):
+                for d in (64, 128):
+                    label = (f"{str(dtype):14s} Sq={sq:3d} group={group} "
+                             f"D={d:3d}")
+                    qt = randn(rng, (4, 4, sq, d), dtype)
+                    for smax in (128, 1024, 4096):
+                        ring = randn(rng, (2, 2, 4, 4 // group, smax, d),
+                                     dtype)
+                        lens = torch.tensor(
+                            [0, 37, smax - sq, smax // 2 + 5],
+                            dtype=torch.int32, device="cuda")
+                        check(f"stacked split {label} Smax={smax:4d}",
+                              da.decode_attention_stacked(qt, ring, 1, lens),
+                              da.decode_attention_stacked_reference(
+                                  qt, ring, 1, lens), tname, worst,
+                              quiet=True)
+                        n["decode_attention_stacked", dtype] += 1
+                    for smax in (32, 1000, 1024):
+                        if sq > smax:
+                            continue
+                        k, v = (randn(rng, (4, 4 // group, smax, d), dtype)
+                                for _ in range(2))
+                        top = smax - sq
+                        lens = torch.tensor([0, min(37, top), top, top // 2],
+                                            dtype=torch.int32, device="cuda")
+                        check(f"bhsd split {label} Smax={smax:4d}",
+                              da.decode_attention_bhsd(qt, k, v, lens),
+                              da.decode_attention_bhsd_reference(qt, k, v,
+                                                                 lens),
+                              tname, worst, quiet=True)
+                        n["decode_attention_bhsd", dtype] += 1
+    names = ("decode_attention_stacked", "decode_attention_bhsd")
+    split = {k: n[k, torch.bfloat16] + n[k, torch.float16] for k in names}
+    per_head = {k: n[k, torch.float32] for k in names}
+    log(f"  fp contiguous split cases: worst {dict(worst)}")
+    check_paths("fp contiguous split cases", split, per_head)
+
+
+def check_all_per_head(label):
+    """Fail unless every launch of the two-design decode kernels since
+    the counts were reset took the per-head design (fp32 queries)."""
+    ran = {k: da.LAUNCHES[k] for k in da.PATH_LAUNCHES if da.LAUNCHES[k]}
+    check_paths(label, {k: 0 for k in ran}, ran)
 
 
 def check_paths(label, split, per_head=None):
@@ -1013,7 +1084,7 @@ def phase_generate(seed):
             raise SystemExit(f"[{name}] output {tuple(out.shape)}, "
                              f"launches {got}: want (8, {prompt + new}) "
                              f"and {want}")
-        if kernel in da.PATH_LAUNCHES:    # the int8 read: split design
+        if kernel in da.PATH_LAUNCHES:    # a read kernel: split design
             check_paths(f"[{name}]", want)
         log(f"  [{name}] {out.shape[0]} x ({prompt} + {new}) tokens in "
             f"{dt:.3f} s: generated tokens/s {8 * new / dt:.1f}, hidden "
@@ -1364,6 +1435,7 @@ def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
     torch.cuda.synchronize()
     decode_s = sum(times[1:])
     launches = all_launches()
+    check_paths("[fmt]", {"decode_attention_bhsd": n_layers * (steps + 1)})
     if not bool(finite) or not all(bool(torch.isfinite(c).all())
                                    for c in caches):
         raise SystemExit("FusedMultiTransformer: non-finite outputs or "
@@ -1540,9 +1612,12 @@ def phase_parity(seed):
             mods = from_jax_state(*state, device=dev, dtype=torch.float32)
             eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
                                 device=dev, **SCHEDULERS[name], **flavor)
+            reset_launches()
             t0 = time.perf_counter()
             outs[dev, name] = list(serve(eng, reqs)[0].values())
             log(f"  [{fname}] {dev} {name}: {time.perf_counter() - t0:.2f} s")
+            if dev == "cuda":             # fp32 queries: the per-head design
+                check_all_per_head(f"[{fname}] {name}")
         for name in scheds:
             want = outs["cpu", oracle[name]]
             for i, (a, b) in enumerate(zip(outs["cuda", name], want)):
@@ -1653,11 +1728,9 @@ def parity_fmt(seed, b=2, chunk=16, steps=8, smax=256, n_layers=2):
                 # the next step updates in place
                 seq.append([t.cpu().clone() for t in (out, *caches)])
         runs[dev] = seq
-        if dev == "cuda" and da.LAUNCHES["decode_attention_bhsd"] \
-                != n_layers * (steps + 1):
-            raise SystemExit(f"[fmt] the card launched {all_launches()}, "
-                             f"want {n_layers * (steps + 1)} "
-                             "decode_attention_bhsd")
+        if dev == "cuda":
+            check_paths("[fmt] fp32", {"decode_attention_bhsd": 0},
+                        {"decode_attention_bhsd": n_layers * (steps + 1)})
     tol = TOLERANCES["logits_fp32"]
     worst = 0.0
     for i, (got, want) in enumerate(zip(runs["cuda"], runs["cpu"])):
@@ -1681,6 +1754,7 @@ def parity_generate(state, rng):
         outs = {}
         for dev, kw in (("cuda", False), ("cuda", True), ("cpu", False)):
             mods = from_jax_state(*state, device=dev, dtype=torch.float32)
+            reset_launches()
             t0 = time.perf_counter()
             outs[dev, kw] = generate_fused(
                 mods[0], ids, *mods[1:], max_new_tokens=24,
@@ -1688,6 +1762,8 @@ def parity_generate(state, rng):
                 **flavor).numpy()[:, 48:]
             log(f"  [generate {fname}] {dev} cache_write_kernel={kw}: "
                 f"{time.perf_counter() - t0:.2f} s")
+            if dev == "cuda":
+                check_all_per_head(f"[generate {fname}] write={int(kw)}")
         want = outs["cpu", False]
         for kw in (False, True):
             got = outs["cuda", kw]
@@ -2082,32 +2158,36 @@ def time_ffn_dtype(rng, act, dtype):
 def time_bhsd(rng):
     """decode_attention_bhsd at fused_multi_transformer's decode shape:
     B=8, H=12, D=64, Smax=1024, bf16, every row at cache_lens 1023 with
-    Sq=1, the layer cycled over 12 caches (past the L2); the library call
-    is SDPA over the same 1024 positions with the prefix mask."""
-    b, h, d, smax, n_layers, ln, sq = 8, H, E // H, 1024, 12, 1023, 1
+    Sq=1 (the main shape), then at 512 with Sq=1 and Sq=16, the layer
+    cycled over 12 caches (past the L2); the library call is SDPA over the
+    same positions with the prefix mask (the cache sliced, not copied)."""
+    b, h, d, smax, n_layers = 8, H, E // H, 1024, 12
     kv = randn(rng, (n_layers, 2, b, h, smax, d), torch.bfloat16)
-    qt = randn(rng, (b, h, sq, d), torch.bfloat16)
-    lens = torch.full((b,), ln, dtype=torch.int32, device="cuda")
-    s = ln + sq
-    mask = (torch.arange(s, device="cuda")[None, :]
-            <= ln + torch.arange(sq, device="cuda")[:, None])
+    rows = []
+    for ln, sq in ((1023, 1), (512, 1), (512, 16)):
+        qt = randn(rng, (b, h, sq, d), torch.bfloat16)
+        lens = torch.full((b,), ln, dtype=torch.int32, device="cuda")
+        s = ln + sq
+        mask = (torch.arange(s, device="cuda")[None, :]
+                <= ln + torch.arange(sq, device="cuda")[:, None])
 
-    def run_kernel(i=0):
-        c = kv[i % n_layers]
-        return da.decode_attention_bhsd(qt, c[0], c[1], lens)
+        def run_kernel(i=0, qt=qt, lens=lens):
+            c = kv[i % n_layers]
+            return da.decode_attention_bhsd(qt, c[0], c[1], lens)
 
-    def run_plain(i=0):
-        c = kv[i % n_layers]
-        return da.decode_attention_bhsd_reference(qt, c[0], c[1], lens)
+        def run_plain(i=0, qt=qt, lens=lens):
+            c = kv[i % n_layers]
+            return da.decode_attention_bhsd_reference(qt, c[0], c[1], lens)
 
-    def run_sdpa(i=0):
-        c = kv[i % n_layers]
-        return F.scaled_dot_product_attention(qt, c[0, :, :, :s],
-                                              c[1, :, :, :s], attn_mask=mask)
-    nbytes = b * h * s * 2 * d * 2 + 2 * b * h * sq * d * 2 + b * 4
-    flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
-    return [timed_row({"cache_lens": ln, "sq": sq}, run_kernel, run_plain,
-                      run_sdpa, nbytes, flops, 200)]
+        def run_sdpa(i=0, qt=qt, s=s, mask=mask):
+            c = kv[i % n_layers]
+            return F.scaled_dot_product_attention(
+                qt, c[0, :, :, :s], c[1, :, :, :s], attn_mask=mask)
+        nbytes = b * h * s * 2 * d * 2 + 2 * b * h * sq * d * 2 + b * 4
+        flops = 4 * d * b * h * sum(ln + r + 1 for r in range(sq))
+        rows.append(timed_row({"cache_lens": ln, "sq": sq}, run_kernel,
+                              run_plain, run_sdpa, nbytes, flops, 200))
+    return rows
 
 
 def time_loop_ms(fn, reps):
@@ -2360,8 +2440,8 @@ def time_stacked(rng, quant, write):
     Smax=1024, bf16, the layer cycled over 12 (the rings exceed the L2),
     every row at cache_lens 1023 with Sq=1 (the main shape), then at 512
     with Sq=16 (Sq=1 for the write kernels, which write row 512 on every
-    launch); the int8 read also at 512 with Sq=1 and at 1008 (the ring's
-    last 16 positions) with Sq=16. The library call is SDPA over the same
+    launch); the reads also at 512 with Sq=1 and at 1008 (the ring's last
+    16 positions) with Sq=16. The library call is SDPA over the same
     positions (for the
     write kernels the prefix plus the new token) sliced from the ring
     into a contiguous bf16 view, dequantized for int8 (not timed)."""
@@ -2377,7 +2457,7 @@ def time_stacked(rng, quant, write):
     kernel, plain = getattr(da, fn), getattr(da, fn + "_reference")
     rows = []
     shapes = [(1023, 1), (512, 1 if write else 16)]
-    if quant and not write:
+    if not write:
         shapes += [(512, 1), (1008, 16)]
     for ln, sq in shapes:
         qt = randn(rng, (b, h, sq, d), torch.bfloat16)

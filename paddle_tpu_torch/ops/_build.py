@@ -85,9 +85,12 @@ _ENTRY = {
     "fused_dequant_matmul": (
         "paddle_fused_dequant_matmul",
         [_P] * 5 + [_I] * 8 + [_P]),
+    # the fp ring: pointers (the split workspace last), the shape ints,
+    # the layer, the splits and positions a split, the scale, the dtype
+    # code and the design (paged_path's)
     "decode_attention_stacked": (
         "paddle_decode_attention_stacked",
-        [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+        [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P]),
     "decode_attention_stacked_i8": (
         "paddle_decode_attention_stacked_i8",
         [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P]),
@@ -116,8 +119,12 @@ _ENTRY = {
         "paddle_fused_ffn_bwd_dx", [_P] * 6 + [_I] * 8 + [_P]),
     "fused_ffn_bwd_dw": (
         "paddle_fused_ffn_bwd_dw", [_P] * 8 + [_I] * 8 + [_P]),
+    # the one-layer cache: pointers (the split workspace last), the shape
+    # ints, the splits and positions a split, the scale, the dtype code and
+    # the design (paged_path's)
     "decode_attention_bhsd": (
-        "paddle_decode_attention_bhsd", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+        "paddle_decode_attention_bhsd",
+        [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
     "rms_norm_fwd": (
         "paddle_rms_norm_fwd", [_P] * 4 + [_I, _I, _F, _I, _P]),
     "rms_norm_bwd": (

@@ -21,16 +21,31 @@
 // past it exists (the write-then-attend caller keeps lens + Sq <= Smax).
 //
 // What bounds it on the card: bytes. A decode step reads the row's valid
-// prefix once per head and does 4*D flops per position and query row, far
-// below the H100's ~295 flop/byte ridge. Design: decode_attention_stacked's
-// (one thread block per (row, head); a cache row [Smax, D] of one (row, kv
-// head) is contiguous in each of K and V, so the walk stages 32 positions
-// at a time straight from the two tensors as fp32 with 16-byte loads, four
-// per thread in flight (attention_tile.cuh); four warps each own four
-// query rows of a 16-row pass with an fp32 online softmax in registers).
-// GQA heads of one KV head re-read the same row (from L2); split-K over
-// long rows, tensor-core products and TMA are left for later work.
+// prefix once per KV head and does 4*D flops per position and query row,
+// far below the H100's ~295 flop/byte ridge.
+//
+// Two designs, as the dense ring's: the wrapper picks one (ops/
+// decode_attention.py's paged_path) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16, D a multiple of 8): the fp flavor of
+//   split_decode.cuh with the cache read as a pool of B blocks of Smax
+//   positions and no table (row b's block is b), k and v its two bases
+//   (two tensors, no fixed distance between them): S ranges of `span`
+//   positions (a multiple of 64; the wrapper's decode_splits; Smax any
+//   length, the tile past it zero-filled) per (row, KV head), each block
+//   holding the GQA group's query rows, 64-position K/V tiles staged by
+//   cp.async, products on mma.sync, then the merge of the S fp32 partials
+//   in `work`.
+// - path 0, "per_head" (fp32, or D not a multiple of 8):
+//   decode_attention_stacked's per-head design (one thread block per (row,
+//   head); a cache row [Smax, D] of one (row, kv head) is contiguous in
+//   each of K and V, so the walk stages 32 positions at a time straight
+//   from the two tensors as fp32 with 16-byte loads, four per thread in
+//   flight (attention_tile.cuh); four warps each own four query rows of a
+//   16-row pass with an fp32 online softmax in registers). GQA heads of one
+//   KV head re-read the same row (from L2).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -150,18 +165,27 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype (of q, k, v and out): 0 = float32, 1 = bfloat16, 2 = float16.
-// Returns a cudaError_t (0 on success); the caller has validated shapes,
-// devices and layout.
-extern "C" int paddle_decode_attention_bhsd(const void* q, const void* k,
-                                            const void* v, const void* lens,
-                                            void* out, int B, int H, int Sq,
-                                            int D, int Hk, int Smax,
-                                            float scale, int dtype,
-                                            void* stream) {
+// path: 1 = split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1
+// ranges of span positions each, S = ceil(Smax / span); work: fp32 [S * B
+// * H * Sq * (D + 2)] when S > 1; q, out, k and v 16-byte aligned), 0 =
+// per_head (splits 1; work unused); any other pairing returns
+// cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the caller
+// has validated shapes, devices and layout.
+extern "C" int paddle_decode_attention_bhsd(
+    const void* q, const void* k, const void* v, const void* lens, void* out,
+    void* work, int B, int H, int Sq, int D, int Hk, int Smax, int splits,
+    int span, float scale, int dtype, int path, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
-      H % Hk || Smax < 1)
+      H % Hk || Smax < 1 || splits < 1 || splits > 65535 ||
+      (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)  // the cache as a pool of B blocks of Smax positions
+    return paddle_attn::split::run<false>(
+        q, paddle_attn::split::Planes{k, v, nullptr, nullptr}, nullptr, lens,
+        out, work, B, H, Sq, D, B, Hk, Smax, 1, splits, span, scale, dtype,
+        s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, k, v, lens, out, B, H, Sq, D, Hk, Smax,

@@ -252,10 +252,11 @@ extern "C" int paddle_decode_attention_paged(
   if (path == 1) {  // ranges of cb whole table blocks
     if (cb < 1 || (nblk + cb - 1) / cb != splits)
       return (int)cudaErrorInvalidValue;
-    return paddle_attn::split::run<false>(q, pool, nullptr, tables, lens,
-                                          out, work, B, H, Sq, D, NB, Hk, Bt,
-                                          nblk, layer, splits, cb * Bt, scale,
-                                          dtype, s);
+    return paddle_attn::split::run<false>(
+        q, paddle_attn::split::layer_planes(pool, nullptr, layer, NB, Hk, Bt,
+                                            D, 2),
+        tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, splits,
+        cb * Bt, scale, dtype, s);
   }
   if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {

@@ -213,9 +213,11 @@ extern "C" int paddle_decode_attention_paged_i8(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1)
-    return paddle_attn::split::run<true>(q, pool, scales, tables, lens, out,
-                                         work, B, H, Sq, D, NB, Hk, Bt, nblk,
-                                         layer, splits, span, scale, dtype, s);
+    return paddle_attn::split::run<true>(
+        q, paddle_attn::split::layer_planes(pool, scales, layer, NB, Hk, Bt,
+                                            D, 1),
+        tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, splits, span,
+        scale, dtype, s);
   if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:

@@ -19,16 +19,28 @@
 // clamp; here the walk stops there).
 //
 // What bounds it on the card: bytes. A decode step reads the row's valid
-// prefix once per head and does 4*D flops per position and query row, far
-// below the H100's ~295 flop/byte ridge. Design: one thread block per (row,
-// head); a ring row [Smax, D] of one (layer, kv, row, kv head) is
-// contiguous, so the walk stages 32 positions at a time straight from it as
-// fp32, with 16-byte loads, four per thread in flight (attention_tile.cuh,
-// shared with the paged kernels); four warps each own four query rows of a
-// 16-row pass with an fp32 online softmax in registers. GQA heads of one KV
-// head re-read the same row (from L2); split-K over long rows, tensor-core
-// products and TMA are left for later work.
+// prefix once per KV head and does 4*D flops per position and query row,
+// far below the H100's ~295 flop/byte ridge.
+//
+// Two designs, as the int8 ring's: the wrapper picks one (ops/
+// decode_attention.py's paged_path) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16, D a multiple of 8): the fp flavor of
+//   split_decode.cuh with the ring read as a pool of B blocks of Smax
+//   positions and no table (row b's block is b, layer `layer`'s K and V
+//   planes its two bases): S ranges of `span` positions (a multiple of 64;
+//   the wrapper's decode_splits) per (row, KV head), each block holding the
+//   GQA group's query rows, 64-position K/V tiles staged by cp.async,
+//   products on mma.sync, then the merge of the S fp32 partials in `work`.
+// - path 0, "per_head" (fp32, or D not a multiple of 8): one thread block
+//   per (row, head); a ring row [Smax, D] of one (layer, kv, row, kv head)
+//   is contiguous, so the walk stages 32 positions at a time straight from
+//   it as fp32, with 16-byte loads, four per thread in flight
+//   (attention_tile.cuh, shared with the paged kernels); four warps each
+//   own four query rows of a 16-row pass with an fp32 online softmax in
+//   registers. GQA heads of one KV head re-read the same row (from L2).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -148,16 +160,28 @@ cudaError_t launch_d(const void* q, const void* ring, const void* lens,
 }  // namespace
 
 // dtype (of q, ring and out): 0 = float32, 1 = bfloat16, 2 = float16.
-// Returns a cudaError_t (0 on success); the caller has validated shapes,
-// devices and layout.
+// path: 1 = split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1
+// ranges of span positions each, S = ceil(Smax / span); work: fp32 [S * B
+// * H * Sq * (D + 2)] when S > 1; q, out and the ring 16-byte aligned), 0
+// = per_head (splits 1; work unused); any other pairing returns
+// cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the caller
+// has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_stacked(
-    const void* q, const void* ring, const void* lens, void* out, int B,
-    int H, int Sq, int D, int Hk, int Smax, int layer, float scale,
-    int dtype, void* stream) {
+    const void* q, const void* ring, const void* lens, void* out,
+    void* work, int B, int H, int Sq, int D, int Hk, int Smax, int layer,
+    int splits, int span, float scale, int dtype, int path, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sq > 128 || D < 1 || D > 256 || Hk < 1 ||
-      H % Hk || Smax < 1 || layer < 0)
+      H % Hk || Smax < 1 || layer < 0 || splits < 1 || splits > 65535 ||
+      (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)  // the ring as a pool of B blocks of Smax positions
+    return paddle_attn::split::run<false>(
+        q, paddle_attn::split::layer_planes(ring, nullptr, layer, B, Hk,
+                                            Smax, D, 2),
+        nullptr, lens, out, work, B, H, Sq, D, B, Hk, Smax, 1, splits, span,
+        scale, dtype, s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, ring, lens, out, B, H, Sq, D, Hk, Smax,

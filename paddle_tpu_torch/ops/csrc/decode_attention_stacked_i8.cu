@@ -188,9 +188,11 @@ extern "C" int paddle_decode_attention_stacked_i8(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1)  // the ring as a pool of B blocks of Smax positions
-    return paddle_attn::split::run<true>(q, ring, scales, nullptr, lens, out,
-                                         work, B, H, Sq, D, B, Hk, Smax, 1,
-                                         layer, splits, span, scale, dtype, s);
+    return paddle_attn::split::run<true>(
+        q, paddle_attn::split::layer_planes(ring, scales, layer, B, Hk, Smax,
+                                            D, 1),
+        nullptr, lens, out, work, B, H, Sq, D, B, Hk, Smax, 1, splits, span,
+        scale, dtype, s);
   if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:

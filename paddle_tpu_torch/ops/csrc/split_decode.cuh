@@ -1,17 +1,19 @@
 // Split-KV flash-decoding for Hopper (sm_90a), bf16 and fp16 queries: the
-// device code of the "split_kv" design of three kernels, decode_attention_
+// device code of the "split_kv" design of five kernels, decode_attention_
 // paged.cu (a paged pool in the query's dtype), decode_attention_paged_i8.cu
-// (an int8 pool with per-position fp32 scales) and decode_attention_
-// stacked_i8.cu (the int8 dense ring, read as a pool of B blocks of Smax
-// positions with no table: row b's block is b). The one-layer cache and the
-// fp dense ring, which launch one block per (row, head) today, can move
-// onto it the same way.
+// (an int8 pool with per-position fp32 scales), and three contiguous caches
+// read as a pool of B blocks of Smax positions with no table (row b's block
+// is b): decode_attention_stacked.cu (the fp dense ring),
+// decode_attention_stacked_i8.cu (the int8 dense ring) and
+// decode_attention_bhsd.cu (the one-layer cache, its K and V two tensors).
+// A launch takes the K and V planes it reads as two bases (and the int8
+// flavor's two scale planes): a layer of a pool or ring, or the two tensors.
 //
 // The work of one (row b, KV head hk) is split along the KV length into S
 // ranges of `span` positions; the grid is (B * Hk, S), S chosen by the
 // wrapper from the shapes and the SM count alone, so the launch reads
 // nothing back from the card (CUDA-graph capturable). The fp pool cuts its
-// ranges at table blocks (span = cb * Bt), the int8 flavors at 64-position
+// ranges at table blocks (span = cb * Bt), the others at 64-position
 // tiles. A block whose range lies wholly past its row's last attendable
 // position writes an empty partial (m = -1e30, l = 0) and exits.
 //
@@ -19,16 +21,16 @@
 // each KV position is read once per GQA group. K and V tiles of 64
 // positions are staged through a ring of stages by cp.async copies (every
 // thread issues 8-32 of them a tile, all in flight together), each position
-// resolved through the block table; positions past the range are
-// zero-filled. The fp flavor stages the stored dtype in 16-byte chunks
-// (dims past D zero-filled). The int8 flavor stages the int8 rows in 16-byte
-// chunks (8 where D is not a multiple of 16) and each position's K and V
-// scale by a 4-byte copy beside them (any Bt), in more stages than the fp
-// flavor (the tile is half the bytes); after the wait each warp converts
-// its own 16 positions of the stage into a K and a V tile in the query
-// dtype (exact: |int8| < 2^8) and fences them with __syncwarp (or a named
-// barrier over the warps that share those positions), so both flavors read
-// the same tile layout. The products run on the tensor cores: mma.sync
+// resolved through the block table (or, with none, in the row's block);
+// positions past the range are zero-filled. The fp flavor stages the stored
+// dtype in 16-byte chunks (dims past D zero-filled). The int8 flavor stages
+// the int8 rows in 16-byte chunks (8 where D is not a multiple of 16) and
+// each position's K and V scale by a 4-byte copy beside them (any Bt), in
+// more stages than the fp flavor (the tile is half the bytes); after the
+// wait each warp converts its own 16 positions of the stage into a K and a
+// V tile in the query dtype (exact: |int8| < 2^8) and fences them with
+// __syncwarp (or a named barrier over the warps that share those
+// positions), so both flavors read the same tile layout. The products run on the tensor cores: mma.sync
 // m16n8k16 with fp32 sums, Q K^T with the 16-row query groups as A
 // fragments held in registers and K read by ldmatrix, P V with P's
 // accumulator turned into A fragments in place (rounded to the value
@@ -137,19 +139,31 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// Where a block's KV lives: the pool's K and V planes of one layer, the
-// row's table, and the pool's shape; the int8 flavor's K and V scale
-// planes, and the block of a ring (no table).
+// Where a block's KV lives: the K and V planes it reads, the row's table,
+// and the planes' shape; the int8 flavor's K and V scale planes, and the
+// row's block where there is no table (a ring or the one-layer cache).
 template <typename T>
 struct PagedKV {
-  const T* k;       // [NB, Hk, Bt, D] of layer `layer`
+  const T* k;       // [NB, Hk, Bt, D]
   const T* v;
-  const int* tbl;   // [nblk] of row b; nullptr: block `blk` (a ring)
+  const int* tbl;   // [nblk] of row b; nullptr: block `blk` (nblk 1)
   int NB, Hk, Bt, D;
-  const float* ks = nullptr;  // [NB, Hk, 1, Bt] of layer `layer` (int8)
-  const float* vs = nullptr;
-  int blk = 0;
+  const float* ks;  // [NB, Hk, 1, Bt] (int8)
+  const float* vs;
+  int blk;
 };
+
+// The row of position p (< nblk * Bt) in its K or V plane (and its scale
+// plane): through the table, where an unmapped entry (the sentinel NB)
+// reads block NB - 1, or with no table in block blk, where p < Bt.
+template <typename T>
+__device__ __forceinline__ size_t row_of(const PagedKV<T>& kv, int hk,
+                                         int p) {
+  if (kv.tbl)
+    return (size_t)(min(__ldg(kv.tbl + p / kv.Bt), kv.NB - 1) * kv.Hk + hk) *
+               kv.Bt + p % kv.Bt;
+  return (size_t)(kv.blk * kv.Hk + hk) * kv.Bt + p;
+}
 
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           bool pred) {
@@ -177,10 +191,7 @@ __device__ __forceinline__ void load_tile(uint32_t stage,
     const int p = p0 + j;
     const bool ok = p < p_end && c * 8 < kv.D;
     const T* src = plane ? kv.v : kv.k;
-    if (ok) {
-      const int blk = min(__ldg(kv.tbl + p / kv.Bt), kv.NB - 1);
-      src += ((size_t)(blk * kv.Hk + hk) * kv.Bt + p % kv.Bt) * kv.D + c * 8;
-    }
+    if (ok) src += row_of(kv, hk, p) * kv.D + c * 8;
     wg::cp_async16(stage + plane * C::kTileBytes + (j * C::kLd + c * 8) * 2,
                    src, ok);
   }
@@ -197,11 +208,6 @@ __device__ __forceinline__ void load_tile_i8(uint32_t stage,
   using C = Cfg<DP, true>;
   constexpr int kCpr = DP / CB;  // chunks a row
   constexpr int kChunks = 2 * kTile * kCpr;
-  auto row_of = [&](int p) {  // the position's row in its K or V plane
-    const int blk = kv.tbl ? min(__ldg(kv.tbl + p / kv.Bt), kv.NB - 1)
-                           : kv.blk;
-    return (size_t)(blk * kv.Hk + hk) * kv.Bt + p % kv.Bt;
-  };
 #pragma unroll 4
   for (int i = threadIdx.x; i < kChunks; i += kThreads) {
     const int plane = i / (kTile * kCpr);
@@ -211,7 +217,7 @@ __device__ __forceinline__ void load_tile_i8(uint32_t stage,
     const int p = p0 + j;
     const bool ok = p < p_end && c * CB < kv.D;
     const int8_t* src = plane ? kv.v : kv.k;
-    if (ok) src += row_of(p) * kv.D + c * CB;
+    if (ok) src += row_of(kv, hk, p) * kv.D + c * CB;
     const uint32_t dst = stage + plane * C::kI8Tile + j * DP + c * CB;
     if constexpr (CB == 16)
       wg::cp_async16(dst, src, ok);
@@ -223,7 +229,7 @@ __device__ __forceinline__ void load_tile_i8(uint32_t stage,
     const int p = p0 + i - plane * kTile;
     const bool ok = p < p_end;
     const float* src = plane ? kv.vs : kv.ks;
-    if (ok) src += row_of(p);
+    if (ok) src += row_of(kv, hk, p);
     wg::cp_async4(stage + 2 * C::kI8Tile + i * 4, src, ok);
   }
 }
@@ -294,20 +300,22 @@ __device__ __forceinline__ void convert_i8(uint32_t stage, uint32_t conv,
 }
 
 // grid (B * Hk, S), kThreads threads, Cfg<DP, I8>::kSmem bytes of shared
-// memory. KV: the stored type, T or int8_t (then `scales` [L, 2, NB, Hk, 1,
-// Bt] fp32 beside the pool). tables nullptr: a dense ring, row b's block is
-// b (nblk 1, Bt Smax). span: positions a split. With S = 1 writes out; else
-// the partials: o [S, B * H * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
+// memory. KV: the stored type, T or int8_t (then the scale planes ks_base
+// and vs_base [NB, Hk, 1, Bt] fp32 beside the K and V planes). tables
+// nullptr: a contiguous cache, row b's block is b (nblk 1, Bt Smax). span:
+// positions a split. With S = 1 writes out; else the partials: o [S, B * H
+// * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
 template <typename T, typename KV, int DP, int WP>
 __global__ void __launch_bounds__(
     kThreads, Cfg<DP, std::is_same<KV, int8_t>::value>::kMinBlocks)
-    split_kernel(const T* __restrict__ q, const KV* __restrict__ pool,
-                 const float* __restrict__ scales,
+    split_kernel(const T* __restrict__ q, const KV* __restrict__ k_base,
+                 const KV* __restrict__ v_base,
+                 const float* __restrict__ ks_base,
+                 const float* __restrict__ vs_base,
                  const int* __restrict__ tables, const int* __restrict__ lens,
                  T* __restrict__ out, float* __restrict__ o_part,
                  float* __restrict__ ml_part, int B, int H, int Sq, int D,
-                 int NB, int Hk, int Bt, int nblk, int layer, int span,
-                 float scale) {
+                 int NB, int Hk, int Bt, int nblk, int span, float scale) {
   constexpr bool kI8 = std::is_same<KV, int8_t>::value;
   using C = Cfg<DP, kI8>;
   constexpr int WR = kWarps / WP;   // row groups a pass
@@ -351,16 +359,9 @@ __global__ void __launch_bounds__(
     return;
   }
 
-  const size_t splane = (size_t)NB * Hk * Bt;  // positions a K or V plane
-  const size_t plane = splane * D;
-  PagedKV<KV> kv{pool + (size_t)layer * 2 * plane,
-                 pool + (size_t)layer * 2 * plane + plane,
-                 tables ? tables + (size_t)b * nblk : nullptr, NB, Hk, Bt, D};
-  if constexpr (kI8) {
-    kv.ks = scales + (size_t)layer * 2 * splane;
-    kv.vs = kv.ks + splane;
-    kv.blk = b;
-  }
+  const PagedKV<KV> kv{k_base, v_base,
+                       tables ? tables + (size_t)b * nblk : nullptr,
+                       NB, Hk, Bt, D, ks_base, vs_base, b};
   // D not a multiple of 16 (int8): 8-byte chunks
   const bool v16 = !kI8 || D % 16 == 0;
   auto load = [&](int stage_i, int p0) {
@@ -656,12 +657,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The K and V planes a launch reads, [NB, Hk, Bt, D] each in the stored
+// type (one layer of a pool or ring, or the one-layer cache's two
+// tensors), and the int8 flavor's K and V scale planes [NB, Hk, 1, Bt].
+struct Planes {
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+};
+
+// Layer `layer`'s planes of a pool [L, 2, NB, Hk, Bt, D] of `elem`-byte
+// values (a ring [L, 2, B, Hk, Smax, D]: NB = B, Bt = Smax) and of its
+// scales [L, 2, NB, Hk, 1, Bt] fp32 (nullptr: none).
+inline Planes layer_planes(const void* pool, const void* scales, int layer,
+                           int NB, int Hk, int Bt, int D, int elem) {
+  const size_t pos = (size_t)NB * Hk * Bt;  // positions a plane
+  const size_t bytes = pos * D * elem;
+  const char* k = static_cast<const char*>(pool) + (size_t)layer * 2 * bytes;
+  const float* ks = scales ? static_cast<const float*>(scales) +
+                                 (size_t)layer * 2 * pos
+                           : nullptr;
+  return Planes{k, k + bytes, ks, ks ? ks + pos : nullptr};
+}
+
 template <typename T, typename KV, int DP, int WP>
-cudaError_t launch(const void* q, const void* pool, const void* scales,
-                   const void* tables, const void* lens, void* out,
-                   void* work, int B, int H, int Sq, int D, int NB, int Hk,
-                   int Bt, int nblk, int layer, int S, int span, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const Planes& kv, const void* tables,
+                   const void* lens, void* out, void* work, int B, int H,
+                   int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
+                   int span, float scale, cudaStream_t stream) {
   auto kernel = split_kernel<T, KV, DP, WP>;
   constexpr int smem = Cfg<DP, std::is_same<KV, int8_t>::value>::kSmem;
   // set on every launch (a function-local static in a header template
@@ -673,10 +697,11 @@ cudaError_t launch(const void* q, const void* pool, const void* scales,
   float* o_part = static_cast<float*>(work);
   float* ml_part = S > 1 ? o_part + (size_t)S * rows * D : nullptr;
   kernel<<<dim3(B * Hk, S), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(pool),
-      static_cast<const float*>(scales), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<T*>(out), o_part, ml_part,
-      B, H, Sq, D, NB, Hk, Bt, nblk, layer, span, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(kv.k),
+      static_cast<const KV*>(kv.v), kv.ks, kv.vs,
+      static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<T*>(out), o_part, ml_part, B, H, Sq, D, NB, Hk, Bt, nblk,
+      span, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -684,18 +709,17 @@ cudaError_t launch(const void* q, const void* pool, const void* scales,
   return cudaGetLastError();
 }
 
-#define PADDLE_SPLIT_ARGS                                                   \
-  q, pool, scales, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, \
-      layer, S, span, scale, stream
+#define PADDLE_SPLIT_ARGS                                                  \
+  q, kv, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, S, span, \
+      scale, stream
 
 // The instantiation for D (<= 256, a multiple of 8) and R = (H / Hk) * Sq
 // query rows a block: the warps' split (WP) and the padded width (DP).
 template <typename T, typename KV, int DP>
-cudaError_t launch_wp(const void* q, const void* pool, const void* scales,
-                      const void* tables, const void* lens, void* out,
-                      void* work, int B, int H, int Sq, int D, int NB,
-                      int Hk, int Bt, int nblk, int layer, int S, int span,
-                      float scale, cudaStream_t stream) {
+cudaError_t launch_wp(const void* q, const Planes& kv, const void* tables,
+                      const void* lens, void* out, void* work, int B, int H,
+                      int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
+                      int span, float scale, cudaStream_t stream) {
   const int R = H / Hk * Sq;
   if (R <= 16) return launch<T, KV, DP, 4>(PADDLE_SPLIT_ARGS);
   if (R <= 32) return launch<T, KV, DP, 2>(PADDLE_SPLIT_ARGS);
@@ -703,36 +727,39 @@ cudaError_t launch_wp(const void* q, const void* pool, const void* scales,
 }
 
 template <typename T, typename KV>
-cudaError_t launch_d(const void* q, const void* pool, const void* scales,
-                     const void* tables, const void* lens, void* out,
-                     void* work, int B, int H, int Sq, int D, int NB, int Hk,
-                     int Bt, int nblk, int layer, int S, int span,
-                     float scale, cudaStream_t stream) {
+cudaError_t launch_d(const void* q, const Planes& kv, const void* tables,
+                     const void* lens, void* out, void* work, int B, int H,
+                     int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
+                     int span, float scale, cudaStream_t stream) {
   if (D <= 64) return launch_wp<T, KV, 64>(PADDLE_SPLIT_ARGS);
   if (D <= 128) return launch_wp<T, KV, 128>(PADDLE_SPLIT_ARGS);
   return launch_wp<T, KV, 256>(PADDLE_SPLIT_ARGS);
 }
 
 // A C entry's split path: S ranges of `span` positions over the nblk * Bt
-// positions of a table (tables nullptr: a dense ring, nblk 1, Bt Smax),
-// for dtype 1 (bf16) or 2 (fp16) queries over KV in T or int8 (scales
-// beside it). Refuses (cudaErrorInvalidValue) what the kernel does not
-// take: D not a multiple of 8, S != ceil(nblk * Bt / span), a missing
-// workspace (S > 1: fp32 [S * B * H * Sq * (D + 2)]), another dtype; q and
-// out must be 16-byte aligned and the KV 16-byte aligned (int8 with D not
-// a multiple of 16: 8), else cudaErrorMisalignedAddress.
+// positions of a table (tables nullptr: a contiguous cache, nblk 1, Bt
+// Smax) in the planes kv, for dtype 1 (bf16) or 2 (fp16) queries over KV
+// in T or int8 (its scale planes beside it). Refuses
+// (cudaErrorInvalidValue) what the kernel does not take: D not a multiple
+// of 8, S != ceil(nblk * Bt / span), a missing workspace (S > 1: fp32 [S *
+// B * H * Sq * (D + 2)]) or table (nblk > 1), another dtype; q, out and
+// the K and V planes must be 16-byte aligned (int8 with D not a multiple
+// of 16: the planes 8), else cudaErrorMisalignedAddress.
 template <bool kI8>
-int run(const void* q, const void* pool, const void* scales,
-        const void* tables, const void* lens, void* out, void* work, int B,
-        int H, int Sq, int D, int NB, int Hk, int Bt, int nblk, int layer,
-        int S, int span, float scale, int dtype, cudaStream_t stream) {
+int run(const void* q, const Planes& kv, const void* tables,
+        const void* lens, void* out, void* work, int B, int H, int Sq, int D,
+        int NB, int Hk, int Bt, int nblk, int S, int span, float scale,
+        int dtype, cudaStream_t stream) {
   if (D % 8 || span < 1 || ((long long)nblk * Bt + span - 1) / span != S ||
-      (S > 1 && work == nullptr) || (kI8 && scales == nullptr))
+      (S > 1 && work == nullptr) || (!tables && nblk != 1) ||
+      (kI8 && (kv.ks == nullptr || kv.vs == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const bool kv_ok = kI8 && D % 16
-                         ? reinterpret_cast<uintptr_t>(pool) % 8 == 0
-                         : wg::aligned16(pool);
-  if (!wg::aligned16(q, out) || !kv_ok) return (int)cudaErrorMisalignedAddress;
+  auto plane_ok = [&](const void* p) {
+    return kI8 && D % 16 ? reinterpret_cast<uintptr_t>(p) % 8 == 0
+                         : wg::aligned16(p);
+  };
+  if (!wg::aligned16(q, out) || !plane_ok(kv.k) || !plane_ok(kv.v))
+    return (int)cudaErrorMisalignedAddress;
   switch (dtype) {
     case 1:
       return (int)launch_d<__nv_bfloat16,

@@ -39,18 +39,19 @@ the prefix < lens[b] plus the new token, seeded from ``kv_new``. The ring
 is a pool of B blocks of Smax positions with one block per row, so the
 plain versions reuse the paged ones through that table.
 
-``decode_attention_paged`` and the two int8 reads,
-``decode_attention_paged_i8`` and ``decode_attention_stacked_i8``, have
-two designs each, picked by ``paged_path`` from the dtype and D alone,
-the one place the rule is stated: bf16 and fp16 at D a multiple of 8
-take ``"split_kv"`` (``csrc/split_decode.cuh``: the KV length split into
-ranges, each a block per row and KV head holding the GQA group's query
-rows, partials merged in split order; the fp pool's ranges are
-``paged_splits`` table blocks, the int8 flavors' ``decode_splits``
-64-position tiles, the ring read as a pool of one Smax-position block
-per row), everything else ``"per_head"`` (one block per row and head,
-fp32 staging). ``PATH_LAUNCHES`` counts each kernel's launches by
-design; the C entries run the design they are given or fail.
+The five reads, ``decode_attention_paged``, ``decode_attention_paged_i8``,
+``decode_attention_stacked``, ``decode_attention_stacked_i8`` and
+``decode_attention_bhsd``, have two designs each, picked by
+``paged_path`` from the dtype and D alone, the one place the rule is
+stated: bf16 and fp16 at D a multiple of 8 take ``"split_kv"``
+(``csrc/split_decode.cuh``: the KV length split into ranges, each a
+block per row and KV head holding the GQA group's query rows, partials
+merged in split order; the fp pool's ranges are ``paged_splits`` table
+blocks, the others' ``decode_splits`` 64-position tiles, a ring or the
+one-layer cache read as a pool of one Smax-position block per row),
+everything else ``"per_head"`` (one block per row and head, fp32
+staging). ``PATH_LAUNCHES`` counts each kernel's launches by design; the
+C entries run the design they are given or fail.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
@@ -92,7 +93,9 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_bhsd_reference", "is_supported", "paged_path",
            "paged_splits", "decode_splits",
            "decode_attention_paged_i8_split_reference",
-           "decode_attention_stacked_i8_split_reference", "LAUNCHES",
+           "decode_attention_stacked_i8_split_reference",
+           "decode_attention_stacked_split_reference",
+           "decode_attention_bhsd_split_reference", "LAUNCHES",
            "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
@@ -113,13 +116,15 @@ LAUNCHES = {"decode_attention_paged": 0, "decode_attention_paged_flat": 0,
 PATH_LAUNCHES = {name: {"split_kv": 0, "per_head": 0}
                  for name in ("decode_attention_paged",
                               "decode_attention_paged_i8",
-                              "decode_attention_stacked_i8")}
+                              "decode_attention_stacked",
+                              "decode_attention_stacked_i8",
+                              "decode_attention_bhsd")}
 _PATH_CODE = {"split_kv": 1, "per_head": 0}
 # the split rule: blocks of the split design a wave counts per SM (a full
 # table's blocks; rows shorter than the table leave the later ranges
 # empty, so the blocks that work are fewer; 8 ran the fp decode shape
 # fastest of 2, 4, 8 and 16), the fewest positions a split takes, and
-# the int8 flavors' range unit (the kernel's tile of positions)
+# the range unit of the reads cut in positions (the kernel's tile)
 _WAVE_BLOCKS_PER_SM = 8
 _MIN_SPLIT_POSITIONS = 128
 _SPLIT_TILE = 64
@@ -240,11 +245,13 @@ def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
 
 
 def paged_path(dtype, d) -> str:
-    """The design of ``decode_attention_paged``, ``decode_attention_paged_i8``
-    and ``decode_attention_stacked_i8`` for queries of ``dtype`` at head
-    dim ``d``: ``"split_kv"`` (split_decode.cuh, tensor cores) for bf16
-    and fp16 at D a multiple of 8, else ``"per_head"``. The wrappers pass
-    it to the C entries, which run that design or fail."""
+    """The design of the five reads, ``decode_attention_paged``,
+    ``decode_attention_paged_i8``, ``decode_attention_stacked``,
+    ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, for
+    queries of ``dtype`` at head dim ``d``: ``"split_kv"``
+    (split_decode.cuh, tensor cores) for bf16 and fp16 at D a multiple of
+    8, else ``"per_head"``. The wrappers pass it to the C entries, which
+    run that design or fail."""
     if dtype in (torch.bfloat16, torch.float16) and d % 8 == 0:
         return "split_kv"
     return "per_head"
@@ -276,10 +283,12 @@ def paged_splits(b, hk, nblk, bt, n_sm):
 
 
 def decode_splits(b, hk, n_pos, n_sm):
-    """(S, span) of the int8 flavors' split design: ranges of ``span``
-    positions, whole 64-position tiles of the kernel (``_split_units``
-    with the tile as the unit), over a pool's nblk * Bt positions or a
-    ring's Smax alike. S = ceil(n_pos / span)."""
+    """(S, span) of the split design cut in positions (the int8 flavors,
+    the fp ring and the one-layer cache): ranges of ``span`` positions,
+    whole 64-position tiles of the kernel (``_split_units`` with the tile
+    as the unit), over a pool's nblk * Bt positions or a contiguous
+    cache's Smax alike (any Smax: the last tile is cut at it). S =
+    ceil(n_pos / span)."""
     s, per = _split_units(b, hk, n_pos, _SPLIT_TILE, n_sm)
     return s, per * _SPLIT_TILE
 
@@ -298,10 +307,11 @@ def _split_work(splits, qt):
                        dtype=torch.float32, device=qt.device)
 
 
-def _i8_splits(qt, hk, n_pos):
-    """(path, S, span) of an int8 read over n_pos positions a row: the
-    design from ``paged_path``, the ranges from ``decode_splits`` (one
-    range of n_pos for the per-head design)."""
+def _range_splits(qt, hk, n_pos):
+    """(path, S, span) of a read cut in positions (the int8 flavors, the
+    fp ring, the one-layer cache) over n_pos positions a row: the design
+    from ``paged_path``, the ranges from ``decode_splits`` (one range of
+    n_pos for the per-head design)."""
     b, _, _, d = qt.shape
     path = paged_path(qt.dtype, d)
     if path != "split_kv" or qt.device.type != "cuda":
@@ -448,7 +458,7 @@ def decode_attention_paged_i8(qt, pool_i8, pool_scales, tables, layer,
             qt, pool_i8, pool_scales, tables, layer, cache_lens, scale)
     _, _, nb, hk, bt, _ = pool_i8.shape
     nblk = tables.shape[1]
-    path, splits, span = _i8_splits(qt, hk, nblk * bt)
+    path, splits, span = _range_splits(qt, hk, nblk * bt)
     return _launch(name, [("qt", qt), ("pool_i8", pool_i8),
                           ("pool_scales", pool_scales), ("tables", tables),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
@@ -717,9 +727,11 @@ def decode_attention_bhsd(qt, kt, vt, cache_lens, scale=None):
         scale = d ** -0.5
     if _all_cpu(qt, kt, vt, lens):
         return decode_attention_bhsd_reference(qt, kt, vt, lens, scale)
+    path, splits, span = _range_splits(qt, hk, smax)
     return _launch(name, [("qt", qt), ("kt", kt), ("vt", vt),
                           ("cache_lens", lens)], torch.empty_like(qt),
-                   (b, h, sq, d, hk, smax), scale, qt.dtype)
+                   (b, h, sq, d, hk, smax, splits, span), scale, qt.dtype,
+                   extra=[("work", _split_work(splits, qt))], path=path)
 
 
 def decode_attention_bhsd_reference(qt, kt, vt, cache_lens, scale=None):
@@ -733,6 +745,26 @@ def decode_attention_bhsd_reference(qt, kt, vt, cache_lens, scale=None):
     mask = _row_mask(cache_lens, sq, kt.shape[2], qt.device)
     return _fp_attend(qt.float(), kv.float(), mask, scale, qt.dtype,
                       qt.dtype)
+
+
+def decode_attention_bhsd_split_reference(qt, kt, vt, cache_lens,
+                                          scale=None, splits=1):
+    """The split design's arithmetic over the one-layer cache in plain
+    PyTorch: each row's Smax positions in ``splits`` ranges of span =
+    ceil(Smax / splits) positions (the kernel's ranges are whole
+    64-position tiles, ``decode_splits``), each range's fp32 partial,
+    merged in split order (``_split_merge``). Equal to
+    ``decode_attention_bhsd_reference`` but for where p is rounded."""
+    b, h, sq, d = qt.shape
+    smax = kt.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    kv = torch.stack([kt, vt]).to(qt.dtype).repeat_interleave(
+        h // kt.shape[1], dim=2).float()          # [2, B, H, Smax, D]
+    mask = _row_mask(cache_lens, sq, smax, qt.device)
+    s = qt.float() @ kv[0].transpose(-1, -2) * scale
+    return _split_merge(s, mask, kv[1], -(-smax // splits), qt.dtype,
+                        qt.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_lens, scale=None):
@@ -840,9 +872,12 @@ def decode_attention_stacked(qt, caches, layer, cache_lens, scale=None):
         return decode_attention_stacked_reference(qt, caches, layer,
                                                   cache_lens, scale)
     _, _, _, hk, smax, _ = caches.shape
+    path, splits, span = _range_splits(qt, hk, smax)
     return _launch(name, [("qt", qt), ("caches", caches),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),
-                   (b, h, sq, d, hk, smax, int(layer)), scale, qt.dtype)
+                   (b, h, sq, d, hk, smax, int(layer), splits, span), scale,
+                   qt.dtype, extra=[("work", _split_work(splits, qt))],
+                   path=path)
 
 
 def decode_attention_stacked_reference(qt, caches, layer, cache_lens,
@@ -852,6 +887,17 @@ def decode_attention_stacked_reference(qt, caches, layer, cache_lens,
     return decode_attention_paged_reference(
         qt, caches, ring_table(qt.shape[0], qt.device), layer, cache_lens,
         scale)
+
+
+def decode_attention_stacked_split_reference(qt, caches, layer, cache_lens,
+                                             scale=None, splits=1):
+    """The split design over the fp ring in plain PyTorch: layer
+    ``layer``'s K and V planes as the one-layer cache's two tensors
+    (``decode_attention_bhsd_split_reference``), ranges of ceil(Smax /
+    splits) positions."""
+    kv = caches[int(layer)]
+    return decode_attention_bhsd_split_reference(qt, kv[0], kv[1],
+                                                 cache_lens, scale, splits)
 
 
 def decode_attention_stacked_i8(qt, caches_i8, cache_scales, layer,
@@ -870,7 +916,7 @@ def decode_attention_stacked_i8(qt, caches_i8, cache_scales, layer,
         return decode_attention_stacked_i8_reference(
             qt, caches_i8, cache_scales, layer, cache_lens, scale)
     _, _, _, hk, smax, _ = caches_i8.shape
-    path, splits, span = _i8_splits(qt, hk, smax)
+    path, splits, span = _range_splits(qt, hk, smax)
     return _launch(name, [("qt", qt), ("caches_i8", caches_i8),
                           ("cache_scales", cache_scales),
                           ("cache_lens", cache_lens)], torch.empty_like(qt),

@@ -202,7 +202,7 @@ def test_i8_design_rule(dtype, d):
     want = ("split_kv" if dtype != torch.float32 and d % 8 == 0
             else "per_head")
     qt = torch.zeros(2, 4, 1, d, dtype=dtype)
-    assert da._i8_splits(qt, 2, 256) == (want, 1, 256)
+    assert da._range_splits(qt, 2, 256) == (want, 1, 256)
     assert set(da.PATH_LAUNCHES["decode_attention_paged_i8"]) == \
         set(da.PATH_LAUNCHES["decode_attention_stacked_i8"]) == \
         {"split_kv", "per_head"}

@@ -24,7 +24,13 @@ Phases, in order; any failure exits non-zero:
      same split design (the ring at Smax 128, 1024 and 4096; the one-layer
      cache at Smax 32, 1000 and 1024 with K and V separate tensors; Sq 1,
      16 and 128, GQA groups 1, 2 and 4, D 64 and 128, bf16, fp16 and
-     fp32), bf16 and fp16 split, fp32 per head; the flat
+     fp32), bf16 and fp16 split, fp32 per head; the fp and int8 rings'
+     fused write kernels over the same split design in its write mode
+     (split_write_kernels: B 7 at lens 0, 63, 64, span - 1, span, Smax - 1
+     and Smax, Smax 128, 1024 and 4096, GQA groups 1, 2 and 4, D 64 and
+     128, bf16, fp16 and fp32; the ring and the int8 scales after each call
+     byte-equal to the plain write's), bf16 and fp16 split, fp32 per
+     head; the flat
      kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
      unmapped entry; flash attention causal and not, sq < sk, GQA, S in
@@ -80,7 +86,7 @@ Phases, in order; any failure exits non-zero:
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
      run launches exactly its one ring kernel 12 times per hidden pass,
-     the fp and int8 reads on the split design;
+     the fp and int8 reads and fused writes on the split design;
   3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
      (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
      with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
@@ -130,8 +136,8 @@ Phases, in order; any failure exits non-zero:
      dense engines (row, flat, phase fp; row int8 ring) against the
      CPU's dense row engine of the same flavor; generate_fused fp and
      int8 ring, cache_write_kernel off and on, against the CPU's; every
-     card launch of a two-design read kernel there on the per-head
-     design (fp32 queries); GPT-2
+     card launch of a two-design kernel there (the reads and the fused
+     writes) on the per-head design (fp32 queries); GPT-2
      training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps, without
      and with the fused FFN: losses, step-1 gradients and step-3
      parameters against the CPU's; FusedMultiTransformer at L=2, fp32: a
@@ -347,6 +353,7 @@ def phase_kernels(rng):
     split_kernels(rng, worst)
     split_i8_kernels(rng, worst)
     split_fp_contiguous_kernels(rng, worst)
+    split_write_kernels(rng, worst)
     stacked_kernels(rng, worst)
     training_kernels(rng, worst)
     ffn_kernels(rng, worst)
@@ -490,6 +497,65 @@ def split_fp_contiguous_kernels(rng, worst):
     per_head = {k: n[k, torch.float32] for k in names}
     log(f"  fp contiguous split cases: worst {dict(worst)}")
     check_paths("fp contiguous split cases", split, per_head)
+
+
+def split_write_kernels(rng, worst):
+    """The fp ring's and the int8 ring's fused write kernels over rows
+    that their split design cuts into exclusive ranges (below lens[b]) of
+    64-position tiles, against the plain versions: B = 7 rows at lens 0,
+    63, 64, span - 1, span (either side of the first range's end, span
+    decode_splits'), Smax - 1 and Smax (the dropped write), Smax 128, 1024
+    and 4096, GQA groups 1, 2 and 4, D 64 and 128. After every call the
+    ring, and the int8 ring's scales, hold the plain write's bytes. Every
+    bf16 and fp16 launch on the split path, every fp32 one on the per-head
+    one."""
+    reset_launches()
+    n = collections.Counter()
+    b, h, layer = 7, 4, 1
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, tname in SPLIT_I8_DTYPES:
+        for group in (1, 2, 4):
+            hk = h // group
+            for d in (64, 128):
+                qt = randn(rng, (b, h, 1, d), dtype)
+                kv_new = randn(rng, (2, b, hk, 1, d), torch.float32)
+                for smax in (128, 1024, 4096):
+                    span = da.decode_splits(b, hk, smax, n_sm)[1]
+                    lens = torch.tensor(
+                        [0, 63, 64, span - 1, span, smax - 1, smax],
+                        dtype=torch.int32, device="cuda")
+                    label = (f"{str(dtype):14s} Smax={smax:4d} span={span:4d} "
+                             f"group={group} D={d:3d}")
+                    ring = randn(rng, (2, 2, b, hk, smax, d), dtype)
+                    kv8, sc = quantize_pool(ring)
+                    rings = (ring, ring.clone())
+                    _, got = da.decode_attention_stacked_write(
+                        qt, kv_new, rings[0], layer, lens)
+                    _, want = da.decode_attention_stacked_write_reference(
+                        qt, kv_new, rings[1], layer, lens)
+                    check(f"stacked_write split {label}", got, want, tname,
+                          worst, quiet=True)
+                    same_bytes(f"stacked_write split {label} ring", *rings,
+                               quiet=True)
+                    i8s = ((kv8, sc), (kv8.clone(), sc.clone()))
+                    *_, got = da.decode_attention_stacked_i8_write(
+                        qt, kv_new, *i8s[0], layer, lens)
+                    *_, want = da.decode_attention_stacked_i8_write_reference(
+                        qt, kv_new, *i8s[1], layer, lens)
+                    check(f"stacked_i8_write split {label}", got, want,
+                          tname, worst, quiet=True)
+                    same_bytes(f"stacked_i8_write split {label} ring",
+                               i8s[0][0], i8s[1][0], quiet=True)
+                    same_bytes(f"stacked_i8_write split {label} scales",
+                               i8s[0][1], i8s[1][1], quiet=True)
+                    n[dtype] += 1
+    names = ("decode_attention_stacked_write",
+             "decode_attention_stacked_i8_write")
+    n_split = n[torch.bfloat16] + n[torch.float16]
+    log(f"  split write cases: {sum(n.values())} a kernel, rings and scales "
+        f"byte-equal to the plain writes; worst {dict(worst)}")
+    check_paths("split write cases", {k: n_split for k in names},
+                {k: n[torch.float32] for k in names})
 
 
 def check_all_per_head(label):
@@ -871,12 +937,14 @@ def stacked_kernels(rng, worst):
                                      "land and the full row 3 must drop")
 
 
-def same_bytes(name, got, want):
-    """Fail unless the two tensors hold the same bytes."""
+def same_bytes(name, got, want, quiet=False):
+    """Fail unless the two tensors hold the same bytes (``quiet``: logged
+    only on a failure)."""
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
         raise SystemExit(f"{name}: differs from the plain version's bytes")
-    log(f"  {name}: byte-equal ok")
+    if not quiet:
+        log(f"  {name}: byte-equal ok")
 
 
 def quantize_pool(pool):
@@ -1084,7 +1152,7 @@ def phase_generate(seed):
             raise SystemExit(f"[{name}] output {tuple(out.shape)}, "
                              f"launches {got}: want (8, {prompt + new}) "
                              f"and {want}")
-        if kernel in da.PATH_LAUNCHES:    # a read kernel: split design
+        if kernel in da.PATH_LAUNCHES:    # a two-design kernel: split
             check_paths(f"[{name}]", want)
         log(f"  [{name}] {out.shape[0]} x ({prompt} + {new}) tokens in "
             f"{dt:.3f} s: generated tokens/s {8 * new / dt:.1f}, hidden "

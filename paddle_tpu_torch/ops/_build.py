@@ -94,12 +94,15 @@ _ENTRY = {
     "decode_attention_stacked_i8": (
         "paddle_decode_attention_stacked_i8",
         [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P]),
+    # the fused writes: pointers (the split workspace last), the shape
+    # ints, the layer, the splits and positions a split, the scale, the
+    # dtype code and the design (paged_path's)
     "decode_attention_stacked_write": (
         "paddle_decode_attention_stacked_write",
-        [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+        [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
     "decode_attention_stacked_i8_write": (
         "paddle_decode_attention_stacked_i8_write",
-        [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+        [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P]),
     "flash_attention_bwd_dkv": (
         "paddle_flash_attention_bwd_dkv",
         [_P] * 8 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),

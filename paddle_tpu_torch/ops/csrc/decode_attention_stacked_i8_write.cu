@@ -24,13 +24,32 @@
 // positions < lens[b] with the int8 read kernel's arithmetic. A full row
 // (lens[b] == Smax) drops the write and still returns the seeded term.
 //
-// What bounds it on the card: bytes, as the int8 read kernel. Design: the
-// fp write kernel's (one thread block per (row, head), the 32-position walk
-// over the contiguous ring row with the tile's scales beside it); each
-// block quantizes the two D-element rows itself (warp 0 the K row, warp 1
-// the V row) into shared memory, and only the first head of each GQA group
-// (h % (H / Hk) == 0) stores them.
+// What bounds it on the card: bytes, as the int8 read kernel.
+//
+// Two designs, as the int8 read's: the wrapper picks one (ops/
+// decode_attention.py's paged_path) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16 queries, D a multiple of 8):
+//   split_decode.cuh's int8 flavor in its write mode, the ring's layer and
+//   its scale planes read as a pool of B blocks of Smax positions with no
+//   table. The ranges are exclusive: S ranges of `span` positions (the
+//   wrapper's decode_splits) per (row, KV head), each cut at lens[b], so
+//   every load zero-fills position lens[b] (rows and scales) and none reads
+//   it. The designated block of each (row, KV head), range 0, quantizes the
+//   new K and V rows once and stores them with their two scales there (a
+//   full row drops them), seeds its GQA group's query rows with the new
+//   column before its walk, and writes the seeded partial even where the
+//   prefix is empty; with S > 1 the merge combines the partials in `work`.
+//   The store races no read: no block loads that position. One split
+//   launch plus at most one merge launch a call.
+// - path 0, "per_head" (fp32 queries, or D not a multiple of 8): the fp
+//   write kernel's (one thread block per (row, head), the 32-position walk
+//   over the contiguous ring row with the tile's scales beside it); each
+//   block quantizes the two D-element rows itself (warp 0 the K row, warp 1
+//   the V row) into shared memory, and only the first head of each GQA
+//   group (h % (H / Hk) == 0) stores them.
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -184,17 +203,33 @@ cudaError_t launch_d(const void* q, const void* kv_new, void* ring,
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t (0 on success); the caller has validated shapes, devices and
-// layout.
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. path: 1 =
+// split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1 ranges of span
+// positions each, S = ceil(Smax / span); work: fp32 [S * B * H * (D + 2)]
+// when S > 1; q and out 16-byte aligned, the ring 16 (D a multiple of 16)
+// or 8), 0 = per_head (splits 1; work unused); any other pairing returns
+// cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the caller
+// has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_stacked_i8_write(
     const void* q, const void* kv_new, void* ring, void* scales,
-    const void* lens, void* out, int B, int H, int D, int Hk, int Smax,
-    int layer, float scale, int dtype, void* stream) {
+    const void* lens, void* out, void* work, int B, int H, int D, int Hk,
+    int Smax, int layer, int splits, int span, float scale, int dtype,
+    int path, void* stream) {
   if (B < 1 || H < 1 || D < 1 || D > 256 || Hk < 1 || H % Hk || Smax < 1 ||
-      layer < 0)
+      layer < 0 || splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {  // the ring and its scales as a pool of B blocks
+    // kv_new [2, B, Hk, 1, D] fp32: its K and V rows
+    const float* kn = static_cast<const float*>(kv_new);
+    const paddle_attn::split::NewRow nr{kn, kn + (size_t)B * Hk * D};
+    return paddle_attn::split::run<true, true>(
+        q, paddle_attn::split::layer_planes(ring, scales, layer, B, Hk, Smax,
+                                            D, 1),
+        nullptr, lens, out, work, B, H, 1, D, B, Hk, Smax, 1, splits, span,
+        scale, dtype, s, nr);
+  }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, kv_new, ring, scales, lens, out, B, H,

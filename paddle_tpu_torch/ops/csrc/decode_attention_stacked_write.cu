@@ -22,13 +22,30 @@
 // the seeded term.
 //
 // What bounds it on the card: bytes, as the read kernel: the prefix once
-// per head plus one K/V row written. Design: the read kernel's (one thread
-// block per (row, head), the 32-position walk over the contiguous ring row,
-// attention_tile.cuh); with Sq = 1 only the first warp holds a query row.
-// Several query heads share a KV head under GQA, so exactly one of them
-// (h % (H / Hk) == 0) stores the row; the others only read positions below
-// it, so no launch races the store.
+// per KV head plus one K/V row written.
+//
+// Two designs, as the read's: the wrapper picks one (ops/
+// decode_attention.py's paged_path) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16, D a multiple of 8): split_decode.cuh's
+//   fp flavor in its write mode, the ring's layer read as a pool of B blocks
+//   of Smax positions with no table. The ranges are exclusive: S ranges of
+//   `span` positions (the wrapper's decode_splits) per (row, KV head), each
+//   cut at lens[b], so every load zero-fills position lens[b] and none
+//   reads it. The designated block of each (row, KV head), range 0, stores
+//   the new K/V row there once (a full row drops it), seeds its GQA group's
+//   query rows with the new column before its walk, and writes the seeded
+//   partial even where the prefix is empty; with S > 1 the merge combines
+//   the partials in `work`. The store races no read: no block loads that
+//   position. One split launch plus at most one merge launch a call.
+// - path 0, "per_head" (fp32, or D not a multiple of 8): one thread block
+//   per (row, head), the 32-position walk over the contiguous ring row
+//   (attention_tile.cuh); with Sq = 1 only the first warp holds a query
+//   row. Several query heads share a KV head under GQA, so exactly one of
+//   them (h % (H / Hk) == 0) stores the row; the others only read positions
+//   below it, so no launch races the store.
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -156,16 +173,31 @@ cudaError_t launch_d(const void* q, const void* kv_new, void* ring,
 }  // namespace
 
 // dtype (of q, kv_new, ring and out): 0 = float32, 1 = bfloat16,
-// 2 = float16. Returns a cudaError_t (0 on success); the caller has
-// validated shapes, devices and layout.
+// 2 = float16. path: 1 = split_kv (bf16 or fp16, D a multiple of 8; splits
+// S >= 1 ranges of span positions each, S = ceil(Smax / span); work: fp32
+// [S * B * H * (D + 2)] when S > 1; q, out and the ring 16-byte aligned), 0
+// = per_head (splits 1; work unused); any other pairing returns
+// cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the caller
+// has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_stacked_write(
     const void* q, const void* kv_new, void* ring, const void* lens,
-    void* out, int B, int H, int D, int Hk, int Smax, int layer, float scale,
-    int dtype, void* stream) {
+    void* out, void* work, int B, int H, int D, int Hk, int Smax, int layer,
+    int splits, int span, float scale, int dtype, int path, void* stream) {
   if (B < 1 || H < 1 || D < 1 || D > 256 || Hk < 1 || H % Hk || Smax < 1 ||
-      layer < 0)
+      layer < 0 || splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {  // the ring as a pool of B blocks of Smax positions
+    // kv_new [2, B, Hk, 1, D] in the ring's 2-byte dtype: its K and V rows
+    const char* kn = static_cast<const char*>(kv_new);
+    const paddle_attn::split::NewRow nr{kn, kn + (size_t)B * Hk * D * 2};
+    return paddle_attn::split::run<false, true>(
+        q, paddle_attn::split::layer_planes(ring, nullptr, layer, B, Hk,
+                                            Smax, D, 2),
+        nullptr, lens, out, work, B, H, 1, D, B, Hk, Smax, 1, splits, span,
+        scale, dtype, s, nr);
+  }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, kv_new, ring, lens, out, B, H, D, Hk,

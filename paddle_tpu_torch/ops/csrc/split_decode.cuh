@@ -8,6 +8,9 @@
 // decode_attention_bhsd.cu (the one-layer cache, its K and V two tensors).
 // A launch takes the K and V planes it reads as two bases (and the int8
 // flavor's two scale planes): a layer of a pool or ring, or the two tensors.
+// The same kernel has a write mode (kNew) for the fused write+attend of one
+// new token a row over the dense rings, decode_attention_stacked_write.cu
+// and decode_attention_stacked_i8_write.cu: see "The write mode" below.
 //
 // The work of one (row b, KV head hk) is split along the KV length into S
 // ranges of `span` positions; the grid is (B * Hk, S), S chosen by the
@@ -50,6 +53,29 @@
 // m, l) go to an fp32 workspace, and merge_kernel combines the S partials
 // of each query row in split order (deterministic), an all-empty row
 // giving 0.
+//
+// The write mode (kNew; Sq = 1, the new token's K and V rows in `NewRow`,
+// T or, for the int8 flavor, fp32). The ranges are exclusive: range s
+// covers positions [s * span, min((s + 1) * span, lens[b])), the prefix
+// below the new token, so the cp.async loads zero-fill every position at or
+// past lens[b] and no block of the launch ever loads position lens[b]. One
+// designated block per (row, KV head), range 0 (which every row has):
+// - stores the new K/V row at position lens[b] of the planes, in place,
+//   exactly once (the int8 flavor quantizes it first by the engine's absmax
+//   recipe: s = amax / 127 in fp32, values rint(r / max(s, 1e-8)) clipped
+//   to +-127, a true division; the row and its two scales), unless the row
+//   is full (lens[b] == Smax: the write is dropped). No load of the launch
+//   reads that position, so the store races no read. Warps 0 and 1 do it
+//   first, and stage the two rows as fp32 in Cfg::kNewBytes of shared
+//   memory past the ring;
+// - seeds its query rows' online softmax with the new column before its
+//   walk, in the TPU kernel's order: m = q . k_new * scale (int8: (q .
+//   k_int) * scale * k_scale), l = 1, acc = v_new (int8: round_T(v_scale)
+//   * v_int), from the staged rows and the Q fragments in registers;
+// - runs even where its range is empty (lens[b] == 0), so it writes the
+//   seeded partial (or, with S = 1, the output) and never the empty one.
+// The other ranges never touch the new token. With S > 1 merge_kernel
+// combines the partials as for a read; no launch is added for the write.
 //
 // Semantics are decode_attention_paged's (and its int8 flavor's): query row
 // r attends positions <= lens[b] + r; an unmapped table entry (the sentinel
@@ -95,6 +121,9 @@ struct Cfg {
   static constexpr int kConv = I8 ? kStages * kStageBytes : 0;  // offset
   static constexpr int kSmem =
       kStages * kStageBytes + (I8 ? 2 * kTileBytes : 0);
+  // the write mode's new K and V rows as fp32 and the K row's scale, past
+  // kSmem (so no ring stage or merge slot overlaps them)
+  static constexpr int kNewBytes = (2 * DP + 4) * 4;
   static constexpr int kAcc = DP / 2;  // accumulator floats a lane
   // blocks an SM must hold: the int8 flavor at D 64 asks for four (at
   // most 128 registers a thread; unbounded it takes more, three blocks an
@@ -170,6 +199,71 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(pred ? 8 : 0)
                : "memory");
+}
+
+// The write mode's new token, one a row: its K and V rows [B, Hk, D] each
+// (kv_new's two planes), in T for the fp flavor and fp32 for the int8 one.
+// Both nullptr in a read.
+struct NewRow {
+  const void* k;
+  const void* v;
+};
+
+// Warp-wide: the absmax scale amax / 127 of a D-element fp32 row (the
+// engine's recipe; a true division).
+__device__ __forceinline__ float row_scale(const float* r, int D, int lane) {
+  float a = 0.f;
+  for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(r[d]));
+  return warp_max(a) / 127.0f;
+}
+
+// An fp32 value's int8 code under the scale's divisor max(s, 1e-8): round
+// half to even, clipped to +-127.
+__device__ __forceinline__ float quant_i8(float r, float div) {
+  return fminf(fmaxf(rintf(r / div), -127.f), 127.f);
+}
+
+// Warps 0 (K) and 1 (V) of the write mode's designated block: the new K
+// and V rows of (row b, KV head hk), kv_new's row nrow, stored at position
+// `pos` of the planes in place (pos < 0: a full row, the write dropped) and
+// staged as fp32 at nw for the seed: nw[0, D) K as the walk would read it
+// (T's value, or the int8 code), nw[DP, DP + D) V times what p = 1 carries
+// into P V (1, or the V scale rounded to T), nw[2 DP] K's scale (int8;
+// else 1). The int8 flavor quantizes each row once, here.
+template <typename T, typename KV, int DP>
+__device__ __forceinline__ void stage_new(const PagedKV<KV>& kv,
+                                          const NewRow& nr, int nrow, int hk,
+                                          int pos, float* nw) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 2) return;
+  const size_t row = pos >= 0 ? row_of(kv, hk, pos) : 0;
+  KV* dst = const_cast<KV*>(warp ? kv.v : kv.k) + row * kv.D;
+  float* out = nw + warp * DP;
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const float* r =
+        static_cast<const float*>(warp ? nr.v : nr.k) + (size_t)nrow * kv.D;
+    const float sc = row_scale(r, kv.D, lane);
+    const float div = fmaxf(sc, 1e-8f);
+    const float carry = warp ? to_f(from_f<T>(sc)) : 1.f;
+    for (int d = lane; d < kv.D; d += 32) {
+      const float c = quant_i8(r[d], div);
+      out[d] = carry * c;
+      if (pos >= 0) dst[d] = static_cast<int8_t>(c);
+    }
+    if (lane == 0) {
+      if (warp == 0) nw[2 * DP] = sc;
+      if (pos >= 0) const_cast<float*>(warp ? kv.vs : kv.ks)[row] = sc;
+    }
+  } else {
+    const T* r =
+        static_cast<const T*>(warp ? nr.v : nr.k) + (size_t)nrow * kv.D;
+    for (int d = lane; d < kv.D; d += 32) {
+      out[d] = to_f(r[d]);
+      if (pos >= 0) dst[d] = r[d];
+    }
+    if (warp == 0 && lane == 0) nw[2 * DP] = 1.f;
+  }
 }
 
 // Block-wide: positions [p0, p0 + kTile) of KV head hk into a stage (K tile
@@ -299,13 +393,73 @@ __device__ __forceinline__ void convert_i8(uint32_t stage, uint32_t conv,
   }
 }
 
+// A packed pair of T (the low half first) as two floats.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// Warp-wide, the write mode's designated block: the online softmax state
+// of this lane's two query rows (lim < 0: not a row) seeded with the new
+// column staged at nw (stage_new), as the TPU kernel seeds it: m = q .
+// k_new * scale (int8: (q . k_int) * scale * k_scale), from the Q fragments
+// qa; l = 1 (summed over the row's four lanes later, so lane t = 0 holds
+// it); acc = v_new (int8: round_T(1 * v_scale) * v_int), each lane its own
+// dims 8 n + 2 t (+ 1).
+template <typename T, int DP>
+__device__ __forceinline__ void seed_new(const float* nw, int D, int lane,
+                                         float scale,
+                                         const uint32_t (&qa)[DP / 16][4],
+                                         const int (&lim)[2], float (&m)[2],
+                                         float (&l)[2],
+                                         float (&acc)[DP / 8][4]) {
+  const int t = lane & 3;
+  float dot[2] = {0.f, 0.f};  // over this lane's dims, its Q fragments'
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int d = 16 * kk + 8 * hi + 2 * t;
+      if (d < D) {
+        const float2 k2 = *reinterpret_cast<const float2*>(nw + d);
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          const float2 q2 = unpack2<T>(qa[kk][2 * hi + ri]);
+          dot[ri] += q2.x * k2.x + q2.y * k2.y;
+        }
+      }
+    }
+  const float k_sc = nw[2 * DP];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    dot[ri] += __shfl_xor_sync(0xffffffffu, dot[ri], 1);
+    dot[ri] += __shfl_xor_sync(0xffffffffu, dot[ri], 2);
+    if (lim[ri] < 0) continue;
+    m[ri] = dot[ri] * scale * k_sc;
+    l[ri] = t == 0 ? 1.f : 0.f;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < D) {
+        const float2 v2 = *reinterpret_cast<const float2*>(nw + DP + d);
+        acc[n][2 * ri] = v2.x;
+        acc[n][2 * ri + 1] = v2.y;
+      }
+    }
+  }
+}
+
 // grid (B * Hk, S), kThreads threads, Cfg<DP, I8>::kSmem bytes of shared
 // memory. KV: the stored type, T or int8_t (then the scale planes ks_base
 // and vs_base [NB, Hk, 1, Bt] fp32 beside the K and V planes). tables
 // nullptr: a contiguous cache, row b's block is b (nblk 1, Bt Smax). span:
 // positions a split. With S = 1 writes out; else the partials: o [S, B * H
-// * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32.
-template <typename T, typename KV, int DP, int WP>
+// * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32. kNew: the write mode (Sq =
+// 1, the new token in nr; the planes are written at lens[b]).
+template <typename T, typename KV, int DP, int WP, bool kNew>
 __global__ void __launch_bounds__(
     kThreads, Cfg<DP, std::is_same<KV, int8_t>::value>::kMinBlocks)
     split_kernel(const T* __restrict__ q, const KV* __restrict__ k_base,
@@ -315,7 +469,8 @@ __global__ void __launch_bounds__(
                  const int* __restrict__ tables, const int* __restrict__ lens,
                  T* __restrict__ out, float* __restrict__ o_part,
                  float* __restrict__ ml_part, int B, int H, int Sq, int D,
-                 int NB, int Hk, int Bt, int nblk, int span, float scale) {
+                 int NB, int Hk, int Bt, int nblk, int span, float scale,
+                 NewRow nr) {
   constexpr bool kI8 = std::is_same<KV, int8_t>::value;
   using C = Cfg<DP, kI8>;
   constexpr int WR = kWarps / WP;   // row groups a pass
@@ -341,16 +496,20 @@ __global__ void __launch_bounds__(
   const int wr = warp / WP;
   const int wp = warp - wr * WP;
 
-  // this split's positions, cut at the last one any row attends
+  // this split's positions, cut at the last one any row attends (the
+  // write mode: below lens[b], the position it writes)
   const int n_pos = nblk * Bt;
   const int p_lo = s * span;
-  const int p_end = min(min((s + 1) * span, n_pos), min(len + Sq, n_pos));
+  const int reach = kNew ? len : len + Sq;
+  const int p_end = min(min((s + 1) * span, n_pos), min(reach, n_pos));
   // query row i of this block: head hk * G + i / Sq, row i % Sq; its
   // index among the call's rows
   auto row_index = [&](int i) {
     return (b * H + hk * G + i / Sq) * Sq + i % Sq;
   };
-  if (p_lo >= p_end) {  // nothing to attend here: an empty partial
+  // nothing to attend here: an empty partial (the designated block always
+  // has the new column)
+  if (p_lo >= p_end && !(kNew && s == 0)) {
     for (int i = threadIdx.x; i < R; i += kThreads) {
       float* ml = ml_part + 2 * ((size_t)s * rows + row_index(i));
       ml[0] = kNeg;
@@ -362,6 +521,15 @@ __global__ void __launch_bounds__(
   const PagedKV<KV> kv{k_base, v_base,
                        tables ? tables + (size_t)b * nblk : nullptr,
                        NB, Hk, Bt, D, ks_base, vs_base, b};
+  // the write mode's designated block: the new row lands once (a full row
+  // drops it) and is staged past the ring for the seed
+  if constexpr (kNew) {
+    if (s == 0) {
+      stage_new<T, KV, DP>(kv, nr, b * Hk + hk, hk, len < n_pos ? len : -1,
+                           reinterpret_cast<float*>(smem_raw + C::kSmem));
+      __syncthreads();
+    }
+  }
   // D not a multiple of 16 (int8): 8-byte chunks
   const bool v16 = !kI8 || D % 16 == 0;
   auto load = [&](int stage_i, int p0) {
@@ -412,6 +580,13 @@ __global__ void __launch_bounds__(
     for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    if constexpr (kNew) {
+      // the designated block's first warp of each row group seeds its rows
+      // with the new column (the others merge into it at the end)
+      if (s == 0 && active && wp == 0)
+        seed_new<T, DP>(reinterpret_cast<const float*>(smem_raw + C::kSmem),
+                        D, lane, scale, qa, lim, m, l, acc);
+    }
 
 #pragma unroll
     for (int st = 0; st < C::kStages - 1; ++st) {
@@ -681,13 +856,15 @@ inline Planes layer_planes(const void* pool, const void* scales, int layer,
   return Planes{k, k + bytes, ks, ks ? ks + pos : nullptr};
 }
 
-template <typename T, typename KV, int DP, int WP>
+template <typename T, typename KV, int DP, int WP, bool kNew>
 cudaError_t launch(const void* q, const Planes& kv, const void* tables,
                    const void* lens, void* out, void* work, int B, int H,
                    int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
-                   int span, float scale, cudaStream_t stream) {
-  auto kernel = split_kernel<T, KV, DP, WP>;
-  constexpr int smem = Cfg<DP, std::is_same<KV, int8_t>::value>::kSmem;
+                   int span, float scale, cudaStream_t stream,
+                   const NewRow& nr) {
+  auto kernel = split_kernel<T, KV, DP, WP, kNew>;
+  using C = Cfg<DP, std::is_same<KV, int8_t>::value>;
+  constexpr int smem = C::kSmem + (kNew ? C::kNewBytes : 0);
   // set on every launch (a function-local static in a header template
   // would be one object across every library built from it)
   cudaError_t err = cudaFuncSetAttribute(
@@ -701,7 +878,7 @@ cudaError_t launch(const void* q, const Planes& kv, const void* tables,
       static_cast<const KV*>(kv.v), kv.ks, kv.vs,
       static_cast<const int*>(tables), static_cast<const int*>(lens),
       static_cast<T*>(out), o_part, ml_part, B, H, Sq, D, NB, Hk, Bt, nblk,
-      span, scale);
+      span, scale, nr);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -711,29 +888,31 @@ cudaError_t launch(const void* q, const Planes& kv, const void* tables,
 
 #define PADDLE_SPLIT_ARGS                                                  \
   q, kv, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, S, span, \
-      scale, stream
+      scale, stream, nr
 
 // The instantiation for D (<= 256, a multiple of 8) and R = (H / Hk) * Sq
 // query rows a block: the warps' split (WP) and the padded width (DP).
-template <typename T, typename KV, int DP>
+template <typename T, typename KV, int DP, bool kNew>
 cudaError_t launch_wp(const void* q, const Planes& kv, const void* tables,
                       const void* lens, void* out, void* work, int B, int H,
                       int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
-                      int span, float scale, cudaStream_t stream) {
+                      int span, float scale, cudaStream_t stream,
+                      const NewRow& nr) {
   const int R = H / Hk * Sq;
-  if (R <= 16) return launch<T, KV, DP, 4>(PADDLE_SPLIT_ARGS);
-  if (R <= 32) return launch<T, KV, DP, 2>(PADDLE_SPLIT_ARGS);
-  return launch<T, KV, DP, 1>(PADDLE_SPLIT_ARGS);
+  if (R <= 16) return launch<T, KV, DP, 4, kNew>(PADDLE_SPLIT_ARGS);
+  if (R <= 32) return launch<T, KV, DP, 2, kNew>(PADDLE_SPLIT_ARGS);
+  return launch<T, KV, DP, 1, kNew>(PADDLE_SPLIT_ARGS);
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool kNew>
 cudaError_t launch_d(const void* q, const Planes& kv, const void* tables,
                      const void* lens, void* out, void* work, int B, int H,
                      int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
-                     int span, float scale, cudaStream_t stream) {
-  if (D <= 64) return launch_wp<T, KV, 64>(PADDLE_SPLIT_ARGS);
-  if (D <= 128) return launch_wp<T, KV, 128>(PADDLE_SPLIT_ARGS);
-  return launch_wp<T, KV, 256>(PADDLE_SPLIT_ARGS);
+                     int span, float scale, cudaStream_t stream,
+                     const NewRow& nr) {
+  if (D <= 64) return launch_wp<T, KV, 64, kNew>(PADDLE_SPLIT_ARGS);
+  if (D <= 128) return launch_wp<T, KV, 128, kNew>(PADDLE_SPLIT_ARGS);
+  return launch_wp<T, KV, 256, kNew>(PADDLE_SPLIT_ARGS);
 }
 
 // A C entry's split path: S ranges of `span` positions over the nblk * Bt
@@ -744,15 +923,18 @@ cudaError_t launch_d(const void* q, const Planes& kv, const void* tables,
 // of 8, S != ceil(nblk * Bt / span), a missing workspace (S > 1: fp32 [S *
 // B * H * Sq * (D + 2)]) or table (nblk > 1), another dtype; q, out and
 // the K and V planes must be 16-byte aligned (int8 with D not a multiple
-// of 16: the planes 8), else cudaErrorMisalignedAddress.
-template <bool kI8>
+// of 16: the planes 8), else cudaErrorMisalignedAddress. kNew: the write
+// mode, which takes Sq = 1 and the new token's two rows in nr (and writes
+// the planes, and the int8 flavor's scale planes, at lens[b]).
+template <bool kI8, bool kNew = false>
 int run(const void* q, const Planes& kv, const void* tables,
         const void* lens, void* out, void* work, int B, int H, int Sq, int D,
         int NB, int Hk, int Bt, int nblk, int S, int span, float scale,
-        int dtype, cudaStream_t stream) {
+        int dtype, cudaStream_t stream, const NewRow& nr = NewRow{}) {
   if (D % 8 || span < 1 || ((long long)nblk * Bt + span - 1) / span != S ||
       (S > 1 && work == nullptr) || (!tables && nblk != 1) ||
-      (kI8 && (kv.ks == nullptr || kv.vs == nullptr)))
+      (kI8 && (kv.ks == nullptr || kv.vs == nullptr)) ||
+      (kNew && (Sq != 1 || nr.k == nullptr || nr.v == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto plane_ok = [&](const void* p) {
     return kI8 && D % 16 ? reinterpret_cast<uintptr_t>(p) % 8 == 0
@@ -763,11 +945,11 @@ int run(const void* q, const Planes& kv, const void* tables,
   switch (dtype) {
     case 1:
       return (int)launch_d<__nv_bfloat16,
-                           std::conditional_t<kI8, int8_t, __nv_bfloat16>>(
-          PADDLE_SPLIT_ARGS);
+                           std::conditional_t<kI8, int8_t, __nv_bfloat16>,
+                           kNew>(PADDLE_SPLIT_ARGS);
     case 2:
-      return (int)launch_d<__half, std::conditional_t<kI8, int8_t, __half>>(
-          PADDLE_SPLIT_ARGS);
+      return (int)launch_d<__half, std::conditional_t<kI8, int8_t, __half>,
+                           kNew>(PADDLE_SPLIT_ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }

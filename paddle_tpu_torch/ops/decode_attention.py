@@ -41,17 +41,20 @@ plain versions reuse the paged ones through that table.
 
 The five reads, ``decode_attention_paged``, ``decode_attention_paged_i8``,
 ``decode_attention_stacked``, ``decode_attention_stacked_i8`` and
-``decode_attention_bhsd``, have two designs each, picked by
-``paged_path`` from the dtype and D alone, the one place the rule is
-stated: bf16 and fp16 at D a multiple of 8 take ``"split_kv"``
-(``csrc/split_decode.cuh``: the KV length split into ranges, each a
-block per row and KV head holding the GQA group's query rows, partials
-merged in split order; the fp pool's ranges are ``paged_splits`` table
-blocks, the others' ``decode_splits`` 64-position tiles, a ring or the
-one-layer cache read as a pool of one Smax-position block per row),
-everything else ``"per_head"`` (one block per row and head, fp32
-staging). ``PATH_LAUNCHES`` counts each kernel's launches by design; the
-C entries run the design they are given or fail.
+``decode_attention_bhsd``, and the two fused writes,
+``decode_attention_stacked_write`` and ``decode_attention_stacked_i8_write``,
+have two designs each, picked by ``paged_path`` from the dtype and D alone,
+the one place the rule is stated: bf16 and fp16 at D a multiple of 8 take
+``"split_kv"`` (``csrc/split_decode.cuh``: the KV length split into
+ranges, each a block per row and KV head holding the GQA group's query
+rows, partials merged in split order; the fp pool's ranges are
+``paged_splits`` table blocks, the others' ``decode_splits`` 64-position
+tiles, a ring or the one-layer cache read as a pool of one Smax-position
+block per row; the writes' ranges stop below lens[b], and range 0 seeds
+with the new token and stores it), everything else ``"per_head"`` (one
+block per row and head, fp32 staging). ``PATH_LAUNCHES`` counts each
+kernel's launches by design; the C entries run the design they are given
+or fail.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/decode_attention_paged.cu``, ``csrc/decode_attention_paged_flat.cu``,
@@ -95,7 +98,9 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_paged_i8_split_reference",
            "decode_attention_stacked_i8_split_reference",
            "decode_attention_stacked_split_reference",
-           "decode_attention_bhsd_split_reference", "LAUNCHES",
+           "decode_attention_bhsd_split_reference",
+           "decode_attention_stacked_write_split_reference",
+           "decode_attention_stacked_i8_write_split_reference", "LAUNCHES",
            "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
@@ -118,7 +123,9 @@ PATH_LAUNCHES = {name: {"split_kv": 0, "per_head": 0}
                               "decode_attention_paged_i8",
                               "decode_attention_stacked",
                               "decode_attention_stacked_i8",
-                              "decode_attention_bhsd")}
+                              "decode_attention_bhsd",
+                              "decode_attention_stacked_write",
+                              "decode_attention_stacked_i8_write")}
 _PATH_CODE = {"split_kv": 1, "per_head": 0}
 # the split rule: blocks of the split design a wave counts per SM (a full
 # table's blocks; rows shorter than the table leave the later ranges
@@ -247,8 +254,10 @@ def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
 def paged_path(dtype, d) -> str:
     """The design of the five reads, ``decode_attention_paged``,
     ``decode_attention_paged_i8``, ``decode_attention_stacked``,
-    ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, for
-    queries of ``dtype`` at head dim ``d``: ``"split_kv"``
+    ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, and of
+    the two fused writes, ``decode_attention_stacked_write`` and
+    ``decode_attention_stacked_i8_write``, for queries of ``dtype`` at
+    head dim ``d``: ``"split_kv"``
     (split_decode.cuh, tensor cores) for bf16 and fp16 at D a multiple of
     8, else ``"per_head"``. The wrappers pass it to the C entries, which
     run that design or fail."""
@@ -395,18 +404,22 @@ def decode_attention_paged_split_reference(qt, pool, tables, layer,
     return _split_merge(s, mask, kv[1], cb * bt, pool.dtype, qt.dtype)
 
 
-def _split_merge(s, mask, v, span, p_dtype, out_dtype, v_scale=None):
+def _split_merge(s, mask, v, span, p_dtype, out_dtype, v_scale=None,
+                 lead=0):
     """The split design's softmax on dense views: s [..., R, S] the
     scores (fp32), mask [..., R, S], v [..., S, D] fp32, v_scale (int8)
     [..., 1, S]. Each range of ``span`` positions keeps its own fp32
     partial (its max m, the sum l of the unrounded, unscaled p, o the PV
     product of p (int8: p * v_scale) rounded to p_dtype); the partials
-    merge in split order with the usual rescaling. A range or row with
+    merge in split order with the usual rescaling. The first ``lead``
+    columns belong to the first range besides its ``span`` (the write
+    kernels' new token, which their range 0 seeds). A range or row with
     nothing to attend contributes nothing; a row with nothing returns 0."""
+    n = s.shape[-1]
+    los = [0, *range(lead + span, n, span)]
     m_all = torch.full(s.shape[:-1] + (1,), NEG_INF, device=s.device)
     parts = []
-    for lo in range(0, s.shape[-1], span):
-        hi = min(lo + span, s.shape[-1])
+    for lo, hi in zip(los, [*los[1:], n]):
         mk = mask[..., lo:hi]
         sc = torch.where(mk, s[..., lo:hi], torch.full_like(s[..., lo:hi],
                                                             NEG_INF))
@@ -980,7 +993,8 @@ def decode_attention_stacked_write(qt, kv_new, caches, layer, cache_lens,
     D] in qt's dtype, updated IN PLACE: row b's K/V land at position
     cache_lens[b] (dropped when it is Smax). Returns (caches, attn
     [B, H, 1, D]): the new query over the prefix < cache_lens[b] plus the
-    new token itself."""
+    new token itself. The design is ``paged_path``'s; the split one lands
+    the row inside its attention launch."""
     name = "decode_attention_stacked_write"
     _check_stacked(name, qt, caches, layer, cache_lens, qt.dtype,
                    write=True)
@@ -993,9 +1007,12 @@ def decode_attention_stacked_write(qt, kv_new, caches, layer, cache_lens,
         return decode_attention_stacked_write_reference(
             qt, kvn, caches, layer, cache_lens, scale)
     _, _, _, hk, smax, _ = caches.shape
+    path, splits, span = _range_splits(qt, hk, smax)
     out = _launch(name, [("qt", qt), ("kv_new", kvn), ("caches", caches),
                          ("cache_lens", cache_lens)], torch.empty_like(qt),
-                  (b, h, d, hk, smax, int(layer)), scale, qt.dtype)
+                  (b, h, d, hk, smax, int(layer), splits, span), scale,
+                  qt.dtype, extra=[("work", _split_work(splits, qt))],
+                  path=path)
     return caches, out
 
 
@@ -1014,6 +1031,34 @@ def decode_attention_stacked_write_reference(qt, kv_new, caches, layer,
     kv = kv.repeat_interleave(h // hk, dim=2).float()
     mask = _new_token_mask(cache_lens, smax, qt.device)
     out = _fp_attend(qt.float(), kv, mask, scale, caches.dtype, qt.dtype)
+    _land_rows(caches, layer, cache_lens, kvn[:, :, :, 0])
+    return caches, out
+
+
+def decode_attention_stacked_write_split_reference(qt, kv_new, caches, layer,
+                                                   cache_lens, scale=None,
+                                                   splits=1):
+    """The split design's write mode over the fp ring in plain PyTorch:
+    the new token's column ahead of layer ``layer``'s positions, which are
+    cut into ``splits`` ranges of ceil(Smax / splits) and masked below
+    cache_lens (the ranges are exclusive); the first range also holds the
+    new column, as the kernel's range 0 seeds with it; the partials merge
+    in split order (``_split_merge``), then the K/V rows land in place
+    (``_land_rows``; a full row drops them). Equal to
+    ``decode_attention_stacked_write_reference`` but for where p is
+    rounded."""
+    b, h, _, d = qt.shape
+    hk, smax = caches.shape[3], caches.shape[4]
+    if scale is None:
+        scale = d ** -0.5
+    kvn = kv_new.to(caches.dtype)
+    kv = torch.cat([kvn, caches[int(layer)]], dim=3)   # [2, B, Hk, 1+S, D]
+    kv = kv.repeat_interleave(h // hk, dim=2).float()
+    # column 0 the new token, column 1 + p position p < lens
+    mask = _row_mask(cache_lens, 1, smax + 1, qt.device)
+    s = qt.float() @ kv[0].transpose(-1, -2) * scale
+    out = _split_merge(s, mask, kv[1], -(-smax // splits), caches.dtype,
+                       qt.dtype, lead=1)
     _land_rows(caches, layer, cache_lens, kvn[:, :, :, 0])
     return caches, out
 
@@ -1037,11 +1082,14 @@ def decode_attention_stacked_i8_write(qt, kv_new, caches_i8, cache_scales,
         return decode_attention_stacked_i8_write_reference(
             qt, kvn, caches_i8, cache_scales, layer, cache_lens, scale)
     _, _, _, hk, smax, _ = caches_i8.shape
+    path, splits, span = _range_splits(qt, hk, smax)
     out = _launch(name, [("qt", qt), ("kv_new", kvn),
                          ("caches_i8", caches_i8),
                          ("cache_scales", cache_scales),
                          ("cache_lens", cache_lens)], torch.empty_like(qt),
-                  (b, h, d, hk, smax, int(layer)), scale, qt.dtype)
+                  (b, h, d, hk, smax, int(layer), splits, span), scale,
+                  qt.dtype, extra=[("work", _split_work(splits, qt))],
+                  path=path)
     return caches_i8, cache_scales, out
 
 
@@ -1064,6 +1112,39 @@ def decode_attention_stacked_i8_write_reference(qt, kv_new, caches_i8,
     mask = _new_token_mask(cache_lens, smax, qt.device)
     out = _i8_attend(qt.float(), kvi.repeat_interleave(g, dim=2),
                      sc.repeat_interleave(g, dim=2), mask, scale, qt.dtype)
+    _land_rows(caches_i8, layer, cache_lens, qn[:, :, :, 0], cache_scales,
+               sn[:, :, :, 0, 0])
+    return caches_i8, cache_scales, out
+
+
+def decode_attention_stacked_i8_write_split_reference(qt, kv_new, caches_i8,
+                                                      cache_scales, layer,
+                                                      cache_lens, scale=None,
+                                                      splits=1):
+    """The int8 split design's write mode in plain PyTorch: the new rows
+    quantized by ``_absmax_int8``, their column ahead of layer ``layer``'s
+    positions (cut into ``splits`` ranges of ceil(Smax / splits), masked
+    below cache_lens), the first range also holding the new column, the
+    int8 kernels' scores and p * v_scale (``_split_merge``); then the rows
+    and scales land in place (a full row drops them). Equal to
+    ``decode_attention_stacked_i8_write_reference`` but for where p is
+    rounded."""
+    from ..inference.generation import _absmax_int8
+    b, h, _, d = qt.shape
+    hk, smax = caches_i8.shape[3], caches_i8.shape[4]
+    if scale is None:
+        scale = d ** -0.5
+    qn, sn = _absmax_int8(kv_new, -1)           # [2, B, Hk, 1, D], [.., 1]
+    g = h // hk
+    kvi = torch.cat([qn, caches_i8[int(layer)]], dim=3).float(
+        ).repeat_interleave(g, dim=2)
+    sc = torch.cat([sn, cache_scales[int(layer)].transpose(-1, -2)], dim=3
+                   ).repeat_interleave(g, dim=2)   # [2, B, H, 1+S, 1]
+    mask = _row_mask(cache_lens, 1, smax + 1, qt.device)
+    s = qt.float() @ kvi[0].transpose(-1, -2) * scale * sc[0].transpose(
+        -1, -2)
+    out = _split_merge(s, mask, kvi[1], -(-smax // splits), qt.dtype,
+                       qt.dtype, sc[1].transpose(-1, -2), lead=1)
     _land_rows(caches_i8, layer, cache_lens, qn[:, :, :, 0], cache_scales,
                sn[:, :, :, 0, 0])
     return caches_i8, cache_scales, out

@@ -33,10 +33,18 @@ Phases, in order; any failure exits non-zero:
      head; the flat
      kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
-     unmapped entry; flash attention causal and not, sq < sk, GQA, S in
+     unmapped entry, and the int8 flavor again over 2048-position slot
+     tables that its split design cuts into ranges (flat_split_i8_kernels:
+     GQA groups 1, 2 and 4, D 40, 64 and 128, Bt 16 and 64, bf16, fp16 and
+     fp32; pad rows and the pad chunk exactly 0), bf16 and fp16 split,
+     fp32 per head; flash attention causal and not, sq < sk, GQA, S in
      {37, 255, 1000}, D in {64, 128}, lse included; the int4 dequant-
-     matmul at M in {1, 8, 37, 128, 512} for each of GPT-2's four (K, O),
-     the transposed qkv view included; the dense-ring kernels (stacked,
+     matmul (dequant_kernels) at M in {1, 8, 16, 17, 37, 128, 512} for
+     each of GPT-2's four (K, O), the transposed qkv view included, and
+     two shapes its tensor-core design does not take, bf16, fp16 and fp32,
+     bf16 to an fp32 output, each launch on the design dequant_path gives
+     it (bf16 / fp16 aligned: tensor_core; else fma); the dense-ring
+     kernels (stacked,
      stacked_i8 at Smax 128 and 1024, Sq 1, 16 and 128, GQA groups 1 and
      2; the fused write kernels at lens 0, mid-tile, Smax - 1 and Smax,
      their ring and scales after the call byte-equal to the plain
@@ -78,9 +86,11 @@ Phases, in order; any failure exits non-zero:
      an int8 cache always the int8 flavors and never an fp attention
      kernel, over a ring never a paged kernel and vice versa — and every
      int4 run the dequant-matmul; every decode_attention_paged,
-     decode_attention_paged_i8, decode_attention_stacked and
-     decode_attention_stacked_i8 launch takes the split design
-     (decode_attention.PATH_LAUNCHES). The pool,
+     decode_attention_paged_i8, decode_attention_paged_flat_i8,
+     decode_attention_stacked and decode_attention_stacked_i8 launch takes
+     the split design (decode_attention.PATH_LAUNCHES) and every
+     fused_dequant_matmul launch the tensor-core one
+     (fused_dequant_matmul.PATH_LAUNCHES). The pool,
      ring and weight bytes are read from the arrays;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
@@ -137,7 +147,8 @@ Phases, in order; any failure exits non-zero:
      CPU's dense row engine of the same flavor; generate_fused fp and
      int8 ring, cache_write_kernel off and on, against the CPU's; every
      card launch of a two-design kernel there (the reads and the fused
-     writes) on the per-head design (fp32 queries); GPT-2
+     writes) on the per-head design (fp32 queries), every dequant-matmul
+     launch on the fma one; GPT-2
      training at L=2, B=2, S=128, fp32, dropout 0, 3 AdamW steps, without
      and with the fused FFN: losses, step-1 gradients and step-3
      parameters against the CPU's; FusedMultiTransformer at L=2, fp32: a
@@ -340,18 +351,10 @@ def phase_kernels(rng):
                         f"group={group} causal={int(causal)}")
                 check(name, o, o_ref, tname, worst)
                 check(name + " lse", lse, lse_ref, tname, worst)
-    for dtype, tname in ((torch.bfloat16, "matmul_bf16"),
-                         (torch.float32, "matmul_fp32")):
-        for name, (k, o) in MATMULS.items():
-            wp, s = packed_weight(rng, k, o, transposed=name == "qkv")
-            for m in (1, 8, 37, 128, 512):
-                a = randn(rng, (m, k), dtype)
-                check(f"dequant_matmul {str(dtype):15s} {name:3s} K={k} "
-                      f"O={o} M={m}", fdm.fused_dequant_matmul(a, wp, s),
-                      fdm.fused_dequant_matmul_reference(a, wp, s), tname,
-                      worst)
+    dequant_kernels(rng, worst)
     split_kernels(rng, worst)
     split_i8_kernels(rng, worst)
+    flat_split_i8_kernels(rng, worst)
     split_fp_contiguous_kernels(rng, worst)
     split_write_kernels(rng, worst)
     stacked_kernels(rng, worst)
@@ -446,6 +449,112 @@ def split_i8_kernels(rng, worst):
                 "decode_attention_stacked_i8": 3 * n_fp}
     log(f"  int8 split cases: worst {dict(worst)}")
     check_paths("int8 split cases", split, per_head)
+
+
+# the flat split cases: FLAT_CASE plus a chunk across the middle of a
+# 2048-position table and one ending on its last block edge
+FLAT_SPLIT_CASE = FLAT_CASE + [(1, 1020, 8), (0, 2040, 8)]
+
+
+def flat_split_i8_kernels(rng, worst):
+    """The int8 flat stream's kernel over 2048-position slot tables that
+    its split design cuts into ranges of 64-position tiles (decode_splits
+    over the 10 chunks), against the plain version: FLAT_SPLIT_CASE (pad
+    rows, a pad chunk, unaligned bases straddling a block edge, an
+    unmapped entry, deep chunks), GQA groups 1, 2 and 4, D 40, 64 and 128,
+    Bt 16 and 64; rows past a chunk's count and the pad chunk exactly 0.
+    Every bf16 and fp16 launch on the split path, every fp32 one on the
+    per-head one."""
+    reset_launches()
+    n = collections.Counter()
+    pads = [8 * i + r for i, (_, _, c) in enumerate(FLAT_SPLIT_CASE)
+            for r in range(c, 8)]
+    for dtype, tname in SPLIT_I8_DTYPES:
+        for group in (1, 2, 4):
+            for d in SPLIT_I8_DIMS:
+                for bt in (16, 64):
+                    args = flat_case(rng, FLAT_SPLIT_CASE, h=4, hk=4 // group,
+                                     d=d, bt=bt, nblk=2048 // bt, n_layers=2,
+                                     layer=1, dtype=dtype, unmapped=(2, 21))
+                    qargs = (args[0], *quantize_pool(args[1]), *args[2:])
+                    got = da.decode_attention_paged_flat_i8(*qargs)
+                    label = (f"{str(dtype):14s} group={group} D={d:3d} "
+                             f"Bt={bt:2d}")
+                    check(f"flat_i8 split {label}", got,
+                          da.decode_attention_paged_flat_i8_reference(*qargs),
+                          tname, worst, quiet=True)
+                    if got[pads].any():
+                        raise SystemExit(f"flat_i8 split {label}: pad rows "
+                                         "are not 0")
+                    n[dtype] += 1
+    name = "decode_attention_paged_flat_i8"
+    log(f"  flat int8 split cases: {sum(n.values())}, pad rows exactly 0; "
+        f"worst {dict(worst)}")
+    check_paths("flat int8 split cases",
+                {name: n[torch.bfloat16] + n[torch.float16]},
+                {name: n[torch.float32]})
+
+
+# the dequant cases: GPT-2's four (K, O, transposed), two shapes the
+# tensor-core design does not take (O % 16 != 0 contiguous, K/2 % 16 != 0
+# transposed), and the row counts of decode, the budgets and bulk prefill
+DEQUANT_SHAPES = {**{name: (k, o, name == "qkv")
+                     for name, (k, o) in MATMULS.items()},
+                  "odd": (168, 200, False), "odd_t": (168, 200, True)}
+DEQUANT_ROWS = (1, 8, 16, 17, 37, 128, 512)
+
+
+def dequant_kernels(rng, worst):
+    """The int4 dequant-matmul against its plain version: bf16, fp16 and
+    fp32 activations at DEQUANT_ROWS for each of DEQUANT_SHAPES, and
+    out_dtype=torch.float32 from bf16 at M 8 and 512 for GPT-2's four;
+    every launch on the design dequant_path gives it (bf16 / fp16 at the
+    aligned shapes: tensor_core; the rest fma)."""
+    reset_launches()
+    want = collections.Counter()
+    for name, (k, o, transposed) in DEQUANT_SHAPES.items():
+        wp, s = packed_weight(rng, k, o, transposed=transposed)
+        for dtype, tname in ((torch.bfloat16, "matmul_bf16"),
+                             (torch.float16, "matmul_bf16"),
+                             (torch.float32, "matmul_fp32")):
+            path = fdm.dequant_path(dtype, k, o, int(transposed))
+            for m in DEQUANT_ROWS:
+                a = randn(rng, (m, k), dtype)
+                check(f"dequant_matmul {str(dtype):14s} {name:5s} K={k} "
+                      f"O={o} M={m:3d} ({path})",
+                      fdm.fused_dequant_matmul(a, wp, s),
+                      fdm.fused_dequant_matmul_reference(a, wp, s), tname,
+                      worst, quiet=True)
+                want[path] += 1
+        if name in MATMULS:
+            for m in (8, 512):
+                a = randn(rng, (m, k), torch.bfloat16)
+                got = fdm.fused_dequant_matmul(a, wp, s,
+                                               out_dtype=torch.float32)
+                if got.dtype != torch.float32:
+                    raise SystemExit(f"dequant_matmul {name}: out_dtype "
+                                     f"fp32 gave {got.dtype}")
+                check(f"dequant_matmul bf16 -> fp32 {name} M={m}", got,
+                      fdm.fused_dequant_matmul_reference(
+                          a, wp, s, out_dtype=torch.float32),
+                      "matmul_bf16", worst, quiet=True)
+                want["tensor_core"] += 1
+    got = dict(fdm.PATH_LAUNCHES["fused_dequant_matmul"])
+    log(f"  dequant cases: launches by path {got}; worst {dict(worst)}")
+    if got != {p: want[p] for p in got}:
+        raise SystemExit(f"dequant cases: launches by path {got}, want "
+                         f"{dict(want)}")
+
+
+def check_dequant_path(label, path):
+    """Fail unless every launch of the dequant-matmul since the counts
+    were reset took the design ``path`` (fdm.PATH_LAUNCHES)."""
+    got = dict(fdm.PATH_LAUNCHES["fused_dequant_matmul"])
+    n = fdm.LAUNCHES["fused_dequant_matmul"]
+    log(f"  {label}: fused_dequant_matmul launches by path {got}")
+    if got != {p: n if p == path else 0 for p in got}:
+        raise SystemExit(f"{label}: fused_dequant_matmul launched {got} by "
+                         f"path; every one of {n} must take {path}")
 
 
 def split_fp_contiguous_kernels(rng, worst):
@@ -560,9 +669,11 @@ def split_write_kernels(rng, worst):
 
 def check_all_per_head(label):
     """Fail unless every launch of the two-design decode kernels since
-    the counts were reset took the per-head design (fp32 queries)."""
+    the counts were reset took the per-head design, and every launch of
+    the dequant-matmul the fma one (fp32 queries and activations)."""
     ran = {k: da.LAUNCHES[k] for k in da.PATH_LAUNCHES if da.LAUNCHES[k]}
     check_paths(label, {k: 0 for k in ran}, ran)
+    check_dequant_path(label, "fma")
 
 
 def check_paths(label, split, per_head=None):
@@ -1166,7 +1277,8 @@ def reset_launches():
     for counts in (da.LAUNCHES, fa.LAUNCHES, fdm.LAUNCHES, ln.LAUNCHES,
                    ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
                    rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES,
-                   *da.PATH_LAUNCHES.values()):
+                   *da.PATH_LAUNCHES.values(),
+                   *fdm.PATH_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -1223,6 +1335,11 @@ def serve_counted(seed, name, kwargs):
                          "both Sq=16 and Sq=1")
     if attr in da.PATH_LAUNCHES:      # every launch on the split design
         check_paths(f"[{name}]", {attr: da.LAUNCHES[attr]})
+    flat_i8 = "decode_attention_paged_flat_i8"
+    if da.LAUNCHES[flat_i8]:          # the flat int8 stream: split too
+        check_paths(f"[{name}]", {flat_i8: da.LAUNCHES[flat_i8]})
+    if fdm.LAUNCHES["fused_dequant_matmul"]:   # int4: the tensor cores
+        check_dequant_path(f"[{name}]", "tensor_core")
     n_prompt = sum(len(p) for p, _ in reqs)
     n_new = sum(w for _, w in reqs)
     log(f"  [{name}] {len(reqs)} requests, {n_prompt} prompt tokens, "
@@ -2769,8 +2886,11 @@ def main(argv=None):
     for name, path, where, is_main in table:
         main_row = next(r for r in rows[name] if is_main(r))
         # the kernels with two designs: phase 3 held every launch of
-        # their runs to the split one
-        design = {"design": "split_kv"} if name in da.PATH_LAUNCHES else {}
+        # their runs to the split one (the dequant-matmul's to the tensor
+        # cores)
+        design = ({"design": "split_kv"} if name in da.PATH_LAUNCHES
+                  else {"design": "tensor_core"}
+                  if name == "fused_dequant_matmul" else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{_build.SOURCES[name]}",

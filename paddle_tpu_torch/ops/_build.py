@@ -81,10 +81,14 @@ _ENTRY = {
         [_P] * 7 + [_I] * 11 + [_F, _I, _I, _P]),
     "decode_attention_paged_flat_i8": (
         "paddle_decode_attention_paged_flat_i8",
-        [_P] * 8 + [_I] * 9 + [_F, _I, _P]),
+        [_P] * 9 + [_I] * 11 + [_F, _I, _I, _P]),
+    # the dequant-matmul: pointers (the fma design's split workspace before
+    # the output), M, K2, O, the orientation, the rows a block, the splits
+    # and packed rows a split, the activation and output dtype codes and
+    # the design (dequant_path's)
     "fused_dequant_matmul": (
         "paddle_fused_dequant_matmul",
-        [_P] * 5 + [_I] * 8 + [_P]),
+        [_P] * 5 + [_I] * 10 + [_P]),
     # the fp ring: pointers (the split workspace last), the shape ints,
     # the layer, the splits and positions a split, the scale, the dtype
     # code and the design (paged_path's)

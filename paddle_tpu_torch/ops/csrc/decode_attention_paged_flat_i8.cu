@@ -24,17 +24,34 @@
 // product, l summing the unscaled p.
 //
 // What bounds it on the card: bytes. Each chunk reads its slot's prefix
-// once per head for 8 query rows (one byte per element plus a 4-byte scale
-// per position), 4*D flops per position and row, far below the ~295
-// flop/byte ridge. Design: the fp flat kernel's, one thread block per
-// (chunk, head); K/V tiles of 32 positions (or one block when Bt < 32)
-// staged as fp32 in shared memory with 16-byte loads (16 int8 values
-// each) issued in batches, the tile's 32 K and 32 V scales beside them,
-// and four warps that each own two of the chunk's rows with an fp32
-// online softmax in registers (attention_tile.cuh). Chunks of one slot
-// re-read its prefix (from L2); a split over the walk and tensor-core
-// products are left for later work.
+// once per KV head for its GQA group's 8-row query blocks (one byte per
+// element plus a 4-byte scale per position), 4*D flops per position and
+// row, far below the ~295 flop/byte ridge. Chunks of one slot re-read its
+// prefix (from L2).
+//
+// Two designs; the wrapper picks one (ops/decode_attention.py's paged_path,
+// the rule of every decode read) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16 queries, D a multiple of 8): the
+//   flat mode of split_decode.cuh's int8 flavor. Each chunk is a row of 8
+//   query positions whose lens is cbase and whose table row is its slot's;
+//   its positions are split over S blocks per (chunk, KV head), ranges of
+//   `span` positions (a multiple of 64) from the shapes and the SM count
+//   (the wrapper's decode_splits over T / 8 chunks), each block holding the
+//   GQA group's 8-row blocks, staging the int8 K/V tiles and their scales
+//   by cp.async, converting them to the query dtype per warp and
+//   multiplying on mma.sync; a second kernel merges the S partials of each
+//   row from the fp32 workspace `work` in split order. q, out and the
+//   partials keep the stream layout [T, H, D].
+// - path 0, "per_head" (fp32 queries, or D not a multiple of 8): the first
+//   design, the fp flat kernel's: one thread block per (chunk, head); K/V
+//   tiles of 32 positions (or one block when Bt < 32) staged as fp32 in
+//   shared memory with 16-byte loads (16 int8 values each) issued in
+//   batches, the tile's 32 K and 32 V scales beside them, and four warps
+//   that each own two of the chunk's rows with an fp32 online softmax in
+//   registers (attention_tile.cuh).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -177,19 +194,33 @@ cudaError_t launch_d(const void* q, const void* pool, const void* scales,
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t (0 on success); the caller has validated shapes, devices and
-// layout.
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16. path: 1 =
+// split_kv (bf16 or fp16, D a multiple of 8; splits S >= 1 ranges of span
+// positions each, S = ceil(nblk * Bt / span); work: fp32 [S * T * H * (D +
+// 2)] when S > 1; q and out 16-byte aligned, the pool 16 (D a multiple of
+// 16) or 8), 0 = per_head (splits 1; work unused); any other pairing
+// returns cudaErrorInvalidValue. Returns a cudaError_t (0 on success); the
+// caller has validated shapes, devices and layout.
 extern "C" int paddle_decode_attention_paged_flat_i8(
     const void* q, const void* pool, const void* scales, const void* tables,
-    const void* cslot, const void* cbase, const void* cn, void* out, int T,
-    int H, int D, int NB, int Hk, int Bt, int nblk, int n_rows, int layer,
-    float scale, int dtype, void* stream) {
+    const void* cslot, const void* cbase, const void* cn, void* out,
+    void* work, int T, int H, int D, int NB, int Hk, int Bt, int nblk,
+    int n_rows, int layer, int splits, int span, float scale, int dtype,
+    int path, void* stream) {
   if (T < kChunk || T % kChunk || H < 1 || D < 1 || D > 256 || Hk < 1 ||
       H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1 ||
-      n_rows < 1)
+      n_rows < 1 || splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return paddle_attn::split::run<true, false, true>(
+        q, paddle_attn::split::layer_planes(pool, scales, layer, NB, Hk, Bt,
+                                            D, 1),
+        tables, cbase, out, work, T / kChunk, H, kChunk, D, NB, Hk, Bt, nblk,
+        splits, span, scale, dtype, s, paddle_attn::split::NewRow{},
+        paddle_attn::split::FlatMeta{static_cast<const int*>(cslot),
+                                     static_cast<const int*>(cn), n_rows});
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, pool, scales, tables, cslot, cbase, cn,

@@ -10,7 +10,9 @@
 // flavor's two scale planes): a layer of a pool or ring, or the two tensors.
 // The same kernel has a write mode (kNew) for the fused write+attend of one
 // new token a row over the dense rings, decode_attention_stacked_write.cu
-// and decode_attention_stacked_i8_write.cu: see "The write mode" below.
+// and decode_attention_stacked_i8_write.cu: see "The write mode" below; and
+// a flat mode (kFlat) for the flat budget's ragged query stream over the
+// int8 pool, decode_attention_paged_flat_i8.cu: see "The flat mode".
 //
 // The work of one (row b, KV head hk) is split along the KV length into S
 // ranges of `span` positions; the grid is (B * Hk, S), S chosen by the
@@ -76,6 +78,17 @@
 //   seeded partial (or, with S = 1, the output) and never the empty one.
 // The other ranges never touch the new token. With S > 1 merge_kernel
 // combines the partials as for a read; no launch is added for the write.
+//
+// The flat mode (kFlat; Sq = FLAT_CHUNK = 8, B the stream's T / 8 chunks).
+// Row b of the launch is chunk ci = b: its lens is cbase[ci] (the `lens`
+// argument), its table row tables[clamp(cslot[ci], 0, rows - 1)], and its
+// query row r is token ci * 8 + r, which attends positions <= cbase + r
+// when r < cn[ci] and nothing otherwise (then, exactly 0). The reach of the
+// chunk is cbase + cn (a pad chunk, cn = 0, reads nothing: every range is
+// empty and writes the empty partial, or with S = 1 zeros). q and out stay
+// in the stream layout [T, H, D]: the row of (chunk, head h, r) is (ci * 8 +
+// r) * H + h, for the Q loads, the S = 1 store and the partials alike, so
+// merge_kernel writes the stream layout too.
 //
 // Semantics are decode_attention_paged's (and its int8 flavor's): query row
 // r attends positions <= lens[b] + r; an unmapped table entry (the sentinel
@@ -207,6 +220,15 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
 struct NewRow {
   const void* k;
   const void* v;
+};
+
+// The flat mode's per-chunk slot and count [B] (the chunks' base positions
+// are the lens), and the table's rows for the slot's clamp. All zero in the
+// other modes.
+struct FlatMeta {
+  const int* slot;
+  const int* n;
+  int rows;
 };
 
 // Warp-wide: the absmax scale amax / 127 of a D-element fp32 row (the
@@ -458,8 +480,10 @@ __device__ __forceinline__ void seed_new(const float* nw, int D, int lane,
 // nullptr: a contiguous cache, row b's block is b (nblk 1, Bt Smax). span:
 // positions a split. With S = 1 writes out; else the partials: o [S, B * H
 // * Sq, D] and (m, l) [S, B * H * Sq, 2], fp32. kNew: the write mode (Sq =
-// 1, the new token in nr; the planes are written at lens[b]).
-template <typename T, typename KV, int DP, int WP, bool kNew>
+// 1, the new token in nr; the planes are written at lens[b]). kFlat: the
+// flat mode (Sq = 8, row b a chunk of the stream, its slot and count in
+// fl).
+template <typename T, typename KV, int DP, int WP, bool kNew, bool kFlat>
 __global__ void __launch_bounds__(
     kThreads, Cfg<DP, std::is_same<KV, int8_t>::value>::kMinBlocks)
     split_kernel(const T* __restrict__ q, const KV* __restrict__ k_base,
@@ -470,7 +494,7 @@ __global__ void __launch_bounds__(
                  T* __restrict__ out, float* __restrict__ o_part,
                  float* __restrict__ ml_part, int B, int H, int Sq, int D,
                  int NB, int Hk, int Bt, int nblk, int span, float scale,
-                 NewRow nr) {
+                 NewRow nr, FlatMeta fl) {
   constexpr bool kI8 = std::is_same<KV, int8_t>::value;
   using C = Cfg<DP, kI8>;
   constexpr int WR = kWarps / WP;   // row groups a pass
@@ -500,16 +524,30 @@ __global__ void __launch_bounds__(
   // write mode: below lens[b], the position it writes)
   const int n_pos = nblk * Bt;
   const int p_lo = s * span;
-  const int reach = kNew ? len : len + Sq;
+  // the flat mode: the chunk's count of query rows (a pad chunk has none
+  // and reaches no position)
+  const int cnt = kFlat ? fl.n[b] : Sq;
+  const int reach = kNew ? len : kFlat ? (cnt > 0 ? len + cnt : 0) : len + Sq;
   const int p_end = min(min((s + 1) * span, n_pos), min(reach, n_pos));
   // query row i of this block: head hk * G + i / Sq, row i % Sq; its
-  // index among the call's rows
+  // index among the call's rows (the flat mode: token b * Sq + i % Sq of
+  // the stream)
   auto row_index = [&](int i) {
-    return (b * H + hk * G + i / Sq) * Sq + i % Sq;
+    if constexpr (kFlat)
+      return (b * Sq + i % Sq) * H + hk * G + i / Sq;
+    else
+      return (b * H + hk * G + i / Sq) * Sq + i % Sq;
   };
   // nothing to attend here: an empty partial (the designated block always
-  // has the new column)
+  // has the new column; the flat mode with S = 1: zero rows)
   if (p_lo >= p_end && !(kNew && s == 0)) {
+    if constexpr (kFlat) {
+      if (S == 1) {
+        for (int i = threadIdx.x; i < R * D; i += kThreads)
+          out[(size_t)row_index(i / D) * D + i % D] = from_f<T>(0.f);
+        return;
+      }
+    }
     for (int i = threadIdx.x; i < R; i += kThreads) {
       float* ml = ml_part + 2 * ((size_t)s * rows + row_index(i));
       ml[0] = kNeg;
@@ -518,8 +556,10 @@ __global__ void __launch_bounds__(
     return;
   }
 
+  // the flat mode: the chunk's slot, clamped into the table
+  const int trow = kFlat ? min(max(fl.slot[b], 0), fl.rows - 1) : b;
   const PagedKV<KV> kv{k_base, v_base,
-                       tables ? tables + (size_t)b * nblk : nullptr,
+                       tables ? tables + (size_t)trow * nblk : nullptr,
                        NB, Hk, Bt, D, ks_base, vs_base, b};
   // the write mode's designated block: the new row lands once (a full row
   // drops it) and is staged past the ring for the seed
@@ -550,12 +590,15 @@ __global__ void __launch_bounds__(
     const int rg = rg0 + wr;
     const bool active = rg < n_groups;  // uniform across the warp
     // this lane's two rows (g and g + 8 of the group): validity and the
-    // last position each attends (-1: none)
+    // last position each attends (-1: not a row; the flat mode's -2: a row
+    // past its chunk's count, which attends nothing)
     int lim[2];
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri) {
       const int i = rg * 16 + g + 8 * ri;
-      lim[ri] = (active && i < R) ? len + i % Sq : -1;
+      lim[ri] = (active && i < R)
+                    ? (!kFlat || i % Sq < cnt ? len + i % Sq : -2)
+                    : -1;
     }
     // Q as A fragments: rows g / g + 8, dims 16 kk + 2 t (+ 8)
     uint32_t qa[KS][4];
@@ -751,7 +794,9 @@ __global__ void __launch_bounds__(
     if (active && wp == 0) {
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
-        if (lim[ri] < 0) continue;
+        // a lane past the rows writes nothing (a flat row past its
+        // chunk's count writes its zero output)
+        if (kFlat ? lim[ri] == -1 : lim[ri] < 0) continue;
         const int idx = row_index(rg * 16 + g + 8 * ri);
         if (S == 1) {
           const float denom = l[ri] == 0.f ? 1.f : l[ri];
@@ -856,13 +901,13 @@ inline Planes layer_planes(const void* pool, const void* scales, int layer,
   return Planes{k, k + bytes, ks, ks ? ks + pos : nullptr};
 }
 
-template <typename T, typename KV, int DP, int WP, bool kNew>
+template <typename T, typename KV, int DP, int WP, bool kNew, bool kFlat>
 cudaError_t launch(const void* q, const Planes& kv, const void* tables,
                    const void* lens, void* out, void* work, int B, int H,
                    int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
                    int span, float scale, cudaStream_t stream,
-                   const NewRow& nr) {
-  auto kernel = split_kernel<T, KV, DP, WP, kNew>;
+                   const NewRow& nr, const FlatMeta& fl) {
+  auto kernel = split_kernel<T, KV, DP, WP, kNew, kFlat>;
   using C = Cfg<DP, std::is_same<KV, int8_t>::value>;
   constexpr int smem = C::kSmem + (kNew ? C::kNewBytes : 0);
   // set on every launch (a function-local static in a header template
@@ -878,7 +923,7 @@ cudaError_t launch(const void* q, const Planes& kv, const void* tables,
       static_cast<const KV*>(kv.v), kv.ks, kv.vs,
       static_cast<const int*>(tables), static_cast<const int*>(lens),
       static_cast<T*>(out), o_part, ml_part, B, H, Sq, D, NB, Hk, Bt, nblk,
-      span, scale, nr);
+      span, scale, nr, fl);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -888,31 +933,31 @@ cudaError_t launch(const void* q, const Planes& kv, const void* tables,
 
 #define PADDLE_SPLIT_ARGS                                                  \
   q, kv, tables, lens, out, work, B, H, Sq, D, NB, Hk, Bt, nblk, S, span, \
-      scale, stream, nr
+      scale, stream, nr, fl
 
 // The instantiation for D (<= 256, a multiple of 8) and R = (H / Hk) * Sq
 // query rows a block: the warps' split (WP) and the padded width (DP).
-template <typename T, typename KV, int DP, bool kNew>
+template <typename T, typename KV, int DP, bool kNew, bool kFlat>
 cudaError_t launch_wp(const void* q, const Planes& kv, const void* tables,
                       const void* lens, void* out, void* work, int B, int H,
                       int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
                       int span, float scale, cudaStream_t stream,
-                      const NewRow& nr) {
+                      const NewRow& nr, const FlatMeta& fl) {
   const int R = H / Hk * Sq;
-  if (R <= 16) return launch<T, KV, DP, 4, kNew>(PADDLE_SPLIT_ARGS);
-  if (R <= 32) return launch<T, KV, DP, 2, kNew>(PADDLE_SPLIT_ARGS);
-  return launch<T, KV, DP, 1, kNew>(PADDLE_SPLIT_ARGS);
+  if (R <= 16) return launch<T, KV, DP, 4, kNew, kFlat>(PADDLE_SPLIT_ARGS);
+  if (R <= 32) return launch<T, KV, DP, 2, kNew, kFlat>(PADDLE_SPLIT_ARGS);
+  return launch<T, KV, DP, 1, kNew, kFlat>(PADDLE_SPLIT_ARGS);
 }
 
-template <typename T, typename KV, bool kNew>
+template <typename T, typename KV, bool kNew, bool kFlat>
 cudaError_t launch_d(const void* q, const Planes& kv, const void* tables,
                      const void* lens, void* out, void* work, int B, int H,
                      int Sq, int D, int NB, int Hk, int Bt, int nblk, int S,
                      int span, float scale, cudaStream_t stream,
-                     const NewRow& nr) {
-  if (D <= 64) return launch_wp<T, KV, 64, kNew>(PADDLE_SPLIT_ARGS);
-  if (D <= 128) return launch_wp<T, KV, 128, kNew>(PADDLE_SPLIT_ARGS);
-  return launch_wp<T, KV, 256, kNew>(PADDLE_SPLIT_ARGS);
+                     const NewRow& nr, const FlatMeta& fl) {
+  if (D <= 64) return launch_wp<T, KV, 64, kNew, kFlat>(PADDLE_SPLIT_ARGS);
+  if (D <= 128) return launch_wp<T, KV, 128, kNew, kFlat>(PADDLE_SPLIT_ARGS);
+  return launch_wp<T, KV, 256, kNew, kFlat>(PADDLE_SPLIT_ARGS);
 }
 
 // A C entry's split path: S ranges of `span` positions over the nblk * Bt
@@ -925,16 +970,21 @@ cudaError_t launch_d(const void* q, const Planes& kv, const void* tables,
 // the K and V planes must be 16-byte aligned (int8 with D not a multiple
 // of 16: the planes 8), else cudaErrorMisalignedAddress. kNew: the write
 // mode, which takes Sq = 1 and the new token's two rows in nr (and writes
-// the planes, and the int8 flavor's scale planes, at lens[b]).
-template <bool kI8, bool kNew = false>
+// the planes, and the int8 flavor's scale planes, at lens[b]). kFlat: the
+// flat mode, which takes Sq = 8, a table, and the chunks' slots and counts
+// in fl (lens their base positions).
+template <bool kI8, bool kNew = false, bool kFlat = false>
 int run(const void* q, const Planes& kv, const void* tables,
         const void* lens, void* out, void* work, int B, int H, int Sq, int D,
         int NB, int Hk, int Bt, int nblk, int S, int span, float scale,
-        int dtype, cudaStream_t stream, const NewRow& nr = NewRow{}) {
+        int dtype, cudaStream_t stream, const NewRow& nr = NewRow{},
+        const FlatMeta& fl = FlatMeta{}) {
   if (D % 8 || span < 1 || ((long long)nblk * Bt + span - 1) / span != S ||
       (S > 1 && work == nullptr) || (!tables && nblk != 1) ||
       (kI8 && (kv.ks == nullptr || kv.vs == nullptr)) ||
-      (kNew && (Sq != 1 || nr.k == nullptr || nr.v == nullptr)))
+      (kNew && (Sq != 1 || nr.k == nullptr || nr.v == nullptr)) ||
+      (kFlat && (kNew || Sq != 8 || !tables || fl.slot == nullptr ||
+                 fl.n == nullptr || fl.rows < 1)))
     return (int)cudaErrorInvalidValue;
   auto plane_ok = [&](const void* p) {
     return kI8 && D % 16 ? reinterpret_cast<uintptr_t>(p) % 8 == 0
@@ -946,10 +996,10 @@ int run(const void* q, const Planes& kv, const void* tables,
     case 1:
       return (int)launch_d<__nv_bfloat16,
                            std::conditional_t<kI8, int8_t, __nv_bfloat16>,
-                           kNew>(PADDLE_SPLIT_ARGS);
+                           kNew, kFlat>(PADDLE_SPLIT_ARGS);
     case 2:
       return (int)launch_d<__half, std::conditional_t<kI8, int8_t, __half>,
-                           kNew>(PADDLE_SPLIT_ARGS);
+                           kNew, kFlat>(PADDLE_SPLIT_ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -41,9 +41,10 @@ plain versions reuse the paged ones through that table.
 
 The five reads, ``decode_attention_paged``, ``decode_attention_paged_i8``,
 ``decode_attention_stacked``, ``decode_attention_stacked_i8`` and
-``decode_attention_bhsd``, and the two fused writes,
+``decode_attention_bhsd``, the two fused writes,
 ``decode_attention_stacked_write`` and ``decode_attention_stacked_i8_write``,
-have two designs each, picked by ``paged_path`` from the dtype and D alone,
+and the int8 flat stream's ``decode_attention_paged_flat_i8`` have two
+designs each, picked by ``paged_path`` from the dtype and D alone,
 the one place the rule is stated: bf16 and fp16 at D a multiple of 8 take
 ``"split_kv"`` (``csrc/split_decode.cuh``: the KV length split into
 ranges, each a block per row and KV head holding the GQA group's query
@@ -51,7 +52,8 @@ rows, partials merged in split order; the fp pool's ranges are
 ``paged_splits`` table blocks, the others' ``decode_splits`` 64-position
 tiles, a ring or the one-layer cache read as a pool of one Smax-position
 block per row; the writes' ranges stop below lens[b], and range 0 seeds
-with the new token and stores it), everything else ``"per_head"`` (one
+with the new token and stores it; the flat stream's chunks of FLAT_CHUNK
+tokens are its rows, each over its slot's table row), everything else ``"per_head"`` (one
 block per row and head, fp32 staging). ``PATH_LAUNCHES`` counts each
 kernel's launches by design; the C entries run the design they are given
 or fail.
@@ -100,7 +102,8 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_stacked_split_reference",
            "decode_attention_bhsd_split_reference",
            "decode_attention_stacked_write_split_reference",
-           "decode_attention_stacked_i8_write_split_reference", "LAUNCHES",
+           "decode_attention_stacked_i8_write_split_reference",
+           "decode_attention_paged_flat_i8_split_reference", "LAUNCHES",
            "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
@@ -125,7 +128,8 @@ PATH_LAUNCHES = {name: {"split_kv": 0, "per_head": 0}
                               "decode_attention_stacked_i8",
                               "decode_attention_bhsd",
                               "decode_attention_stacked_write",
-                              "decode_attention_stacked_i8_write")}
+                              "decode_attention_stacked_i8_write",
+                              "decode_attention_paged_flat_i8")}
 _PATH_CODE = {"split_kv": 1, "per_head": 0}
 # the split rule: blocks of the split design a wave counts per SM (a full
 # table's blocks; rows shorter than the table leave the later ranges
@@ -254,9 +258,10 @@ def _launch(name, named, out, ints, scale, dtype, extra=(), path=None):
 def paged_path(dtype, d) -> str:
     """The design of the five reads, ``decode_attention_paged``,
     ``decode_attention_paged_i8``, ``decode_attention_stacked``,
-    ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, and of
+    ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, of
     the two fused writes, ``decode_attention_stacked_write`` and
-    ``decode_attention_stacked_i8_write``, for queries of ``dtype`` at
+    ``decode_attention_stacked_i8_write``, and of the int8 flat stream's
+    ``decode_attention_paged_flat_i8``, for queries of ``dtype`` at
     head dim ``d``: ``"split_kv"``
     (split_decode.cuh, tensor cores) for bf16 and fp16 at D a multiple of
     8, else ``"per_head"``. The wrappers pass it to the C entries, which
@@ -309,18 +314,21 @@ def _sm_count(index):
 
 def _split_work(splits, qt):
     """The split design's fp32 workspace for queries ``qt`` [B, H, Sq,
-    D]: the partials o [S, B*H*Sq, D] and (m, l) [S, B*H*Sq, 2] (one
+    D] (or the flat stream's [T, H, D]): the partials o [S, rows, D] and
+    (m, l) [S, rows, 2] over its rows = B*H*Sq (T*H) query rows (one
     unused float when S is 1)."""
-    b, h, sq, d = qt.shape
-    return torch.empty((splits * b * h * sq * (d + 2) if splits > 1 else 1,),
-                       dtype=torch.float32, device=qt.device)
+    rows = qt.numel() // qt.shape[-1]
+    return torch.empty(
+        (splits * rows * (qt.shape[-1] + 2) if splits > 1 else 1,),
+        dtype=torch.float32, device=qt.device)
 
 
 def _range_splits(qt, hk, n_pos):
     """(path, S, span) of a read cut in positions (the int8 flavors, the
-    fp ring, the one-layer cache) over n_pos positions a row: the design
-    from ``paged_path``, the ranges from ``decode_splits`` (one range of
-    n_pos for the per-head design)."""
+    fp ring, the one-layer cache) over n_pos positions a row of queries
+    ``qt`` [B, H, Sq, D] (the flat stream: [T / 8, 8, H, D], a chunk a
+    row): the design from ``paged_path``, the ranges from
+    ``decode_splits`` (one range of n_pos for the per-head design)."""
     b, _, _, d = qt.shape
     path = paged_path(qt.dtype, d)
     if path != "split_kv" or qt.device.type != "cuda":
@@ -673,11 +681,16 @@ def decode_attention_paged_flat_i8(q, pool_i8, pool_scales, tables,
             q, pool_i8, pool_scales, tables, chunk_slot, chunk_base, chunk_n,
             layer, scale)
     _, _, nb, hk, bt, _ = pool_i8.shape
+    nblk = tables.shape[1]
+    # a chunk of FLAT_CHUNK tokens is a row of the split design
+    path, splits, span = _range_splits(
+        q.reshape(t // FLAT_CHUNK, FLAT_CHUNK, h, d), hk, nblk * bt)
     return _launch(name, [("q", q), ("pool_i8", pool_i8),
                           ("pool_scales", pool_scales), ("tables", tables),
                           *meta], torch.empty_like(q),
-                   (t, h, d, nb, hk, bt, tables.shape[1], tables.shape[0],
-                    int(layer)), scale, q.dtype)
+                   (t, h, d, nb, hk, bt, nblk, tables.shape[0], int(layer),
+                    splits, span), scale, q.dtype,
+                   extra=[("work", _split_work(splits, q))], path=path)
 
 
 def decode_attention_paged_flat_i8_reference(q, pool_i8, pool_scales,
@@ -696,6 +709,34 @@ def decode_attention_paged_flat_i8_reference(q, pool_i8, pool_scales,
     mask = _chunk_mask(chunk_base, chunk_n, kvi.shape[3], q.device)
     qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
     o = _i8_attend(qc, kvi, sc, mask, scale, q.dtype)
+    return o.transpose(1, 2).reshape(t, h, d)
+
+
+def decode_attention_paged_flat_i8_split_reference(
+        q, pool_i8, pool_scales, tables, chunk_slot, chunk_base, chunk_n,
+        layer, scale=None, splits=1):
+    """The int8 split design's flat mode in plain PyTorch: each chunk's
+    slot row of nblk * Bt positions in ``splits`` ranges of span =
+    ceil(nblk * Bt / splits) positions (the kernel's ranges are whole
+    64-position tiles, ``decode_splits`` over T / FLAT_CHUNK chunks), each
+    range's fp32 partial over scores (q . k_int) * scale * k_scale (l sums
+    the unscaled p, o takes p * v_scale rounded to the query dtype),
+    merged in split order (``_split_merge``); rows that attend nothing
+    (r >= n, pad chunks) are 0. Equal to
+    ``decode_attention_paged_flat_i8_reference`` but for where p is
+    rounded."""
+    t, h, d = q.shape
+    nc = t // FLAT_CHUNK
+    if scale is None:
+        scale = d ** -0.5
+    slot = chunk_slot.long().clamp(0, tables.shape[0] - 1)
+    kvi, sc = _gather_i8(pool_i8, pool_scales, tables, slot, layer, h)
+    n_pos = kvi.shape[3]
+    mask = _chunk_mask(chunk_base, chunk_n, n_pos, q.device)
+    qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
+    s = qc @ kvi[0].transpose(-1, -2) * scale * sc[0].transpose(-1, -2)
+    o = _split_merge(s, mask, kvi[1], -(-n_pos // splits), q.dtype, q.dtype,
+                     sc[1].transpose(-1, -2))
     return o.transpose(1, 2).reshape(t, h, d)
 
 

@@ -33,11 +33,11 @@ Phases, in order; any failure exits non-zero:
      head; the flat
      kernel and its int8 flavor over pad
      chunks, unaligned chunk bases straddling a block edge and an
-     unmapped entry, and the int8 flavor again over 2048-position slot
-     tables that its split design cuts into ranges (flat_split_i8_kernels:
-     GQA groups 1, 2 and 4, D 40, 64 and 128, Bt 16 and 64, bf16, fp16 and
-     fp32; pad rows and the pad chunk exactly 0), bf16 and fp16 split,
-     fp32 per head; flash attention causal and not, sq < sk, GQA, S in
+     unmapped entry, and both again over 2048-position slot tables that
+     their split design cuts into ranges (flat_split_kernels: GQA groups
+     1, 2 and 4, D 40, 64 and 128, Bt 16 and 64, bf16, fp16 and fp32; pad
+     rows and the pad chunk exactly 0), bf16 and fp16 split, fp32 per
+     head; flash attention causal and not, sq < sk, GQA, S in
      {37, 255, 1000}, D in {64, 128}, lse included; the int4 dequant-
      matmul (dequant_kernels) at M in {1, 8, 16, 17, 37, 128, 512} for
      each of GPT-2's four (K, O), the transposed qkv view included, and
@@ -64,8 +64,11 @@ Phases, in order; any failure exits non-zero:
      decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
      D 64 and 128, Sq 1, 4 and 128, Smax 32, 1000 and 1024, lens 0,
      mid-tile and Smax - Sq); the RMSNorm forward and backward kernels (D
-     64, 97, 128, 4096, 5120, 8192 and 16384, N 1, 7, 33 and 4096, fp32,
-     bf16 and fp16, eps 1e-5 and 1e-6; y, rstd, dx and dgamma each); the
+     64, 97, 128, 1024, 2048, 4096, 4097, 5120, 8192 and 16384, N 1, 7,
+     33, 4096 and 4097, fp32, bf16 and fp16, eps 1e-5 and 1e-6; y, rstd,
+     dx and dgamma each, dx and dgamma bit-equal on a second launch; each
+     launch on the design rms_norm_path gives it, row-block or per-warp);
+     the
      ring chunk forward, dK/dV and dQ kernels (fp32, bf16 and fp16, D 64
      and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
      257, offsets Sk, Sk - 1, 0, -17, -Sq and -Sq - 5; o, lse, dq, dk and
@@ -86,7 +89,8 @@ Phases, in order; any failure exits non-zero:
      an int8 cache always the int8 flavors and never an fp attention
      kernel, over a ring never a paged kernel and vice versa — and every
      int4 run the dequant-matmul; every decode_attention_paged,
-     decode_attention_paged_i8, decode_attention_paged_flat_i8,
+     decode_attention_paged_i8, decode_attention_paged_flat,
+     decode_attention_paged_flat_i8,
      decode_attention_stacked and decode_attention_stacked_i8 launch takes
      the split design (decode_attention.PATH_LAUNCHES) and every
      fused_dequant_matmul launch the tensor-core one
@@ -126,7 +130,7 @@ Phases, in order; any failure exits non-zero:
      losses must be finite and fall, and each step must launch exactly 9
      RMSNorm forward, 9 RMSNorm backward, 4 flash forward, 4 dK/dV and 4
      dQ kernels and no other kernel of the port, the flash ones on the
-     tensor-core path;
+     tensor-core path and the RMSNorm ones on the row-block design;
   3g. ring attention at LLaMA-2-7B attention width ([1, 4096, 32, 128]
      bf16, random q, k, v from --seed): the ring's schedule for n ranks in
      one process (one card cannot hold two NCCL ranks) at n = 2 and 4
@@ -173,7 +177,9 @@ Phases, in order; any failure exits non-zero:
      and at 512 with Sq 1 and 16; the ring chunk kernels at phase 3g's
      chunk
      [1, 32, 1024, 128], offsets full and 0, held there as phase 2 holds
-     the main flash shapes.
+     the main flash shapes; the fp flat stream and the RMSNorm kernels
+     also on their earlier designs (per head, per warp) on the same
+     inputs.
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -354,7 +360,8 @@ def phase_kernels(rng):
     dequant_kernels(rng, worst)
     split_kernels(rng, worst)
     split_i8_kernels(rng, worst)
-    flat_split_i8_kernels(rng, worst)
+    flat_split_kernels(rng, worst, quant=False)
+    flat_split_kernels(rng, worst, quant=True)
     split_fp_contiguous_kernels(rng, worst)
     split_write_kernels(rng, worst)
     stacked_kernels(rng, worst)
@@ -456,19 +463,22 @@ def split_i8_kernels(rng, worst):
 FLAT_SPLIT_CASE = FLAT_CASE + [(1, 1020, 8), (0, 2040, 8)]
 
 
-def flat_split_i8_kernels(rng, worst):
-    """The int8 flat stream's kernel over 2048-position slot tables that
-    its split design cuts into ranges of 64-position tiles (decode_splits
-    over the 10 chunks), against the plain version: FLAT_SPLIT_CASE (pad
-    rows, a pad chunk, unaligned bases straddling a block edge, an
-    unmapped entry, deep chunks), GQA groups 1, 2 and 4, D 40, 64 and 128,
-    Bt 16 and 64; rows past a chunk's count and the pad chunk exactly 0.
-    Every bf16 and fp16 launch on the split path, every fp32 one on the
-    per-head one."""
+def flat_split_kernels(rng, worst, quant):
+    """The flat stream's kernel over the fp pool (``quant``: its int8
+    flavor) over 2048-position slot tables that its split design cuts
+    into ranges of 64-position tiles (decode_splits over the 10 chunks),
+    against the plain version: FLAT_SPLIT_CASE (pad rows, a pad chunk,
+    unaligned bases straddling a block edge, an unmapped entry, deep
+    chunks), GQA groups 1, 2 and 4, D 40, 64 and 128, Bt 16 and 64; rows
+    past a chunk's count and the pad chunk exactly 0. Every bf16 and fp16
+    launch on the split path, every fp32 one on the per-head one."""
     reset_launches()
     n = collections.Counter()
     pads = [8 * i + r for i, (_, _, c) in enumerate(FLAT_SPLIT_CASE)
             for r in range(c, 8)]
+    name = "decode_attention_paged_flat" + ("_i8" if quant else "")
+    kernel, plain = getattr(da, name), getattr(da, name + "_reference")
+    label0 = "flat_i8" if quant else "flat"
     for dtype, tname in SPLIT_I8_DTYPES:
         for group in (1, 2, 4):
             for d in SPLIT_I8_DIMS:
@@ -476,21 +486,18 @@ def flat_split_i8_kernels(rng, worst):
                     args = flat_case(rng, FLAT_SPLIT_CASE, h=4, hk=4 // group,
                                      d=d, bt=bt, nblk=2048 // bt, n_layers=2,
                                      layer=1, dtype=dtype, unmapped=(2, 21))
-                    qargs = (args[0], *quantize_pool(args[1]), *args[2:])
-                    got = da.decode_attention_paged_flat_i8(*qargs)
-                    label = (f"{str(dtype):14s} group={group} D={d:3d} "
-                             f"Bt={bt:2d}")
-                    check(f"flat_i8 split {label}", got,
-                          da.decode_attention_paged_flat_i8_reference(*qargs),
-                          tname, worst, quiet=True)
+                    if quant:
+                        args = (args[0], *quantize_pool(args[1]), *args[2:])
+                    got = kernel(*args)
+                    label = (f"{label0} split {str(dtype):14s} group={group} "
+                             f"D={d:3d} Bt={bt:2d}")
+                    check(label, got, plain(*args), tname, worst, quiet=True)
                     if got[pads].any():
-                        raise SystemExit(f"flat_i8 split {label}: pad rows "
-                                         "are not 0")
+                        raise SystemExit(f"{label}: pad rows are not 0")
                     n[dtype] += 1
-    name = "decode_attention_paged_flat_i8"
-    log(f"  flat int8 split cases: {sum(n.values())}, pad rows exactly 0; "
+    log(f"  {label0} split cases: {sum(n.values())}, pad rows exactly 0; "
         f"worst {dict(worst)}")
-    check_paths("flat int8 split cases",
+    check_paths(f"{label0} split cases",
                 {name: n[torch.bfloat16] + n[torch.float16]},
                 {name: n[torch.float32]})
 
@@ -691,32 +698,65 @@ def check_paths(label, split, per_head=None):
                              f"want {want}")
 
 
-# RMSNorm widths: small, LLaMA-2 7B's, 13B's, 65B's and the gate's
-# largest; 97 takes the kernels' scalar path (not a multiple of a vector)
-RMS_DIMS = (64, 97, 128, 4096, 5120, 8192, 16384)
+# RMSNorm widths: small, the row-block design's narrowest (bf16 1024),
+# fp32's widest there (2048), LLaMA-2 7B's, 13B's, 65B's and the gate's
+# largest; 97 and 4097 take the kernels' scalar path (not a multiple of a
+# vector) and the per-warp design
+RMS_DIMS = (64, 97, 128, 1024, 2048, 4096, 4097, 5120, 8192, 16384)
+RMS_ROWS = (1, 7, 33, 4096, 4097)
 
 
 def rms_kernels(rng, worst):
     """The RMSNorm forward and backward kernels against their plain
-    versions at RMS_DIMS, N 1, 7, 33 and 4096, fp32, bf16 and fp16, eps
-    1e-5 and 1e-6 in turn: y, rstd, dx and dgamma each."""
+    versions at RMS_DIMS and RMS_ROWS, fp32, bf16 and fp16, eps 1e-5 and
+    1e-6 in turn: y, rstd, dx and dgamma each; the backward twice on the
+    same inputs, its dx and dgamma bit-equal between the two launches
+    (dgamma's partials are summed in a fixed order, no atomics). Each
+    launch on the design rms_norm_path gives its shape
+    (layer_norm.PATH_LAUNCHES)."""
+    reset_launches()
+    want_paths = {k: collections.Counter() for k in ln.PATH_LAUNCHES}
     for dtype, tname in ((torch.float32, "layer_norm_fp32"),
                          (torch.bfloat16, "layer_norm_bf16"),
                          (torch.float16, "layer_norm_fp16")):
         for d in RMS_DIMS:
-            for i, n in enumerate((1, 7, 33, 4096)):
+            path = ln.rms_norm_path(dtype, d)
+            for i, n in enumerate(RMS_ROWS):
                 eps = (1e-5, 1e-6)[i % 2]
                 x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
                 gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
-                name = f"rms_norm {str(dtype):14s} N={n:4d} D={d:5d} eps={eps}"
+                name = (f"rms_norm {str(dtype):14s} N={n:4d} D={d:5d} "
+                        f"eps={eps} {path}")
                 y, rstd = ln.rms_norm_fwd(x, gamma, eps)
                 want = ln.rms_norm_fwd_reference(x, gamma, eps)
                 for part, g, w in zip(("y", "rstd"), (y, rstd), want):
-                    check(f"{name} {part}", g, w, tname, worst)
+                    check(f"{name} {part}", g, w, tname, worst, quiet=True)
                 got = ln.rms_norm_bwd(x, gamma, rstd, dy)
                 want = ln.rms_norm_bwd_reference(x, gamma, rstd, dy)
                 for part, g, w in zip(("dx", "dgamma"), got, want):
-                    check(f"{name} {part}", g, w, tname, worst)
+                    check(f"{name} {part}", g, w, tname, worst, quiet=True)
+                again = ln.rms_norm_bwd(x, gamma, rstd, dy)
+                for part, g, w in zip(("dx", "dgamma"), got, again):
+                    same_bytes(f"{name} {part} on a second launch", g, w,
+                               quiet=True)
+                want_paths["rms_norm_fwd"][path] += 1
+                want_paths["rms_norm_bwd"][path] += 2
+    log(f"  RMSNorm cases: {len(RMS_DIMS) * len(RMS_ROWS) * 3}, dx and "
+        f"dgamma bit-equal on a second launch; worst {dict(worst)}")
+    check_rms_paths("RMSNorm cases", want_paths)
+
+
+def check_rms_paths(label, want):
+    """Fail unless the RMSNorm kernels made exactly ``want`` ({name:
+    {path: n}}) launches by design since the counts were reset
+    (layer_norm.PATH_LAUNCHES)."""
+    for name, paths in want.items():
+        got = dict(ln.PATH_LAUNCHES[name])
+        full = {p: paths.get(p, 0) for p in got}
+        log(f"  {label}: {name} launches by path {got}")
+        if got != full:
+            raise SystemExit(f"{label}: {name} launched {got} by path, "
+                             f"want {full}")
 
 
 # the ring chunk kernels' (Sq, Sk): ragged, one tile, the LLaMA ring's
@@ -1053,7 +1093,7 @@ def same_bytes(name, got, want, quiet=False):
     only on a failure)."""
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
-        raise SystemExit(f"{name}: differs from the plain version's bytes")
+        raise SystemExit(f"{name}: the bytes differ")
     if not quiet:
         log(f"  {name}: byte-equal ok")
 
@@ -1278,7 +1318,8 @@ def reset_launches():
                    ffn.LAUNCHES, rca.LAUNCHES, fa.PATH_LAUNCHES,
                    rca.PATH_LAUNCHES, ffn.PATH_LAUNCHES,
                    *da.PATH_LAUNCHES.values(),
-                   *fdm.PATH_LAUNCHES.values()):
+                   *fdm.PATH_LAUNCHES.values(),
+                   *ln.PATH_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -1335,9 +1376,10 @@ def serve_counted(seed, name, kwargs):
                          "both Sq=16 and Sq=1")
     if attr in da.PATH_LAUNCHES:      # every launch on the split design
         check_paths(f"[{name}]", {attr: da.LAUNCHES[attr]})
-    flat_i8 = "decode_attention_paged_flat_i8"
-    if da.LAUNCHES[flat_i8]:          # the flat int8 stream: split too
-        check_paths(f"[{name}]", {flat_i8: da.LAUNCHES[flat_i8]})
+    for flat in ("decode_attention_paged_flat",
+                 "decode_attention_paged_flat_i8"):
+        if da.LAUNCHES[flat]:         # the flat streams: split too
+            check_paths(f"[{name}]", {flat: da.LAUNCHES[flat]})
     if fdm.LAUNCHES["fused_dequant_matmul"]:   # int4: the tensor cores
         check_dequant_path(f"[{name}]", "tensor_core")
     n_prompt = sum(len(p) for p, _ in reqs)
@@ -1384,6 +1426,18 @@ LLAMA_TRAIN_LAUNCHES = {"rms_norm_fwd": 2 * LLAMA_LAYERS + 1,
                         "flash_attention_fwd": LLAMA_LAYERS,
                         "flash_attention_bwd_dkv": LLAMA_LAYERS,
                         "flash_attention_bwd_dq": LLAMA_LAYERS}
+
+
+@contextlib.contextmanager
+def forced(module, attr, value):
+    """``module.attr`` replaced by ``value`` inside (a design rule forced
+    to a kernel's earlier design, to time it beside the new one)."""
+    old = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, old)
 
 
 @contextlib.contextmanager
@@ -1475,6 +1529,9 @@ def phase_train_llama(seed, steps=10, warmup=2):
     log(f"  card: {card_line()}")
     launches = train_run(llama_train_workload, seed, steps, warmup,
                          LLAMA_TRAIN_LAUNCHES)[0]
+    # every bf16 RMSNorm launch at D 4096 on the row-block design
+    check_rms_paths("LLaMA training", {
+        k: {"row_block": launches[k]} for k in ln.PATH_LAUNCHES})
     torch.cuda.empty_cache()
     return launches
 
@@ -2166,8 +2223,13 @@ def time_flat(rng, quant=False):
               + tables.numel() * 4 + 3 * cslot.numel() * 4)
     flops = 4 * d * h * sum(base + r + 1 for base in bases
                             for r in range(seg))
-    return [timed_row({"bases": list(bases), "segment": seg}, run_kernel,
-                      run_plain, run_sdpa, nbytes, flops, 200)]
+    row = timed_row({"bases": list(bases), "segment": seg}, run_kernel,
+                    run_plain, run_sdpa, nbytes, flops, 200)
+    # the kernel's earlier design, the per-head one, on the same inputs
+    with forced(da, "paged_path", lambda dtype, d: "per_head"):
+        row["per_head_ms"] = time_ms(run_kernel, 200)
+    log(f"  per-head design beside it: {row['per_head_ms']:.5f} ms")
+    return [row]
 
 
 def time_flash(rng):
@@ -2616,6 +2678,16 @@ def time_rms_norm(rng):
             [True, True]),
         3 * tensor_b + 2 * vec_b + n * 4, 8 * n * d, 200,
         tname="layer_norm_bf16")
+    # the kernels' earlier design, the per-warp one, on the same inputs
+    with forced(ln, "rms_norm_path", lambda *a: "per_warp"):
+        fwd["per_warp_ms"] = time_ms(
+            lambda i=0: ln.rms_norm_fwd(xs[i % copies], gamma, eps), 200)
+        bwd["per_warp_ms"] = time_ms(
+            lambda i=0: ln.rms_norm_bwd(xs[i % copies], gamma,
+                                        rstds[i % copies], dys[i % copies]),
+            200)
+    log(f"  per-warp design beside them: forward {fwd['per_warp_ms']:.5f} "
+        f"ms, backward {bwd['per_warp_ms']:.5f} ms")
     return {"rms_norm_fwd": [fwd], "rms_norm_bwd": [bwd]}
 
 
@@ -2801,10 +2873,10 @@ def main(argv=None):
     log(f"  built {sorted(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in build_logs.items():
-        for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln \
-                    or "Performance Loss" in ln:
-                log(f"  [{name}] {ln.strip()}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line \
+                    or "Performance Loss" in line:
+                log(f"  [{name}] {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
     worst = phase_kernels(rng)
@@ -2887,10 +2959,12 @@ def main(argv=None):
         main_row = next(r for r in rows[name] if is_main(r))
         # the kernels with two designs: phase 3 held every launch of
         # their runs to the split one (the dequant-matmul's to the tensor
-        # cores)
+        # cores, RMSNorm's to the row-block one)
         design = ({"design": "split_kv"} if name in da.PATH_LAUNCHES
                   else {"design": "tensor_core"}
-                  if name == "fused_dequant_matmul" else {})
+                  if name == "fused_dequant_matmul"
+                  else {"design": "row_block"} if name in ln.PATH_LAUNCHES
+                  else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{_build.SOURCES[name]}",

@@ -19,12 +19,12 @@ _fleet_state = {"strategy": None, "hcg": None}
 
 
 def init(role_maker=None, is_collective=True, strategy=None,
-         log_level="INFO", device=None):
+         log_level="INFO", *, device=None):
     """Initialise the parallel environment on ``device`` (default the
     card; see ``distributed.init_parallel_env``) and the hybrid mesh of
     ``strategy.hybrid_configs``. Returns the fleet module."""
     from ..parallel import init_parallel_env
-    dev = init_parallel_env(device)
+    dev = init_parallel_env(device=device)
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
     topo = CommunicateTopology(
@@ -32,7 +32,7 @@ def init(role_maker=None, is_collective=True, strategy=None,
         dims=(hc.get("dp_degree", 1), hc.get("pp_degree", 1),
               hc.get("sharding_degree", 1), hc.get("sep_degree", 1),
               hc.get("mp_degree", 1)))
-    hcg = HybridCommunicateGroup(topo, dev.type)
+    hcg = HybridCommunicateGroup(topo, device_type=dev.type)
     _fleet_state.update(strategy=strategy, hcg=hcg)
     return sys.modules[__name__]
 

@@ -87,7 +87,8 @@ class HybridCommunicateGroup:
     """The hybrid mesh over the default process group's ranks, on
     ``device_type`` ("cuda" or "cpu"); becomes the active group."""
 
-    def __init__(self, topology: CommunicateTopology, device_type="cuda"):
+    def __init__(self, topology: CommunicateTopology, *,
+                 device_type="cuda"):
         self.nranks = topology.world_size()
         names = topology.get_hybrid_group_names()
         degrees = {axis: topology.get_dim(name) if name in names else 1

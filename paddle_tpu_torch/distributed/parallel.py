@@ -23,7 +23,7 @@ __all__ = ["init_parallel_env", "get_rank", "get_world_size"]
 _state = {"device": None}
 
 
-def init_parallel_env(device=None) -> torch.device:
+def init_parallel_env(*, device=None) -> torch.device:
     """Join or start the default process group (NCCL on the card, gloo on
     the CPU) and return this process's device (``device`` None: the
     card). A group initialised beforehand is kept as it is."""

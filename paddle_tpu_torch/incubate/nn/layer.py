@@ -47,12 +47,42 @@ from . import functional as IF
 __all__ = ["FusedFeedForward", "FusedMultiTransformer"]
 
 
+_FFN_ATTRS = ("linear1_weight_attr", "linear1_bias_attr",
+              "linear2_weight_attr", "linear2_bias_attr", "ln1_scale_attr",
+              "ln1_bias_attr", "ln2_scale_attr", "ln2_bias_attr")
+
+
 class FusedFeedForward(nn.Module):
+    """The JAX layer's parameters in its order and with its defaults. A
+    ``*_attr`` other than None is not ported yet (ROADMAP Queue 1 item
+    10(e)), nor is a model-parallel ``nranks`` / ``ring_id`` (item 8);
+    ``name`` is taken and, as there, unused. ``dtype``, ``device`` and
+    ``seed`` are the port's own, keyword-only."""
+
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-5, activation="relu", act_dropout_rate=None,
-                 normalize_before=False, dtype=torch.float32, device=None,
-                 seed=0):
+                 normalize_before=False, linear1_weight_attr=None,
+                 linear1_bias_attr=None, linear2_weight_attr=None,
+                 linear2_bias_attr=None, ln1_scale_attr=None,
+                 ln1_bias_attr=None, ln2_scale_attr=None, ln2_bias_attr=None,
+                 nranks=1, ring_id=-1, name=None, *, dtype=torch.float32,
+                 device=None, seed=0):
         super().__init__()
+        attrs = dict(zip(_FFN_ATTRS, (
+            linear1_weight_attr, linear1_bias_attr, linear2_weight_attr,
+            linear2_bias_attr, ln1_scale_attr, ln1_bias_attr, ln2_scale_attr,
+            ln2_bias_attr)))
+        given = [k for k, v in attrs.items() if v is not None]
+        if given:
+            raise NotImplementedError(
+                f"FusedFeedForward: {', '.join(given)} not ported yet "
+                "(ROADMAP Queue 1 item 10(e)); load the values with "
+                "load_state_dict")
+        if nranks != 1 or ring_id != -1:
+            raise NotImplementedError(
+                f"FusedFeedForward: nranks={nranks}, ring_id={ring_id}: "
+                "tensor parallelism is not ported yet (ROADMAP Queue 1 "
+                "item 8)")
         dev = resolve_device(device)
         self.generator = torch.Generator()
         self.generator.manual_seed(seed)

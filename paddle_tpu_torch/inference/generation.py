@@ -119,11 +119,13 @@ class FusedDecoder:
     their K/V inside the fused write+attend kernels instead of a write
     followed by the read kernel. ``head_quant="int8"`` (JAX:
     ``PADDLE_TPU_DECODE_INT8_HEAD=1``) is not ported yet. The arguments
-    before it are JAX's, in JAX's order; ``rope_base`` matters only under
-    ``use_rotary``, which is not ported yet either."""
+    before ``cache_write_kernel`` are JAX's, in JAX's order; the port's
+    own (``cache_write_kernel``, ``head_quant``, ``device``) are
+    keyword-only. ``rope_base`` matters only under ``use_rotary``, which
+    is not ported yet either."""
 
     def __init__(self, fmt, embed, head, max_seq_len, use_rotary=False,
-                 rope_base=10000.0, weight_quant=None, kv_quant=None,
+                 rope_base=10000.0, weight_quant=None, kv_quant=None, *,
                  cache_write_kernel=False, head_quant=None, device=None):
         if use_rotary:
             raise NotImplementedError(
@@ -788,7 +790,7 @@ def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                    max_seq_len=None, eos_token_id=None, do_sample=False,
                    top_k=0, top_p=1.0, temperature=1.0, use_rotary=False,
                    num_beams=1, length_penalty=1.0, min_length=0,
-                   repetition_penalty=1.0, prefix_cache=None, spec_k=0,
+                   repetition_penalty=1.0, prefix_cache=None, spec_k=0, *,
                    weight_quant=None, kv_quant=None, cache_write_kernel=False,
                    head_quant=None, device=None):
     """One-shot generation over FusedDecoder: a decoder whose ring holds

@@ -45,7 +45,8 @@ import torch
 from ..ops.decode_attention import FLAT_CHUNK
 from .generation import FusedDecoder, _absmax_int8, _penalize_slots
 from .paged_kv import BlockPool
-from .telemetry import DEFAULT_RING, SloPolicy, Telemetry
+from .telemetry import (DEFAULT_RING, QOS_CLASSES, QOS_DEFAULT, SloPolicy,
+                        Telemetry)
 
 __all__ = ["ServingEngine", "ServedRequest"]
 
@@ -68,16 +69,20 @@ class ServedRequest:
     """One request's lifecycle: queued -> running -> finished."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
-                 "min_length", "state", "slot", "tokens", "t_submit",
-                 "t_admit", "t_first", "t_done")
+                 "min_length", "repetition_penalty", "state", "slot",
+                 "tokens", "t_submit", "t_admit", "t_first", "t_done",
+                 "deadline_s", "seed", "trace_id", "attempt", "priority")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id,
-                 min_length, t_submit):
+                 min_length, repetition_penalty, t_submit,
+                 deadline_s=None, seed=0, trace_id=None, attempt=1,
+                 priority=QOS_DEFAULT):
         self.rid = rid
         self.prompt = prompt                      # np.int64 [S]
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.min_length = int(min_length)
+        self.repetition_penalty = float(repetition_penalty)
         self.state = "queued"
         self.slot = None
         self.tokens = []
@@ -85,6 +90,13 @@ class ServedRequest:
         self.t_admit = None
         self.t_first = None
         self.t_done = None
+        # kept for the request spans of ROADMAP Queue 1 item 6(f), as the
+        # JAX record keeps them
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        self.seed = int(seed)
+        self.trace_id = None if trace_id is None else str(trace_id)
+        self.attempt = int(attempt)
+        self.priority = priority
 
     @property
     def ttft_s(self):
@@ -120,7 +132,7 @@ class ServingEngine:
                  paged=None, kv_pool=None, kv_pool_blocks=None,
                  token_budget=None, flat_budget=None,
                  telemetry_ring=None, slo=None, role=None,
-                 weight_quant=None, kv_quant=None, device=None):
+                 weight_quant=None, kv_quant=None, *, device=None):
         given = dict(do_sample=do_sample,
                      enable_repetition_penalty=enable_repetition_penalty,
                      use_rotary=use_rotary, max_pending=max_pending,
@@ -219,9 +231,16 @@ class ServingEngine:
 
     # ------------------------------------------------------------- public
     def submit(self, prompt, max_new_tokens=20, eos_token_id=None,
-               min_length=0):
+               min_length=0, repetition_penalty=1.0, deadline_s=None,
+               trace_id=None, attempt=1, priority=QOS_DEFAULT):
         """Queue one request; returns its id. prompt + max_new_tokens
-        must fit Smax (a slot's lens then never reaches Smax)."""
+        must fit Smax (a slot's lens then never reaches Smax). JAX's
+        parameters: ``repetition_penalty`` needs
+        ``enable_repetition_penalty=True``, which the port refuses
+        (ValueError, as JAX raises without it); request expiry
+        (``deadline_s``) and QoS classes other than the default
+        (``priority``) are not ported yet (ROADMAP Queue 1 item 6(f));
+        ``trace_id`` and ``attempt`` are kept on the request."""
         ids = np.asarray(prompt, np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -234,8 +253,24 @@ class ServingEngine:
         vocab = self.dec.embed.num_embeddings
         if ids.min() < 0 or ids.max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
+        if repetition_penalty != 1.0:
+            raise ValueError(
+                "repetition_penalty needs enable_repetition_penalty=True "
+                "at engine construction")
+        if attempt < 1:
+            raise ValueError(f"attempt must be >= 1, got {attempt}")
+        if priority not in QOS_CLASSES:
+            raise ValueError(
+                f"priority must be one of {QOS_CLASSES}, got {priority!r}")
+        if deadline_s is not None or priority != QOS_DEFAULT:
+            raise NotImplementedError(
+                f"submit: deadline_s={deadline_s!r}, priority={priority!r}: "
+                "request expiry and QoS classes are not ported yet (ROADMAP "
+                "Queue 1 item 6(f))")
         req = ServedRequest(next(self._rid), ids, max_new_tokens,
-                            eos_token_id, min_length, self.clock())
+                            eos_token_id, min_length, repetition_penalty,
+                            self.clock(), trace_id=trace_id,
+                            attempt=attempt)
         self._queue.append(req)
         return req.rid
 

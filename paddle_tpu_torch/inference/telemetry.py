@@ -15,10 +15,14 @@ from collections import deque
 
 import numpy as np
 
-__all__ = ["DEFAULT_RING", "LogHistogram", "SloPolicy", "Telemetry",
-           "render_prometheus"]
+__all__ = ["DEFAULT_RING", "LogHistogram", "QOS_CLASSES", "QOS_DEFAULT",
+           "SloPolicy", "Telemetry", "render_prometheus"]
 
 DEFAULT_RING = 2048
+# the QoS priority classes, best first, and the default class (a
+# request's ``priority``)
+QOS_CLASSES = ("high", "normal", "low")
+QOS_DEFAULT = "normal"
 
 
 class SloPolicy:
@@ -128,7 +132,12 @@ class Telemetry:
     on) and, with ``ring > 0``, bounded rings of finished-request
     records and dispatch records."""
 
-    def __init__(self, ring=None):
+    def __init__(self, ring=None, clock=None):
+        if clock is not None:
+            raise NotImplementedError(
+                "Telemetry: clock= (the request spans' clock) is not ported "
+                "yet (ROADMAP Queue 1 item 6(f)); the engine passes its own "
+                "times")
         ring = DEFAULT_RING if ring is None else int(ring)
         if ring < 0:
             raise ValueError(f"telemetry ring must be >= 0, got {ring}")
@@ -147,17 +156,27 @@ class Telemetry:
             self.spans.append({"rid": rid, "state": state,
                                "t_submit": t_submit, "t_done": t_done})
 
-    def step_event(self, kind, t, dur_s, rows=0, tokens=0):
-        if self.enabled:
-            self.steps.append({"kind": kind, "t": t, "dur_s": dur_s,
-                               "rows": int(rows), "tokens": int(tokens)})
+    def step_event(self, kind, t, dur_s, rows=0, tokens=0,
+                   traces_delta=0, **gauges):
+        """One dispatch on the timeline, with any ``gauges`` beside it, as
+        in JAX; returns the record (None when the ring is off)."""
+        if not self.enabled:
+            return None
+        ev = {"kind": kind, "t": t, "dur_s": dur_s, "rows": int(rows),
+              "tokens": int(tokens), "traces_delta": int(traces_delta)}
+        ev.update(gauges)
+        self.steps.append(ev)
+        return ev
 
-    def observe_request(self, ttft_s, latency_s, queue_s, service_s):
-        if ttft_s is not None:
-            self.hist_ttft.observe(ttft_s)
-        self.hist_latency.observe(latency_s)
-        self.hist_queue.observe(queue_s)
-        self.hist_service.observe(service_s)
+    def observe_request(self, ttft_s, latency_s, queue_s=None,
+                        service_s=None):
+        """Each time that is not None into its histogram, as in JAX."""
+        for hist, v in ((self.hist_ttft, ttft_s),
+                        (self.hist_latency, latency_s),
+                        (self.hist_queue, queue_s),
+                        (self.hist_service, service_s)):
+            if v is not None:
+                hist.observe(v)
 
     def observe_step_tokens(self, n):
         self.hist_step_tokens.observe(n)

@@ -54,7 +54,7 @@ def _linear(n_in, n_out, device, dtype):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, generator=None, device=None,
+    def __init__(self, config: GPTConfig, *, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
         c = config
@@ -66,7 +66,11 @@ class GPTAttention(nn.Module):
         self.dropout = c.dropout
         self.generator = generator
 
-    def forward(self, x):
+    def forward(self, x, kv_cache=None):
+        if kv_cache is not None:
+            raise NotImplementedError(
+                "GPTAttention.forward: kv_cache is not ported yet (ROADMAP "
+                "Queue 1 item 10(e))")
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
@@ -79,7 +83,8 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         c = config
         self.fc1 = _linear(c.hidden_size, c.intermediate_size, device, dtype)
@@ -98,14 +103,15 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, generator=None, device=None,
+    def __init__(self, config: GPTConfig, *, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
         e, eps = config.hidden_size, config.layer_norm_eps
         self.ln1 = LayerNorm(e, eps, dtype=dtype, device=device)
-        self.attn = GPTAttention(config, generator, device, dtype)
+        self.attn = GPTAttention(config, generator=generator,
+                                 device=device, dtype=dtype)
         self.ln2 = LayerNorm(e, eps, dtype=dtype, device=device)
-        self.mlp = GPTMLP(config, device, dtype)
+        self.mlp = GPTMLP(config, device=device, dtype=dtype)
         self.drop = Dropout(config.dropout, generator=generator)
 
     def forward(self, x):
@@ -114,7 +120,7 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig, generator=None, device=None,
+    def __init__(self, config: GPTConfig, *, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
         c = config
@@ -124,12 +130,17 @@ class GPTModel(nn.Module):
         self.wpe = Embedding(c.max_position, c.hidden_size, dtype=dtype,
                              device=device, trainable=True)
         self.drop = Dropout(c.dropout, generator=generator)
-        self.h = nn.ModuleList([GPTBlock(c, generator, device, dtype)
+        self.h = nn.ModuleList([GPTBlock(c, generator=generator,
+                                         device=device, dtype=dtype)
                                 for _ in range(c.num_layers)])
         self.ln_f = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype=dtype,
                               device=device)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is not None:
+            raise NotImplementedError(
+                "GPTModel.forward: position_ids is not ported yet (ROADMAP "
+                "Queue 1 item 10(e))")
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
@@ -147,14 +158,15 @@ class GPTForCausalLM(nn.Module):
     the modules without storage or initial values (for a state loaded
     afterwards, ``weights.gpt_from_jax_state``)."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
-                 seed=0):
+    def __init__(self, config: GPTConfig, *, device=None,
+                 dtype=torch.float32, seed=0):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
         self.generator = torch.Generator()
         self.generator.manual_seed(seed)
-        self.gpt = GPTModel(config, self.generator, dev, dtype)
+        self.gpt = GPTModel(config, generator=self.generator, device=dev,
+                            dtype=dtype)
         if dev.type != "meta":
             self.init_weights()
 
@@ -187,8 +199,8 @@ class GPTForCausalLM(nn.Module):
                                labels.reshape(-1))
 
 
-def gpt2_124m(vocab_size=50304, device=None, dtype=torch.float32, seed=0,
-              **kw):
+def gpt2_124m(vocab_size=50304, *, device=None, dtype=torch.float32,
+              seed=0, **kw):
     """GPT-2 124M: E=768, 12 layers, 12 heads (``kw`` overrides any other
     GPTConfig field, e.g. ``num_layers``, ``dropout``)."""
     kw = {"hidden_size": 768, "num_layers": 12, "num_heads": 12, **kw}
@@ -196,8 +208,8 @@ def gpt2_124m(vocab_size=50304, device=None, dtype=torch.float32, seed=0,
                           device=device, dtype=dtype, seed=seed)
 
 
-def gpt2_tiny(vocab_size=1024, device=None, dtype=torch.float32, seed=0,
-              **kw):
+def gpt2_tiny(vocab_size=1024, *, device=None, dtype=torch.float32,
+              seed=0, **kw):
     """The JAX package's test model: E=64, 2 layers, 2 heads, 128
     positions."""
     kw = {"hidden_size": 64, "num_layers": 2, "num_heads": 2,

@@ -75,7 +75,8 @@ def _linear(n_in, n_out, device, dtype):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+    def __init__(self, c: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = c.num_heads
         self.num_kv_heads = c.num_kv_heads
@@ -159,7 +160,8 @@ def _append_cache(cache, k, v):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+    def __init__(self, c: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         h, inter = c.hidden_size, c.intermediate_size
         # gate and up as one matmul (the JAX model's non-TP fast path)
@@ -178,14 +180,15 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+    def __init__(self, c: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.input_layernorm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,
                                        device=device)
-        self.self_attn = LlamaAttention(c, device, dtype)
+        self.self_attn = LlamaAttention(c, device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_eps,
                                                 dtype=dtype, device=device)
-        self.mlp = LlamaMLP(c, device, dtype)
+        self.mlp = LlamaMLP(c, device=device, dtype=dtype)
         self._recompute = c.recompute
 
     def _body(self, x):
@@ -202,13 +205,14 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None, dtype=torch.float32):
+    def __init__(self, c: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.config = c
         self.embed_tokens = Embedding(c.vocab_size, c.hidden_size,
                                       dtype=dtype, device=device,
                                       trainable=True)
-        self.layers = nn.ModuleList([LlamaBlock(c, device, dtype)
+        self.layers = nn.ModuleList([LlamaBlock(c, device=device, dtype=dtype)
                                      for _ in range(c.num_layers)])
         self.norm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,
                             device=device)
@@ -231,17 +235,16 @@ class LlamaForCausalLM(nn.Module):
     the modules without storage or initial values (for a state loaded
     afterwards, ``weights.llama_from_jax_state``)."""
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
+    def __init__(self, c: LlamaConfig, *, device=None, dtype=torch.float32,
                  seed=0):
         super().__init__()
         dev = resolve_device(device)
-        self.config = config
+        self.config = c
         self.generator = torch.Generator()
         self.generator.manual_seed(seed)
-        self.llama = LlamaModel(config, dev, dtype)
-        if not config.tie_word_embeddings:
-            self.lm_head = _linear(config.hidden_size, config.vocab_size,
-                                   dev, dtype)
+        self.llama = LlamaModel(c, device=dev, dtype=dtype)
+        if not c.tie_word_embeddings:
+            self.lm_head = _linear(c.hidden_size, c.vocab_size, dev, dtype)
         if dev.type != "meta":
             self.init_weights()
 
@@ -272,7 +275,7 @@ class LlamaForCausalLM(nn.Module):
         return (loss * m).sum() / m.sum().clamp(min=1.0)
 
 
-def llama2_7b(device=None, dtype=torch.float32, seed=0, **kw):
+def llama2_7b(*, device=None, dtype=torch.float32, seed=0, **kw):
     """LLaMA-2 7B: hidden 4096, 32 layers, 32 heads, intermediate 11008
     (``kw``: any other LlamaConfig field)."""
     return LlamaForCausalLM(LlamaConfig(hidden_size=4096, num_layers=32,
@@ -281,7 +284,7 @@ def llama2_7b(device=None, dtype=torch.float32, seed=0, **kw):
                             device=device, dtype=dtype, seed=seed)
 
 
-def llama2_65b(device=None, dtype=torch.float32, seed=0, **kw):
+def llama2_65b(*, device=None, dtype=torch.float32, seed=0, **kw):
     """LLaMA-2 65B's widths: hidden 8192, 80 layers, 64 heads, intermediate
     22016."""
     return LlamaForCausalLM(LlamaConfig(hidden_size=8192, num_layers=80,
@@ -290,8 +293,8 @@ def llama2_65b(device=None, dtype=torch.float32, seed=0, **kw):
                             device=device, dtype=dtype, seed=seed)
 
 
-def llama_tiny(vocab_size=256, device=None, dtype=torch.float32, seed=0,
-               **kw):
+def llama_tiny(vocab_size=256, *, device=None, dtype=torch.float32,
+               seed=0, **kw):
     """The JAX package's test model: hidden 64, 2 layers, 4 heads,
     intermediate 128, 128 positions."""
     return LlamaForCausalLM(LlamaConfig(

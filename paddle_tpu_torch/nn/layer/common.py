@@ -59,11 +59,11 @@ class Embedding(nn.Module):
             with torch.no_grad():
                 self.weight[padding_idx] = 0
 
-    def forward(self, ids):
-        out = F.embedding(ids, self.weight)
+    def forward(self, x):
+        out = F.embedding(x, self.weight)
         if self.padding_idx is None:
             return out
-        return out.masked_fill((ids == self.padding_idx)[..., None], 0)
+        return out.masked_fill((x == self.padding_idx)[..., None], 0)
 
 
 class Linear(nn.Module):
@@ -89,11 +89,12 @@ class Linear(nn.Module):
 
 class Dropout(nn.Module):
     """``functional.dropout`` with the layer's ``axis`` and ``mode``
-    (JAX's arguments), applied as ``self.training`` says; its masks are
-    drawn from ``generator`` (a CPU ``torch.Generator``)."""
+    (JAX's arguments; ``name`` is taken and, as there, unused), applied
+    as ``self.training`` says; its masks are drawn from ``generator`` (a
+    CPU ``torch.Generator``, the port's own, keyword-only)."""
 
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
-                 generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
         self.p = p
         self.axis = axis

@@ -67,9 +67,12 @@ _ENTRY = {
     "decode_attention_paged": (
         "paddle_decode_attention_paged",
         [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P]),
+    # the flat streams: pointers (the split workspace last), the shape
+    # ints, the layer, the splits and positions a split, the scale, the
+    # dtype code and the design (paged_path's)
     "decode_attention_paged_flat": (
         "paddle_decode_attention_paged_flat",
-        [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+        [_P] * 8 + [_I] * 11 + [_F, _I, _I, _P]),
     "flash_attention_fwd": (
         "paddle_flash_attention_fwd",
         [_P] * 5 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
@@ -132,10 +135,12 @@ _ENTRY = {
     "decode_attention_bhsd": (
         "paddle_decode_attention_bhsd",
         [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P]),
+    # RMSNorm: pointers, N, D (the forward's eps), the dtype code, the
+    # design and its block count (layer_norm.rms_norm_path, rms_norm_blocks)
     "rms_norm_fwd": (
-        "paddle_rms_norm_fwd", [_P] * 4 + [_I, _I, _F, _I, _P]),
+        "paddle_rms_norm_fwd", [_P] * 4 + [_I, _I, _F, _I, _I, _I, _P]),
     "rms_norm_bwd": (
-        "paddle_rms_norm_bwd", [_P] * 6 + [_I] * 3 + [_P]),
+        "paddle_rms_norm_bwd", [_P] * 7 + [_I] * 5 + [_P]),
     # the ring chunk: pointers, B, H, Hk, Sq, Sk, D, the diagonal offset,
     # the scale, the dtype code and the design (1 = tensor cores)
     "ring_chunk_attention_fwd": (

@@ -21,16 +21,33 @@
 // into the table, as the caller does.
 //
 // What bounds it on the card: bytes. Each chunk reads its slot's prefix
-// once per head for 8 query rows, 4*D flops per position and row, far below
-// the ~295 flop/byte ridge. Design: one thread block per (chunk, head);
-// K/V tiles of 32 positions (or one block when Bt < 32) are staged as fp32
-// in shared memory with 16-byte loads issued in batches, and shared by four
-// warps, each of which owns two of the chunk's eight rows with an fp32
-// online softmax in registers (attention_tile.cuh, shared with the flash
-// forward kernel). Chunks of one slot re-read its prefix (from L2); a
-// split over the walk, overlapping the next tile's loads with this tile's
-// math, and tensor-core products are left for later work.
+// once per KV head for its GQA group's 8-row query blocks, 4*D flops per
+// position and row, far below the ~295 flop/byte ridge. Chunks of one slot
+// re-read its prefix (from L2).
+//
+// Two designs; the wrapper picks one (ops/decode_attention.py's paged_path,
+// the rule of every decode read) and passes it as `path`; the entry runs
+// that design or fails:
+// - path 1, "split_kv" (bf16 and fp16, D a multiple of 8): the flat mode
+//   of split_decode.cuh's fp flavor, as decode_attention_paged_flat_i8.cu
+//   runs its int8 flavor. Each chunk is a row of 8 query positions whose
+//   lens is cbase and whose table row is its slot's; its positions are
+//   split over S blocks per (chunk, KV head), ranges of `span` positions
+//   (a multiple of 64) from the shapes and the SM count (the wrapper's
+//   decode_splits over T / 8 chunks), each block holding the GQA group's
+//   8-row blocks, staging the K/V tiles in the stored dtype by cp.async,
+//   a ring of stages in flight, and multiplying on mma.sync with fp32
+//   sums; a second kernel merges the S partials of each row from the fp32
+//   workspace `work` in split order. q, out and the partials keep the
+//   stream layout [T, H, D].
+// - path 0, "per_head" (fp32, or D not a multiple of 8): the first design.
+//   One thread block per (chunk, head); K/V tiles of 32 positions (or one
+//   block when Bt < 32) are staged as fp32 in shared memory with 16-byte
+//   loads issued in batches, and shared by four warps, each of which owns
+//   two of the chunk's eight rows with an fp32 online softmax in registers
+//   (attention_tile.cuh, shared with the flash forward kernel).
 #include "attention_tile.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -161,18 +178,32 @@ cudaError_t launch_d(const void* q, const void* pool, const void* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t
-// (0 on success); the caller has validated shapes, devices and layout.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. path: 1 = split_kv
+// (bf16 or fp16, D a multiple of 8; splits S >= 1 ranges of span positions
+// each, S = ceil(nblk * Bt / span); work: fp32 [S * T * H * (D + 2)] when
+// S > 1; q, pool and out 16-byte aligned), 0 = per_head (splits 1; work
+// unused); any other pairing returns cudaErrorInvalidValue. Returns a
+// cudaError_t (0 on success); the caller has validated shapes, devices and
+// layout.
 extern "C" int paddle_decode_attention_paged_flat(
     const void* q, const void* pool, const void* tables, const void* cslot,
-    const void* cbase, const void* cn, void* out, int T, int H, int D, int NB,
-    int Hk, int Bt, int nblk, int n_rows, int layer, float scale, int dtype,
-    void* stream) {
+    const void* cbase, const void* cn, void* out, void* work, int T, int H,
+    int D, int NB, int Hk, int Bt, int nblk, int n_rows, int layer,
+    int splits, int span, float scale, int dtype, int path, void* stream) {
   if (T < kChunk || T % kChunk || H < 1 || D < 1 || D > 256 || Hk < 1 ||
       H % Hk || NB < 1 || Bt < 1 || (Bt > kTile && Bt % kTile) || nblk < 1 ||
-      n_rows < 1)
+      n_rows < 1 || splits < 1 || splits > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return paddle_attn::split::run<false, false, true>(
+        q, paddle_attn::split::layer_planes(pool, nullptr, layer, NB, Hk, Bt,
+                                            D, 2),
+        tables, cbase, out, work, T / kChunk, H, kChunk, D, NB, Hk, Bt, nblk,
+        splits, span, scale, dtype, s, paddle_attn::split::NewRow{},
+        paddle_attn::split::FlatMeta{static_cast<const int*>(cslot),
+                                     static_cast<const int*>(cn), n_rows});
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return (int)launch_d<float>(q, pool, tables, cslot, cbase, cn, out, T,

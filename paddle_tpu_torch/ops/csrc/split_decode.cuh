@@ -12,7 +12,8 @@
 // new token a row over the dense rings, decode_attention_stacked_write.cu
 // and decode_attention_stacked_i8_write.cu: see "The write mode" below; and
 // a flat mode (kFlat) for the flat budget's ragged query stream over the
-// int8 pool, decode_attention_paged_flat_i8.cu: see "The flat mode".
+// fp pool and the int8 pool, decode_attention_paged_flat.cu and
+// decode_attention_paged_flat_i8.cu: see "The flat mode".
 //
 // The work of one (row b, KV head hk) is split along the KV length into S
 // ranges of `span` positions; the grid is (B * Hk, S), S chosen by the

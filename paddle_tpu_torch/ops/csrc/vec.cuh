@@ -1,6 +1,7 @@
 // 16-byte vector loads and stores of a row's elements, converted to and
 // from fp32, for the row kernels (RMSNorm): V elements a load, with V = 1
-// the scalar form for rows whose length or pointers do not allow vectors.
+// the scalar form for rows whose length or pointers do not allow vectors;
+// and the same conversions of a vector already held in registers.
 #pragma once
 
 #include <cstdint>
@@ -38,6 +39,26 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
     for (int j = 0; j < V; ++j) e[j] = from_f<T>(in[j]);
     *reinterpret_cast<uint4*>(p) = raw;
   }
+}
+
+// A 16-byte vector held in registers as V elements of T, to and from fp32.
+template <typename T, int V>
+__device__ __forceinline__ void unpack_vec(const uint4& raw,
+                                           float (&out)[V]) {
+  static_assert(V * sizeof(T) == kVecBytes, "a vector is 16 bytes");
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < V; ++j) out[j] = to_f(e[j]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ uint4 pack_vec(const float (&in)[V]) {
+  static_assert(V * sizeof(T) == kVecBytes, "a vector is 16 bytes");
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < V; ++j) e[j] = from_f<T>(in[j]);
+  return raw;
 }
 
 // True when rows of D elements of T can be read as 16-byte vectors: D a

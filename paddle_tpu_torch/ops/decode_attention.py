@@ -43,18 +43,20 @@ The five reads, ``decode_attention_paged``, ``decode_attention_paged_i8``,
 ``decode_attention_stacked``, ``decode_attention_stacked_i8`` and
 ``decode_attention_bhsd``, the two fused writes,
 ``decode_attention_stacked_write`` and ``decode_attention_stacked_i8_write``,
-and the int8 flat stream's ``decode_attention_paged_flat_i8`` have two
-designs each, picked by ``paged_path`` from the dtype and D alone,
-the one place the rule is stated: bf16 and fp16 at D a multiple of 8 take
+and the flat streams' ``decode_attention_paged_flat`` and
+``decode_attention_paged_flat_i8`` have two designs each, picked by
+``paged_path`` from the dtype and D alone, the one place the rule is
+stated: bf16 and fp16 at D a multiple of 8 take
 ``"split_kv"`` (``csrc/split_decode.cuh``: the KV length split into
 ranges, each a block per row and KV head holding the GQA group's query
-rows, partials merged in split order; the fp pool's ranges are
+rows, partials merged in split order; the fp pool read's ranges are
 ``paged_splits`` table blocks, the others' ``decode_splits`` 64-position
 tiles, a ring or the one-layer cache read as a pool of one Smax-position
 block per row; the writes' ranges stop below lens[b], and range 0 seeds
 with the new token and stores it; the flat stream's chunks of FLAT_CHUNK
-tokens are its rows, each over its slot's table row), everything else ``"per_head"`` (one
-block per row and head, fp32 staging). ``PATH_LAUNCHES`` counts each
+tokens are its rows, each over its slot's table row, both pools' streams
+cut by ``decode_splits``), everything else ``"per_head"`` (one block per
+row and head, fp32 staging). ``PATH_LAUNCHES`` counts each
 kernel's launches by design; the C entries run the design they are given
 or fail.
 
@@ -103,7 +105,8 @@ __all__ = ["decode_attention_paged", "decode_attention_paged_reference",
            "decode_attention_bhsd_split_reference",
            "decode_attention_stacked_write_split_reference",
            "decode_attention_stacked_i8_write_split_reference",
-           "decode_attention_paged_flat_i8_split_reference", "LAUNCHES",
+           "decode_attention_paged_flat_i8_split_reference",
+           "decode_attention_paged_flat_split_reference", "LAUNCHES",
            "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
@@ -129,6 +132,7 @@ PATH_LAUNCHES = {name: {"split_kv": 0, "per_head": 0}
                               "decode_attention_bhsd",
                               "decode_attention_stacked_write",
                               "decode_attention_stacked_i8_write",
+                              "decode_attention_paged_flat",
                               "decode_attention_paged_flat_i8")}
 _PATH_CODE = {"split_kv": 1, "per_head": 0}
 # the split rule: blocks of the split design a wave counts per SM (a full
@@ -260,9 +264,9 @@ def paged_path(dtype, d) -> str:
     ``decode_attention_paged_i8``, ``decode_attention_stacked``,
     ``decode_attention_stacked_i8`` and ``decode_attention_bhsd``, of
     the two fused writes, ``decode_attention_stacked_write`` and
-    ``decode_attention_stacked_i8_write``, and of the int8 flat stream's
-    ``decode_attention_paged_flat_i8``, for queries of ``dtype`` at
-    head dim ``d``: ``"split_kv"``
+    ``decode_attention_stacked_i8_write``, and of the flat streams'
+    ``decode_attention_paged_flat`` and ``decode_attention_paged_flat_i8``,
+    for queries of ``dtype`` at head dim ``d``: ``"split_kv"``
     (split_decode.cuh, tensor cores) for bf16 and fp16 at D a multiple of
     8, else ``"per_head"``. The wrappers pass it to the C entries, which
     run that design or fail."""
@@ -620,10 +624,18 @@ def decode_attention_paged_flat(q, pool, tables, chunk_slot, chunk_base,
         return decode_attention_paged_flat_reference(
             q, pool, tables, chunk_slot, chunk_base, chunk_n, layer, scale)
     _, _, nb, hk, bt, _ = pool.shape
+    nblk = tables.shape[1]
+    # a chunk of FLAT_CHUNK tokens is a row of the split design, its ranges
+    # cut as the int8 flat stream's are (decode_splits: 64-position tiles,
+    # since the kernel resolves each position through the table, and one
+    # rule for both pools' flat streams)
+    path, splits, span = _range_splits(
+        q.reshape(t // FLAT_CHUNK, FLAT_CHUNK, h, d), hk, nblk * bt)
     return _launch(name, [("q", q), ("pool", pool), ("tables", tables),
                           *meta], torch.empty_like(q),
-                   (t, h, d, nb, hk, bt, tables.shape[1], tables.shape[0],
-                    int(layer)), scale, q.dtype)
+                   (t, h, d, nb, hk, bt, nblk, tables.shape[0], int(layer),
+                    splits, span), scale, q.dtype,
+                   extra=[("work", _split_work(splits, q))], path=path)
 
 
 def _chunk_mask(chunk_base, chunk_n, smax, device):
@@ -657,6 +669,36 @@ def decode_attention_paged_flat_reference(q, pool, tables, chunk_slot,
     qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
     mask = _chunk_mask(chunk_base, chunk_n, smax, q.device)
     o = _fp_attend(qc, kv, mask, scale, pool.dtype, q.dtype)
+    return o.transpose(1, 2).reshape(t, h, d)
+
+
+def decode_attention_paged_flat_split_reference(q, pool, tables, chunk_slot,
+                                                chunk_base, chunk_n, layer,
+                                                scale=None, splits=1):
+    """The fp split design's flat mode in plain PyTorch: each chunk's slot
+    row of nblk * Bt positions in ``splits`` ranges of span = ceil(nblk *
+    Bt / splits) positions (the kernel's ranges are whole 64-position
+    tiles, ``decode_splits`` over T / FLAT_CHUNK chunks), each range's
+    fp32 partial (l sums the unrounded p, o takes p rounded to the pool
+    dtype), merged in split order (``_split_merge``); rows that attend
+    nothing (r >= n, pad chunks) are 0. Equal to
+    ``decode_attention_paged_flat_reference`` but for where p is
+    rounded."""
+    from ..inference.paged_kv import flat_gather_view
+    t, h, d = q.shape
+    hk, bt = pool.shape[3], pool.shape[4]
+    nc = t // FLAT_CHUNK
+    n_pos = tables.shape[1] * bt
+    if scale is None:
+        scale = d ** -0.5
+    slot = chunk_slot.long().clamp(0, tables.shape[0] - 1)
+    kv = flat_gather_view(pool[int(layer)], tables, slot, n_pos)
+    kv = kv.repeat_interleave(h // hk, dim=2).float()  # [2, nc, H, S, D]
+    qc = q.reshape(nc, FLAT_CHUNK, h, d).transpose(1, 2).float()
+    mask = _chunk_mask(chunk_base, chunk_n, n_pos, q.device)
+    s = qc @ kv[0].transpose(-1, -2) * scale
+    o = _split_merge(s, mask, kv[1], -(-n_pos // splits), pool.dtype,
+                     q.dtype)
     return o.transpose(1, 2).reshape(t, h, d)
 
 

@@ -9,8 +9,18 @@ as per-block partial sums (32 rows a block on the card) that the wrapper
 sums after the kernel, so the result does not depend on scheduling.
 ``rms_norm``: rows scaled by rstd = rsqrt(mean(x^2) + eps) and the weight,
 the product taken in fp32 and rounded once to x's dtype; its backward
-gives dx and dgamma partials the same way. Unlike the TPU kernels, any
-row count is taken (no padding to 8).
+gives dx and fp32 dgamma partials that the same call sums in a fixed
+order. Unlike the TPU kernels, any row count is taken (no padding to 8).
+
+The RMSNorm kernels have two designs each, picked by ``rms_norm_path``:
+``"row_block"`` (a row held in a block's registers, read once and
+written once, a persistent grid of ``rms_norm_blocks`` blocks walking the
+rows; the backward's dgamma partials one a block, ``rms_bwd_partials``)
+where D fills whole 16-byte vectors, 128 to 512 of them (bf16 and fp16 D
+1024-4096, fp32 D 512-2048, LLaMA-2 7B's 4096 in bf16), and
+``"per_warp"`` (a warp a row, two passes over it) elsewhere.
+``PATH_LAUNCHES`` counts their launches by design; the C entries run the
+design they are given or fail.
 
 On a CUDA tensor ``layer_norm_fwd`` / ``layer_norm_bwd`` and
 ``rms_norm_fwd`` / ``rms_norm_bwd`` launch ``csrc/layer_norm_fwd.cu``,
@@ -20,6 +30,8 @@ they compute the plain versions.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -28,16 +40,30 @@ __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "layer_norm_fwd_reference", "layer_norm_bwd_reference",
            "rms_norm", "rms_norm_fwd", "rms_norm_bwd",
            "rms_norm_fwd_reference", "rms_norm_bwd_reference",
-           "is_supported", "LAUNCHES", "ROWS_PER_PARTIAL"]
+           "is_supported", "LAUNCHES", "PATH_LAUNCHES", "ROWS_PER_PARTIAL",
+           "rms_norm_path", "rms_norm_blocks", "rms_bwd_partials"]
 
 MAX_D = 16384
-ROWS_PER_PARTIAL = 32      # kRows in csrc/layer_norm_bwd.cu, rms_norm_bwd.cu
+# rows a dgamma (and dbeta) partial covers: kRows in csrc/layer_norm_bwd.cu
+# and in rms_norm_bwd.cu's per-warp design
+ROWS_PER_PARTIAL = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches, counted where a kernel is launched (the plain versions
 # on CPU tensors do not count)
 LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "rms_norm_fwd": 0,
             "rms_norm_bwd": 0}
+# the RMSNorm kernels' launches by the design that ran them
+# (rms_norm_path)
+PATH_LAUNCHES = {name: {"row_block": 0, "per_warp": 0}
+                 for name in ("rms_norm_fwd", "rms_norm_bwd")}
+_RMS_PATH_CODE = {"per_warp": 0, "row_block": 1}
+# the row-block design: 16-byte vectors a row must fill (csrc/row_block.cuh
+# holds at most two a thread of its 256; fewer than 128 leave most of the
+# block idle), and its persistent grid's blocks per SM
+_ROW_BLOCK_VECTORS = (128, 512)
+_ROW_BLOCKS_PER_SM = {"rms_norm_fwd": 4, "rms_norm_bwd": 2}
+_PER_WARP_ROWS = {"rms_norm_fwd": 8, "rms_norm_bwd": ROWS_PER_PARTIAL}
 
 
 def is_supported(shape, dtype) -> bool:
@@ -213,47 +239,113 @@ def rms_norm(x, gamma, eps=1e-6):
     return y.reshape(x.shape)
 
 
+def rms_norm_path(dtype, d, aligned=True) -> str:
+    """The design of the RMSNorm kernels for rows of ``d`` elements of
+    ``dtype``: ``"row_block"`` where d fills 128 to 512 whole 16-byte
+    vectors (a row in the registers of a 256-thread block, at most two
+    vectors of x and two of dy a thread) and the tensors are 16-byte
+    ``aligned``, else ``"per_warp"``. The one place the rule is stated;
+    the wrappers pass it to the C entries, which run that design or
+    fail."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    lo, hi = _ROW_BLOCK_VECTORS
+    if aligned and d % per == 0 and lo <= d // per <= hi:
+        return "row_block"
+    return "per_warp"
+
+
+def rms_norm_blocks(name, n, path, n_sm):
+    """Thread blocks of kernel ``name`` (``"rms_norm_fwd"`` or
+    ``"rms_norm_bwd"``) over n rows on design ``path``: the row-block
+    design's persistent grid, _ROW_BLOCKS_PER_SM blocks an SM but never
+    more than the rows (from the shapes and the SM count alone, so the
+    launch reads nothing back and can be captured in a CUDA graph); the
+    per-warp design's block of 8 (forward) or ROWS_PER_PARTIAL (backward)
+    rows."""
+    if path == "row_block":
+        return min(n, _ROW_BLOCKS_PER_SM[name] * n_sm)
+    return -(-n // _PER_WARP_ROWS[name])
+
+
+def rms_bwd_partials(n, path, n_sm):
+    """The rows each dgamma partial of ``rms_norm_bwd`` covers, one
+    partial a block (``rms_norm_blocks``): block b of the row-block design
+    walks rows b, b + blocks, ...; block b of the per-warp design takes
+    ROWS_PER_PARTIAL rows from b * ROWS_PER_PARTIAL. Every row lies in
+    exactly one partial."""
+    blocks = rms_norm_blocks("rms_norm_bwd", n, path, n_sm)
+    if path == "row_block":
+        return [range(b, n, blocks) for b in range(blocks)]
+    return [range(b * ROWS_PER_PARTIAL, min(n, (b + 1) * ROWS_PER_PARTIAL))
+            for b in range(blocks)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _rms_design(name, x2, *tensors):
+    """(path, blocks) of RMSNorm kernel ``name`` over x2 and ``tensors``
+    (their 16-byte alignment is part of ``rms_norm_path``'s rule)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, *tensors))
+    path = rms_norm_path(x2.dtype, x2.shape[1], aligned)
+    return path, rms_norm_blocks(name, x2.shape[0], path,
+                                 _sm_count(x2.device.index))
+
+
+def _rms_call(name, x2, tensors, ints, path, blocks):
+    """Launch RMSNorm kernel ``name`` on the current stream: the pointers
+    of ``tensors``, the ints, the dtype code, the design and its block
+    count. Raises on a refused launch, naming the design: no other is
+    tried."""
+    rc = _build.load(name)(
+        *(t.data_ptr() for t in tensors), *ints, _DTYPE_CODE[x2.dtype],
+        _RMS_PATH_CODE[path], blocks,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc} (x {tuple(x2.shape)} {x2.dtype}; {path})")
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[name][path] += 1
+
+
 def rms_norm_fwd(x2, gamma, eps=1e-6):
     """x2 [N, D], gamma [D] -> (y [N, D] in x2's dtype, rstd [N, 1]
     fp32)."""
+    name = "rms_norm_fwd"
     _check(x2, (gamma,), name="rms_norm")
     if x2.device.type == "cpu":
         return rms_norm_fwd_reference(x2, gamma, eps)
-    stream = _stream("rms_norm_fwd", x2, gamma)
+    _stream(name, x2, gamma)
     n, d = x2.shape
     y = torch.empty_like(x2)
     rstd = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
-    rc = _build.load("rms_norm_fwd")(
-        x2.data_ptr(), gamma.data_ptr(), y.data_ptr(), rstd.data_ptr(), n,
-        d, float(eps), _DTYPE_CODE[x2.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"rms_norm_fwd: kernel launch failed with CUDA "
-                           f"error {rc} (x {tuple(x2.shape)} {x2.dtype})")
-    LAUNCHES["rms_norm_fwd"] += 1
+    path, blocks = _rms_design(name, x2, gamma, y)
+    _rms_call(name, x2, (x2, gamma, y, rstd), (n, d, float(eps)), path,
+              blocks)
     return y, rstd
 
 
 def rms_norm_bwd(x2, gamma, rstd, dy):
     """Gradients of ``rms_norm_fwd``: from x2 [N, D], gamma, its fp32 rstd
     [N, 1] and dy [N, D], returns (dx in x2's dtype, dgamma [D] in gamma's
-    dtype, summed in fp32)."""
+    dtype, summed in fp32 over the partials of ``rms_bwd_partials`` in a
+    fixed order by the same call)."""
+    name = "rms_norm_bwd"
     _check(x2, (gamma,), (rstd, dy), name="rms_norm")
-    _check_stats("rms_norm_bwd", x2, dy, rstd)
+    _check_stats(name, x2, dy, rstd)
     if x2.device.type == "cpu":
         return rms_norm_bwd_reference(x2, gamma, rstd, dy)
-    stream = _stream("rms_norm_bwd", x2, gamma, rstd, dy)
+    _stream(name, x2, gamma, rstd, dy)
     n, d = x2.shape
     dx = torch.empty_like(x2)
-    parts = torch.empty((-(-n // ROWS_PER_PARTIAL), d), dtype=torch.float32,
-                        device=x2.device)
-    rc = _build.load("rms_norm_bwd")(
-        x2.data_ptr(), gamma.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), parts.data_ptr(), n, d, _DTYPE_CODE[x2.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"rms_norm_bwd: kernel launch failed with CUDA "
-                           f"error {rc} (x {tuple(x2.shape)} {x2.dtype})")
-    LAUNCHES["rms_norm_bwd"] += 1
-    return dx, parts.sum(0).to(gamma.dtype)
+    dgamma = torch.empty_like(gamma)
+    path, blocks = _rms_design(name, x2, gamma, dy, dx)
+    parts = torch.empty((blocks, d), dtype=torch.float32, device=x2.device)
+    _rms_call(name, x2, (x2, gamma, rstd, dy, dx, parts, dgamma), (n, d),
+              path, blocks)
+    return dx, dgamma
 
 
 def rms_norm_fwd_reference(x2, gamma, eps=1e-6):

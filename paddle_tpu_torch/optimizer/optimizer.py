@@ -46,10 +46,12 @@ def _check_weight_decay(weight_decay):
 class Optimizer:
     """``parameters``: tensors, or ``(name, tensor)`` pairs such as
     ``model.named_parameters()`` (the names are what
-    ``apply_decay_param_fun`` sees)."""
+    ``apply_decay_param_fun`` sees). ``name`` is taken and, as in JAX,
+    unused."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
         if parameters is None:
             raise ValueError("the port's optimizers take parameters= (there "
                              "is no global parameter registry)")
@@ -111,17 +113,27 @@ class Optimizer:
             return g32
         return g32 + self._weight_decay * m32
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero: bool = False):
+        """Drop every gradient, or with ``set_to_zero`` zero those that
+        exist, as JAX's ``clear_gradient`` does."""
         for _, p in self._params:
-            p.grad = None
+            if set_to_zero and p.grad is not None:
+                p.grad.zero_()
+            else:
+                p.grad = None
 
 
 class Adam(Optimizer):
+    """Adam with an L2 ``weight_decay`` folded into the gradient.
+    ``lazy_mode``, ``use_multi_tensor`` and ``name`` are taken and, as in
+    JAX, unused."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -154,14 +166,15 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Adam with decoupled weight decay. ``apply_decay_param_fun(name)``
     returning False skips the decay of that parameter; ``lr_ratio(p)``
-    scales its learning rate."""
+    scales its learning rate. ``lazy_mode`` and ``name`` are taken and,
+    as in JAX, unused."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False):
+                 lazy_mode=False, multi_precision=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision)
+                         None, grad_clip, lazy_mode, multi_precision)
         _check_weight_decay(weight_decay)
         self._wd_coeff = float(weight_decay)
         self._apply_decay_fn = apply_decay_param_fun

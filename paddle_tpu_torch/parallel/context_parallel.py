@@ -202,7 +202,7 @@ class _Rotate(torch.autograd.Function):
 
 
 def ring_attention(q, k, v, axis_name: str = "sep", causal: bool = False,
-                   scale: Optional[float] = None, remat: bool = True,
+                   scale: Optional[float] = None, remat: bool = True, *,
                    mesh=None):
     """Exact ring attention over the ``axis_name`` group of ``mesh``
     (default: the active hybrid mesh, ``parallel.current_mesh()``).
@@ -258,7 +258,7 @@ class _AllToAll(torch.autograd.Function):
 
 
 def ulysses_attention(q, k, v, axis_name: str = "sep", causal: bool = False,
-                      scale: Optional[float] = None, mesh=None):
+                      scale: Optional[float] = None, *, mesh=None):
     """Ulysses sequence parallelism over the ``axis_name`` group of
     ``mesh`` (default: the active hybrid mesh): all-to-all seq-shard ->
     head-shard, attention over the whole sequence per rank, inverse

@@ -442,4 +442,4 @@ def test_topology_matches_jax_and_refuses_unported_degrees():
     for dims in ((1, 2, 1, 2, 1), (1, 1, 2, 2, 1), (1, 1, 1, 2, 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             topology.HybridCommunicateGroup(
-                topology.CommunicateTopology(names, dims), "cpu")
+                topology.CommunicateTopology(names, dims), device_type="cpu")

@@ -56,9 +56,8 @@ Phases, in order; any failure exits non-zero:
      and at the main shapes, LLaMA's [1, 32, 4096, 128] causal at dropout
      0 and GPT-2's [8, 12, 1024, 64] causal at 0.1, there o and the
      gradients over the reference's rms; lse to attention_lse; the
-     backward fed the kernel's o and lse and then the plain forward's;
-     LayerNorm forward and backward at N 8192, 1001 and 37); the fused
-     FFN forward, dx and dW kernels
+     backward fed the kernel's o and lse and then the plain forward's);
+     the fused FFN forward, dx and dW kernels
      (fp32, bf16 and fp16, both activations, (K, F) in (128, 256), (768, 3072)
      and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
      decode_attention_bhsd in both layouts (B 1 and 8, H 12, Hk 12 and 6,
@@ -68,9 +67,12 @@ Phases, in order; any failure exits non-zero:
      33, 4096 and 4097, fp32, bf16 and fp16, eps 1e-5 and 1e-6; y, rstd,
      dx and dgamma each, dx and dgamma bit-equal on a second launch; each
      launch on the design rms_norm_path gives it, row-block or per-warp);
-     the
-     ring chunk forward, dK/dV and dQ kernels (fp32, bf16 and fp16, D 64
-     and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
+     the LayerNorm forward and backward kernels (D 64, 97, 256, 768, 1024
+     and 1600, N 1, 7, 33, 8192 and 8193, fp32, bf16 and fp16; y, mean,
+     rstd, dx, dgamma and dbeta each, the backward's bit-equal on a second
+     launch; each backward launch on the design layer_norm_path gives it,
+     row-warp or per-warp); the ring chunk forward, dK/dV and dQ kernels
+     (fp32, bf16 and fp16, D 64 and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
      257, offsets Sk, Sk - 1, 0, -17, -Sq and -Sq - 5; o, lse, dq, dk and
      dv from cotangents of o and lse, fully masked launches exactly zero).
      --kernels-only stops here (exit 0, no result line);
@@ -108,7 +110,8 @@ Phases, in order; any failure exits non-zero:
      and each step must launch exactly 12 flash forward, 12 dK/dV, 12 dQ,
      25 LayerNorm forward and 25 LayerNorm backward kernels and no other
      kernel of the port, every flash launch on the tensor-core path
-     (flash_attention.PATH_LAUNCHES);
+     (flash_attention.PATH_LAUNCHES) and every LayerNorm backward launch
+     on the row-warp design (layer_norm.PATH_LAUNCHES);
   3d. the same training under PADDLE_TPU_FUSED_FFN=1 and
      PADDLE_TPU_FUSED_FFN_BWD=1: each step must also launch exactly 12
      fused FFN forward, 12 dx and 12 dW kernels, every one on the
@@ -179,7 +182,7 @@ Phases, in order; any failure exits non-zero:
      [1, 32, 1024, 128], offsets full and 0, held there as phase 2 holds
      the main flash shapes; the fp flat stream and the RMSNorm kernels
      also on their earlier designs (per head, per warp) on the same
-     inputs.
+     inputs, and so is the LayerNorm backward (per warp).
 The last two lines are the card from nvidia-smi and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -369,6 +372,7 @@ def phase_kernels(rng):
     ffn_kernels(rng, worst)
     bhsd_kernels(rng, worst)
     rms_kernels(rng, worst)
+    ln_kernels(rng, worst)
     ring_kernels(rng, worst)
     return worst
 
@@ -715,7 +719,7 @@ def rms_kernels(rng, worst):
     launch on the design rms_norm_path gives its shape
     (layer_norm.PATH_LAUNCHES)."""
     reset_launches()
-    want_paths = {k: collections.Counter() for k in ln.PATH_LAUNCHES}
+    want_paths = {k: collections.Counter() for k in RMS_KERNELS}
     for dtype, tname in ((torch.float32, "layer_norm_fp32"),
                          (torch.bfloat16, "layer_norm_bf16"),
                          (torch.float16, "layer_norm_fp16")):
@@ -743,12 +747,62 @@ def rms_kernels(rng, worst):
                 want_paths["rms_norm_bwd"][path] += 2
     log(f"  RMSNorm cases: {len(RMS_DIMS) * len(RMS_ROWS) * 3}, dx and "
         f"dgamma bit-equal on a second launch; worst {dict(worst)}")
-    check_rms_paths("RMSNorm cases", want_paths)
+    check_norm_paths("RMSNorm cases", want_paths)
 
 
-def check_rms_paths(label, want):
-    """Fail unless the RMSNorm kernels made exactly ``want`` ({name:
-    {path: n}}) launches by design since the counts were reset
+# LayerNorm widths: small, not a whole number of vectors (the per-warp
+# design), the row-warp design's narrowest in bf16 (256), GPT-2's 768
+# (124M), 1024 (medium) and 1600 (XL), the last two per warp
+LN_DIMS = (64, 97, 256, 768, 1024, 1600)
+LN_ROWS = (1, 7, 33, 8192, 8193)
+
+
+def ln_kernels(rng, worst):
+    """The LayerNorm forward and backward kernels against their plain
+    versions at LN_DIMS and LN_ROWS, fp32, bf16 and fp16: y, mean, rstd,
+    dx, dgamma and dbeta each; the backward twice on the same inputs, its
+    outputs bit-equal between the two launches (dgamma's and dbeta's
+    partials are summed in a fixed order, no atomics). Each backward
+    launch on the design layer_norm_path gives its shape
+    (layer_norm.PATH_LAUNCHES)."""
+    reset_launches()
+    want_paths = collections.Counter()
+    for dtype, tname in ((torch.float32, "layer_norm_fp32"),
+                         (torch.bfloat16, "layer_norm_bf16"),
+                         (torch.float16, "layer_norm_fp16")):
+        for d in LN_DIMS:
+            path = ln.layer_norm_path(dtype, d)
+            for n in LN_ROWS:
+                x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
+                gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+                beta = (0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+                name = f"layer_norm {str(dtype):14s} N={n:4d} D={d:4d} {path}"
+                y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta)
+                want = ln.layer_norm_fwd_reference(x, gamma, beta)
+                for part, g, w in zip(("y", "mean", "rstd"),
+                                      (y, mean, rstd), want):
+                    check(f"{name} {part}", g, w, tname, worst, quiet=True)
+                got = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+                want = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+                again = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+                for part, g, w, a in zip(("dx", "dgamma", "dbeta"), got,
+                                         want, again):
+                    check(f"{name} {part}", g, w, tname, worst, quiet=True)
+                    same_bytes(f"{name} {part} on a second launch", g, a,
+                               quiet=True)
+                want_paths[path] += 2
+    log(f"  LayerNorm cases: {len(LN_DIMS) * len(LN_ROWS) * 3}, dx, dgamma "
+        f"and dbeta bit-equal on a second launch; worst {dict(worst)}")
+    check_norm_paths("LayerNorm cases", {"layer_norm_bwd": want_paths})
+
+
+# the RMSNorm kernels, each with two designs (layer_norm.PATH_LAUNCHES)
+RMS_KERNELS = ("rms_norm_fwd", "rms_norm_bwd")
+
+
+def check_norm_paths(label, want):
+    """Fail unless the norm kernels named in ``want`` ({name: {path: n}})
+    made exactly those launches by design since the counts were reset
     (layer_norm.PATH_LAUNCHES)."""
     for name, paths in want.items():
         got = dict(ln.PATH_LAUNCHES[name])
@@ -969,8 +1023,7 @@ def training_kernels(rng, worst):
     kernel and from inside the flash kernels' tiles (dropout_in_tiles);
     flash forward (with dropout) and the dK/dV and dQ kernels at
     FLASH_BWD_CASES, bf16, fp16 and fp32, dropout 0 and 0.1 (one seed for
-    forward and backward), then bf16 at FLASH_MAIN_CASES; LayerNorm forward
-    and backward at N = 8192 and odd N, D 768 and 64. lse is held to
+    forward and backward), then bf16 at FLASH_MAIN_CASES. lse is held to
     attention_lse (fp32 in every dtype); the backward is fed the kernel's
     o and lse, then the plain forward's, both sides the same each time. At
     FLASH_MAIN_CASES o and the gradients are held relative to the
@@ -1012,22 +1065,6 @@ def training_kernels(rng, worst):
             del got, want
         del q, k, v, do, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
-    for dtype, tname in ((torch.bfloat16, "layer_norm_bf16"),
-                         (torch.float32, "layer_norm_fp32")):
-        for n, d in ((8192, 768), (1001, 768), (37, 64)):
-            x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
-            gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
-            beta = (0.1 * randn(rng, (d,), torch.float32)).to(dtype)
-            name = f"layer_norm {str(dtype):15s} N={n} D={d}"
-            y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta)
-            want = ln.layer_norm_fwd_reference(x, gamma, beta)
-            for part, g, w in zip(("y", "mean", "rstd"), (y, mean, rstd),
-                                  want):
-                check(f"{name} {part}", g, w, tname, worst)
-            got = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
-            want = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
-            for part, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
-                check(f"{name} {part}", g, w, tname, worst)
 
 
 def stacked_kernels(rng, worst):
@@ -1502,8 +1539,16 @@ def phase_train(seed, steps=10, warmup=2):
         f"B={BATCH} S={SEQ}, bf16 with fp32 AdamW masters, dropout 0.1, lr "
         f"1e-4; {warmup} warm-up steps, then {steps} timed on one repeated "
         "batch")
-    return train_run(gpt2_train_workload, seed, steps, warmup,
-                     TRAIN_LAUNCHES)
+    run = train_run(gpt2_train_workload, seed, steps, warmup, TRAIN_LAUNCHES)
+    check_ln_row_warp("GPT-2 training", run[0])
+    return run
+
+
+def check_ln_row_warp(label, launches):
+    """Every LayerNorm backward launch of a GPT-2 training run (bf16 at D
+    768) on the row-warp design."""
+    check_norm_paths(label, {
+        "layer_norm_bwd": {"row_warp": launches["layer_norm_bwd"]}})
 
 
 def phase_train_ffn(seed, base, steps=10, warmup=2):
@@ -1513,6 +1558,7 @@ def phase_train_ffn(seed, base, steps=10, warmup=2):
         launches, med, peak = train_run(gpt2_train_workload, seed, steps,
                                         warmup, FFN_TRAIN_LAUNCHES)
     check_tensor_core_path("fused FFN", ffn, FFN_PATH_KERNELS)
+    check_ln_row_warp("GPT-2 training, fused FFN", launches)
     _, base_med, base_peak = base
     log(f"  fused FFN vs 3c: median step {1e3 * med:.3f} / "
         f"{1e3 * base_med:.3f} ms ({med / base_med:.3f}x), tokens/s "
@@ -1530,8 +1576,8 @@ def phase_train_llama(seed, steps=10, warmup=2):
     launches = train_run(llama_train_workload, seed, steps, warmup,
                          LLAMA_TRAIN_LAUNCHES)[0]
     # every bf16 RMSNorm launch at D 4096 on the row-block design
-    check_rms_paths("LLaMA training", {
-        k: {"row_block": launches[k]} for k in ln.PATH_LAUNCHES})
+    check_norm_paths("LLaMA training", {
+        k: {"row_block": launches[k]} for k in RMS_KERNELS})
     torch.cuda.empty_cache()
     return launches
 
@@ -2614,7 +2660,8 @@ def time_layer_norm(rng):
     """LayerNorm forward and backward at the training shape [8192, 768],
     bf16, the launches cycled over 8 inputs (200 MB, past the L2); the
     library calls are ATen's LayerNorm forward and backward
-    (native_layer_norm, native_layer_norm_backward)."""
+    (native_layer_norm, native_layer_norm_backward); the backward also on
+    its per-warp design."""
     n, d, copies = BATCH * SEQ, E, 8
     xs = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
     dys = [randn(rng, (n, d), torch.bfloat16) for _ in range(copies)]
@@ -2642,6 +2689,13 @@ def time_layer_norm(rng):
             beta, [True, True, True]),
         3 * row_bytes + 3 * vec + 2 * n * 4, 12 * n * d, 200,
         tname="layer_norm_bf16")
+    # the backward's earlier design, the per-warp one, on the same inputs
+    with forced(ln, "layer_norm_path", lambda *a: "per_warp"):
+        bwd["per_warp_ms"] = time_ms(
+            lambda i=0: ln.layer_norm_bwd(xs[i % copies], gamma,
+                                          *stats[i % copies],
+                                          dys[i % copies]), 200)
+    log(f"  per-warp design beside it: backward {bwd['per_warp_ms']:.5f} ms")
     return {"layer_norm_fwd": [fwd], "layer_norm_bwd": [bwd]}
 
 
@@ -2959,10 +3013,12 @@ def main(argv=None):
         main_row = next(r for r in rows[name] if is_main(r))
         # the kernels with two designs: phase 3 held every launch of
         # their runs to the split one (the dequant-matmul's to the tensor
-        # cores, RMSNorm's to the row-block one)
+        # cores, RMSNorm's to the row-block one, the LayerNorm backward's
+        # to the row-warp one)
         design = ({"design": "split_kv"} if name in da.PATH_LAUNCHES
                   else {"design": "tensor_core"}
                   if name == "fused_dequant_matmul"
+                  else {"design": "row_warp"} if name == "layer_norm_bwd"
                   else {"design": "row_block"} if name in ln.PATH_LAUNCHES
                   else {})
         kernels.append({

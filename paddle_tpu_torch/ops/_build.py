@@ -118,8 +118,10 @@ _ENTRY = {
         [_P] * 7 + [_I] * 7 + [_F, _I, _I] + _DROP + [_P]),
     "layer_norm_fwd": (
         "paddle_layer_norm_fwd", [_P] * 6 + [_I, _I, _F, _I, _P]),
+    # the LayerNorm backward: pointers, N, D, the dtype code, the design
+    # and its block count (layer_norm.layer_norm_path, layer_norm_blocks)
     "layer_norm_bwd": (
-        "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 3 + [_P]),
+        "paddle_layer_norm_bwd", [_P] * 8 + [_I] * 5 + [_P]),
     # the fused FFN: pointers, then M, K, F, the block's K columns (BN),
     # the F or row ranges, the activation and the dtype codes, the design
     # (1 = tensor cores)

@@ -191,33 +191,6 @@ __global__ void __launch_bounds__(rowblk::kThreads, 2)
   }
 }
 
-// dgamma from the P partials [P, D]: column col summed over the partials
-// in a fixed order (warp w takes partials w, w + 8, ... in order, then the
-// eight warps' sums in order), rounded once to T. A block takes 32
-// columns.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-    dgamma_sum_kernel(const float* __restrict__ part, T* __restrict__ dg,
-                      int P, int D) {
-  __shared__ float sums[kWarps][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * 32 + lane;
-  float acc = 0.f;
-  if (col < D) {
-#pragma unroll 4
-    for (int p = warp; p < P; p += kWarps) acc += part[(size_t)p * D + col];
-  }
-  sums[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && col < D) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += sums[w][lane];
-    dg[col] = from_f<T>(t);
-  }
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* gamma, const void* rstd,
                    const void* dy, void* dx, void* part, void* dg, int N,
@@ -255,8 +228,9 @@ cudaError_t launch(const void* x, const void* gamma, const void* rstd,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dgamma_sum_kernel<T><<<(D + 31) / 32, kWarps * 32, 0, stream>>>(
-      pp, static_cast<T*>(dg), blocks, D);
+  rowblk::partial_sum_kernel<T, kWarps>
+      <<<(D + 31) / 32, kWarps * 32, 0, stream>>>(pp, static_cast<T*>(dg),
+                                                  blocks, D);
   return cudaGetLastError();
 }
 

@@ -4,9 +4,9 @@ their plain PyTorch versions, and the autograd Functions that join them.
 Counterpart of ``paddle_tpu/ops/pallas/layer_norm.py``, which keeps both.
 ``layer_norm``: rows normalised over the last dim with fp32 statistics
 (mean, then the variance of the deviations, rstd = rsqrt(var + eps)) and
-the affine fused; the backward gives dx in one pass and dgamma / dbeta
-as per-block partial sums (32 rows a block on the card) that the wrapper
-sums after the kernel, so the result does not depend on scheduling.
+the affine fused; the backward gives dx and fp32 dgamma / dbeta partials,
+one pair a block, that the same call sums in a fixed order, so the result
+does not depend on scheduling.
 ``rms_norm``: rows scaled by rstd = rsqrt(mean(x^2) + eps) and the weight,
 the product taken in fp32 and rounded once to x's dtype; its backward
 gives dx and fp32 dgamma partials that the same call sums in a fixed
@@ -19,8 +19,16 @@ rows; the backward's dgamma partials one a block, ``rms_bwd_partials``)
 where D fills whole 16-byte vectors, 128 to 512 of them (bf16 and fp16 D
 1024-4096, fp32 D 512-2048, LLaMA-2 7B's 4096 in bf16), and
 ``"per_warp"`` (a warp a row, two passes over it) elsewhere.
-``PATH_LAUNCHES`` counts their launches by design; the C entries run the
-design they are given or fail.
+The LayerNorm backward has two designs, picked by ``layer_norm_path``:
+``"row_warp"`` (a row held by a warp's registers, read once and written
+once, a persistent grid of ``layer_norm_blocks`` blocks of _ROW_WARPS
+warps walking the rows, each warp's next rows in flight into shared
+memory; the dgamma / dbeta partials one pair a block,
+``ln_bwd_partials``) where D fills 32 to 128 whole 16-byte vectors (bf16
+and fp16 D 256-1024, GPT-2's 768 among them; fp32 D 128-512), and
+``"per_warp"`` (a warp a row, two passes, a block of 32 rows a partial)
+elsewhere. ``PATH_LAUNCHES`` counts the launches of the kernels with two
+designs by design; the C entries run the design they are given or fail.
 
 On a CUDA tensor ``layer_norm_fwd`` / ``layer_norm_bwd`` and
 ``rms_norm_fwd`` / ``rms_norm_bwd`` launch ``csrc/layer_norm_fwd.cu``,
@@ -41,11 +49,13 @@ __all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
            "rms_norm", "rms_norm_fwd", "rms_norm_bwd",
            "rms_norm_fwd_reference", "rms_norm_bwd_reference",
            "is_supported", "LAUNCHES", "PATH_LAUNCHES", "ROWS_PER_PARTIAL",
-           "rms_norm_path", "rms_norm_blocks", "rms_bwd_partials"]
+           "rms_norm_path", "rms_norm_blocks", "rms_bwd_partials",
+           "layer_norm_path", "layer_norm_blocks", "ln_bwd_partials",
+           "layer_norm_bwd_row_warp_reference"]
 
 MAX_D = 16384
-# rows a dgamma (and dbeta) partial covers: kRows in csrc/layer_norm_bwd.cu
-# and in rms_norm_bwd.cu's per-warp design
+# rows a dgamma (and dbeta) partial covers in the per-warp designs: kRows
+# in csrc/layer_norm_bwd.cu and rms_norm_bwd.cu
 ROWS_PER_PARTIAL = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -53,17 +63,29 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # on CPU tensors do not count)
 LAUNCHES = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "rms_norm_fwd": 0,
             "rms_norm_bwd": 0}
-# the RMSNorm kernels' launches by the design that ran them
-# (rms_norm_path)
-PATH_LAUNCHES = {name: {"row_block": 0, "per_warp": 0}
-                 for name in ("rms_norm_fwd", "rms_norm_bwd")}
-_RMS_PATH_CODE = {"per_warp": 0, "row_block": 1}
+# the launches of the kernels with two designs by the design that ran
+# them (rms_norm_path, layer_norm_path)
+PATH_LAUNCHES = {"rms_norm_fwd": {"row_block": 0, "per_warp": 0},
+                 "rms_norm_bwd": {"row_block": 0, "per_warp": 0},
+                 "layer_norm_bwd": {"row_warp": 0, "per_warp": 0}}
+_PATH_CODE = {"per_warp": 0, "row_block": 1, "row_warp": 1}
 # the row-block design: 16-byte vectors a row must fill (csrc/row_block.cuh
 # holds at most two a thread of its 256; fewer than 128 leave most of the
-# block idle), and its persistent grid's blocks per SM
+# block idle)
 _ROW_BLOCK_VECTORS = (128, 512)
-_ROW_BLOCKS_PER_SM = {"rms_norm_fwd": 4, "rms_norm_bwd": 2}
-_PER_WARP_ROWS = {"rms_norm_fwd": 8, "rms_norm_bwd": ROWS_PER_PARTIAL}
+# the row-warp design (csrc/layer_norm_bwd.cu): 16-byte vectors a row must
+# fill (a warp's 32 lanes, at most kMaxLaneNv = 4 a lane) and warps a block
+# (kWarps)
+_ROW_WARP_VECTORS = (32, 128)
+_ROW_WARPS = 8
+# the persistent grids' blocks per SM
+_ROW_BLOCKS_PER_SM = {"rms_norm_fwd": 4, "rms_norm_bwd": 2,
+                      "layer_norm_bwd": 1}
+_PER_WARP_ROWS = {"rms_norm_fwd": 8, "rms_norm_bwd": ROWS_PER_PARTIAL,
+                  "layer_norm_bwd": ROWS_PER_PARTIAL}
+# warps a block of the partials' sum, each taking every _SUM_WARPS-th
+# partial (kSumWarps in csrc/layer_norm_bwd.cu)
+_SUM_WARPS = 32
 
 
 def is_supported(shape, dtype) -> bool:
@@ -165,26 +187,23 @@ def layer_norm_fwd(x2, gamma, beta, eps=1e-5):
 def layer_norm_bwd(x2, gamma, mean, rstd, dy):
     """Gradients of ``layer_norm_fwd``: from x2 [N, D], gamma, its fp32
     mean and rstd [N, 1] and dy [N, D], returns (dx in x2's dtype, dgamma
-    and dbeta [D] in gamma's dtype, summed in fp32)."""
+    and dbeta [D] in gamma's dtype, summed in fp32 over the partials of
+    ``ln_bwd_partials`` in a fixed order by the same call)."""
+    name = "layer_norm_bwd"
     _check(x2, (gamma,), (mean, rstd, dy))
-    _check_stats("layer_norm_bwd", x2, dy, mean, rstd)
-    n, d = x2.shape
+    _check_stats(name, x2, dy, mean, rstd)
     if x2.device.type == "cpu":
         return layer_norm_bwd_reference(x2, gamma, mean, rstd, dy)
-    stream = _stream("layer_norm_bwd", x2, gamma, mean, rstd, dy)
+    _stream(name, x2, gamma, mean, rstd, dy)
+    n, d = x2.shape
     dx = torch.empty_like(x2)
-    parts = torch.empty((2, -(-n // ROWS_PER_PARTIAL), d),
-                        dtype=torch.float32, device=x2.device)
-    rc = _build.load("layer_norm_bwd")(
-        x2.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-        parts[1].data_ptr(), n, d, _DTYPE_CODE[x2.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"layer_norm_bwd: kernel launch failed with CUDA "
-                           f"error {rc} (x {tuple(x2.shape)} {x2.dtype})")
-    LAUNCHES["layer_norm_bwd"] += 1
-    dgamma, dbeta = parts.sum(1).to(gamma.dtype)
-    return dx, dgamma, dbeta
+    dgb = torch.empty((2, d), dtype=gamma.dtype, device=x2.device)
+    path, blocks = _design(name, x2, gamma, dy, dx)
+    parts = torch.empty((blocks, 2 * d), dtype=torch.float32,
+                        device=x2.device)
+    _call(name, x2, (x2, gamma, mean, rstd, dy, dx, parts, dgb), (n, d),
+          path, blocks)
+    return dx, dgb[0], dgb[1]
 
 
 def layer_norm_fwd_reference(x2, gamma, beta, eps=1e-5):
@@ -211,6 +230,79 @@ def layer_norm_bwd_reference(x2, gamma, mean, rstd, dy):
     dx = (w - c1 - xhat * c2) * rstd
     return (dx.to(x2.dtype), (g * xhat).sum(0).to(gamma.dtype),
             g.sum(0).to(gamma.dtype))
+
+
+def layer_norm_path(dtype, d, aligned=True) -> str:
+    """The design of the LayerNorm backward kernel for rows of ``d``
+    elements of ``dtype``: ``"row_warp"`` where d fills 32 to 128 whole
+    16-byte vectors (a row in one warp's registers, one to four vectors
+    of x and of dy a lane: bf16 and fp16 D 256-1024, GPT-2's 768 among
+    them, fp32 D 128-512) and the tensors are 16-byte ``aligned``, else
+    ``"per_warp"``. The one place the rule is stated; the wrapper passes
+    it to the C entry, which runs that design or fails."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    lo, hi = _ROW_WARP_VECTORS
+    if aligned and d % per == 0 and lo <= d // per <= hi:
+        return "row_warp"
+    return "per_warp"
+
+
+def layer_norm_blocks(n, path, n_sm):
+    """Thread blocks of the LayerNorm backward kernel over n rows on design
+    ``path``: the row-warp design's persistent grid of _ROW_WARPS-warp
+    blocks, _ROW_BLOCKS_PER_SM an SM but never more than the rows fill
+    (from the shapes and the SM count alone, so the launch reads nothing
+    back and can be captured in a CUDA graph); the per-warp design's block
+    of ROWS_PER_PARTIAL rows."""
+    if path == "row_warp":
+        return min(-(-n // _ROW_WARPS),
+                   _ROW_BLOCKS_PER_SM["layer_norm_bwd"] * n_sm)
+    return -(-n // _PER_WARP_ROWS["layer_norm_bwd"])
+
+
+def ln_bwd_partials(n, path, n_sm):
+    """The rows each dgamma / dbeta partial of ``layer_norm_bwd`` covers,
+    one partial a block (``layer_norm_blocks``), in the order the kernel
+    adds them: warp w of block b of the row-warp design walks rows b * W
+    + w, then that plus blocks * W, ... (W = _ROW_WARPS), and the block
+    adds its warps in order; block b of the per-warp design takes
+    ROWS_PER_PARTIAL rows from b * ROWS_PER_PARTIAL. Every row lies in
+    exactly one partial."""
+    blocks = layer_norm_blocks(n, path, n_sm)
+    if path == "row_warp":
+        w = _ROW_WARPS
+        return [[r for warp in range(w)
+                 for r in range(b * w + warp, n, blocks * w)]
+                for b in range(blocks)]
+    return [range(b * ROWS_PER_PARTIAL, min(n, (b + 1) * ROWS_PER_PARTIAL))
+            for b in range(blocks)]
+
+
+def layer_norm_bwd_row_warp_reference(x2, gamma, mean, rstd, dy, n_sm):
+    """The plain version of the row-warp design's arithmetic on ``n_sm``
+    SMs, in fp32 and in the kernel's order: dx as
+    ``layer_norm_bwd_reference``; each warp's dy xhat (dgamma) and dy
+    (dbeta) added row by row in its walk order, a block's warps added in
+    warp order into its partial (``ln_bwd_partials``), the partials summed
+    as the sum kernel sums them (warp w of _SUM_WARPS takes partials w, w +
+    _SUM_WARPS, ... in order, then the warps' sums in order), rounded once
+    to gamma's dtype."""
+    n, d = x2.shape
+    g = dy.float()
+    terms = torch.stack((g * ((x2.float() - mean) * rstd), g))
+    blocks = layer_norm_blocks(n, "row_warp", n_sm)
+    w = _ROW_WARPS
+    steps = -(-n // (blocks * w))
+    # row step * blocks * w + b * w + warp, padded with zero rows
+    terms = torch.cat((terms, terms.new_zeros(2, steps * blocks * w - n, d)),
+                      1).reshape(2, steps, blocks, w, d)
+    warp_acc = functools.reduce(torch.add, terms.unbind(1))
+    part = functools.reduce(torch.add, warp_acc.unbind(2))   # [2, blocks, d]
+    sums = [functools.reduce(torch.add, part[:, s::_SUM_WARPS].unbind(1))
+            for s in range(min(_SUM_WARPS, blocks))]
+    dgamma, dbeta = functools.reduce(torch.add, sums).to(gamma.dtype)
+    dx = layer_norm_bwd_reference(x2, gamma, mean, rstd, dy)[0]
+    return dx, dgamma, dbeta
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -285,23 +377,26 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _rms_design(name, x2, *tensors):
-    """(path, blocks) of RMSNorm kernel ``name`` over x2 and ``tensors``
-    (their 16-byte alignment is part of ``rms_norm_path``'s rule)."""
+def _design(name, x2, *tensors):
+    """(path, blocks) of kernel ``name`` (an RMSNorm kernel or the
+    LayerNorm backward) over x2 and ``tensors`` (their 16-byte alignment
+    is part of ``rms_norm_path``'s and ``layer_norm_path``'s rules)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x2, *tensors))
-    path = rms_norm_path(x2.dtype, x2.shape[1], aligned)
-    return path, rms_norm_blocks(name, x2.shape[0], path,
-                                 _sm_count(x2.device.index))
+    (n, d), n_sm = x2.shape, _sm_count(x2.device.index)
+    if name == "layer_norm_bwd":
+        path = layer_norm_path(x2.dtype, d, aligned)
+        return path, layer_norm_blocks(n, path, n_sm)
+    path = rms_norm_path(x2.dtype, d, aligned)
+    return path, rms_norm_blocks(name, n, path, n_sm)
 
 
-def _rms_call(name, x2, tensors, ints, path, blocks):
-    """Launch RMSNorm kernel ``name`` on the current stream: the pointers
-    of ``tensors``, the ints, the dtype code, the design and its block
-    count. Raises on a refused launch, naming the design: no other is
-    tried."""
+def _call(name, x2, tensors, ints, path, blocks):
+    """Launch kernel ``name`` on the current stream: the pointers of
+    ``tensors``, the ints, the dtype code, the design and its block count.
+    Raises on a refused launch, naming the design: no other is tried."""
     rc = _build.load(name)(
         *(t.data_ptr() for t in tensors), *ints, _DTYPE_CODE[x2.dtype],
-        _RMS_PATH_CODE[path], blocks,
+        _PATH_CODE[path], blocks,
         torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
@@ -321,9 +416,8 @@ def rms_norm_fwd(x2, gamma, eps=1e-6):
     n, d = x2.shape
     y = torch.empty_like(x2)
     rstd = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
-    path, blocks = _rms_design(name, x2, gamma, y)
-    _rms_call(name, x2, (x2, gamma, y, rstd), (n, d, float(eps)), path,
-              blocks)
+    path, blocks = _design(name, x2, gamma, y)
+    _call(name, x2, (x2, gamma, y, rstd), (n, d, float(eps)), path, blocks)
     return y, rstd
 
 
@@ -341,10 +435,10 @@ def rms_norm_bwd(x2, gamma, rstd, dy):
     n, d = x2.shape
     dx = torch.empty_like(x2)
     dgamma = torch.empty_like(gamma)
-    path, blocks = _rms_design(name, x2, gamma, dy, dx)
+    path, blocks = _design(name, x2, gamma, dy, dx)
     parts = torch.empty((blocks, d), dtype=torch.float32, device=x2.device)
-    _rms_call(name, x2, (x2, gamma, rstd, dy, dx, parts, dgamma), (n, d),
-              path, blocks)
+    _call(name, x2, (x2, gamma, rstd, dy, dx, parts, dgamma), (n, d), path,
+          blocks)
     return dx, dgamma
 
 

@@ -74,7 +74,15 @@ Phases, in order; any failure exits non-zero:
      row-warp or per-warp); the ring chunk forward, dK/dV and dQ kernels
      (fp32, bf16 and fp16, D 64 and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
      257, offsets Sk, Sk - 1, 0, -17, -Sq and -Sq - 5; o, lse, dq, dk and
-     dv from cotangents of o and lse, fully masked launches exactly zero).
+     dv from cotangents of o and lse, fully masked launches exactly zero);
+     the sampler (sampler_checks): threefry words and _sample_rows tokens
+     against known answers made with JAX (KNOWN_WORDS, KNOWN_TOKENS), the
+     card's threefry words and uniforms at [8, V] byte-equal to the CPU's
+     (fp32, bf16, fp16; one key a row and one over the batch) and its
+     _sample_rows / _sample_next tokens equal to the CPU's over four
+     (top_k, top_p, temperature), with and without the repetition
+     penalty, and the card operations and ms of one call of each sampler
+     piece at [8, V] bf16.
      --kernels-only stops here (exit 0, no result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
@@ -97,12 +105,19 @@ Phases, in order; any failure exits non-zero:
      the split design (decode_attention.PATH_LAUNCHES) and every
      fused_dequant_matmul launch the tensor-core one
      (fused_dequant_matmul.PATH_LAUNCHES). The pool,
-     ring and weight bytes are read from the arrays;
+     ring and weight bytes are read from the arrays. Then sampled runs
+     (SAMPLED: top_k 50, top_p 0.95, temperature 0.8,
+     enable_repetition_penalty, every request at penalty 1.2) under each
+     scheduler and one rotary row run (sampled too), with the same
+     launch checks;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
      run launches exactly its one ring kernel 12 times per hidden pass,
-     the fp and int8 reads and fused writes on the split design;
+     the fp and int8 reads and fused writes on the split design; then
+     sampled with repetition_penalty 1.2, num_beams=4 (32 ring rows) and
+     bulk_prefill=True (12 flash launches on the tensor cores, then
+     12 a decode step);
   3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
      (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
      with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
@@ -151,8 +166,14 @@ Phases, in order; any failure exits non-zero:
      each flavor (under an int8 pool the card's phase scheduler against
      the CPU's phase scheduler: its bulk prefill attends exact K/V); the
      dense engines (row, flat, phase fp; row int8 ring) against the
-     CPU's dense row engine of the same flavor; generate_fused fp and
-     int8 ring, cache_write_kernel off and on, against the CPU's; every
+     CPU's dense row engine of the same flavor; sampled with the
+     repetition penalty, rotary (sampled) and head_quant="int8" under
+     each scheduler against the CPU's row engine (request seeds from
+     trng.seed(seed)); generate_fused fp and int8 ring,
+     cache_write_kernel off and on, and sampled with a penalty, rotary
+     and the int8 head, against the CPU's; on a mismatch the CPU's top-2
+     margin there (of the filtered logits plus the draw's gumbel noise
+     when sampled); every
      card launch of a two-design kernel there (the reads and the fused
      writes) on the per-head design (fp32 queries), every dequant-matmul
      launch on the fma one; GPT-2
@@ -201,12 +222,20 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from paddle_tpu_torch import TOLERANCES
+from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.incubate.nn import FusedFeedForward
 from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
 from paddle_tpu_torch.inference.generation import (_absmax_int4,
-                                                   _absmax_int8, _pack_int4,
+                                                   _absmax_int8,
+                                                   _filter_logits,
+                                                   _host_seed, _pack_int4,
+                                                   _penalize_slots,
+                                                   _presence_from,
+                                                   _sample_next,
+                                                   _sample_rows,
                                                    generate_fused)
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
@@ -220,8 +249,8 @@ from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import context_parallel as cpar
-from paddle_tpu_torch.profile_serving import (E, FF, H, SCHEDULERS, V,
-                                              gpt2_workload)
+from paddle_tpu_torch.profile_serving import (E, FF, H, SAMPLED, SCHEDULERS,
+                                              V, gpt2_workload)
 from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
                                             LLAMA_BATCH, LLAMA_CONFIG,
                                             LLAMA_SEQ, SEQ,
@@ -244,10 +273,33 @@ DENSE = {"row-dense": ("row", {"paged": False}),
          "flat-dense": ("flat", {"paged": False}),
          "phase-dense": ("phase", {"paged": False}),
          "row-dense-kv8": ("row", {"paged": False, "kv_quant": "int8"})}
-# one-shot generate_fused: run name -> keyword args
-GENERATE = {"gen": {}, "gen-kw": {"cache_write_kernel": True},
-            "gen-kv8": {"kv_quant": "int8"},
-            "gen-kv8-kw": {"kv_quant": "int8", "cache_write_kernel": True}}
+# the engine's sampled runs take SAMPLED (every request submitted with
+# repetition_penalty 1.2); generate takes its sampling options
+SAMPLE = {k: v for k, v in SAMPLED.items() if k != "enable_repetition_penalty"}
+# one-shot generate_fused: run name -> (FusedDecoder keyword args,
+# generate keyword args)
+GENERATE = {"gen": ({}, {}), "gen-kw": ({"cache_write_kernel": True}, {}),
+            "gen-kv8": ({"kv_quant": "int8"}, {}),
+            "gen-kv8-kw": ({"kv_quant": "int8", "cache_write_kernel": True},
+                           {}),
+            "gen-sampled": ({}, {**SAMPLE, "repetition_penalty": 1.2}),
+            "gen-beam4": ({}, {"num_beams": 4}),
+            "gen-bulk": ({"bulk_prefill": True}, {})}
+# known answers, made with the JAX package on the CPU (jax 0.9.0,
+# jax_threefry_partitionable on; the card's machine has no JAX): the
+# words of jax._src.prng.threefry2x32_p under key (0x12345678,
+# 0x9ABCDEF0) at counters (0, i), i = 0..7; and the tokens of
+# jax.jit(generation._sample_rows) on (np.random.default_rng(2024)
+# .standard_normal((4, 1000)) * 3).astype(np.float32), in fp32 and cast
+# to bf16, seeds [11, 22, 33, 44], nt [0, 1, 2, 3]: top_k 50, top_p 0.9,
+# temperature 0.8, then top_k 0, top_p 1.0, temperature 1.0
+KNOWN_WORDS = ([3978822521, 2085429205, 1630462717, 763154297, 3821564514,
+                545324050, 864517526, 984784270],
+               [2696639427, 1499321931, 2825784901, 2793666216, 4170576086,
+                3839459904, 2075419323, 334005006])
+KNOWN_TOKENS = {torch.float32: ([279, 585, 905, 214], [153, 946, 905, 214]),
+                torch.bfloat16: ([715, 389, 998, 904],
+                                 [715, 389, 998, 904])}
 # GPT-2's four layer matmuls: name -> (K, O)
 MATMULS = {"qkv": (E, 3 * E), "lin": (E, E), "f1": (E, FF), "f2": (FF, E)}
 
@@ -374,7 +426,153 @@ def phase_kernels(rng):
     rms_kernels(rng, worst)
     ln_kernels(rng, worst)
     ring_kernels(rng, worst)
+    sampler_checks(rng)
     return worst
+
+
+def gumbel_margin(logits, key, row=None):
+    """Top-2 margin of logits plus the gumbel noise ``key`` draws over
+    them (one key per row, [B, 2], or one over the batch, [2]; ``row``
+    (b, i): logits [1, V] are row i of a [b, V] draw under one key): how
+    far the sampled token was from its runner-up."""
+    shape = logits.shape if row is None else (row[0], logits.shape[-1])
+    g = trng.gumbel(key.to(logits.device), shape, logits.dtype)
+    if row is not None:
+        g = g[row[1]:row[1] + 1]
+    top = (g + logits).float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min().item()
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen operations dispatched that are not views: each
+    puts at most one kernel on the card."""
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += not func.is_view
+        return func(*args, **(kwargs or {}))
+
+
+def device_ops(fn):
+    """(card events torch.profiler records for one call of ``fn``, the
+    ATen operations it dispatches that are not views)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with _OpCount() as ops:
+        fn()
+    return (sum(ev.device_type == torch.autograd.DeviceType.CUDA
+                for ev in prof.events()), ops.n)
+
+
+def sampler_checks(rng):
+    """The sampler (``core.rng`` and ``_sample_rows`` / ``_sample_next``)
+    on the card: the known answers; the threefry words and the uniforms
+    of fp32, bf16 and fp16 draws at GPT-2's vocab byte-equal to the
+    CPU's; the sampled tokens equal to the CPU's over several (top_k,
+    top_p, temperature), with the repetition penalty; and the card
+    operations a sampled step's sampler adds."""
+    log("  sampler: known answers, then the card against the CPU at "
+        f"[8, {V}]")
+    dev = torch.device("cuda")
+    words = trng.threefry2x32(
+        torch.tensor(0x12345678, device=dev),
+        torch.tensor(0x9ABCDEF0, device=dev),
+        torch.zeros(8, dtype=torch.int64, device=dev),
+        torch.arange(8, device=dev))
+    if tuple(w.tolist() for w in words) != KNOWN_WORDS:
+        raise SystemExit(f"threefry words on the card {words}, JAX's "
+                         f"{KNOWN_WORDS}")
+    lg = (np.random.default_rng(2024).standard_normal((4, 1000))
+          * 3).astype(np.float32)
+    seeds = torch.tensor([11, 22, 33, 44], device=dev)
+    nt = torch.tensor([0, 1, 2, 3], device=dev)
+    for dtype, want in KNOWN_TOKENS.items():
+        x = torch.from_numpy(lg).to(device=dev, dtype=dtype)
+        got = (_sample_rows(x, True, 50, 0.9, 0.8, seeds, nt).tolist(),
+               _sample_rows(x, True, 0, 1.0, 1.0, seeds, nt).tolist())
+        if got != want:
+            raise SystemExit(f"_sample_rows {dtype} on the card {got}, "
+                             f"JAX's {want}")
+    b = 8
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 31, b))
+    nt = torch.from_numpy(rng.integers(0, 500, b))
+    keys = trng.fold_in(trng.prng_key(seeds), nt)
+    pres = torch.from_numpy(rng.random((b, V)) < 0.01)
+    pen = torch.from_numpy(rng.uniform(1.0, 1.5, b).astype(np.float32))
+    eos = torch.full((b,), -1)
+    draws = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        tiny = torch.finfo(dtype).tiny
+        for key in (keys, keys[0]):
+            shape = (b, V)
+            width = {torch.float32: 32, torch.bfloat16: 8,
+                     torch.float16: 16}[dtype]
+            same_bytes(f"threefry words {dtype} key {tuple(key.shape)}",
+                       trng.random_bits(key.to(dev), width, shape).cpu(),
+                       trng.random_bits(key, width, shape), quiet=True)
+            same_bytes(f"uniforms {dtype} key {tuple(key.shape)}",
+                       trng.uniform(key.to(dev), shape, dtype, tiny,
+                                    1.0).cpu(),
+                       trng.uniform(key, shape, dtype, tiny, 1.0),
+                       quiet=True)
+        x = (torch.from_numpy(rng.standard_normal((b, V)).astype(
+            np.float32)) * 3).to(dtype)
+        for flt in ((50, 0.95, 0.8), (0, 0.9, 1.0), (0, 1.0, 0.7),
+                    (200, 1.0, 1.0)):
+            for with_pen in (False, True):
+                args = (x, pres, pen) if with_pen else (x, None, pen)
+
+                def sample(dev_):
+                    lx, p_, r_ = (a if a is None else a.to(dev_)
+                                  for a in args)
+                    lx = _penalize_slots(lx, p_, r_, nt.to(dev_),
+                                         nt.to(dev_), eos.to(dev_))
+                    return (_sample_rows(lx, True, *flt, seeds.to(dev_),
+                                         nt.to(dev_)).cpu(),
+                            _sample_next(lx, True, *flt,
+                                         keys[0].to(dev_)).cpu(), lx)
+                got_r, got_n, _ = sample(dev)
+                want_r, want_n, lx = sample("cpu")
+                draws += 2 * b
+                if not (torch.equal(got_r, want_r)
+                        and torch.equal(got_n, want_n)):
+                    f = _filter_logits(lx, True, *flt)
+                    raise SystemExit(
+                        f"sampled tokens {dtype} {flt} penalty={with_pen}: "
+                        f"card {got_r.tolist()} / {got_n.tolist()}, CPU "
+                        f"{want_r.tolist()} / {want_n.tolist()}; the CPU's "
+                        "top-2 margins of filtered logits plus gumbel "
+                        f"{gumbel_margin(f, keys):.3e} (rows), "
+                        f"{gumbel_margin(f, keys[0]):.3e} (one key)")
+    log(f"  sampler: words and uniforms byte-equal, {draws} sampled tokens "
+        "equal to the CPU's, known answers equal to JAX's")
+    x = (torch.randn((b, V), device=dev) * 3).to(torch.bfloat16)
+    d_seeds, d_nt, d_pres, d_pen = (a.to(dev) for a in (seeds, nt, pres,
+                                                        pen))
+    d_eos = eos.to(dev)
+    steps = {
+        "argmax (greedy)": lambda: _sample_rows(x, False, 0, 1.0, 1.0,
+                                                d_seeds, d_nt),
+        "_penalize_slots, no presence": lambda: _penalize_slots(
+            x, None, d_pen, d_nt, d_nt, d_eos),
+        "_penalize_slots with presence": lambda: _penalize_slots(
+            x, d_pres, d_pen, d_nt, d_nt, d_eos),
+        "_sample_rows top_k 50": lambda: _sample_rows(
+            x, True, 50, 1.0, 0.8, d_seeds, d_nt),
+        "_sample_rows top_k 50 top_p 0.95": lambda: _sample_rows(
+            x, True, 50, 0.95, 0.8, d_seeds, d_nt)}
+    for name, fn in steps.items():
+        events, ops = device_ops(fn)
+        log(f"  sampler ops at [8, {V}] bf16, {name}: {events} card events "
+            f"(torch.profiler), {ops} ATen operations not views, "
+            f"{time_loop_ms(lambda i=0: fn(), 20):.4f} ms a call (host "
+            "included)")
 
 
 def split_kernels(rng, worst):
@@ -1226,10 +1424,10 @@ def flat_case(rng, chunks, *, h, hk, d, bt, nblk, n_layers, layer, dtype,
             torch.from_numpy(tables).cuda(), *meta, layer)
 
 
-def serve(eng, reqs):
+def serve(eng, reqs, **submit_kw):
     """Submit (prompt, max_new) pairs, run to the end; returns
     ({rid: tokens}, steps, seconds)."""
-    rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+    rids = [eng.submit(p, max_new_tokens=m, **submit_kw) for p, m in reqs]
     steps = 0
     t0 = time.perf_counter()
     while eng.has_work:
@@ -1254,6 +1452,13 @@ def phase_engine(seed):
     for name, (sched, kwargs) in DENSE.items():
         runs[name] = serve_counted(seed, name,
                                    {**SCHEDULERS[sched], **kwargs})
+    t0 = time.perf_counter()
+    for sched, kwargs in SCHEDULERS.items():
+        runs[sched + "-sampled"] = serve_counted(
+            seed, sched + "-sampled", {**kwargs, **SAMPLED})
+    runs["row-rotary"] = serve_counted(seed, "row-rotary",
+                                       {"use_rotary": True, **SAMPLED})
+    log(f"  the sampled and rotary runs: {time.perf_counter() - t0:.1f} s")
     for name, run in runs.items():
         kv8, w4, dense = "kv8" in name, "w4" in name, "dense" in name
         read = ("decode_attention_stacked" if dense
@@ -1307,7 +1512,9 @@ def check_bytes(runs):
 def phase_generate(seed):
     log("== phase 3b: generate_fused at GPT-2-124M width, bf16, L=12: B=8, "
         "256-token prompts, 128 new tokens, max_seq_len=1024, fp and "
-        "kv_quant='int8', cache_write_kernel off and on")
+        "kv_quant='int8', cache_write_kernel off and on; sampled (top_k "
+        "50, top_p 0.95, temperature 0.8, repetition_penalty 1.2), "
+        "num_beams=4 and bulk_prefill=True")
     rng = np.random.default_rng(seed + 3)
     mods = from_jax_state(*random_state(rng, E, H, FF, 12, V),
                           dtype=torch.bfloat16)
@@ -1316,16 +1523,17 @@ def phase_generate(seed):
     # warm-up: cuBLAS handles, allocator pools
     generate_fused(mods[0], ids[:, :4], *mods[1:], max_new_tokens=2)
     launches = {}
-    for name, kwargs in GENERATE.items():
-        dec = FusedDecoder(*mods, 1024, **kwargs)
+    for name, (ctor, kwargs) in GENERATE.items():
+        dec = FusedDecoder(*mods, 1024, **ctor)
+        trng.seed(seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        out = dec.generate(ids, max_new_tokens=new)
+        out = dec.generate(ids, max_new_tokens=new, **kwargs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got = {k: v for k, v in da.LAUNCHES.items() if v}
+        got = {k: v for k, v in {**da.LAUNCHES, **fa.LAUNCHES}.items() if v}
         peak = torch.cuda.max_memory_allocated()
         ring_b = sum(a.nbytes for a in dec.ring_caches(
             dec.init_cache(ids.shape[0])).values())
@@ -1333,20 +1541,29 @@ def phase_generate(seed):
                                                 else "")
                   + ("_write" if "kw" in name else ""))
         # one launch per layer of each of the prompt + new - 1 hidden
-        # passes, and no other attention kernel
+        # passes, and no other attention kernel; bulk prefill: one flash
+        # launch per layer for the prompt, then new - 1 hidden passes
         want = {kernel: 12 * (prompt + new - 1)}
-        if tuple(out.shape) != (8, prompt + new) or got != want \
-                or fa.LAUNCHES["flash_attention_fwd"]:
+        if ctor.get("bulk_prefill"):
+            want = {kernel: 12 * (new - 1), "flash_attention_fwd": 12}
+        if tuple(out.shape) != (8, prompt + new) or got != want:
             raise SystemExit(f"[{name}] output {tuple(out.shape)}, "
                              f"launches {got}: want (8, {prompt + new}) "
                              f"and {want}")
+        if not np.array_equal(out[:, :prompt].numpy(), ids) or \
+                out.min() < 0 or out.max() >= V:
+            raise SystemExit(f"[{name}] output does not start with the "
+                             "prompt or holds a token outside the vocab")
         if kernel in da.PATH_LAUNCHES:    # a two-design kernel: split
-            check_paths(f"[{name}]", want)
+            check_paths(f"[{name}]", {kernel: want[kernel]})
+        if "flash_attention_fwd" in want:
+            check_tensor_core_path(f"[{name}] flash", fa,
+                                   ("flash_attention_fwd",))
         log(f"  [{name}] {out.shape[0]} x ({prompt} + {new}) tokens in "
             f"{dt:.3f} s: generated tokens/s {8 * new / dt:.1f}, hidden "
             f"passes/s {(prompt + new - 1) / dt:.1f}; max_memory_allocated "
             f"{peak} bytes, ring {ring_b} bytes; launches {got}")
-        launches[name] = dict(da.LAUNCHES)
+        launches[name] = {**da.LAUNCHES, **fa.LAUNCHES}
     return launches
 
 
@@ -1392,11 +1609,15 @@ def serve_counted(seed, name, kwargs):
     def spy(qt, *a, **k):
         forms[qt.shape[2]] += 1
         return kernel(qt, *a, **k)
+    # a sampling engine's request seeds come from the global key stream
+    submit_kw = ({"repetition_penalty": 1.2}
+                 if kwargs.get("enable_repetition_penalty") else {})
+    trng.seed(seed)
     torch.cuda.reset_peak_memory_stats()
     setattr(da, attr, spy)
     reset_launches()
     try:
-        out, steps, dt = serve(fresh, reqs)
+        out, steps, dt = serve(fresh, reqs, **submit_kw)
     finally:
         setattr(da, attr, kernel)
     launches = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
@@ -1849,13 +2070,22 @@ def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
                          "parameters")
 
 
-def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
-    """Top-2 logit margin of the CPU model (quantized as ``flavor``
-    says) after prompt + prefix (the context at the first differing
-    token), through a fresh pool."""
+# the decoder's own options among a phase-4 flavor's keyword args
+DECODER_KW = ("kv_quant", "weight_quant", "use_rotary", "head_quant")
+
+
+def first_gap_margin(mods_cpu, prompt, prefix, key=None, flavor=None,
+                     pen=1.2, row=None):
+    """Top-2 margin of the CPU model (built as ``flavor`` says) after
+    prompt + prefix (the context at the first differing token), through
+    a fresh pool; for a sampled flavor (``key``: the draw's key, ``row``
+    as ``gumbel_margin`` takes it) the margin of the filtered (and, with
+    a repetition penalty, penalized) logits plus the draw's gumbel
+    noise."""
+    flavor = flavor or {}
     ctx = np.concatenate([prompt, np.asarray(prefix, np.int64)])
     dec = FusedDecoder(*mods_cpu, max_seq_len=len(ctx) + 1, device="cpu",
-                       **flavor)
+                       **{k: v for k, v in flavor.items() if k in DECODER_KW})
     pool = BlockPool(dec.smax // 64, 64, dec.smax)
     caches = dec.init_paged_cache(pool)
     caches["tbl"] = torch.arange(pool.num_blocks, dtype=torch.int32)[None]
@@ -1865,8 +2095,41 @@ def first_gap_margin(mods_cpu, prompt, prefix, **flavor):
         x = dec.spec_hidden(dec._stacked(), caches, part,
                             torch.full((1,), c0, dtype=torch.int64),
                             torch.ones_like(part, dtype=torch.bool))
-    top = dec.head_logits(x[:, -1]).float().topk(2).values[0]
-    return float(top[0] - top[1])
+    logits = dec.head_logits(x[:, -1]).float()
+    if key is None:
+        top = logits.topk(2).values[0]
+        return float(top[0] - top[1])
+    if flavor.get("enable_repetition_penalty") or \
+            flavor.get("repetition_penalty", 1.0) != 1.0:
+        logits = _penalize_slots(logits, _presence_from(toks, V),
+                                 torch.full((1,), pen), torch.zeros(1),
+                                 torch.zeros(1), torch.full((1,), -1))
+    flt = tuple(flavor[k] for k in ("top_k", "top_p", "temperature"))
+    return gumbel_margin(_filter_logits(logits, True, *flt), key, row)
+
+
+def generate_keys(seed, max_new):
+    """The keys of generate's sampled draws after ``trng.seed(seed)``
+    without eos: the head step's ``next_key()``, then each chunk of the
+    ladder (64, halved to fit) ``split(next_key(), chunk)``."""
+    trng.seed(seed)
+    keys, remaining = [trng.next_key()], max_new - 1
+    while remaining > 0:
+        chunk = 64
+        while chunk > remaining:
+            chunk //= 2
+        keys.extend(trng.split(trng.next_key(), chunk))
+        remaining -= chunk
+    return keys
+
+
+def request_keys(seed, n):
+    """The seeds a sampling engine's n requests draw at submit after
+    ``trng.seed(seed)``, as a function of (request, token index) ->
+    the key of that draw."""
+    trng.seed(seed)
+    seeds = [_host_seed(trng.next_key()) for _ in range(n)]
+    return lambda i, j: trng.fold_in(trng.prng_key(seeds[i]), j)
 
 
 def phase_parity(seed):
@@ -1883,7 +2146,10 @@ def phase_parity(seed):
                "kv8-w4": (QUANT["kv8-w4"], list(SCHEDULERS)),
                "w8": (QUANT["w8"], ["row"]),
                "dense": ({"paged": False}, list(SCHEDULERS)),
-               "dense-kv8": ({"paged": False, "kv_quant": "int8"}, ["row"])}
+               "dense-kv8": ({"paged": False, "kv_quant": "int8"}, ["row"]),
+               "sampled": (SAMPLED, list(SCHEDULERS)),
+               "rotary": ({"use_rotary": True, **SAMPLED}, list(SCHEDULERS)),
+               "head8": ({"head_quant": "int8"}, list(SCHEDULERS))}
     for fname, (flavor, scheds) in flavors.items():
         # an int8 pool makes the phase scheduler a computation of its own:
         # its bulk prefill attends the prompt over exact K/V and quantizes
@@ -1901,8 +2167,11 @@ def phase_parity(seed):
             eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
                                 device=dev, **SCHEDULERS[name], **flavor)
             reset_launches()
+            trng.seed(seed)
             t0 = time.perf_counter()
-            outs[dev, name] = list(serve(eng, reqs)[0].values())
+            outs[dev, name] = list(serve(
+                eng, reqs, **({"repetition_penalty": 1.2} if flavor.get(
+                    "enable_repetition_penalty") else {}))[0].values())
             log(f"  [{fname}] {dev} {name}: {time.perf_counter() - t0:.2f} s")
             if dev == "cuda":             # fp32 queries: the per-head design
                 check_all_per_head(f"[{fname}] {name}")
@@ -1915,19 +2184,22 @@ def phase_parity(seed):
                     len(a), len(b))
                 mods = from_jax_state(*state, device="cpu",
                                       dtype=torch.float32)
-                margin = first_gap_margin(
-                    mods, reqs[i][0], b[:j],
-                    **{k: v for k, v in flavor.items() if k != "paged"})
+                key = (request_keys(seed, len(reqs))(i, j)
+                       if flavor.get("do_sample") else None)
+                margin = first_gap_margin(mods, reqs[i][0], b[:j], key,
+                                          flavor)
+                what = ("filtered logits plus gumbel" if key is not None
+                        else "logits")
                 raise SystemExit(
                     f"[{fname}] request {i}: card ({name}) and CPU "
                     f"({oracle[name]}) tokens differ at index {j} "
-                    f"({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 logit "
-                    f"margin there {margin:.3e}")
+                    f"({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 margin of "
+                    f"the {what} there {margin:.3e}")
         log(f"  [{fname}] {len(reqs)} requests, "
             f"{sum(len(t) for t in outs['cpu', 'row'])} tokens: each of "
             f"{', '.join(scheds)} on the card identical to "
             f"{' / '.join(cpu)} on the CPU")
-    parity_generate(state, rng)
+    parity_generate(state, rng, seed)
     phase_train_parity(seed)
     with environ(FUSED_FFN_FLAGS):
         phase_train_parity(seed, label="train-ffn", kernels=tuple(
@@ -2033,41 +2305,53 @@ def parity_fmt(seed, b=2, chunk=16, steps=8, smax=256, n_layers=2):
         f"{tol['atol']}, rtol {tol['rtol']}) ok")
 
 
-def parity_generate(state, rng):
-    """generate over the ring, fp and kv_quant="int8": the card's tokens
+def parity_generate(state, rng, seed):
+    """generate over the ring: fp and kv_quant="int8", the card's tokens
     with cache_write_kernel off and on against the CPU's (write, then
-    read) of the same flavor."""
+    read) of the same flavor; then sampled with a repetition penalty,
+    rotary (sampled) and the int8 head, the card's against the CPU's."""
     ids = rng.integers(0, V, (4, 48))
-    for fname, flavor in (("fp", {}), ("kv8", {"kv_quant": "int8"})):
+    sampled = {**SAMPLE, "repetition_penalty": 1.2}
+    runs = [("fp", {}, {}, (False, True)),
+            ("kv8", {"kv_quant": "int8"}, {}, (False, True)),
+            ("sampled", {}, sampled, (False,)),
+            ("rotary", {"use_rotary": True}, sampled, (False,)),
+            ("head8", {"head_quant": "int8"}, {}, (False,))]
+    for fname, flavor, gen_kw, writes in runs:
         outs = {}
-        for dev, kw in (("cuda", False), ("cuda", True), ("cpu", False)):
+        for dev, kw in [("cuda", w) for w in writes] + [("cpu", False)]:
             mods = from_jax_state(*state, device=dev, dtype=torch.float32)
             reset_launches()
+            trng.seed(seed)
             t0 = time.perf_counter()
             outs[dev, kw] = generate_fused(
                 mods[0], ids, *mods[1:], max_new_tokens=24,
                 max_seq_len=1024, cache_write_kernel=kw, device=dev,
-                **flavor).numpy()[:, 48:]
+                **flavor, **gen_kw).numpy()[:, 48:]
             log(f"  [generate {fname}] {dev} cache_write_kernel={kw}: "
                 f"{time.perf_counter() - t0:.2f} s")
             if dev == "cuda":
                 check_all_per_head(f"[generate {fname}] write={int(kw)}")
         want = outs["cpu", False]
-        for kw in (False, True):
+        for kw in writes:
             got = outs["cuda", kw]
             if np.array_equal(got, want):
                 continue
             i = int(np.argmax((got != want).any(axis=1)))
             j = int(np.argmax(got[i] != want[i]))
             mods = from_jax_state(*state, device="cpu", dtype=torch.float32)
-            margin = first_gap_margin(mods, ids[i], want[i, :j], **flavor)
+            key = generate_keys(seed, 24)[j] if gen_kw else None
+            margin = first_gap_margin(mods, ids[i], want[i, :j], key,
+                                      {**flavor, **gen_kw},
+                                      row=(ids.shape[0], i))
             raise SystemExit(
                 f"[generate {fname}] row {i}: card (cache_write_kernel="
                 f"{kw}) and CPU tokens differ at index {j} "
                 f"({got[i, j:j + 4]} vs {want[i, j:j + 4]}); CPU top-2 "
-                f"logit margin there {margin:.3e}")
-        log(f"  [generate {fname}] {want.size} tokens: the card's with "
-            "cache_write_kernel off and on identical to the CPU's")
+                f"margin there {margin:.3e}")
+        log(f"  [generate {fname}] {want.size} tokens: the card's "
+            f"(cache_write_kernel {'off and on' if len(writes) > 1 else 'off'}"
+            ") identical to the CPU's")
 
 
 def time_ms(fn, reps):

@@ -1,9 +1,9 @@
 """FusedDecoder: the step cores of the serving path and one-shot
 generation.
 
-Counterpart of the greedy subset of
-``paddle_tpu/inference/generation.py::FusedDecoder`` and
-``generate_fused``: the ``_stacked`` weight layout (qkv fused
+Counterpart of ``paddle_tpu/inference/generation.py::FusedDecoder`` and
+``generate_fused`` but for ``generate``'s ``prefix_cache`` and
+``spec_k`` and the mesh: the ``_stacked`` weight layout (qkv fused
 head-major), the two KV layouts (``init_paged_cache``, the block pool
 the engine defaults to, and ``init_cache``, the dense ring [L, 2, B, H,
 Smax, D] of ``generate`` and ``ServingEngine(paged=False)``), the
@@ -13,7 +13,18 @@ hidden cores (``hidden`` for one token per row, ``spec_hidden`` for a
 [B, C] block, ``flat_hidden`` for the flat budget's ragged [T] stream,
 ``bulk_hidden`` for a whole prompt), the dispatches the serving engine
 builds from them (``_build_budget_core``, ``_build_flat_budget_core``
-and the trailing decode scan ``_make_budget_tail``), and ``generate``.
+and the trailing decode scan ``_make_budget_tail``), and ``generate``
+(greedy, sampled, beam search; prefilled a position at a time or, with
+``bulk_prefill``, in one flash pass).
+
+Sampling is JAX's, draw for draw: ``_filter_logits`` (temperature,
+top-k, top-p), ``_sample_next`` (one key over the whole [B, V], as
+``generate`` draws) and ``_sample_rows`` (a fold_in(PRNGKey(seed), nt)
+key a row, as the engine draws) over ``core.rng``'s threefry keys and
+gumbel noise; ``_penalize`` and ``_penalize_slots`` apply the
+repetition penalty and min_length. Rotary embeddings (``use_rotary``)
+rotate q and k at each token's absolute position in every hidden core;
+the FFN takes any of ``ACTIVATIONS``.
 
 The step pieces take the caches as a dict: ``{"kv"(, "sc")}`` is a dense
 ring (int8 with fp32 scales [L, 2, B, H, 1, Smax] under
@@ -47,7 +58,7 @@ quantizes its new rows with ``_absmax_int8`` and the reads take
 ``decode_attention.decode_attention_paged_i8``,
 ``decode_attention_paged_flat_i8`` and ``decode_attention_stacked_i8``
 (``decode_attention_stacked_i8_write`` quantizes in the kernel). The LM
-head stays fp.
+head stays fp unless ``head_quant="int8"``.
 """
 from __future__ import annotations
 
@@ -55,9 +66,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import rng as _rng
 from ..device import resolve_device
 from ..ops import decode_attention as _attn
 from ..ops import flash_attention as _fa
+from ..nn.layer.common import Linear
 from ..ops import fused_dequant_matmul as _fdm
 
 __all__ = ["FusedDecoder", "generate_fused"]
@@ -103,38 +116,182 @@ def _pack_int4(q, axis):
     return ((lo & 0x0F) | (hi << 4)).to(torch.int8).contiguous()
 
 
-def _penalize_slots(logits, nt, min_len, eos_ids):
-    """min_length: suppress each row's own eos column while that row has
-    generated fewer than its min_length tokens (eos_ids < 0: no eos)."""
+def _scalar(v, like):
+    """``v`` as a 0-d tensor of ``like``'s dtype on its device: JAX turns
+    a Python scalar into a weak-typed constant of the array's dtype. The
+    value passes through fp32, so -1e30 becomes fp16's -inf (JAX's)
+    instead of an overflow error."""
+    return torch.full((), v, dtype=torch.float32,
+                      device=like.device).to(like.dtype)
+
+
+def _div_const(x, v):
+    """x / v for a constant v (a Python scalar baked into the program, as
+    the temperature and generate's repetition penalty are), as XLA
+    compiles it: x times the reciprocal of v, taken in x's dtype, or in
+    fp32 for bf16, which XLA computes in fp32."""
+    if x.dtype == torch.bfloat16:
+        r = torch.ones((), device=x.device) / _scalar(v, x).float()
+        return (x.float() * r).to(x.dtype)
+    return x * (torch.ones((), dtype=x.dtype, device=x.device)
+                / _scalar(v, x))
+
+
+def _blocked_cumsum(p, base=16):
+    """Cumulative sum over the last axis of p [B, V] in p's dtype, in the
+    order XLA gives JAX's ``cumsum`` on the CPU: each block of ``base``
+    summed left to right with every add rounded to the dtype, the blocks'
+    totals scanned the same way (recursively), each block's exclusive
+    prefix added last. The adds are elementwise, so the card and the CPU
+    round alike."""
+    b, v = p.shape
+    nb = -(-v // base)
+    blocks = F.pad(p, (0, nb * base - v)).reshape(b, nb, base)
+    acc, within = blocks[:, :, 0], [blocks[:, :, 0]]
+    for j in range(1, base):
+        acc = acc + blocks[:, :, j]
+        within.append(acc)
+    within = torch.stack(within, -1)
+    if nb == 1:
+        return within.reshape(b, -1)[:, :v]
+    inc = _blocked_cumsum(within[:, :, -1], base)
+    pre = F.pad(inc[:, :-1], (1, 0))
+    return (pre[:, :, None] + within).reshape(b, -1)[:, :v]
+
+
+def _filter_logits(logits, do_sample, top_k, top_p, temperature):
+    """Temperature, then top-k (every logit below the k-th largest masked
+    to -1e30, ties kept), then top-p (every logit below the one at which
+    the sorted softmax's cumulative sum first reaches top_p), each in the
+    logits' dtype as JAX's ``_filter_logits``."""
+    if not do_sample:
+        return logits
+    logits = _div_const(logits, max(temperature, 1e-6))
+    neg = _scalar(NEG_INF, logits)
+    if top_k and top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p and top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        # jax.nn.softmax op by op in the dtype; its sum upcasts to fp32
+        e = torch.exp(srt - srt[:, :1])
+        probs = e / e.float().sum(-1, keepdim=True).to(e.dtype)
+        cut = (_blocked_cumsum(probs) < _scalar(top_p, probs)).sum(
+            -1, keepdim=True)
+        kth = srt.gather(-1, cut.clamp(max=srt.shape[-1] - 1))
+        logits = torch.where(logits < kth, neg, logits)
+    return logits
+
+
+def _penalize(logits, presence, repetition_penalty, nt, min_length, eos):
+    """``generate``'s logit controls: repetition_penalty divides positive
+    and multiplies negative logits of every token in ``presence`` [B, V]
+    (the context so far), and min_length masks the eos column while
+    fewer than min_length tokens (``nt``) were generated."""
+    if repetition_penalty != 1.0 and presence is not None:
+        pen = _scalar(repetition_penalty, logits)
+        logits = torch.where(
+            presence, torch.where(logits > 0, _div_const(
+                logits, repetition_penalty), logits * pen), logits)
+    if min_length and eos is not None and nt < min_length:
+        logits = logits.clone()
+        logits[:, eos] = _scalar(NEG_INF, logits)
+    return logits
+
+
+def _host_seed(key):
+    """A key's last word masked to 31 bits: the seed of a host-side draw
+    (a request's sampling seed in the serving engine)."""
+    return int(key.reshape(-1)[-1]) & 0x7FFFFFFF
+
+
+def _presence_from(ids, vocab):
+    """[B, V] bool: which tokens each row of ids [B, S] holds."""
+    p = torch.zeros((ids.shape[0], vocab), dtype=torch.bool,
+                    device=ids.device)
+    return p.scatter_(1, ids.long(), True)
+
+
+def _sample_next(logits, do_sample, top_k, top_p, temperature, key=None):
+    """logits [B, V] -> [B] token ids: argmax, or one categorical draw
+    under ``key`` (default ``next_key()``) whose counters run over the
+    whole [B, V]."""
+    if not do_sample:
+        return logits.argmax(-1)
+    logits = _filter_logits(logits, do_sample, top_k, top_p, temperature)
+    return _rng.categorical(key if key is not None else _rng.next_key(),
+                            logits)
+
+
+def _sample_rows(logits, do_sample, top_k, top_p, temperature, seeds, nt):
+    """The serving engine's per-row draw: row b samples from
+    fold_in(PRNGKey(seeds[b]), nt[b]) over its own [V], so a request's
+    nt-th token depends on its seed and nt only, whatever dispatch or
+    slot produced it. logits [B, V]; seeds, nt [B] -> [B] token ids."""
+    if not do_sample:
+        return logits.argmax(-1)
+    logits = _filter_logits(logits, do_sample, top_k, top_p, temperature)
+    keys = _rng.fold_in(_rng.prng_key(seeds, device=logits.device), nt)
+    return _rng.categorical(keys, logits)
+
+
+def _penalize_slots(logits, presence, rep_pen, nt, min_len, eos_ids):
+    """The engine's per-slot logit controls: with ``presence`` [B, V]
+    (None: off), each row's context tokens are divided (positive) or
+    multiplied (negative) by its rep_pen [B] (fp32: the logits promote,
+    as JAX's do); min_length suppresses each row's own eos column while
+    that row has generated fewer than its min_length tokens (eos_ids < 0:
+    no eos)."""
+    if presence is not None:
+        pen = rep_pen[:, None]
+        logits = torch.where(
+            presence, torch.where(logits > 0, logits / pen, logits * pen),
+            logits)
     cols = torch.arange(logits.shape[1], device=logits.device)[None, :]
     suppress = (cols == eos_ids[:, None]) & (nt < min_len)[:, None]
-    return logits.masked_fill(suppress, NEG_INF)
+    return torch.where(suppress, _scalar(NEG_INF, logits), logits)
+
+
+# the elementwise activations of jax.nn the FFN may name
+# (``fmt.activation``; JAX applies ``getattr(jax.nn, act)``), at jax.nn's
+# defaults: the tanh gelu, leaky_relu's slope 0.01, elu's alpha 1
+ACTIVATIONS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu, "relu6": F.relu6, "silu": F.silu, "swish": F.silu,
+    "sigmoid": torch.sigmoid, "tanh": torch.tanh, "elu": F.elu,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+}
 
 
 class FusedDecoder:
-    """Greedy decode around a FusedMultiTransformer, an embedding and an
-    LM head (moved to ``device``, default ``cuda``), over the paged pool
-    or the dense ring. ``cache_write_kernel=True`` is the JAX package's
-    ``PADDLE_TPU_KERNEL_CACHE_WRITE=1``: a ring's one-token steps land
+    """Decode around a FusedMultiTransformer, an embedding and an LM head
+    (moved to ``device``, default ``cuda``), over the paged pool or the
+    dense ring. ``use_rotary`` applies rotary embeddings (base
+    ``rope_base``, which JAX fixes at 10000) to q and k at every token's
+    absolute position. The port's own keyword-only options stand for the
+    JAX package's environment knobs: ``cache_write_kernel=True``
+    (``PADDLE_TPU_KERNEL_CACHE_WRITE=1``): a ring's one-token steps land
     their K/V inside the fused write+attend kernels instead of a write
-    followed by the read kernel. ``head_quant="int8"`` (JAX:
-    ``PADDLE_TPU_DECODE_INT8_HEAD=1``) is not ported yet. The arguments
-    before ``cache_write_kernel`` are JAX's, in JAX's order; the port's
-    own (``cache_write_kernel``, ``head_quant``, ``device``) are
-    keyword-only. ``rope_base`` matters only under ``use_rotary``, which
-    is not ported yet either."""
+    followed by the read kernel; ``head_quant="int8"``
+    (``PADDLE_TPU_DECODE_INT8_HEAD=1``): a Linear LM head runs on int8
+    weights with per-vocab-column fp32 scales; ``bulk_prefill=True``
+    (``PADDLE_TPU_BULK_PREFILL=1``): ``generate`` prefills the whole
+    prompt in one causal flash pass. The arguments before them are JAX's,
+    in JAX's order."""
 
     def __init__(self, fmt, embed, head, max_seq_len, use_rotary=False,
                  rope_base=10000.0, weight_quant=None, kv_quant=None, *,
-                 cache_write_kernel=False, head_quant=None, device=None):
-        if use_rotary:
+                 cache_write_kernel=False, head_quant=None,
+                 bulk_prefill=False, device=None):
+        if use_rotary and float(rope_base) != 10000.0:
             raise NotImplementedError(
-                "use_rotary: rotary embeddings are not ported yet "
-                "(ROADMAP Queue 1 item 3, rope_block)")
-        if head_quant not in (None, "none"):
-            raise NotImplementedError(
-                f"head_quant={head_quant!r}: the int8 LM head is not ported "
-                "yet (ROADMAP Queue 1 item 3, _maybe_quant_head)")
+                "FusedDecoder prefill uses the fused stack's default rotary "
+                "base (10000); plumb rotary_emb_base through "
+                "fused_multi_transformer before changing it")
+        if head_quant not in (None, "none", "int8"):
+            raise ValueError(
+                f"head_quant={head_quant!r}: expected 'none' or 'int8'")
         if weight_quant not in (None, "none", "int8", "int4"):
             raise ValueError(
                 f"weight_quant={weight_quant!r}: expected 'none', "
@@ -144,9 +301,12 @@ class FusedDecoder:
                 f"kv_quant={kv_quant!r}: expected 'none' or 'int8' — "
                 "the KV pool has no int4 flavor (per-row absmax at 4 "
                 "bits clips decode tails; weights are where int4 pays)")
-        if fmt.activation != "gelu":
-            raise NotImplementedError(
-                f"activation {fmt.activation!r}: the port has gelu only")
+        if fmt.activation not in ACTIVATIONS:
+            # the error JAX's getattr(jax.nn, act) raises
+            raise AttributeError(
+                f"activation {fmt.activation!r}: not one of jax.nn's "
+                f"elementwise activations {sorted(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[fmt.activation]
         self.device = resolve_device(device)
         self.fmt = fmt.to(self.device)
         self.embed = embed.to(self.device)
@@ -154,10 +314,15 @@ class FusedDecoder:
         # the JAX ring rounds capacity up to a 128-multiple; the port keeps
         # the same Smax so block tables have the same width
         self.smax = -(-int(max_seq_len) // 128) * 128
+        self.use_rotary = bool(use_rotary)
+        self.rope_base = rope_base
         self._weight_quant_arg = weight_quant
         self._kv_quant_arg = kv_quant
+        self.head_quant = head_quant == "int8"
         self.cache_write_kernel = bool(cache_write_kernel)
+        self.bulk_prefill = bool(bulk_prefill)
         self._stk_cache = None
+        self._head_cache = None
         if self._weight_quant_mode() == "int4":
             self._validate_int4_dims()
 
@@ -330,7 +495,7 @@ class FusedDecoder:
         residual = x
         h = self.ln(x, p["fln_s"], p["fln_b"]) if pre_ln else x
         h = self.mm_p(h, p["f1_w"], p.get("f1_w_s")) + p["f1_b"].to(h.dtype)
-        h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+        h = self.act(h)
         h = self.mm_p(h, p["f2_w"], p.get("f2_w_s")) + p["f2_b"].to(h.dtype)
         x = residual + h
         if not pre_ln:
@@ -458,15 +623,41 @@ class FusedDecoder:
                 qt, kv_new, caches["kv"], l, tb)
         return o.transpose(1, 2)
 
-    def layer_step(self, x, p, caches, l, t, targets):
+    def rope_tables(self, pos, dtype):
+        """Rotary cos and sin [B, Sq, 1, D] in ``dtype`` for absolute
+        positions pos [B, Sq] (None without use_rotary): JAX's
+        ``rope_block`` tables, inverse frequencies 1 / base^(2i / D) in
+        fp32, each angle's sin and cos repeated over the two halves. A
+        hidden pass computes them once; every layer reuses them."""
+        if not self.use_rotary:
+            return None
+        hd = self.fmt.head_dim
+        f32 = dict(dtype=torch.float32, device=pos.device)
+        inv = 1.0 / (torch.full((), self.rope_base, **f32) ** (
+            torch.arange(0, hd, 2, **f32) * (1.0 / hd)))
+        fr = pos.float()[..., None] * inv                 # [B, Sq, D/2]
+        fr = torch.cat([fr, fr], -1)[:, :, None]
+        return torch.cos(fr).to(dtype), torch.sin(fr).to(dtype)
+
+    @staticmethod
+    def rope(x, tables):
+        """x [B, Sq, H, D] rotated by ``rope_tables``' (cos, sin): x cos
+        + (-x2, x1) sin, x1 and x2 the halves of D."""
+        cos, sin = tables
+        x1, x2 = x.chunk(2, -1)
+        return x * cos + torch.cat([-x2, x1], -1) * sin
+
+    def layer_step(self, x, p, caches, l, t, targets, rope=None):
         """One layer over [B, Sq] tokens at base positions t: K/V written at
         ``targets`` then attended, or with targets "fused" through
-        ``write_attend``."""
+        ``write_attend``; q and k rotated by the tables ``rope``."""
         f = self.fmt
         residual = x
         h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
         b, kp = h.shape[0], h.shape[1]
         q, k, v = self.qkv_of(h, p)
+        if rope is not None:
+            q, k = self.rope(q, rope), self.rope(k, rope)
         kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
         if isinstance(targets, str):
             attn = self.write_attend(q, kv_new, caches, l, t)
@@ -490,8 +681,9 @@ class FusedDecoder:
         else:
             targets = self.write_targets(caches, t)
         t = self._lens_arg(t, x.shape[0], x.device)
+        rope = self.rope_tables(t[:, None], x.dtype)
         for l, p in enumerate(self._layers(stk)):
-            x = self.layer_step(x, p, caches, l, t, targets)
+            x = self.layer_step(x, p, caches, l, t, targets, rope)
         return x
 
     def spec_hidden(self, stk, caches, toks, lens, write_mask):
@@ -502,8 +694,9 @@ class FusedDecoder:
                          torch.full_like(toks, self.smax))
         x = self.embed(toks)
         targets = self.write_targets(caches, tv)
+        rope = self.rope_tables(lens[:, None] + offs, x.dtype)
         for l, p in enumerate(self._layers(stk)):
-            x = self.layer_step(x, p, caches, l, lens, targets)
+            x = self.layer_step(x, p, caches, l, lens, targets, rope)
         return x
 
     # ------------------------------------------------ flat budget stream
@@ -547,7 +740,8 @@ class FusedDecoder:
             q_s.contiguous(), caches["kv"], caches["tbl"], slot, cbase, cn,
             l)
 
-    def flat_layer_step(self, x, p, caches, l, tpos, targets, cmeta, b):
+    def flat_layer_step(self, x, p, caches, l, tpos, targets, cmeta, b,
+                        rope=None):
         """One layer over the whole [1, T] stream: dense ops on every
         token, K/V written to (slot, pos), then attention by region —
         tokens [0, b) are the decode region (token i is slot i, through
@@ -559,6 +753,8 @@ class FusedDecoder:
         h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
         t_all = h.shape[1]
         q, k, v = self.qkv_of(h, p)                   # [1, T, H, D]
+        if rope is not None:
+            q, k = self.rope(q, rope), self.rope(k, rope)
         kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
         self.flat_write(caches, l, targets, kv_new)
         ad = self.attend(q[0, :b][:, None], caches, l, tpos[:b])
@@ -574,49 +770,89 @@ class FusedDecoder:
         at (slot, pos)."""
         x = self.embed(toks[None, :])
         targets = self.flat_targets(caches, tslot, tpos, b)
+        rope = self.rope_tables(tpos[None, :], x.dtype)
         for l, p in enumerate(self._layers(stk)):
             x = self.flat_layer_step(x, p, caches, l, tpos, targets, cmeta,
-                                     b)
+                                     b, rope)
         return x
 
     # ------------------------------------------------------- bulk prefill
     def bulk_hidden(self, stk, toks):
-        """Whole-prompt prefill, no rotary: toks [B, S] at positions 0..S-1
-        through the layer stack with causal flash attention. Returns
-        (x [B, S, E], kv_all [L, 2, B, H, S, D]); writing kv_all into a
-        cache is the caller's."""
+        """Whole-prompt prefill: toks [B, S] at positions 0..S-1 through
+        the layer stack with causal flash attention. Returns (x [B, S, E],
+        kv_all [L, 2, B, H, S, D]); writing kv_all into a cache is the
+        caller's."""
         f = self.fmt
         x = self.embed(toks)
+        pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+        rope = self.rope_tables(pos, x.dtype)
         kvs = []
         for p in self._layers(stk):
             residual = x
             h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
             bsz, sl = h.shape[:2]
             q, k, v = self.qkv_of(h, p)
+            if rope is not None:
+                q, k = self.rope(q, rope), self.rope(k, rope)
             o = _fa.flash_attention(q, k, v, causal=True)
             x = self.proj_ffn_tail(
                 residual, o.reshape(bsz, sl, f.num_heads * f.head_dim), p)
             kvs.append(torch.stack([k.transpose(1, 2), v.transpose(1, 2)]))
         return x, torch.stack(kvs)
 
+    def _head_int8(self):
+        """The Linear head's weight [E, V] as int8 with fp32 scales [1, V]
+        (absmax per vocab column, ``_absmax_int8``) and its bias; cached
+        until a head parameter is replaced or edited."""
+        sig = tuple((id(p), p._version) for p in self.head.parameters())
+        if self._head_cache is None or self._head_cache[0] != sig:
+            self._head_cache = None
+            q, s = _absmax_int8(self.head.weight.detach(), 0)
+            b = self.head.bias
+            self._head_cache = (sig, (q, s, None if b is None
+                                      else b.detach()))
+        return self._head_cache[1]
+
     def head_logits(self, x):
-        return self.head(x)
+        """The LM head. Under head_quant="int8" a Linear head (JAX's
+        ``_maybe_quant_head`` takes no other kind) multiplies by its int8
+        weight converted to x's dtype, then the scales; its bias after."""
+        if not self.head_quant or not isinstance(self.head, Linear):
+            return self.head(x)
+        w_q, s, b = self._head_int8()
+        out = (x @ w_q.to(x.dtype)) * s.to(x.dtype)
+        return out if b is None else out + b.to(out.dtype)
 
     # ------------------------------------------------- serving dispatches
-    def _make_budget_tail(self, nscan):
+    # Each dispatch samples with ``_sample_rows`` (argmax unless
+    # do_sample) after ``_penalize_slots``; under rep_on the [B, V]
+    # presence carry (each slot's prompt and generated tokens) feeds the
+    # penalty and takes every emitted token, in place.
+    @staticmethod
+    def _mark_presence(presence, tok, emitted):
+        if presence is not None:
+            rows = torch.arange(tok.shape[0], device=tok.device)
+            presence[rows, tok] |= emitted
+
+    def _make_budget_tail(self, nscan, rep_on=False, do_sample=False,
+                          top_k=0, top_p=1.0, temperature=1.0):
         """The trailing decode scan (also the plain decode chunk): nscan
-        greedy steps over all rows. Every row writes its K/V at its lens
-        (sentinel rows drop); only active rows advance. Returns
-        run(stk, caches, tok, lens, active, nt, max_nt, eos_ids, min_len)
-        -> ((tok, lens, active, nt), (toks [nscan, B], emitted [nscan, B]))."""
+        steps over all rows. Every row writes its K/V at its lens (sentinel
+        rows drop); only active rows advance. Returns run(stk, caches, tok,
+        lens, active, nt, max_nt, eos_ids, min_len, rep_pen, presence,
+        seeds) -> ((tok, lens, active, nt), (toks [nscan, B], emitted
+        [nscan, B])); rep_pen and presence matter only under rep_on, seeds
+        only under do_sample."""
         def run(stk, caches, tok, lens, active, nt, max_nt, eos_ids,
-                min_len):
+                min_len, rep_pen=None, presence=None, seeds=None):
             ys_t, ys_e = [], []
             for _ in range(nscan):
                 x = self.hidden(stk, caches, tok, lens)
                 lg = self.head_logits(x).reshape(x.shape[0], -1)
-                lg = _penalize_slots(lg, nt, min_len, eos_ids)
-                nxt = lg.argmax(-1).to(tok.dtype)
+                lg = _penalize_slots(lg, presence if rep_on else None,
+                                     rep_pen, nt, min_len, eos_ids)
+                nxt = _sample_rows(lg, do_sample, top_k, top_p,
+                                   temperature, seeds, nt).to(tok.dtype)
                 emitted = active
                 hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
                 step = active.to(nt.dtype)
@@ -624,6 +860,8 @@ class FusedDecoder:
                 lens = lens + step
                 active = active & ~hit_eos & (nt < max_nt)
                 tok = torch.where(emitted, nxt, tok)
+                if rep_on:
+                    self._mark_presence(presence, nxt, emitted)
                 ys_t.append(nxt)
                 ys_e.append(emitted)
             if nscan:
@@ -634,104 +872,155 @@ class FusedDecoder:
             return (tok, lens, active, nt), ys
         return run
 
-    def _build_budget_core(self, c, scan_tail=0):
-        """The row-layout token-budget step, greedy, without drafts: row b
-        feeds seg[b] tokens of toks [B, C] at positions lens[b]..; the
-        last valid column's logits sample the row's next token (kept
-        when gen0[b] < seg[b], i.e. the row is generating), then
-        ``scan_tail`` trailing decode steps run in the same call.
-        Returns budget(stk, caches, toks, lens, seg, gen0, nt, max_nt,
-        eos_ids, min_len) -> (tok0, emit0, ys, tok, lens, active, nt)."""
+    def _build_budget_core(self, c, rep_on=False, do_sample=False, top_k=0,
+                           top_p=1.0, temperature=1.0, scan_tail=0):
+        """The row-layout token-budget step without drafts: row b feeds
+        seg[b] tokens of toks [B, C] at positions lens[b]..; the last
+        valid column's logits sample the row's next token (kept when
+        gen0[b] < seg[b], i.e. the row is generating), then ``scan_tail``
+        trailing decode steps run in the same call. Returns budget(stk,
+        caches, toks, lens, seg, gen0, nt, max_nt, eos_ids, min_len,
+        rep_pen, presence, seeds) -> (tok0, emit0, ys, tok, lens, active,
+        nt), the last three as ``_make_budget_tail``'s."""
         c = int(c)
-        tail = self._make_budget_tail(int(scan_tail))
+        sample = (do_sample, top_k, top_p, temperature)
+        tail = self._make_budget_tail(int(scan_tail), rep_on, *sample)
 
         def budget(stk, caches, toks, lens, seg, gen0, nt, max_nt, eos_ids,
-                   min_len):
+                   min_len, rep_pen=None, presence=None, seeds=None):
             offs = torch.arange(c, device=toks.device)[None, :]
             valid = (offs < seg[:, None]) & (lens[:, None] + offs < self.smax)
             x = self.spec_hidden(stk, caches, toks, lens, valid)
             last = (seg - 1).clamp(min=0).long()
             xl = x[torch.arange(x.shape[0], device=x.device), last][:, None]
             logits = self.head_logits(xl).reshape(x.shape[0], -1)
-            logits = _penalize_slots(logits, nt, min_len, eos_ids)
-            tok0 = logits.argmax(-1).to(toks.dtype)
+            logits = _penalize_slots(logits, presence if rep_on else None,
+                                     rep_pen, nt, min_len, eos_ids)
+            tok0 = _sample_rows(logits, *sample, seeds, nt).to(toks.dtype)
             emit0 = (seg > 0) & (gen0 < seg)
             hit_eos = (eos_ids >= 0) & (tok0 == eos_ids)
             lens = lens + seg
             nt = nt + emit0.to(nt.dtype)
             active = emit0 & ~hit_eos & (nt < max_nt)
             tok = torch.where(emit0, tok0, toks[:, 0])
+            if rep_on:
+                self._mark_presence(presence, tok0, emit0)
             (tok, lens, active, nt), ys = tail(
                 stk, caches, tok, lens, active, nt, max_nt, eos_ids,
-                min_len)
+                min_len, rep_pen, presence, seeds)
             return tok0, emit0, ys, tok, lens, active, nt
         return budget
 
-    def _build_flat_budget_core(self, b, scan_tail=0):
-        """The token-flattened budget step, greedy, without drafts: one
-        ragged [T] stream (decode region [0, b), then segments aligned to
+    def _build_flat_budget_core(self, b, rep_on=False, do_sample=False,
+                                top_k=0, top_p=1.0, temperature=1.0,
+                                scan_tail=0):
+        """The token-flattened budget step without drafts: one ragged [T]
+        stream (decode region [0, b), then segments aligned to
         FLAT_CHUNK), each slot's next token sampled from its last valid
         stream index ``last_idx``, then ``scan_tail`` trailing decode
         steps. ``emit0`` and ``adv`` come from the packer. Returns
         flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
-        tok_in, last_idx, emit0, adv, lens, nt, max_nt, eos_ids, min_len)
-        -> (tok0, emit0, ys, tok, lens, active, nt), as the row core."""
+        tok_in, last_idx, emit0, adv, lens, nt, max_nt, eos_ids, min_len,
+        rep_pen, presence, seeds) -> (tok0, emit0, ys, tok, lens, active,
+        nt), as the row core."""
         b = int(b)
-        tail = self._make_budget_tail(int(scan_tail))
+        sample = (do_sample, top_k, top_p, temperature)
+        tail = self._make_budget_tail(int(scan_tail), rep_on, *sample)
 
         def flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
                         tok_in, last_idx, emit0, adv, lens, nt, max_nt,
-                        eos_ids, min_len):
+                        eos_ids, min_len, rep_pen=None, presence=None,
+                        seeds=None):
             x = self.flat_hidden(stk, caches, toks, tslot, tpos,
                                  (cslot, cbase, cn), b)
             xl = x[0, last_idx][:, None]
             logits = self.head_logits(xl).reshape(b, -1)
-            logits = _penalize_slots(logits, nt, min_len, eos_ids)
-            tok0 = logits.argmax(-1).to(tok_in.dtype)
+            logits = _penalize_slots(logits, presence if rep_on else None,
+                                     rep_pen, nt, min_len, eos_ids)
+            tok0 = _sample_rows(logits, *sample, seeds, nt).to(tok_in.dtype)
             hit_eos = (eos_ids >= 0) & (tok0 == eos_ids)
             lens = lens + adv
             nt = nt + emit0.to(nt.dtype)
             active = emit0 & ~hit_eos & (nt < max_nt)
             tok = torch.where(emit0, tok0, tok_in)
+            if rep_on:
+                self._mark_presence(presence, tok0, emit0)
             (tok, lens, active, nt), ys = tail(
                 stk, caches, tok, lens, active, nt, max_nt, eos_ids,
-                min_len)
+                min_len, rep_pen, presence, seeds)
             return tok0, emit0, ys, tok, lens, active, nt
         return flat_budget
 
     # ------------------------------------------------- one-shot generation
-    def _refuse_out_of_slice(self, do_sample, num_beams, prefix_cache,
-                             spec_k, repetition_penalty):
+    def _refuse_out_of_slice(self, num_beams, prefix_cache, spec_k,
+                             do_sample, pen_on, rep_on):
+        """JAX's refusals of option combinations, then the options the
+        port does not have yet."""
+        if spec_k and num_beams > 1:
+            raise ValueError(
+                "spec_k composes with greedy/sampling generation, not "
+                "beam search (a draft has no beam lineage to verify)")
+        if num_beams > 1 and do_sample:
+            raise ValueError("beam search (num_beams>1) is deterministic; "
+                             "do_sample=True is not supported with it")
+        if pen_on and num_beams > 1:
+            raise NotImplementedError(
+                "min_length/repetition_penalty with beam search is not "
+                "supported; use greedy/sampling generation")
+        if rep_on and not isinstance(self.head, Linear):
+            raise NotImplementedError(
+                "repetition_penalty needs a Linear LM head (vocab "
+                "size must be known for the presence mask)")
         for name, off, item in (
-                ("do_sample", not do_sample, "item 4 (sampling parity)"),
-                ("num_beams", num_beams <= 1, "item 3 (beam search)"),
                 ("prefix_cache", prefix_cache is None,
                  "item 6(c) (prefix caching)"),
-                ("spec_k", not spec_k, "item 6(d) (speculative decoding)"),
-                ("repetition_penalty", repetition_penalty == 1.0,
-                 "item 3 (_penalize)")):
+                ("spec_k", not spec_k, "item 6(d) (speculative decoding)")):
             if not off:
                 raise NotImplementedError(
                     f"generate({name}=...) selects a path the PyTorch port "
                     f"does not have yet: ROADMAP Queue 1 {item}")
+
+    def _prefill(self, stk, toks):
+        """The prompt toks [B, S] into a fresh ring: one causal flash pass
+        with its K/V padded into the ring (bulk_prefill, for S > 1; an
+        int8 ring takes them quantized), else one hidden pass a position.
+        Returns (caches, the last position's hidden state [B, 1, E])."""
+        b, prompt = toks.shape
+        caches = self.ring_caches(self.init_cache(b))
+        if self.bulk_prefill and prompt > 1:
+            x_all, kv_all = self.bulk_hidden(stk, toks)
+            if "sc" in caches:
+                kv_all, sc = _absmax_int8(kv_all, -1)
+                caches["sc"][..., 0, :prompt] = sc[..., 0]
+            caches["kv"][:, :, :, :, :prompt] = kv_all.to(caches["kv"].dtype)
+            return caches, x_all[:, -1:]
+        for pos in range(prompt):
+            last_x = self.hidden(stk, caches, toks[:, pos], pos)
+        return caches, last_x
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=20, eos_token_id=None,
                  do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
                  num_beams=1, length_penalty=1.0, min_length=0,
                  repetition_penalty=1.0, prefix_cache=None, spec_k=0):
-        """Greedy generation over a dense ring of B rows: the prompt
-        [B, S] is prefilled one position at a time (the JAX package's
-        chunked prefill scan; its chunk ladder only groups dispatches),
-        the LM head samples the first token from the last hidden state,
-        then decode runs in chunks of 8 steps with eos (64 without),
-        checking between chunks whether every row has finished. A
-        finished row emits eos; min_length suppresses eos while fewer
-        tokens exist. Returns int64 [B, S + generated] on the CPU: when
-        every row has finished, cut after the step where the last row
+        """Generation over a dense ring of B rows: the prompt [B, S] is
+        prefilled (``_prefill``; JAX's chunk ladder only groups
+        dispatches), the LM head samples the first token from the last
+        hidden state, then decode runs in chunks of 8 steps with eos (64
+        without), checking between chunks whether every row has finished.
+        A finished row emits eos. min_length suppresses eos while fewer
+        tokens exist; repetition_penalty penalizes the prompt's and the
+        generated tokens (a [B, V] presence carry). do_sample draws the
+        first token under ``next_key()`` and each chunk's tokens under
+        ``split(next_key(), chunk)``, one key a step over the whole [B,
+        V], as JAX does. num_beams > 1 runs beam search over the ring
+        (``_generate_beam``). Returns int64 [B, S + generated] on the CPU:
+        when every row has finished, cut after the step where the last row
         emitted its first eos."""
-        self._refuse_out_of_slice(do_sample, num_beams, prefix_cache, spec_k,
-                                  repetition_penalty)
+        rep_on = repetition_penalty != 1.0
+        pen_on = bool(min_length) or rep_on
+        self._refuse_out_of_slice(num_beams, prefix_cache, spec_k,
+                                  do_sample, pen_on, rep_on)
         ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
                          else input_ids).astype(np.int64)
         if ids.ndim != 2 or ids.shape[1] < 1:
@@ -742,20 +1031,28 @@ class FusedDecoder:
             raise ValueError(f"max_seq_len {self.smax} < prompt {prompt} + "
                              f"max_new_tokens {max_new_tokens}")
         stk = self._stacked()
-        caches = self.ring_caches(self.init_cache(b))
         toks = torch.from_numpy(ids).to(self.device)
-        for pos in range(prompt):
-            last_x = self.hidden(stk, caches, toks[:, pos], pos)
+        caches, last_x = self._prefill(stk, toks)
         eos = None if eos_token_id is None else int(eos_token_id)
-        eos_ids = torch.full((b,), -1 if eos is None else eos,
-                             dtype=torch.int64, device=self.device)
-        min_len = torch.full_like(eos_ids, int(min_length))
+        if num_beams > 1:
+            return self._generate_beam(ids, last_x, caches, stk,
+                                       max_new_tokens, eos, int(num_beams),
+                                       float(length_penalty))
+        presence = (_presence_from(toks, self.head.weight.shape[1])
+                    if rep_on else None)
+        sample = (do_sample, top_k, top_p, temperature)
 
-        def next_token(x, nt):
+        rows = torch.arange(b, device=self.device)
+
+        def next_token(x, nt, key):
             logits = self.head_logits(x).reshape(b, -1)
-            return _penalize_slots(logits, torch.full_like(eos_ids, nt),
-                                   min_len, eos_ids).argmax(-1)
-        nxt = next_token(last_x, 0)
+            if pen_on:
+                logits = _penalize(logits, presence, repetition_penalty, nt,
+                                   min_length, eos)
+            return _sample_next(logits, *sample, key)
+        nxt = next_token(last_x, 0, _rng.next_key() if do_sample else None)
+        if rep_on:
+            presence[rows, nxt] = True
         parts = [nxt[:, None]]
         finished = (nxt == eos) if eos is not None else None
         remaining = max_new_tokens - 1
@@ -767,13 +1064,17 @@ class FusedDecoder:
             chunk = cap
             while chunk > remaining:
                 chunk //= 2
-            for _ in range(chunk):
-                x = self.hidden(stk, caches, nxt, t)
-                nxt = next_token(x, t - prompt + 1)
+            keys = (_rng.split(_rng.next_key(), chunk) if do_sample
+                    else [None] * chunk)
+            for i in range(chunk):
+                nxt = next_token(self.hidden(stk, caches, nxt, t),
+                                 t - prompt + 1, keys[i])
                 if eos is not None:
                     nxt = torch.where(finished, torch.full_like(nxt, eos),
                                       nxt)
                     finished = finished | (nxt == eos)
+                if rep_on:
+                    presence[rows, nxt] = True
                 parts.append(nxt[:, None])
                 t += 1
             remaining -= chunk
@@ -785,6 +1086,167 @@ class FusedDecoder:
             gen = gen[:, :int(first_eos.max()) + 1]
         return torch.from_numpy(np.concatenate([ids, gen], axis=1))
 
+    # ------------------------------------------------- beam over the ring
+    # The beams share the prompt's ring rows: prefilled once at batch B,
+    # replicated to B*K on the batch axis (row b*K + j is beam j of row
+    # b); each step reorders the rows to their winners' parents. The host
+    # rebuilds the sequences by backtracking the (token, parent) lineage.
+    @staticmethod
+    def _log_softmax(logits):
+        # jax.nn.log_softmax in fp32: x - max - log(sum(exp(x - max)))
+        x = logits.float()
+        sh = x - x.max(-1, keepdim=True).values
+        return sh - torch.log(torch.exp(sh).sum(-1, keepdim=True))
+
+    @staticmethod
+    def _top_k(x, k):
+        """lax.top_k over the last axis: the k largest, the lower index
+        first among equals (a stable descending sort)."""
+        v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+        return v[..., :k], i[..., :k]
+
+    def _build_beam_init(self, k, eos, length_penalty):
+        """Step 1: the prefill's last hidden state -> logits -> the first
+        top-k (scores [0, -1e9, ...] make all k picks come from beam 0).
+        Returns init(last_x) -> (tok, beam_idx, fin_score, finished,
+        scores, gen_len), each [B, K]."""
+        def init(last_x):
+            logits = self.head_logits(last_x).reshape(last_x.shape[0], -1)
+            b, v = logits.shape
+            logp = self._log_softmax(logits)
+            scores0 = torch.full((b, k), -1e9, device=logp.device)
+            scores0[:, 0] = 0.0
+            cand = scores0[..., None] + logp[:, None, :]        # [B, K, V]
+            top_scores, top_idx = self._top_k(cand.reshape(b, k * v), k)
+            tok = top_idx % v
+            gen_len = torch.ones((b, k), dtype=torch.int64,
+                                 device=logp.device)
+            return (tok, torch.zeros_like(tok),
+                    *self._beam_finish(tok, torch.zeros_like(tok, dtype=
+                                                             torch.bool),
+                                       top_scores, gen_len, eos,
+                                       length_penalty),
+                    top_scores, gen_len)
+        return init
+
+    @staticmethod
+    def _beam_finish(tok, finished, scores, gen_len, eos, length_penalty):
+        """(fin_score, finished): a beam that emits eos now is admitted to
+        the finished pool at its GNMT-normalized score, scores /
+        max(gen_len, 1)^length_penalty; -inf for every other beam."""
+        if eos is None:
+            return torch.full_like(scores, -torch.inf), finished
+        newly = ~finished & (tok == eos)
+        pen = gen_len.clamp(min=1).float() ** length_penalty
+        fin = torch.where(newly, scores / pen,
+                          torch.full_like(scores, -torch.inf))
+        return fin, finished | newly
+
+    def _build_beam_scan(self, k, eos, length_penalty, split=0):
+        """One beam step over the ring at batch B*K: logits -> log-probs
+        (a finished beam may only continue with eos, at no cost) -> the
+        top K of the K*V candidates of each row, the ring's rows reordered
+        to each winner's parent at positions >= split (the prompt's
+        positions are the same in every beam). Returns step(stk, caches,
+        tok_flat, t, scores, finished, gen_len) -> (tok_flat, scores,
+        finished, gen_len, ys), ys the step's (tok, beam_idx, fin_score,
+        finished, scores, gen_len)."""
+        def step(stk, caches, tok_flat, t, scores, finished, gen_len):
+            b, kk = scores.shape
+            x = self.hidden(stk, caches, tok_flat, t)
+            logp = self._log_softmax(
+                self.head_logits(x).reshape(b * kk, -1)).reshape(b, kk, -1)
+            v = logp.shape[-1]
+            if eos is not None:
+                only_eos = torch.full((v,), -torch.inf, device=logp.device)
+                only_eos[eos] = 0.0
+                logp = torch.where(finished[..., None], only_eos, logp)
+            cand = scores[..., None] + logp
+            top_scores, top_idx = self._top_k(cand.reshape(b, kk * v), kk)
+            beam_idx = top_idx // v
+            tok = top_idx % v
+            src = (torch.arange(b, device=tok.device)[:, None] * kk
+                   + beam_idx).reshape(-1)
+            for name in caches:        # ring [..., Smax, D], scales [.., Smax]
+                c = caches[name]
+                pos = (slice(None),) * (4 if name == "kv" else 5)
+                tail = pos + (slice(split, None),)
+                c[tail] = c[tail][:, :, src]
+            finished = finished.gather(1, beam_idx)
+            gen_len = gen_len.gather(1, beam_idx)
+            gen_len = torch.where(finished, gen_len, gen_len + 1)
+            fin_score, finished = self._beam_finish(
+                tok, finished, top_scores, gen_len, eos, length_penalty)
+            ys = (tok, beam_idx, fin_score, finished, top_scores, gen_len)
+            return tok.reshape(-1), top_scores, finished, gen_len, ys
+        return step
+
+    def _generate_beam(self, ids, last_x, caches, stk, max_new_tokens, eos,
+                       k, length_penalty):
+        """Beam search after the prefill: ``_build_beam_init``, then beam
+        steps in chunks (8 with eos, 64 without; the host checks between
+        chunks whether every beam finished), then each row's winner: the
+        best live beam by normalized score at the first step where every
+        beam had finished (else the last), unless a finished beam scored
+        higher (eos-padded). JAX's ``_generate_beam`` selection."""
+        b, prompt = ids.shape
+        ys0 = self._build_beam_init(k, eos, length_penalty)(last_x)
+        tok1, _, _, finished, scores, gen_len = ys0
+        for name in caches:
+            caches[name] = caches[name].repeat_interleave(k, dim=2)
+        hist = [ys0]
+        tok_flat, t, remaining = tok1.reshape(-1), prompt, max_new_tokens - 1
+        cap = 8 if eos is not None else 64
+        # the prompt's region [0, split) needs no reorder: a power of two
+        # <= prompt, as JAX takes it (0 below 64)
+        split = 1 << (prompt.bit_length() - 1) if prompt >= 64 else 0
+        step = self._build_beam_scan(k, eos, length_penalty, split)
+        while remaining > 0:
+            if eos is not None and bool(finished.all()):
+                break
+            chunk = cap
+            while chunk > remaining:
+                chunk //= 2
+            for _ in range(chunk):
+                tok_flat, scores, finished, gen_len, ys = step(
+                    stk, caches, tok_flat, t, scores, finished, gen_len)
+                hist.append(ys)
+                t += 1
+            remaining -= chunk
+        toks, bidx, fin_sc, fin_fl, sc_h, gl_h = (
+            torch.stack([h[i] for h in hist]).cpu().numpy()
+            for i in range(6))
+        n_steps = toks.shape[0]
+        all_fin = fin_fl.all(axis=(1, 2))
+        t_stop = int(np.argmax(all_fin)) if all_fin.any() else n_steps - 1
+
+        def backtrack(t, row, beam):
+            seq = np.empty(t + 1, np.int64)
+            cur = beam
+            for s in range(t, -1, -1):
+                seq[s] = toks[s, row, cur]
+                cur = bidx[s, row, cur]
+            return seq
+
+        norm = (sc_h[t_stop]
+                / np.maximum(gl_h[t_stop], 1).astype(np.float32)
+                ** length_penalty)
+        out = np.empty((b, prompt + t_stop + 1), np.int64)
+        out[:, :prompt] = ids
+        for row in range(b):
+            best = int(np.argmax(norm[row]))
+            seq = backtrack(t_stop, row, best)
+            if eos is not None:
+                pool = fin_sc[:t_stop + 1, row]            # [T', K]
+                if pool.max() > norm[row, best]:
+                    t_f, k_f = np.unravel_index(int(np.argmax(pool)),
+                                                pool.shape)
+                    fin = backtrack(t_f, row, k_f)
+                    seq = np.concatenate(
+                        [fin, np.full(t_stop - t_f, eos, np.int64)])
+            out[row, prompt:] = seq
+        return torch.from_numpy(out)
+
 
 def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                    max_seq_len=None, eos_token_id=None, do_sample=False,
@@ -792,13 +1254,13 @@ def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                    num_beams=1, length_penalty=1.0, min_length=0,
                    repetition_penalty=1.0, prefix_cache=None, spec_k=0, *,
                    weight_quant=None, kv_quant=None, cache_write_kernel=False,
-                   head_quant=None, device=None):
+                   head_quant=None, bulk_prefill=False, device=None):
     """One-shot generation over FusedDecoder: a decoder whose ring holds
     ``max_seq_len`` positions (default prompt + max_new_tokens), then
-    ``generate``. The quantization and ``cache_write_kernel`` keywords
-    stand for the JAX package's environment knobs
-    (PADDLE_TPU_DECODE_INT8_CACHE, ..._INT8_WEIGHTS / ..._INT4_WEIGHTS,
-    PADDLE_TPU_KERNEL_CACHE_WRITE)."""
+    ``generate``. The keyword-only options stand for the JAX package's
+    environment knobs (PADDLE_TPU_DECODE_INT8_CACHE,
+    ..._INT8_WEIGHTS / ..._INT4_WEIGHTS, PADDLE_TPU_KERNEL_CACHE_WRITE,
+    PADDLE_TPU_DECODE_INT8_HEAD, PADDLE_TPU_BULK_PREFILL)."""
     prompt = np.shape(input_ids.cpu() if torch.is_tensor(input_ids)
                       else input_ids)[1]
     dec = FusedDecoder(fmt, embed, head,
@@ -806,7 +1268,8 @@ def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                        use_rotary=use_rotary, weight_quant=weight_quant,
                        kv_quant=kv_quant,
                        cache_write_kernel=cache_write_kernel,
-                       head_quant=head_quant, device=device)
+                       head_quant=head_quant, bulk_prefill=bulk_prefill,
+                       device=device)
     return dec.generate(input_ids, max_new_tokens, eos_token_id, do_sample,
                         top_k, top_p, temperature, num_beams=num_beams,
                         length_penalty=length_penalty, min_length=min_length,

@@ -1,8 +1,10 @@
 """Continuous-batching serving engine over the paged KV pool or the dense
 KV ring.
 
-Counterpart of ``paddle_tpu/inference/serving.py::ServingEngine`` with
-greedy decoding over the paged block pool (the default) or, with
+Counterpart of ``paddle_tpu/inference/serving.py::ServingEngine``,
+decoding greedily or sampled (``do_sample`` with ``top_k``, ``top_p`` and
+``temperature``; with ``enable_repetition_penalty`` each request's
+``repetition_penalty``), over the paged block pool (the default) or, with
 ``paged=False``, a dense ring of one Smax-position row per slot, under
 one of three schedulers:
 
@@ -20,7 +22,13 @@ one of three schedulers:
 
 Each scheduler also serves quantized: ``kv_quant="int8"`` (an int8 pool
 with per-position scales) and ``weight_quant="int8"|"int4"``, alone or
-together (see ``generation``).
+together, and ``head_quant="int8"`` (see ``generation``); and with
+rotary embeddings (``use_rotary``) and any of ``generation.ACTIVATIONS``.
+
+Sampling is scheduling-invariant, as in JAX: a request's n-th token is
+drawn under fold_in(PRNGKey(seed), n), its seed drawn at ``submit`` from
+the global key stream (``core.rng.next_key``), so every scheduler gives
+the same sampled tokens.
 
 Under either budget, a step with only decode rows runs the plain
 ``decode_chunk``-step scan instead, which moves more tokens. Host state
@@ -43,7 +51,9 @@ import numpy as np
 import torch
 
 from ..ops.decode_attention import FLAT_CHUNK
-from .generation import FusedDecoder, _absmax_int8, _penalize_slots
+from ..core.rng import next_key
+from .generation import (FusedDecoder, _absmax_int8, _host_seed,
+                         _penalize_slots, _sample_rows)
 from .paged_kv import BlockPool
 from .telemetry import (DEFAULT_RING, QOS_CLASSES, QOS_DEFAULT, SloPolicy,
                         Telemetry)
@@ -52,9 +62,6 @@ __all__ = ["ServingEngine", "ServedRequest"]
 
 # constructor argument -> (values that stay in this slice, ROADMAP item)
 _OUT_OF_SLICE = {
-    "do_sample": ((False,), "Queue 1 item 4 (sampling parity)"),
-    "enable_repetition_penalty": ((False,), "Queue 1 item 3 (_penalize)"),
-    "use_rotary": ((False,), "Queue 1 item 3 (rope_block)"),
     "max_pending": ((None,), "Queue 1 item 6(f) (admission shedding)"),
     "prefix_cache_blocks": ((0, None), "Queue 1 item 6(c) (prefix caching)"),
     "prefix_cache": ((None,), "Queue 1 item 6(c) (prefix caching)"),
@@ -132,10 +139,9 @@ class ServingEngine:
                  paged=None, kv_pool=None, kv_pool_blocks=None,
                  token_budget=None, flat_budget=None,
                  telemetry_ring=None, slo=None, role=None,
-                 weight_quant=None, kv_quant=None, *, device=None):
-        given = dict(do_sample=do_sample,
-                     enable_repetition_penalty=enable_repetition_penalty,
-                     use_rotary=use_rotary, max_pending=max_pending,
+                 weight_quant=None, kv_quant=None, *, head_quant=None,
+                 device=None):
+        given = dict(max_pending=max_pending,
                      prefix_cache_blocks=prefix_cache_blocks,
                      prefix_cache=prefix_cache, spec_k=spec_k,
                      kv_pool=kv_pool, kv_pool_blocks=kv_pool_blocks,
@@ -156,12 +162,18 @@ class ServingEngine:
                 "weights are a paged-serving memory feature; use "
                 "paged=True or drop weight_quant")
         self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
+                                use_rotary=use_rotary,
                                 weight_quant=weight_quant,
-                                kv_quant=kv_quant, device=device)
+                                kv_quant=kv_quant, head_quant=head_quant,
+                                device=device)
         self.device = self.dec.device
         self.num_slots = b = int(num_slots)
         self.smax = self.dec.smax
         self.role = "mixed"
+        self.do_sample = bool(do_sample)
+        self.top_k, self.top_p = top_k, top_p
+        self.temperature = temperature
+        self._rep_on = bool(enable_repetition_penalty)
         self.decode_chunk = int(decode_chunk or 4)
         cap = int(prefill_cap if prefill_cap is not None else 64)
         if cap < 1 or cap & (cap - 1):
@@ -209,6 +221,9 @@ class ServingEngine:
         self._max_nt = np.ones(b, np.int64)
         self._eos = np.full(b, -1, np.int64)
         self._min_len = np.zeros(b, np.int64)
+        self._rep_pen = np.ones(b, np.float32)
+        self._rseed = np.zeros(b, np.int64)      # per-request sample seed
+        self._presence = None                    # [B, V] bool when rep_on
         self._tok = np.zeros(b, np.int64)
         self._pf_left = np.zeros(b, np.int64)
         self._slot_req = [None] * b
@@ -236,11 +251,11 @@ class ServingEngine:
         """Queue one request; returns its id. prompt + max_new_tokens
         must fit Smax (a slot's lens then never reaches Smax). JAX's
         parameters: ``repetition_penalty`` needs
-        ``enable_repetition_penalty=True``, which the port refuses
-        (ValueError, as JAX raises without it); request expiry
-        (``deadline_s``) and QoS classes other than the default
-        (``priority``) are not ported yet (ROADMAP Queue 1 item 6(f));
-        ``trace_id`` and ``attempt`` are kept on the request."""
+        ``enable_repetition_penalty=True`` (ValueError without it, as in
+        JAX); request expiry (``deadline_s``) and QoS classes other than
+        the default (``priority``) are not ported yet (ROADMAP Queue 1
+        item 6(f)); ``trace_id`` and ``attempt`` are kept on the
+        request. A sampling engine draws the request's seed here."""
         ids = np.asarray(prompt, np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -253,7 +268,7 @@ class ServingEngine:
         vocab = self.dec.embed.num_embeddings
         if ids.min() < 0 or ids.max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
-        if repetition_penalty != 1.0:
+        if repetition_penalty != 1.0 and not self._rep_on:
             raise ValueError(
                 "repetition_penalty needs enable_repetition_penalty=True "
                 "at engine construction")
@@ -269,10 +284,16 @@ class ServingEngine:
                 "Queue 1 item 6(f))")
         req = ServedRequest(next(self._rid), ids, max_new_tokens,
                             eos_token_id, min_length, repetition_penalty,
-                            self.clock(), trace_id=trace_id,
-                            attempt=attempt)
+                            self.clock(), seed=self._fresh_seed(),
+                            trace_id=trace_id, attempt=attempt)
         self._queue.append(req)
         return req.rid
+
+    def _fresh_seed(self):
+        """One per-request sampling seed off the global key stream (a
+        greedy engine draws none, so submit order cannot move other
+        consumers of the stream)."""
+        return _host_seed(next_key()) if self.do_sample else 0
 
     @property
     def has_work(self):
@@ -497,7 +518,10 @@ class ServingEngine:
             self._eos[s] = (-1 if req.eos_token_id is None
                             else int(req.eos_token_id))
             self._min_len[s] = req.min_length
+            self._rep_pen[s] = req.repetition_penalty
+            self._rseed[s] = req.seed
             self._active[s] = False          # decoding starts at finish
+            self._seed_presence(req)
 
     # ------------------------------------------------- phase scheduler
     def _admit(self):
@@ -534,9 +558,17 @@ class ServingEngine:
             self._eos[s] = (-1 if r.eos_token_id is None
                             else int(r.eos_token_id))
             self._min_len[s] = r.min_length
+            self._rep_pen[s] = r.repetition_penalty
+            self._rseed[s] = r.seed
+            self._seed_presence(r)
+        rep_pen, presence, seeds = self._sample_args()
         t0 = self.clock()
         nxt = self._build_admit_sample()(
-            last_x, self._dev(self._eos), self._dev(self._min_len))
+            last_x, seeds, self._dev(self._eos), self._dev(self._min_len),
+            rep_pen, presence)
+        if presence is not None:
+            rows = torch.tensor([r.slot for r in batch], device=self.device)
+            presence[rows, nxt[rows]] = True
         nxt = nxt.cpu().numpy()
         self.telemetry.step_event("admit", t0, self.clock() - t0,
                                   rows=len(batch), tokens=len(batch))
@@ -557,15 +589,48 @@ class ServingEngine:
         return batch
 
     def _build_admit_sample(self):
-        """The first-token sample on the prefill hidden states: greedy,
-        with each slot's min_length applied at nt = 0."""
+        """The first-token sample on the prefill hidden states, with each
+        slot's logit controls applied at nt = 0 (the host reads only the
+        admitted rows)."""
         dec, b = self.dec, self.num_slots
+        rep_on, *sample = self._sampling()
 
-        def admit_sample(last_x, eos_ids, min_len):
+        def admit_sample(last_x, seeds, eos_ids, min_len, rep_pen,
+                         presence):
             logits = dec.head_logits(last_x).reshape(b, -1)
             nt0 = torch.zeros(b, dtype=eos_ids.dtype, device=eos_ids.device)
-            return _penalize_slots(logits, nt0, min_len, eos_ids).argmax(-1)
+            logits = _penalize_slots(logits, presence if rep_on else None,
+                                     rep_pen, nt0, min_len, eos_ids)
+            return _sample_rows(logits, *sample, seeds, nt0)
         return admit_sample
+
+    def _sampling(self):
+        # (rep_on, do_sample, top_k, top_p, temperature) of every dispatch
+        return (self._rep_on, self.do_sample, self.top_k, self.top_p,
+                self.temperature)
+
+    def _sample_args(self):
+        """(rep_pen [B] fp32, presence [B, V] or None, seeds [B]) on the
+        device, as every dispatch takes them."""
+        return (self._dev(self._rep_pen, torch.float32),
+                self._presence_init() if self._rep_on else None,
+                self._dev(self._rseed))
+
+    def _presence_init(self):
+        if self._presence is None:
+            self._presence = torch.zeros(
+                (self.num_slots, self.dec.head.weight.shape[1]),
+                dtype=torch.bool, device=self.device)
+        return self._presence
+
+    def _seed_presence(self, req):
+        """Under rep_on, reset the admitted slot's presence row to its
+        prompt's tokens (teacher-forced prefill never adds to it)."""
+        if not self._rep_on:
+            return
+        row = self._presence_init()[req.slot]
+        row.zero_()
+        row[torch.from_numpy(req.prompt).to(self.device)] = True
 
     def _build_bulk_admit(self, sb):
         """Bulk prefill of one prompt padded to sb tokens: one causal flash
@@ -687,13 +752,15 @@ class ServingEngine:
                 gen0[s] = n - 1
         tail = max(self.decode_chunk - 1, 0)
         self._map_write_windows(seg, pf_n, tail)
-        core = self.dec._build_budget_core(c, tail)
+        core = self.dec._build_budget_core(c, *self._sampling(),
+                                           scan_tail=tail)
         t0 = self.clock()
         tok0, emit0, (ys_t, ys_e), tok, lens, active, nt = core(
             self.dec._stacked(), self._cache_arg(), self._dev(toks),
             self._dev(self._lens), self._dev(seg), self._dev(gen0),
             self._dev(self._nt), self._dev(self._max_nt),
-            self._dev(self._eos), self._dev(self._min_len))
+            self._dev(self._eos), self._dev(self._min_len),
+            *self._sample_args())
         res = [t.cpu().numpy() for t in (tok0, emit0, ys_t, ys_e, tok, lens,
                                          active, nt)]
         self.telemetry.step_event("budget", t0, self.clock() - t0,
@@ -773,7 +840,8 @@ class ServingEngine:
                 cn[ci] = min(n - (ci * align - st), align)
         tail = max(self.decode_chunk - 1, 0)
         self._map_write_windows(adv, pf_n, tail)
-        core = self.dec._build_flat_budget_core(b, tail)
+        core = self.dec._build_flat_budget_core(b, *self._sampling(),
+                                                scan_tail=tail)
         i32 = torch.int32
         t0 = self.clock()
         tok0, emit0_d, (ys_t, ys_e), tok, lens, active, nt = core(
@@ -783,7 +851,7 @@ class ServingEngine:
             self._dev(last_idx), self._dev(emit0, torch.bool),
             self._dev(adv), self._dev(self._lens), self._dev(self._nt),
             self._dev(self._max_nt), self._dev(self._eos),
-            self._dev(self._min_len))
+            self._dev(self._min_len), *self._sample_args())
         res = [t.cpu().numpy() for t in (tok0, emit0_d, ys_t, ys_e, tok,
                                          lens, active, nt)]
         self.telemetry.step_event("budget", t0, self.clock() - t0,
@@ -825,9 +893,10 @@ class ServingEngine:
         return n_emitted
 
     def _build_decode_chunk(self):
-        """The plain decode dispatch: decode_chunk greedy steps over all
-        slots (the budget core's trailing scan, run on its own)."""
-        return self.dec._make_budget_tail(self.decode_chunk)
+        """The plain decode dispatch: decode_chunk steps over all slots
+        (the budget core's trailing scan, run on its own)."""
+        return self.dec._make_budget_tail(self.decode_chunk,
+                                          *self._sampling())
 
     def _decode_one_chunk(self):
         chunk = self.decode_chunk
@@ -842,7 +911,8 @@ class ServingEngine:
             self.dec._stacked(), self._cache_arg(), self._dev(self._tok),
             self._dev(self._lens), self._dev(self._active, torch.bool),
             self._dev(self._nt), self._dev(self._max_nt),
-            self._dev(self._eos), self._dev(self._min_len))
+            self._dev(self._eos), self._dev(self._min_len),
+            *self._sample_args())
         toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
         self._tok, self._lens = tok.cpu().numpy(), lens.cpu().numpy()
         self._nt = nt.cpu().numpy()
@@ -892,6 +962,8 @@ class ServingEngine:
         self._slot_req[s] = None
         self._active[s] = False
         self._pf_left[s] = 0
+        if self._presence is not None:
+            self._presence[s] = False
         if self.paged:
             self._kv_reserved -= self._blocks_needed(req.prompt.size,
                                                      req.max_new_tokens)

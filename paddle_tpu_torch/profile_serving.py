@@ -2,15 +2,19 @@
 
     python -m paddle_tpu_torch.profile_serving [--seed N]
         [--scheduler row|flat|phase] [--kv-quant none|int8]
-        [--weight-quant none|int8|int4] [--paged 1|0]
+        [--weight-quant none|int8|int4] [--paged 1|0] [--sampled 0|1]
+        [--rotary 0|1]
 
 Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
 3 also serves, under ``torch.profiler`` and the chosen scheduler (the
 row-layout token budget by default, ``flat_budget=True``, or the phase
 scheduler ``token_budget=0``) and quantization (fp by default; the
 ``kv_quant`` and ``weight_quant`` options of ``ServingEngine``) over
-the paged pool or, with ``--paged 0``, the dense ring. Prints one JSON
-object: wall
+the paged pool or, with ``--paged 0``, the dense ring; greedy, or with
+``--sampled 1`` sampled as ``chip_smoke.py`` phase 3's sampled runs
+(``SAMPLED``: top_k 50, top_p 0.95, temperature 0.8, every request at
+repetition penalty 1.2), with ``--rotary 1`` rotary embeddings. Prints
+one JSON object: wall
 time, the union of the device's kernel intervals (busy) and the idle
 share, device time by kernel name, host time by dispatch kind (budget /
 decode), and the engine's metrics. Needs a CUDA card.
@@ -26,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from .core.rng import seed
 from .inference import ServingEngine
 from .weights import from_jax_state, random_state
 
@@ -34,6 +39,10 @@ E, H, FF, L, V = 768, 12, 3072, 12, 50304
 # scheduler name -> ServingEngine keyword arguments
 SCHEDULERS = {"row": {}, "flat": {"flat_budget": True},
               "phase": {"token_budget": 0}}
+# the sampled mix's ServingEngine keyword arguments; its requests are
+# submitted at repetition_penalty 1.2
+SAMPLED = {"do_sample": True, "top_k": 50, "top_p": 0.95,
+           "temperature": 0.8, "enable_repetition_penalty": True}
 
 
 def gpt2_workload(seed, **engine_kwargs):
@@ -82,6 +91,10 @@ def main(argv=None):
                     default="none")
     ap.add_argument("--paged", type=int, choices=(0, 1), default=1,
                     help="0: the dense KV ring (ServingEngine(paged=False))")
+    ap.add_argument("--sampled", type=int, choices=(0, 1), default=0,
+                    help="1: sample as SAMPLED says")
+    ap.add_argument("--rotary", type=int, choices=(0, 1), default=0,
+                    help="1: rotary embeddings (use_rotary=True)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA card", file=sys.stderr)
@@ -89,9 +102,13 @@ def main(argv=None):
     eng, reqs = gpt2_workload(args.seed, **SCHEDULERS[args.scheduler],
                               kv_quant=args.kv_quant,
                               weight_quant=args.weight_quant,
-                              paged=bool(args.paged))
+                              paged=bool(args.paged),
+                              use_rotary=bool(args.rotary),
+                              **(SAMPLED if args.sampled else {}))
+    seed(args.seed)              # the sampled requests' seeds
     for prompt, max_new in reqs:
-        eng.submit(prompt, max_new_tokens=max_new)
+        eng.submit(prompt, max_new_tokens=max_new,
+                   **({"repetition_penalty": 1.2} if args.sampled else {}))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -122,6 +139,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0), "layers": L,
         "scheduler": args.scheduler, "kv_quant": args.kv_quant,
         "weight_quant": args.weight_quant, "paged": bool(args.paged),
+        "sampled": bool(args.sampled), "rotary": bool(args.rotary),
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": (1 - busy_s / wall_s) if wall_s else None,
         "kernel_events": len(intervals),

@@ -248,7 +248,10 @@ def test_fused_decoder_takes_rope_base_sixth():
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(),
                                           np.asarray(want[k]), err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # rotary at another base: JAX's refusal, on both sides
+    with pytest.raises(NotImplementedError, match="rotary base"):
+        JaxDecoder(*jmods, 128, True, 500000.0)
+    with pytest.raises(NotImplementedError, match="rotary base"):
         FusedDecoder(*tmods, 128, True, 500000.0, device="cpu")
 
 

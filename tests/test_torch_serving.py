@@ -184,10 +184,9 @@ def test_slo_verdicts_reconcile(models, serving_metrics_ok):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"do_sample": True}, {"spec_k": 2}, {"prefix_cache_blocks": 4},
+    {"spec_k": 2}, {"prefix_cache_blocks": 4},
     {"kv_pool_blocks": 64}, {"max_pending": 4}, {"kv_pool": object()},
-    {"role": "prefill"}, {"use_rotary": True},
-    {"enable_repetition_penalty": True}])
+    {"role": "prefill"}])
 def test_out_of_slice_options_raise(models, kwargs):
     _, tmods = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -82,7 +82,8 @@ Phases, in order; any failure exits non-zero:
      _sample_rows / _sample_next tokens equal to the CPU's over four
      (top_k, top_p, temperature), with and without the repetition
      penalty, and the card operations and ms of one call of each sampler
-     piece at [8, V] bf16.
+     piece at [8, V] bf16; bf16 top-p masks (top_p 0.95 and 0.9) at [8, V]
+     equal to the CPU's (ROADMAP Queue 3 J's denominator).
      --kernels-only stops here (exit 0, no result line);
   3. the serving engine at GPT-2-124M width (E=768, H=12, FF=3072, L=12,
      V=50304, pre-LN, gelu, bf16, random weights from --seed) serves the
@@ -109,7 +110,14 @@ Phases, in order; any failure exits non-zero:
      (SAMPLED: top_k 50, top_p 0.95, temperature 0.8,
      enable_repetition_penalty, every request at penalty 1.2) under each
      scheduler and one rotary row run (sampled too), with the same
-     launch checks;
+     launch checks; then the options (OPTIONS), each beside the same
+     mix without it: prefix caching (prefix_cache_blocks=64) on a mix of
+     16 prompts sharing a 256-token template under row and phase, and
+     speculative decoding (spec_k=4) on 16 prompts walking a 16-id cycle
+     of profile_serving.cycle_head's model under row, flat and phase
+     (hit rate, tokens saved, drafts, acceptance, tokens/s and TTFT
+     printed; a phase verify pass must read K + 1 = 5 positions, a row
+     chain a C = 16 block);
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
@@ -117,7 +125,10 @@ Phases, in order; any failure exits non-zero:
      the fp and int8 reads and fused writes on the split design; then
      sampled with repetition_penalty 1.2, num_beams=4 (32 ring rows) and
      bulk_prefill=True (12 flash launches on the tensor cores, then
-     12 a decode step);
+     12 a decode step); twice on one PrefixCache (the second call adopts
+     192 of each row's 256 prompt positions, launches 12 per remaining
+     hidden pass and gives the first call's tokens), and spec_k=4 beside
+     plain greedy on the cycle model;
   3c. GPT-2 124M training as bench.py's bench_gpt2 runs it
      (profile_train.gpt2_train_workload: B=8, S=1024, bf16 parameters
      with fp32 AdamW masters, dropout 0.1, lr 1e-4): 2 warm-up steps, then
@@ -169,9 +180,15 @@ Phases, in order; any failure exits non-zero:
      CPU's dense row engine of the same flavor; sampled with the
      repetition penalty, rotary (sampled) and head_quant="int8" under
      each scheduler against the CPU's row engine (request seeds from
-     trng.seed(seed)); generate_fused fp and int8 ring,
-     cache_write_kernel off and on, and sampled with a penalty, rotary
-     and the int8 head, against the CPU's; on a mismatch the CPU's top-2
+     trng.seed(seed)); prefix caching (4 slots, a shared template) and
+     spec_k=4 (greedy, the unscaled cycle model) per scheduler, pool and
+     ring, against the CPU's row engine, and sampled spec_k=4 against
+     the CPU's engine of the same scheduler, hit and draft counters
+     equal; generate_fused fp and int8 ring,
+     cache_write_kernel off and on, sampled with a penalty, rotary,
+     the int8 head, a second call adopting from a PrefixCache and
+     spec_k=4 greedy and sampled, against the CPU's; on a mismatch the
+     CPU's top-2
      margin there (of the filtered logits plus the draw's gumbel noise
      when sampled); every
      card launch of a two-design kernel there (the reads and the fused
@@ -227,7 +244,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.incubate.nn import FusedFeedForward
-from paddle_tpu_torch.inference import FusedDecoder, ServingEngine
+from paddle_tpu_torch.inference import (FusedDecoder, PrefixCache,
+                                        ServingEngine)
 from paddle_tpu_torch.inference.generation import (_absmax_int4,
                                                    _absmax_int8,
                                                    _filter_logits,
@@ -249,8 +267,9 @@ from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import context_parallel as cpar
-from paddle_tpu_torch.profile_serving import (E, FF, H, SAMPLED, SCHEDULERS,
-                                              V, gpt2_workload)
+from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, SAMPLED,
+                                              SCHEDULERS, V, cycle_head,
+                                              gpt2_workload)
 from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
                                             LLAMA_BATCH, LLAMA_CONFIG,
                                             LLAMA_SEQ, SEQ,
@@ -552,6 +571,20 @@ def sampler_checks(rng):
                         f"{gumbel_margin(f, keys[0]):.3e} (one key)")
     log(f"  sampler: words and uniforms byte-equal, {draws} sampled tokens "
         "equal to the CPU's, known answers equal to JAX's")
+    # ROADMAP Queue 3 J: the bf16 top-p denominator sums the fp32
+    # exponentials; the card's masks against the CPU's
+    xj = (torch.from_numpy(np.random.default_rng(2025).standard_normal(
+        (b, V)).astype(np.float32)) * 3).to(torch.bfloat16)
+    neg = torch.tensor(-1e30).to(torch.bfloat16)
+    for top_p in (0.95, 0.9):
+        got = _filter_logits(xj.to(dev), True, 0, top_p, 0.8).cpu() == neg
+        want = _filter_logits(xj, True, 0, top_p, 0.8) == neg
+        if not torch.equal(got, want):
+            rows = (got != want).any(-1).nonzero().flatten().tolist()
+            raise SystemExit(f"bf16 top-p {top_p} masks at [{b}, {V}]: "
+                             f"rows {rows} differ from the CPU's")
+        log(f"  bf16 top-p {top_p} masks at [{b}, {V}] equal to the CPU's "
+            f"({(~got).sum(-1).tolist()} tokens kept a row)")
     x = (torch.randn((b, V), device=dev) * 3).to(torch.bfloat16)
     d_seeds, d_nt, d_pres, d_pen = (a.to(dev) for a in (seeds, nt, pres,
                                                         pen))
@@ -1459,6 +1492,7 @@ def phase_engine(seed):
     runs["row-rotary"] = serve_counted(seed, "row-rotary",
                                        {"use_rotary": True, **SAMPLED})
     log(f"  the sampled and rotary runs: {time.perf_counter() - t0:.1f} s")
+    runs.update(option_runs(seed))
     for name, run in runs.items():
         kv8, w4, dense = "kv8" in name, "w4" in name, "dense" in name
         read = ("decode_attention_stacked" if dense
@@ -1481,6 +1515,54 @@ def phase_engine(seed):
                              f"of {banned}: {got}")
     check_bytes(runs)
     return {name: run["launches"] for name, run in runs.items()}
+
+
+# this slice's options in phase 3: name -> (scheduler, request mix, the
+# option's engine keyword arguments); each is served with the option off
+# too ("-off"), in the same call
+OPTIONS = {"row-prefix": ("row", "prefix", {"prefix_cache_blocks": 64}),
+           "phase-prefix": ("phase", "prefix", {"prefix_cache_blocks": 64}),
+           "row-spec": ("row", "spec", {"spec_k": 4}),
+           "flat-spec": ("flat", "spec", {"spec_k": 4}),
+           "phase-spec": ("phase", "spec", {"spec_k": 4})}
+
+
+def option_runs(seed):
+    """Prefix caching and speculative decoding at phase 3's width: each
+    OPTIONS mix served with its option and without, the same launch and
+    design checks as the other runs, and the option's counters, tokens/s
+    and TTFT beside the run without it."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, (sched, mix, opt) in OPTIONS.items():
+        for off in (True, False):
+            key = name + ("-off" if off else "")
+            runs[key] = serve_counted(seed, key, {
+                **SCHEDULERS[sched], **({} if off else opt)}, mix=mix)
+        on, base = runs[name], runs[name + "-off"]
+        m, mo = on["metrics"], base["metrics"]
+        same = np.mean([np.array_equal(a, b)
+                        for a, b in zip(on["tokens"], base["tokens"])])
+        log(f"  [{name}] against the same mix without the option: "
+            f"generated tokens/s {on['tokens_per_s']:.1f} / "
+            f"{base['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / base['tokens_per_s']:.3f}x), TTFT p50 "
+            f"{m['ttft_p50_s']:.4f} / {mo['ttft_p50_s']:.4f} s, p99 "
+            f"{m['ttft_p99_s']:.4f} / {mo['ttft_p99_s']:.4f} s; "
+            f"requests with the same tokens {same:.3f} (bf16)")
+        if "prefix" in name and not m["prefix_hits"]:
+            raise SystemExit(f"[{name}] no prefix hit: {m}")
+        if "spec" in name:
+            forms = on["forms"]
+            # a phase-scheduler verify pass reads K+1 = 5 positions a row
+            if sched == "phase" and m["draft_proposed"] and not forms.get(5):
+                raise SystemExit(f"[{name}] verified drafts without a "
+                                 f"K+1 block: forms {forms}")
+            if sched == "row" and not forms.get(16):
+                raise SystemExit(f"[{name}] no budget chain block: forms "
+                                 f"{forms}")
+    log(f"  the option runs: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def check_bytes(runs):
@@ -1516,13 +1598,13 @@ def phase_generate(seed):
         "50, top_p 0.95, temperature 0.8, repetition_penalty 1.2), "
         "num_beams=4 and bulk_prefill=True")
     rng = np.random.default_rng(seed + 3)
-    mods = from_jax_state(*random_state(rng, E, H, FF, 12, V),
-                          dtype=torch.bfloat16)
+    state = random_state(rng, E, H, FF, 12, V)
+    mods = from_jax_state(*state, dtype=torch.bfloat16)
     ids = rng.integers(0, V, (8, 256))
     prompt, new = ids.shape[1], 128
     # warm-up: cuBLAS handles, allocator pools
     generate_fused(mods[0], ids[:, :4], *mods[1:], max_new_tokens=2)
-    launches = {}
+    launches, walls = {}, {}
     for name, (ctor, kwargs) in GENERATE.items():
         dec = FusedDecoder(*mods, 1024, **ctor)
         trng.seed(seed)
@@ -1564,6 +1646,80 @@ def phase_generate(seed):
             f"passes/s {(prompt + new - 1) / dt:.1f}; max_memory_allocated "
             f"{peak} bytes, ring {ring_b} bytes; launches {got}")
         launches[name] = {**da.LAUNCHES, **fa.LAUNCHES}
+        walls[name] = dt
+    launches.update(generate_options(mods, ids, new, walls["gen"], state,
+                                     seed))
+    return launches
+
+
+def generate_options(mods, ids, new, gen_wall, state, seed):
+    """Phase 3b's options: ``generate`` twice on one PrefixCache of
+    64-token blocks (the first call publishes every row's four prompt
+    blocks, the second adopts three, since a prompt token is always
+    prefilled, and computes the same tokens), then spec_k=4 beside plain
+    greedy on the spec mix's model (``cycle_head``) with prompts walking
+    its 16-id cycles (each verify pass one ring launch a layer at K + 1 =
+    5 positions). Returns their launch counts."""
+    prompt = ids.shape[1]
+    kernel = "decode_attention_stacked"
+    dec = FusedDecoder(*mods, 1024)
+    nl = dec.fmt.num_layers
+    pc = PrefixCache(64, 64)
+    launches, outs = {}, []
+    for i, adopted in enumerate((0, prompt - 64)):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dec.generate(ids, max_new_tokens=new, prefix_cache=pc)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: v for k, v in {**da.LAUNCHES, **fa.LAUNCHES}.items() if v}
+        want = {kernel: nl * (prompt - adopted + new - 1)}
+        if got != want:
+            raise SystemExit(f"[gen-prefix call {i + 1}] launches {got}, "
+                             f"want {want}")
+        check_paths(f"[gen-prefix call {i + 1}]", want)
+        log(f"  [gen-prefix call {i + 1}] {adopted} of {prompt} prompt "
+            f"positions adopted a row; {dt:.3f} s ({dt / gen_wall:.3f}x "
+            f"the plain run), generated tokens/s {8 * new / dt:.1f}")
+        outs.append(out)
+        launches[f"gen-prefix-{i + 1}"] = dict(da.LAUNCHES)
+    st = pc.store.stats()
+    if not torch.equal(outs[0], outs[1]) or st["match_hits"] != 8 or \
+            st["committed_blocks"] != 32:
+        raise SystemExit(f"[gen-prefix] the adopting call's tokens differ "
+                         f"or the store disagrees: {st}")
+    log(f"  [gen-prefix] the second call's tokens equal the first's; store "
+        f"{st}")
+    dec = FusedDecoder(*from_jax_state(*cycle_head(state),
+                                       dtype=torch.bfloat16), 1024)
+    r = np.random.default_rng(seed + 4)
+    cyc = (CYCLE * r.integers(0, V // CYCLE, (8, 1))
+           + (r.integers(0, CYCLE, (8, 1)) + np.arange(prompt)) % CYCLE)
+    runs = {}
+    for name, kw in (("gen-cycle", {}), ("gen-spec", {"spec_k": 4})):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dec.generate(cyc, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, out)
+        n = da.LAUNCHES[kernel]
+        passes = n // nl - prompt
+        if tuple(out.shape) != (8, prompt + new) or n % nl or passes < 1 \
+                or not np.array_equal(out[:, :prompt].numpy(), cyc):
+            raise SystemExit(f"[{name}] output {tuple(out.shape)}, {n} "
+                             f"launches of {kernel}")
+        check_paths(f"[{name}]", {kernel: n})
+        launches[name] = dict(da.LAUNCHES)
+    (dt0, out0), (dt, out) = runs["gen-cycle"], runs["gen-spec"]
+    same = float((out == out0).all(1).float().mean())
+    log(f"  [gen-spec] spec_k=4 on the cycle model: {dt:.3f} s against "
+        f"plain greedy's {dt0:.3f} ({dt / dt0:.3f}x), generated tokens/s "
+        f"{8 * new / dt:.1f} / {8 * new / dt0:.1f}; {passes} verify "
+        f"passes for {new - 1} tokens a row after the first "
+        f"({(new - 1) / passes:.3f} a pass); rows equal to plain "
+        f"greedy's {same:.3f} (bf16)")
     return launches
 
 
@@ -1595,11 +1751,13 @@ def check_tensor_core_path(label, module, kernels=None, path="tc"):
                          f"every one must take the {path} path")
 
 
-def serve_counted(seed, name, kwargs):
-    """Serve gpt2_workload under one scheduler and flavor with every
-    launch count zeroed just before and read just after; returns the
-    counts, the pool and stacked-weight bytes and the peak memory."""
-    fresh, reqs = gpt2_workload(seed, **kwargs)
+def serve_counted(seed, name, kwargs, mix="gpt2"):
+    """Serve gpt2_workload (the request mix ``mix``) under one scheduler
+    and flavor with every launch count zeroed just before and read just
+    after; returns the counts, the pool and stacked-weight bytes, the
+    peak memory, the metrics, the tokens, the generated tokens/s and
+    the read kernel's launches by query length (``forms``)."""
+    fresh, reqs = gpt2_workload(seed, mix=mix, **kwargs)
     forms = collections.Counter()
     dense = kwargs.get("paged") is False
     attr = (("decode_attention_stacked" if dense else "decode_attention_paged")
@@ -1626,10 +1784,14 @@ def serve_counted(seed, name, kwargs):
         if len(toks) != want:
             raise SystemExit(f"{name}: request {rid} emitted {len(toks)} of "
                              f"{want}")
+    # at the end only the prefix store's pins hold pool blocks
+    pinned = m.get("prefix_store", {}).get("blocks_used", 0)
     if not dense and (m["kv_blocks_used"] + m["kv_blocks_free"]
-                      != m["kv_blocks_total"] or m["kv_blocks_used"]):
+                      != m["kv_blocks_total"]
+                      or m["kv_blocks_used"] != pinned):
         raise SystemExit(f"{name}: kv block accounting broke: {m}")
-    if name.startswith("row") and (not forms.get(16) or not forms.get(1)):
+    if name.startswith("row") and "spec" not in name and (
+            not forms.get(16) or not forms.get(1)):
         raise SystemExit(f"{attr} forms launched: {dict(forms)}; need "
                          "both Sq=16 and Sq=1")
     if attr in da.PATH_LAUNCHES:      # every launch on the split design
@@ -1652,6 +1814,13 @@ def serve_counted(seed, name, kwargs):
     log(f"  [{name}] budget steps {m['budget_steps']}, utilization "
         f"{m['budget_utilization']}, padding {m['budget_padding_tokens']}, "
         f"{attr} forms (Sq: launches) {dict(forms)}, launches {launches}")
+    if "prefix_cache_blocks" in kwargs or "spec_k" in kwargs:
+        log(f"  [{name}] prefix hits {m['prefix_hits']}, misses "
+            f"{m['prefix_misses']}, hit rate {m['prefix_hit_rate']}, prefill "
+            f"tokens saved {m['prefill_tokens_saved']}, computed "
+            f"{m['prefill_tokens_computed']}; drafts proposed "
+            f"{m['draft_proposed']}, accepted {m['draft_accepted']}, "
+            f"acceptance rate {m['acceptance_rate']}")
     peak = torch.cuda.max_memory_allocated()
     pool_b = sum(a.nbytes for a in fresh._caches.values())
     stack_b = sum(a.nbytes for a in fresh.dec._stacked().values())
@@ -1660,7 +1829,9 @@ def serve_counted(seed, name, kwargs):
         f"{'ring' if dense else 'pool'} {pool_b} bytes, stacked weights "
         f"{stack_b} bytes")
     return {"launches": launches, "pool_bytes": pool_b,
-            "stack_bytes": stack_b, "peak": peak}
+            "stack_bytes": stack_b, "peak": peak, "metrics": m,
+            "tokens": list(out.values()), "tokens_per_s": n_new / dt,
+            "forms": dict(forms)}
 
 
 # per training step: the flash forward and both backward kernels once per
@@ -2150,6 +2321,25 @@ def phase_parity(seed):
                "sampled": (SAMPLED, list(SCHEDULERS)),
                "rotary": ({"use_rotary": True, **SAMPLED}, list(SCHEDULERS)),
                "head8": ({"head_quant": "int8"}, list(SCHEDULERS))}
+    # this slice's options, on requests that share a template (prefix
+    # caching; four slots, so the budget schedulers' second gang hits) or
+    # walk a cycle of the spec mix's model (speculative decoding): greedy,
+    # each scheduler's tokens against the CPU's row run (and the row run's
+    # counters against the CPU's), the dense engines against the pool's
+    # CPU run (their tokens and counters are the same); sampled
+    # speculation draws its acceptance on the host in an order of each
+    # scheduler's own, so each is held with its counters to the CPU's run
+    # of the same scheduler
+    opt_reqs = option_requests(seed)
+    spec = {"spec_k": 4, "decode_chunk": 2}
+    prefix = {"prefix_cache_blocks": 32, "num_slots": 4}
+    options = {"prefix": (prefix, list(SCHEDULERS)),
+               "prefix-dense": ({**prefix, "paged": False}, ["row", "phase"]),
+               "spec": (spec, list(SCHEDULERS)),
+               "spec-dense": ({**spec, "paged": False}, ["row"]),
+               "spec-sampled": ({**spec, **SAMPLED}, list(SCHEDULERS))}
+    flavors.update(options)
+    cpu_runs = {}
     for fname, (flavor, scheds) in flavors.items():
         # an int8 pool makes the phase scheduler a computation of its own:
         # its bulk prefill attends the prompt over exact K/V and quantizes
@@ -2159,34 +2349,60 @@ def phase_parity(seed):
         kv8 = flavor.get("kv_quant") == "int8"
         oracle = {n: "phase" if kv8 and n == "phase" else "row"
                   for n in scheds}
+        if fname in options and flavor.get("do_sample"):
+            oracle = {n: n for n in scheds}
         cpu = sorted(set(oracle.values()), reverse=True)
+        f_reqs = opt_reqs[fname.split("-")[0]] if fname in options else reqs
+        # at L=2 the embedding needs no scaling for the cycle to lead, and
+        # unscaled the drafts are rejected often enough to take both ways
+        f_state = (cycle_head(state, scale=1.0) if fname.startswith("spec")
+                   else state)
+        counters = {}
         outs = {}
+        if fname in options and fname.endswith("-dense"):
+            outs, counters = (dict(d) for d in cpu_runs[fname[:-6]])
+            cpu = []
         for dev, name in ([("cuda", n) for n in scheds]
                           + [("cpu", n) for n in cpu]):
-            mods = from_jax_state(*state, device=dev, dtype=torch.float32)
-            eng = ServingEngine(*mods, num_slots=8, max_seq_len=1024,
-                                device=dev, **SCHEDULERS[name], **flavor)
+            mods = from_jax_state(*f_state, device=dev, dtype=torch.float32)
+            eng = ServingEngine(*mods, device=dev, **{
+                "num_slots": 8, "max_seq_len": 1024, **SCHEDULERS[name],
+                **flavor})
             reset_launches()
             trng.seed(seed)
             t0 = time.perf_counter()
             outs[dev, name] = list(serve(
-                eng, reqs, **({"repetition_penalty": 1.2} if flavor.get(
+                eng, f_reqs, **({"repetition_penalty": 1.2} if flavor.get(
                     "enable_repetition_penalty") else {}))[0].values())
-            log(f"  [{fname}] {dev} {name}: {time.perf_counter() - t0:.2f} s")
+            m = eng.metrics()
+            counters[dev, name] = {k: m[k] for k in OPTION_COUNTERS}
+            log(f"  [{fname}] {dev} {name}: {time.perf_counter() - t0:.2f} s"
+                + (f"; {counters[dev, name]}" if fname in options else ""))
             if dev == "cuda":             # fp32 queries: the per-head design
                 check_all_per_head(f"[{fname}] {name}")
+        cpu_runs[fname] = (outs, counters)
         for name in scheds:
             want = outs["cpu", oracle[name]]
+            if fname in options and oracle[name] == name and \
+                    counters["cuda", name] != counters["cpu", name]:
+                raise SystemExit(f"[{fname}] {name}: card counters "
+                                 f"{counters['cuda', name]}, CPU's "
+                                 f"{counters['cpu', name]}")
             for i, (a, b) in enumerate(zip(outs["cuda", name], want)):
                 if np.array_equal(a, b):
                     continue
                 j = int(np.argmax(a != b)) if len(a) == len(b) else min(
                     len(a), len(b))
-                mods = from_jax_state(*state, device="cpu",
+                mods = from_jax_state(*f_state, device="cpu",
                                       dtype=torch.float32)
-                key = (request_keys(seed, len(reqs))(i, j)
+                if flavor.get("spec_k") and flavor.get("do_sample"):
+                    raise SystemExit(
+                        f"[{fname}] request {i}: card ({name}) and CPU "
+                        f"tokens differ at index {j} ({a[j:j + 4]} vs "
+                        f"{b[j:j + 4]}); the host's acceptance draws")
+                key = (request_keys(seed, len(f_reqs))(i, j)
                        if flavor.get("do_sample") else None)
-                margin = first_gap_margin(mods, reqs[i][0], b[:j], key,
+                margin = first_gap_margin(mods, f_reqs[i][0], b[:j], key,
                                           flavor)
                 what = ("filtered logits plus gumbel" if key is not None
                         else "logits")
@@ -2195,10 +2411,11 @@ def phase_parity(seed):
                     f"({oracle[name]}) tokens differ at index {j} "
                     f"({a[j:j + 4]} vs {b[j:j + 4]}); CPU top-2 margin of "
                     f"the {what} there {margin:.3e}")
-        log(f"  [{fname}] {len(reqs)} requests, "
+        log(f"  [{fname}] {len(f_reqs)} requests, "
             f"{sum(len(t) for t in outs['cpu', 'row'])} tokens: each of "
             f"{', '.join(scheds)} on the card identical to "
-            f"{' / '.join(cpu)} on the CPU")
+            f"{' / '.join(sorted(set(oracle.values()), reverse=True))} on "
+            "the CPU")
     parity_generate(state, rng, seed)
     phase_train_parity(seed)
     with environ(FUSED_FFN_FLAGS):
@@ -2209,6 +2426,25 @@ def phase_parity(seed):
                        label="train-llama",
                        kernels=tuple(LLAMA_TRAIN_LAUNCHES), logits=True)
     parity_ring(seed)
+
+
+# what phase 4 holds equal between the card and the CPU for the options
+OPTION_COUNTERS = ("prefix_hits", "prefix_misses", "prefill_tokens_saved",
+                   "draft_proposed", "draft_accepted")
+
+
+def option_requests(seed):
+    """Phase 4's requests for the options, at L=2: six that share a
+    128-token template (two 64-token blocks) and six whose prompts walk a
+    16-id cycle of the spec mix's model (``cycle_head``)."""
+    rng = np.random.default_rng(seed + 6)
+    tmpl = rng.integers(0, V, 128)
+    prefix = [(np.concatenate([tmpl, rng.integers(0, V, n)]), 12)
+              for n in (8, 20, 33, 5, 14, 40)]
+    spec = [(CYCLE * int(rng.integers(0, V // CYCLE))
+             + (int(rng.integers(0, CYCLE)) + np.arange(n)) % CYCLE, 24)
+            for n in (40, 64, 90, 33, 70, 50)]
+    return {"prefix": prefix, "spec": spec}
 
 
 def parity_ring(seed, n=4, b=2, s=256, h=4, hk=2, d=64):
@@ -2309,25 +2545,46 @@ def parity_generate(state, rng, seed):
     """generate over the ring: fp and kv_quant="int8", the card's tokens
     with cache_write_kernel off and on against the CPU's (write, then
     read) of the same flavor; then sampled with a repetition penalty,
-    rotary (sampled) and the int8 head, the card's against the CPU's."""
+    rotary (sampled) and the int8 head, the card's against the CPU's;
+    then this slice's options: a second call adopting from the first's
+    PrefixCache, and spec_k=4 greedy and sampled on prompts that repeat
+    a pattern."""
     ids = rng.integers(0, V, (4, 48))
     sampled = {**SAMPLE, "repetition_penalty": 1.2}
     runs = [("fp", {}, {}, (False, True)),
             ("kv8", {"kv_quant": "int8"}, {}, (False, True)),
             ("sampled", {}, sampled, (False,)),
             ("rotary", {"use_rotary": True}, sampled, (False,)),
-            ("head8", {"head_quant": "int8"}, {}, (False,))]
+            ("head8", {"head_quant": "int8"}, {}, (False,)),
+            ("prefix", {}, {"prefix_cache": None}, (False,)),
+            ("spec", {}, {"spec_k": 4}, (False,)),
+            ("spec-sampled", {}, {**sampled, "spec_k": 4}, (False,))]
+    r = np.random.default_rng(seed + 7)
+    spec_ids = (CYCLE * r.integers(0, V // CYCLE, (4, 1))
+                + (r.integers(0, CYCLE, (4, 1)) + np.arange(48)) % CYCLE)
     for fname, flavor, gen_kw, writes in runs:
         outs = {}
+        f_ids = spec_ids if "spec" in fname else ids
+        f_state = cycle_head(state, scale=1.0) if "spec" in fname else state
         for dev, kw in [("cuda", w) for w in writes] + [("cpu", False)]:
-            mods = from_jax_state(*state, device=dev, dtype=torch.float32)
+            mods = from_jax_state(*f_state, device=dev, dtype=torch.float32)
+            calls = [dict(gen_kw)]
+            if "prefix_cache" in gen_kw:
+                # the second call adopts two of each row's three blocks
+                pc = PrefixCache(16, 16)
+                calls = [{"prefix_cache": pc}] * 2
             reset_launches()
             trng.seed(seed)
             t0 = time.perf_counter()
-            outs[dev, kw] = generate_fused(
-                mods[0], ids, *mods[1:], max_new_tokens=24,
-                max_seq_len=1024, cache_write_kernel=kw, device=dev,
-                **flavor, **gen_kw).numpy()[:, 48:]
+            for call_kw in calls:
+                outs[dev, kw] = generate_fused(
+                    mods[0], f_ids, *mods[1:], max_new_tokens=24,
+                    max_seq_len=1024, cache_write_kernel=kw, device=dev,
+                    **flavor, **call_kw).numpy()[:, 48:]
+            if "prefix_cache" in gen_kw and \
+                    pc.store.stats()["match_hits"] != len(f_ids):
+                raise SystemExit(f"[generate {fname}] {dev}: the second "
+                                 f"call did not adopt: {pc.store.stats()}")
             log(f"  [generate {fname}] {dev} cache_write_kernel={kw}: "
                 f"{time.perf_counter() - t0:.2f} s")
             if dev == "cuda":
@@ -2339,11 +2596,17 @@ def parity_generate(state, rng, seed):
                 continue
             i = int(np.argmax((got != want).any(axis=1)))
             j = int(np.argmax(got[i] != want[i]))
-            mods = from_jax_state(*state, device="cpu", dtype=torch.float32)
-            key = generate_keys(seed, 24)[j] if gen_kw else None
-            margin = first_gap_margin(mods, ids[i], want[i, :j], key,
+            mods = from_jax_state(*f_state, device="cpu", dtype=torch.float32)
+            if gen_kw.get("spec_k") and gen_kw.get("do_sample"):
+                raise SystemExit(
+                    f"[generate {fname}] row {i}: card and CPU tokens "
+                    f"differ at index {j} ({got[i, j:j + 4]} vs "
+                    f"{want[i, j:j + 4]}); the host's acceptance draws")
+            key = (generate_keys(seed, 24)[j] if gen_kw.get("do_sample")
+                   else None)
+            margin = first_gap_margin(mods, f_ids[i], want[i, :j], key,
                                       {**flavor, **gen_kw},
-                                      row=(ids.shape[0], i))
+                                      row=(f_ids.shape[0], i))
             raise SystemExit(
                 f"[generate {fname}] row {i}: card (cache_write_kernel="
                 f"{kw}) and CPU tokens differ at index {j} "

@@ -2,9 +2,8 @@
 generation.
 
 Counterpart of ``paddle_tpu/inference/generation.py::FusedDecoder`` and
-``generate_fused`` but for ``generate``'s ``prefix_cache`` and
-``spec_k`` and the mesh: the ``_stacked`` weight layout (qkv fused
-head-major), the two KV layouts (``init_paged_cache``, the block pool
+``generate_fused`` but for the mesh: the ``_stacked`` weight layout (qkv
+fused head-major), the two KV layouts (``init_paged_cache``, the block pool
 the engine defaults to, and ``init_cache``, the dense ring [L, 2, B, H,
 Smax, D] of ``generate`` and ``ServingEngine(paged=False)``), the
 per-layer step pieces (``ln``, ``qkv_of``, ``proj_ffn_tail``,
@@ -12,10 +11,12 @@ per-layer step pieces (``ln``, ``qkv_of``, ``proj_ffn_tail``,
 hidden cores (``hidden`` for one token per row, ``spec_hidden`` for a
 [B, C] block, ``flat_hidden`` for the flat budget's ragged [T] stream,
 ``bulk_hidden`` for a whole prompt), the dispatches the serving engine
-builds from them (``_build_budget_core``, ``_build_flat_budget_core``
-and the trailing decode scan ``_make_budget_tail``), and ``generate``
-(greedy, sampled, beam search; prefilled a position at a time or, with
-``bulk_prefill``, in one flash pass).
+builds from them (``_build_budget_core``, ``_build_flat_budget_core``,
+each with a chain mode for draft acceptance, the speculative verify core
+``_build_verify_core`` and the trailing decode scan ``_make_budget_tail``),
+and ``generate`` (greedy, sampled, beam search, speculative with
+``spec_k``; prefilled a position at a time or, with ``bulk_prefill``, in
+one flash pass; with a ``PrefixCache`` from its adopted chain).
 
 Sampling is JAX's, draw for draw: ``_filter_logits`` (temperature,
 top-k, top-p), ``_sample_next`` (one key over the whole [B, V], as
@@ -173,9 +174,15 @@ def _filter_logits(logits, do_sample, top_k, top_p, temperature):
         logits = torch.where(logits < kth, neg, logits)
     if top_p and top_p < 1.0:
         srt = torch.sort(logits, dim=-1, descending=True).values
-        # jax.nn.softmax op by op in the dtype; its sum upcasts to fp32
-        e = torch.exp(srt - srt[:, :1])
-        probs = e / e.float().sum(-1, keepdim=True).to(e.dtype)
+        # jax.nn.softmax op by op in the dtype; its sum upcasts to fp32.
+        # For bf16, XLA's excess precision hands the sum the fp32
+        # exponentials of the bf16 difference, never rounded to bf16; the
+        # numerator is the rounded one. fp16 keeps no excess precision.
+        d = srt - srt[:, :1]
+        e = torch.exp(d)
+        summed = torch.exp(d.float()) if d.dtype == torch.bfloat16 \
+            else e.float()
+        probs = e / summed.sum(-1, keepdim=True).to(e.dtype)
         cut = (_blocked_cumsum(probs) < _scalar(top_p, probs)).sum(
             -1, keepdim=True)
         kth = srt.gather(-1, cut.clamp(max=srt.shape[-1] - 1))
@@ -235,21 +242,29 @@ def _sample_rows(logits, do_sample, top_k, top_p, temperature, seeds, nt):
     return _rng.categorical(keys, logits)
 
 
-def _penalize_slots(logits, presence, rep_pen, nt, min_len, eos_ids):
-    """The engine's per-slot logit controls: with ``presence`` [B, V]
-    (None: off), each row's context tokens are divided (positive) or
-    multiplied (negative) by its rep_pen [B] (fp32: the logits promote,
-    as JAX's do); min_length suppresses each row's own eos column while
-    that row has generated fewer than its min_length tokens (eos_ids < 0:
-    no eos)."""
-    if presence is not None:
-        pen = rep_pen[:, None]
-        logits = torch.where(
-            presence, torch.where(logits > 0, logits / pen, logits * pen),
-            logits)
-    cols = torch.arange(logits.shape[1], device=logits.device)[None, :]
-    suppress = (cols == eos_ids[:, None]) & (nt < min_len)[:, None]
+def _position_controls(logits, seen, pen, nt_eff, min_len, eos_ids):
+    """Logit controls at each position (..., V), the position counted as
+    its row's nt_eff-th generated token: with ``seen`` (the tokens in its
+    context; None: off) the repetition penalty divides positive and
+    multiplies negative logits by ``pen`` (fp32: the logits promote, as
+    JAX's do), then min_length suppresses the eos column while nt_eff <
+    min_len (eos_ids < 0: no eos). ``pen``, ``min_len`` and ``eos_ids``
+    broadcast against nt_eff."""
+    if seen is not None:
+        logits = torch.where(seen, torch.where(
+            logits > 0, logits / pen, logits * pen), logits)
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    suppress = (cols == eos_ids[..., None]) & (nt_eff < min_len)[..., None]
     return torch.where(suppress, _scalar(NEG_INF, logits), logits)
+
+
+def _penalize_slots(logits, presence, rep_pen, nt, min_len, eos_ids):
+    """The engine's per-slot logit controls (``_position_controls`` at
+    one position a row): presence [B, V] (None: off), rep_pen, nt,
+    min_len and eos_ids [B]."""
+    return _position_controls(
+        logits, presence, None if presence is None else rep_pen[:, None],
+        nt, min_len, eos_ids)
 
 
 # the elementwise activations of jax.nn the FFN may name
@@ -671,15 +686,23 @@ class FusedDecoder:
         return [{k: v[i] for k, v in stk.items()}
                 for i in range(self.fmt.num_layers)]
 
-    def hidden(self, stk, caches, tok, t):
+    def hidden(self, stk, caches, tok, t, write_mask=None):
         """tok [B], t [B] per-row positions or one int (a ring only) -> x
         [B, 1, E]; every row's K/V is written at its position t (unless it
-        resolves to nowhere)."""
+        resolves to nowhere), or with write_mask [B] only the rows where
+        it holds (the others still attend; the masked-scan prefill's
+        rows). A masked write never takes the fused write kernels, as in
+        JAX."""
         x = self.embed(tok[:, None])
-        if self._fused_write(caches, x.shape[0], x.dtype):
+        if write_mask is None and self._fused_write(caches, x.shape[0],
+                                                    x.dtype):
             targets = "fused"
-        else:
+        elif write_mask is None:
             targets = self.write_targets(caches, t)
+        else:
+            tv = self._lens_arg(t, x.shape[0], x.device).long()
+            targets = self.write_targets(caches, torch.where(
+                write_mask, tv, torch.full_like(tv, self.smax)))
         t = self._lens_arg(t, x.shape[0], x.device)
         rope = self.rope_tables(t[:, None], x.dtype)
         for l, p in enumerate(self._layers(stk)):
@@ -872,16 +895,56 @@ class FusedDecoder:
             return (tok, lens, active, nt), ys
         return run
 
+    @staticmethod
+    def _block_seen(toks, valid, presence, vocab):
+        """[B, C, V]: the carried presence [B, V] or'ed with the block's
+        valid tokens consumed at columns <= j (JAX's cumulative one-hot)."""
+        oh = F.one_hot(toks.long(), vocab) * valid[..., None]
+        return (oh.cumsum(1) > 0) | presence[:, None, :]
+
+    def _build_verify_core(self, k, rep_on=False, greedy_out=False):
+        """The speculative-decoding verify step: K+1 positions a row (its
+        input token, then the drafts) through ``spec_hidden`` in one pass,
+        writing K/V where ``valid`` = active & (j <= dlen) & (lens + j <
+        Smax), then the head at every position with the per-position
+        controls (position j as the (nt + j)-th generated token; the
+        presence extended by the drafts consumed up to j). Acceptance is
+        the host's. Returns verify(stk, caches, toks [B, K+1], lens, dlen,
+        active, nt, eos_ids, min_len, rep_pen, presence) -> logits [B,
+        K+1, V], or their argmax [B, K+1] under greedy_out."""
+        kp = int(k) + 1
+
+        def verify(stk, caches, toks, lens, dlen, active, nt, eos_ids,
+                   min_len, rep_pen=None, presence=None):
+            offs = torch.arange(kp, device=toks.device)[None, :]
+            valid = (active[:, None] & (offs <= dlen[:, None])
+                     & (lens[:, None] + offs < self.smax))
+            x = self.spec_hidden(stk, caches, toks, lens, valid)
+            logits = self.head_logits(x).reshape(x.shape[0], kp, -1)
+            seen = (self._block_seen(toks, valid, presence, logits.shape[-1])
+                    if rep_on else None)
+            logits = _position_controls(
+                logits, seen, None if seen is None else rep_pen[:, None, None],
+                nt[:, None] + offs, min_len[:, None], eos_ids[:, None])
+            return logits.argmax(-1) if greedy_out else logits
+        return verify
+
     def _build_budget_core(self, c, rep_on=False, do_sample=False, top_k=0,
-                           top_p=1.0, temperature=1.0, scan_tail=0):
-        """The row-layout token-budget step without drafts: row b feeds
-        seg[b] tokens of toks [B, C] at positions lens[b]..; the last
-        valid column's logits sample the row's next token (kept when
-        gen0[b] < seg[b], i.e. the row is generating), then ``scan_tail``
-        trailing decode steps run in the same call. Returns budget(stk,
-        caches, toks, lens, seg, gen0, nt, max_nt, eos_ids, min_len,
-        rep_pen, presence, seeds) -> (tok0, emit0, ys, tok, lens, active,
-        nt), the last three as ``_make_budget_tail``'s."""
+                           top_p=1.0, temperature=1.0, full_logits=False,
+                           chain=False, scan_tail=0):
+        """The row-layout token-budget step: row b feeds seg[b] tokens of
+        toks [B, C] at positions lens[b].. (a decode row its input token
+        and any drafts, a prefill row its next prompt chunk). Without
+        ``chain`` the last valid column's logits sample the row's next
+        token (kept when gen0[b] < seg[b], i.e. the row is generating),
+        then ``scan_tail`` trailing decode steps run in the same call:
+        budget(stk, caches, toks, lens, seg, gen0, nt, max_nt, eos_ids,
+        min_len, rep_pen, presence, seeds) -> (tok0, emit0, ys, tok, lens,
+        active, nt), the last three as ``_make_budget_tail``'s. With
+        ``chain`` (drafts in the block) it returns every column's argmax
+        [B, C] (``full_logits``: the controlled logits [B, C, V]), column
+        j controlled as the (nt + max(0, j - gen0))-th generated token,
+        for the host's acceptance."""
         c = int(c)
         sample = (do_sample, top_k, top_p, temperature)
         tail = self._make_budget_tail(int(scan_tail), rep_on, *sample)
@@ -891,6 +954,17 @@ class FusedDecoder:
             offs = torch.arange(c, device=toks.device)[None, :]
             valid = (offs < seg[:, None]) & (lens[:, None] + offs < self.smax)
             x = self.spec_hidden(stk, caches, toks, lens, valid)
+            if chain:
+                logits = self.head_logits(x).reshape(x.shape[0], c, -1)
+                seen = (self._block_seen(toks, valid, presence,
+                                         logits.shape[-1])
+                        if rep_on else None)
+                logits = _position_controls(
+                    logits, seen,
+                    None if seen is None else rep_pen[:, None, None],
+                    nt[:, None] + (offs - gen0[:, None]).clamp(min=0),
+                    min_len[:, None], eos_ids[:, None])
+                return logits if full_logits else logits.argmax(-1)
             last = (seg - 1).clamp(min=0).long()
             xl = x[torch.arange(x.shape[0], device=x.device), last][:, None]
             logits = self.head_logits(xl).reshape(x.shape[0], -1)
@@ -913,26 +987,51 @@ class FusedDecoder:
 
     def _build_flat_budget_core(self, b, rep_on=False, do_sample=False,
                                 top_k=0, top_p=1.0, temperature=1.0,
-                                scan_tail=0):
-        """The token-flattened budget step without drafts: one ragged [T]
-        stream (decode region [0, b), then segments aligned to
-        FLAT_CHUNK), each slot's next token sampled from its last valid
-        stream index ``last_idx``, then ``scan_tail`` trailing decode
-        steps. ``emit0`` and ``adv`` come from the packer. Returns
+                                full_logits=False, chain=False, scan_tail=0):
+        """The token-flattened budget step: one ragged [T] stream (decode
+        region [0, b), then segments aligned to FLAT_CHUNK: prefill
+        chunks and draft claims). Without ``chain`` each slot's next token
+        is sampled from its last valid stream index ``last_idx``, then
+        ``scan_tail`` trailing decode steps run; ``emit0`` and ``adv``
+        come from the packer. With ``chain`` it returns every token's
+        argmax [T] (``full_logits``: the controlled logits [T, V]), token
+        i controlled as its slot's (nt + max(0, tcol[i] - gen0))-th
+        generated token with the presence extended by its segment's
+        tokens (the segment starts at stream index tstart[i]). Returns
         flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
-        tok_in, last_idx, emit0, adv, lens, nt, max_nt, eos_ids, min_len,
-        rep_pen, presence, seeds) -> (tok0, emit0, ys, tok, lens, active,
-        nt), as the row core."""
+        tcol, tstart, gen0, tok_in, last_idx, emit0, adv, lens, nt,
+        max_nt, eos_ids, min_len, rep_pen, presence, seeds) -> (tok0,
+        emit0, ys, tok, lens, active, nt) as the row core, or the chain."""
         b = int(b)
         sample = (do_sample, top_k, top_p, temperature)
         tail = self._make_budget_tail(int(scan_tail), rep_on, *sample)
 
         def flat_budget(stk, caches, toks, tslot, tpos, cslot, cbase, cn,
-                        tok_in, last_idx, emit0, adv, lens, nt, max_nt,
-                        eos_ids, min_len, rep_pen=None, presence=None,
-                        seeds=None):
+                        tcol, tstart, gen0, tok_in, last_idx, emit0, adv,
+                        lens, nt, max_nt, eos_ids, min_len, rep_pen=None,
+                        presence=None, seeds=None):
             x = self.flat_hidden(stk, caches, toks, tslot, tpos,
                                  (cslot, cbase, cn), b)
+            if chain:
+                logits = self.head_logits(x[0])             # [T, V]
+                cl = tslot.clamp(max=b - 1).long()
+                seen = pen = None
+                if rep_on:
+                    # segment-local cumulative one-hot: the stream's
+                    # cumsum minus its value before each segment's start
+                    oh = F.one_hot(toks.long(), logits.shape[-1]) \
+                        * (tslot < b)[:, None]
+                    cs = oh.cumsum(0)
+                    prev = torch.where((tstart > 0)[:, None],
+                                       cs[(tstart - 1).clamp(min=0).long()],
+                                       torch.zeros_like(cs))
+                    seen = ((cs - prev) > 0) | presence[cl]
+                    pen = rep_pen[cl][:, None]
+                logits = _position_controls(
+                    logits, seen, pen,
+                    nt[cl] + (tcol - gen0[cl]).clamp(min=0), min_len[cl],
+                    eos_ids[cl])
+                return logits if full_logits else logits.argmax(-1)
             xl = x[0, last_idx][:, None]
             logits = self.head_logits(xl).reshape(b, -1)
             logits = _penalize_slots(logits, presence if rep_on else None,
@@ -952,10 +1051,9 @@ class FusedDecoder:
         return flat_budget
 
     # ------------------------------------------------- one-shot generation
-    def _refuse_out_of_slice(self, num_beams, prefix_cache, spec_k,
-                             do_sample, pen_on, rep_on):
-        """JAX's refusals of option combinations, then the options the
-        port does not have yet."""
+    def _refuse_combinations(self, num_beams, spec_k, do_sample, pen_on,
+                             rep_on):
+        """JAX's refusals of option combinations."""
         if spec_k and num_beams > 1:
             raise ValueError(
                 "spec_k composes with greedy/sampling generation, not "
@@ -971,31 +1069,47 @@ class FusedDecoder:
             raise NotImplementedError(
                 "repetition_penalty needs a Linear LM head (vocab "
                 "size must be known for the presence mask)")
-        for name, off, item in (
-                ("prefix_cache", prefix_cache is None,
-                 "item 6(c) (prefix caching)"),
-                ("spec_k", not spec_k, "item 6(d) (speculative decoding)")):
-            if not off:
-                raise NotImplementedError(
-                    f"generate({name}=...) selects a path the PyTorch port "
-                    f"does not have yet: ROADMAP Queue 1 {item}")
 
-    def _prefill(self, stk, toks):
+    def _prefill(self, stk, toks, pc=None):
         """The prompt toks [B, S] into a fresh ring: one causal flash pass
         with its K/V padded into the ring (bulk_prefill, for S > 1; an
         int8 ring takes them quantized), else one hidden pass a position.
-        Returns (caches, the last position's hidden state [B, 1, E])."""
+        With a PrefixCache ``pc`` the shortest adoptable chain over the
+        rows is copied into every row first (one prefill position serves
+        the batch, as in JAX) and prefill starts after it, a position at
+        a time (the flash pass cannot attend an adopted prefix); then
+        every row's full blocks are published. Returns (caches, the last
+        position's hidden state [B, 1, E])."""
         b, prompt = toks.shape
-        caches = self.ring_caches(self.init_cache(b))
-        if self.bulk_prefill and prompt > 1:
+        ids = toks.cpu().numpy()
+        pos, chains = 0, None
+        if pc is not None and prompt > 1:
+            ms = [pc.lookup(ids[r]) for r in range(b)]
+            n = min(len(mt) for mt in ms)
+            if n:
+                chains = [mt[:n] for mt in ms]
+                pos = n * pc.block_tokens
+        if self.bulk_prefill and prompt > 1 and not pos:
             x_all, kv_all = self.bulk_hidden(stk, toks)
+            caches = self.ring_caches(self.init_cache(b))
             if "sc" in caches:
                 kv_all, sc = _absmax_int8(kv_all, -1)
                 caches["sc"][..., 0, :prompt] = sc[..., 0]
             caches["kv"][:, :, :, :, :prompt] = kv_all.to(caches["kv"].dtype)
-            return caches, x_all[:, -1:]
-        for pos in range(prompt):
-            last_x = self.hidden(stk, caches, toks[:, pos], pos)
+            last_x = x_all[:, -1:]
+        else:
+            caches = self.ring_caches(self.init_cache(b))
+            for r, chain in enumerate(chains or ()):
+                pc.store.acquire(chain)
+                try:
+                    pc.adopt(caches, r, chain)
+                finally:
+                    pc.store.release(chain)
+            for t in range(pos, prompt):
+                last_x = self.hidden(stk, caches, toks[:, t], t)
+        if pc is not None and prompt >= pc.block_tokens:
+            for r in range(b):
+                pc.publish(caches, r, ids[r])
         return caches, last_x
 
     @torch.no_grad()
@@ -1014,13 +1128,19 @@ class FusedDecoder:
         first token under ``next_key()`` and each chunk's tokens under
         ``split(next_key(), chunk)``, one key a step over the whole [B,
         V], as JAX does. num_beams > 1 runs beam search over the ring
-        (``_generate_beam``). Returns int64 [B, S + generated] on the CPU:
-        when every row has finished, cut after the step where the last row
-        emitted its first eos."""
+        (``_generate_beam``). ``prefix_cache`` (a ``PrefixCache``, which a
+        dense ServingEngine may share) adopts the rows' shortest published
+        chain and publishes their full blocks after prefill. ``spec_k``
+        (0 or a power of two) decodes speculatively with the n-gram
+        drafter and the verify core (``_generate_spec``). Returns int64
+        [B, S + generated] on the CPU: when every row has finished, cut
+        after the step where the last row emitted its first eos."""
+        from .spec_decode import validate_spec_k
+        spec_k = validate_spec_k(spec_k)
         rep_on = repetition_penalty != 1.0
         pen_on = bool(min_length) or rep_on
-        self._refuse_out_of_slice(num_beams, prefix_cache, spec_k,
-                                  do_sample, pen_on, rep_on)
+        self._refuse_combinations(num_beams, spec_k, do_sample, pen_on,
+                                  rep_on)
         ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
                          else input_ids).astype(np.int64)
         if ids.ndim != 2 or ids.shape[1] < 1:
@@ -1032,7 +1152,7 @@ class FusedDecoder:
                              f"max_new_tokens {max_new_tokens}")
         stk = self._stacked()
         toks = torch.from_numpy(ids).to(self.device)
-        caches, last_x = self._prefill(stk, toks)
+        caches, last_x = self._prefill(stk, toks, prefix_cache)
         eos = None if eos_token_id is None else int(eos_token_id)
         if num_beams > 1:
             return self._generate_beam(ids, last_x, caches, stk,
@@ -1053,6 +1173,10 @@ class FusedDecoder:
         nxt = next_token(last_x, 0, _rng.next_key() if do_sample else None)
         if rep_on:
             presence[rows, nxt] = True
+        if spec_k:
+            return self._generate_spec(
+                ids, caches, stk, nxt, max_new_tokens, eos, sample,
+                min_length, repetition_penalty, presence, spec_k)
         parts = [nxt[:, None]]
         finished = (nxt == eos) if eos is not None else None
         remaining = max_new_tokens - 1
@@ -1085,6 +1209,95 @@ class FusedDecoder:
             first_eos = np.argmax(gen == eos, axis=1)   # rows all have one
             gen = gen[:, :int(first_eos.max()) + 1]
         return torch.from_numpy(np.concatenate([ids, gen], axis=1))
+
+    def _generate_spec(self, ids, caches, stk, first, max_new_tokens, eos,
+                       sample, min_length, repetition_penalty, presence, k):
+        """Speculative decoding after the first token: per row an n-gram
+        drafter's proposal (capped at the remaining budget minus one) ->
+        one verify pass over K+1 positions -> the host's acceptance
+        (greedy exact match, or rejection sampling under a
+        ``np.random.RandomState`` seeded from ``next_key()``) -> each row
+        advances by its accepted tokens plus the bonus. Rows that finish
+        early are padded with eos (0 without) to the longest row."""
+        from .spec_decode import (NGramDrafter, filtered_probs,
+                                  greedy_accept, rejection_sample,
+                                  truncate_emitted)
+        do_sample, top_k, top_p, temperature = sample
+        b, prompt = ids.shape
+        rep_on = repetition_penalty != 1.0
+        first = first.cpu().numpy()
+        rows = [[int(first[r])] for r in range(b)]
+        drafters = []
+        for r in range(b):
+            d = NGramDrafter(k)
+            d.reset(ids[r])
+            d.update(rows[r])
+            drafters.append(d)
+        lens = np.full(b, prompt, np.int64)
+        nt = np.ones(b, np.int64)
+        finished = (first == eos) if eos is not None else np.zeros(b, bool)
+        dev = self.device
+
+        def vec(v, dtype=torch.int64):
+            return torch.full((b,), v, dtype=dtype, device=dev)
+        eos_vec = vec(-1 if eos is None else eos)
+        min_vec = vec(int(min_length))
+        rp_vec = vec(float(repetition_penalty), torch.float32)
+        vstep = self._build_verify_core(k, rep_on, greedy_out=not do_sample)
+        rng = (np.random.RandomState(_host_seed(_rng.next_key()))
+               if do_sample else None)
+        while True:
+            act = ~finished & (nt < max_new_tokens)
+            if not act.any():
+                break
+            drafts = np.zeros((b, k), np.int64)
+            dlen = np.zeros(b, np.int64)
+            toks = np.zeros((b, k + 1), np.int64)
+            for r in range(b):
+                toks[r, 0] = rows[r][-1]
+                if not act[r]:
+                    continue
+                d = drafters[r].propose()
+                m = min(int(d.size), int(max_new_tokens - nt[r]) - 1)
+                if m > 0:
+                    drafts[r, :m] = d[:m]
+                    dlen[r] = m
+            toks[:, 1:] = drafts
+            out = vstep(stk, caches, *(torch.from_numpy(a).to(dev) for a in (
+                toks, lens, dlen, act, nt)), eos_vec, min_vec, rp_vec,
+                presence)
+            out = out.float().cpu().numpy() if do_sample else \
+                out.cpu().numpy()
+            new_rows, new_cols = [], []
+            for r in range(b):
+                if not act[r]:
+                    continue
+                m = int(dlen[r])
+                if do_sample:
+                    probs = filtered_probs(out[r, :m + 1], top_k, top_p,
+                                           temperature)
+                    kept, _ = rejection_sample(drafts[r, :m], probs, rng)
+                else:
+                    kept, _ = greedy_accept(drafts[r, :m], out[r, :m + 1])
+                emitted, hit_eos = truncate_emitted(
+                    kept, int(max_new_tokens - nt[r]), eos)
+                nt[r] += len(emitted)
+                rows[r].extend(emitted)
+                lens[r] += len(emitted)
+                finished[r] |= hit_eos
+                drafters[r].update(emitted)
+                new_rows.extend([r] * len(emitted))
+                new_cols.extend(emitted)
+            if rep_on and new_rows:
+                presence[torch.tensor(new_rows, device=dev),
+                         torch.tensor(new_cols, device=dev)] = True
+        width = max(len(t) for t in rows)
+        out = np.full((b, prompt + width), eos if eos is not None else 0,
+                      np.int64)
+        out[:, :prompt] = ids
+        for r in range(b):
+            out[r, prompt:prompt + len(rows[r])] = rows[r]
+        return torch.from_numpy(out)
 
     # ------------------------------------------------- beam over the ring
     # The beams share the prompt's ring rows: prefilled once at batch B,

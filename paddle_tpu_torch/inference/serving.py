@@ -30,6 +30,24 @@ drawn under fold_in(PRNGKey(seed), n), its seed drawn at ``submit`` from
 the global key stream (``core.rng.next_key``), so every scheduler gives
 the same sampled tokens.
 
+Prefix caching (``prefix_cache_blocks=`` on either layout, or a shared
+dense ``prefix_cache=``, which makes the engine dense): each admission
+looks its prompt up in a radix store of published full blocks; a hit
+adopts the chain (paged: its block ids into the slot's table, zero-copy;
+dense: copied into the slot's ring row) and prefill starts after it (the
+phase scheduler runs a hit's suffix through the masked-scan prefill,
+since the bulk flash pass cannot attend an adopted prefix). A prompt
+publishes its full blocks when its prefill completes.
+
+Speculative decoding (``spec_k`` K, 0 or a power of two): per-slot
+n-gram drafters (``spec_decode``) propose up to K tokens; the budget
+schedulers pack them as claims on the step's budget and score them in
+the budget cores' chain mode, the phase scheduler in the K+1-position
+verify core when at least ``_spec_min_draft`` drafts a row ride along.
+The host accepts (greedy exact match, or rejection sampling under a
+``np.random.RandomState`` seeded from the key stream at its first use);
+greedy tokens equal spec-off's.
+
 Under either budget, a step with only decode rows runs the plain
 ``decode_chunk``-step scan instead, which moves more tokens. Host state
 (lens, counts, block tables) lives in numpy and crosses to the device
@@ -39,7 +57,8 @@ gauges as None.
 
 Every constructor argument that selects a path outside this slice
 raises NotImplementedError naming its ROADMAP item; the engine reads no
-environment variables.
+environment variables (JAX's PADDLE_SERVING_SPEC_K and
+PADDLE_SERVING_SPEC_MIN_DRAFT take their defaults, 0 and 2).
 """
 from __future__ import annotations
 
@@ -54,7 +73,11 @@ from ..ops.decode_attention import FLAT_CHUNK
 from ..core.rng import next_key
 from .generation import (FusedDecoder, _absmax_int8, _host_seed,
                          _penalize_slots, _sample_rows)
-from .paged_kv import BlockPool
+from .paged_kv import BlockPool, PagedPrefixCache
+from .prefix_cache import PrefixCache
+from .spec_decode import (NGramDrafter, filtered_probs, greedy_accept,
+                          propose_claims, rejection_sample,
+                          truncate_emitted, validate_spec_k)
 from .telemetry import (DEFAULT_RING, QOS_CLASSES, QOS_DEFAULT, SloPolicy,
                         Telemetry)
 
@@ -63,10 +86,7 @@ __all__ = ["ServingEngine", "ServedRequest"]
 # constructor argument -> (values that stay in this slice, ROADMAP item)
 _OUT_OF_SLICE = {
     "max_pending": ((None,), "Queue 1 item 6(f) (admission shedding)"),
-    "prefix_cache_blocks": ((0, None), "Queue 1 item 6(c) (prefix caching)"),
-    "prefix_cache": ((None,), "Queue 1 item 6(c) (prefix caching)"),
-    "spec_k": ((None, 0), "Queue 1 item 6(d) (speculative decoding)"),
-    "kv_pool": ((None,), "Queue 1 item 5 (BlockPool sharing, copy_block)"),
+    "kv_pool": ((None,), "Queue 1 item 6(f) (a shared BlockPool)"),
     "kv_pool_blocks": ((None,), "Queue 1 item 6(f) (explicit pool budget)"),
     "role": ((None, "mixed"), "Queue 1 item 6(f) (prefill/decode roles)"),
 }
@@ -141,11 +161,8 @@ class ServingEngine:
                  telemetry_ring=None, slo=None, role=None,
                  weight_quant=None, kv_quant=None, *, head_quant=None,
                  device=None):
-        given = dict(max_pending=max_pending,
-                     prefix_cache_blocks=prefix_cache_blocks,
-                     prefix_cache=prefix_cache, spec_k=spec_k,
-                     kv_pool=kv_pool, kv_pool_blocks=kv_pool_blocks,
-                     role=role)
+        given = dict(max_pending=max_pending, kv_pool=kv_pool,
+                     kv_pool_blocks=kv_pool_blocks, role=role)
         for name, value in given.items():
             accepted, item = _OUT_OF_SLICE[name]
             if not any(value is a or value == a for a in accepted):
@@ -153,6 +170,17 @@ class ServingEngine:
                     f"ServingEngine({name}={value!r}) selects a path the "
                     f"PyTorch port does not have yet: ROADMAP {item}")
         self.paged = paged is None or bool(paged)
+        if self.paged and prefix_cache is not None:
+            # JAX's rule: a shared dense PrefixCache makes the engine
+            # dense, and an explicit paged=True with one is refused
+            if paged:
+                raise ValueError(
+                    "a shared dense PrefixCache cannot back a paged "
+                    "engine (its blocks live in separate storage; a "
+                    "paged engine's prefix blocks ARE kv pool blocks) "
+                    "— pass prefix_cache_blocks= instead, or "
+                    "paged=False")
+            self.paged = False
         if weight_quant == "int4" and not self.paged:
             # JAX's refusal: int4 packed weights are a paged-serving memory
             # feature; the dense ring costs B x Smax regardless
@@ -185,8 +213,41 @@ class ServingEngine:
         self.pool = (BlockPool(b * (self.smax // cap), cap, self.smax)
                      if self.paged else None)
         self._kv_reserved = 0
+        if prefix_cache is not None:
+            if not isinstance(prefix_cache, PrefixCache):
+                raise ValueError(
+                    f"prefix_cache= takes a shareable dense PrefixCache"
+                    f", got {type(prefix_cache).__name__} — paged "
+                    "engines build their own via prefix_cache_blocks=")
+            if prefix_cache.block_tokens != cap:
+                raise ValueError(
+                    f"shared prefix cache has block_tokens="
+                    f"{prefix_cache.block_tokens} but prefill_cap={cap} "
+                    "— the block and prefill ladders must align")
+            self.prefix_cache = prefix_cache
+        elif prefix_cache_blocks:
+            self.prefix_cache = (
+                PagedPrefixCache(int(prefix_cache_blocks), cap, self.pool)
+                if self.paged else PrefixCache(int(prefix_cache_blocks),
+                                               cap))
+        else:
+            self.prefix_cache = None
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefill_tokens_saved = 0
+        self._prefill_tokens_computed = 0
+        self.spec_k = k = validate_spec_k(spec_k if spec_k is not None
+                                          else 0)
+        self._drafters = ([NGramDrafter(k) for _ in range(b)] if k
+                          else None)
+        # the phase scheduler runs the verify pass only when at least
+        # this many drafts an active row ride along (JAX's default)
+        self._spec_min_draft = 2.0
+        self._spec_rng = None            # first sampled acceptance draws it
+        self._draft_proposed = 0
+        self._draft_accepted = 0
         tb = int(token_budget if token_budget is not None
-                 else b * 4 * self.decode_chunk)
+                 else b * max(4 * self.decode_chunk, k + 1))
         if tb < 0:
             raise ValueError(f"token_budget must be >= 0, got {tb}")
         if tb and tb < b:
@@ -195,7 +256,8 @@ class ServingEngine:
                 "row claims one token per step (token_budget=0 selects "
                 "the phase scheduler)")
         self.token_budget = tb
-        cw = -(-tb // b) if tb else 1
+        # a row's whole segment (input token and K drafts) fits C columns
+        cw = max(-(-tb // b) if tb else 1, k + 1)
         self._budget_cols = 1 << (cw - 1).bit_length()
         self._flat_budget = bool(flat_budget)
         if self._flat_budget and not tb:
@@ -239,6 +301,7 @@ class ServingEngine:
         self._budget_tokens_used = 0
         self._budget_prefill_tokens = 0
         self._budget_decode_tokens = 0
+        self._budget_draft_tokens = 0
         self._budget_padding_tokens = 0
         self._slo_ok = 0
         self._slo_violated_queue = 0
@@ -323,7 +386,8 @@ class ServingEngine:
         else:
             emitted = len(self._admit())
             if self._active.any():
-                emitted += self._decode_one_chunk()
+                emitted += (self._spec_decode_step() if self.spec_k
+                            else self._decode_one_chunk())
         self._busy_s += self.clock() - t0
         self._tokens_emitted += emitted
         if had_work:
@@ -343,7 +407,9 @@ class ServingEngine:
         w_bytes = sum(a.numel() * a.element_size()
                       for a in self._weight_arrays())
         used, pad = self._budget_tokens_used, self._budget_padding_tokens
-        return {
+        looked = self._prefix_hits + self._prefix_misses
+        prop, acc = self._draft_proposed, self._draft_accepted
+        m = {
             "tokens_emitted": self._tokens_emitted,
             "busy_s": round(self._busy_s, 4),
             "tokens_per_sec": (
@@ -372,11 +438,19 @@ class ServingEngine:
             "ttft_p99_s": tele.hist_ttft.percentile(99),
             "latency_p50_s": tele.hist_latency.percentile(50),
             "latency_p99_s": tele.hist_latency.percentile(99),
-            "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_rate": None,
-            "prefill_tokens_saved": 0, "prefill_tokens_computed": 0,
+            # hits + misses == admitted; saved + computed == the prompt
+            # tokens admitted (with a prefix cache)
+            "prefix_hits": self._prefix_hits,
+            "prefix_misses": self._prefix_misses,
+            "prefix_hit_rate": (round(self._prefix_hits / looked, 4)
+                                if looked else None),
+            "prefill_tokens_saved": self._prefill_tokens_saved,
+            "prefill_tokens_computed": self._prefill_tokens_computed,
+            # one per-row sample event per admit / decode / verify row
+            # step: tokens_emitted == decode_steps + draft_accepted
             "decode_steps": self._decode_steps,
-            "draft_proposed": 0, "draft_accepted": 0,
-            "acceptance_rate": None,
+            "draft_proposed": prop, "draft_accepted": acc,
+            "acceptance_rate": round(acc / prop, 4) if prop else None,
             "tokens_per_step": (
                 round(self._tokens_emitted / self._decode_steps, 4)
                 if self._decode_steps else None),
@@ -396,7 +470,7 @@ class ServingEngine:
             "budget_tokens_used": used,
             "budget_prefill_tokens": self._budget_prefill_tokens,
             "budget_decode_tokens": self._budget_decode_tokens,
-            "budget_draft_tokens": 0,
+            "budget_draft_tokens": self._budget_draft_tokens,
             "budget_padding_tokens": pad,
             "budget_utilization": (round(used / (used + pad), 4)
                                    if self._budget_steps and used else None),
@@ -408,6 +482,9 @@ class ServingEngine:
             "service_p50_s": tele.hist_service.percentile(50),
             "service_p99_s": tele.hist_service.percentile(99),
         }
+        if self.prefix_cache is not None:
+            m["prefix_store"] = self.prefix_cache.store.stats()
+        return m
 
     def metrics_prometheus(self):
         from .telemetry import render_prometheus
@@ -447,11 +524,16 @@ class ServingEngine:
 
     def _alloc_kv_blocks(self, n):
         got = self.pool.alloc(n)
+        store = getattr(self.prefix_cache, "store", None)
+        if got is None and hasattr(store, "reclaim"):
+            # prefix blocks are cache: evict cold ones under pressure
+            store.reclaim(n - self.pool.free_count)
+            got = self.pool.alloc(n)
         if got is None:
             raise RuntimeError(
                 f"kv block pool over-committed: need {n} blocks, "
-                f"{self.pool.free_count} free — the admission-time "
-                "reservation should make this unreachable")
+                f"{self.pool.free_count} free after reclaim — the "
+                "admission-time reservation should make this unreachable")
         return got
 
     def _budget_pos(self, slot):
@@ -461,8 +543,12 @@ class ServingEngine:
 
     def _ensure_writable(self, slot, lo, hi):
         """Map every unmapped block of the write window [lo, hi) (a ring has
-        nothing to map). Blocks are never shared in this slice (no prefix
-        cache, no fork), so no copy-on-write is needed."""
+        nothing to map). Adopted and published prompt blocks are shared
+        (refcount > 1), but they are full blocks below the prompt's end,
+        and every write lands at or past the adopted length or the
+        prompt's end, so none needs a copy-on-write; JAX's COW copy comes
+        with ``fork_slot`` (ROADMAP Queue 1 item 6(f)). A write window
+        over a shared block raises instead of writing into it."""
         hi = min(int(hi), self.smax)
         if hi <= lo or not self.paged:
             return
@@ -472,6 +558,11 @@ class ServingEngine:
         for j in range(int(lo) // bt, (hi - 1) // bt + 1):
             if int(row[j]) == nb:
                 row[j] = self._alloc_kv_blocks(1)[0]
+            elif int(self.pool.refcounts[row[j]]) > 1:
+                raise RuntimeError(
+                    f"slot {slot} would write positions [{lo}, {hi}) into "
+                    f"shared block {int(row[j])}: a copy-on-write is "
+                    "ROADMAP Queue 1 item 6(f)")
 
     def _map_blocks(self, slot, hi):
         """Map pool blocks so the slot's table covers positions [0, hi)."""
@@ -501,8 +592,12 @@ class ServingEngine:
 
     def _admit_chunked(self):
         """Move queued requests into free slots (FIFO) while the pool can
-        reserve their worst-case blocks; prefill happens in the budget
-        steps."""
+        reserve their worst-case blocks; per request, in order, the prefix
+        lookup and adoption (``lens`` starts at the adopted length).
+        Prefill happens in the budget steps, and a prompt publishes when
+        it completes there, so a cold gang of one template admitted
+        together misses alike (the store converges one prompt later, as
+        in JAX)."""
         free = self._free_slots()
         t_adm = self.clock()
         while free and self._queue and self._reserve(self._queue[0]):
@@ -511,8 +606,10 @@ class ServingEngine:
             req.slot, req.state, req.t_admit = s, "running", t_adm
             self._slot_req[s] = req
             self._admitted += 1
-            self._lens[s] = 0
-            self._pf_left[s] = req.prompt.size
+            self._seed_presence(req)
+            base = self._adopt(s, req.prompt)
+            self._lens[s] = base
+            self._pf_left[s] = req.prompt.size - base
             self._nt[s] = 0
             self._max_nt[s] = req.max_new_tokens
             self._eos[s] = (-1 if req.eos_token_id is None
@@ -521,16 +618,63 @@ class ServingEngine:
             self._rep_pen[s] = req.repetition_penalty
             self._rseed[s] = req.seed
             self._active[s] = False          # decoding starts at finish
-            self._seed_presence(req)
+            if self._drafters is not None:
+                self._drafters[s].reset(req.prompt)
+
+    # ------------------------------------------------------ prefix cache
+    def _adopt(self, slot, prompt):
+        """The prefix lookup of one admission: on a hit the chain goes
+        into the slot (paged: its block ids into the table, zero-copy;
+        dense: copied into the ring row, pinned across the copy). Counts
+        the hit or miss and the prefill tokens saved and computed.
+        Returns the adopted token count (0 without a cache or on a
+        miss)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return 0
+        base = 0
+        nodes = pc.lookup(prompt)
+        if nodes:
+            if self.paged:
+                base = pc.adopt_into(self._tables, slot, nodes)
+            else:
+                pc.store.acquire(nodes)
+                try:
+                    pc.adopt(self._caches, slot, nodes)
+                finally:
+                    pc.store.release(nodes)
+                base = len(nodes) * pc.block_tokens
+            self._prefix_hits += 1
+            self._prefill_tokens_saved += base
+        else:
+            self._prefix_misses += 1
+        self._prefill_tokens_computed += prompt.size - base
+        return base
+
+    def _publish(self, slot, req):
+        """Commit-on-prefill: the prompt's full blocks into the store
+        (paged: the store's reference on the slot's own blocks; dense:
+        copied out of the ring row)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        if self.paged:
+            pc.publish_from(self._tables, slot, req.prompt)
+        else:
+            pc.publish(self._caches, slot, req.prompt)
 
     # ------------------------------------------------- phase scheduler
     def _admit(self):
         """Phase-mode admission: move queued requests into free slots (FIFO)
-        while the pool can reserve their worst-case blocks, prefill each
-        one in its own bulk pass, then sample every admitted slot's first
-        token in one dispatch over all B rows (the host reads only the
-        admitted rows). Returns the admitted requests, each of which just
-        emitted its first token."""
+        while the pool can reserve their worst-case blocks; per request,
+        in order, the prefix lookup, then a miss's bulk pass over its
+        whole prompt and its publication (so later requests of the same
+        admission can hit), a hit's adoption; the hits' suffixes go
+        through the masked-scan prefill together (``_prefill_chunks``),
+        then publish. Then every admitted slot's first token is sampled in
+        one dispatch over all B rows (the host reads only the admitted
+        rows). Returns the admitted requests, each of which just emitted
+        its first token."""
         free = self._free_slots()
         batch = []
         while free and self._queue and self._reserve(self._queue[0]):
@@ -544,12 +688,23 @@ class ServingEngine:
         t_adm = self.clock()
         stk = self.dec._stacked()
         f = self.dec.fmt
-        last_x = torch.zeros((self.num_slots, 1, f.embed_dim),
+        b = self.num_slots
+        last_x = torch.zeros((b, 1, f.embed_dim),
                              dtype=f.qkv_weights[0].dtype, device=self.device)
+        base = np.zeros(b, np.int64)            # adopted tokens per slot
         for r in batch:
             r.t_admit = t_adm
+            self._seed_presence(r)
+            base[r.slot] = self._adopt(r.slot, r.prompt)
             self._map_blocks(r.slot, r.prompt.size)
-            last_x[r.slot] = self._bulk_admit_row(stk, r)
+            if not base[r.slot]:
+                last_x[r.slot] = self._bulk_admit_row(stk, r)
+                self._publish(r.slot, r)
+        scan = [r for r in batch if base[r.slot]]
+        if scan:
+            last_x = self._scan_prefill(stk, scan, base, last_x)
+        for r in scan:
+            self._publish(r.slot, r)
         for r in batch:
             s = r.slot
             self._lens[s] = r.prompt.size
@@ -560,7 +715,8 @@ class ServingEngine:
             self._min_len[s] = r.min_length
             self._rep_pen[s] = r.repetition_penalty
             self._rseed[s] = r.seed
-            self._seed_presence(r)
+            if self._drafters is not None:
+                self._drafters[s].reset(r.prompt)
         rep_pen, presence, seeds = self._sample_args()
         t0 = self.clock()
         nxt = self._build_admit_sample()(
@@ -581,12 +737,71 @@ class ServingEngine:
             r.tokens.append(tok0)
             self._nt[s] = 1
             self._tok[s] = tok0
+            if self._drafters is not None:
+                self._drafters[s].update([tok0])
             hit_eos = (r.eos_token_id is not None
                        and tok0 == int(r.eos_token_id))
             self._active[s] = not hit_eos and r.max_new_tokens > 1
             if not self._active[s]:
                 self._finish(r, now)
         return batch
+
+    def _prefill_chunks(self, maxp):
+        """The masked-scan prefill's dispatch sizes for maxp tokens: full
+        ``prefill_cap`` chunks, then one chunk rounded up to a power of
+        two (its tail steps write nothing)."""
+        out, pos = [], 0
+        while pos < maxp:
+            rem = maxp - pos
+            c = (self.prefill_cap if rem >= self.prefill_cap
+                 else 1 << (rem - 1).bit_length())
+            out.append(c)
+            pos += c
+        return out
+
+    def _build_prefill_chunk(self, chunk):
+        """The masked-scan prefill: ``chunk`` teacher-forced tokens of
+        toks [B, chunk], row b's step i at position t0[b] + i and writing
+        only while i < n_valid[b] (every row attends; the others' outputs
+        are discarded); each row's last valid hidden state lands in
+        last_x [B, 1, E]. Returns prefill(stk, caches, toks, t0, n_valid,
+        last_x) -> last_x."""
+        dec = self.dec
+
+        def prefill(stk, caches, toks, t0, n_valid, last_x):
+            for i in range(chunk):
+                mask = i < n_valid
+                x = dec.hidden(stk, caches, toks[:, i], t0 + i, mask)
+                last_x = torch.where(mask[:, None, None], x, last_x)
+            return last_x
+        return prefill
+
+    def _scan_prefill(self, stk, scan, base, last_x):
+        """The suffixes of the prefix hits ``scan`` (prompt positions from
+        base[slot]) through the masked-scan prefill, all rows in each
+        dispatch; rows outside ``scan`` write nothing. Returns last_x."""
+        b = self.num_slots
+        chunks = self._prefill_chunks(max(r.prompt.size - int(base[r.slot])
+                                          for r in scan))
+        prompts = np.zeros((b, sum(chunks)), np.int64)
+        n_left = np.zeros(b, np.int64)
+        for r in scan:
+            sfx = r.prompt[int(base[r.slot]):]
+            prompts[r.slot, :sfx.size] = sfx
+            n_left[r.slot] = sfx.size
+        pos = 0
+        for chunk in chunks:
+            t0 = np.where(n_left > 0, base + pos, self._lens)
+            n_valid = np.clip(n_left - pos, 0, chunk)
+            tc = self.clock()
+            last_x = self._build_prefill_chunk(chunk)(
+                stk, self._cache_arg(), self._dev(prompts[:, pos:pos + chunk]),
+                self._dev(t0), self._dev(n_valid), last_x)
+            self.telemetry.step_event("prefill", tc, self.clock() - tc,
+                                      rows=int((n_valid > 0).sum()),
+                                      tokens=int(n_valid.sum()))
+            pos += chunk
+        return last_x
 
     def _build_admit_sample(self):
         """The first-token sample on the prefill hidden states, with each
@@ -717,21 +932,29 @@ class ServingEngine:
 
     def _budget_step(self):
         """One token-budget dispatch: decode inputs are mandatory, prefill
-        chunks (oldest request first, at most C each) fill the rest. A
+        chunks (oldest request first, at most C each) fill the rest, and
+        under spec_k the decode rows' draft claims take what is left. A
         step with only decode rows runs the plain decode chunk when that
-        moves more tokens. Under flat_budget the block is the flat
-        stream (``_flat_budget_step``). Returns tokens emitted."""
-        b, c = self.num_slots, self._budget_cols
+        moves more tokens than the block would. Under flat_budget the
+        block is the flat stream (``_flat_budget_step``). With drafts the
+        core returns its chain and the host accepts
+        (``_harvest_budget_chain``). Returns tokens emitted."""
+        b, c, k = self.num_slots, self._budget_cols, self.spec_k
         dec_rows = [s for s in range(b) if self._active[s]]
         pf_rows = [s for s in range(b) if self._pf_left[s] > 0]
         if not dec_rows and not pf_rows:
             return 0
-        # the JAX engine also weighs the draft columns here; they come
-        # back with spec decoding (ROADMAP Queue 1 item 6(d))
-        if not pf_rows and self.decode_chunk > 1:
+        # a row's whole segment (input + drafts) fits C columns; the flat
+        # stream has no column cap
+        drafts, dlen = propose_claims(
+            self._drafters or [None] * b, dec_rows, k,
+            self._max_nt - self._nt,
+            col_cap=None if self._flat_budget else c)
+        if not pf_rows and len(dec_rows) + int(dlen.sum()) < \
+                len(dec_rows) * self.decode_chunk:
             return self._decode_one_chunk()
         if self._flat_budget:
-            return self._flat_budget_step(dec_rows, pf_rows)
+            return self._flat_budget_step(dec_rows, pf_rows, drafts, dlen)
         budget = self.token_budget - len(dec_rows)
         toks = np.zeros((b, c), np.int64)
         seg = np.zeros(b, np.int64)
@@ -741,7 +964,8 @@ class ServingEngine:
             toks[s, 0] = self._tok[s]
             seg[s] = 1
             gen0[s] = 0
-        allocs, _ = self._prefill_allocations(pf_rows, budget, col_cap=c)
+        allocs, budget = self._prefill_allocations(pf_rows, budget,
+                                                   col_cap=c)
         for s, n in allocs:
             req = self._slot_req[s]
             p0 = req.prompt.size - int(self._pf_left[s])
@@ -750,53 +974,86 @@ class ServingEngine:
             if n == int(self._pf_left[s]):
                 # the last prompt token's logits sample the first token
                 gen0[s] = n - 1
-        tail = max(self.decode_chunk - 1, 0)
+        for s in dec_rows if k else ():
+            m = min(int(dlen[s]), budget)
+            dlen[s] = m
+            if m > 0:
+                toks[s, 1:1 + m] = drafts[s, :m]
+                seg[s] = 1 + m
+                budget -= m
+        tail = 0 if k else max(self.decode_chunk - 1, 0)
         self._map_write_windows(seg, pf_n, tail)
-        core = self.dec._build_budget_core(c, *self._sampling(),
-                                           scan_tail=tail)
+        full_logits = bool(self.do_sample and k)
+        core = self.dec._build_budget_core(
+            c, *self._sampling(), full_logits=full_logits, chain=bool(k),
+            scan_tail=tail)
         t0 = self.clock()
-        tok0, emit0, (ys_t, ys_e), tok, lens, active, nt = core(
+        out = core(
             self.dec._stacked(), self._cache_arg(), self._dev(toks),
             self._dev(self._lens), self._dev(seg), self._dev(gen0),
             self._dev(self._nt), self._dev(self._max_nt),
             self._dev(self._eos), self._dev(self._min_len),
             *self._sample_args())
-        res = [t.cpu().numpy() for t in (tok0, emit0, ys_t, ys_e, tok, lens,
-                                         active, nt)]
+        res = self._host_out(out, full_logits)
         self.telemetry.step_event("budget", t0, self.clock() - t0,
                                   rows=int((seg > 0).sum()))
-        self._count_budget(int(seg.sum()), b * c, pf_n, len(dec_rows))
-        return self._harvest_budget_plain(res, pf_n, tail)
+        self._count_budget(int(seg.sum()), b * c, pf_n, len(dec_rows),
+                           int(dlen.sum()))
+        if not k:
+            return self._harvest_budget_plain(res, pf_n, tail)
+        chain_out = {s: res[s, :int(seg[s])] for s in range(b) if seg[s]}
+        return self._harvest_budget_chain(chain_out, pf_n, dec_rows, drafts,
+                                          dlen, full_logits)
 
-    def _count_budget(self, used, computed, pf_n, n_decode):
+    @staticmethod
+    def _host_out(out, full_logits):
+        """A budget core's outputs on the host: a chain (argmax, or fp32
+        logits under full_logits), or the advanced state as (tok0, emit0,
+        ys_t, ys_e, tok, lens, active, nt)."""
+        if torch.is_tensor(out):
+            return (out.float() if full_logits else out).cpu().numpy()
+        tok0, emit0, ys, *state = out
+        return [t.cpu().numpy() for t in (tok0, emit0, *ys, *state)]
+
+    def _count_budget(self, used, computed, pf_n, n_decode, n_draft=0):
         # padding: the positions a dispatch computed beyond the packed ones
         self._budget_steps += 1
         self._budget_tokens_used += used
         self._budget_prefill_tokens += int(pf_n.sum())
         self._budget_decode_tokens += n_decode
+        self._budget_draft_tokens += n_draft
         self._budget_padding_tokens += computed - used
 
-    def _flat_budget_step(self, dec_rows, pf_rows):
+    def _flat_budget_step(self, dec_rows, pf_rows, drafts, dlen):
         """One token-flattened budget dispatch: a [T = b + ts] stream whose
         tokens [0, b) are the decode region (token i is slot i's input when
-        it decodes, else the slot sentinel b) and whose segments — prefill
-        chunks, first come first served with no column cap — start on
+        it decodes without drafts, else the slot sentinel b) and whose
+        segments — prefill chunks first come first served with no column
+        cap, then the draft claims (input token and drafts) — start on
         FLAT_CHUNK boundaries. ts comes from an eighth-octave ladder: the
         aligned width rounded up to a multiple of next_pow2(width) / 8.
         Returns tokens emitted."""
-        b = self.num_slots
+        b, k = self.num_slots, self.spec_k
         budget = self.token_budget - len(dec_rows)
         pf_n = np.zeros(b, np.int64)
-        segs = []                              # (slot, prompt tokens)
-        allocs, _ = self._prefill_allocations(pf_rows, budget)
+        segs = []                        # (slot, tokens, a draft claim?)
+        allocs, budget = self._prefill_allocations(pf_rows, budget)
         for s, n in allocs:
             req = self._slot_req[s]
             p0 = req.prompt.size - int(self._pf_left[s])
-            segs.append((s, req.prompt[p0:p0 + n]))
+            segs.append((s, req.prompt[p0:p0 + n], False))
             pf_n[s] = n
+        for s in dec_rows if k else ():
+            m = min(int(dlen[s]), budget)
+            dlen[s] = m
+            if m > 0:
+                segs.append((s, np.concatenate(([self._tok[s]],
+                                                drafts[s, :m])), True))
+                budget -= m
+        regd = [s for s in dec_rows if not (k and dlen[s] > 0)]
         align = FLAT_CHUNK
         starts, cursor = [], 0
-        for _, tk in segs:
+        for _, tk, _ in segs:
             starts.append(cursor)
             cursor = -(-(cursor + len(tk)) // align) * align
         if segs:
@@ -809,60 +1066,82 @@ class ServingEngine:
         toks = np.zeros(t_total, np.int64)
         tslot = np.full(t_total, b, np.int64)       # b: the pad sentinel
         tpos = np.zeros(t_total, np.int64)
+        tcol = np.zeros(t_total, np.int64)
+        tstart = np.zeros(t_total, np.int64)
         cslot = np.zeros(nc, np.int32)
         cbase = np.zeros(nc, np.int32)
         cn = np.zeros(nc, np.int32)
         last_idx = np.zeros(b, np.int64)
         emit0 = np.zeros(b, bool)
         adv = np.zeros(b, np.int64)
-        for s in dec_rows:
+        gen0 = np.zeros(b, np.int64)
+        for s in regd:
             toks[s] = self._tok[s]
             tslot[s] = s
             tpos[s] = self._lens[s]
+            tstart[s] = s
             last_idx[s] = s
             emit0[s] = True
             adv[s] = 1
-        for (s, tk), st in zip(segs, starts):
+        for (s, tk, is_dec), st in zip(segs, starts):
             n = len(tk)
             base = int(self._lens[s])
             sl = slice(b + st, b + st + n)
             toks[sl] = tk
             tslot[sl] = s
             tpos[sl] = base + np.arange(n)
+            tcol[sl] = np.arange(n)
+            tstart[sl] = b + st
             last_idx[s] = b + st + n - 1
             adv[s] = n
-            # the last prompt token's logits sample the first token;
-            # chunks in the middle of a prompt never emit
-            emit0[s] = pf_n[s] == self._pf_left[s]
+            if is_dec:
+                emit0[s] = True
+            else:
+                # the last prompt token's logits sample the first token;
+                # chunks in the middle of a prompt never emit
+                fin = pf_n[s] == self._pf_left[s]
+                emit0[s] = fin
+                gen0[s] = n - 1 if fin else 1 << 30
             for ci in range(st // align, (st + n - 1) // align + 1):
                 cslot[ci] = s
                 cbase[ci] = base + (ci * align - st)
                 cn[ci] = min(n - (ci * align - st), align)
-        tail = max(self.decode_chunk - 1, 0)
+        tail = 0 if k else max(self.decode_chunk - 1, 0)
         self._map_write_windows(adv, pf_n, tail)
-        core = self.dec._build_flat_budget_core(b, *self._sampling(),
-                                                scan_tail=tail)
+        full_logits = bool(self.do_sample and k)
+        core = self.dec._build_flat_budget_core(
+            b, *self._sampling(), full_logits=full_logits, chain=bool(k),
+            scan_tail=tail)
         i32 = torch.int32
         t0 = self.clock()
-        tok0, emit0_d, (ys_t, ys_e), tok, lens, active, nt = core(
+        out = core(
             self.dec._stacked(), self._cache_arg(), self._dev(toks),
             self._dev(tslot), self._dev(tpos), self._dev(cslot, i32),
-            self._dev(cbase, i32), self._dev(cn, i32), self._dev(self._tok),
+            self._dev(cbase, i32), self._dev(cn, i32), self._dev(tcol),
+            self._dev(tstart), self._dev(gen0), self._dev(self._tok),
             self._dev(last_idx), self._dev(emit0, torch.bool),
             self._dev(adv), self._dev(self._lens), self._dev(self._nt),
             self._dev(self._max_nt), self._dev(self._eos),
             self._dev(self._min_len), *self._sample_args())
-        res = [t.cpu().numpy() for t in (tok0, emit0_d, ys_t, ys_e, tok,
-                                         lens, active, nt)]
+        res = self._host_out(out, full_logits)
         self.telemetry.step_event("budget", t0, self.clock() - t0,
                                   rows=int((adv > 0).sum()))
-        used = len(dec_rows) + int(pf_n.sum())
-        self._count_budget(used, t_total, pf_n, len(dec_rows))
-        return self._harvest_budget_plain(res, pf_n, tail)
+        used = len(regd) + sum(len(tk) for _, tk, _ in segs)
+        self._count_budget(used, t_total, pf_n, len(dec_rows),
+                           int(dlen.sum()))
+        if not k:
+            return self._harvest_budget_plain(res, pf_n, tail)
+        chain_out = {s: res[s:s + 1] for s in regd}
+        for (s, tk, _), st in zip(segs, starts):
+            chain_out[s] = res[b + st:b + st + len(tk)]
+        return self._harvest_budget_chain(chain_out, pf_n, dec_rows, drafts,
+                                          dlen, full_logits)
 
     def _harvest_budget_plain(self, res, pf_n, tail):
         """Walk the dispatch's tokens and finish events; the core already
-        advanced every row's state on the device."""
+        advanced every row's state on the device. A prompt that completed
+        here publishes its blocks (decode writes, this dispatch's trailing
+        scan too, land past them)."""
         tok0, emit0, ys_t, ys_e, tokc, lensc, activec, ntc = res
         now = self.clock()
         prev_active = self._active.copy()
@@ -875,6 +1154,8 @@ class ServingEngine:
                 continue
             if pf_n[s]:
                 self._pf_left[s] -= int(pf_n[s])
+                if self._pf_left[s] == 0:
+                    self._publish(s, req)
             if not emit0[s] and not prev_active[s]:
                 continue                 # still prefilling
             row_toks = []
@@ -890,6 +1171,100 @@ class ServingEngine:
             if not still_active[s]:
                 self._finish(req, now)
         self._active = still_active
+        return n_emitted
+
+    def _get_spec_rng(self):
+        """The host generator of sampled acceptance, seeded from the key
+        stream at its first use, as JAX's."""
+        if self._spec_rng is None:
+            self._spec_rng = np.random.RandomState(_host_seed(next_key()))
+        return self._spec_rng
+
+    def _accept(self, s, req, drafts, dlen, out, full_logits, now):
+        """One decode row's acceptance over its verify outputs ``out``
+        (argmax chain [m + 1], or logits [m + 1, V] under full_logits):
+        emits the accepted drafts and the bonus token within the row's
+        limits, advances its state and counters, and finishes it at eos
+        or its budget. Returns the tokens emitted."""
+        m = int(dlen[s])
+        if full_logits:
+            probs = filtered_probs(out[:m + 1], self.top_k, self.top_p,
+                                   self.temperature)
+            kept, _ = rejection_sample(drafts[s, :m], probs,
+                                       self._get_spec_rng())
+        else:
+            kept, _ = greedy_accept(drafts[s, :m], out[:m + 1])
+        eos = None if self._eos[s] < 0 else int(self._eos[s])
+        emitted, hit_eos = truncate_emitted(
+            kept, int(self._max_nt[s] - self._nt[s]), eos)
+        self._nt[s] += len(emitted)
+        req.tokens.extend(emitted)
+        self._lens[s] += len(emitted)
+        self._tok[s] = emitted[-1]
+        # one verify row step emitted len(emitted) tokens, all but one
+        # of them drafts
+        self._decode_steps += 1
+        self._draft_proposed += m
+        self._draft_accepted += len(emitted) - 1
+        self._drafters[s].update(emitted)
+        self._mark(s, emitted)
+        if hit_eos or self._nt[s] >= self._max_nt[s]:
+            self._active[s] = False
+            self._finish(req, now)
+        return len(emitted)
+
+    def _mark(self, s, toks):
+        """Under rep_on, the tokens slot s emitted join its presence row
+        (a chain's speculative presence was the core's only)."""
+        if self._rep_on and len(toks):
+            self._presence[s, torch.tensor(toks, device=self.device)] = True
+
+    def _harvest_budget_chain(self, chain_out, pf_n, dec_rows, drafts, dlen,
+                              full_logits):
+        """The spec harvest of either layout: ``chain_out`` maps each
+        packed slot to its segment's outputs (argmax chain, or logits
+        under full_logits). Prefill rows advance in request order (the
+        store's publication order is part of its eviction state); a row
+        whose prompt completed publishes and takes its first token from
+        the last column (sampled: a host draw from its filtered
+        probabilities). Decode rows accept (``_accept``). Returns tokens
+        emitted."""
+        now = self.clock()
+        n_emitted = 0
+        for s in sorted((s for s in range(self.num_slots) if pf_n[s]),
+                        key=lambda s: self._slot_req[s].rid):
+            req = self._slot_req[s]
+            self._pf_left[s] -= int(pf_n[s])
+            self._lens[s] += int(pf_n[s])
+            if self._pf_left[s] > 0:
+                continue
+            self._publish(s, req)
+            arr = chain_out[s]
+            if full_logits:
+                p = filtered_probs(arr[-1][None], self.top_k, self.top_p,
+                                   self.temperature)
+                tok0 = int(self._get_spec_rng().choice(p.shape[-1],
+                                                       p=p[0]))
+            else:
+                tok0 = int(arr[-1])
+            req.t_first = now
+            req.tokens.append(tok0)
+            self._nt[s] = 1
+            self._tok[s] = tok0
+            self._decode_steps += 1
+            n_emitted += 1
+            self._drafters[s].update([tok0])
+            self._mark(s, [tok0])
+            hit_eos = (req.eos_token_id is not None
+                       and tok0 == int(req.eos_token_id))
+            self._active[s] = not hit_eos and req.max_new_tokens > 1
+            if not self._active[s]:
+                self._finish(req, now)
+        for s in dec_rows:
+            req = self._slot_req[s]
+            if req is not None and self._active[s]:
+                n_emitted += self._accept(s, req, drafts, dlen, chain_out[s],
+                                          full_logits, now)
         return n_emitted
 
     def _build_decode_chunk(self):
@@ -928,10 +1303,59 @@ class ServingEngine:
             hits = emitted[:, s]
             req.tokens.extend(int(t) for t in toks[hits, s])
             n_emitted += int(hits.sum())
+            if self._drafters is not None:
+                # a spec engine reaches here through the thin-draft
+                # fallback: the drafter tracks every emitted token
+                self._drafters[s].update(toks[hits, s])
             if not still_active[s]:
                 self._finish(req, now)
         self._active = still_active
         self._decode_steps += n_emitted
+        return n_emitted
+
+    def _spec_decode_step(self):
+        """The phase scheduler's speculative step over all slots: the
+        active rows' draft claims ride into one K+1-position verify pass
+        (``FusedDecoder._build_verify_core``) and the host accepts. Below
+        ``_spec_min_draft`` drafts an active row on average the plain
+        decode chunk runs instead. Returns tokens emitted."""
+        k, b = self.spec_k, self.num_slots
+        drafts, dlen = propose_claims(
+            self._drafters, [s for s in range(b) if self._active[s]], k,
+            self._max_nt - self._nt)
+        if int(dlen.sum()) < self._spec_min_draft * self._active.sum():
+            return self._decode_one_chunk()
+        toks = np.zeros((b, k + 1), np.int64)
+        toks[:, 0] = self._tok
+        toks[:, 1:] = drafts
+        for s in range(b):
+            if self._active[s]:
+                # every valid draft write must land: map the K+1 window
+                self._ensure_writable(
+                    s, int(self._lens[s]),
+                    min(int(self._lens[s]) + k + 1, self._budget_pos(s)))
+        full_logits = self.do_sample
+        vstep = self.dec._build_verify_core(k, self._rep_on,
+                                            greedy_out=not full_logits)
+        rep_pen, presence, _ = self._sample_args()
+        t0 = self.clock()
+        out = vstep(self.dec._stacked(), self._cache_arg(), self._dev(toks),
+                    self._dev(self._lens), self._dev(dlen),
+                    self._dev(self._active, torch.bool), self._dev(self._nt),
+                    self._dev(self._eos), self._dev(self._min_len), rep_pen,
+                    presence)
+        out = self._host_out(out, full_logits)
+        self.telemetry.step_event("verify", t0, self.clock() - t0,
+                                  rows=int(self._active.sum()))
+        if full_logits:
+            self._get_spec_rng()
+        now = self.clock()
+        n_emitted = 0
+        for s in range(b):
+            req = self._slot_req[s]
+            if req is not None and self._active[s]:
+                n_emitted += self._accept(s, req, drafts, dlen, out[s],
+                                          full_logits, now)
         return n_emitted
 
     def _finish(self, req, now):

@@ -11,8 +11,6 @@ int8 and int4 weights, and the fused write+attend kernels
 step cores over a ring (``hidden`` at one position or per-row positions,
 ``spec_hidden``'s budget block, ``flat_hidden``'s stream) must give the
 JAX logits within TOLERANCES["logits_fp32"] and write the same ring.
-Every option outside the slice raises NotImplementedError naming its
-ROADMAP item.
 """
 import jax
 import jax.numpy as jnp
@@ -316,15 +314,6 @@ def test_init_cache_layouts(models):
                           kv_quant="int8").init_cache(3)
     assert kv.dtype == torch.int8 and kv.shape == ring.shape
     assert sc.dtype == torch.float32 and sc.shape == (L, 2, 3, H, 1, 128)
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"prefix_cache": object()}, {"spec_k": 2}])
-def test_out_of_slice_options_raise(models, prompts, kwargs):
-    _, tmods = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_fused(*tmods[:1], prompts[:, :5], *tmods[1:],
-                       max_new_tokens=2, device="cpu", **kwargs)
 
 
 def test_generate_validates(models, prompts):

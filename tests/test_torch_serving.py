@@ -184,7 +184,6 @@ def test_slo_verdicts_reconcile(models, serving_metrics_ok):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"spec_k": 2}, {"prefix_cache_blocks": 4},
     {"kv_pool_blocks": 64}, {"max_pending": 4}, {"kv_pool": object()},
     {"role": "prefill"}])
 def test_out_of_slice_options_raise(models, kwargs):

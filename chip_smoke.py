@@ -117,7 +117,17 @@ Phases, in order; any failure exits non-zero:
      of profile_serving.cycle_head's model under row, flat and phase
      (hit rate, tokens saved, drafts, acceptance, tokens/s and TTFT
      printed; a phase verify pass must read K + 1 = 5 positions, a row
-     chain a C = 16 block);
+     chain a C = 16 block); then the slot lifecycle's mixes (LIFECYCLE):
+     qos under row fp and flat kv8 (eight low-class requests fill the
+     slots, then eight high-class ones preempt them to the host one a
+     step and the low ones resume; the preempted and resumed counts, the
+     parked bytes at their peak, the high class's TTFT p50 / p99 beside
+     the same burst without the fill, and one parked 1024-position slot's
+     host round trip, each way, best of 3), and handoff under flat fp and
+     row kv8 (a role="prefill" engine streams each prompt's full blocks
+     to a role="decode" engine while it prefills, then ships the held
+     slot's tail: blocks shipped and streamed, export_slot and
+     import_slot ms a request), each with the launch checks above;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
@@ -187,7 +197,14 @@ Phases, in order; any failure exits non-zero:
      equal; generate_fused fp and int8 ring,
      cache_write_kernel off and on, sampled with a penalty, rotary,
      the int8 head, a second call adopting from a PrefixCache and
-     spec_k=4 greedy and sampled, against the CPU's; on a mismatch the
+     spec_k=4 greedy and sampled, against the CPU's; the slot lifecycle
+     (parity_lifecycle: 4 slots, max_pending 3, a fake clock; a
+     preemption to the host and its resume, a copy-on-write fork, a
+     high-class preemption, max_pending shedding, an export, a deadline)
+     under each scheduler, fp, kv8 and sampled with a penalty: states,
+     counters and tokens equal to the CPU's run of the same scheduler,
+     the card's exported state continued on a second card engine and on
+     the CPU as the CPU's own; on a mismatch the
      CPU's top-2
      margin there (of the filtered logits plus the draw's gumbel noise
      when sampled); every
@@ -244,8 +261,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.incubate.nn import FusedFeedForward
-from paddle_tpu_torch.inference import (FusedDecoder, PrefixCache,
-                                        ServingEngine)
+from paddle_tpu_torch.inference import (AdmissionFull, FusedDecoder,
+                                        PrefixCache, ServingEngine)
 from paddle_tpu_torch.inference.generation import (_absmax_int4,
                                                    _absmax_int8,
                                                    _filter_logits,
@@ -267,9 +284,9 @@ from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import context_parallel as cpar
-from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, SAMPLED,
-                                              SCHEDULERS, V, cycle_head,
-                                              gpt2_workload)
+from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, PRIORITIES,
+                                              SAMPLED, SCHEDULERS, V,
+                                              cycle_head, gpt2_workload)
 from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
                                             LLAMA_BATCH, LLAMA_CONFIG,
                                             LLAMA_SEQ, SEQ,
@@ -1493,6 +1510,7 @@ def phase_engine(seed):
                                        {"use_rotary": True, **SAMPLED})
     log(f"  the sampled and rotary runs: {time.perf_counter() - t0:.1f} s")
     runs.update(option_runs(seed))
+    runs.update(lifecycle_runs(seed))
     for name, run in runs.items():
         kv8, w4, dense = "kv8" in name, "w4" in name, "dense" in name
         read = ("decode_attention_stacked" if dense
@@ -1589,6 +1607,193 @@ def check_bytes(runs):
                              f"{n}")
         log(f"  {name} {what} bytes {got} ({got / f[what + '_bytes']:.4f}"
             " of the fp run's)")
+
+
+# the slot lifecycle's mixes in phase 3: name -> (scheduler, mix, flavor);
+# between them the paged kernels of rows 1-4 (fp and int8, row and flat)
+# run on slots that were preempted, resumed, staged and imported
+LIFECYCLE = {"row-qos": ("row", "qos", {}),
+             "flat-qos-kv8": ("flat", "qos", {"kv_quant": "int8"}),
+             "flat-handoff": ("flat", "handoff", {}),
+             "row-handoff-kv8": ("row", "handoff", {"kv_quant": "int8"})}
+
+
+def kv_payload_bytes(blocks):
+    """Host bytes of a migration payload's blocks (K/V and scales)."""
+    return sum(a.nbytes for blk in blocks for a in blk.values())
+
+
+def lifecycle_runs(seed):
+    """The qos and handoff mixes (LIFECYCLE), launches counted from zero
+    before each run and read after it."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, (sched, mix, flavor) in LIFECYCLE.items():
+        kwargs = {**SCHEDULERS[sched], **flavor}
+        runs[name] = (serve_qos if mix == "qos" else serve_handoff)(
+            seed, name, kwargs)
+        got = runs[name]["launches"]
+        log(f"  [{name}] launches {dict((k, v) for k, v in got.items() if v)}")
+    log(f"  the lifecycle runs: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def request_lengths(name, eng, rids, reqs):
+    for rid, (_, want) in zip(rids, reqs):
+        got = len(eng.results[rid]["tokens"])
+        if got != want:
+            raise SystemExit(f"{name}: request {rid} emitted {got} of "
+                             f"{want}")
+
+
+def serve_qos(seed, name, kwargs):
+    """The qos mix: its eight low-class requests fill the eight slots and
+    decode, then its eight high-class ones arrive in one burst; each step
+    the blocked high head preempts the youngest running low request to
+    the host, and the low ones resume as the high ones finish. Beside it
+    the same burst on an engine without the fill (the high class's TTFT
+    with and without it), then the host round trip of one parked slot of
+    1024 positions (16 blocks), timed each way."""
+    eng, reqs = gpt2_workload(seed, mix="qos", **kwargs)
+    low = [r for r, c in zip(reqs, PRIORITIES["qos"]) if c == "low"]
+    high = [r for r, c in zip(reqs, PRIORITIES["qos"]) if c == "high"]
+    reset_launches()
+    t0 = time.perf_counter()
+    low_rids = [eng.submit(p, max_new_tokens=m, priority="low")
+                for p, m in low]
+    while any(eng.poll(r)["n_tokens"] == 0 for r in low_rids):
+        eng.step()
+    high_rids = [eng.submit(p, max_new_tokens=m, priority="high")
+                 for p, m in high]
+    parked_peak = steps = 0
+    while eng.has_work:
+        eng.step()
+        steps += 1
+        parked_peak = max(parked_peak, sum(kv_payload_bytes(st["kv"])
+                                           for st in eng._parked.values()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    request_lengths(name, eng, low_rids + high_rids, low + high)
+    m = eng.metrics()
+    if not m["requests_preempted"] or \
+            m["requests_resumed"] != m["requests_preempted"]:
+        raise SystemExit(f"{name}: the burst must preempt and every "
+                         f"preempted request resume: {m}")
+    ttft = [eng.results[r]["ttft_s"] for r in high_rids]
+    alone, _ = gpt2_workload(seed, mix="qos", **kwargs)
+    a_rids = [alone.submit(p, max_new_tokens=m, priority="high")
+              for p, m in high]
+    alone.run()
+    ttft_alone = [alone.results[r]["ttft_s"] for r in a_rids]
+    log(f"  [{name}] 8 low requests filling the 8 slots, then 8 high: "
+        f"{steps} steps, {dt:.3f} s; preempted {m['requests_preempted']}, "
+        f"resumed {m['requests_resumed']}, parked peak {parked_peak} bytes")
+    log(f"  [{name}] high-class TTFT p50 {np.percentile(ttft, 50):.4f} s, "
+        f"p99 {np.percentile(ttft, 99):.4f} s; the same burst without the "
+        f"low fill p50 {np.percentile(ttft_alone, 50):.4f} s, p99 "
+        f"{np.percentile(ttft_alone, 99):.4f} s")
+    # one slot's host round trip: 1000 prompt positions and the first
+    # token's fill 16 blocks of 64 (1024 positions)
+    rng = np.random.default_rng(seed + 9)
+    rid = eng.submit(rng.integers(0, V, 1000), max_new_tokens=24)
+    while eng.poll(rid)["n_tokens"] == 0:
+        eng.step()
+    outs, ins = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.preempt_to_host(rid)          # ends in the device-to-host copy
+        outs.append(time.perf_counter() - t)
+        nbytes = kv_payload_bytes(eng._parked[rid]["kv"])
+        n_blocks = len(eng._parked[rid]["kv"])
+        t = time.perf_counter()
+        eng.resume_from_host(rid)
+        torch.cuda.synchronize()
+        ins.append(time.perf_counter() - t)
+    eng.run()
+    if len(eng.results[rid]["tokens"]) != 24:
+        raise SystemExit(f"{name}: the round-tripped request emitted "
+                         f"{len(eng.results[rid]['tokens'])} of 24")
+    out_s, in_s = min(outs), min(ins)
+    log(f"  [{name}] one parked slot ({n_blocks} blocks, {nbytes} bytes): "
+        f"preempt_to_host {1e3 * out_s:.3f} ms ({nbytes / out_s / 1e6:.1f} "
+        f"MB/s), resume_from_host {1e3 * in_s:.3f} ms "
+        f"({nbytes / in_s / 1e6:.1f} MB/s), round trip "
+        f"{nbytes / (out_s + in_s) / 1e6:.1f} MB/s (best of 3)")
+    return {"launches": launches, "metrics": m, "parked_peak": parked_peak,
+            "ttft_high": ttft, "ttft_alone": ttft_alone,
+            "round_trip_s": (out_s, in_s), "round_trip_bytes": nbytes}
+
+
+def serve_handoff(seed, name, kwargs):
+    """The handoff mix through a role="prefill" engine and a role="decode"
+    engine on the one card: while each prompt streams through prefill its
+    full blocks go over (export_kv_prefix -> stage_kv_blocks); once it is
+    held prefilled, export_slot(skip_blocks=) ships the tail and
+    import_slot(staged=) lands it on a free decode slot."""
+    pre, reqs = gpt2_workload(seed, mix="handoff", role="prefill", **kwargs)
+    d = pre.dec
+    dec = ServingEngine(d.fmt, d.embed, d.head, num_slots=8,
+                        max_seq_len=1024, role="decode", **kwargs)
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [pre.submit(p, max_new_tokens=m) for p, m in reqs]
+    cursor = dict.fromkeys(rids, 0)
+    pending, ready, moved = list(rids), {}, {}
+    export_s, import_s, streamed = [], [], 0
+    while pending or ready or dec.has_work:
+        if pre.has_work:
+            pre.step()
+        for rid in list(pending):
+            if pre._req_index[rid].slot is None:
+                continue                   # still queued
+            try:
+                blocks, n_full = pre.export_kv_prefix(rid, cursor[rid])
+                if blocks:
+                    dec.stage_kv_blocks(rid, blocks)
+                    cursor[rid] = n_full
+                    streamed += len(blocks)
+            except AdmissionFull:
+                pass                       # ships with the tail instead
+            if pre.poll(rid)["state"] == "prefilled":
+                t = time.perf_counter()
+                ready[rid] = pre.export_slot(rid, skip_blocks=cursor[rid])
+                export_s.append(time.perf_counter() - t)
+                pending.remove(rid)
+        for rid, state in list(ready.items()):
+            t = time.perf_counter()
+            try:
+                moved[rid] = dec.import_slot(
+                    state, staged=rid if rid in dec._staged else None)
+            except AdmissionFull:
+                continue                   # no decode slot yet
+            torch.cuda.synchronize()
+            import_s.append(time.perf_counter() - t)
+            del ready[rid]
+        if dec.has_work:
+            dec.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    request_lengths(name, dec, [moved[r] for r in rids], reqs)
+    mp, md = pre.metrics(), dec.metrics()
+    if mp["kv_blocks_shipped"] != md["kv_blocks_adopted"] or \
+            mp["requests_migrated_out"] != len(reqs) or \
+            md["requests_migrated_in"] != len(reqs) or pre.pool.used or \
+            dec.pool.used:
+        raise SystemExit(f"{name}: the handoff lost blocks or requests: "
+                         f"{mp} {md}")
+    log(f"  [{name}] {len(reqs)} requests prefilled on the prefill engine "
+        f"and decoded on the decode engine in {dt:.3f} s: "
+        f"{mp['kv_blocks_shipped']} blocks shipped, {streamed} of them "
+        f"streamed during prefill; per request export_slot "
+        f"{1e3 * np.mean(export_s):.3f} ms, import_slot "
+        f"{1e3 * np.mean(import_s):.3f} ms (mean; max "
+        f"{1e3 * max(export_s):.3f} / {1e3 * max(import_s):.3f} ms)")
+    return {"launches": launches, "metrics": (mp, md),
+            "tokens": [dec.results[moved[r]]["tokens"] for r in rids],
+            "export_s": export_s, "import_s": import_s}
 
 
 def phase_generate(seed):
@@ -2416,6 +2621,7 @@ def phase_parity(seed):
             f"{', '.join(scheds)} on the card identical to "
             f"{' / '.join(sorted(set(oracle.values()), reverse=True))} on "
             "the CPU")
+    parity_lifecycle(state, seed)
     parity_generate(state, rng, seed)
     phase_train_parity(seed)
     with environ(FUSED_FFN_FLAGS):
@@ -2426,6 +2632,143 @@ def phase_parity(seed):
                        label="train-llama",
                        kernels=tuple(LLAMA_TRAIN_LAUNCHES), logits=True)
     parity_ring(seed)
+
+
+class FakeClock:
+    """An engine clock that moves 0.1 ms a call, and as far as a script
+    jumps it (deadlines under test)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1e-4
+        return self.t
+
+
+# what phase 4's lifecycle script holds equal between the card and the CPU
+LIFECYCLE_COUNTERS = (
+    "requests_finished", "requests_admitted", "requests_forked",
+    "requests_rejected", "requests_expired", "requests_migrated_in",
+    "requests_migrated_out", "requests_preempted", "requests_resumed",
+    "requests_parked", "kv_blocks_shipped", "kv_blocks_adopted",
+    "kv_cow_copies", "kv_blocks_used", "tokens_emitted", "decode_steps",
+    "budget_steps", "tokens_emitted_high", "tokens_emitted_normal",
+    "tokens_emitted_low")
+# the lifecycle script's flavors: the paged pool fp and int8, greedy, and
+# fp sampled with the repetition penalty (the presence rebuilt at resume
+# and import)
+LIFECYCLE_FLAVORS = {"fp": {}, "kv8": {"kv_quant": "int8"},
+                     "sampled": SAMPLED}
+
+
+def lifecycle_script(eng, clock, reqs, pen):
+    """Phase 4's slot lifecycle on one engine (4 slots, max_pending 3):
+    a low request preempted to the host (mid-prefill under a budget) and
+    resumed, a fork whose twins copy the block they share on write, a
+    high request that preempts the youngest low one, max_pending
+    shedding, a running request exported, and a deadline that expires a
+    parked or running request under the fake clock. Returns what it saw
+    (states, counters, every result) and the exported state."""
+    kw = {"repetition_penalty": 1.2} if pen else {}
+    seen = []
+
+    def state(rid):
+        return (eng.poll(rid) or {}).get("state")
+
+    a = eng.submit(reqs[0][0], reqs[0][1], priority="low", **kw)
+    b = eng.submit(reqs[1][0], reqs[1][1], priority="low", deadline_s=50.0,
+                   **kw)
+    c = eng.submit(reqs[2][0], reqs[2][1], **kw)
+    eng.step()
+    if state(b) == "running":
+        eng.preempt_to_host(b)
+    eng.step()
+    eng.step()
+    f = eng.fork_slot(a) if state(a) == "running" else None
+    eng.step()
+    eng.step()
+    h = eng.submit(reqs[3][0], reqs[3][1], priority="high", **kw)
+    eng.step()
+    seen.append(("states", [state(r) for r in (a, b, c, f, h)]))
+    queued = 0
+    try:
+        for p, m in reqs[4:8]:            # one more than max_pending
+            eng.submit(p, m, **kw)
+            queued += 1
+        seen.append(("shed", False, queued))
+    except AdmissionFull:
+        seen.append(("shed", True, queued))
+    moved = next((r for r in (c, h) if state(r) == "running"), None)
+    exported = eng.export_slot(moved) if moved is not None else None
+    clock.t += 60.0                       # b's deadline has passed
+    eng.step()
+    seen.append(("states", [state(r) for r in (a, b, c, f, h)]))
+    eng.run()
+    m = eng.metrics()
+    seen.append(("counters", {k: m[k] for k in LIFECYCLE_COUNTERS}))
+    seen.append(("results", {r: (v["tokens"].tolist(), v["expired"])
+                             for r, v in eng.results.items()}))
+    return seen, exported
+
+
+def parity_lifecycle(state, seed):
+    """The lifecycle script per flavor and scheduler on the card and on
+    the CPU (the same scheduler: the events follow its steps): what each
+    saw equal; the card's exported state imported into a second card
+    engine and into a CPU engine, and the CPU's into a second CPU engine,
+    the three continuations equal."""
+    rng = np.random.default_rng(seed + 11)
+    reqs = [(rng.integers(0, V, n), m) for n, m in
+            ((40, 20), (150, 60), (30, 18), (25, 8), (20, 6), (35, 6),
+             (10, 4), (15, 4))]
+    t0 = time.perf_counter()
+    for fname, flavor in LIFECYCLE_FLAVORS.items():
+        for sched in SCHEDULERS:
+            kwargs = {"num_slots": 4, "max_seq_len": 256, "max_pending": 3,
+                      **SCHEDULERS[sched], **flavor}
+            seen, cont = {}, {}
+            for dev in ("cuda", "cpu"):
+                mods = from_jax_state(*state, device=dev,
+                                      dtype=torch.float32)
+                clock = FakeClock()
+                eng = ServingEngine(*mods, device=dev, clock=clock, **kwargs)
+                reset_launches()
+                trng.seed(seed)
+                seen[dev], exported = lifecycle_script(
+                    eng, clock, reqs, "enable_repetition_penalty" in flavor)
+                if exported is None:
+                    raise SystemExit(f"[lifecycle-{fname}] {sched}: nothing "
+                                     f"running to export: {seen[dev]}")
+                targets = [dev] if dev == "cpu" else ["cuda", "cpu"]
+                for tdev in targets:
+                    other = ServingEngine(
+                        *(mods if tdev == dev else from_jax_state(
+                            *state, device=tdev, dtype=torch.float32)),
+                        device=tdev, **kwargs)
+                    rid = other.import_slot(exported)
+                    other.run()
+                    cont[dev, tdev] = other.results[rid]["tokens"].tolist()
+                if dev == "cuda":             # fp32: the per-head design
+                    check_all_per_head(f"[lifecycle-{fname}] {sched}")
+            c = dict(seen["cuda"][-2][1])
+            if seen["cuda"] != seen["cpu"] or \
+                    len(set(map(tuple, cont.values()))) != 1:
+                raise SystemExit(
+                    f"[lifecycle-{fname}] {sched}: the card saw "
+                    f"{seen['cuda']}, the CPU {seen['cpu']}; continuations "
+                    f"after export {cont}")
+            if not (c["requests_preempted"] and c["requests_resumed"]
+                    and c["requests_forked"] and c["kv_cow_copies"]
+                    and c["requests_expired"] and c["requests_rejected"]
+                    and c["requests_migrated_out"]):
+                raise SystemExit(f"[lifecycle-{fname}] {sched}: a piece of "
+                                 f"the lifecycle did not happen: {c}")
+            log(f"  [lifecycle-{fname}] {sched}: the card equal to the CPU "
+                f"(states, counters, tokens; {c}); the card's state "
+                "continued on a second card engine and on the CPU as the "
+                "CPU's own")
+    log(f"  the lifecycle parity: {time.perf_counter() - t0:.1f} s")
 
 
 # what phase 4 holds equal between the card and the CPU for the options

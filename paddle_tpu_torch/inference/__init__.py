@@ -4,9 +4,10 @@ drafter)."""
 from .generation import FusedDecoder
 from .paged_kv import BlockPool, PagedPrefixCache, PagedPrefixStore
 from .prefix_cache import PrefixCache, PrefixStore
-from .serving import ServingEngine
+from .serving import AdmissionFull, ServedRequest, ServingEngine
 from .spec_decode import NGramDrafter
 
-__all__ = ["FusedDecoder", "ServingEngine", "PrefixCache", "PrefixStore",
+__all__ = ["FusedDecoder", "ServingEngine", "ServedRequest",
+           "AdmissionFull", "PrefixCache", "PrefixStore",
            "NGramDrafter", "BlockPool", "PagedPrefixCache",
            "PagedPrefixStore"]

@@ -12,9 +12,13 @@ block ids into the slot's table and takes a reference on each, a publish
 takes the store's reference on the slot's own prompt blocks, so neither
 copies K/V, and eviction drops only the store's reference; and
 ``flat_gather_view``, the dense view the plain flat attentions build on
-(fp pools, and int8 pools with their scales). The COW copy and the
-block transfers (``copy_block``, ``read_block``, ``write_block``) come
-with ROADMAP Queue 1 item 6(f).
+(fp pools, and int8 pools with their scales). ``BlockPool`` also moves
+blocks: ``copy_block`` (the copy-on-write of a shared block, on the
+device) and ``read_block`` / ``write_block`` (one block to host numpy and
+back, JAX's migration payload ``{"kv"[, "sc"]}`` in JAX's shapes, so a
+block read by either framework writes into the other's pool);
+``read_blocks`` takes a slot's blocks off the card in one copy (into
+pinned memory) and ``write_blocks`` puts them back without a host copy.
 """
 from __future__ import annotations
 
@@ -25,6 +29,41 @@ from .prefix_cache import PrefixNode, PrefixStore, lookup_adoptable
 
 __all__ = ["BlockPool", "PagedPrefixStore", "PagedPrefixCache",
            "flat_gather_view"]
+
+
+def _np_bfloat16():
+    """numpy's bfloat16 (the dtype JAX hands a bf16 block to the host
+    as), or None where ``ml_dtypes`` is not installed."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def _to_host(t):
+    """A pool tensor as host numpy (off the card in one copy into pinned
+    memory, which the arrays keep); bf16 as numpy's bfloat16 where it
+    exists, else its raw bits as uint16."""
+    if t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        t = host.copy_(t)
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy().view(np.uint16)
+    bf16 = _np_bfloat16()
+    return bits if bf16 is None else bits.view(bf16)
+
+
+def _from_host(a, dtype, device):
+    """Host numpy as a tensor of the pool's dtype on its device: the bits
+    of a bfloat16 (or uint16) array into a bf16 pool, else a cast, as
+    JAX's ``astype``."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16 and a.dtype.itemsize == 2 and (
+            a.dtype == np.uint16 or a.dtype.name == "bfloat16"):
+        return torch.from_numpy(a.view(np.int16)).to(device).view(dtype)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 class BlockPool:
@@ -94,6 +133,66 @@ class BlockPool:
                 "kv_blocks_used": self.used,
                 "kv_blocks_free": self.free_count,
                 "kv_blocks_used_peak": self.used_peak}
+
+    # ------------------------------------------------ block transfers
+    # caches is the pool dict {"kv": [L, 2, NB, H, Bt, D](, "sc": [L, 2,
+    # NB, H, 1, Bt])}; every write lands in place and returns the dict
+    def copy_block(self, caches, src, dst):
+        """Copy pool block ``src`` into ``dst`` (K/V and int8 scales) on
+        the device: the whole cost of a copy-on-write."""
+        for k in ("kv", "sc"):
+            if k in caches:
+                caches[k][:, :, int(dst)] = caches[k][:, :, int(src)]
+        return caches
+
+    def read_blocks(self, caches, ids):
+        """Pool blocks ``ids`` to the host, one gather and one
+        device-to-host copy for all of them: a list of ``{"kv"[, "sc"]}``
+        numpy arrays of [L, 2, 1, H, Bt, D] and [L, 2, 1, H, 1, Bt] (views
+        of one host array)."""
+        if not len(ids):
+            return []
+        idx = torch.as_tensor(list(ids), dtype=torch.long,
+                              device=caches["kv"].device)
+        host = {k: _to_host(caches[k].index_select(2, idx).movedim(2, 0)
+                            .contiguous())
+                for k in ("kv", "sc") if k in caches}
+        return [{k: a[i][:, :, None] for k, a in host.items()}
+                for i in range(len(idx))]
+
+    def read_block(self, caches, src):
+        """One pool block to host numpy ``{"kv"[, "sc"]}``, the export
+        half of a migration; the pool keeps serving."""
+        return self.read_blocks(caches, [src])[0]
+
+    def write_blocks(self, caches, blocks, ids):
+        """Exported host blocks into pool blocks ``ids``: each block's
+        host-to-device copy (straight from pinned memory when the block
+        came from ``read_blocks``; no host copy first), then one scatter
+        into the pool."""
+        if not len(ids):
+            return caches
+        kv = caches["kv"]
+        idx = torch.as_tensor(list(ids), dtype=torch.long, device=kv.device)
+        for k in ("kv", "sc"):
+            if k in caches:
+                dst = caches[k]
+                want = dst.shape[:2] + (1,) + dst.shape[3:]
+                for blk in blocks:
+                    if k not in blk or tuple(blk[k].shape) != want:
+                        raise ValueError(
+                            f"kv block {k!r} of shape "
+                            f"{None if k not in blk else blk[k].shape} does "
+                            f"not match this pool's {want}")
+                dst.index_copy_(2, idx, torch.cat(
+                    [_from_host(blk[k], dst.dtype, dst.device)
+                     for blk in blocks], 2))
+        return caches
+
+    def write_block(self, caches, block, dst):
+        """One exported host block into pool block ``dst``, the import half
+        of a migration (the engine validates the layout first)."""
+        return self.write_blocks(caches, [block], [dst])
 
 
 class PagedPrefixStore(PrefixStore):

@@ -55,10 +55,30 @@ once per dispatch. A dense engine has no pool: no block reservation, no
 tables, and ``metrics()`` reports the ``kv_blocks_*`` and ``kv_shard_*``
 gauges as None.
 
-Every constructor argument that selects a path outside this slice
-raises NotImplementedError naming its ROADMAP item; the engine reads no
-environment variables (JAX's PADDLE_SERVING_SPEC_K and
-PADDLE_SERVING_SPEC_MIN_DRAFT take their defaults, 0 and 2).
+The slot lifecycle (paged engines; a dense one raises JAX's
+ValueErrors): ``fork_slot`` clones a running request onto the same
+blocks, and a write into a shared block copies it first
+(``_ensure_writable``, ``kv_cow_copies``); ``preempt_to_host`` parks a
+running slot's state, KV bytes included, in host memory and
+``resume_from_host`` restores it token-identically; ``export_slot`` /
+``import_slot`` (and the streamed ``export_kv_prefix`` /
+``stage_kv_blocks``) move a live request between engines in JAX's state
+format (``MIGRATION_FMT``), so a state crosses frameworks either way;
+``role="prefill"`` holds a prompt-complete slot as ``prefilled`` for
+that handoff. Requests carry a QoS class (``priority``: strict-priority
+queues, a weighted-fair prefill split, a better class preempting a worse
+one at most once a step) and a ``deadline_s`` (queued, running and parked
+requests expire). An explicitly sized pool (``kv_pool=``,
+``kv_pool_blocks=``) and ``max_pending`` shed with ``AdmissionFull``.
+``track`` / ``poll`` / ``harvest_new_tokens`` / ``release`` stream a
+request's tokens; ``reset_metrics`` starts a new metric window.
+
+The engine reads no environment variables: JAX's PADDLE_SERVING_SPEC_K
+and PADDLE_SERVING_SPEC_MIN_DRAFT take their defaults (0 and 2), its
+PADDLE_ROLE, PADDLE_SERVING_KV_BLOCKS and PADDLE_TPU_SERVE_MAX_PENDING
+are the constructor's ``role``, ``kv_pool_blocks`` and ``max_pending``,
+and PADDLE_QOS_SHARES (``"high=4,normal=2,low=1"``) is the keyword
+``qos_shares``.
 """
 from __future__ import annotations
 
@@ -78,22 +98,26 @@ from .prefix_cache import PrefixCache
 from .spec_decode import (NGramDrafter, filtered_probs, greedy_accept,
                           propose_claims, rejection_sample,
                           truncate_emitted, validate_spec_k)
-from .telemetry import (DEFAULT_RING, QOS_CLASSES, QOS_DEFAULT, SloPolicy,
-                        Telemetry)
+from .telemetry import (DEFAULT_QOS_SHARES, DEFAULT_RING, QOS_CLASSES,
+                        QOS_DEFAULT, QOS_RANK, SloPolicy, Telemetry)
 
-__all__ = ["ServingEngine", "ServedRequest"]
+__all__ = ["ServingEngine", "ServedRequest", "AdmissionFull",
+           "QOS_CLASSES"]
 
-# constructor argument -> (values that stay in this slice, ROADMAP item)
-_OUT_OF_SLICE = {
-    "max_pending": ((None,), "Queue 1 item 6(f) (admission shedding)"),
-    "kv_pool": ((None,), "Queue 1 item 6(f) (a shared BlockPool)"),
-    "kv_pool_blocks": ((None,), "Queue 1 item 6(f) (explicit pool budget)"),
-    "role": ((None, "mixed"), "Queue 1 item 6(f) (prefill/decode roles)"),
-}
+ROLES = ("prefill", "decode", "mixed")
+
+
+class AdmissionFull(RuntimeError):
+    """A request shed at admission: the pending queue is at max_pending,
+    an explicitly sized pool cannot commit its blocks, or no slot can take
+    a fork, an import or a resume. The caller backs off or goes
+    elsewhere."""
 
 
 class ServedRequest:
-    """One request's lifecycle: queued -> running -> finished."""
+    """One request's lifecycle: queued -> running -> finished | expired,
+    with the side states preempted (parked on the host), prefilled (held
+    by a prefill-role engine) and migrated (exported)."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
                  "min_length", "repetition_penalty", "state", "slot",
@@ -117,8 +141,6 @@ class ServedRequest:
         self.t_admit = None
         self.t_first = None
         self.t_done = None
-        # kept for the request spans of ROADMAP Queue 1 item 6(f), as the
-        # JAX record keeps them
         self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.seed = int(seed)
         self.trace_id = None if trace_id is None else str(trace_id)
@@ -136,7 +158,7 @@ class ServedRequest:
     def result(self):
         return {"rid": self.rid, "tokens": np.asarray(self.tokens, np.int32),
                 "ttft_s": self.ttft_s, "latency_s": self.latency_s,
-                "expired": False}
+                "expired": self.state == "expired"}
 
 
 class ServingEngine:
@@ -160,15 +182,10 @@ class ServingEngine:
                  token_budget=None, flat_budget=None,
                  telemetry_ring=None, slo=None, role=None,
                  weight_quant=None, kv_quant=None, *, head_quant=None,
-                 device=None):
-        given = dict(max_pending=max_pending, kv_pool=kv_pool,
-                     kv_pool_blocks=kv_pool_blocks, role=role)
-        for name, value in given.items():
-            accepted, item = _OUT_OF_SLICE[name]
-            if not any(value is a or value == a for a in accepted):
-                raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}) selects a path the "
-                    f"PyTorch port does not have yet: ROADMAP {item}")
+                 qos_shares=None, device=None):
+        role = "mixed" if role is None else role
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
         self.paged = paged is None or bool(paged)
         if self.paged and prefix_cache is not None:
             # JAX's rule: a shared dense PrefixCache makes the engine
@@ -197,7 +214,9 @@ class ServingEngine:
         self.device = self.dec.device
         self.num_slots = b = int(num_slots)
         self.smax = self.dec.smax
-        self.role = "mixed"
+        # "prefill" holds each prompt-complete slot for export_slot;
+        # "decode" and "mixed" serve alike (placement is the router's)
+        self.role = role
         self.do_sample = bool(do_sample)
         self.top_k, self.top_p = top_k, top_p
         self.temperature = temperature
@@ -208,11 +227,39 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_cap must be a power of two >= 1, got {cap}")
         self.prefill_cap = cap
+        if not self.paged and (kv_pool is not None
+                               or kv_pool_blocks is not None):
+            raise ValueError(
+                "kv_pool/kv_pool_blocks state a paged-pool memory budget, "
+                "but this engine resolved to the DENSE layout (paged=False "
+                "or a shared dense prefix cache) — refusing to drop the "
+                "budget silently")
         # the pool block size IS prefill_cap; the default pool holds
-        # B x Smax/Bt blocks, so every admissible request fits
-        self.pool = (BlockPool(b * (self.smax // cap), cap, self.smax)
-                     if self.paged else None)
-        self._kv_reserved = 0
+        # B x Smax/Bt blocks, so every admissible request fits and it
+        # never sheds; an explicitly sized pool (or a caller's) is a
+        # memory budget that submit() sheds against (the kv gate)
+        self.pool = None
+        self._kv_gate = False
+        if self.paged:
+            if kv_pool is not None:
+                if kv_pool.block_tokens != cap:
+                    raise ValueError(
+                        f"BlockPool has block_tokens={kv_pool.block_tokens}"
+                        f" but prefill_cap={cap} — the pool block, the "
+                        "prefix block, and the prefill chunk ladder are ONE "
+                        "knob and must agree")
+                if kv_pool.used:
+                    raise ValueError(
+                        "kv_pool already has allocated blocks — one "
+                        "BlockPool serves one engine")
+                self.pool = kv_pool
+            else:
+                nb = int(kv_pool_blocks if kv_pool_blocks is not None
+                         else b * (self.smax // cap))
+                self.pool = BlockPool(nb, cap, self.smax)
+            self._kv_gate = kv_pool is not None or kv_pool_blocks is not None
+        self._kv_reserved = 0            # running worst case
+        self._kv_committed = 0           # queued + running + parked
         if prefix_cache is not None:
             if not isinstance(prefix_cache, PrefixCache):
                 raise ValueError(
@@ -232,10 +279,6 @@ class ServingEngine:
                                                cap))
         else:
             self.prefix_cache = None
-        self._prefix_hits = 0
-        self._prefix_misses = 0
-        self._prefill_tokens_saved = 0
-        self._prefill_tokens_computed = 0
         self.spec_k = k = validate_spec_k(spec_k if spec_k is not None
                                           else 0)
         self._drafters = ([NGramDrafter(k) for _ in range(b)] if k
@@ -244,8 +287,6 @@ class ServingEngine:
         # this many drafts an active row ride along (JAX's default)
         self._spec_min_draft = 2.0
         self._spec_rng = None            # first sampled acceptance draws it
-        self._draft_proposed = 0
-        self._draft_accepted = 0
         tb = int(token_budget if token_budget is not None
                  else b * max(4 * self.decode_chunk, k + 1))
         if tb < 0:
@@ -289,13 +330,46 @@ class ServingEngine:
         self._tok = np.zeros(b, np.int64)
         self._pf_left = np.zeros(b, np.int64)
         self._slot_req = [None] * b
-        self._queue = deque()
+        # one FIFO per QoS class, drained best class first; the parking
+        # lot maps a preempted rid to its export_slot-format state
+        self._queues = {c: deque() for c in QOS_CLASSES}
+        self._parked = {}
+        self.qos_shares = self._parse_qos_shares(qos_shares or "")
+        self.max_pending = int(max_pending or 0)      # 0: unbounded
         self.results = {}
+        # every live request by rid, and the streaming cursors; a
+        # finished request stays indexed while a cursor holds it
+        self._req_index = {}
+        self._harvest = {}
+        self._staged = {}                # stage tag -> pool block ids
         self._rid = itertools.count()
+        self._prom_base = {}             # windows folded by reset_metrics
+        self._reset_window()
+
+    def _reset_window(self):
+        """Zero every window counter (construction and reset_metrics)."""
         self._tokens_emitted = 0
         self._busy_s = 0.0
         self._admitted = 0
+        self._forked = 0
         self._finished = 0
+        self._rejected = 0
+        self._expired = 0
+        self._migrated_in = 0
+        self._migrated_out = 0
+        self._kv_blocks_shipped = 0
+        self._kv_blocks_adopted = 0
+        self._preempted = 0
+        self._resumed = 0
+        self._class_admitted = {c: 0 for c in QOS_CLASSES}
+        self._class_tokens = {c: 0 for c in QOS_CLASSES}
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefill_tokens_saved = 0
+        self._prefill_tokens_computed = 0
+        self._draft_proposed = 0
+        self._draft_accepted = 0
+        self._cow_copies = 0
         self._decode_steps = 0
         self._budget_steps = 0
         self._budget_tokens_used = 0
@@ -315,10 +389,12 @@ class ServingEngine:
         must fit Smax (a slot's lens then never reaches Smax). JAX's
         parameters: ``repetition_penalty`` needs
         ``enable_repetition_penalty=True`` (ValueError without it, as in
-        JAX); request expiry (``deadline_s``) and QoS classes other than
-        the default (``priority``) are not ported yet (ROADMAP Queue 1
-        item 6(f)); ``trace_id`` and ``attempt`` are kept on the
-        request. A sampling engine draws the request's seed here."""
+        JAX); ``deadline_s`` expires the request that many seconds after
+        submit, wherever it is; ``priority`` is its QoS class;
+        ``trace_id`` and ``attempt`` are kept on the request. Sheds with
+        AdmissionFull at ``max_pending`` queued requests, or when an
+        explicitly sized pool cannot commit the request's worst-case
+        blocks. A sampling engine draws the request's seed here."""
         ids = np.asarray(prompt, np.int64).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty prompt")
@@ -340,16 +416,34 @@ class ServingEngine:
         if priority not in QOS_CLASSES:
             raise ValueError(
                 f"priority must be one of {QOS_CLASSES}, got {priority!r}")
-        if deadline_s is not None or priority != QOS_DEFAULT:
-            raise NotImplementedError(
-                f"submit: deadline_s={deadline_s!r}, priority={priority!r}: "
-                "request expiry and QoS classes are not ported yet (ROADMAP "
-                "Queue 1 item 6(f))")
+        if self.max_pending and self._queue_len() >= self.max_pending:
+            self._rejected += 1
+            raise AdmissionFull(
+                f"pending queue full ({self._queue_len()}/"
+                f"{self.max_pending}) — request shed at admission")
+        if self.paged:
+            need = self._blocks_needed(ids.size, max_new_tokens)
+            if need > self.pool.num_blocks:
+                raise ValueError(
+                    f"request needs {need} kv blocks but the pool holds "
+                    f"{self.pool.num_blocks} total — it can never be "
+                    "admitted (grow kv_pool_blocks or shrink the request)")
+            if self._kv_gate and \
+                    self._kv_committed + need > self.pool.num_blocks:
+                self._rejected += 1
+                raise AdmissionFull(
+                    f"kv pool exhausted ({self._kv_committed}/"
+                    f"{self.pool.num_blocks} blocks committed to "
+                    f"queued+running requests; this one needs {need}) — "
+                    "request shed at admission")
+            self._kv_committed += need
         req = ServedRequest(next(self._rid), ids, max_new_tokens,
                             eos_token_id, min_length, repetition_penalty,
-                            self.clock(), seed=self._fresh_seed(),
-                            trace_id=trace_id, attempt=attempt)
-        self._queue.append(req)
+                            self.clock(), deadline_s=deadline_s,
+                            seed=self._fresh_seed(), trace_id=trace_id,
+                            attempt=attempt, priority=priority)
+        self._queues[priority].append(req)
+        self._req_index[req.rid] = req
         return req.rid
 
     def _fresh_seed(self):
@@ -358,14 +452,56 @@ class ServingEngine:
         consumers of the stream)."""
         return _host_seed(next_key()) if self.do_sample else 0
 
+    # ------------------------------------------------- per-class queues
+    @staticmethod
+    def _parse_qos_shares(spec):
+        """Parse ``high=4,normal=2,low=1`` into a share dict; unknown
+        classes reject loudly, missing ones keep the default weight."""
+        shares = dict(DEFAULT_QOS_SHARES)
+        for part in str(spec).split(","):
+            part = part.strip()
+            if not part:
+                continue
+            cls, _, w = part.partition("=")
+            if cls not in QOS_CLASSES:
+                raise ValueError(
+                    f"PADDLE_QOS_SHARES: unknown class {cls!r} "
+                    f"(classes: {QOS_CLASSES})")
+            w = int(w)
+            if w < 1:
+                raise ValueError(
+                    f"PADDLE_QOS_SHARES: share for {cls!r} must be "
+                    f">= 1, got {w}")
+            shares[cls] = w
+        return shares
+
+    def _queue_len(self):
+        return sum(len(q) for q in self._queues.values())
+
+    def _queue_head(self):
+        for c in QOS_CLASSES:
+            if self._queues[c]:
+                return self._queues[c][0]
+        return None
+
+    def _queue_popleft(self):
+        for c in QOS_CLASSES:
+            if self._queues[c]:
+                return self._queues[c].popleft()
+        raise IndexError("pop from empty queue")
+
+    def queue_depths(self):
+        """Pending requests per QoS class."""
+        return {c: len(self._queues[c]) for c in QOS_CLASSES}
+
     @property
     def has_work(self):
-        return (bool(self._queue) or bool(self._active.any())
-                or bool((self._pf_left > 0).any()))
+        return (bool(self._queue_len()) or bool(self._active.any())
+                or bool((self._pf_left > 0).any()) or bool(self._parked))
 
     @property
     def queue_depth(self):
-        return len(self._queue)
+        return self._queue_len()
 
     @property
     def occupancy(self):
@@ -380,14 +516,25 @@ class ServingEngine:
         decodes. Returns tokens emitted."""
         t0 = self.clock()
         had_work = self.has_work
+        self._expire_deadlines(t0)
+        # resume parked requests, or preempt for a better class, before
+        # admission sees the slots
+        self._qos_schedule()
         if self.token_budget:
             self._admit_chunked()
             emitted = self._budget_step()
         else:
             emitted = len(self._admit())
+            # a prefill engine holds its admissions before any decode
+            if self.role == "prefill":
+                self._hold_prefilled()
             if self._active.any():
                 emitted += (self._spec_decode_step() if self.spec_k
                             else self._decode_one_chunk())
+        if self.role == "prefill":
+            self._hold_prefilled()
+        # a deadline that lapsed during the dispatch expires now
+        self._expire_deadlines(self.clock())
         self._busy_s += self.clock() - t0
         self._tokens_emitted += emitted
         if had_work:
@@ -399,6 +546,141 @@ class ServingEngine:
         while self.has_work:
             self.step()
         return self.results
+
+    def _hold_prefilled(self):
+        """Role "prefill": every slot whose prompt completed (first token
+        sampled) is held as ``prefilled``, inactive with its blocks
+        resident, until export_slot ships it; it leaves has_work."""
+        for s in range(self.num_slots):
+            req = self._slot_req[s]
+            if (req is not None and req.state == "running"
+                    and self._active[s] and not self._pf_left[s]
+                    and self._nt[s] >= 1):
+                req.state = "prefilled"
+                self._active[s] = False
+
+    # ------------------------------------------------- streaming harvest
+    def _lookup_req(self, rid):
+        """(tokens, done, state) for a rid, or None if unknown: a live or
+        tracked request reads its record, a finished untracked one the
+        bounded results."""
+        req = self._req_index.get(rid)
+        if req is not None:
+            return (req.tokens, req.state in ("finished", "expired"),
+                    req.state)
+        r = self.results.get(rid)
+        if r is not None:
+            return (r["tokens"], True,
+                    "expired" if r["expired"] else "finished")
+        return None
+
+    def track(self, rid):
+        """Register an incremental-harvest cursor for ``rid``: its record
+        outlives the results cap until the reader drains it. Call before
+        the request can finish."""
+        if rid in self._harvest:
+            return
+        if self._lookup_req(rid) is None:
+            raise KeyError(
+                f"request {rid} is unknown (never submitted, or it "
+                "finished and was evicted from the bounded results cap "
+                "before track() — register the cursor at submit time)")
+        self._harvest[rid] = 0
+
+    def poll(self, rid):
+        """Non-destructive status: ``{"rid", "state", "n_tokens",
+        "ttft_s", "latency_s"}``, or None for an unknown rid."""
+        req = self._req_index.get(rid)
+        if req is not None:
+            return {"rid": rid, "state": req.state,
+                    "n_tokens": len(req.tokens), "ttft_s": req.ttft_s,
+                    "latency_s": req.latency_s}
+        r = self.results.get(rid)
+        if r is None:
+            return None
+        return {"rid": rid,
+                "state": "expired" if r["expired"] else "finished",
+                "n_tokens": int(np.asarray(r["tokens"]).size),
+                "ttft_s": r["ttft_s"], "latency_s": r["latency_s"]}
+
+    def harvest_new_tokens(self, rid):
+        """``(new_tokens, done, state)``: the tokens since the previous
+        call (the first registers a cursor at 0). When done, the cursor
+        and the retained record go."""
+        if rid not in self._harvest:
+            self.track(rid)
+        got = self._lookup_req(rid)
+        if got is None:
+            self._harvest.pop(rid, None)
+            raise KeyError(
+                f"request {rid} was evicted from the results cap before "
+                "its first harvest — track() at submit time to pin it")
+        tokens, done, state = got
+        cur = self._harvest[rid]
+        new = [int(t) for t in tokens[cur:]]
+        if done:
+            self.release(rid)
+        else:
+            self._harvest[rid] = cur + len(new)
+        return new, done, state
+
+    def release(self, rid):
+        """Drop a streaming cursor (and the retained record of a finished
+        request). Idempotent."""
+        self._harvest.pop(rid, None)
+        req = self._req_index.get(rid)
+        if req is not None and req.state in ("finished", "expired"):
+            self._req_index.pop(rid, None)
+
+    def _window_counters(self):
+        """The window counters, keyed as metrics() keys them: what
+        reset_metrics folds into the exposition's lifetime base."""
+        c = {"tokens_emitted": self._tokens_emitted,
+             "busy_s": self._busy_s,
+             "requests_finished": self._finished,
+             "requests_admitted": self._admitted,
+             "requests_forked": self._forked,
+             "requests_rejected": self._rejected,
+             "requests_expired": self._expired,
+             "requests_migrated_in": self._migrated_in,
+             "requests_migrated_out": self._migrated_out,
+             "kv_blocks_shipped": self._kv_blocks_shipped,
+             "kv_blocks_adopted": self._kv_blocks_adopted,
+             "requests_preempted": self._preempted,
+             "requests_resumed": self._resumed}
+        for cls in QOS_CLASSES:
+            c[f"requests_admitted_{cls}"] = self._class_admitted[cls]
+            c[f"tokens_emitted_{cls}"] = self._class_tokens[cls]
+        c.update(
+            prefix_hits=self._prefix_hits,
+            prefix_misses=self._prefix_misses,
+            prefill_tokens_saved=self._prefill_tokens_saved,
+            prefill_tokens_computed=self._prefill_tokens_computed,
+            decode_steps=self._decode_steps,
+            draft_proposed=self._draft_proposed,
+            draft_accepted=self._draft_accepted,
+            kv_cow_copies=self._cow_copies,
+            budget_steps=self._budget_steps,
+            budget_tokens_used=self._budget_tokens_used,
+            budget_prefill_tokens=self._budget_prefill_tokens,
+            budget_decode_tokens=self._budget_decode_tokens,
+            budget_draft_tokens=self._budget_draft_tokens,
+            budget_padding_tokens=self._budget_padding_tokens,
+            slo_ok=self._slo_ok,
+            slo_violated_queue=self._slo_violated_queue,
+            slo_violated_service=self._slo_violated_service)
+        return c
+
+    def reset_metrics(self, keep_results=True):
+        """Zero the window counters (a benchmark's warmup ends here),
+        folding them into the exposition's lifetime base first, and
+        start a fresh telemetry window."""
+        for k, v in self._window_counters().items():
+            self._prom_base[k] = self._prom_base.get(k, 0) + v
+        self.telemetry.reset()
+        self._reset_window()
+        if not keep_results:
+            self.results = {}
 
     def metrics(self):
         tele = self.telemetry
@@ -418,18 +700,21 @@ class ServingEngine:
                 else (0.0 if self._tokens_emitted else None)),
             "requests_finished": self._finished,
             "requests_admitted": self._admitted,
-            "requests_admitted_high": 0,
-            "requests_admitted_normal": self._admitted,
-            "requests_admitted_low": 0,
-            "tokens_emitted_high": 0,
-            "tokens_emitted_normal": self._tokens_emitted,
-            "tokens_emitted_low": 0,
-            "requests_forked": 0, "requests_rejected": 0,
-            "requests_expired": 0, "requests_migrated_in": 0,
-            "requests_migrated_out": 0, "requests_preempted": 0,
-            "requests_resumed": 0, "requests_parked": 0,
+            "requests_forked": self._forked,
+            "requests_rejected": self._rejected,
+            "requests_expired": self._expired,
+            "requests_migrated_in": self._migrated_in,
+            "requests_migrated_out": self._migrated_out,
             "role": self.role,
-            "kv_blocks_shipped": 0, "kv_blocks_adopted": 0,
+            "kv_blocks_shipped": self._kv_blocks_shipped,
+            "kv_blocks_adopted": self._kv_blocks_adopted,
+            "requests_preempted": self._preempted,
+            "requests_resumed": self._resumed,
+            "requests_parked": len(self._parked),
+            **{f"requests_admitted_{c}": self._class_admitted[c]
+               for c in QOS_CLASSES},
+            **{f"tokens_emitted_{c}": self._class_tokens[c]
+               for c in QOS_CLASSES},
             "queue_depth": self.queue_depth,
             "occupancy": self.occupancy,
             "traces": 0,
@@ -457,7 +742,7 @@ class ServingEngine:
             "kv_blocks_total": pool.num_blocks if paged else None,
             "kv_blocks_used": pool.used if paged else None,
             "kv_blocks_free": pool.free_count if paged else None,
-            "kv_cow_copies": 0,
+            "kv_cow_copies": self._cow_copies,
             "kv_shard_count": 1 if paged else None,
             "kv_shard_heads": self.dec.fmt.num_heads if paged else None,
             "kv_shard_pool_bytes": (sum(a.nbytes
@@ -509,8 +794,11 @@ class ServingEngine:
 
     def _reserve(self, req):
         """Reserve the queue head's worst-case pool blocks; False (and no
-        reservation) when the pool cannot cover them. A ring reserves
-        nothing: every slot owns Smax positions."""
+        reservation) when the pool cannot cover them, or when there is
+        no head. A ring reserves nothing: every slot owns Smax
+        positions."""
+        if req is None:
+            return False
         if not self.paged:
             return True
         need = self._blocks_needed(req.prompt.size, req.max_new_tokens)
@@ -542,13 +830,12 @@ class ServingEngine:
                 + int(self._max_nt[slot]))
 
     def _ensure_writable(self, slot, lo, hi):
-        """Map every unmapped block of the write window [lo, hi) (a ring has
-        nothing to map). Adopted and published prompt blocks are shared
-        (refcount > 1), but they are full blocks below the prompt's end,
-        and every write lands at or past the adopted length or the
-        prompt's end, so none needs a copy-on-write; JAX's COW copy comes
-        with ``fork_slot`` (ROADMAP Queue 1 item 6(f)). A write window
-        over a shared block raises instead of writing into it."""
+        """Before a dispatch writes positions [lo, hi) of the slot (a ring
+        has nothing to do): an unmapped block maps, and a SHARED block
+        (refcount > 1: a fork twin's, or a prefix block the store or
+        another slot holds) is copied into a fresh one first, so a write
+        never lands in another's view. Adopted and published blocks lie
+        below every write, so only forks copy."""
         hi = min(int(hi), self.smax)
         if hi <= lo or not self.paged:
             return
@@ -556,13 +843,15 @@ class ServingEngine:
         nb = self.pool.num_blocks
         bt = self.prefill_cap
         for j in range(int(lo) // bt, (hi - 1) // bt + 1):
-            if int(row[j]) == nb:
+            blk = int(row[j])
+            if blk == nb:
                 row[j] = self._alloc_kv_blocks(1)[0]
-            elif int(self.pool.refcounts[row[j]]) > 1:
-                raise RuntimeError(
-                    f"slot {slot} would write positions [{lo}, {hi}) into "
-                    f"shared block {int(row[j])}: a copy-on-write is "
-                    "ROADMAP Queue 1 item 6(f)")
+            elif int(self.pool.refcounts[blk]) > 1:
+                new = self._alloc_kv_blocks(1)[0]
+                self.pool.copy_block(self._caches, blk, new)
+                row[j] = new
+                self.pool.deref([blk])
+                self._cow_copies += 1
 
     def _map_blocks(self, slot, hi):
         """Map pool blocks so the slot's table covers positions [0, hi)."""
@@ -585,14 +874,490 @@ class ServingEngine:
             self.pool.deref(mapped)
         row[:] = nb
 
+    def _shed(self, msg):
+        # every rejection shows in requests_rejected
+        self._rejected += 1
+        return AdmissionFull(msg)
+
+    def _need_paged(self, what, why=""):
+        if not self.paged:
+            raise ValueError(f"{what} needs the paged KV cache{why}")
+
+    # ------------------------------------------------------ slot lifecycle
+    def fork_slot(self, rid, max_new_tokens=None):
+        """Copy-on-write fork of a running request: its decode state into
+        a free slot over the same blocks (a reference on each, no data
+        moved); the first write into a still-shared block copies that
+        block. The child inherits the tokens so far and the budget
+        (``max_new_tokens`` overrides the total) and samples from its own
+        seed. Returns the child's rid."""
+        self._need_paged("fork_slot", " (paged=False disables it)")
+        src = None
+        for r in self._slot_req:
+            if r is not None and r.rid == rid:
+                src = r
+        if src is None or src.state != "running":
+            raise ValueError(f"request {rid} is not running in a slot")
+        free = self._free_slots()
+        if not free:
+            raise self._shed("no free slot to fork into")
+        s0, s1 = src.slot, free[0]
+        mnt = int(max_new_tokens if max_new_tokens is not None
+                  else src.max_new_tokens)
+        if src.prompt.size + mnt > self.smax:
+            raise ValueError("fork budget exceeds the ring capacity")
+        need = self._blocks_needed(src.prompt.size, mnt)
+        if self._kv_reserved + need > self.pool.num_blocks:
+            raise self._shed(
+                f"kv pool exhausted: fork needs {need} blocks, "
+                f"{self.pool.num_blocks - self._kv_reserved} unreserved")
+        child = ServedRequest(next(self._rid), src.prompt, mnt,
+                              src.eos_token_id, src.min_length,
+                              src.repetition_penalty, self.clock(),
+                              seed=self._fresh_seed(),
+                              trace_id=src.trace_id, attempt=src.attempt,
+                              priority=src.priority)
+        child.state = "running"
+        child.slot = s1
+        child.t_admit = child.t_submit    # a clone never queues
+        child.tokens = list(src.tokens)
+        child.t_first = src.t_first
+        self._slot_req[s1] = child
+        self._req_index[child.rid] = child
+        self._kv_reserved += need
+        self._kv_committed += need
+        # a clone, not an admission: no prefix lookup
+        self._forked += 1
+        row = self._tables[s0]
+        self.pool.ref([int(x) for x in row[row < self.pool.num_blocks]])
+        self._tables[s1] = row
+        for vec in (self._lens, self._nt, self._eos, self._min_len,
+                    self._rep_pen, self._tok, self._pf_left):
+            vec[s1] = vec[s0]
+        self._max_nt[s1] = mnt
+        self._rseed[s1] = child.seed
+        self._active[s1] = self._active[s0] and self._nt[s1] < mnt
+        if self._drafters is not None:
+            self._drafters[s1].reset(src.prompt)
+            self._drafters[s1].update(child.tokens)
+        if self._rep_on:
+            p = self._presence_init()
+            p[s1] = p[s0]
+        if not self._active[s1] and not self._pf_left[s1]:
+            self._finish(child, self.clock())
+        return child.rid
+
+    # A live request's whole decode state — its committed KV blocks as
+    # host bytes, lens / nt / next input / prefill cursor, its sampling
+    # seed and its contract — as a dict that another engine (this port's
+    # or the JAX package's) resumes mid-stream. Drafters and the presence
+    # row are rebuilt from the tokens. Greedy and plain sampled streams
+    # continue token-identically (every draw is fold_in(seed, nt)).
+    MIGRATION_FMT = "paddle-slot-v1"
+
+    def _slot_state(self, req):
+        """The migration state of ``req`` with no KV yet: a queued
+        request's (nothing written), or its slot's."""
+        state = {
+            "fmt": self.MIGRATION_FMT,
+            "prompt": np.asarray(req.prompt, np.int32),
+            "tokens": [int(t) for t in req.tokens],
+            "max_new_tokens": req.max_new_tokens,
+            "eos_token_id": req.eos_token_id,
+            "min_length": req.min_length,
+            "repetition_penalty": req.repetition_penalty,
+            "deadline_s": req.deadline_s,
+            "seed": req.seed,
+            "trace_id": req.trace_id,
+            "attempt": req.attempt,
+            "priority": req.priority,
+            "prefill_cap": self.prefill_cap,
+            "lens": 0, "nt": 0, "tok": 0, "active": False,
+            "pf_left": int(req.prompt.size),
+            "kv_skip": 0,
+            "kv": [],
+        }
+        s = req.slot
+        if s is not None:
+            state.update(lens=int(self._lens[s]), nt=int(self._nt[s]),
+                         tok=int(self._tok[s]),
+                         active=bool(self._active[s]),
+                         pf_left=int(self._pf_left[s]))
+        return state
+
+    def _release_slot(self, req):
+        """Free ``req``'s slot, blocks and running reservation."""
+        s = req.slot
+        self._kv_reserved -= self._blocks_needed(req.prompt.size,
+                                                 req.max_new_tokens)
+        self._slot_req[s] = None
+        self._active[s] = False
+        self._pf_left[s] = 0
+        self._free_slot_blocks(s)
+
+    def export_slot(self, rid, skip_blocks=0):
+        """Detach request ``rid`` (queued, running, or held
+        ``prefilled``) into a migration state dict and free everything it
+        held here; it leaves as ``migrated``, with no finish verdict.
+        ``skip_blocks`` leaves out the first N blocks, already staged on
+        the importer by export_kv_prefix -> stage_kv_blocks. A held
+        prefilled slot exports active: its importer decodes it."""
+        self._need_paged("export_slot", " (the migration payload is pool "
+                         "blocks; paged=False disables it)")
+        req = self._req_index.get(rid)
+        if req is None or req.state not in ("queued", "running",
+                                            "prefilled"):
+            raise ValueError(f"request {rid} is not live on this engine")
+        skip_blocks = int(skip_blocks)
+        state = self._slot_state(req)
+        need = self._blocks_needed(req.prompt.size, req.max_new_tokens)
+        if req.state == "queued":
+            self._queues[req.priority].remove(req)
+        else:
+            if req.state == "prefilled":
+                # held only to park it; later dispatches overwrite an
+                # inactive row's token, the request's history keeps it
+                state["active"] = True
+                if req.tokens:
+                    state["tok"] = int(req.tokens[-1])
+            total = -(-state["lens"] // self.prefill_cap)
+            if not 0 <= skip_blocks <= total:
+                raise ValueError(
+                    f"skip_blocks={skip_blocks} outside the request's "
+                    f"committed block count [0, {total}]")
+            state["kv_skip"] = skip_blocks
+            row = self._tables[req.slot]
+            state["kv"] = self.pool.read_blocks(
+                self._caches, [int(row[j]) for j in range(skip_blocks,
+                                                          total)])
+            self._release_slot(req)
+        self._kv_committed -= need
+        req.state = "migrated"
+        self._req_index.pop(rid, None)
+        self._harvest.pop(rid, None)
+        self._migrated_out += 1
+        self._kv_blocks_shipped += len(state["kv"])
+        return state
+
+    def _check_blocks(self, blocks, what):
+        """A payload's blocks against this pool's layout and flavor."""
+        kv_shape = self._caches["kv"].shape      # [L, 2, NB, H, Bt, D]
+        want = (kv_shape[0], 2, 1, kv_shape[3], kv_shape[4], kv_shape[5])
+        for blk in blocks:
+            if tuple(blk["kv"].shape) != want:
+                raise ValueError(
+                    f"{what} kv block shape {tuple(blk['kv'].shape)} does "
+                    f"not match this pool's {want} — the engines' "
+                    "model/layout configs must agree")
+            if ("sc" in self._caches) != ("sc" in blk):
+                raise ValueError(
+                    f"{what} block cache flavor (int8 scales) does not "
+                    "match this engine's")
+
+    def _place(self, req, s, state, ids):
+        """Restore a migrated or parked request into slot ``s`` over pool
+        blocks ``ids``: the decode vectors, then the drafter and presence
+        rebuilt from its tokens."""
+        row = self._tables[s]
+        row[:] = self.pool.num_blocks
+        row[:len(ids)] = ids
+        self._lens[s] = int(state["lens"])
+        self._nt[s] = int(state["nt"])
+        self._tok[s] = int(state["tok"])
+        self._max_nt[s] = req.max_new_tokens
+        self._eos[s] = (-1 if req.eos_token_id is None
+                        else int(req.eos_token_id))
+        self._min_len[s] = req.min_length
+        self._rep_pen[s] = req.repetition_penalty
+        self._rseed[s] = req.seed
+        self._active[s] = bool(state["active"])
+        self._pf_left[s] = int(state["pf_left"])
+        if self._drafters is not None:
+            self._drafters[s].reset(req.prompt)
+            self._drafters[s].update(req.tokens)
+        if self._rep_on:
+            p = self._presence_init()[s]
+            p.zero_()
+            seen = np.concatenate([req.prompt, np.asarray(req.tokens,
+                                                          np.int64)])
+            p[torch.from_numpy(seen.astype(np.int64)).to(self.device)] = True
+        req.slot = s
+        self._slot_req[s] = req
+
+    def import_slot(self, state, staged=None):
+        """Resume an exported request here (from this port or the JAX
+        package): fresh pool blocks take its KV bytes, the decode state
+        is restored and the drafter and presence rebuilt. Returns its new
+        rid. Sheds with AdmissionFull when no slot or pool headroom can
+        take it; a never-prefilled export re-enters the queue. ``staged``
+        names a stage_kv_blocks tag that covers exactly the export's
+        ``kv_skip`` leading blocks, spliced in without a re-upload (a shed
+        import leaves them staged)."""
+        self._need_paged("import_slot")
+        if not isinstance(state, dict) or \
+                state.get("fmt") != self.MIGRATION_FMT:
+            raise ValueError(
+                f"not a migration state dict (fmt="
+                f"{None if not isinstance(state, dict) else state.get('fmt')!r}"
+                f", expected {self.MIGRATION_FMT!r})")
+        if int(state["prefill_cap"]) != self.prefill_cap:
+            raise ValueError(
+                f"migration state has prefill_cap={state['prefill_cap']}"
+                f" but this engine uses {self.prefill_cap} — the KV "
+                "blocks are prefill_cap-sized and cannot be re-chunked")
+        prompt = np.asarray(state["prompt"], np.int64).reshape(-1)
+        max_new = int(state["max_new_tokens"])
+        if prompt.size + max_new > self.smax:
+            raise ValueError(
+                f"migrated request needs {prompt.size} + {max_new} "
+                f"positions but this engine's Smax is {self.smax}")
+        lens = int(state["lens"])
+        if not 0 <= lens <= prompt.size + max_new:
+            raise ValueError(
+                f"migration state has lens={lens} outside its own request "
+                f"budget [0, {prompt.size} + {max_new}] — corrupt or "
+                "mismatched payload")
+        blocks = state["kv"]
+        kv_skip = int(state.get("kv_skip", 0))
+        staged_ids = []
+        if staged is not None:
+            staged_ids = self._staged.get(staged)
+            if staged_ids is None:
+                raise ValueError(f"no staged kv blocks under tag {staged!r}")
+        if len(staged_ids) != kv_skip:
+            raise ValueError(
+                f"export skips {kv_skip} leading kv blocks but "
+                f"{len(staged_ids)} are staged under {staged!r} — the "
+                "streamed prefix must cover the skip exactly")
+        total_blocks = -(-lens // self.prefill_cap)
+        if kv_skip + len(blocks) != total_blocks:
+            raise ValueError(
+                f"migration state ships {len(blocks)} kv blocks "
+                f"(+{kv_skip} staged) but lens={lens} needs {total_blocks}")
+        self._check_blocks(blocks, "migrated")
+        now = self.clock()
+        need = self._blocks_needed(prompt.size, max_new)
+        tokens = [int(t) for t in state["tokens"]]
+        req = ServedRequest(next(self._rid), prompt, max_new,
+                            state["eos_token_id"], int(state["min_length"]),
+                            float(state["repetition_penalty"]), now,
+                            deadline_s=state["deadline_s"],
+                            seed=int(state["seed"]),
+                            trace_id=state["trace_id"],
+                            attempt=int(state["attempt"]),
+                            priority=state.get("priority", QOS_DEFAULT))
+        if not blocks and not staged_ids and not tokens \
+                and int(state["nt"]) == 0:
+            # never prefilled: a plain (re-)queue, admitted normally later
+            if self.max_pending and self._queue_len() >= self.max_pending:
+                raise self._shed(
+                    f"pending queue full ({self._queue_len()}/"
+                    f"{self.max_pending}) — migrated request shed")
+            if self._kv_gate and \
+                    self._kv_committed + need > self.pool.num_blocks:
+                raise self._shed("kv pool exhausted — migrated request "
+                                 "shed at import")
+            self._kv_committed += need
+            if staged is not None:
+                self._staged.pop(staged, None)   # an empty tag, consumed
+            self._queues[req.priority].append(req)
+            self._req_index[req.rid] = req
+            self._migrated_in += 1
+            return req.rid
+        free = self._free_slots()
+        if not free:
+            raise self._shed("no free slot to import the migrated session "
+                             "into")
+        if self._kv_reserved - len(staged_ids) + need > self.pool.num_blocks:
+            # staged blocks hold their own reservation, which folds into
+            # the request's: only the difference is checked
+            raise self._shed(
+                f"kv pool exhausted: migrated session needs {need} "
+                f"blocks, {self.pool.num_blocks - self._kv_reserved} "
+                "unreserved")
+        s = free[0]
+        req.state = "running"
+        req.t_admit = now                  # no queue time on this engine
+        # TTFT belongs to the attempt that produced the first token
+        req.tokens = tokens
+        if staged_ids:
+            del self._staged[staged]
+            self._kv_reserved -= len(staged_ids)
+        self._kv_committed += need
+        self._kv_reserved += need
+        new_ids = self._alloc_kv_blocks(len(blocks)) if blocks else []
+        self.pool.write_blocks(self._caches, blocks, new_ids)
+        self._kv_blocks_adopted += len(blocks)
+        self._place(req, s, state, list(staged_ids) + list(new_ids))
+        self._req_index[req.rid] = req
+        self._migrated_in += 1
+        if not self._active[s] and not self._pf_left[s] and tokens:
+            # exported at the exact finish boundary
+            self._finish(req, now)
+        elif (self.role == "prefill" and self._active[s]
+                and not self._pf_left[s] and self._nt[s] >= 1):
+            # a prompt-complete session on a prefill engine re-holds
+            req.state = "prefilled"
+            self._active[s] = False
+        return req.rid
+
+    # ------------------------------------------------- streamed KV handoff
+    def export_kv_prefix(self, rid, start_block=0, min_blocks=1):
+        """The committed FULL blocks [start_block, lens // prefill_cap) of
+        a live request, read without detaching it: ``(blocks, n_full)``.
+        Fewer than ``min_blocks`` new ones read nothing. The partial tail
+        travels with the final export_slot; the caller owns the cursor."""
+        self._need_paged("export_kv_prefix")
+        req = self._req_index.get(rid)
+        if req is None or req.state not in ("running", "prefilled") \
+                or req.slot is None:
+            raise ValueError(f"request {rid} is not resident in a slot")
+        s = req.slot
+        n_full = int(self._lens[s]) // self.prefill_cap
+        start_block = int(start_block)
+        if not 0 <= start_block <= n_full:
+            raise ValueError(
+                f"start_block={start_block} outside [0, {n_full}]")
+        if n_full - start_block < max(1, int(min_blocks)):
+            return [], n_full
+        row = self._tables[s]
+        blocks = self.pool.read_blocks(
+            self._caches, [int(row[j]) for j in range(start_block, n_full)])
+        self._kv_blocks_shipped += len(blocks)
+        return blocks, n_full
+
+    def stage_kv_blocks(self, tag, blocks):
+        """Receive streamed KV blocks ahead of their session's import:
+        pool blocks under a staging reservation take the payloads, filed
+        under ``tag`` (repeat calls append) for import_slot(staged=tag).
+        Sheds with AdmissionFull when the pool cannot take them. Returns
+        the count staged under the tag."""
+        self._need_paged("stage_kv_blocks")
+        blocks = list(blocks)
+        self._check_blocks(blocks, "staged")
+        if blocks and self._kv_reserved + len(blocks) \
+                > self.pool.num_blocks:
+            raise AdmissionFull(
+                f"kv pool exhausted: staging {len(blocks)} blocks, "
+                f"{self.pool.num_blocks - self._kv_reserved} unreserved")
+        if blocks:
+            self._kv_reserved += len(blocks)
+            ids = self._alloc_kv_blocks(len(blocks))
+            self.pool.write_blocks(self._caches, blocks, ids)
+            self._kv_blocks_adopted += len(blocks)
+            self._staged.setdefault(tag, []).extend(ids)
+        elif tag not in self._staged:
+            self._staged[tag] = []
+        return len(self._staged[tag])
+
+    def abort_stage(self, tag):
+        """Drop a staging tag, its pool blocks and reservation.
+        Idempotent; returns the blocks released."""
+        ids = self._staged.pop(tag, None)
+        if not ids:
+            return 0
+        self.pool.deref(ids)
+        self._kv_reserved -= len(ids)
+        return len(ids)
+
+    # ----------------------------------------------------- QoS preemption
+    # A parked request stays this engine's (same rid, index entry and
+    # harvest cursor, state "preempted"), and keeps its committed blocks:
+    # only its running reservation and physical blocks are released.
+    def preempt_to_host(self, rid):
+        """Park a RUNNING request in host memory: its decode state, KV
+        bytes included, in the migration format; its slot and blocks
+        freed. resume_from_host restores it token-identically, greedy and
+        plain sampled (the seed rides the state)."""
+        self._need_paged("preempt_to_host", " (the parked payload is pool "
+                         "blocks; paged=False disables it)")
+        req = self._req_index.get(rid)
+        if req is None or req.state != "running":
+            raise ValueError(f"request {rid} is not running in a slot")
+        state = self._slot_state(req)
+        del state["kv_skip"]
+        row = self._tables[req.slot]
+        state["kv"] = self.pool.read_blocks(
+            self._caches, [int(row[j]) for j in
+                           range(-(-state["lens"] // self.prefill_cap))])
+        self._release_slot(req)
+        req.slot = None
+        req.state = "preempted"
+        self._parked[rid] = state
+        self._preempted += 1
+        return rid
+
+    def resume_from_host(self, rid):
+        """A parked request back into a free slot (fresh blocks, its KV
+        re-uploaded). Sheds with AdmissionFull when no slot or
+        reservation can take it; the parked copy stays. Its t_submit and
+        deadline are untouched: parked time counts."""
+        state = self._parked.get(rid)
+        req = self._req_index.get(rid)
+        if state is None or req is None or req.state != "preempted":
+            raise ValueError(f"request {rid} is not parked here")
+        if not self._free_slots():
+            raise AdmissionFull("no free slot to resume the parked "
+                                "request into")
+        need = self._blocks_needed(req.prompt.size, req.max_new_tokens)
+        if self._kv_reserved + need > self.pool.num_blocks:
+            raise AdmissionFull(
+                f"kv pool exhausted: resume needs {need} blocks, "
+                f"{self.pool.num_blocks - self._kv_reserved} unreserved")
+        s = self._free_slots()[0]
+        del self._parked[rid]
+        blocks = state["kv"]
+        self._kv_reserved += need          # committed never left
+        ids = self._alloc_kv_blocks(len(blocks)) if blocks else []
+        self.pool.write_blocks(self._caches, blocks, ids)
+        self._place(req, s, state, ids)
+        req.state = "running"
+        self._resumed += 1
+        if not self._active[s] and not self._pf_left[s] and req.tokens:
+            self._finish(req, self.clock())
+        return rid
+
+    def _qos_schedule(self):
+        """One pass a step (paged engines): resume parked requests best
+        class first while they fit (never ahead of a strictly better
+        queued head), then, when a strictly better queue head is blocked
+        on slots or reservation, preempt the one worst running request
+        (lowest class, youngest)."""
+        if not self.paged:
+            return
+        for rid in sorted(self._parked, key=lambda r: (
+                QOS_RANK[self._parked[r]["priority"]], r)):
+            head = self._queue_head()
+            if head is not None and QOS_RANK[head.priority] < \
+                    QOS_RANK[self._parked[rid]["priority"]]:
+                break
+            try:
+                self.resume_from_host(rid)
+            except AdmissionFull:
+                break
+        head = self._queue_head()
+        if head is None:
+            return
+        need = self._blocks_needed(head.prompt.size, head.max_new_tokens)
+        if self._free_slots() and \
+                self._kv_reserved + need <= self.pool.num_blocks:
+            return
+        victims = [r for r in self._slot_req
+                   if r is not None and r.state == "running"
+                   and QOS_RANK[r.priority] > QOS_RANK[head.priority]]
+        if victims:
+            self.preempt_to_host(max(victims, key=lambda r: (
+                QOS_RANK[r.priority], r.rid)).rid)
+
     # ------------------------------------------------------------- steps
     def _free_slots(self):
         return [i for i in range(self.num_slots)
                 if not self._active[i] and self._slot_req[i] is None]
 
     def _admit_chunked(self):
-        """Move queued requests into free slots (FIFO) while the pool can
-        reserve their worst-case blocks; per request, in order, the prefix
+        """Move queued requests into free slots (best class first, FIFO
+        within a class) while the pool can reserve their worst-case
+        blocks; per request, in order, the prefix
         lookup and adoption (``lens`` starts at the adopted length).
         Prefill happens in the budget steps, and a prompt publishes when
         it completes there, so a cold gang of one template admitted
@@ -600,12 +1365,13 @@ class ServingEngine:
         in JAX)."""
         free = self._free_slots()
         t_adm = self.clock()
-        while free and self._queue and self._reserve(self._queue[0]):
-            req = self._queue.popleft()
+        while free and self._reserve(self._queue_head()):
+            req = self._queue_popleft()
             s = free.pop(0)
             req.slot, req.state, req.t_admit = s, "running", t_adm
             self._slot_req[s] = req
             self._admitted += 1
+            self._class_admitted[req.priority] += 1
             self._seed_presence(req)
             base = self._adopt(s, req.prompt)
             self._lens[s] = base
@@ -665,8 +1431,8 @@ class ServingEngine:
 
     # ------------------------------------------------- phase scheduler
     def _admit(self):
-        """Phase-mode admission: move queued requests into free slots (FIFO)
-        while the pool can reserve their worst-case blocks; per request,
+        """Phase-mode admission: move queued requests into free slots (best
+        class first, FIFO within a class) while the pool can reserve their worst-case blocks; per request,
         in order, the prefix lookup, then a miss's bulk pass over its
         whole prompt and its publication (so later requests of the same
         admission can hit), a hit's adoption; the hits' suffixes go
@@ -677,11 +1443,12 @@ class ServingEngine:
         its first token."""
         free = self._free_slots()
         batch = []
-        while free and self._queue and self._reserve(self._queue[0]):
-            req = self._queue.popleft()
+        while free and self._reserve(self._queue_head()):
+            req = self._queue_popleft()
             req.slot, req.state = free.pop(0), "running"
             self._slot_req[req.slot] = req
             batch.append(req)
+            self._class_admitted[req.priority] += 1
         if not batch:
             return []
         self._admitted += len(batch)
@@ -735,6 +1502,7 @@ class ServingEngine:
             tok0 = int(nxt[s])
             r.t_first = now
             r.tokens.append(tok0)
+            self._class_tokens[r.priority] += 1
             self._nt[s] = 1
             self._tok[s] = tok0
             if self._drafters is not None:
@@ -901,19 +1669,39 @@ class ServingEngine:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
     def _prefill_allocations(self, pf_rows, budget, col_cap=None):
-        """The prefill share of one budget dispatch, first come first
-        served by request id: each prefilling row takes up to col_cap
-        prompt tokens (the whole remaining budget when None) until the
-        budget runs out. The JAX engine's single-QoS-class case. Returns
-        ([(slot, n), ...] with n > 0, remaining budget)."""
-        allocs = []
-        for s in sorted(pf_rows, key=lambda s: self._slot_req[s].rid):
-            if budget <= 0:
+        """The weighted-fair prefill share of one budget dispatch, each
+        row taking at most col_cap prompt tokens (the whole budget when
+        None): with several QoS classes prefilling, each first gets
+        floor(budget * share / total shares) tokens, first come first
+        served by rid within the class; then what is left goes to the
+        remaining demand in (class rank, rid) order. With one class this
+        is the plain first-come-first-served packing. Returns ([(slot,
+        n), ...] with n > 0 in (class rank, rid) order, remaining
+        budget)."""
+        req = self._slot_req
+        order = sorted(pf_rows, key=lambda s: (QOS_RANK[req[s].priority],
+                                               req[s].rid))
+        cap = budget if col_cap is None else col_cap
+        want = {s: min(int(self._pf_left[s]), cap) for s in order}
+        alloc = dict.fromkeys(order, 0)
+        classes = {req[s].priority for s in order}
+        if len(classes) > 1:
+            total = sum(self.qos_shares[c] for c in classes)
+            for c in classes:
+                fair = budget * self.qos_shares[c] // total
+                for s in order:
+                    if req[s].priority == c:
+                        n = min(want[s] - alloc[s], fair)
+                        alloc[s] += n
+                        fair -= n
+        left = budget - sum(alloc.values())
+        for s in order:
+            if left <= 0:
                 break
-            n = min(int(self._pf_left[s]), budget, col_cap or budget)
-            allocs.append((s, n))
-            budget -= n
-        return allocs, budget
+            n = min(want[s] - alloc[s], left)
+            alloc[s] += n
+            left -= n
+        return [(s, alloc[s]) for s in order if alloc[s] > 0], left
 
     def _map_write_windows(self, adv, pf_n, tail):
         """Before a budget dispatch, map each packed slot's write window:
@@ -1166,6 +1954,7 @@ class ServingEngine:
             if tail:
                 row_toks.extend(int(t) for t in ys_t[ys_e[:, s], s])
             req.tokens.extend(row_toks)
+            self._class_tokens[req.priority] += len(row_toks)
             n_emitted += len(row_toks)
             self._decode_steps += len(row_toks)
             if not still_active[s]:
@@ -1199,6 +1988,7 @@ class ServingEngine:
             kept, int(self._max_nt[s] - self._nt[s]), eos)
         self._nt[s] += len(emitted)
         req.tokens.extend(emitted)
+        self._class_tokens[req.priority] += len(emitted)
         self._lens[s] += len(emitted)
         self._tok[s] = emitted[-1]
         # one verify row step emitted len(emitted) tokens, all but one
@@ -1249,6 +2039,7 @@ class ServingEngine:
                 tok0 = int(arr[-1])
             req.t_first = now
             req.tokens.append(tok0)
+            self._class_tokens[req.priority] += 1
             self._nt[s] = 1
             self._tok[s] = tok0
             self._decode_steps += 1
@@ -1302,6 +2093,7 @@ class ServingEngine:
                 continue
             hits = emitted[:, s]
             req.tokens.extend(int(t) for t in toks[hits, s])
+            self._class_tokens[req.priority] += int(hits.sum())
             n_emitted += int(hits.sum())
             if self._drafters is not None:
                 # a spec engine reaches here through the thin-draft
@@ -1358,31 +2150,66 @@ class ServingEngine:
                                           full_logits, now)
         return n_emitted
 
-    def _finish(self, req, now):
-        req.state = "finished"
+    def _expire_deadlines(self, now):
+        """Expire every request past its deadline_s: queued ones leave
+        the queue before any prefill, running ones free their slot, and
+        parked ones drop their host copy (the deadline runs on while
+        parked)."""
+        for q in self._queues.values():
+            for req in [r for r in q if r.deadline_s is not None
+                        and now - r.t_submit > r.deadline_s]:
+                q.remove(req)
+                self._finish(req, now, expired=True)
+        for req in list(self._slot_req):
+            if (req is not None and req.deadline_s is not None
+                    and now - req.t_submit > req.deadline_s):
+                self._finish(req, now, expired=True)
+        for rid in [r for r, st in self._parked.items()
+                    if st["deadline_s"] is not None
+                    and now - self._req_index[r].t_submit
+                    > st["deadline_s"]]:
+            self._finish(self._req_index[rid], now, expired=True)
+
+    def _finish(self, req, now, expired=False):
+        """Finish (or, with ``expired``, shed) a request: its verdict and
+        histograms (finished only), its result, its index entry unless a
+        cursor holds it, its committed blocks, then its slot if it has
+        one."""
+        req.state = "expired" if expired else "finished"
         req.t_done = now
-        self._finished += 1
-        t_adm = req.t_admit if req.t_admit is not None else now
-        queue_s = max(t_adm - req.t_submit, 0.0)
-        service_s = max(now - t_adm, 0.0)
-        n = len(req.tokens)
-        itl_s = (max(req.t_done - req.t_first, 0.0) / (n - 1)
-                 if n > 1 and req.t_first is not None else 0.0)
-        verdict = self._slo.classify(queue_s, service_s, req.ttft_s, itl_s,
-                                     req.latency_s)
-        if verdict == "ok":
-            self._slo_ok += 1
-        elif verdict == "queue":
-            self._slo_violated_queue += 1
+        if expired:
+            self._expired += 1
         else:
-            self._slo_violated_service += 1
-        self.telemetry.observe_request(req.ttft_s, req.latency_s, queue_s,
-                                       service_s)
+            self._finished += 1
+            t_adm = req.t_admit if req.t_admit is not None else now
+            queue_s = max(t_adm - req.t_submit, 0.0)
+            service_s = max(now - t_adm, 0.0)
+            n = len(req.tokens)
+            itl_s = (max(req.t_done - req.t_first, 0.0) / (n - 1)
+                     if n > 1 and req.t_first is not None else 0.0)
+            verdict = self._slo.classify(queue_s, service_s, req.ttft_s,
+                                         itl_s, req.latency_s)
+            if verdict == "ok":
+                self._slo_ok += 1
+            elif verdict == "queue":
+                self._slo_violated_queue += 1
+            else:
+                self._slo_violated_service += 1
+            self.telemetry.observe_request(req.ttft_s, req.latency_s,
+                                           queue_s, service_s)
         self.telemetry.req_done(req.rid, req.state, req.t_submit, now)
         self.results[req.rid] = req.result()
         while len(self.results) > self._results_cap:
             self.results.pop(next(iter(self.results)))
+        if req.rid not in self._harvest:
+            self._req_index.pop(req.rid, None)
+        self._parked.pop(req.rid, None)
+        if self.paged:
+            self._kv_committed -= self._blocks_needed(req.prompt.size,
+                                                      req.max_new_tokens)
         s = req.slot
+        if s is None:                    # shed from the queue or the lot
+            return
         self._slot_req[s] = None
         self._active[s] = False
         self._pf_left[s] = 0

@@ -5,8 +5,10 @@ Copied from ``paddle_tpu/inference/telemetry.py`` under the same names:
 percentile in ``metrics()``), ``SloPolicy`` (with no objectives every
 finished request is ok), a ``Telemetry`` holding the per-request and
 per-step histograms plus bounded rings of finished requests and
-dispatches, and ``render_prometheus``. Request spans, Chrome-trace
-export and snapshots belong to later slices.
+dispatches, the QoS classes with their ranks and weighted-fair shares,
+and ``render_prometheus`` (counters and histograms over the engine's
+lifetime, across ``reset_metrics``). Request spans, Chrome-trace export
+and snapshots belong to a later slice.
 """
 from __future__ import annotations
 
@@ -15,14 +17,19 @@ from collections import deque
 
 import numpy as np
 
-__all__ = ["DEFAULT_RING", "LogHistogram", "QOS_CLASSES", "QOS_DEFAULT",
-           "SloPolicy", "Telemetry", "render_prometheus"]
+__all__ = ["DEFAULT_QOS_SHARES", "DEFAULT_RING", "LogHistogram",
+           "QOS_CLASSES", "QOS_DEFAULT", "QOS_RANK", "SloPolicy",
+           "Telemetry", "render_prometheus"]
 
 DEFAULT_RING = 2048
 # the QoS priority classes, best first, and the default class (a
 # request's ``priority``)
 QOS_CLASSES = ("high", "normal", "low")
 QOS_DEFAULT = "normal"
+QOS_RANK = {c: i for i, c in enumerate(QOS_CLASSES)}
+# each class's weight in the split of a budget step's prefill tokens
+# when several classes prefill at once
+DEFAULT_QOS_SHARES = {"high": 4, "normal": 2, "low": 1}
 
 
 class SloPolicy:
@@ -67,7 +74,8 @@ class LogHistogram:
     the target bucket, so they sit within one bucket width of the exact
     value."""
 
-    __slots__ = ("edges", "counts", "total", "sum", "bpo")
+    __slots__ = ("edges", "counts", "total", "sum", "bpo", "_base",
+                 "_base_total", "_base_sum")
 
     def __init__(self, lo=1e-6, hi=1e4, buckets_per_octave=4):
         if not (0 < lo < hi):
@@ -78,6 +86,9 @@ class LogHistogram:
         self.counts = np.zeros(n + 2, np.int64)   # under + n + over
         self.total = 0
         self.sum = 0.0
+        self._base = np.zeros_like(self.counts)   # windows before reset
+        self._base_total = 0
+        self._base_sum = 0.0
 
     @property
     def count(self):
@@ -91,6 +102,16 @@ class LogHistogram:
         self.counts[i] += 1
         self.total += 1
         self.sum += v
+
+    def reset(self):
+        """Start a new window, folding this one into the lifetime base
+        the exposition reads."""
+        self._base += self.counts
+        self._base_total += self.total
+        self._base_sum += self.sum
+        self.counts[:] = 0
+        self.total = 0
+        self.sum = 0.0
 
     def _bucket_bounds(self, i):
         n = self.edges.size
@@ -115,15 +136,18 @@ class LogHistogram:
         return self._bucket_bounds(len(self.counts) - 1)[1]
 
     def prometheus_lines(self, name, help_text=""):
-        """Prometheus histogram exposition, one bucket line per octave."""
+        """Prometheus histogram exposition over the lifetime counts, one
+        bucket line per octave."""
+        counts = self._base + self.counts
+        total = self._base_total + self.total
         lines = [f"# HELP {name} {help_text or name}",
                  f"# TYPE {name} histogram"]
         for i in range(0, self.edges.size, self.bpo):
-            cum = int(self.counts[: i + 1].sum())
+            cum = int(counts[: i + 1].sum())
             lines.append(f'{name}_bucket{{le="{self.edges[i]:.6g}"}} {cum}')
-        lines.append(f'{name}_bucket{{le="+Inf"}} {int(self.total)}')
-        lines.append(f"{name}_sum {float(self.sum):.9g}")
-        lines.append(f"{name}_count {int(self.total)}")
+        lines.append(f'{name}_bucket{{le="+Inf"}} {int(total)}')
+        lines.append(f"{name}_sum {float(self._base_sum + self.sum):.9g}")
+        lines.append(f"{name}_count {int(total)}")
         return lines
 
 
@@ -181,6 +205,15 @@ class Telemetry:
     def observe_step_tokens(self, n):
         self.hist_step_tokens.observe(n)
 
+    def reset(self):
+        """The window reset of ``engine.reset_metrics``: the rings clear,
+        the histograms fold into their lifetime bases."""
+        self.spans.clear()
+        self.steps.clear()
+        for h in (self.hist_ttft, self.hist_latency, self.hist_step_tokens,
+                  self.hist_queue, self.hist_service):
+            h.reset()
+
 
 # metrics() key -> (exposition name, type), the JAX package's names
 PROMETHEUS_NAMES = {
@@ -191,6 +224,25 @@ PROMETHEUS_NAMES = {
                           "counter"),
     "decode_steps": ("paddle_serving_decode_steps_total", "counter"),
     "budget_steps": ("paddle_serving_budget_steps_total", "counter"),
+    "requests_forked": ("paddle_serving_requests_forked_total", "counter"),
+    "requests_rejected": ("paddle_serving_requests_rejected_total",
+                          "counter"),
+    "requests_expired": ("paddle_serving_requests_expired_total",
+                         "counter"),
+    "requests_migrated_in": (
+        "paddle_serving_requests_migrated_in_total", "counter"),
+    "requests_migrated_out": (
+        "paddle_serving_requests_migrated_out_total", "counter"),
+    "kv_blocks_shipped": ("paddle_serving_kv_blocks_shipped_total",
+                          "counter"),
+    "kv_blocks_adopted": ("paddle_serving_kv_blocks_adopted_total",
+                          "counter"),
+    "requests_preempted": ("paddle_serving_requests_preempted_total",
+                           "counter"),
+    "requests_resumed": ("paddle_serving_requests_resumed_total",
+                         "counter"),
+    "requests_parked": ("paddle_serving_requests_parked", "gauge"),
+    "kv_cow_copies": ("paddle_serving_kv_cow_copies_total", "counter"),
     "queue_depth": ("paddle_serving_queue_depth", "gauge"),
     "occupancy": ("paddle_serving_slot_occupancy", "gauge"),
     "kv_blocks_used": ("paddle_serving_kv_blocks_used", "gauge"),
@@ -200,13 +252,17 @@ PROMETHEUS_NAMES = {
 
 def render_prometheus(engine):
     """Prometheus text exposition of one engine's metrics() counters and
-    gauges and its request histograms."""
+    gauges and its request histograms; a counter adds the windows that
+    ``reset_metrics`` folded away, so it never moves backwards."""
     m = engine.metrics()
+    base = getattr(engine, "_prom_base", {})
     lines = []
     for key, (name, typ) in PROMETHEUS_NAMES.items():
         v = m.get(key)
         if v is None:
             continue
+        if typ == "counter":
+            v += base.get(key, 0)
         lines.append(f"# HELP {name} serving metric {key!r}")
         lines.append(f"# TYPE {name} {typ}")
         lines.append(f"{name} {float(v):.9g}")

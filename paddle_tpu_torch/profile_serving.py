@@ -3,8 +3,8 @@
     python -m paddle_tpu_torch.profile_serving [--seed N]
         [--scheduler row|flat|phase] [--kv-quant none|int8]
         [--weight-quant none|int8|int4] [--paged 1|0] [--sampled 0|1]
-        [--rotary 0|1] [--mix gpt2|prefix|spec] [--prefix-cache-blocks N]
-        [--spec-k K]
+        [--rotary 0|1] [--mix gpt2|prefix|spec|qos|handoff]
+        [--prefix-cache-blocks N] [--spec-k K]
 
 Serves ``gpt2_workload``, the request mix that ``chip_smoke.py`` phase
 3 also serves, under ``torch.profiler`` and the chosen scheduler (the
@@ -17,7 +17,12 @@ the paged pool or, with ``--paged 0``, the dense ring; greedy, or with
 repetition penalty 1.2), with ``--rotary 1`` rotary embeddings. ``--mix
 prefix`` serves ``MIXES["prefix"]`` instead (a shared template, for
 ``--prefix-cache-blocks``), ``--mix spec`` ``MIXES["spec"]`` (prompts
-that repeat a pattern, for ``--spec-k``). Prints one JSON object: wall
+that repeat a pattern, for ``--spec-k``), ``--mix qos`` ``MIXES["qos"]``
+(eight long low-class requests, then eight short high-class ones that
+preempt them: each request submitted at its ``PRIORITIES["qos"]``
+class), ``--mix handoff`` ``MIXES["handoff"]`` (long prompts, short
+answers: the prefill/decode split's mix, served here on one mixed
+engine). Prints one JSON object: wall
 time, the union of the device's kernel intervals (busy) and the idle
 share, device time by kernel name, host time by dispatch kind (budget /
 decode), and the engine's metrics. Needs a CUDA card.
@@ -73,6 +78,21 @@ def _spec_mix(rng):
             for _ in range(16)]
 
 
+def _qos_mix(rng):
+    # eight low-class requests that fill the slots (prompts of 256-512
+    # tokens, 128 new), then eight high-class ones (32-128 tokens, 32 new)
+    return ([(rng.integers(0, V, int(rng.integers(256, 513))), 128)
+             for _ in range(8)]
+            + [(rng.integers(0, V, int(rng.integers(32, 129))), 32)
+               for _ in range(8)])
+
+
+def _handoff_mix(rng):
+    # prompts of 256-768 tokens, 32 new: prefill-heavy
+    return [(rng.integers(0, V, int(rng.integers(256, 769))), 32)
+            for _ in range(16)]
+
+
 CYCLE = 16
 
 
@@ -93,7 +113,10 @@ def cycle_head(state, period=CYCLE, scale=8.0):
 
 
 # request mix name -> 16 greedy (prompt, max_new) pairs drawn from a rng
-MIXES = {"gpt2": _gpt2_mix, "prefix": _prefix_mix, "spec": _spec_mix}
+MIXES = {"gpt2": _gpt2_mix, "prefix": _prefix_mix, "spec": _spec_mix,
+         "qos": _qos_mix, "handoff": _handoff_mix}
+# a mix's QoS classes, request by request (others: the default class)
+PRIORITIES = {"qos": ("low",) * 8 + ("high",) * 8}
 
 
 @functools.lru_cache(maxsize=1)
@@ -174,8 +197,9 @@ def main(argv=None):
                               spec_k=args.spec_k, mix=args.mix,
                               **(SAMPLED if args.sampled else {}))
     seed(args.seed)              # the sampled requests' seeds
-    for prompt, max_new in reqs:
-        eng.submit(prompt, max_new_tokens=max_new,
+    classes = PRIORITIES.get(args.mix, ("normal",) * len(reqs))
+    for (prompt, max_new), cls in zip(reqs, classes):
+        eng.submit(prompt, max_new_tokens=max_new, priority=cls,
                    **({"repetition_penalty": 1.2} if args.sampled else {}))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -29,6 +29,9 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import ring_chunk_attention as rca
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 def _c_params(source, symbol):
     """The parameter list of ``extern "C" int symbol(...)`` in a .cu."""

@@ -50,6 +50,9 @@ from paddle_tpu_torch.nn.layer.common import Embedding, Linear
 from paddle_tpu_torch.nn.layer.norm import LayerNorm, RMSNorm
 from paddle_tpu_torch.weights import from_jax_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["logits_fp32"]
 
 
@@ -298,13 +301,13 @@ def test_submit_takes_jax_parameters():
     """E: ``submit``'s ``repetition_penalty, deadline_s, trace_id,
     attempt, priority`` in JAX's order. JAX's ValueErrors for a penalty
     without ``enable_repetition_penalty``, ``attempt < 1`` and an unknown
-    class; expiry and non-default classes raise naming 6(f); the trace id
-    and attempt stay on the request; the tokens are those of a plain
-    submit."""
+    class; a deadline and a non-default class are accepted and kept on
+    the request; the trace id and attempt stay on the request; the tokens
+    are those of a plain submit."""
     eng = _toy_engine()
     prompt = [1, 2, 3]
     rid = eng.submit(prompt, 4, None, 0, 1.0, None, "trace-7", 2, "normal")
-    req = eng._queue[-1]
+    req = eng._req_index[rid]
     assert (req.rid, req.trace_id, req.attempt, req.priority,
             req.repetition_penalty, req.deadline_s) == \
         (rid, "trace-7", 2, "normal", 1.0, None)
@@ -316,12 +319,15 @@ def test_submit_takes_jax_parameters():
             ({"repetition_penalty": 1.2}, ValueError,
              "enable_repetition_penalty"),
             ({"attempt": 0}, ValueError, "attempt"),
-            ({"priority": "urgent"}, ValueError, "priority"),
-            ({"deadline_s": 1.0}, NotImplementedError, "6\\(f\\)"),
-            ({"priority": "high"}, NotImplementedError, "6\\(f\\)")):
+            ({"priority": "urgent"}, ValueError, "priority")):
         with pytest.raises(err, match=match):
             eng.submit(prompt, 4, **kw)
-    assert not eng._queue
+    assert not eng.queue_depth
+    late = eng.submit(prompt, 4, deadline_s=1.0)
+    high = eng.submit(prompt, 4, priority="high")
+    assert eng._req_index[late].deadline_s == 1.0
+    assert eng.queue_depths() == {"high": 1, "normal": 1, "low": 0}
+    assert eng._req_index[high].priority == "high"
 
 
 def test_llama_takes_c():

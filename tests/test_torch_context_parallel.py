@@ -50,6 +50,9 @@ from paddle_tpu_torch.parallel import context_parallel as cp
 from paddle_tpu_torch.parallel import current_mesh
 from paddle_tpu_torch.weights import llama_from_jax_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 N, B, S, D = 4, 2, 64, 8
 # case -> (heads, kv heads, causal)
 CASES = {"causal": (4, 4, True), "full": (4, 4, False), "gqa": (8, 2, True)}

@@ -20,6 +20,9 @@ from paddle_tpu.ops.pallas.decode_attention import \
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import decode_attention as da
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, H, D, BT, NBLK, L, LAYER = 4, 4, 16, 16, 4, 2, 1
 
 

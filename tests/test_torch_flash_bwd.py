@@ -28,6 +28,9 @@ from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 H, D = 4, 32
 
 

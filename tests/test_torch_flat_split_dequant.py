@@ -44,6 +44,9 @@ from paddle_tpu_torch.inference.generation import _absmax_int4, _pack_int4
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 H, D, L, LAYER, N_POS = 4, 16, 2, 1, 192
 # (slot, base, count) per chunk: one at base 0, one past its count, one
 # ending on a block edge (64), a pad chunk, one over slot 2's unmapped

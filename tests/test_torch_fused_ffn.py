@@ -24,6 +24,9 @@ from paddle_tpu.ops.pallas import fused_ffn as jax_ffn
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import fused_ffn as ffn
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["ffn_fp32"]
 PARTS = ("out", "dx", "dW1", "db1", "dW2", "db2")
 

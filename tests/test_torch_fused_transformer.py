@@ -32,6 +32,9 @@ from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.weights import (feedforward_from_jax_state,
                                       from_jax_state, random_state)
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 LOGITS = TOLERANCES["logits_fp32"]
 FFN = TOLERANCES["ffn_fp32"]
 E, H, FF, L = 64, 4, 128, 2

@@ -23,6 +23,9 @@ from paddle_tpu_torch.inference import FusedDecoder
 from paddle_tpu_torch.inference.generation import generate_fused
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 E, H, FF, L, V = 64, 4, 128, 2, 256
 SMAX = 128
 

@@ -36,6 +36,9 @@ from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.weights import gpt_from_jax_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, S, STEPS, LR, WD = 2, 32, 3, 1e-3, 0.01
 TINY = {"vocab_size": 1024, "hidden_size": 64, "num_layers": 2,
         "num_heads": 2, "max_position": 128}

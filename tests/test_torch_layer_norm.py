@@ -25,6 +25,9 @@ from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import layer_norm as ln
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["layer_norm_fp32"]
 
 

@@ -41,6 +41,9 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import llama_from_jax_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, S, STEPS, LR, WD, V = 2, 16, 3, 1e-3, 0.01, 256
 TINY = {"vocab_size": V, "hidden_size": 64, "num_layers": 2, "num_heads": 4,
         "intermediate_size": 128, "max_position": 128}

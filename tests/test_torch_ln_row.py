@@ -30,6 +30,9 @@ from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import layer_norm as ln
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["layer_norm_fp32"]
 
 

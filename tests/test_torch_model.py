@@ -19,6 +19,9 @@ from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.inference import FusedDecoder as TorchDecoder
 from paddle_tpu_torch.weights import from_jax_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 E, H, FF, L, V = 64, 4, 128, 2, 256
 SMAX, BT = 128, 64
 

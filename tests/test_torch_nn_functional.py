@@ -17,6 +17,9 @@ from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.nn import Dropout
 from paddle_tpu_torch.nn import functional as F
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["attention_fp32"]
 
 

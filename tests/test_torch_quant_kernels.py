@@ -29,6 +29,9 @@ from paddle_tpu_torch.inference.paged_kv import flat_gather_view
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, H, D, BT, NBLK, L, LAYER = 4, 4, 16, 32, 4, 2, 1
 
 

@@ -24,6 +24,9 @@ from paddle_tpu.ops.pallas import ring_chunk_attention as jax_rc
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import ring_chunk_attention as rc
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, H, HK, SK, D = 1, 4, 2, 64, 32
 # (Sq, offset): full, the diagonal, a shifted one, fully masked twice,
 # and Sq != Sk

@@ -28,6 +28,9 @@ from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import layer_norm as ln
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = TOLERANCES["layer_norm_fp32"]
 DTYPES = {"float32": (jnp.float32, torch.float32, "layer_norm_fp32"),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, "layer_norm_bf16")}

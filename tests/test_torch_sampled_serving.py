@@ -18,10 +18,14 @@ embeddings, the activations and the int8 head are in
 """
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.weights import from_jax_state, random_state
+
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
 
 E, H, FF, L, V = 64, 4, 128, 2, 256
 SAMPLE = {"do_sample": True, "top_k": 20, "top_p": 0.9, "temperature": 0.8}

@@ -29,6 +29,9 @@ from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.inference import generation as tg
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16),
           "fp16": (jnp.float16, torch.float16)}

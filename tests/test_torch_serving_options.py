@@ -14,12 +14,16 @@ seed from the global key stream, a sampling one draws one a request.
 """
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.inference.generation import ACTIVATIONS
 from test_torch_sampled_serving import (SAMPLE, _both, _build, _requests,
                                         _serve)
+
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,9 @@ from paddle_tpu_torch.inference import spec_decode as tsd
 from paddle_tpu_torch.inference.generation import generate_fused
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 E, H, FF, L, V = 64, 4, 128, 2, 256
 SMAX = 128
 SAMPLE = {"do_sample": True, "top_k": 20, "top_p": 0.9, "temperature": 0.8}

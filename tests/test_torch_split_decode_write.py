@@ -41,6 +41,9 @@ from paddle_tpu.ops.pallas.decode_attention import \
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import decode_attention as da
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, H, D, L, LAYER, SMAX = 6, 4, 16, 2, 1, 128
 # either side of a range edge, inside a range, the last free position and
 # a full row (the dropped write)

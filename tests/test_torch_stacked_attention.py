@@ -22,6 +22,9 @@ from paddle_tpu.ops.pallas import decode_attention as jda
 from paddle_tpu_torch import TOLERANCES
 from paddle_tpu_torch.ops import decode_attention as da
 
+# one intra-op thread a process: the suite's workers share the cores
+torch.set_num_threads(1)
+
 B, H, D, L, LAYER = 4, 4, 16, 2, 1
 
 

@@ -128,6 +128,29 @@ Phases, in order; any failure exits non-zero:
      to a role="decode" engine while it prefills, then ships the held
      slot's tail: blocks shipped and streamed, export_slot and
      import_slot ms a request), each with the launch checks above;
+  3a. the serving cluster (serving_cluster) at the same width and bf16,
+     on cycle_head's model (random weights from --seed: at this depth the
+     random head's bf16 greedy picks follow the batch's composition, the
+     cycle head's hold), phase 3's 16 greedy requests: one row engine
+     alone (8 slots, prefix_cache_blocks=64), one with telemetry_ring=0
+     and one more with the ring on (the same launches and tokens; host
+     ms a step on, off, on); two
+     such engines as threaded LocalReplicas behind Router and Gateway on
+     127.0.0.1 (a free port), the requests over HTTP at once, half JSON
+     and half SSE: tokens equal the engine alone's, each replica launches
+     the row kernel, every launch on the split design; after a
+     reset_metrics and four more requests every counter of
+     COUNTER_FOLD_KEYS in /metrics equals its replica's metrics() plus the
+     folded base; the same mix with replica0 killed at its 12th step
+     (failover, tokens equal, each moved trace id at attempt 1 on replica0
+     and 2 on replica1); a prefill/decode pair shaped as the cluster's
+     __main__ shapes roles (16 handoffs, shipped = adopted, no decode-side
+     prefill, the flat kernel on the split design, tokens equal); every
+     snapshot within schema v8, every engine's Chrome export and the
+     merged cluster trace valid (written to a temporary directory in
+     the working directory and removed); tokens/s, TTFT
+     p50 / p99 against the engine alone, the gateway's HTTP latency p50,
+     each beside the card;
   3b. generate_fused (FusedDecoder.generate) at the same width, L=12: 8
      rows of 256-token prompts, 128 new tokens, max_seq_len=1024, fp and
      kv_quant="int8", each with cache_write_kernel off and on; every
@@ -249,8 +272,10 @@ import contextlib
 import functools
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -272,6 +297,7 @@ from paddle_tpu_torch.inference.generation import (_absmax_int4,
                                                    _sample_next,
                                                    _sample_rows,
                                                    generate_fused)
+from paddle_tpu_torch.inference import telemetry as tele
 from paddle_tpu_torch.inference.paged_kv import BlockPool
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import decode_attention as da
@@ -283,9 +309,12 @@ from paddle_tpu_torch.ops import ring_chunk_attention as rca
 from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving_cluster import (Gateway, LocalReplica, Router,
+                                              export_cluster_trace)
 from paddle_tpu_torch.parallel import context_parallel as cpar
-from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, PRIORITIES,
-                                              SAMPLED, SCHEDULERS, V,
+from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, MIXES,
+                                              PRIORITIES, SAMPLED,
+                                              SCHEDULERS, V, _random_model,
                                               cycle_head, gpt2_workload)
 from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
                                             LLAMA_BATCH, LLAMA_CONFIG,
@@ -1794,6 +1823,356 @@ def serve_handoff(seed, name, kwargs):
     return {"launches": launches, "metrics": (mp, md),
             "tokens": [dec.results[moved[r]]["tokens"] for r in rids],
             "export_s": export_s, "import_s": import_s}
+
+
+# phase 3a: the serving cluster. Every wait on the cluster is bounded.
+CLUSTER_WAIT_S = 600
+# each replica's shape in the mixed cluster (the one engine alone too)
+CLUSTER_ENGINE = {"num_slots": 8, "max_seq_len": 1024,
+                  "prefix_cache_blocks": 64}
+
+
+def cluster_mods(seed):
+    """A replica's own modules: the phase-3 weights from ``seed`` with
+    ``cycle_head``'s embedding and LM head (the spec mix's model), copied
+    to the card for this replica alone (two driver threads share no
+    tensor). With phase 3's random head, bf16 greedy decoding at this
+    depth is chaotic: one context's logits through two batch
+    compositions differ by tens (std 11), so no two layouts' tokens
+    agree for long; the cycle head's margins hold, so tokens can be held
+    equal across layouts."""
+    return from_jax_state(*cycle_head(_random_model(seed)[0]),
+                          dtype=torch.bfloat16)
+
+
+def cluster_requests(seed):
+    """phase 3's 16 greedy requests (``gpt2_workload``'s gpt2 mix: the
+    same draws after the weights and the warm-up request)."""
+    rng = np.random.default_rng()
+    rng.bit_generator.state = _random_model(seed)[1]
+    rng.integers(0, V, 40)
+    return MIXES["gpt2"](rng)
+
+
+def http_completion(port, body, trace_id):
+    """One POST /v1/completions, JSON or (``body["stream"]``) SSE, over
+    its own socket: returns (tokens, seconds to the first token, seconds
+    to the end) as the client sees them."""
+    payload = json.dumps(body).encode()
+    s = socket.create_connection(("127.0.0.1", port),
+                                 timeout=CLUSTER_WAIT_S)
+    t0 = time.perf_counter()
+    s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+              b"Content-Type: application/json\r\nX-Request-Id: "
+              + trace_id.encode() + b"\r\nContent-Length: %d\r\n\r\n%s"
+              % (len(payload), payload))
+    buf, toks, t_first = b"", [], None
+    while True:
+        chunk = s.recv(65536)
+        if not chunk:
+            break
+        buf += chunk
+        if body.get("stream") and b"\r\n\r\n" in buf:
+            # SSE: each complete "data: {...}" line as it arrives
+            head, _, rest = buf.partition(b"\r\n\r\n")
+            *lines, tail = rest.split(b"\n")
+            for line in lines:
+                line = line.strip()
+                if line.startswith(b"data: ") and line != b"data: [DONE]":
+                    toks += json.loads(line[6:])["choices"][0]["tokens"]
+                    if toks and t_first is None:
+                        t_first = time.perf_counter() - t0
+            buf = head + b"\r\n\r\n" + tail
+    s.close()
+    total = time.perf_counter() - t0
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    if b" 200 " not in head.split(b"\r\n")[0]:
+        raise SystemExit(f"cluster: {trace_id} answered {head[:200]!r}")
+    if not body.get("stream"):
+        return json.loads(rest)["choices"][0]["tokens"], total, total
+    return toks, t_first, total
+
+
+def http_burst(port, reqs, tag):
+    """The requests all at once from one client thread each, even ones
+    as JSON and odd ones as SSE, trace ids ``tag-i``; returns the
+    per-request (tokens, ttft, seconds) and the burst's wall time."""
+    import concurrent.futures
+
+    def one(i):
+        p, m = reqs[i]
+        body = {"prompt": [int(t) for t in p], "max_tokens": int(m),
+                "stream": bool(i % 2)}
+        return http_completion(port, body, f"{tag}-{i}")
+    with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+        t0 = time.perf_counter()
+        outs = list(ex.map(one, range(len(reqs)), timeout=CLUSTER_WAIT_S))
+    return outs, time.perf_counter() - t0
+
+
+def thread_launches(attr):
+    """Count ``da.<attr>``'s launches by calling thread (a replica's
+    driver thread is ``replica-<name>``); returns (counts, restore)."""
+    import threading
+    kernel = getattr(da, attr)
+    counts = collections.Counter()
+
+    def spy(*a, **k):
+        counts[threading.current_thread().name] += 1
+        return kernel(*a, **k)
+    setattr(da, attr, spy)
+    return counts, lambda: setattr(da, attr, kernel)
+
+
+def same_tokens(label, got, want):
+    """Fail unless every request's tokens equal the engine alone's."""
+    bad = [(i, len(g), len(w), next((j for j, (a, b) in enumerate(
+        zip(g, w)) if a != b), min(len(g), len(w))))
+        for i, (g, w) in enumerate(zip(got, want)) if list(g) != list(w)]
+    log(f"  [{label}] {len(got) - len(bad)} of {len(got)} requests' tokens "
+        "equal the engine alone's" + (f"; differing (request, got, want, "
+                                       f"first index): {bad}" if bad else ""))
+    if bad or len(got) != len(want):
+        raise SystemExit(f"{label}: tokens differ from the engine alone's")
+
+
+def check_snapshot(label, snap):
+    keys = set(snap) - {"replica"}
+    if snap["schema_version"] != 8 or not (
+            tele.SNAPSHOT_REQUIRED_KEYS <= keys <= tele.SNAPSHOT_REQUIRED_KEYS
+            | tele.SNAPSHOT_OPTIONAL_KEYS):
+        raise SystemExit(f"{label}: snapshot keys {sorted(keys)} outside "
+                         "schema v8")
+    json.dumps(snap)
+
+
+def check_exposition(label, text, replicas):
+    """Every counter of COUNTER_FOLD_KEYS in the gateway's /metrics
+    equals its replica's metrics() plus the folded base."""
+    samples = tele.parse_prometheus(text)
+    for rep in replicas:
+        m, base = rep.engine.metrics(), rep.engine._prom_base
+        for k in tele.COUNTER_FOLD_KEYS:
+            name = tele.PROMETHEUS_NAMES[k][0]
+            fam, _, rest = name.partition("{")
+            key = (f'{fam}{{replica="{rep.name}",{rest}' if rest
+                   else f'{name}{{replica="{rep.name}"}}')
+            if abs(samples[key] - (base.get(k, 0) + m[k])) > 1e-6:
+                raise SystemExit(f"{label}: {key} = {samples[key]} but "
+                                 f"metrics() + base = {base.get(k, 0)} + "
+                                 f"{m[k]}")
+    log(f"  [{label}] /metrics: {len(samples)} samples; every counter of "
+        f"COUNTER_FOLD_KEYS ({len(tele.COUNTER_FOLD_KEYS)}) equals each "
+        "replica's metrics() plus its folded base")
+
+
+def fetch(port, path):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port,
+                                   timeout=CLUSTER_WAIT_S)
+    c.request("GET", path)
+    r = c.getresponse()
+    data = r.read().decode()
+    c.close()
+    if r.status != 200:
+        raise SystemExit(f"cluster: GET {path} answered {r.status}")
+    return data
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def phase_cluster(seed):
+    """The in-process serving cluster at phase 3's width (E=768, H=12,
+    FF=3072, L=12, V=50304, bf16, --seed weights) on the one card:
+    two mixed replicas behind the router and the gateway; the same mix
+    with a replica killed mid-stream; a disaggregated prefill/decode
+    pair; the telemetry ring off and on; the telemetry outputs. Returns
+    the launch counts of its runs."""
+    log("== phase 3a: the serving cluster at GPT-2-124M width, bf16, L=12: "
+        "two replicas behind the gateway, a kill mid-stream, a "
+        "prefill/decode pair, telemetry off and on")
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="cluster_traces_",
+                                     dir=os.getcwd()) as out_dir:
+        return cluster_runs(seed, card, out_dir)
+
+
+def cluster_runs(seed, card, out_dir):
+    """phase_cluster's runs; the Chrome traces go under ``out_dir``."""
+    runs = {}
+    # ---- one engine alone: the reference tokens, TTFT and tokens/s
+    reqs = cluster_requests(seed)
+    alone = ServingEngine(*cluster_mods(seed), **CLUSTER_ENGINE)
+    n_new = sum(m for _, m in reqs)
+    reset_launches()
+    out, steps_on, dt_alone = serve(alone, reqs)
+    runs["cluster-alone"] = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    want = [list(v) for v in out.values()]
+    ttft_alone = [alone.results[r]["ttft_s"] for r in out]
+    # ---- 4. the ring off, then on again (host ms a step drifts between
+    # runs in one process, so the off run sits between two on runs): the
+    # same launches and tokens
+    per_step = {}
+    for name, ring in (("ring-off", 0), ("ring-on", None)):
+        eng = ServingEngine(*cluster_mods(seed), telemetry_ring=ring,
+                            **CLUSTER_ENGINE)
+        reset_launches()
+        got, steps, dt = serve(eng, reqs)
+        runs[f"cluster-{name}"] = {**da.LAUNCHES, **fa.LAUNCHES,
+                                   **fdm.LAUNCHES}
+        same_tokens(name, list(got.values()), want)
+        if runs[f"cluster-{name}"] != runs["cluster-alone"] or \
+                bool(eng.telemetry.steps) != (ring is None):
+            raise SystemExit(f"{name} launched {runs[f'cluster-{name}']}, "
+                             f"the first run {runs['cluster-alone']}")
+        per_step[name] = 1e3 * dt / steps
+    log(f"  [telemetry] host ms a step: ring on "
+        f"{1e3 * dt_alone / steps_on:.3f}, off {per_step['ring-off']:.3f}, "
+        f"on {per_step['ring-on']:.3f} ({steps_on} steps each); launches "
+        f"equal: { {k: v for k, v in runs['cluster-alone'].items() if v} }; "
+        f"{card}")
+    # ---- 1. two mixed replicas behind the router and the gateway
+    reps = [LocalReplica(f"replica{i}", ServingEngine(
+        *cluster_mods(seed), **CLUSTER_ENGINE)) for i in range(2)]
+    gw = Gateway(Router(reps), port=0).start_background()
+    counts, restore = thread_launches("decode_attention_paged")
+    reset_launches()
+    try:
+        got, dt = http_burst(gw.port, reqs, "mixed")
+    finally:
+        restore()
+    runs["cluster-mixed"] = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    per_rep = {r.name: counts[f"replica-{r.name}"] for r in reps}
+    log(f"  [mixed] decode_attention_paged launches by replica {per_rep}")
+    if not all(per_rep.values()) or sum(per_rep.values()) != \
+            da.LAUNCHES["decode_attention_paged"]:
+        raise SystemExit(f"mixed: every replica must launch the row "
+                         f"kernel: {per_rep}, {dict(counts)}")
+    check_paths("[mixed]", {"decode_attention_paged":
+                            da.LAUNCHES["decode_attention_paged"]})
+    same_tokens("mixed", [g[0] for g in got], want)
+    ttft = [v["ttft_s"] for r in reps for v in r.engine.results.values()]
+    http_s = [e["dur_s"] for e in gw.http_log
+              if e["path"] == "/v1/completions"]
+    sse_ttft = [g[1] for i, g in enumerate(got) if i % 2]
+    log(f"  [mixed] 2 replicas: {n_new / dt:.1f} generated tokens/s "
+        f"({dt:.3f} s) against {n_new / dt_alone:.1f} for one engine alone "
+        f"({dt_alone:.3f} s); engine TTFT p50 {percentile(ttft, 50):.4f} s, "
+        f"p99 {percentile(ttft, 99):.4f} s against alone "
+        f"{percentile(ttft_alone, 50):.4f} / {percentile(ttft_alone, 99):.4f}"
+        f" s; SSE client TTFT p50 {percentile(sse_ttft, 50):.4f} s; gateway "
+        f"HTTP latency p50 {percentile(http_s, 50):.4f} s; step EWMA "
+        f"{[round(r.snapshot()['health']['step_ewma_s'], 6) for r in reps]}"
+        f" s; {card}")
+    # the exposition after a reset_metrics and four more requests
+    for r in reps:
+        with r._lock:
+            r.engine.reset_metrics()
+    http_burst(gw.port, reqs[:4], "after-reset")
+    check_exposition("mixed", fetch(gw.port, "/metrics"), reps)
+    for r in reps:
+        check_snapshot(r.name, r.snapshot())
+        tele.validate_chrome_trace(tele.export_chrome_tracing(
+            r.engine, os.path.join(out_dir, f"mixed-{r.name}.json")))
+    gw.stop()
+    for r in reps:
+        r.close()
+    # ---- 2. the same mix with a replica killed mid-stream
+    steps = {"n": 0}
+
+    def killer(rep):
+        steps["n"] += 1
+        if steps["n"] == 12:
+            rep.kill()
+
+    reps = [LocalReplica("replica0", ServingEngine(
+                *cluster_mods(seed), **CLUSTER_ENGINE), step_hook=killer),
+            LocalReplica("replica1", ServingEngine(
+                *cluster_mods(seed), **CLUSTER_ENGINE))]
+    router = Router(reps)
+    gw = Gateway(router, port=0, hb_s=0.05).start_background()
+    reset_launches()
+    got, dt = http_burst(gw.port, reqs, "kill")
+    runs["cluster-kill"] = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    same_tokens("kill", [g[0] for g in got], want)
+    if router.failovers_total < 1 or list(router.dead) != ["replica0"]:
+        raise SystemExit(f"kill: failovers {router.failovers_total}, dead "
+                         f"{list(router.dead)}")
+    moved = sorted({e["trace_id"] for e in router.audit
+                    if e["reason"] == "failover"})
+    dumps = {r.name: r.trace_dump() for r in reps}
+    for tid in moved:
+        att = {n: [s["attempt"] for s in d["spans"] if s["trace_id"] == tid]
+               for n, d in dumps.items()}
+        if 1 not in att["replica0"] or 2 not in att["replica1"]:
+            raise SystemExit(f"kill: trace {tid} attempts {att}")
+    path = export_cluster_trace(gw, os.path.join(out_dir, "kill.json"))
+    doc = tele.validate_chrome_trace(path)
+    log(f"  [kill] replica0 killed at its 12th working step: "
+        f"{router.failovers_total} failovers, trace ids kept with attempt "
+        f"1 -> 2: {moved}; {n_new / dt:.1f} generated tokens/s; merged "
+        f"cluster trace {len(doc['traceEvents'])} events, valid; {card}")
+    gw.stop()
+    for r in reps:
+        r.close()
+    # ---- 3. a disaggregated pair, shaped as the cluster's __main__ shapes
+    # its roles (prefill: half the slots, one wide flat budget, one decode
+    # step; decode: twice the slots, a small budget)
+    slots, cap = CLUSTER_ENGINE["num_slots"], 64
+    pre = ServingEngine(*cluster_mods(seed), role="prefill",
+                        num_slots=slots // 2, flat_budget=True,
+                        token_budget=4 * cap, decode_chunk=1,
+                        max_seq_len=1024, prefix_cache_blocks=64)
+    dec = ServingEngine(*cluster_mods(seed), role="decode",
+                        num_slots=2 * slots, token_budget=2 * slots,
+                        max_seq_len=1024, prefix_cache_blocks=64)
+    reps = [LocalReplica("pf0", pre, threaded=False),
+            LocalReplica("dc0", dec, threaded=False)]
+    router = Router(reps, snap_max_age_s=0.0)
+    reset_launches()
+    t0 = time.perf_counter()
+    gids = [router.submit([int(t) for t in p], max_new_tokens=int(m))
+            for p, m in reqs]
+    toks = {g: [] for g in gids}
+    done = dict.fromkeys(gids, False)
+    while not all(done.values()):
+        if time.perf_counter() - t0 > CLUSTER_WAIT_S:
+            raise SystemExit("disaggregated: the pair stalled")
+        for r in reps:
+            r.pump()
+        for g in gids:
+            if not done[g]:
+                new, done[g], _ = router.harvest(g, len(toks[g]))
+                toks[g] += new
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    runs["cluster-disagg"] = {**da.LAUNCHES, **fa.LAUNCHES, **fdm.LAUNCHES}
+    mp, md = pre.metrics(), dec.metrics()
+    flat = da.LAUNCHES["decode_attention_paged_flat"]
+    if mp["kv_blocks_shipped"] != md["kv_blocks_adopted"] or \
+            md["prefill_tokens_computed"] or not flat or \
+            router.handoffs_total != len(reqs):
+        raise SystemExit(f"disaggregated: shipped {mp['kv_blocks_shipped']}"
+                         f", adopted {md['kv_blocks_adopted']}, decode-side "
+                         f"prefill {md['prefill_tokens_computed']}, flat "
+                         f"launches {flat}, handoffs "
+                         f"{router.handoffs_total}")
+    check_paths("[disaggregated]", {"decode_attention_paged_flat": flat})
+    same_tokens("disaggregated", [toks[g] for g in gids], want)
+    for r in reps:
+        check_snapshot(r.name, r.snapshot())
+        tele.validate_chrome_trace(tele.export_chrome_tracing(
+            r.engine, os.path.join(out_dir, f"disagg-{r.name}.json")))
+    log(f"  [disaggregated] {len(reqs)} handoffs, {mp['kv_blocks_shipped']} "
+        f"blocks shipped = adopted, no prefill on the decode side, "
+        f"{flat} flat launches on the prefill side; {n_new / dt:.1f} "
+        f"generated tokens/s ({dt:.3f} s); {card}")
+    for name, got in runs.items():
+        log(f"  [{name}] launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+    return runs
 
 
 def phase_generate(seed):
@@ -3829,6 +4208,7 @@ def main(argv=None):
             "not run")
         return 0
     launches = phase_engine(args.seed)
+    launches.update(phase_cluster(args.seed))
     launches.update(phase_generate(args.seed))
     base = phase_train(args.seed)
     launches["train"] = base[0]

@@ -74,9 +74,31 @@ from ..ops import flash_attention as _fa
 from ..nn.layer.common import Linear
 from ..ops import fused_dequant_matmul as _fdm
 
-__all__ = ["FusedDecoder", "generate_fused"]
+__all__ = ["FusedDecoder", "generate_fused", "dispatch_kind",
+           "DISPATCH_KINDS"]
 
 NEG_INF = -1e30
+
+# ---- dispatch-kind vocabulary (serving telemetry) ---------------------
+# The step timeline labels every serving dispatch with one canonical
+# kind, keyed by the dispatch family (JAX's jit-cache key head), so the
+# two packages' timelines read alike.
+DISPATCH_KINDS = {
+    "bulk_admit": "prefill",      # one-row causal-flash prompt pass
+    "prefill": "prefill",         # masked chunked prefill scan
+    "admit_sample": "admit",      # first-token sample on prefill hiddens
+    "decode": "decode",           # the decode-chunk scan
+    "verify": "verify",           # the K+1-position spec-verify block
+    "budget": "budget",           # the [B, C] token-budget core
+    "flat_budget": "budget",      # the token-flattened [T] budget core
+}
+
+
+def dispatch_kind(jit_key):
+    """Canonical telemetry kind for a dispatch key (a tuple whose head
+    names the dispatch family; shape parameters follow). Unknown
+    families pass through as their own name."""
+    return DISPATCH_KINDS.get(jit_key[0], str(jit_key[0]))
 
 
 def _absmax_int8(w, axis, qmax=127):

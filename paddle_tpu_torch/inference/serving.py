@@ -73,12 +73,23 @@ requests expire). An explicitly sized pool (``kv_pool=``,
 ``track`` / ``poll`` / ``harvest_new_tokens`` / ``release`` stream a
 request's tokens; ``reset_metrics`` starts a new metric window.
 
+Telemetry (``telemetry.py``, JAX's contracts): each request's lifecycle
+span and one step-timeline record a dispatch (its kind from
+``generation.dispatch_kind``) in bounded rings of ``telemetry_ring``
+entries (default 2048; 0 turns them off, the histograms stay on), every
+timestamp on the engine's ``clock``; ``telemetry_snapshot()`` is the
+cluster router's payload (schema v8), ``metrics_prometheus()`` the text
+exposition, ``telemetry.trace_dump`` / ``export_chrome_tracing`` the
+traces.
+
 The engine reads no environment variables: JAX's PADDLE_SERVING_SPEC_K
 and PADDLE_SERVING_SPEC_MIN_DRAFT take their defaults (0 and 2), its
 PADDLE_ROLE, PADDLE_SERVING_KV_BLOCKS and PADDLE_TPU_SERVE_MAX_PENDING
 are the constructor's ``role``, ``kv_pool_blocks`` and ``max_pending``,
-and PADDLE_QOS_SHARES (``"high=4,normal=2,low=1"``) is the keyword
-``qos_shares``.
+PADDLE_QOS_SHARES (``"high=4,normal=2,low=1"``) is the keyword
+``qos_shares``, and PADDLE_TELEMETRY_RING and the PADDLE_SLO_* objectives
+are ``telemetry_ring`` and ``slo`` (``SloPolicy.from_env()`` reads them
+for a caller that wants them).
 """
 from __future__ import annotations
 
@@ -92,14 +103,15 @@ import torch
 from ..ops.decode_attention import FLAT_CHUNK
 from ..core.rng import next_key
 from .generation import (FusedDecoder, _absmax_int8, _host_seed,
-                         _penalize_slots, _sample_rows)
+                         _penalize_slots, _sample_rows, dispatch_kind)
 from .paged_kv import BlockPool, PagedPrefixCache
 from .prefix_cache import PrefixCache
 from .spec_decode import (NGramDrafter, filtered_probs, greedy_accept,
                           propose_claims, rejection_sample,
                           truncate_emitted, validate_spec_k)
-from .telemetry import (DEFAULT_QOS_SHARES, DEFAULT_RING, QOS_CLASSES,
-                        QOS_DEFAULT, QOS_RANK, SloPolicy, Telemetry)
+from .telemetry import (COUNTER_FOLD_KEYS, DEFAULT_QOS_SHARES, DEFAULT_RING,
+                        QOS_CLASSES, QOS_DEFAULT, QOS_RANK, SloPolicy,
+                        Telemetry)
 
 __all__ = ["ServingEngine", "ServedRequest", "AdmissionFull",
            "QOS_CLASSES"]
@@ -307,8 +319,13 @@ class ServingEngine:
                 "(token_budget > 0): token_budget=0 selects the phase "
                 "scheduler, which has no budget step to flatten")
         self.clock = clock or time.perf_counter
-        self.telemetry = Telemetry(telemetry_ring)
+        # request spans and the step timeline in bounded rings (0 turns
+        # them off); every timestamp is the engine's clock
+        self.telemetry = Telemetry(telemetry_ring, clock=self.clock)
         self._slo = slo if slo is not None else SloPolicy()
+        # EWMA of the working steps' duration: the replica-local
+        # slowness signal of the snapshot's "health" block
+        self._step_ewma_s = 0.0
         self._results_cap = self.telemetry.ring or DEFAULT_RING
 
         if self.paged:
@@ -380,6 +397,7 @@ class ServingEngine:
         self._slo_ok = 0
         self._slo_violated_queue = 0
         self._slo_violated_service = 0
+        self._slo_vq_class = {c: 0 for c in QOS_CLASSES}
 
     # ------------------------------------------------------------- public
     def submit(self, prompt, max_new_tokens=20, eos_token_id=None,
@@ -418,6 +436,9 @@ class ServingEngine:
                 f"priority must be one of {QOS_CLASSES}, got {priority!r}")
         if self.max_pending and self._queue_len() >= self.max_pending:
             self._rejected += 1
+            if self.telemetry.enabled:
+                self.telemetry.req_rejected(self.clock(), trace_id=trace_id,
+                                            attempt=attempt)
             raise AdmissionFull(
                 f"pending queue full ({self._queue_len()}/"
                 f"{self.max_pending}) — request shed at admission")
@@ -431,6 +452,10 @@ class ServingEngine:
             if self._kv_gate and \
                     self._kv_committed + need > self.pool.num_blocks:
                 self._rejected += 1
+                if self.telemetry.enabled:
+                    self.telemetry.req_rejected(self.clock(),
+                                                trace_id=trace_id,
+                                                attempt=attempt)
                 raise AdmissionFull(
                     f"kv pool exhausted ({self._kv_committed}/"
                     f"{self.pool.num_blocks} blocks committed to "
@@ -444,6 +469,8 @@ class ServingEngine:
                             attempt=attempt, priority=priority)
         self._queues[priority].append(req)
         self._req_index[req.rid] = req
+        self.telemetry.req_queued(req.rid, req.t_submit,
+                                  trace_id=req.trace_id, attempt=req.attempt)
         return req.rid
 
     def _fresh_seed(self):
@@ -535,9 +562,13 @@ class ServingEngine:
             self._hold_prefilled()
         # a deadline that lapsed during the dispatch expires now
         self._expire_deadlines(self.clock())
-        self._busy_s += self.clock() - t0
+        dt = self.clock() - t0
+        self._busy_s += dt
         self._tokens_emitted += emitted
         if had_work:
+            # working steps only: idle ones would dilute the signal
+            self._step_ewma_s = (dt if self._step_ewma_s == 0.0
+                                 else 0.8 * self._step_ewma_s + 0.2 * dt)
             self.telemetry.observe_step_tokens(emitted)
         return emitted
 
@@ -558,6 +589,9 @@ class ServingEngine:
                     and self._nt[s] >= 1):
                 req.state = "prefilled"
                 self._active[s] = False
+                if self.telemetry.enabled:
+                    self.telemetry.req_event(req.rid, "prefill_hold",
+                                             self.clock())
 
     # ------------------------------------------------- streaming harvest
     def _lookup_req(self, rid):
@@ -674,8 +708,13 @@ class ServingEngine:
     def reset_metrics(self, keep_results=True):
         """Zero the window counters (a benchmark's warmup ends here),
         folding them into the exposition's lifetime base first, and
-        start a fresh telemetry window."""
-        for k, v in self._window_counters().items():
+        start a fresh telemetry window. The fold covers exactly
+        ``telemetry.COUNTER_FOLD_KEYS``."""
+        window = self._window_counters()
+        assert set(window) == set(COUNTER_FOLD_KEYS), (
+            "window-counter surface drifted from telemetry."
+            f"COUNTER_FOLD_KEYS: {set(window) ^ set(COUNTER_FOLD_KEYS)}")
+        for k, v in window.items():
             self._prom_base[k] = self._prom_base.get(k, 0) + v
         self.telemetry.reset()
         self._reset_window()
@@ -772,8 +811,39 @@ class ServingEngine:
         return m
 
     def metrics_prometheus(self):
+        """Prometheus text exposition: every metrics() key under its
+        stable name (``telemetry.PROMETHEUS_NAMES``), counters monotonic
+        across reset_metrics, the request and handoff histograms, the
+        pool and prefix gauges and the runtime section."""
         from .telemetry import render_prometheus
         return render_prometheus(self)
+
+    def telemetry_snapshot(self):
+        """The JSON routing payload a cluster router reads per replica
+        (``telemetry.snapshot``, schema v8)."""
+        from .telemetry import snapshot
+        return snapshot(self)
+
+    def _run_dispatch(self, key, fn, args, rows=0, **fields):
+        """Every dispatch goes through here: ``fn(*args)`` and, with the
+        telemetry ring on, one step-timeline event — its kind from
+        ``generation.dispatch_kind(key)``, the dispatch-side elapsed, the
+        queue depth and pool blocks in use, and ``fields``, as in JAX.
+        ``traces_delta`` stays 0: the port compiles nothing. Returns
+        (out, event); the harvest closes the event with
+        ``Telemetry.finish_step``."""
+        tele = self.telemetry
+        if not tele.enabled:
+            return fn(*args), None
+        t0 = self.clock()
+        out = fn(*args)
+        t1 = self.clock()
+        ev = tele.step_event(
+            dispatch_kind(key), t0, t1 - t0, rows=rows,
+            queue_depth=self.queue_depth,
+            kv_blocks_used=(self.pool.used if self.paged else None),
+            **fields)
+        return out, ev
 
     def _weight_arrays(self):
         """The tensors every dispatch reads: the stacked layer weights,
@@ -874,9 +944,13 @@ class ServingEngine:
             self.pool.deref(mapped)
         row[:] = nb
 
-    def _shed(self, msg):
-        # every rejection shows in requests_rejected
+    def _shed(self, msg, t=None, trace_id=None, attempt=1):
+        # every rejection shows in requests_rejected and, with the ring
+        # on, as a one-event span at ``t`` (now when None)
         self._rejected += 1
+        if self.telemetry.enabled:
+            self.telemetry.req_rejected(self.clock() if t is None else t,
+                                        trace_id=trace_id, attempt=attempt)
         return AdmissionFull(msg)
 
     def _need_paged(self, what, why=""):
@@ -928,6 +1002,12 @@ class ServingEngine:
         self._kv_committed += need
         # a clone, not an admission: no prefix lookup
         self._forked += 1
+        if self.telemetry.enabled:
+            self.telemetry.req_queued(child.rid, child.t_submit,
+                                      trace_id=child.trace_id,
+                                      attempt=child.attempt)
+            self.telemetry.req_admitted(child.rid, s1, child.t_submit)
+            self.telemetry.req_event(child.rid, "forked", child.t_submit)
         row = self._tables[s0]
         self.pool.ref([int(x) for x in row[row < self.pool.num_blocks]])
         self._tables[s1] = row
@@ -1008,6 +1088,7 @@ class ServingEngine:
         if req is None or req.state not in ("queued", "running",
                                             "prefilled"):
             raise ValueError(f"request {rid} is not live on this engine")
+        now = self.clock()
         skip_blocks = int(skip_blocks)
         state = self._slot_state(req)
         need = self._blocks_needed(req.prompt.size, req.max_new_tokens)
@@ -1036,7 +1117,12 @@ class ServingEngine:
         self._req_index.pop(rid, None)
         self._harvest.pop(rid, None)
         self._migrated_out += 1
-        self._kv_blocks_shipped += len(state["kv"])
+        if state["kv"]:
+            self._kv_blocks_shipped += len(state["kv"])
+            self.telemetry.observe_handoff(_kv_payload_bytes(state["kv"]))
+        if self.telemetry.enabled:
+            self.telemetry.req_event(rid, "migrate_out", now)
+        self.telemetry.req_done(rid, "migrated", now)
         return state
 
     def _check_blocks(self, blocks, what):
@@ -1152,29 +1238,35 @@ class ServingEngine:
             if self.max_pending and self._queue_len() >= self.max_pending:
                 raise self._shed(
                     f"pending queue full ({self._queue_len()}/"
-                    f"{self.max_pending}) — migrated request shed")
+                    f"{self.max_pending}) — migrated request shed",
+                    now, req.trace_id, req.attempt)
             if self._kv_gate and \
                     self._kv_committed + need > self.pool.num_blocks:
                 raise self._shed("kv pool exhausted — migrated request "
-                                 "shed at import")
+                                 "shed at import", now, req.trace_id,
+                                 req.attempt)
             self._kv_committed += need
             if staged is not None:
                 self._staged.pop(staged, None)   # an empty tag, consumed
             self._queues[req.priority].append(req)
             self._req_index[req.rid] = req
             self._migrated_in += 1
+            self.telemetry.req_queued(req.rid, now, trace_id=req.trace_id,
+                                      attempt=req.attempt)
+            if self.telemetry.enabled:
+                self.telemetry.req_event(req.rid, "migrate_in", now)
             return req.rid
         free = self._free_slots()
         if not free:
             raise self._shed("no free slot to import the migrated session "
-                             "into")
+                             "into", now, req.trace_id, req.attempt)
         if self._kv_reserved - len(staged_ids) + need > self.pool.num_blocks:
             # staged blocks hold their own reservation, which folds into
             # the request's: only the difference is checked
             raise self._shed(
                 f"kv pool exhausted: migrated session needs {need} "
                 f"blocks, {self.pool.num_blocks - self._kv_reserved} "
-                "unreserved")
+                "unreserved", now, req.trace_id, req.attempt)
         s = free[0]
         req.state = "running"
         req.t_admit = now                  # no queue time on this engine
@@ -1191,6 +1283,11 @@ class ServingEngine:
         self._place(req, s, state, list(staged_ids) + list(new_ids))
         self._req_index[req.rid] = req
         self._migrated_in += 1
+        self.telemetry.req_queued(req.rid, now, trace_id=req.trace_id,
+                                  attempt=req.attempt)
+        self.telemetry.req_admitted(req.rid, s, now)
+        if self.telemetry.enabled:
+            self.telemetry.req_event(req.rid, "migrate_in", now)
         if not self._active[s] and not self._pf_left[s] and tokens:
             # exported at the exact finish boundary
             self._finish(req, now)
@@ -1223,7 +1320,11 @@ class ServingEngine:
         row = self._tables[s]
         blocks = self.pool.read_blocks(
             self._caches, [int(row[j]) for j in range(start_block, n_full)])
-        self._kv_blocks_shipped += len(blocks)
+        if blocks:
+            self._kv_blocks_shipped += len(blocks)
+            self.telemetry.observe_handoff(_kv_payload_bytes(blocks))
+            if self.telemetry.enabled:
+                self.telemetry.req_event(rid, "kv_ship", self.clock())
         return blocks, n_full
 
     def stage_kv_blocks(self, tag, blocks):
@@ -1274,6 +1375,7 @@ class ServingEngine:
         req = self._req_index.get(rid)
         if req is None or req.state != "running":
             raise ValueError(f"request {rid} is not running in a slot")
+        now = self.clock()
         state = self._slot_state(req)
         del state["kv_skip"]
         row = self._tables[req.slot]
@@ -1285,6 +1387,8 @@ class ServingEngine:
         req.state = "preempted"
         self._parked[rid] = state
         self._preempted += 1
+        if self.telemetry.enabled:
+            self.telemetry.req_event(rid, "preempt", now)
         return rid
 
     def resume_from_host(self, rid):
@@ -1304,6 +1408,7 @@ class ServingEngine:
             raise AdmissionFull(
                 f"kv pool exhausted: resume needs {need} blocks, "
                 f"{self.pool.num_blocks - self._kv_reserved} unreserved")
+        now = self.clock()
         s = self._free_slots()[0]
         del self._parked[rid]
         blocks = state["kv"]
@@ -1313,8 +1418,10 @@ class ServingEngine:
         self._place(req, s, state, ids)
         req.state = "running"
         self._resumed += 1
+        if self.telemetry.enabled:
+            self.telemetry.req_event(rid, "resume", now)
         if not self._active[s] and not self._pf_left[s] and req.tokens:
-            self._finish(req, self.clock())
+            self._finish(req, now)
         return rid
 
     def _qos_schedule(self):
@@ -1364,16 +1471,22 @@ class ServingEngine:
         together misses alike (the store converges one prompt later, as
         in JAX)."""
         free = self._free_slots()
-        t_adm = self.clock()
+        tele = self.telemetry
+        t_adm = None
         while free and self._reserve(self._queue_head()):
+            if t_adm is None:
+                t_adm = self.clock()
             req = self._queue_popleft()
             s = free.pop(0)
             req.slot, req.state, req.t_admit = s, "running", t_adm
             self._slot_req[s] = req
             self._admitted += 1
             self._class_admitted[req.priority] += 1
+            tele.req_admitted(req.rid, s, t_adm)
             self._seed_presence(req)
             base = self._adopt(s, req.prompt)
+            if base:
+                tele.req_event(req.rid, "prefix_adopt", t_adm)
             self._lens[s] = base
             self._pf_left[s] = req.prompt.size - base
             self._nt[s] = 0
@@ -1452,7 +1565,11 @@ class ServingEngine:
         if not batch:
             return []
         self._admitted += len(batch)
+        tele = self.telemetry
         t_adm = self.clock()
+        for r in batch:
+            r.t_admit = t_adm
+            tele.req_admitted(r.rid, r.slot, t_adm)
         stk = self.dec._stacked()
         f = self.dec.fmt
         b = self.num_slots
@@ -1460,17 +1577,20 @@ class ServingEngine:
                              dtype=f.qkv_weights[0].dtype, device=self.device)
         base = np.zeros(b, np.int64)            # adopted tokens per slot
         for r in batch:
-            r.t_admit = t_adm
             self._seed_presence(r)
             base[r.slot] = self._adopt(r.slot, r.prompt)
+            if base[r.slot]:
+                tele.req_event(r.rid, "prefix_adopt", t_adm)
             self._map_blocks(r.slot, r.prompt.size)
             if not base[r.slot]:
                 last_x[r.slot] = self._bulk_admit_row(stk, r)
+                tele.req_event(r.rid, "prefill_chunk", t_adm)
                 self._publish(r.slot, r)
         scan = [r for r in batch if base[r.slot]]
         if scan:
             last_x = self._scan_prefill(stk, scan, base, last_x)
         for r in scan:
+            tele.req_event(r.rid, "prefill_chunk", t_adm)
             self._publish(r.slot, r)
         for r in batch:
             s = r.slot
@@ -1485,22 +1605,21 @@ class ServingEngine:
             if self._drafters is not None:
                 self._drafters[s].reset(r.prompt)
         rep_pen, presence, seeds = self._sample_args()
-        t0 = self.clock()
-        nxt = self._build_admit_sample()(
-            last_x, seeds, self._dev(self._eos), self._dev(self._min_len),
-            rep_pen, presence)
+        nxt, _ = self._run_dispatch(
+            ("admit_sample",), self._build_admit_sample(),
+            (last_x, seeds, self._dev(self._eos), self._dev(self._min_len),
+             rep_pen, presence), rows=len(batch), tokens=len(batch))
         if presence is not None:
             rows = torch.tensor([r.slot for r in batch], device=self.device)
             presence[rows, nxt[rows]] = True
         nxt = nxt.cpu().numpy()
-        self.telemetry.step_event("admit", t0, self.clock() - t0,
-                                  rows=len(batch), tokens=len(batch))
         now = self.clock()
         self._decode_steps += len(batch)     # one sample event per row
         for r in batch:
             s = r.slot
             tok0 = int(nxt[s])
             r.t_first = now
+            tele.req_event(r.rid, "first_token", now)
             r.tokens.append(tok0)
             self._class_tokens[r.priority] += 1
             self._nt[s] = 1
@@ -1561,13 +1680,12 @@ class ServingEngine:
         for chunk in chunks:
             t0 = np.where(n_left > 0, base + pos, self._lens)
             n_valid = np.clip(n_left - pos, 0, chunk)
-            tc = self.clock()
-            last_x = self._build_prefill_chunk(chunk)(
-                stk, self._cache_arg(), self._dev(prompts[:, pos:pos + chunk]),
-                self._dev(t0), self._dev(n_valid), last_x)
-            self.telemetry.step_event("prefill", tc, self.clock() - tc,
-                                      rows=int((n_valid > 0).sum()),
-                                      tokens=int(n_valid.sum()))
+            last_x, _ = self._run_dispatch(
+                ("prefill", chunk), self._build_prefill_chunk(chunk),
+                (stk, self._cache_arg(),
+                 self._dev(prompts[:, pos:pos + chunk]), self._dev(t0),
+                 self._dev(n_valid), last_x),
+                rows=int((n_valid > 0).sum()), tokens=int(n_valid.sum()))
             pos += chunk
         return last_x
 
@@ -1658,11 +1776,10 @@ class ServingEngine:
         sb = min(1 << (int(plen) - 1).bit_length(), self.smax)
         toks = np.zeros((1, sb), np.int64)
         toks[0, :plen] = req.prompt
-        t0 = self.clock()
-        row_x = self._build_bulk_admit(sb)(stk, self._cache_arg(),
-                                           self._dev(toks), req.slot, plen)
-        self.telemetry.step_event("prefill", t0, self.clock() - t0, rows=1,
-                                  tokens=plen)
+        row_x, _ = self._run_dispatch(
+            ("bulk_admit", sb), self._build_bulk_admit(sb),
+            (stk, self._cache_arg(), self._dev(toks), req.slot, plen),
+            rows=1, tokens=int(plen))
         return row_x
 
     def _dev(self, a, dtype=torch.int64):
@@ -1775,23 +1892,23 @@ class ServingEngine:
         core = self.dec._build_budget_core(
             c, *self._sampling(), full_logits=full_logits, chain=bool(k),
             scan_tail=tail)
-        t0 = self.clock()
-        out = core(
-            self.dec._stacked(), self._cache_arg(), self._dev(toks),
-            self._dev(self._lens), self._dev(seg), self._dev(gen0),
-            self._dev(self._nt), self._dev(self._max_nt),
-            self._dev(self._eos), self._dev(self._min_len),
-            *self._sample_args())
+        out, ev = self._run_dispatch(
+            ("budget", c), core,
+            (self.dec._stacked(), self._cache_arg(), self._dev(toks),
+             self._dev(self._lens), self._dev(seg), self._dev(gen0),
+             self._dev(self._nt), self._dev(self._max_nt),
+             self._dev(self._eos), self._dev(self._min_len),
+             *self._sample_args()),
+            rows=int((seg > 0).sum()), budget_used=int(seg.sum()),
+            budget_wasted=b * c - int(seg.sum()), drafts=int(dlen.sum()))
         res = self._host_out(out, full_logits)
-        self.telemetry.step_event("budget", t0, self.clock() - t0,
-                                  rows=int((seg > 0).sum()))
         self._count_budget(int(seg.sum()), b * c, pf_n, len(dec_rows),
                            int(dlen.sum()))
         if not k:
-            return self._harvest_budget_plain(res, pf_n, tail)
+            return self._harvest_budget_plain(res, ev, pf_n, tail)
         chain_out = {s: res[s, :int(seg[s])] for s in range(b) if seg[s]}
-        return self._harvest_budget_chain(chain_out, pf_n, dec_rows, drafts,
-                                          dlen, full_logits)
+        return self._harvest_budget_chain(chain_out, ev, pf_n, dec_rows,
+                                          drafts, dlen, full_logits)
 
     @staticmethod
     def _host_out(out, full_logits):
@@ -1901,36 +2018,37 @@ class ServingEngine:
             b, *self._sampling(), full_logits=full_logits, chain=bool(k),
             scan_tail=tail)
         i32 = torch.int32
-        t0 = self.clock()
-        out = core(
-            self.dec._stacked(), self._cache_arg(), self._dev(toks),
-            self._dev(tslot), self._dev(tpos), self._dev(cslot, i32),
-            self._dev(cbase, i32), self._dev(cn, i32), self._dev(tcol),
-            self._dev(tstart), self._dev(gen0), self._dev(self._tok),
-            self._dev(last_idx), self._dev(emit0, torch.bool),
-            self._dev(adv), self._dev(self._lens), self._dev(self._nt),
-            self._dev(self._max_nt), self._dev(self._eos),
-            self._dev(self._min_len), *self._sample_args())
-        res = self._host_out(out, full_logits)
-        self.telemetry.step_event("budget", t0, self.clock() - t0,
-                                  rows=int((adv > 0).sum()))
         used = len(regd) + sum(len(tk) for _, tk, _ in segs)
+        out, ev = self._run_dispatch(
+            ("flat_budget", ts), core,
+            (self.dec._stacked(), self._cache_arg(), self._dev(toks),
+             self._dev(tslot), self._dev(tpos), self._dev(cslot, i32),
+             self._dev(cbase, i32), self._dev(cn, i32), self._dev(tcol),
+             self._dev(tstart), self._dev(gen0), self._dev(self._tok),
+             self._dev(last_idx), self._dev(emit0, torch.bool),
+             self._dev(adv), self._dev(self._lens), self._dev(self._nt),
+             self._dev(self._max_nt), self._dev(self._eos),
+             self._dev(self._min_len), *self._sample_args()),
+            rows=int((adv > 0).sum()), budget_used=used,
+            budget_wasted=t_total - used, drafts=int(dlen.sum()))
+        res = self._host_out(out, full_logits)
         self._count_budget(used, t_total, pf_n, len(dec_rows),
                            int(dlen.sum()))
         if not k:
-            return self._harvest_budget_plain(res, pf_n, tail)
+            return self._harvest_budget_plain(res, ev, pf_n, tail)
         chain_out = {s: res[s:s + 1] for s in regd}
         for (s, tk, _), st in zip(segs, starts):
             chain_out[s] = res[b + st:b + st + len(tk)]
-        return self._harvest_budget_chain(chain_out, pf_n, dec_rows, drafts,
-                                          dlen, full_logits)
+        return self._harvest_budget_chain(chain_out, ev, pf_n, dec_rows,
+                                          drafts, dlen, full_logits)
 
-    def _harvest_budget_plain(self, res, pf_n, tail):
+    def _harvest_budget_plain(self, res, ev, pf_n, tail):
         """Walk the dispatch's tokens and finish events; the core already
         advanced every row's state on the device. A prompt that completed
         here publishes its blocks (decode writes, this dispatch's trailing
         scan too, land past them)."""
         tok0, emit0, ys_t, ys_e, tokc, lensc, activec, ntc = res
+        tele = self.telemetry
         now = self.clock()
         prev_active = self._active.copy()
         self._tok, self._lens, self._nt = tokc, lensc, ntc
@@ -1942,6 +2060,7 @@ class ServingEngine:
                 continue
             if pf_n[s]:
                 self._pf_left[s] -= int(pf_n[s])
+                tele.req_event(req.rid, "prefill_chunk", now)
                 if self._pf_left[s] == 0:
                     self._publish(s, req)
             if not emit0[s] and not prev_active[s]:
@@ -1951,8 +2070,11 @@ class ServingEngine:
                 row_toks.append(int(tok0[s]))
                 if pf_n[s]:              # the prompt finished here
                     req.t_first = now
+                    tele.req_event(req.rid, "first_token", now)
             if tail:
                 row_toks.extend(int(t) for t in ys_t[ys_e[:, s], s])
+            if row_toks and prev_active[s]:
+                tele.req_event(req.rid, "decode", now)
             req.tokens.extend(row_toks)
             self._class_tokens[req.priority] += len(row_toks)
             n_emitted += len(row_toks)
@@ -1960,6 +2082,8 @@ class ServingEngine:
             if not still_active[s]:
                 self._finish(req, now)
         self._active = still_active
+        tele.finish_step(ev, self.clock() if ev is not None else 0.0,
+                         tokens=n_emitted)
         return n_emitted
 
     def _get_spec_rng(self):
@@ -1996,6 +2120,7 @@ class ServingEngine:
         self._decode_steps += 1
         self._draft_proposed += m
         self._draft_accepted += len(emitted) - 1
+        self.telemetry.req_event(req.rid, "verify", now)
         self._drafters[s].update(emitted)
         self._mark(s, emitted)
         if hit_eos or self._nt[s] >= self._max_nt[s]:
@@ -2009,8 +2134,8 @@ class ServingEngine:
         if self._rep_on and len(toks):
             self._presence[s, torch.tensor(toks, device=self.device)] = True
 
-    def _harvest_budget_chain(self, chain_out, pf_n, dec_rows, drafts, dlen,
-                              full_logits):
+    def _harvest_budget_chain(self, chain_out, ev, pf_n, dec_rows, drafts,
+                              dlen, full_logits):
         """The spec harvest of either layout: ``chain_out`` maps each
         packed slot to its segment's outputs (argmax chain, or logits
         under full_logits). Prefill rows advance in request order (the
@@ -2019,6 +2144,7 @@ class ServingEngine:
         the last column (sampled: a host draw from its filtered
         probabilities). Decode rows accept (``_accept``). Returns tokens
         emitted."""
+        tele = self.telemetry
         now = self.clock()
         n_emitted = 0
         for s in sorted((s for s in range(self.num_slots) if pf_n[s]),
@@ -2026,6 +2152,7 @@ class ServingEngine:
             req = self._slot_req[s]
             self._pf_left[s] -= int(pf_n[s])
             self._lens[s] += int(pf_n[s])
+            tele.req_event(req.rid, "prefill_chunk", now)
             if self._pf_left[s] > 0:
                 continue
             self._publish(s, req)
@@ -2038,6 +2165,7 @@ class ServingEngine:
             else:
                 tok0 = int(arr[-1])
             req.t_first = now
+            tele.req_event(req.rid, "first_token", now)
             req.tokens.append(tok0)
             self._class_tokens[req.priority] += 1
             self._nt[s] = 1
@@ -2056,6 +2184,8 @@ class ServingEngine:
             if req is not None and self._active[s]:
                 n_emitted += self._accept(s, req, drafts, dlen, chain_out[s],
                                           full_logits, now)
+        tele.finish_step(ev, self.clock() if ev is not None else 0.0,
+                         tokens=n_emitted)
         return n_emitted
 
     def _build_decode_chunk(self):
@@ -2071,20 +2201,18 @@ class ServingEngine:
                 self._ensure_writable(
                     s, int(self._lens[s]),
                     min(int(self._lens[s]) + chunk, self._budget_pos(s)))
-        run = self._build_decode_chunk()
-        t0 = self.clock()
-        (tok, lens, active, nt), (toks, emitted) = run(
-            self.dec._stacked(), self._cache_arg(), self._dev(self._tok),
-            self._dev(self._lens), self._dev(self._active, torch.bool),
-            self._dev(self._nt), self._dev(self._max_nt),
-            self._dev(self._eos), self._dev(self._min_len),
-            *self._sample_args())
+        ((tok, lens, active, nt), (toks, emitted)), ev = self._run_dispatch(
+            ("decode", chunk), self._build_decode_chunk(),
+            (self.dec._stacked(), self._cache_arg(), self._dev(self._tok),
+             self._dev(self._lens), self._dev(self._active, torch.bool),
+             self._dev(self._nt), self._dev(self._max_nt),
+             self._dev(self._eos), self._dev(self._min_len),
+             *self._sample_args()),
+            rows=int(self._active.sum()))
         toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
         self._tok, self._lens = tok.cpu().numpy(), lens.cpu().numpy()
         self._nt = nt.cpu().numpy()
         still_active = active.cpu().numpy()
-        self.telemetry.step_event("decode", t0, self.clock() - t0,
-                                  rows=int(self._active.sum()))
         n_emitted = 0
         now = self.clock()
         for s in range(self.num_slots):
@@ -2094,6 +2222,8 @@ class ServingEngine:
             hits = emitted[:, s]
             req.tokens.extend(int(t) for t in toks[hits, s])
             self._class_tokens[req.priority] += int(hits.sum())
+            if hits.any():
+                self.telemetry.req_event(req.rid, "decode", now)
             n_emitted += int(hits.sum())
             if self._drafters is not None:
                 # a spec engine reaches here through the thin-draft
@@ -2103,6 +2233,8 @@ class ServingEngine:
                 self._finish(req, now)
         self._active = still_active
         self._decode_steps += n_emitted
+        self.telemetry.finish_step(
+            ev, self.clock() if ev is not None else 0.0, tokens=n_emitted)
         return n_emitted
 
     def _spec_decode_step(self):
@@ -2130,15 +2262,15 @@ class ServingEngine:
         vstep = self.dec._build_verify_core(k, self._rep_on,
                                             greedy_out=not full_logits)
         rep_pen, presence, _ = self._sample_args()
-        t0 = self.clock()
-        out = vstep(self.dec._stacked(), self._cache_arg(), self._dev(toks),
-                    self._dev(self._lens), self._dev(dlen),
-                    self._dev(self._active, torch.bool), self._dev(self._nt),
-                    self._dev(self._eos), self._dev(self._min_len), rep_pen,
-                    presence)
+        out, ev = self._run_dispatch(
+            ("verify", k), vstep,
+            (self.dec._stacked(), self._cache_arg(), self._dev(toks),
+             self._dev(self._lens), self._dev(dlen),
+             self._dev(self._active, torch.bool), self._dev(self._nt),
+             self._dev(self._eos), self._dev(self._min_len), rep_pen,
+             presence),
+            rows=int(self._active.sum()), drafts=int(dlen.sum()))
         out = self._host_out(out, full_logits)
-        self.telemetry.step_event("verify", t0, self.clock() - t0,
-                                  rows=int(self._active.sum()))
         if full_logits:
             self._get_spec_rng()
         now = self.clock()
@@ -2148,6 +2280,8 @@ class ServingEngine:
             if req is not None and self._active[s]:
                 n_emitted += self._accept(s, req, drafts, dlen, out[s],
                                           full_logits, now)
+        self.telemetry.finish_step(
+            ev, self.clock() if ev is not None else 0.0, tokens=n_emitted)
         return n_emitted
 
     def _expire_deadlines(self, now):
@@ -2193,11 +2327,12 @@ class ServingEngine:
                 self._slo_ok += 1
             elif verdict == "queue":
                 self._slo_violated_queue += 1
+                self._slo_vq_class[req.priority] += 1
             else:
                 self._slo_violated_service += 1
             self.telemetry.observe_request(req.ttft_s, req.latency_s,
                                            queue_s, service_s)
-        self.telemetry.req_done(req.rid, req.state, req.t_submit, now)
+        self.telemetry.req_done(req.rid, req.state, now)
         self.results[req.rid] = req.result()
         while len(self.results) > self._results_cap:
             self.results.pop(next(iter(self.results)))
@@ -2222,3 +2357,14 @@ class ServingEngine:
         # drop instead of landing; a ring's idle row keeps rewriting its
         # frozen position, which the next admission overwrites
         self._free_slot_blocks(s)
+
+
+def _kv_payload_bytes(blocks):
+    """Wire size of a KV handoff payload: the kv arrays plus the int8
+    scales when present."""
+    total = 0
+    for blk in blocks:
+        total += int(blk["kv"].nbytes)
+        if "sc" in blk:
+            total += int(blk["sc"].nbytes)
+    return total

@@ -408,14 +408,9 @@ def _group(mod_name):
 
 
 PORT_GROUPS = sorted({_group(m) for m in PORT_MODULES})
-# documented exceptions: dotted name -> reason
-SIGNATURE_EXCEPTIONS = {
-    # the port's ring record takes the submit and done times; JAX keeps the
-    # submit time in a live RequestTrace span, which ROADMAP Queue 1 item
-    # 6(f) ports
-    "paddle_tpu_torch.inference.telemetry.Telemetry.req_done":
-        "request spans, item 6(f)",
-}
+# documented exceptions: dotted name -> reason (none since the request
+# spans gave Telemetry.req_done JAX's signature)
+SIGNATURE_EXCEPTIONS = {}
 _POS = (inspect.Parameter.POSITIONAL_ONLY,
         inspect.Parameter.POSITIONAL_OR_KEYWORD,
         inspect.Parameter.VAR_POSITIONAL)

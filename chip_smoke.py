@@ -203,6 +203,18 @@ Phases, in order; any failure exits non-zero:
      attention over the whole sequence and the flash kernels; its wall,
      the flash kernels' and SDPA's over the whole sequence and its peak
      memory are printed;
+  3h. the serving engine over an mp=2 serving mesh (init_serving_mesh;
+     both shards on the one card, ["cuda:0", "cuda:0"], or cuda:0 and
+     cuda:1 where there are two) at the same width, L=12, bf16, on
+     cycle_head's model: MESH_RUNS (row, flat and phase, fp and kv8-w4,
+     on the gpt2 mix's first MESH_REQUESTS requests; row prefix and row
+     spec on their mixes), each beside the same run at mp=1: tokens
+     equal, every kernel of the path launched exactly twice as often
+     (once per shard) with H/2 heads a call on the split and tensor-core
+     designs, no int4 matmul on the CPU's nibble split, kv_shard_count x
+     kv_shard_pool_bytes the pool and (per_dev - repl) x 2 + repl the
+     dense weight bytes; generated tokens/s, TTFT p50 and peak memory by
+     device against mp=1, beside the card;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -217,10 +229,14 @@ Phases, in order; any failure exits non-zero:
      spec_k=4 (greedy, the unscaled cycle model) per scheduler, pool and
      ring, against the CPU's row engine, and sampled spec_k=4 against
      the CPU's engine of the same scheduler, hit and draft counters
-     equal; generate_fused fp and int8 ring,
+     equal; the engine over the mp=2 mesh (parity_mesh) under each
+     scheduler, fp and kv8-w4, against the CPU's mp=1 run of the flavor,
+     every per-shard call on H/2 heads; generate_fused fp and int8 ring,
      cache_write_kernel off and on, sampled with a penalty, rotary,
      the int8 head, a second call adopting from a PrefixCache and
-     spec_k=4 greedy and sampled, against the CPU's; the slot lifecycle
+     spec_k=4 greedy and sampled, against the CPU's, and fp and int8 ring
+     over the mp=2 mesh (the stacked read per shard) against the CPU's;
+     the slot lifecycle
      (parity_lifecycle: 4 slots, max_pending 3, a fake clock; a
      preemption to the host and its resume, a copy-on-write fork, a
      high-class preemption, max_pending shedding, an export, a deadline)
@@ -2887,6 +2903,214 @@ def request_keys(seed, n):
     return lambda i, j: trng.fold_in(trng.prng_key(seeds[i]), j)
 
 
+# ---------------------------------------------------------------- phase 3h
+# the runs over the serving mesh: name -> (scheduler, request mix, keyword
+# arguments); each is served at mp=1 and then at mp=2 on one model
+MESH_RUNS = {"row": ("row", "gpt2", {}), "flat": ("flat", "gpt2", {}),
+             "phase": ("phase", "gpt2", {}),
+             "row-kv8-w4": ("row", "gpt2", QUANT["kv8-w4"]),
+             "flat-kv8-w4": ("flat", "gpt2", QUANT["kv8-w4"]),
+             "phase-kv8-w4": ("phase", "gpt2", QUANT["kv8-w4"]),
+             "row-prefix": ("row", "prefix", {"prefix_cache_blocks": 64}),
+             "row-spec": ("row", "spec", {"spec_k": 4})}
+# the gpt2 mix's first requests phase 3h serves (the whole prefix and spec
+# mixes): the depth of the earlier phases' mix, cut to keep the script in
+# its time
+MESH_REQUESTS = 8
+# the wrappers whose calls run per shard, and the axis of their query's
+# heads: the paged reads ([B, H, Sq, D]), the flat reads ([T, H, D]) and
+# flash attention ([B, S, H, D])
+SHARD_WRAPPERS = ((da, "decode_attention_paged", 1),
+                  (da, "decode_attention_paged_i8", 1),
+                  (da, "decode_attention_paged_flat", 1),
+                  (da, "decode_attention_paged_flat_i8", 1),
+                  (da, "decode_attention_stacked", 1),
+                  (da, "decode_attention_stacked_i8", 1),
+                  (fa, "flash_attention", 2))
+
+
+def mesh_devices():
+    """The mp=2 mesh's devices: two cards where there are, else both
+    shards on the one card."""
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+@contextlib.contextmanager
+def serving_mesh(devices):
+    """The serving mesh over ``devices`` inside (init_serving_mesh, with
+    GPT-2's dims validated), none after."""
+    from paddle_tpu_torch.distributed.fleet import _fleet_state
+    from paddle_tpu_torch.distributed.fleet.base.topology import (
+        _HYBRID_GROUP)
+    from paddle_tpu_torch.parallel import init_serving_mesh
+    mesh = init_serving_mesh(len(devices), num_heads=H, ffn_dim=FF,
+                             head_dim=E // H, weight_quant="int4",
+                             devices=devices)
+    try:
+        yield mesh
+    finally:
+        _HYBRID_GROUP[0] = None
+        _fleet_state.update(strategy=None, hcg=None)
+
+
+@contextlib.contextmanager
+def shard_spies():
+    """Counts (wrapper, query heads) of every call of SHARD_WRAPPERS inside,
+    and the calls of the int4 mesh's CPU arithmetic (which a card run must
+    never make)."""
+    seen = collections.Counter()
+    saved = []
+    for mod, name, axis in SHARD_WRAPPERS:
+        real = getattr(mod, name)
+
+        def spy(q, *a, _real=real, _name=name, _axis=axis, **k):
+            seen[_name, q.shape[_axis]] += 1
+            return _real(q, *a, **k)
+        saved.append((mod, name, real))
+        setattr(mod, name, spy)
+    nib = fdm.dequant_matmul_nibble_split
+
+    def nib_spy(*a, **k):
+        seen["dequant_matmul_nibble_split", 0] += 1
+        return nib(*a, **k)
+    saved.append((fdm, "dequant_matmul_nibble_split", nib))
+    fdm.dequant_matmul_nibble_split = nib_spy
+    try:
+        yield seen
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def mesh_requests(seed, mix):
+    """``gpt2_workload``'s requests of ``mix`` (the same draws after the
+    weights and the warm-up request); the gpt2 mix's first
+    MESH_REQUESTS."""
+    rng = np.random.default_rng()
+    rng.bit_generator.state = _random_model(seed)[1]
+    rng.integers(0, V, 40)
+    reqs = MIXES[mix](rng)
+    return reqs[:MESH_REQUESTS] if mix == "gpt2" else reqs
+
+
+def check_shard_gauges(label, eng, mp):
+    """kv_shard_count x kv_shard_pool_bytes is the pool the engine holds,
+    kv_shard_heads H/mp, and (per_dev - repl) x mp + repl the dense bytes
+    of the weights it dispatches."""
+    m = eng.metrics()
+    pool = sum(int(s.nbytes) for c in eng._caches.values()
+               for s in getattr(c, "shards", [c]))
+    dense = sum(int(np.prod(a.shape)) * a.element_size()
+                for a in eng._weight_arrays())
+    dev, repl = m["weight_bytes_per_device"], m["weight_bytes_replicated"]
+    ok = (m["kv_shard_count"] == mp and m["kv_shard_heads"] == H // mp
+          and m["kv_shard_count"] * m["kv_shard_pool_bytes"] == pool
+          and m["weight_shard_count"] == mp
+          and (dev - repl) * mp + repl == dense)
+    log(f"  {label}: kv_shard_count {m['kv_shard_count']}, kv_shard_heads "
+        f"{m['kv_shard_heads']}, kv_shard_pool_bytes "
+        f"{m['kv_shard_pool_bytes']} (pool {pool}); weight_shard_count "
+        f"{m['weight_shard_count']}, per device {dev}, replicated {repl}, "
+        f"dense {dense}")
+    if not ok:
+        raise SystemExit(f"{label}: the shard gauges do not reconcile")
+    return m
+
+
+def phase_mesh(seed):
+    """The serving engine over an mp=2 serving mesh at GPT-2-124M width
+    (L=12, bf16) on cycle_head's model, each MESH_RUNS run beside the same
+    run at mp=1: equal tokens, every kernel of the path launched exactly
+    twice as often (once per shard) with H/2 heads a call, the int4
+    matmuls on the dequant kernel (never the CPU's nibble split), the
+    shard gauges reconciled; generated tokens/s, TTFT p50 and peak memory
+    per shard device against mp=1. Returns the mp=2 runs' launches."""
+    devices = mesh_devices()
+    log("== phase 3h: ServingEngine over an mp=2 serving mesh at GPT-2-124M "
+        "width, bf16, L=12, on cycle_head's model: row, flat and phase, fp "
+        "and kv8-w4, row prefix and row spec, each beside mp=1")
+    log(f"  mesh devices {devices}: "
+        + ("shard i on card i" if len(set(devices)) > 1
+           else "both shards on the one card"))
+    card = card_line()
+    mods = from_jax_state(*cycle_head(_random_model(seed)[0]),
+                          dtype=torch.bfloat16)
+    out = {}
+    for name, (sched, mix, kwargs) in MESH_RUNS.items():
+        reqs = mesh_requests(seed, mix)
+        n_new = sum(m for _, m in reqs)
+        kw = {"num_slots": 8, "max_seq_len": 1024, **SCHEDULERS[sched],
+              **kwargs}
+        res = {}
+        for mp in (1, 2):
+            label = f"[mesh {name}] mp={mp}"
+            ctx = serving_mesh(devices) if mp > 1 \
+                else contextlib.nullcontext()
+            with ctx:
+                eng = ServingEngine(*mods, **kw)
+                serve(eng, [(reqs[0][0][:40], 4)])          # warm-up
+                eng.reset_metrics()
+                for d in sorted(set(devices)):
+                    torch.cuda.reset_peak_memory_stats(d)
+                reset_launches()
+                with shard_spies() as heads:
+                    toks, steps, dt = serve(eng, reqs)
+                launches = {k: n for k, n in {**da.LAUNCHES, **fa.LAUNCHES,
+                                              **fdm.LAUNCHES}.items() if n}
+                for k in launches:
+                    if k in da.PATH_LAUNCHES:   # the split design
+                        check_paths(label, {k: launches[k]})
+                if launches.get("fused_dequant_matmul"):
+                    check_dequant_path(label, "tensor_core")
+                m = check_shard_gauges(label, eng, mp)
+                peaks = {d: torch.cuda.max_memory_allocated(d)
+                         for d in sorted(set(devices))}
+            res[mp] = {"tokens": list(toks.values()), "launches": launches,
+                       "heads": dict(heads), "dt": dt, "steps": steps,
+                       "metrics": m, "peaks": peaks}
+            log(f"  {label}: {len(reqs)} requests, {n_new} generated, "
+                f"{steps} steps in {dt:.3f} s: generated tokens/s "
+                f"{n_new / dt:.1f}, TTFT p50 {m['ttft_p50_s']:.4f} s; peak "
+                f"memory by device {peaks}; launches {launches}; calls "
+                f"(wrapper, heads) {dict(heads)}")
+        one, two = res[1], res[2]
+        for i, (a, b) in enumerate(zip(two["tokens"], one["tokens"])):
+            if not np.array_equal(a, b):
+                j = int(np.argmax(a != b)) if len(a) == len(b) else min(
+                    len(a), len(b))
+                raise SystemExit(f"[mesh {name}] request {i}: mp=2 tokens "
+                                 f"differ from mp=1's at index {j} "
+                                 f"({a[j:j + 4]} vs {b[j:j + 4]})")
+        i8 = "_i8" if "kv_quant" in kwargs else ""
+        need = {"row": [f"decode_attention_paged{i8}"],
+                "flat": [f"decode_attention_paged_flat{i8}",
+                         f"decode_attention_paged{i8}"],
+                "phase": ["flash_attention_fwd",
+                          f"decode_attention_paged{i8}"]}[sched]
+        need += ["fused_dequant_matmul"] if "weight_quant" in kwargs else []
+        doubled = (set(two["launches"]) == set(one["launches"])
+                   and all(two["launches"][k] == 2 * one["launches"][k]
+                           for k in one["launches"]))
+        shard_heads = {h for (_, h) in two["heads"]}
+        if not all(two["launches"].get(k) for k in need) or not doubled \
+                or shard_heads != {H // 2} \
+                or ("dequant_matmul_nibble_split", 0) in two["heads"]:
+            raise SystemExit(
+                f"[mesh {name}]: mp=2 must launch {need}, each kernel twice "
+                f"as often as mp=1 ({one['launches']}), with {H // 2} heads "
+                f"a call: got {two['launches']}, calls {two['heads']}")
+        log(f"  [mesh {name}] tokens equal; mp=2 / mp=1: generated tokens/s "
+            f"{one['dt'] / two['dt']:.3f}x, TTFT p50 "
+            f"{two['metrics']['ttft_p50_s'] / one['metrics']['ttft_p50_s']:.3f}"
+            f"x; kv_shard_pool_bytes {two['metrics']['kv_shard_pool_bytes']} "
+            f"of {one['metrics']['kv_shard_pool_bytes']}; weight bytes per "
+            f"device {two['metrics']['weight_bytes_per_device']} of "
+            f"{one['metrics']['weight_bytes_per_device']}; {card}")
+        out["mesh-" + name] = two["launches"]
+    return out
+
+
 def phase_parity(seed):
     log("== phase 4: card vs CPU (row) at L=2, full width, fp32 (TF32 "
         "off), per flavor; then GPT-2 training, 3 AdamW steps, without and "
@@ -3000,6 +3224,7 @@ def phase_parity(seed):
             f"{', '.join(scheds)} on the card identical to "
             f"{' / '.join(sorted(set(oracle.values()), reverse=True))} on "
             "the CPU")
+    parity_mesh(state, reqs, cpu_runs, seed)
     parity_lifecycle(state, seed)
     parity_generate(state, rng, seed)
     phase_train_parity(seed)
@@ -3263,6 +3488,63 @@ def parity_fmt(seed, b=2, chunk=16, steps=8, smax=256, n_layers=2):
         f"{tol['atol']}, rtol {tol['rtol']}) ok")
 
 
+def check_mesh_calls(label, heads, launches):
+    """Fail unless the mesh run launched each of ``launches`` (names) and
+    every per-shard wrapper call took H/2 heads, and no int4 matmul took
+    the CPU's arithmetic."""
+    got = {k: n for k, n in {**da.LAUNCHES, **fa.LAUNCHES,
+                              **fdm.LAUNCHES}.items() if n}
+    if not all(got.get(k) for k in launches) \
+            or {h for (_, h) in heads} != {H // 2} \
+            or ("dequant_matmul_nibble_split", 0) in heads:
+        raise SystemExit(f"{label}: must launch {launches} with {H // 2} "
+                         f"heads a call: {got}, calls {dict(heads)}")
+    log(f"  {label}: launches {got}; calls (wrapper, heads) {dict(heads)}")
+
+
+def parity_mesh(state, reqs, cpu_runs, seed):
+    """The engine over an mp=2 serving mesh at L=2, fp32, under each
+    scheduler, fp and kv8-w4: the card's tokens against the CPU's mp=1
+    run of the same flavor (the row run; under an int8 pool the phase
+    scheduler's own), every per-shard call on H/2 heads."""
+    devices = mesh_devices()
+    for fname in ("fp", "kv8-w4"):
+        flavor = {"fp": {}, "kv8-w4": QUANT["kv8-w4"]}[fname]
+        outs = cpu_runs[fname][0]
+        for name in SCHEDULERS:
+            label = f"[mesh {fname}] {name}"
+            i8 = "_i8" if flavor else ""
+            need = [f"decode_attention_paged{i8}"] + (
+                [f"decode_attention_paged_flat{i8}"] if name == "flat"
+                else ["flash_attention_fwd"] if name == "phase" else []) + (
+                ["fused_dequant_matmul"] if flavor else [])
+            t0 = time.perf_counter()
+            with serving_mesh(devices):
+                mods = from_jax_state(*state, device="cuda",
+                                      dtype=torch.float32)
+                eng = ServingEngine(*mods, device="cuda", num_slots=8,
+                                    max_seq_len=1024, **SCHEDULERS[name],
+                                    **flavor)
+                reset_launches()
+                trng.seed(seed)
+                with shard_spies() as heads:
+                    got = list(serve(eng, reqs)[0].values())
+                check_all_per_head(label)
+                check_mesh_calls(label, heads, need)
+            oracle = "phase" if flavor and name == "phase" else "row"
+            for i, (a, b) in enumerate(zip(got, outs["cpu", oracle])):
+                if not np.array_equal(a, b):
+                    j = int(np.argmax(a != b)) if len(a) == len(b) else min(
+                        len(a), len(b))
+                    raise SystemExit(
+                        f"{label}: request {i}: the card's mp=2 tokens differ "
+                        f"from the CPU's ({oracle}, mp=1) at index {j} "
+                        f"({a[j:j + 4]} vs {b[j:j + 4]})")
+            log(f"  {label}: {time.perf_counter() - t0:.2f} s; "
+                f"{sum(len(t) for t in got)} tokens identical to the CPU's "
+                f"{oracle} run at mp=1")
+
+
 def parity_generate(state, rng, seed):
     """generate over the ring: fp and kv_quant="int8", the card's tokens
     with cache_write_kernel off and on against the CPU's (write, then
@@ -3337,6 +3619,31 @@ def parity_generate(state, rng, seed):
         log(f"  [generate {fname}] {want.size} tokens: the card's "
             f"(cache_write_kernel {'off and on' if len(writes) > 1 else 'off'}"
             ") identical to the CPU's")
+        if fname in ("fp", "kv8"):
+            # generate over the mp=2 serving mesh: the ring sharded by
+            # head, the stacked read per shard (the write kernels stay off)
+            label = f"[generate {fname}] mp=2"
+            with serving_mesh(mesh_devices()):
+                mods = from_jax_state(*f_state, device="cuda",
+                                      dtype=torch.float32)
+                reset_launches()
+                trng.seed(seed)
+                with shard_spies() as heads:
+                    got = generate_fused(
+                        mods[0], f_ids, *mods[1:], max_new_tokens=24,
+                        max_seq_len=1024, device="cuda",
+                        **flavor).numpy()[:, 48:]
+                check_all_per_head(label)
+                check_mesh_calls(label, heads, [
+                    "decode_attention_stacked" + ("_i8" if flavor else "")])
+            if not np.array_equal(got, want):
+                i = int(np.argmax((got != want).any(axis=1)))
+                j = int(np.argmax(got[i] != want[i]))
+                raise SystemExit(
+                    f"{label} row {i}: the card's mp=2 tokens differ from "
+                    f"the CPU's at index {j} ({got[i, j:j + 4]} vs "
+                    f"{want[i, j:j + 4]})")
+            log(f"  {label}: {want.size} tokens identical to the CPU's")
 
 
 def time_ms(fn, reps):
@@ -4216,6 +4523,7 @@ def main(argv=None):
     launches["fmt"] = phase_fmt(args.seed)
     launches["train-llama"] = phase_train_llama(args.seed)
     launches["ring"] = phase_ring(args.seed)
+    launches.update(phase_mesh(args.seed))
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 

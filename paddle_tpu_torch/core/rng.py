@@ -24,14 +24,24 @@ last word (the one ``inference.generation._host_seed`` reads) under
 either implementation.
 The global key lives on the CPU; the draws run on the device of the
 logits.
+
+The model-parallel streams are JAX's (Fleet's ``RNGStatesTracker``):
+``get_rng_state`` / ``set_rng_state`` read and replace the global key,
+the tracker keeps named keys that ``rng_state(name)`` swaps in for the
+draws of a block, and ``model_parallel_random_seed`` seeds the global
+stream and the ``model_parallel_rng`` stream (seed + 1024 + the model-
+parallel rank, which is 0 for the serving mesh's single controller).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["seed", "get_seed", "next_key"]
+__all__ = ["seed", "get_seed", "next_key", "get_rng_state", "set_rng_state",
+           "RNGStatesTracker", "get_rng_state_tracker", "MODEL_PARALLEL_RNG",
+           "model_parallel_random_seed"]
 
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -193,3 +203,80 @@ def next_key():
     k1, k2 = split(_rng.ensure())
     _rng.key = k1
     return k2
+
+
+def get_rng_state():
+    """The global key (int64 [2], its two 32-bit words)."""
+    return _rng.ensure()
+
+
+def set_rng_state(state):
+    """Replace the global key: an int seeds ``PRNGKey(state)``, a key is
+    taken as it is."""
+    _rng.key = prng_key(state) if isinstance(state, int) else state
+
+
+class RNGStatesTracker:
+    """Named key streams (model-parallel dropout determinism): ``add``
+    registers a stream under its own seed, ``rng_state(name)`` makes the
+    global stream draw from it for a block and keeps where it got to."""
+
+    def __init__(self):
+        self.states_ = {}
+        self.seeds_ = set()
+
+    def reset(self):
+        self.states_.clear()
+        self.seeds_.clear()
+
+    def add(self, name, seed_):
+        if seed_ in self.seeds_:
+            raise ValueError(f"seed {seed_} already exists")
+        if name in self.states_:
+            raise ValueError(f"state {name} already exists")
+        self.seeds_.add(seed_)
+        self.states_[name] = prng_key(seed_)
+
+    def get_states_tracker(self):
+        return dict(self.states_)
+
+    def set_states_tracker(self, states):
+        self.states_ = dict(states)
+
+    @contextlib.contextmanager
+    def rng_state(self, name="model_parallel_rng"):
+        if name not in self.states_:
+            raise ValueError(f"state {name} does not exist")
+        orig = _rng.ensure()
+        _rng.key = self.states_[name]
+        try:
+            yield
+        finally:
+            self.states_[name] = _rng.key
+            _rng.key = orig
+
+
+_RNG_TRACKER = RNGStatesTracker()
+
+
+def get_rng_state_tracker():
+    return _RNG_TRACKER
+
+
+MODEL_PARALLEL_RNG = "model_parallel_rng"
+
+
+def model_parallel_random_seed(seed_=100):
+    """Seed the global stream (and Python's ``random``) with ``seed_`` and
+    register the model-parallel stream at seed_ + 1024 + the model-
+    parallel rank (0 without a hybrid group, and for the serving mesh's
+    controller)."""
+    import random as _pyrandom
+    from ..distributed.fleet.base.topology import _HYBRID_GROUP
+    local_seed = seed_ + 1024
+    if _HYBRID_GROUP[0] is not None:
+        local_seed += _HYBRID_GROUP[0].get_model_parallel_rank()
+    _RNG_TRACKER.reset()
+    seed(seed_)
+    _pyrandom.seed(seed_)
+    _RNG_TRACKER.add(MODEL_PARALLEL_RNG, local_seed)

@@ -3,15 +3,20 @@
 Counterpart of ``paddle_tpu/distributed/fleet/base/topology.py``:
 ``CommunicateTopology`` maps ranks to (data, pipe, sharding, sep, model)
 coordinates (pure host code, copied), and ``HybridCommunicateGroup``
-builds the mesh, a ``DeviceMesh`` from ``init_device_mesh`` with the JAX
-mesh's axes in its order, ("pp", "dp", "sharding", "sep", "mp"), and one
-process group per axis. The port runs data and sep (context) parallelism;
-a pipeline, sharding or model degree above 1 raises until ROADMAP Queue 1
-items 8 and 10(e) port them.
+builds the mesh. A data / sep topology gets a ``DeviceMesh`` from
+``init_device_mesh`` with the JAX mesh's axes in its order, ("pp", "dp",
+"sharding", "sep", "mp"), and one process group per axis. A model degree
+above 1 with every other degree 1 gets the single-controller serving
+mesh (``parallel.serving_mesh.ServingMesh``), as JAX's ``fleet.init``
+builds one process's mesh over its devices: this process is rank 0 of
+the ``mp`` shards. A pipeline or sharding degree above 1, and a model
+degree combined with another degree or spread over processes, raise
+until ROADMAP Queue 1 item 10(e) ports fleet's model-parallel layers.
 """
 from __future__ import annotations
 
 import itertools
+import os
 
 import numpy as np
 import torch.distributed as dist
@@ -80,15 +85,18 @@ _AXIS_MAP = {"data": "dp", "pipe": "pp", "sharding": "sharding",
 # the mesh's axes, outer to inner (the JAX mesh's order)
 _MESH_AXES = ("pp", "dp", "sharding", "sep", "mp")
 # axes the port does not run yet -> their ROADMAP Queue 1 item
-_NOT_PORTED = {"pp": "10(e)", "sharding": "10(e)", "mp": "8"}
+_NOT_PORTED = {"pp": "10(e)", "sharding": "10(e)"}
 
 
 class HybridCommunicateGroup:
     """The hybrid mesh over the default process group's ranks, on
-    ``device_type`` ("cuda" or "cpu"); becomes the active group."""
+    ``device_type`` ("cuda" or "cpu"); becomes the active group. Under a
+    model degree above 1 (every other degree 1, one process) it is the
+    serving mesh over ``devices`` (default: the first ``mp`` visible
+    devices of ``device_type``)."""
 
     def __init__(self, topology: CommunicateTopology, *,
-                 device_type="cuda"):
+                 device_type="cuda", devices=None):
         self.nranks = topology.world_size()
         names = topology.get_hybrid_group_names()
         degrees = {axis: topology.get_dim(name) if name in names else 1
@@ -98,17 +106,41 @@ class HybridCommunicateGroup:
                 raise NotImplementedError(
                     f"fleet: {axis}_degree {degrees[axis]} is not ported "
                     f"yet (ROADMAP Queue 1 item {item}); the port runs "
-                    "dp and sep")
-        world = dist.get_world_size()
+                    "dp, sep, and mp alone for serving")
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        self._dp_degree = degrees["dp"]
+        self._sep_degree = degrees["sep"]
+        self._mp_degree = degrees["mp"]
+        if self._mp_degree > 1:
+            if self.nranks != self._mp_degree or world != 1:
+                raise NotImplementedError(
+                    f"fleet: mp_degree {self._mp_degree} with the degrees "
+                    f"{degrees} over {world} processes is not ported yet "
+                    "(ROADMAP Queue 1 item 10(e), fleet's model-parallel "
+                    "layers); the port's model degree is one controller "
+                    "over the serving mesh, with every other degree 1")
+            from ....parallel.serving_mesh import ControllerGroup, ServingMesh
+            if devices is None:
+                devices = [f"{device_type}:{i}" if device_type == "cuda"
+                           else device_type
+                           for i in range(self._mp_degree)]
+            if len(devices) != self._mp_degree:
+                raise ValueError(
+                    f"fleet: mp_degree {self._mp_degree} needs as many "
+                    f"devices, got {len(devices)}")
+            self._mesh = ServingMesh(devices)
+            self._mp_group = ControllerGroup(self._mesh)
+            _HYBRID_GROUP[0] = self
+            return
         if world != self.nranks:
             raise ValueError(
                 f"fleet: the hybrid degrees {degrees} need {self.nranks} "
                 f"processes, the process group has {world}")
-        self._dp_degree = degrees["dp"]
-        self._sep_degree = degrees["sep"]
         self._mesh = init_device_mesh(
             device_type, tuple(degrees[a] for a in _MESH_AXES),
             mesh_dim_names=_MESH_AXES)
+        self._mp_group = None
         _HYBRID_GROUP[0] = self
 
     @property
@@ -117,6 +149,8 @@ class HybridCommunicateGroup:
 
     # data parallel
     def get_data_parallel_rank(self):
+        if self._mp_group is not None:
+            return 0
         return self._mesh.get_local_rank("dp")
 
     def get_data_parallel_world_size(self):
@@ -125,8 +159,20 @@ class HybridCommunicateGroup:
     def get_data_parallel_group(self):
         return self._mesh.get_group("dp")
 
+    # model (tensor) parallel: the controller's view of the serving mesh
+    def get_model_parallel_rank(self):
+        return 0
+
+    def get_model_parallel_world_size(self):
+        return self._mp_degree
+
+    def get_model_parallel_group(self):
+        return self._mp_group
+
     # sep (sequence / context parallel)
     def get_sep_parallel_rank(self):
+        if self._mp_group is not None:
+            return 0
         return self._mesh.get_local_rank("sep")
 
     def get_sep_parallel_world_size(self):

@@ -55,7 +55,8 @@ _FFN_ATTRS = ("linear1_weight_attr", "linear1_bias_attr",
 class FusedFeedForward(nn.Module):
     """The JAX layer's parameters in its order and with its defaults. A
     ``*_attr`` other than None is not ported yet (ROADMAP Queue 1 item
-    10(e)), nor is a model-parallel ``nranks`` / ``ring_id`` (item 8);
+    10(e)), nor is a model-parallel ``nranks`` / ``ring_id`` (10(e), fleet's
+    model-parallel layers);
     ``name`` is taken and, as there, unused. ``dtype``, ``device`` and
     ``seed`` are the port's own, keyword-only."""
 
@@ -81,8 +82,8 @@ class FusedFeedForward(nn.Module):
         if nranks != 1 or ring_id != -1:
             raise NotImplementedError(
                 f"FusedFeedForward: nranks={nranks}, ring_id={ring_id}: "
-                "tensor parallelism is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+                "training's tensor parallelism is not ported yet (ROADMAP "
+                "Queue 1 item 10(e), fleet's model-parallel layers)")
         dev = resolve_device(device)
         self.generator = torch.Generator()
         self.generator.manual_seed(seed)

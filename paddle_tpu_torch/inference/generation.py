@@ -63,6 +63,8 @@ head stays fp unless ``head_quant="int8"``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -73,9 +75,10 @@ from ..ops import decode_attention as _attn
 from ..ops import flash_attention as _fa
 from ..nn.layer.common import Linear
 from ..ops import fused_dequant_matmul as _fdm
+from ..parallel.serving_mesh import ShardedTensor, all_reduce
 
 __all__ = ["FusedDecoder", "generate_fused", "dispatch_kind",
-           "DISPATCH_KINDS"]
+           "DISPATCH_KINDS", "STACKED_PARAM_SPECS"]
 
 NEG_INF = -1e30
 
@@ -99,6 +102,89 @@ def dispatch_kind(jit_key):
     names the dispatch family; shape parameters follow). Unknown
     families pass through as their own name."""
     return DISPATCH_KINDS.get(jit_key[0], str(jit_key[0]))
+
+
+# ---- stacked-weight sharding table (tensor parallel over 'mp') --------
+# JAX's table, keyed alike: per key, the mesh axis of each leading array
+# axis ("mp" or None; missing trailing axes are None, so one entry covers
+# the fp and the quantized ranks; () is replicated). Column-parallel
+# qkv_w / qkv_b and f1_w / f1_b shard their output axis (qkv fused
+# head-major, so its shard is a head shard), with the int8 / int4 scales
+# of those outputs; row-parallel lin_w and f2_w shard the contracted axis
+# (int4: the packed one, in whole bytes), their partial products summed
+# across the shards before the replicated scale and bias apply; the LN
+# parameters are replicated. Placement raises on a key without an entry.
+STACKED_PARAM_SPECS = {
+    "ln_s": (), "ln_b": (), "fln_s": (), "fln_b": (),
+    "qkv_w": (None, "mp"),            # [L, nh*3*hd, E] fused col
+    "qkv_b": (None, "mp"),            # [L, nh*3*hd]
+    "qkv_w_s": (None, None, "mp"),    # [L, 1, nh*3*hd]
+    "lin_w": (None, "mp"),            # [L, nh*hd, E] row shard
+    "lin_b": (),                      # applies after the reduce
+    "lin_w_s": (),                    # per-out-channel of the sum
+    "f1_w": (None, None, "mp"),       # [L, E, FF] col
+    "f1_b": (None, "mp"),             # [L, FF]
+    "f1_w_s": (None, None, "mp"),     # [L, 1, FF]
+    "f2_w": (None, "mp"),             # [L, FF, E] row shard
+    "f2_b": (),
+    "f2_w_s": (),
+}
+
+
+def _place(t, spec, mesh):
+    """``t`` laid out on ``mesh`` per ``spec``: split on its "mp" axis,
+    or replicated on every shard's device (an empty spec)."""
+    if "mp" in spec:
+        return ShardedTensor.split(t, spec.index("mp"), mesh.devices)
+    return ShardedTensor.replicate(t, mesh.devices)
+
+
+def _to(obj, device):
+    """Tensors in ``obj`` (a tensor, or nested tuples and lists of them,
+    ints and None) on ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to(o, device) for o in obj)
+    return obj
+
+
+def _on(device):
+    """The context a shard's launches run in: its card made current (a
+    kernel goes to a stream of the current card), nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _shards(t):
+    """The local tensors of a tensor: a ShardedTensor's shards, or the
+    tensor alone."""
+    return t.shards if isinstance(t, ShardedTensor) else [t]
+
+
+class _MeshPass:
+    """One hidden pass's view of the mesh: its shards' devices, shard i's
+    caches (its part of the pool or the ring, and the block tables on its
+    device; none for a bulk pass), and the pass's tensors on each shard's
+    device, moved once a pass (``on``)."""
+
+    def __init__(self, devices, caches=None):
+        self.devices = list(devices)
+        self._memo = {}
+        self.caches = []
+        for i, d in enumerate(self.devices if caches else ()):
+            ci = {k: caches[k].shards[i] for k in ("kv", "sc")
+                  if k in caches}
+            if "tbl" in caches:
+                ci["tbl"] = self.on(d, caches["tbl"])
+            self.caches.append(ci)
+
+    def on(self, device, obj):
+        key = (id(obj), device)
+        if key not in self._memo:
+            self._memo[key] = (obj, _to(obj, device))
+        return self._memo[key][1]
 
 
 def _absmax_int8(w, axis, qmax=127):
@@ -314,13 +400,28 @@ class FusedDecoder:
     (``PADDLE_TPU_DECODE_INT8_HEAD=1``): a Linear LM head runs on int8
     weights with per-vocab-column fp32 scales; ``bulk_prefill=True``
     (``PADDLE_TPU_BULK_PREFILL=1``): ``generate`` prefills the whole
-    prompt in one causal flash pass. The arguments before them are JAX's,
-    in JAX's order."""
+    prompt in one causal flash pass; ``mesh_weights=False``
+    (``PADDLE_SERVING_MESH_WEIGHTS=0``): under a serving mesh the stacked
+    weights and a Linear head stay replicated (the KV cache still shards
+    by head). The arguments before them are JAX's, in JAX's order.
+
+    Under an active serving mesh (``parallel.init_serving_mesh``, mp of 2
+    or more) the decoder runs tensor parallel, as JAX's does under its
+    ``mp`` mesh: the KV pool and the ring shard their head axis
+    (``init_paged_cache``, ``init_cache``), the stacked weights are placed
+    per ``STACKED_PARAM_SPECS`` and a Linear head shards its vocab axis
+    (``_weight_shard_mesh``; the logits are gathered before the sampler),
+    and every layer runs per shard: qkv on the shard's heads, the K/V
+    written into its cache, its attention kernel on H/mp heads, the
+    partial out-projection, then ``all_reduce``, and likewise the FFN
+    (f1 on the shard's columns, the partial f2, the reduce). The fused
+    write kernels stay off, and ``generate`` ignores ``prefix_cache`` and
+    ``bulk_prefill``, as JAX's does under a mesh."""
 
     def __init__(self, fmt, embed, head, max_seq_len, use_rotary=False,
                  rope_base=10000.0, weight_quant=None, kv_quant=None, *,
                  cache_write_kernel=False, head_quant=None,
-                 bulk_prefill=False, device=None):
+                 bulk_prefill=False, mesh_weights=True, device=None):
         if use_rotary and float(rope_base) != 10000.0:
             raise NotImplementedError(
                 "FusedDecoder prefill uses the fused stack's default rotary "
@@ -358,8 +459,10 @@ class FusedDecoder:
         self.head_quant = head_quant == "int8"
         self.cache_write_kernel = bool(cache_write_kernel)
         self.bulk_prefill = bool(bulk_prefill)
+        self.mesh_weights = bool(mesh_weights)
         self._stk_cache = None
         self._head_cache = None
+        self._head_placed = None
         if self._weight_quant_mode() == "int4":
             self._validate_int4_dims()
 
@@ -392,17 +495,60 @@ class FusedDecoder:
                 f"(embed_dim={e}, num_heads*head_dim={heads}, "
                 f"ffn_dim={ff})")
 
+    def _mesh_mp(self):
+        """The active serving mesh when its mp degree is 2 or more, else
+        None."""
+        from ..parallel import current_mesh
+        from ..parallel.serving_mesh import ServingMesh
+        mesh = current_mesh()
+        if isinstance(mesh, ServingMesh) and mesh.shape["mp"] >= 2:
+            return mesh
+        return None
+
+    def _weight_shard_mesh(self):
+        """The mesh the stacked weights (and a Linear LM head) shard over,
+        or None (replicated): the active mp mesh unless ``mesh_weights``
+        is off or the head / FFN axes (under int4 also the packed halves
+        of the row-parallel contracted axes) do not divide mp. The engine
+        warns of that downgrade; init_serving_mesh rejects it up front
+        when given the model's dims."""
+        mesh = self._mesh_mp()
+        if mesh is None or not self.mesh_weights:
+            return None
+        mp = mesh.shape["mp"]
+        f = self.fmt
+        ff = int(f.ffn1_weights[0].shape[-1])
+        if f.num_heads % mp or ff % mp:
+            return None
+        if self._weight_quant_mode() == "int4" and (
+                (f.num_heads * f.head_dim // 2) % mp or (ff // 2) % mp):
+            return None
+        return mesh
+
+    def _kv_shard_mesh(self):
+        """The mesh the KV cache shards its head axis over: the active mp
+        mesh when it divides num_heads, else None."""
+        mesh = self._mesh_mp()
+        if mesh is None or self.fmt.num_heads % mesh.shape["mp"]:
+            return None
+        return mesh
+
     def _stacked(self):
         """Per-layer weights stacked on a leading [L] axis, with qkv fused
         HEAD-MAJOR: [3, nh, hd, E] per layer becomes [L, nh*3*hd, E] (bias
         [L, nh*3*hd]), which ``qkv_of`` unfuses with a (nh, 3, hd)
         reshape. Under weight_quant the four matrices become int8 (int4:
         packed along the contracted axis) with fp32 scales ``*_w_s`` [L,
-        1, O]; the biases and LN parameters stay fp. Cached until a
-        parameter is replaced or edited, or the mode changes."""
+        1, O]; the biases and LN parameters stay fp. Under a weight-shard
+        mesh every array is a ``ShardedTensor`` placed per
+        ``STACKED_PARAM_SPECS`` (an unknown key raises; a spec whose axis
+        does not divide mp replicates that key). Cached until a parameter
+        is replaced or edited, or the mode or the placement changes."""
         f = self.fmt
         mode = self._weight_quant_mode()
-        sig = (mode, tuple((id(p), p._version) for p in f.parameters()))
+        mesh = self._weight_shard_mesh()
+        sig = (mode, mesh,
+               tuple((id(p), p._version) for p in f.parameters()))
         if self._stk_cache is not None and self._stk_cache[0] == sig:
             return self._stk_cache[1]
         self._stk_cache = None
@@ -439,6 +585,19 @@ class FusedDecoder:
                     qs.append(_pack_int4(q, axis) if mode == "int4" else q)
                     ss.append(sc.T if axis else sc)
                 out[k], out[k + "_s"] = torch.stack(qs), torch.stack(ss)
+        if mesh is not None:
+            from ..parallel import _valid_spec
+            for k in out:
+                spec = STACKED_PARAM_SPECS.get(k)
+                if spec is None:
+                    raise ValueError(
+                        f"stacked param {k!r} has no entry in "
+                        "STACKED_PARAM_SPECS — every stacked key needs "
+                        "an explicit spec (sharded or the replicated "
+                        "()); see tools/check_sharding_spec.py")
+                if not _valid_spec(out[k], spec, mesh):
+                    spec = ()                   # indivisible: replicate
+                out[k] = _place(out[k], spec, mesh)
         self._stk_cache = (sig, out)
         return out
 
@@ -446,17 +605,27 @@ class FusedDecoder:
         """The dense ring [L, 2, batch, H, Smax, D] in the weights' dtype
         (or ``dtype``), zeroed; under kv_quant="int8" the pair (int8 ring,
         fp32 scales [L, 2, batch, H, 1, Smax]), positions on the scales'
-        last axis. ``ring_caches`` turns either into the step pieces'
-        dict."""
+        last axis. Under a mesh that divides the heads both are
+        ``ShardedTensor`` split on the head axis (JAX's ``shard_caches``).
+        ``ring_caches`` turns either into the step pieces' dict."""
         f = self.fmt
         dtype = dtype or f.qkv_weights[0].dtype
         shape = (f.num_layers, 2, int(batch), f.num_heads, self.smax,
                  f.head_dim)
+        zeros = self._cache_zeros(self._kv_shard_mesh())
         if self._int8_cache():
-            return (torch.zeros(shape, dtype=torch.int8, device=self.device),
-                    torch.zeros(shape[:4] + (1, self.smax),
-                                dtype=torch.float32, device=self.device))
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+            return (zeros(shape, torch.int8),
+                    zeros(shape[:4] + (1, self.smax), torch.float32))
+        return zeros(shape, dtype)
+
+    def _cache_zeros(self, mesh):
+        """zeros(shape, dtype) of a cache: on the decoder's device, or
+        split on the head axis (3) over ``mesh``."""
+        if mesh is None:
+            return lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                 device=self.device)
+        return lambda shape, dt: ShardedTensor.zeros(shape, 3, dt,
+                                                     mesh.devices)
 
     @staticmethod
     def ring_caches(cache):
@@ -471,7 +640,11 @@ class FusedDecoder:
         """The one KV pool {"kv": [L, 2, NB, H, Bt, D]} for a BlockPool;
         under kv_quant="int8" "kv" is int8 and "sc" [L, 2, NB, H, 1, Bt]
         holds its fp32 scales, block for block. The engine adds this
-        dispatch's block tables as "tbl"."""
+        dispatch's block tables as "tbl". Under an active mp mesh the pool
+        is laid out head-sharded: "kv" and "sc" are ``ShardedTensor`` split
+        on axis 3, each shard [L, 2, NB, H/mp, Bt, D] (and [L, 2, NB, H/mp,
+        1, Bt]) on its device; the allocator and the tables stay host
+        data."""
         f = self.fmt
         if pool.smax != self.smax:
             raise ValueError(
@@ -480,13 +653,19 @@ class FusedDecoder:
         dtype = dtype or f.qkv_weights[0].dtype
         shape = (f.num_layers, 2, pool.num_blocks, f.num_heads,
                  pool.block_tokens, f.head_dim)
+        mesh = self._mesh_mp()
+        if mesh is not None and f.num_heads % mesh.shape["mp"]:
+            raise ValueError(
+                f"paged KV pool cannot shard: num_heads="
+                f"{f.num_heads} is not divisible by the mesh's mp "
+                f"degree {mesh.shape['mp']} — the pool shards by head on "
+                "the 'mp' axis")
+        zeros = self._cache_zeros(mesh)
         if self._int8_cache():
-            return {"kv": torch.zeros(shape, dtype=torch.int8,
-                                      device=self.device),
-                    "sc": torch.zeros(shape[:4] + (1, pool.block_tokens),
-                                      dtype=torch.float32,
-                                      device=self.device)}
-        return {"kv": torch.zeros(shape, dtype=dtype, device=self.device)}
+            return {"kv": zeros(shape, torch.int8),
+                    "sc": zeros(shape[:4] + (1, pool.block_tokens),
+                                torch.float32)}
+        return {"kv": zeros(shape, dtype)}
 
     # ---------------------------------------------------- step pieces
     def ln(self, x, s, b):
@@ -513,14 +692,147 @@ class FusedDecoder:
                                              out_dtype=a.dtype)
         return (a @ w.to(a.dtype)) * s.to(a.dtype)
 
-    def qkv_of(self, h, p):
+    def qkv_of(self, h, p, mm=None):
         # [B, T, E] -> q, k, v [B, T, nh, hd] from the head-major fused qkv
-        f = self.fmt
-        qkv = self.mm_p(h, p["qkv_w"].T, p.get("qkv_w_s")) \
+        # (a shard's slice of it gives its nh/mp heads)
+        qkv = (mm or self.mm_p)(h, p["qkv_w"].T, p.get("qkv_w_s")) \
             + p["qkv_b"].to(h.dtype)
-        qkv = qkv.reshape(h.shape[0], h.shape[1], f.num_heads, 3,
-                          f.head_dim)
+        qkv = qkv.reshape(h.shape[0], h.shape[1], -1, 3, self.fmt.head_dim)
         return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+    # ----------------------------------------------------- under the mesh
+    @staticmethod
+    def _mesh_mm(a, w, s=None, scale=True):
+        """``mm_p`` under the mesh, as JAX's under its mesh: an int4 weight
+        (packed: its contracted axis half the activation's) goes through
+        the fused dequant-matmul kernel on the card and, on the CPU, the
+        nibble split JAX runs there (two half-K dots in a's dtype, then the
+        scale in a's dtype). ``scale=False`` leaves the scale of an int8
+        or a CPU int4 partial to the caller, who applies it after the
+        reduce (a row-parallel weight's scale is replicated). Returns
+        (out, scaled)."""
+        if s is not None and 2 * w.shape[0] == a.shape[-1]:
+            if w.is_cuda:
+                return _fdm.fused_dequant_matmul(
+                    a, w, s.reshape(1, -1), out_dtype=a.dtype), True
+            out = _fdm.dequant_matmul_nibble_split(a, w)
+        elif s is not None:
+            out = a @ w.to(a.dtype)
+        else:
+            return a @ w, True
+        if not scale:
+            return out, False
+        return out * s.to(a.dtype), True
+
+    def _mesh_row(self, parts, p, name):
+        """The row-parallel reduce of ``name`` ("lin" or "f2"): the
+        shards' partials (out, scaled) summed in shard order, then the
+        replicated scale (where the partials did not take it) and bias."""
+        out = all_reduce([o for o, _ in parts])
+        s = p.get(name + "_w_s")
+        if s is not None and not parts[0][1]:
+            out = out * s.to(out.dtype)
+        return out + p[name + "_b"].to(out.dtype)
+
+    def _mesh_layers(self, stk, n):
+        """The stack's per-layer weights under the mesh: per layer, a list
+        of n per-shard dicts when the weights shard (each shard's local
+        tensors), else one dict of the replicated weights."""
+        if not isinstance(next(iter(stk.values())), ShardedTensor):
+            return self._layers(stk)
+        return [[{k: v.shards[i][l] for k, v in stk.items()}
+                 for i in range(n)] for l in range(self.fmt.num_layers)]
+
+    def _mesh_layer(self, x, p, l, mp, rope, attn_of):
+        """One layer under the mesh (``_MeshPass`` mp). p: the layer's
+        per-shard weights (a list) or its replicated weights (a dict: qkv
+        and the FFN run whole and the heads split for the caches). LN and
+        the residuals run on x's device; shard i computes its q, k, v on
+        its H/mp heads and ``attn_of(l, i, q, k, v)`` (rotated by ``rope``)
+        writes its K/V into its cache and returns its attention [B, T,
+        H/mp, D]; its partial out-projection and FFN partial meet in
+        ``all_reduce``."""
+        f = self.fmt
+        pre_ln = f.normalize_before
+        sharded = isinstance(p, list)
+        p0 = p[0] if sharded else p
+        mm = self._mesh_mm
+        residual = x
+        h = self.ln(x, p0["ln_s"], p0["ln_b"]) if pre_ln else x
+        b, tl = h.shape[:2]
+        devs = mp.devices
+        if sharded:
+            parts = []
+            for i, d in enumerate(devs):
+                with _on(d):
+                    q, k, v = self.qkv_of(h.to(d), p[i],
+                                          lambda *a: mm(*a)[0])
+                    if rope is not None:
+                        rp = mp.on(d, rope)
+                        q, k = self.rope(q, rp), self.rope(k, rp)
+                    a = attn_of(l, i, q, k, v).reshape(b, tl, -1)
+                    parts.append(mm(a, p[i]["lin_w"], p[i].get("lin_w_s"),
+                                    scale=False))
+            attn = self._mesh_row(parts, p0, "lin")
+        else:
+            q, k, v = self.qkv_of(h, p, lambda *a: mm(*a)[0])
+            if rope is not None:
+                q, k = self.rope(q, rope), self.rope(k, rope)
+            hs = q.shape[2] // len(devs)
+            outs = []
+            for i, d in enumerate(devs):
+                with _on(d):
+                    outs.append(attn_of(l, i, *(
+                        t[:, :, i * hs:(i + 1) * hs].to(d)
+                        for t in (q, k, v))).to(h.device))
+            a = torch.cat(outs, 2).reshape(b, tl, -1)
+            attn = mm(a, p["lin_w"], p.get("lin_w_s"))[0] \
+                + p["lin_b"].to(a.dtype)
+        x = residual + attn
+        if not pre_ln:
+            x = self.ln(x, p0["ln_s"], p0["ln_b"])
+        residual = x
+        h = self.ln(x, p0["fln_s"], p0["fln_b"]) if pre_ln else x
+        if sharded:
+            parts = []
+            for i, d in enumerate(devs):
+                with _on(d):
+                    hi = h.to(d)
+                    g = mm(hi, p[i]["f1_w"], p[i].get("f1_w_s"))[0] \
+                        + p[i]["f1_b"].to(hi.dtype)
+                    parts.append(mm(self.act(g), p[i]["f2_w"],
+                                    p[i].get("f2_w_s"), scale=False))
+            h = self._mesh_row(parts, p0, "f2")
+        else:
+            h = mm(h, p["f1_w"], p.get("f1_w_s"))[0] + p["f1_b"].to(h.dtype)
+            h = self.act(h)
+            h = mm(h, p["f2_w"], p.get("f2_w_s"))[0] + p["f2_b"].to(h.dtype)
+        x = residual + h
+        if not pre_ln:
+            x = self.ln(x, p0["fln_s"], p0["fln_b"])
+        return x
+
+    def _mesh_pass(self, stk, mp, x, rope, attn_of):
+        """Every layer of one hidden pass under the mesh (``_MeshPass``
+        mp); attn_of(mp, l, i, q, k, v) is shard i's write and
+        attention."""
+        layers = self._mesh_layers(stk, len(mp.devices))
+        for l, p in enumerate(layers):
+            x = self._mesh_layer(
+                x, p, l, mp, rope,
+                lambda l_, i, q, k, v: attn_of(mp, l_, i, q, k, v))
+        return x
+
+    def _rows_attn(self, targets, t):
+        """attn_of of a row pass (``hidden``, ``spec_hidden``): shard i's
+        K/V written at ``targets``, then its attention at base positions
+        t, over its own cache."""
+        def attn_of(mp, l, i, q, k, v):
+            d, ci = mp.devices[i], mp.caches[i]
+            kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
+            self.kv_write(ci, l, mp.on(d, targets), kv_new)
+            return self.attend(q, ci, l, mp.on(d, t))
+        return attn_of
 
     def proj_ffn_tail(self, residual, attn_flat, p):
         # out-projection + residual + FFN, pre- or post-LN
@@ -716,8 +1028,8 @@ class FusedDecoder:
         rows). A masked write never takes the fused write kernels, as in
         JAX."""
         x = self.embed(tok[:, None])
-        if write_mask is None and self._fused_write(caches, x.shape[0],
-                                                    x.dtype):
+        if write_mask is None and not isinstance(caches["kv"], ShardedTensor) \
+                and self._fused_write(caches, x.shape[0], x.dtype):
             targets = "fused"
         elif write_mask is None:
             targets = self.write_targets(caches, t)
@@ -727,6 +1039,10 @@ class FusedDecoder:
                 write_mask, tv, torch.full_like(tv, self.smax)))
         t = self._lens_arg(t, x.shape[0], x.device)
         rope = self.rope_tables(t[:, None], x.dtype)
+        if isinstance(caches["kv"], ShardedTensor):
+            return self._mesh_pass(stk, _MeshPass(caches["kv"].devices,
+                                                  caches),
+                                   x, rope, self._rows_attn(targets, t))
         for l, p in enumerate(self._layers(stk)):
             x = self.layer_step(x, p, caches, l, t, targets, rope)
         return x
@@ -740,6 +1056,10 @@ class FusedDecoder:
         x = self.embed(toks)
         targets = self.write_targets(caches, tv)
         rope = self.rope_tables(lens[:, None] + offs, x.dtype)
+        if isinstance(caches["kv"], ShardedTensor):
+            return self._mesh_pass(stk, _MeshPass(caches["kv"].devices,
+                                                  caches),
+                                   x, rope, self._rows_attn(targets, lens))
         for l, p in enumerate(self._layers(stk)):
             x = self.layer_step(x, p, caches, l, lens, targets, rope)
         return x
@@ -793,21 +1113,28 @@ class FusedDecoder:
         decode_attention_paged over all b rows; idle rows' outputs are
         discarded by the caller), the rest go through the flat kernel."""
         f = self.fmt
-        nh, hd = f.num_heads, f.head_dim
         residual = x
         h = self.ln(x, p["ln_s"], p["ln_b"]) if f.normalize_before else x
-        t_all = h.shape[1]
         q, k, v = self.qkv_of(h, p)                   # [1, T, H, D]
         if rope is not None:
             q, k = self.rope(q, rope), self.rope(k, rope)
+        attn = self._flat_attn(caches, l, targets, tpos, cmeta, b, q, k, v)
+        return self.proj_ffn_tail(residual, attn.reshape(1, h.shape[1], -1),
+                                  p)
+
+    def _flat_attn(self, caches, l, targets, tpos, cmeta, b, q, k, v):
+        """The stream's K/V landed at (slot, pos), then attention by
+        region over ``caches`` (one shard's under the mesh) -> [1, T, H,
+        D]."""
+        t_all = q.shape[1]
         kv_new = torch.stack([k.transpose(1, 2), v.transpose(1, 2)])
         self.flat_write(caches, l, targets, kv_new)
         ad = self.attend(q[0, :b][:, None], caches, l, tpos[:b])
-        parts = [ad.reshape(1, b, nh * hd)]
+        parts = [ad.reshape(1, b, *q.shape[2:])]
         if t_all > b:
             a_s = self.flat_attend_seg(q[0, b:], caches, l, cmeta, b)
-            parts.append(a_s.reshape(1, t_all - b, nh * hd))
-        return self.proj_ffn_tail(residual, torch.cat(parts, 1), p)
+            parts.append(a_s.reshape(1, t_all - b, *q.shape[2:]))
+        return torch.cat(parts, 1)
 
     def flat_hidden(self, stk, caches, toks, tslot, tpos, cmeta, b):
         """toks/tslot/tpos [T], the flat stream (decode region [0, b) plus
@@ -816,6 +1143,15 @@ class FusedDecoder:
         x = self.embed(toks[None, :])
         targets = self.flat_targets(caches, tslot, tpos, b)
         rope = self.rope_tables(tpos[None, :], x.dtype)
+        if isinstance(caches["kv"], ShardedTensor):
+            def attn_of(mp, l, i, q, k, v):
+                d = mp.devices[i]
+                return self._flat_attn(
+                    mp.caches[i], l, mp.on(d, targets), mp.on(d, tpos),
+                    mp.on(d, cmeta), b, q, k, v)
+            return self._mesh_pass(
+                stk, _MeshPass(caches["kv"].devices, caches), x, rope,
+                attn_of)
         for l, p in enumerate(self._layers(stk)):
             x = self.flat_layer_step(x, p, caches, l, tpos, targets, cmeta,
                                      b, rope)
@@ -826,11 +1162,29 @@ class FusedDecoder:
         """Whole-prompt prefill: toks [B, S] at positions 0..S-1 through
         the layer stack with causal flash attention. Returns (x [B, S, E],
         kv_all [L, 2, B, H, S, D]); writing kv_all into a cache is the
-        caller's."""
+        caller's. Under a mesh that shards the heads each shard runs the
+        flash kernel on its H/mp heads and kv_all is a ``ShardedTensor``
+        split on the head axis, as the caches are."""
         f = self.fmt
         x = self.embed(toks)
         pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
         rope = self.rope_tables(pos, x.dtype)
+        mesh = self._kv_shard_mesh()
+        if mesh is not None:
+            n = mesh.shape["mp"]
+            kvs = [[] for _ in range(n)]
+
+            def attn_of(mp, l, i, q, k, v):
+                kvs[i].append(torch.stack([k.transpose(1, 2),
+                                           v.transpose(1, 2)]))
+                return _fa.flash_attention(q, k, v, causal=True)
+            x = self._mesh_pass(stk, _MeshPass(mesh.devices), x, rope,
+                                attn_of)
+            b, s = toks.shape
+            kv_all = ShardedTensor(
+                [torch.stack(kv) for kv in kvs],
+                (f.num_layers, 2, b, f.num_heads, s, f.head_dim), 3)
+            return x, kv_all
         kvs = []
         for p in self._layers(stk):
             residual = x
@@ -858,15 +1212,64 @@ class FusedDecoder:
                                       else b.detach()))
         return self._head_cache[1]
 
+    def _head_arrays(self):
+        """JAX's ``_maybe_quant_head``: the arrays a Linear head's step
+        reads, [weight(, bias)] or, under head_quant="int8", [int8 weight,
+        fp32 scales [1, V](, bias)]; under a weight-shard mesh each is a
+        ``ShardedTensor`` split on its vocab (last) axis, or replicated
+        when V does not divide mp. Another kind of head gives its
+        parameters as they are."""
+        params = [p.detach() for p in self.head.parameters()]
+        mesh = self._weight_shard_mesh()
+        if not isinstance(self.head, Linear) or (
+                not self.head_quant and mesh is None):
+            return params
+        out = list(self._head_int8()) if self.head_quant else params
+        out = [a for a in out if a is not None]
+        if mesh is None:
+            return out
+        sig = (self.head_quant, mesh,
+               tuple((id(p), p._version) for p in self.head.parameters()))
+        if self._head_placed is None or self._head_placed[0] != sig:
+            from ..parallel import _valid_spec
+            self._head_placed = None
+            placed = []
+            for a in out:
+                spec = (None,) * (a.dim() - 1) + ("mp",)
+                placed.append(_place(
+                    a, spec if _valid_spec(a, spec, mesh) else (), mesh))
+            self._head_placed = (sig, placed)
+        return self._head_placed[1]
+
     def head_logits(self, x):
         """The LM head. Under head_quant="int8" a Linear head (JAX's
         ``_maybe_quant_head`` takes no other kind) multiplies by its int8
-        weight converted to x's dtype, then the scales; its bias after."""
-        if not self.head_quant or not isinstance(self.head, Linear):
+        weight converted to x's dtype, then the scales; its bias after.
+        Under a weight-shard mesh a Linear head computes each shard's
+        vocab columns on its device and gathers them in vocab order, so
+        the sampler sees the whole [.., V] row."""
+        if not isinstance(self.head, Linear) or (
+                not self.head_quant and self._weight_shard_mesh() is None):
             return self.head(x)
-        w_q, s, b = self._head_int8()
-        out = (x @ w_q.to(x.dtype)) * s.to(x.dtype)
-        return out if b is None else out + b.to(out.dtype)
+        arrs = self._head_arrays()
+        quant = self.head_quant
+
+        def logits(x, arrs):
+            w = arrs[0]
+            if quant:
+                out = (x @ w.to(x.dtype)) * arrs[1].to(x.dtype)
+            else:
+                out = x @ w
+            b = arrs[2 if quant else 1] if len(arrs) > (2 if quant else 1) \
+                else None
+            return out if b is None else out + b.to(out.dtype)
+        if not isinstance(arrs[0], ShardedTensor):
+            return logits(x, arrs)
+        if arrs[0].axis is None:
+            return logits(x, [a.shards[0] for a in arrs])
+        parts = [logits(x.to(d), [a.shards[i] for a in arrs])
+                 for i, d in enumerate(arrs[0].devices)]
+        return torch.cat([o.to(x.device) for o in parts], -1)
 
     # ------------------------------------------------- serving dispatches
     # Each dispatch samples with ``_sample_rows`` (argmax unless
@@ -1105,13 +1508,16 @@ class FusedDecoder:
         b, prompt = toks.shape
         ids = toks.cpu().numpy()
         pos, chains = 0, None
+        mesh = self._mesh_mp()
+        if mesh is not None:
+            pc = None                  # as JAX: no prefix cache under a mesh
         if pc is not None and prompt > 1:
             ms = [pc.lookup(ids[r]) for r in range(b)]
             n = min(len(mt) for mt in ms)
             if n:
                 chains = [mt[:n] for mt in ms]
                 pos = n * pc.block_tokens
-        if self.bulk_prefill and prompt > 1 and not pos:
+        if self.bulk_prefill and mesh is None and prompt > 1 and not pos:
             x_all, kv_all = self.bulk_hidden(stk, toks)
             caches = self.ring_caches(self.init_cache(b))
             if "sc" in caches:
@@ -1403,10 +1809,10 @@ class FusedDecoder:
             src = (torch.arange(b, device=tok.device)[:, None] * kk
                    + beam_idx).reshape(-1)
             for name in caches:        # ring [..., Smax, D], scales [.., Smax]
-                c = caches[name]
                 pos = (slice(None),) * (4 if name == "kv" else 5)
                 tail = pos + (slice(split, None),)
-                c[tail] = c[tail][:, :, src]
+                for c in _shards(caches[name]):
+                    c[tail] = c[tail][:, :, _to(src, c.device)]
             finished = finished.gather(1, beam_idx)
             gen_len = gen_len.gather(1, beam_idx)
             gen_len = torch.where(finished, gen_len, gen_len + 1)
@@ -1428,7 +1834,15 @@ class FusedDecoder:
         ys0 = self._build_beam_init(k, eos, length_penalty)(last_x)
         tok1, _, _, finished, scores, gen_len = ys0
         for name in caches:
-            caches[name] = caches[name].repeat_interleave(k, dim=2)
+            c = caches[name]
+            if isinstance(c, ShardedTensor):
+                shape = list(c.shape)
+                shape[2] *= k
+                caches[name] = ShardedTensor(
+                    [t.repeat_interleave(k, dim=2) for t in c.shards],
+                    shape, c.axis)
+            else:
+                caches[name] = c.repeat_interleave(k, dim=2)
         hist = [ys0]
         tok_flat, t, remaining = tok1.reshape(-1), prompt, max_new_tokens - 1
         cap = 8 if eos is not None else 64
@@ -1489,13 +1903,16 @@ def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                    num_beams=1, length_penalty=1.0, min_length=0,
                    repetition_penalty=1.0, prefix_cache=None, spec_k=0, *,
                    weight_quant=None, kv_quant=None, cache_write_kernel=False,
-                   head_quant=None, bulk_prefill=False, device=None):
+                   head_quant=None, bulk_prefill=False, mesh_weights=True,
+                   device=None):
     """One-shot generation over FusedDecoder: a decoder whose ring holds
     ``max_seq_len`` positions (default prompt + max_new_tokens), then
     ``generate``. The keyword-only options stand for the JAX package's
     environment knobs (PADDLE_TPU_DECODE_INT8_CACHE,
     ..._INT8_WEIGHTS / ..._INT4_WEIGHTS, PADDLE_TPU_KERNEL_CACHE_WRITE,
-    PADDLE_TPU_DECODE_INT8_HEAD, PADDLE_TPU_BULK_PREFILL)."""
+    PADDLE_TPU_DECODE_INT8_HEAD, PADDLE_TPU_BULK_PREFILL,
+    PADDLE_SERVING_MESH_WEIGHTS). Under ``fleet.init(mp_degree=...)`` (or
+    ``parallel.init_serving_mesh``) the decoder runs over the mesh."""
     prompt = np.shape(input_ids.cpu() if torch.is_tensor(input_ids)
                       else input_ids)[1]
     dec = FusedDecoder(fmt, embed, head,
@@ -1504,7 +1921,7 @@ def generate_fused(fmt, input_ids, embed, head, max_new_tokens=20,
                        kv_quant=kv_quant,
                        cache_write_kernel=cache_write_kernel,
                        head_quant=head_quant, bulk_prefill=bulk_prefill,
-                       device=device)
+                       mesh_weights=mesh_weights, device=device)
     return dec.generate(input_ids, max_new_tokens, eos_token_id, do_sample,
                         top_k, top_p, temperature, num_beams=num_beams,
                         length_penalty=length_penalty, min_length=min_length,

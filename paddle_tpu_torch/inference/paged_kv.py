@@ -19,16 +19,30 @@ back, JAX's migration payload ``{"kv"[, "sc"]}`` in JAX's shapes, so a
 block read by either framework writes into the other's pool);
 ``read_blocks`` takes a slot's blocks off the card in one copy (into
 pinned memory) and ``write_blocks`` puts them back without a host copy.
+Over a head-sharded pool (a serving mesh's ``ShardedTensor``) each acts
+on every shard: a copy copies in each, a read gathers the shards' heads
+into JAX's full-head payload, a write scatters them, so a block read
+under one layout writes into a pool of any other.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..parallel.serving_mesh import ShardedTensor
 from .prefix_cache import PrefixNode, PrefixStore, lookup_adoptable
 
 __all__ = ["BlockPool", "PagedPrefixStore", "PagedPrefixCache",
            "flat_gather_view"]
+
+
+def _parts(t):
+    """(local tensor, its head slice) for each shard of a pool tensor:
+    one part covering every head for an unsharded pool."""
+    if not isinstance(t, ShardedTensor):
+        return [(t, slice(None))]
+    h = t.shard_shape()[3]
+    return [(x, slice(i * h, (i + 1) * h)) for i, x in enumerate(t.shards)]
 
 
 def _np_bfloat16():
@@ -142,7 +156,8 @@ class BlockPool:
         the device: the whole cost of a copy-on-write."""
         for k in ("kv", "sc"):
             if k in caches:
-                caches[k][:, :, int(dst)] = caches[k][:, :, int(src)]
+                for t, _ in _parts(caches[k]):
+                    t[:, :, int(dst)] = t[:, :, int(src)]
         return caches
 
     def read_blocks(self, caches, ids):
@@ -152,13 +167,18 @@ class BlockPool:
         of one host array)."""
         if not len(ids):
             return []
-        idx = torch.as_tensor(list(ids), dtype=torch.long,
-                              device=caches["kv"].device)
-        host = {k: _to_host(caches[k].index_select(2, idx).movedim(2, 0)
-                            .contiguous())
+        lead = caches["kv"].device
+
+        def gather(t):
+            # [n, L, 2, H, ...] over every shard's heads, on the lead device
+            return torch.cat(
+                [x.index_select(2, torch.as_tensor(
+                    list(ids), dtype=torch.long, device=x.device))
+                 .movedim(2, 0).to(lead) for x, _ in _parts(t)], 3)
+        host = {k: _to_host(gather(caches[k]).contiguous())
                 for k in ("kv", "sc") if k in caches}
         return [{k: a[i][:, :, None] for k, a in host.items()}
-                for i in range(len(idx))]
+                for i in range(len(ids))]
 
     def read_block(self, caches, src):
         """One pool block to host numpy ``{"kv"[, "sc"]}``, the export
@@ -172,21 +192,22 @@ class BlockPool:
         into the pool."""
         if not len(ids):
             return caches
-        kv = caches["kv"]
-        idx = torch.as_tensor(list(ids), dtype=torch.long, device=kv.device)
         for k in ("kv", "sc"):
             if k in caches:
                 dst = caches[k]
-                want = dst.shape[:2] + (1,) + dst.shape[3:]
+                want = tuple(dst.shape[:2]) + (1,) + tuple(dst.shape[3:])
                 for blk in blocks:
                     if k not in blk or tuple(blk[k].shape) != want:
                         raise ValueError(
                             f"kv block {k!r} of shape "
                             f"{None if k not in blk else blk[k].shape} does "
                             f"not match this pool's {want}")
-                dst.index_copy_(2, idx, torch.cat(
-                    [_from_host(blk[k], dst.dtype, dst.device)
-                     for blk in blocks], 2))
+                full = torch.cat([_from_host(blk[k], dst.dtype, dst.device)
+                                  for blk in blocks], 2)
+                for t, heads in _parts(dst):
+                    t.index_copy_(2, torch.as_tensor(
+                        list(ids), dtype=torch.long, device=t.device),
+                        full[:, :, :, heads].to(t.device))
         return caches
 
     def write_block(self, caches, block, dst):

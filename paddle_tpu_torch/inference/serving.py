@@ -94,6 +94,7 @@ for a caller that wants them).
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from collections import deque
 
@@ -102,6 +103,7 @@ import torch
 
 from ..ops.decode_attention import FLAT_CHUNK
 from ..core.rng import next_key
+from ..parallel.serving_mesh import ShardedTensor
 from .generation import (FusedDecoder, _absmax_int8, _host_seed,
                          _penalize_slots, _sample_rows, dispatch_kind)
 from .paged_kv import BlockPool, PagedPrefixCache
@@ -194,7 +196,7 @@ class ServingEngine:
                  token_budget=None, flat_budget=None,
                  telemetry_ring=None, slo=None, role=None,
                  weight_quant=None, kv_quant=None, *, head_quant=None,
-                 qos_shares=None, device=None):
+                 qos_shares=None, mesh_weights=True, device=None):
         role = "mixed" if role is None else role
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
@@ -210,19 +212,21 @@ class ServingEngine:
                     "— pass prefix_cache_blocks= instead, or "
                     "paged=False")
             self.paged = False
+        self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
+                                use_rotary=use_rotary,
+                                weight_quant=weight_quant,
+                                kv_quant=kv_quant, head_quant=head_quant,
+                                mesh_weights=mesh_weights, device=device)
+        self._mesh_rules(paged)
         if weight_quant == "int4" and not self.paged:
             # JAX's refusal: int4 packed weights are a paged-serving memory
             # feature; the dense ring costs B x Smax regardless
             raise ValueError(
                 "weight_quant='int4' with a dense KV ring: this engine "
-                "resolved to the dense layout (paged=False) — int4 packed "
-                "weights are a paged-serving memory feature; use "
-                "paged=True or drop weight_quant")
-        self.dec = FusedDecoder(fmt, embed, head, max_seq_len,
-                                use_rotary=use_rotary,
-                                weight_quant=weight_quant,
-                                kv_quant=kv_quant, head_quant=head_quant,
-                                device=device)
+                "resolved to the dense layout (paged=False, a shared dense "
+                "prefix cache, or an indivisible head count under a mesh) "
+                "— int4 packed weights are a paged-serving memory "
+                "feature; use paged=True or drop weight_quant")
         self.device = self.dec.device
         self.num_slots = b = int(num_slots)
         self.smax = self.dec.smax
@@ -243,9 +247,10 @@ class ServingEngine:
                                or kv_pool_blocks is not None):
             raise ValueError(
                 "kv_pool/kv_pool_blocks state a paged-pool memory budget, "
-                "but this engine resolved to the DENSE layout (paged=False "
-                "or a shared dense prefix cache) — refusing to drop the "
-                "budget silently")
+                "but this engine resolved to the DENSE layout (paged=False, "
+                "a shared dense prefix cache, or an indivisible head count "
+                "under an active mp mesh) — refusing to drop the budget "
+                "silently")
         # the pool block size IS prefill_cap; the default pool holds
         # B x Smax/Bt blocks, so every admissible request fits and it
         # never sheds; an explicitly sized pool (or a caller's) is a
@@ -362,6 +367,44 @@ class ServingEngine:
         self._rid = itertools.count()
         self._prom_base = {}             # windows folded by reset_metrics
         self._reset_window()
+
+    def _mesh_rules(self, paged):
+        """JAX's rules under an active mp mesh: the pool shards by head, so
+        an explicit paged=True with num_heads % mp raises and the default
+        falls back to the dense ring with a RuntimeWarning; weights that
+        cannot shard (head / FFN axes indivisible) warn."""
+        import warnings
+        mesh = self.dec._mesh_mp()
+        self._pc_mesh_warned = False
+        if mesh is None:
+            return
+        mp = mesh.shape["mp"]
+        nh = self.dec.fmt.num_heads
+        if self.paged and nh % mp:
+            if paged:
+                raise ValueError(
+                    f"paged=True under an mp={mp} mesh needs "
+                    f"num_heads % mp == 0 to shard the pool by "
+                    f"head, got num_heads={nh} — use a divisible "
+                    "mesh degree or drop paged= to accept the "
+                    "dense fallback")
+            warnings.warn(
+                f"serving: paged KV pool disabled — num_heads="
+                f"{nh} is not divisible by the mesh's mp degree "
+                f"{mp}, so the head-sharded pool layout is "
+                "unavailable; falling back to the dense ring",
+                RuntimeWarning, stacklevel=3)
+            self.paged = False
+        if self.dec.mesh_weights and self.dec._weight_shard_mesh() is None:
+            ff = int(self.dec.fmt.ffn1_weights[0].shape[-1])
+            warnings.warn(
+                f"serving: weight sharding disabled — num_heads="
+                f"{nh} / ffn_dim={ff} must both "
+                f"divide the mesh's mp degree {mp} to shard the "
+                "qkv/proj/FFN stacks; weights stay replicated per "
+                "device (init_serving_mesh(mp, num_heads=, ffn_dim=) "
+                "rejects this layout up front)",
+                RuntimeWarning, stacklevel=3)
 
     def _reset_window(self):
         """Zero every window counter (construction and reset_metrics)."""
@@ -725,8 +768,7 @@ class ServingEngine:
         tele = self.telemetry
         # a dense ring has no pool: its block and shard gauges are None
         pool, paged = self.pool, self.paged
-        w_bytes = sum(a.numel() * a.element_size()
-                      for a in self._weight_arrays())
+        w_dev, w_repl = self._weight_bytes()
         used, pad = self._budget_tokens_used, self._budget_padding_tokens
         looked = self._prefix_hits + self._prefix_misses
         prop, acc = self._draft_proposed, self._draft_accepted
@@ -782,14 +824,15 @@ class ServingEngine:
             "kv_blocks_used": pool.used if paged else None,
             "kv_blocks_free": pool.free_count if paged else None,
             "kv_cow_copies": self._cow_copies,
-            "kv_shard_count": 1 if paged else None,
-            "kv_shard_heads": self.dec.fmt.num_heads if paged else None,
-            "kv_shard_pool_bytes": (sum(a.nbytes
-                                        for a in self._caches.values())
-                                    if paged else None),
-            "weight_shard_count": 1,
-            "weight_bytes_per_device": w_bytes,
-            "weight_bytes_replicated": w_bytes,
+            # the pool's shards: count x per-shard bytes == the pool
+            "kv_shard_count": self._kv_shard_count(),
+            "kv_shard_heads": self._kv_shard_heads(),
+            "kv_shard_pool_bytes": self._kv_shard_pool_bytes(),
+            # (per_device - replicated) x count + replicated == the
+            # dense bytes of the arrays the dispatches read
+            "weight_shard_count": self._weight_shard_count(),
+            "weight_bytes_per_device": w_dev,
+            "weight_bytes_replicated": w_repl,
             "budget_steps": self._budget_steps,
             "budget_tokens_used": used,
             "budget_prefill_tokens": self._budget_prefill_tokens,
@@ -845,13 +888,56 @@ class ServingEngine:
             **fields)
         return out, ev
 
+    def _kv_shard_count(self):
+        """The pool's shards: the mesh's mp degree, 1 for an unsharded
+        paged engine, None in dense mode (no pool)."""
+        if not self.paged:
+            return None
+        mesh = self.dec._mesh_mp()
+        return mesh.shape["mp"] if mesh is not None else 1
+
+    def _kv_shard_heads(self):
+        n = self._kv_shard_count()
+        return None if n is None else self.dec.fmt.num_heads // n
+
+    def _kv_shard_pool_bytes(self):
+        """A shard's pool bytes (K/V and int8 scales): the pool / count."""
+        n = self._kv_shard_count()
+        if n is None:
+            return None
+        return sum(int(a.nbytes) for a in self._caches.values()) // n
+
     def _weight_arrays(self):
-        """The tensors every dispatch reads: the stacked layer weights,
-        the embedding and the LM head."""
+        """The arrays every dispatch reads: the stacked layer weights,
+        the embedding and the LM head's (``FusedDecoder._head_arrays``:
+        quantized or vocab-sharded as the head step reads them)."""
         dec = self.dec
         return (list(dec._stacked().values())
                 + [p.detach() for p in dec.embed.parameters()]
-                + [p.detach() for p in dec.head.parameters()])
+                + list(dec._head_arrays()))
+
+    def _weight_shard_count(self):
+        """The weight-shard degree: the mesh's mp when the stacks shard,
+        else 1."""
+        mesh = self.dec._weight_shard_mesh()
+        return mesh.shape["mp"] if mesh is not None else 1
+
+    def _weight_bytes(self):
+        """(per_device, replicated) weight bytes: per_device sums each
+        array's local shard (the whole array when replicated), replicated
+        only the arrays whose shard is the whole array, so (per_device -
+        replicated) x ``_weight_shard_count()`` + replicated is the dense
+        total."""
+        per_dev = repl = 0
+        for a in self._weight_arrays():
+            shape = tuple(a.shape)
+            shard = (a.shard_shape() if isinstance(a, ShardedTensor)
+                     else shape)
+            b = math.prod(shard) * a.element_size()
+            per_dev += b
+            if shard == shape:
+                repl += b
+        return per_dev, repl
 
     # ------------------------------------------------------- paged plumbing
     def _cache_arg(self):
@@ -1508,11 +1594,11 @@ class ServingEngine:
         the hit or miss and the prefill tokens saved and computed.
         Returns the adopted token count (0 without a cache or on a
         miss)."""
-        pc = self.prefix_cache
-        if pc is None:
+        if self.prefix_cache is None:
             return 0
+        pc = self._prefix_cache_for_dispatch()
         base = 0
-        nodes = pc.lookup(prompt)
+        nodes = pc.lookup(prompt) if pc is not None else None
         if nodes:
             if self.paged:
                 base = pc.adopt_into(self._tables, slot, nodes)
@@ -1534,13 +1620,34 @@ class ServingEngine:
         """Commit-on-prefill: the prompt's full blocks into the store
         (paged: the store's reference on the slot's own blocks; dense:
         copied out of the ring row)."""
-        pc = self.prefix_cache
+        pc = self._prefix_cache_for_dispatch()
         if pc is None:
             return
         if self.paged:
             pc.publish_from(self._tables, slot, req.prompt)
         else:
             pc.publish(self._caches, slot, req.prompt)
+
+    def _prefix_cache_for_dispatch(self):
+        """The prefix cache admissions may use, or None. The paged cache is
+        host bookkeeping over the (head-sharded) pool and runs under a mesh
+        unchanged; the dense cache's copies assume an unsharded ring, so
+        under a mesh it stays off (warned once) and every admission counts
+        as a miss, as in JAX."""
+        if self.prefix_cache is None or self.paged \
+                or self.dec._mesh_mp() is None:
+            return self.prefix_cache
+        if not self._pc_mesh_warned:
+            import warnings
+            warnings.warn(
+                "serving: dense prefix cache disabled under an active "
+                "mp mesh — its adopt/commit copies assume an "
+                "unsharded ring cache, so every admission counts as a "
+                "miss. The paged engine (the default) shards its pool "
+                "by head and keeps prefix caching on under a mesh.",
+                RuntimeWarning, stacklevel=3)
+            self._pc_mesh_warned = True
+        return None
 
     # ------------------------------------------------- phase scheduler
     def _admit(self):
@@ -1741,21 +1848,22 @@ class ServingEngine:
         selected away before the write (JAX drops them with mode="drop"),
         so the pad needs no blocks; a ring takes positions [0, sb) of the
         slot's row, pad included, as JAX's does: write-then-attend
-        overwrites each pad position before any query reads it. Returns
+        overwrites each pad position before any query reads it. Under the
+        mesh each shard writes its heads into its own cache. Returns
         bulk_admit(stk, caches, toks, slot, plen) -> the hidden state of the
         last prompt token [1, E]."""
         dec = self.dec
 
-        def bulk_admit(stk, caches, toks, slot, plen):
-            x, kv_all = dec.bulk_hidden(stk, toks)
-            kv = kv_all[:, :, 0]                         # [L, 2, H, sb, D]
+        def write(caches, kv, slot, plen):
+            # kv [L, 2, H, sb, D] (a shard's heads) into caches (its part)
             if "tbl" not in caches:
                 if "sc" in caches:
                     kv, sc = _absmax_int8(kv, -1)
                     caches["sc"][:, :, slot, :, 0, :sb] = sc[..., 0]
                 caches["kv"][:, :, slot, :, :sb] = kv
-                return x[0, plen - 1][None]
-            pool, row = caches["kv"], caches["tbl"][slot].long()
+                return
+            pool = caches["kv"]
+            row = caches["tbl"][slot].to(pool.device).long()
             nb, bt = pool.shape[2], pool.shape[4]
             pos = torch.arange(sb, device=kv.device)
             blk = torch.where(pos < plen, row[pos // bt],
@@ -1768,6 +1876,17 @@ class ServingEngine:
                 sc_p = caches["sc"][:, :, :, :, 0].permute(2, 4, 0, 1, 3)
                 sc_p[blk, off] = sc[..., 0].permute(3, 0, 1, 2)[keep]
             pool_p[blk, off] = kv.permute(3, 0, 1, 2, 4)[keep].to(pool.dtype)
+
+        def bulk_admit(stk, caches, toks, slot, plen):
+            x, kv_all = dec.bulk_hidden(stk, toks)
+            if isinstance(kv_all, ShardedTensor):
+                for i, kv in enumerate(kv_all.shards):
+                    write(dict(caches, **{k: caches[k].shards[i]
+                                          for k in ("kv", "sc")
+                                          if k in caches}),
+                          kv[:, :, 0], slot, plen)
+            else:
+                write(caches, kv_all[:, :, 0], slot, plen)
             return x[0, plen - 1][None]
         return bulk_admit
 

@@ -12,8 +12,9 @@ ported ``fused_rotary_position_embedding``; the projections are
 
 Both of the JAX model's layouts are ported. ``tensor_parallel=True`` (its
 default) has separate q/k/v/o and gate/up/down projections and the
-vocab-parallel loss; the port has no model-parallel group (ROADMAP Queue
-1 item 8), so they run at world size 1: plain projections, and the dense
+vocab-parallel loss; the port has no model-parallel group for training
+(ROADMAP Queue 1 item 10(e), fleet's model-parallel layers), so they run
+at world size 1: plain projections, and the dense
 ``cross_entropy(..., reduction="none")`` that JAX's
 ``ParallelCrossEntropy`` computes below mp 2. ``tensor_parallel=False``
 runs q/k/v as one matmul and gate/up as one (``fused_concat_linear``),

@@ -26,6 +26,10 @@ the design it is given or fails.
 On a CUDA tensor ``fused_dequant_matmul`` launches the hand-written
 kernel (``csrc/fused_dequant_matmul.cu``) on the current stream or
 raises; on a CPU tensor it computes the plain version.
+``dequant_matmul_nibble_split`` is the plain arithmetic the JAX package
+runs under a serving mesh (two half-K dots on the nibble planes in the
+activation's dtype, no scale), which the serving mesh holds its CPU path
+to.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from . import _build
 
 __all__ = ["fused_dequant_matmul", "fused_dequant_matmul_reference",
            "fused_dequant_matmul_split_reference",
+           "dequant_matmul_nibble_split",
            "fused_dequant_matmul_is_supported", "unpack_int4",
            "dequant_path", "dequant_splits", "LAUNCHES", "PATH_LAUNCHES"]
 
@@ -235,3 +240,15 @@ def fused_dequant_matmul_split_reference(a, w_packed, scales, *,
         acc = acc + a32[:, 2 * lo:2 * hi] @ w[2 * lo:2 * hi]
     out = (acc * scales.reshape(-1).float()).to(out_dtype)
     return out.reshape(*a.shape[:-1], w.shape[1])
+
+
+def dequant_matmul_nibble_split(a, w_packed):
+    """a [..., K] @ the int4 values of w_packed [K/2, O] as JAX computes
+    it under a mesh: the activation's even and odd k against the sign-
+    extended low and high nibble planes, two dots in a's dtype summed in
+    a's dtype; the scale is the caller's."""
+    k2 = w_packed.shape[0]
+    lo = ((w_packed << 4) >> 4).to(a.dtype)
+    hi = (w_packed >> 4).to(a.dtype)
+    ar = a.reshape(*a.shape[:-1], k2, 2)
+    return ar[..., 0] @ lo + ar[..., 1] @ hi

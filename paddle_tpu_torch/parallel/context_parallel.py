@@ -162,7 +162,7 @@ def _axis(mesh, axis_name):
     if mesh is None:
         from . import current_mesh
         mesh = current_mesh()
-    if mesh is None or axis_name not in (mesh.mesh_dim_names or ()):
+    if axis_name not in (getattr(mesh, "mesh_dim_names", None) or ()):
         raise ValueError(f"no active mesh with a {axis_name!r} axis (call "
                          "fleet.init with a sep_degree first)")
     group = mesh.get_group(axis_name)

@@ -20,9 +20,12 @@ the JAX package's ``MODEL_DIMS``), so routing is invisible to outputs.
 instead of ``--replicas`` mixed ones, shaped as JAX's demo shapes them.
 The SLO objectives come from ``PADDLE_SLO_*`` (``SloPolicy.from_env``).
 
-``--workers N`` (replicas out of process over rpc) waits for the
-distributed runtime (ROADMAP 10(e)) and ``--mesh-mp M`` (tensor-parallel
-engines) for serving tensor parallelism (ROADMAP item 8): both raise
+``--mesh-mp M`` serves tensor-parallel engines in process: it stands up
+the serving mesh (``parallel.init_serving_mesh``, over every visible
+card, or ``M`` CPU shards under ``--device cpu``) before the replicas
+are built, so each replica's paged pool shards by head and its weight
+stacks by head and column. ``--workers N`` (replicas out of process over
+rpc) waits for the distributed runtime (ROADMAP 10(e)) and raises
 NotImplementedError.
 
 Flags default from the env contract (``PADDLE_GATEWAY_PORT``,
@@ -98,7 +101,7 @@ def _parse_roles(spec):
     return roles
 
 
-def main(argv=None):
+def _parse(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.serving_cluster",
         description="demo cluster: N replicas behind the gateway")
@@ -118,7 +121,9 @@ def main(argv=None):
                          "ROADMAP 10(e))")
     ap.add_argument("--mesh-mp", type=int, default=int(os.environ.get(
         "PADDLE_SERVING_MESH_MP", "0") or 0),
-        help="tensor-parallel engines (not ported yet: ROADMAP item 8)")
+        help="tensor-parallel engines over an mp-way mesh: the paged "
+             "KV pool shards by head and the qkv/proj/FFN weight "
+             "stacks by head/column (0/1 = no mesh)")
     ap.add_argument("--roles", default=os.environ.get(
         "PADDLE_GATEWAY_ROLES", ""),
         help="disaggregated pool spec 'prefill:1,decode:2' — builds "
@@ -127,7 +132,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device of the engines (default: cuda; "
                          "'cpu' asks for the CPU)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def _replicas(args):
+    """The in-process replicas the flags describe (under ``--mesh-mp`` over
+    the serving mesh, stood up first) and their label."""
+    from ..parallel import init_serving_mesh
+    from .replica import LocalReplica
+
     role_list = _parse_roles(args.roles) if args.roles else None
     if args.workers > 0:
         raise NotImplementedError(
@@ -135,14 +148,13 @@ def main(argv=None):
             "runtime's rpc and launcher gang (ROADMAP 10(e)); run the "
             "replicas in process (--replicas / --roles)")
     if args.mesh_mp > 1:
-        raise NotImplementedError(
-            "--mesh-mp: tensor-parallel serving engines are ROADMAP "
-            "item 8")
-
-    from .gateway import Gateway
-    from .replica import LocalReplica
-    from .router import Router
-
+        cpu = args.device is not None and \
+            str(args.device).startswith("cpu")
+        init_serving_mesh(args.mesh_mp, num_heads=MODEL_DIMS["H"],
+                          ffn_dim=MODEL_DIMS["FF"],
+                          devices=["cpu"] * args.mesh_mp if cpu else None)
+    # every replica serves the SAME weights (seed-shared toy model) so
+    # routing is invisible to outputs
     roles = role_list or ["mixed"] * args.replicas
     replicas = [
         LocalReplica(f"{role}{i}" if role_list else f"replica{i}",
@@ -152,6 +164,17 @@ def main(argv=None):
         for i, role in enumerate(roles)]
     n_label = (f"{len(roles)} replicas ({args.roles})"
                if role_list else f"{args.replicas} replicas")
+    if args.mesh_mp > 1:
+        n_label += f", mp={args.mesh_mp}"
+    return replicas, n_label
+
+
+def main(argv=None):
+    args = _parse(argv)
+    from .gateway import Gateway
+    from .router import Router
+
+    replicas, n_label = _replicas(args)
     router = Router(replicas, policy=args.policy)
     gw = Gateway(router, port=args.port).start_background()
     print(f"serving_cluster: {n_label} on "

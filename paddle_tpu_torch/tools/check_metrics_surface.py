@@ -23,9 +23,11 @@ Also pinned: the ``telemetry_snapshot()`` schema (the router's wire
 payload), the runtime registry's exposition, the SLO and router-audit
 counter names, the dispatch kinds every scheduler's dispatches take
 (``generation.DISPATCH_KINDS``), the QoS per-class series and the
-disaggregated-serving role and handoff surface. The mesh shard-gauge
-section of the JAX check waits for serving tensor parallelism (ROADMAP
-item 8); the check says so in its report.
+disaggregated-serving role and handoff surface, and (section 8) the
+mesh shard gauges of an mp=2 engine: ``kv_shard_*`` against the pool it
+allocated, the weight-placement gauges' byte identity (fp, and int4 with
+an int8 pool), their Prometheus series, and the dispatch families of the
+sharded step.
 
 The engines run on the card unless ``--device cpu`` asks for the CPU.
 Exit code 0 means the surface is covered.
@@ -176,8 +178,12 @@ def main(argv=None):
     # step timeline instead of failing here
     n_kinds = _check_dispatch_kinds(failures, dispatched)
 
-    # ---- 8. mesh shard-gauge coverage waits for serving tensor
-    # parallelism (ROADMAP item 8): the port's engines are unsharded
+    # ---- 8. mesh shard-gauge coverage: an mp=2 head-sharded paged
+    # engine must reconcile its kv_shard_* gauges against the actual
+    # pool layout, its weight gauges against the arrays it dispatches,
+    # expose them in Prometheus, and dispatch ONLY families already in
+    # DISPATCH_KINDS
+    _check_mesh_shard_surface(failures)
 
     # ---- 9. QoS surface: the per-class counter names (class-labeled
     # Prometheus series) are pinned BY VALUE — QoS dashboards and the
@@ -207,9 +213,123 @@ def main(argv=None):
           f"{n_kinds} dispatched families covered by "
           "generation.DISPATCH_KINDS; QoS per-class series pinned + "
           "zero-initialized; disagg role/handoff surface pinned "
-          "end-to-end; mp shard gauges not checked: serving tensor "
-          "parallelism is ROADMAP item 8)")
+          "end-to-end; mp=2 shard gauges reconcile)")
     return 0
+
+
+def _check_mesh_shard_surface(failures):
+    """Drive an mp=2 head-sharded paged engine (both shards on this
+    check's device) and reconcile its shard gauges against the pool and
+    the weights it actually holds. The port's fleet state is saved and
+    restored around the probe."""
+    import math
+
+    import numpy as np
+
+    from ..distributed.fleet import _fleet_state
+    from ..distributed.fleet.base.topology import _HYBRID_GROUP
+    from ..inference import generation
+    from ..inference.telemetry import PROMETHEUS_NAMES
+    from ..parallel import init_serving_mesh
+
+    dev = _DEVICE[0] or "cuda:0"
+    prior_hcg = _HYBRID_GROUP[0]
+    prior_fleet = dict(_fleet_state)
+    try:
+        _HYBRID_GROUP[0] = None
+        _fleet_state.update(strategy=None, hcg=None)
+        init_serving_mesh(2, devices=[dev] * 2)
+        eng, rng, V = _build_engine()
+        seen = set()
+        _record_dispatches(eng, seen)
+        for n in (5, 9):
+            eng.submit(rng.randint(1, V, (n,)).astype(np.int32),
+                       max_new_tokens=3)
+        eng.run()
+        m = eng.metrics()
+        if m.get("kv_shard_count") != 2:
+            failures.append(
+                f"mp=2 mesh engine reports kv_shard_count="
+                f"{m.get('kv_shard_count')!r}, expected 2")
+            return
+        heads = eng.dec.fmt.num_heads
+        if m["kv_shard_heads"] * m["kv_shard_count"] != heads:
+            failures.append(
+                f"mesh shard gauges do not reconcile: kv_shard_heads="
+                f"{m['kv_shard_heads']} x kv_shard_count="
+                f"{m['kv_shard_count']} != num_heads={heads}")
+        kv = eng._caches["kv"]
+        pool_bytes = sum(int(t.nbytes) for c in eng._caches.values()
+                         for t in c.shards)
+        if kv.shard_shape()[3] != heads // 2:
+            failures.append(
+                f"the pool is not head-sharded: local shard "
+                f"{kv.shard_shape()} of {tuple(kv.shape)}")
+        if m["kv_shard_pool_bytes"] * m["kv_shard_count"] != pool_bytes:
+            failures.append(
+                f"mesh shard gauges do not reconcile: "
+                f"kv_shard_pool_bytes={m['kv_shard_pool_bytes']} x "
+                f"{m['kv_shard_count']} != pool bytes {pool_bytes} — "
+                "per-device residency must be the dense pool / mp")
+        if m.get("weight_shard_count") != 2:
+            failures.append(
+                f"mp=2 mesh engine reports weight_shard_count="
+                f"{m.get('weight_shard_count')!r}, expected 2 — the "
+                "stacked weights are no longer mesh-placed")
+        else:
+            dense_w = sum(math.prod(a.shape) * a.element_size()
+                          for a in eng._weight_arrays())
+            per_dev = m["weight_bytes_per_device"]
+            repl = m["weight_bytes_replicated"]
+            if (per_dev - repl) * 2 + repl != dense_w:
+                failures.append(
+                    f"weight byte identity broke: (per_device="
+                    f"{per_dev} - replicated={repl}) x 2 + {repl} != "
+                    f"dense {dense_w}")
+            if not 0 <= repl < per_dev < dense_w:
+                failures.append(
+                    f"mp=2 mesh engine shards no weight bytes: "
+                    f"per_device={per_dev} replicated={repl} "
+                    f"dense={dense_w} — expected replicated < "
+                    "per_device < dense")
+            qkv = eng.dec._stacked()["qkv_w"]
+            if qkv.shard_shape()[1] * 2 != qkv.shape[1]:
+                failures.append(
+                    f"stacked qkv_w is not head-sharded: local shard "
+                    f"{qkv.shard_shape()} vs full {tuple(qkv.shape)}")
+        # an int4 + int8-pool engine's gauges report the packed and
+        # quantized bytes it dispatches, and its identity still holds
+        eng4, _, _ = _build_engine(weight_quant="int4", kv_quant="int8")
+        m4 = eng4.metrics()
+        dense4 = sum(math.prod(a.shape) * a.element_size()
+                     for a in eng4._weight_arrays())
+        n4 = m4["weight_shard_count"]
+        pd4, rp4 = (m4["weight_bytes_per_device"],
+                    m4["weight_bytes_replicated"])
+        if (pd4 - rp4) * n4 + rp4 != dense4:
+            failures.append(
+                f"int4 weight byte identity broke: (per_device={pd4} "
+                f"- replicated={rp4}) x {n4} + {rp4} != quantized "
+                f"dense {dense4}")
+        text = eng.metrics_prometheus()
+        for k in ("kv_shard_count", "kv_shard_heads",
+                  "kv_shard_pool_bytes", "weight_shard_count",
+                  "weight_bytes_per_device", "weight_bytes_replicated"):
+            name, _typ = PROMETHEUS_NAMES[k]
+            if name not in text:
+                failures.append(
+                    f"mesh engine exposition lost {name!r} (metrics key "
+                    f"{k!r} has a value under the mesh)")
+        for fam in sorted(seen, key=str):
+            if fam not in generation.DISPATCH_KINDS:
+                failures.append(
+                    f"mesh engine dispatched family {fam!r} with no "
+                    "generation.DISPATCH_KINDS entry — the sharded step "
+                    "must reuse the registered dispatches")
+    finally:
+        _HYBRID_GROUP[0] = prior_hcg
+        _fleet_state.clear()
+        _fleet_state.update(prior_fleet)
 
 
 def _check_dispatch_kinds(failures, seen):

@@ -266,7 +266,8 @@ def test_fused_feedforward_takes_jax_parameters():
     """D: JAX's eight ``*_attr``, ``nranks``, ``ring_id`` and ``name``
     after ``normalize_before``, so ``name=`` builds and a positional
     ``*_attr`` never lands in the port's ``dtype``; a non-None ``*_attr``
-    raises naming 10(e), a model-parallel ``nranks`` / ``ring_id`` item 8;
+    raises naming 10(e), and so does a model-parallel ``nranks`` /
+    ``ring_id`` (training's tensor parallelism, fleet's layers);
     ``dtype``, ``device`` and ``seed`` are keyword-only."""
     from paddle_tpu.incubate.nn import FusedFeedForward as JaxFFN
     from paddle_tpu_torch.incubate.nn import FusedFeedForward
@@ -285,7 +286,7 @@ def test_fused_feedforward_takes_jax_parameters():
     with pytest.raises(NotImplementedError, match="ln2_bias_attr"):
         FusedFeedForward(16, 32, ln2_bias_attr=ParamAttr(), device="cpu")
     for kw in ({"nranks": 2}, {"ring_id": 0}):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="10\\(e\\)"):
             FusedFeedForward(16, 32, device="cpu", **kw)
 
 

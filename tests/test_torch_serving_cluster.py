@@ -623,8 +623,8 @@ def test_gateway_env_registry():
     """Every PADDLE_* variable the port's cluster and SloPolicy.from_env
     read is registered in ``testing.GW_ENV_VARS``, which equals JAX's
     registry (the names are the cluster's contract); the registry's
-    names the port never mentions are rpc's (ROADMAP 10(e)) and the
-    serving mesh's weight knob (item 8)."""
+    names the port never mentions are rpc's (ROADMAP 10(e)); the serving
+    mesh's weight knob is named where ``mesh_weights=`` stands for it."""
     from paddle_tpu.testing import GW_ENV_VARS as JGW
     from paddle_tpu_torch.testing import FI_ENV_VARS, GW_ENV_VARS
     from paddle_tpu.testing import FI_ENV_VARS as JFI
@@ -643,8 +643,7 @@ def test_gateway_env_registry():
                 f.read()))
     assert found <= set(GW_ENV_VARS), found - set(GW_ENV_VARS)
     assert set(GW_ENV_VARS) - found == {
-        "PADDLE_RPC_PING_TIMEOUT_S", "PADDLE_RPC_TIMEOUT_S",
-        "PADDLE_SERVING_MESH_WEIGHTS"}
+        "PADDLE_RPC_PING_TIMEOUT_S", "PADDLE_RPC_TIMEOUT_S"}
     assert set(T.SLO_ENV_VARS) <= set(GW_ENV_VARS)
 
 
@@ -657,8 +656,35 @@ def test_parts_that_wait_raise():
         serve_engine(None)
     with pytest.raises(NotImplementedError, match="10\\(e\\)"):
         main(["--workers", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--mesh-mp", "2", "--device", "cpu"])
+
+
+def test_mesh_mp_replicas_shard():
+    """``--mesh-mp 2`` serves in process: the replicas' engines run over
+    the serving mesh (CPU shards under ``--device cpu``), their pools and
+    weight stacks sharded, and serve a request."""
+    from paddle_tpu_torch.distributed.fleet import _fleet_state
+    from paddle_tpu_torch.distributed.fleet.base.topology import (
+        _HYBRID_GROUP)
+    from paddle_tpu_torch.serving_cluster.__main__ import _parse, _replicas
+    try:
+        replicas, label = _replicas(_parse(
+            ["--mesh-mp", "2", "--device", "cpu", "--replicas", "2",
+             "--slots", "2", "--max-seq-len", "64", "--prefill-cap", "8",
+             "--prefix-blocks", "4"]))
+        assert label == "2 replicas, mp=2"
+        for r in replicas:
+            m = r.engine.metrics()
+            assert m["kv_shard_count"] == 2 and m["kv_shard_heads"] == 2
+            assert m["weight_shard_count"] == 2
+        for r in replicas:
+            r.close()
+        eng = replicas[0].engine
+        rid = eng.submit(np.arange(1, 12), max_new_tokens=4)
+        eng.run()
+        assert len(eng.results[rid]["tokens"]) == 4
+    finally:
+        _HYBRID_GROUP[0] = None
+        _fleet_state.update(strategy=None, hcg=None)
 
 
 def test_http_surface_check(capsys):

@@ -53,10 +53,13 @@ Phases, in order; any failure exits non-zero:
      and dQ kernels draw them in their tiles; flash forward with dropout
      and the dK/dV and dQ kernels, bf16, fp16 and fp32, causal and not,
      Sq = Sk, Sq < Sk and Sq > Sk, GQA, D 64 and 128, dropout 0 and 0.1,
-     and at the main shapes, LLaMA's [1, 32, 4096, 128] causal at dropout
-     0 and GPT-2's [8, 12, 1024, 64] causal at 0.1, there o and the
-     gradients over the reference's rms; lse to attention_lse; the
-     backward fed the kernel's o and lse and then the plain forward's);
+     BERT-base's [16, 12, 512, 64] not causal among them, and at the
+     main shapes, LLaMA's [1, 32, 4096, 128] causal at dropout 0,
+     GPT-2's [8, 12, 1024, 64] causal at 0.1 and BERT's [16, 12, 512,
+     64] not causal at 0.1 and 0, there o and the gradients over the
+     reference's rms; lse to attention_lse; the backward fed the kernel's
+     o and lse and then the plain forward's; the keep bits at BERT's
+     shape byte-equal);
      the fused FFN forward, dx and dW kernels
      (fp32, bf16 and fp16, both activations, (K, F) in (128, 256), (768, 3072)
      and (1024, 2816), M 8, 136 and 8192; out, dx, dW1, dW2 and db1 each);
@@ -71,7 +74,8 @@ Phases, in order; any failure exits non-zero:
      and 1600, N 1, 7, 33, 8192 and 8193, fp32, bf16 and fp16; y, mean,
      rstd, dx, dgamma and dbeta each, the backward's bit-equal on a second
      launch; each backward launch on the design layer_norm_path gives it,
-     row-warp or per-warp); the ring chunk forward, dK/dV and dQ kernels
+     row-warp or per-warp; and at BERT's epsilon 1e-12, D 768, N 8192
+     and 1808, bf16 and fp32); the ring chunk forward, dK/dV and dQ kernels
      (fp32, bf16 and fp16, D 64 and 128, H 8 over Hk 8 and 2, Sq = Sk in {37, 256, 1024} and 100 x
      257, offsets Sk, Sk - 1, 0, -17, -Sq and -Sq - 5; o, lse, dq, dk and
      dv from cotangents of o and lse, fully masked launches exactly zero);
@@ -215,6 +219,21 @@ Phases, in order; any failure exits non-zero:
      kv_shard_pool_bytes the pool and (per_dev - repl) x 2 + repl the
      dense weight bytes; generated tokens/s, TTFT p50 and peak memory by
      device against mp=1, beside the card;
+  3i. BERT-base pretraining as bench.py's bench_bert runs it on one card
+     (profile_train.bert_train_workload: BertForPretraining, V=30720, B=16,
+     S=512, ids from the real 30522, 15% MLM labels and NSP labels,
+     amp.decorate(level="O2") bf16 with fp32 AdamW masters, dropout 0.1,
+     AdamW at lr 1e-4 under LinearWarmup(PolynomialDecay) with
+     ClipGradByGlobalNorm(1.0), the step under auto_cast(level="O2")): 2
+     warm-up steps, then 10 timed on one repeated batch; each step must
+     launch exactly 12 flash forward, 12 dK/dV, 12 dQ, 26 LayerNorm
+     forward and 26 LayerNorm backward kernels and no other kernel of the
+     port (flash on the tensor cores, every LayerNorm backward row-warp),
+     the losses be finite and fall, and the learning rate of each step be
+     the schedule's; step time, tokens/s and peak memory printed. Then 5
+     steps of the same model in fp16 O2 under a GradScaler: the found-inf
+     flag and the scale after each step, which must follow the scaler's
+     rule;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -257,7 +276,11 @@ Phases, in order; any failure exits non-zero:
      against the CPU's, each launch on the per-head design; LLaMA
      training at phase 3f's widths, L=1, B=1, S=128, fp32, 3 AdamW steps:
      logits, losses, step-1 gradients and step-3 parameters against the
-     CPU's; the ring at n = 4 over [2, 256,
+     CPU's; BERT-base pretraining at L=2, B=2, S=128, fp32, dropout 0,
+     MLM and NSP labels with the gather on, 3 AdamW steps under phase 3i's
+     schedule and ClipGradByGlobalNorm: losses, step-1 gradients and
+     step-3 parameters against the CPU's, the card's run launching the
+     flash and LayerNorm kernels; the ring at n = 4 over [2, 256,
      4, 64] with 2 KV heads, fp32: the card's kernels against the CPU's
      composite and plain versions, output and gradients;
   5. each kernel timed at the shapes its path gives it, beside its bound,
@@ -269,7 +292,8 @@ Phases, in order; any failure exits non-zero:
      (W1, b1, W2), in CUDA graphs; for the flash and ring chunk
      kernels the fastest of SDPA's backends and ATen's flash backward,
      in CUDA graphs as the kernels are; the flash kernels also at phase
-     3f's [1, 32, 4096, 128]; the decode reads over a contiguous cache
+     3f's [1, 32, 4096, 128] and at phase 3i's [16, 12, 512, 64] not
+     causal (dropout 0.1 and 0); the decode reads over a contiguous cache
      (the fp and int8 ring, the one-layer cache) at lens 1023 with Sq 1
      and at 512 with Sq 1 and 16; the ring chunk kernels at phase 3g's
      chunk
@@ -299,7 +323,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from paddle_tpu_torch import TOLERANCES
+from paddle_tpu_torch import TOLERANCES, amp
 from paddle_tpu_torch.core import rng as trng
 from paddle_tpu_torch.incubate.nn import FusedFeedForward
 from paddle_tpu_torch.inference import (AdmissionFull, FusedDecoder,
@@ -322,8 +346,10 @@ from paddle_tpu_torch.ops import fused_dequant_matmul as fdm
 from paddle_tpu_torch.ops import fused_ffn as ffn
 from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.ops import ring_chunk_attention as rca
+from paddle_tpu_torch.models.bert import BertForPretraining, bert_base
 from paddle_tpu_torch.models.gpt import gpt2_124m
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving_cluster import (Gateway, LocalReplica, Router,
                                               export_cluster_trace)
@@ -332,11 +358,16 @@ from paddle_tpu_torch.profile_serving import (CYCLE, E, FF, H, MIXES,
                                               PRIORITIES, SAMPLED,
                                               SCHEDULERS, V, _random_model,
                                               cycle_head, gpt2_workload)
-from paddle_tpu_torch.profile_train import (BATCH, FUSED_FFN_FLAGS,
-                                            LLAMA_BATCH, LLAMA_CONFIG,
-                                            LLAMA_SEQ, SEQ,
+from paddle_tpu_torch.profile_train import (BATCH, BERT_BATCH, BERT_SEQ,
+                                            BERT_VOCAB, BERT_VOCAB_SAMPLED,
+                                            FUSED_FFN_FLAGS, LLAMA_BATCH,
+                                            LLAMA_CONFIG, LLAMA_SEQ, SEQ,
+                                            BERT_AMP_LEVEL, advance_schedule,
+                                            bert_batch, bert_schedule,
+                                            bert_train_workload,
                                             gpt2_train_workload,
-                                            llama_train_workload, train_step)
+                                            llama_train_workload, train_loss,
+                                            train_step)
 from paddle_tpu_torch.weights import from_jax_state, random_state
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peak
@@ -1087,6 +1118,33 @@ def ln_kernels(rng, worst):
     log(f"  LayerNorm cases: {len(LN_DIMS) * len(LN_ROWS) * 3}, dx, dgamma "
         f"and dbeta bit-equal on a second launch; worst {dict(worst)}")
     check_norm_paths("LayerNorm cases", {"layer_norm_bwd": want_paths})
+    ln_bert_cases(rng, worst)
+
+
+def ln_bert_cases(rng, worst):
+    """BERT's LayerNorms (phase 3i): D 768 at epsilon 1e-12 over the
+    encoder's B * S = 8192 rows and the MLM head's gathered 16 * 113 =
+    1808, bf16 (the O2 step's) and fp32: y, mean, rstd, dx, dgamma and
+    dbeta against the plain versions at the same epsilon."""
+    d, eps = 768, 1e-12
+    for dtype, tname in ((torch.bfloat16, "layer_norm_bf16"),
+                         (torch.float32, "layer_norm_fp32")):
+        for n in (BERT_BATCH * BERT_SEQ, BERT_BATCH * 113):
+            x, dy = (randn(rng, (n, d), dtype) for _ in range(2))
+            gamma = (1 + 0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+            beta = (0.1 * randn(rng, (d,), torch.float32)).to(dtype)
+            name = f"layer_norm {str(dtype):14s} N={n:4d} D={d} eps={eps}"
+            got = ln.layer_norm_fwd(x, gamma, beta, eps)
+            want = ln.layer_norm_fwd_reference(x, gamma, beta, eps)
+            for part, g, w in zip(("y", "mean", "rstd"), got, want):
+                check(f"{name} {part}", g, w, tname, worst, quiet=True)
+            grads = ln.layer_norm_bwd(x, gamma, got[1], got[2], dy)
+            want = ln.layer_norm_bwd_reference(x, gamma, got[1], got[2], dy)
+            for part, g, w in zip(("dx", "dgamma", "dbeta"), grads, want):
+                check(f"{name} {part}", g, w, tname, worst, quiet=True)
+    log(f"  LayerNorm at BERT's epsilon 1e-12, D 768, N 8192 and 1808, "
+        f"bf16 and fp32: worst "
+        f"{ {k: v for k, v in worst.items() if k.startswith('layer_norm')} }")
 
 
 # the RMSNorm kernels, each with two designs (layer_norm.PATH_LAUNCHES)
@@ -1249,12 +1307,14 @@ def bhsd_kernels(rng, worst):
 
 # flash attention cases of the training kernels: (B, H, Hk, Sq, Sk, D,
 # causal) — Sq = Sk, Sq < Sk and Sq > Sk (rows that see no key), GQA,
-# ragged tiles, D 64 and 128, GPT-2's [1, 12, 1024, 64]
+# ragged tiles, D 64 and 128, GPT-2's [1, 12, 1024, 64] and BERT-base's
+# non-causal [16, 12, 512, 64] (phase 3i)
 FLASH_BWD_CASES = [(2, 4, 4, 37, 37, 64, True), (1, 4, 2, 255, 255, 64, True),
                    (1, 4, 4, 200, 333, 64, False),
                    (1, 4, 2, 100, 257, 128, True),
                    (1, 4, 4, 300, 129, 64, True),
-                   (1, 12, 12, 1024, 1024, 64, True)]
+                   (1, 12, 12, 1024, 1024, 64, True),
+                   (BERT_BATCH, 12, 12, BERT_SEQ, BERT_SEQ, 64, False)]
 
 
 # (D, Sq, Sk) of dropout_in_tiles: Sq and Sk at most D, ragged and whole
@@ -1305,9 +1365,12 @@ def dropout_in_tiles(rng):
                        dq[..., :sk] != 0, keep)
 
 
-# the main paths' flash shapes (B, H, S, D, dropout), causal: LLaMA's at
-# phase 3f and GPT-2's training at phase 3c
-FLASH_MAIN_CASES = ((1, 32, 4096, 128, 0.0), (8, 12, 1024, 64, 0.1))
+# the main paths' flash shapes (B, H, S, D, dropout, causal): LLaMA's at
+# phase 3f, GPT-2's training at phase 3c and BERT-base's at phase 3i
+# (not causal, at the training dropout and at 0)
+FLASH_MAIN_CASES = ((1, 32, 4096, 128, 0.0, True), (8, 12, 1024, 64, 0.1, True),
+                    (BERT_BATCH, 12, BERT_SEQ, 64, 0.1, False),
+                    (BERT_BATCH, 12, BERT_SEQ, 64, 0.0, False))
 
 
 def training_kernels(rng, worst):
@@ -1319,22 +1382,29 @@ def training_kernels(rng, worst):
     forward and backward), then bf16 at FLASH_MAIN_CASES. lse is held to
     attention_lse (fp32 in every dtype); the backward is fed the kernel's
     o and lse, then the plain forward's, both sides the same each time. At
-    FLASH_MAIN_CASES o and the gradients are held relative to the
-    reference's rms (check_scaled)."""
+    FLASH_MAIN_CASES o and the gradients are held per element to the
+    reference's rms and their terms (check_terms)."""
     for b, h, sq, sk, p in ((2, 4, 37, 70, 0.1), (1, 12, 1024, 1024, 0.1),
-                            (1, 3, 5, 9, 0.5)):
+                            (1, 3, 5, 9, 0.5),
+                            (BERT_BATCH, 12, BERT_SEQ, BERT_SEQ, 0.1)):
         seed = int(rng.integers(1 << 63))
         same_bytes(f"dropout keep bits [{b}, {h}, {sq}, {sk}] p={p}",
                    fa.dropout_keep(seed, b, h, sq, sk, p, "cuda"),
                    fa.dropout_keep(seed, b, h, sq, sk, p, "cpu").cuda())
     dropout_in_tiles(rng)
-    cases = [(dtype, tname, case, p, check) for dtype, tname in (
+    cases = [(dtype, tname, case, p, False) for dtype, tname in (
         (torch.bfloat16, "bf16"), (torch.float16, "fp16"),
         (torch.float32, "fp32")) for case in FLASH_BWD_CASES
         for p in (0.0, 0.1)]
-    cases += [(torch.bfloat16, "bf16", (b, h, h, s, s, d, True), p,
-               check_scaled) for b, h, s, d, p in FLASH_MAIN_CASES]
-    for dtype, tname, (b, h, hk, sq, sk, d, causal), p, held in cases:
+    cases += [(torch.bfloat16, "bf16", (b, h, h, s, s, d, causal), p, True)
+              for b, h, s, d, p, causal in FLASH_MAIN_CASES]
+
+    def held(label, got, want, tname, terms):
+        if terms is None:
+            check(label, got, want, tname, worst)
+        else:
+            check_terms(label, got, want, terms, tname, worst)
+    for dtype, tname, (b, h, hk, sq, sk, d, causal), p, main in cases:
         q, do = (randn(rng, (b, h, sq, d), dtype) for _ in range(2))
         k, v = (randn(rng, (b, hk, sk, d), dtype) for _ in range(2))
         seed = int(rng.integers(1 << 63))
@@ -1344,18 +1414,22 @@ def training_kernels(rng, worst):
         o, lse = fa.flash_attention_fwd(q, k, v, causal, None, p, seed)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, None,
                                                       p, seed)
-        held(name + " o", o, o_ref, "attention_" + tname, worst)
         check(name + " lse", lse, lse_ref, "attention_lse", worst)
         for what, fo, flse in (("", o, lse), (" from plain o, lse", o_ref,
                                                lse_ref)):
+            terms = (fa.rounding_terms(q, k, v, fo, flse, do, causal, None,
+                                       p, seed) if main else (None,) * 4)
+            if fo is o:
+                held(name + " o", o, o_ref, "attention_" + tname, terms[0])
             got = fa.flash_attention_bwd(q, k, v, fo, flse, do, causal, None,
                                          p, seed)
             want = fa.flash_attention_bwd_reference(q, k, v, fo, flse, do,
                                                     causal, None, p, seed)
-            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            for gname, g, w, t in zip(("dq", "dk", "dv"), got, want,
+                                      terms[1:]):
                 held(f"{name} {gname}{what}", g, w, "attention_grad_" + tname,
-                     worst)
-            del got, want
+                     t)
+            del got, want, terms
         del q, k, v, do, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
 
@@ -1470,18 +1544,43 @@ def check(name, got, want, tname, worst, quiet=False):
     return err
 
 
-def check_scaled(name, got, want, tname, worst, quiet=False):
-    """check() with both sides over the reference's rms: at the main
-    shapes o and the gradients lie far below 1 (o of random inputs over
-    thousands of keys is about 0.03), where TOLERANCES' atol alone would
-    pass a kernel that dropped a key tile. The worst relative error goes
-    under ``tname + "/rms"``."""
-    rms = want.float().pow(2).mean().sqrt().item()
+def check_terms(name, got, want, terms, tname, worst, quiet=False):
+    """Hold a main-shape output of the flash or ring chunk kernels to its
+    plain version element by element, within fa.rounding_bound:
+    TOLERANCES[tname]'s atol times the reference's rms (at the main shapes
+    o and the gradients lie far below 1, where atol alone would pass a
+    kernel that dropped a key tile), its rtol times the element, and one
+    bf16 unit times the element's ``terms`` (fa.rounding_terms): the two
+    sides may round one large p m or ds to neighbouring bf16 values (fp32
+    sums in another order), which moves an element by up to that. Logs
+    the worst error in rms units (kept under ``tname + "/rms"``), the
+    worst share of the bound, and how many elements lie past the bound
+    without the terms."""
+    torch.cuda.synchronize()
+    tol = TOLERANCES[tname]
+    w = want.float()
+    rms = w.pow(2).mean().sqrt().item()
     if not rms > 0:
         raise SystemExit(f"{name}: the reference is zero")
-    seen = {}
-    err = check(f"{name} (over rms {rms:.3e})", got.float() / rms,
-                want.float() / rms, tname, seen, quiet)
+    diff = (got.float() - w).abs()
+    share = diff / fa.rounding_bound(want, terms, **tol)
+    worst_share = share.max().item()
+    past = int((diff > tol["atol"] * rms + tol["rtol"] * w.abs()).sum())
+    err = diff.max().item() / rms
+    ok = worst_share <= 1.0
+    if not (quiet and ok):
+        log(f"  {name}: max_abs_err={err:.3e} rms units (rms {rms:.3e}); "
+            f"worst {worst_share:.3f} of the bound (atol={tol['atol']} rms, "
+            f"rtol={tol['rtol']}, bf16 unit of the terms); {past} past it "
+            f"without the terms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        i = int(share.flatten().argmax())
+        log(f"  {name}: {int((share > 1).sum())} of {w.numel()} elements "
+            f"outside; the worst at flat index {i}: got "
+            f"{got.float().flatten()[i].item():.6e}, want "
+            f"{w.flatten()[i].item():.6e}, terms "
+            f"{terms.flatten()[i].item():.6e}")
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
     worst[tname + "/rms"] = max(worst.get(tname + "/rms", 0.0), err)
     return err
 
@@ -2457,6 +2556,15 @@ LLAMA_TRAIN_LAUNCHES = {"rms_norm_fwd": 2 * LLAMA_LAYERS + 1,
                         "flash_attention_bwd_dq": LLAMA_LAYERS}
 
 
+# phase 3i's step: the flash forward and both backward kernels once per
+# layer; the LayerNorm kernels once per LayerNorm (the embeddings', two a
+# layer and the MLM head's transform_ln), all in bf16 under AMP O2
+BERT_TRAIN_LAUNCHES = {"flash_attention_fwd": 12,
+                       "flash_attention_bwd_dkv": 12,
+                       "flash_attention_bwd_dq": 12, "layer_norm_fwd": 26,
+                       "layer_norm_bwd": 26}
+
+
 @contextlib.contextmanager
 def forced(module, attr, value):
     """``module.attr`` replaced by ``value`` inside (a design rule forced
@@ -2489,21 +2597,25 @@ def all_launches():
             **ffn.LAUNCHES, **rca.LAUNCHES}
 
 
-def train_run(build, seed, steps, warmup, per_step):
-    """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``):
-    ``warmup`` steps, then ``steps`` timed with every launch count zeroed
-    just before and read just after; fail unless they are exactly
-    ``per_step`` a step and the losses are finite and fall. Returns
-    (launches, median step s, peak bytes)."""
+def train_run(build, seed, steps, warmup, per_step, step=train_step,
+              lrs=None):
+    """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``)
+    with ``step``: ``warmup`` steps, then ``steps`` timed with every
+    launch count zeroed just before and read just after; fail unless they
+    are exactly ``per_step`` a step and the losses are finite and fall.
+    The learning rate of each timed step goes into ``lrs`` when given.
+    Returns (launches, median step s, peak bytes)."""
     model, opt, x, y = build(seed)
-    warm = [train_step(model, opt, x, y).item() for _ in range(warmup)]
+    warm = [step(model, opt, x, y).item() for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, times = [], []
     for _ in range(steps):
+        if lrs is not None:
+            lrs.append(opt.get_lr())
         t0 = time.perf_counter()
-        losses.append(train_step(model, opt, x, y).item())   # synchronizes
+        losses.append(step(model, opt, x, y).item())   # synchronizes
         times.append(time.perf_counter() - t0)
     launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -2541,6 +2653,101 @@ def check_ln_row_warp(label, launches):
     768) on the row-warp design."""
     check_norm_paths(label, {
         "layer_norm_bwd": {"row_warp": launches["layer_norm_bwd"]}})
+
+
+def phase_train_bert(seed, steps=10, warmup=2, fp16_steps=5):
+    log(f"== phase 3i: BERT-base pretraining as bench_bert runs it (L=12, "
+        f"E=768, H=12, V={BERT_VOCAB}) B={BERT_BATCH} S={BERT_SEQ}, AMP O2 "
+        "bf16 with fp32 AdamW masters, dropout 0.1, 15% MLM labels and NSP, "
+        "AdamW under LinearWarmup(PolynomialDecay), ClipGradByGlobalNorm(1.0)"
+        f"; {warmup} warm-up steps, then {steps} timed on one repeated batch")
+    step = functools.partial(train_step, amp_level=BERT_AMP_LEVEL)
+    lrs = []
+    run = train_run(bert_train_workload, seed, steps, warmup,
+                    BERT_TRAIN_LAUNCHES, step=step, lrs=lrs)
+    check_ln_row_warp("BERT training", run[0])
+    sched, want = bert_schedule(), []
+    for i in range(warmup + steps):
+        if i >= warmup:
+            want.append(sched())
+        sched.step()
+    log(f"  learning rate of each timed step {lrs}")
+    if lrs != want:
+        raise SystemExit(f"BERT training: the learning rates {lrs} do not "
+                         f"follow the scheduler's {want}")
+    torch.cuda.empty_cache()
+    log("  the same step under bench_bert's own optimizer (AdamW at a "
+        "constant lr 1e-4, no clip, no schedule):")
+    bench = train_run(functools.partial(bert_train_workload,
+                                        bench_step=True), seed, steps,
+                      warmup, BERT_TRAIN_LAUNCHES, step=step)
+    log(f"  median step with the schedule and clip {1e3 * run[1]:.3f} ms, "
+        f"bench_bert's own {1e3 * bench[1]:.3f} ms (ratio "
+        f"{run[1] / bench[1]:.3f})")
+    torch.cuda.empty_cache()
+    bert_fp16_scaler(seed, fp16_steps)
+    return run
+
+
+def bert_fp16_scaler(seed, steps, inf_step=2):
+    """Phase 3i's model again in fp16 O2 under a GradScaler (its
+    defaults: 2^16, halved on a step with an inf or a NaN, doubled after
+    2000 finite ones), with an inf planted in one parameter's scaled
+    gradient at step ``inf_step``: the found-inf flag, the loss and the
+    scale after each step; fail unless the flag is up at the planted step
+    alone, that step leaves every parameter as it was, the scales follow
+    the scaler's rule from the flags (so the planted step halves it) and
+    the losses are finite."""
+    model, opt, x, y = bert_train_workload(seed, dtype="float16")
+    scaler = amp.GradScaler()
+    params = [p for p in model.parameters() if p.requires_grad]
+    flags, scales, losses = [], [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = train_loss(model, x, y, BERT_AMP_LEVEL, "float16")
+        scaler.scale(loss).backward()
+        if i == inf_step:
+            params[0].grad.mul_(float("inf"))
+            before = [p.detach().clone() for p in params]
+        scaler.unscale_(opt)
+        flags.append(scaler._found_inf)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        advance_schedule(opt)
+        if i == inf_step:
+            moved = [n for n, (p, b) in enumerate(zip(params, before))
+                     if not torch.equal(p, b)]
+            del before
+            if moved:
+                raise SystemExit(f"fp16 GradScaler run: the step with an inf "
+                                 f"moved {len(moved)} parameters")
+        scales.append(scaler.get_loss_scaling())
+        losses.append(loss.item())
+    dt = time.perf_counter() - t0
+    want, scale, good, bad = [], 2.0 ** 16, 0, 0
+    for found in flags:
+        if found:
+            bad, good = bad + 1, 0
+            if bad >= scaler._decr_every_n:
+                scale, bad = max(scale * scaler._decr_ratio, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= scaler._incr_every_n:
+                scale, good = scale * scaler._incr_ratio, 0
+        want.append(scale)
+    log(f"  fp16 O2 under GradScaler, {steps} steps in {dt:.2f} s, an inf "
+        f"planted at step {inf_step}: found inf {flags}, scale after each "
+        f"step {scales}, losses {losses}; the planted step left every "
+        "parameter as it was")
+    if flags != [i == inf_step for i in range(steps)] or scales != want \
+            or not np.isfinite(losses).all():
+        raise SystemExit(f"fp16 GradScaler run: found inf {flags} (want it "
+                         f"at step {inf_step} alone), scales {scales} (the "
+                         f"rule gives {want} from the flags), losses "
+                         f"{losses}")
+    del model, opt
+    torch.cuda.empty_cache()
 
 
 def phase_train_ffn(seed, base, steps=10, warmup=2):
@@ -2750,12 +2957,27 @@ def phase_fmt(seed, steps=127, chunk=128, b=8, smax=1024, n_layers=12):
     return launches
 
 
+def lm_batch(model, seed, batch, seq, dev):
+    """Token ids below ``model``'s vocabulary and their next-token
+    labels, [batch, seq] each."""
+    ids = np.random.default_rng(seed + 4).integers(
+        0, model.config.vocab_size, (batch, seq + 1))
+    return (torch.from_numpy(a).to(dev) for a in (ids[:, :-1], ids[:, 1:]))
+
+
+def lm_optimizer(model, lr):
+    return AdamW(lr, parameters=model.named_parameters())
+
+
 def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
-                       lr=1e-3, label="train", kernels=(), logits=False):
+                       lr=1e-3, label="train", kernels=(), logits=False,
+                       make_batch=lm_batch, make_opt=lm_optimizer):
     """The model ``build(device=, seed=)`` makes (default: GPT-2 124M
-    widths at L=2, dropout 0), fp32 (TF32 off): the same weights and batch
-    of ids below the model's vocabulary trained 3 AdamW steps on the card
-    and on the CPU (plain versions there), the card's run launching each of
+    widths at L=2, dropout 0), fp32 (TF32 off): the same weights and
+    batch (``make_batch``; default ids below the model's vocabulary)
+    trained 3 steps of ``make_opt``'s optimizer (default AdamW; a
+    learning-rate scheduler advanced after each step) on the card and on
+    the CPU (plain versions there), the card's run launching each of
     ``kernels``; with ``logits`` the first forward's logits within
     TOLERANCES["logits_fp32"]; losses and step-1 gradients within
     TOLERANCES["train_loss_fp32"] and ["train_grads_fp32"], step-3
@@ -2763,8 +2985,6 @@ def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
     elements that ["train_params_outliers"] allows."""
     build = build or functools.partial(gpt2_124m, num_layers=2, dropout=0.0)
     cpu_model = build(device="cpu", seed=seed)
-    ids = np.random.default_rng(seed + 4).integers(
-        0, cpu_model.config.vocab_size, (batch, seq + 1))
     state = cpu_model.state_dict()
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -2773,9 +2993,8 @@ def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
         else:
             model = build(device=dev, seed=seed)
             model.load_state_dict(state)
-        opt = AdamW(lr, parameters=model.named_parameters())
-        x, y = (torch.from_numpy(a).to(dev) for a in (ids[:, :-1],
-                                                      ids[:, 1:]))
+        opt = make_opt(model, lr)
+        x, y = make_batch(cpu_model, seed, batch, seq, dev)
         reset_launches()
         t0 = time.perf_counter()
         first = None
@@ -2784,12 +3003,14 @@ def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
                 first = model(x).cpu()
         losses, grads = [], None
         for i in range(steps):
-            loss = model(x, labels=y)
+            loss = train_loss(model, x, y)
             loss.backward()
             if i == 0:
-                grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
             opt.step()
             opt.clear_grad()
+            advance_schedule(opt)
             losses.append(loss.item())
         runs[dev] = (losses, grads, {n: p.detach().cpu() for n, p in
                                      model.named_parameters()}, first)
@@ -2839,6 +3060,23 @@ def phase_train_parity(seed, build=None, batch=2, seq=128, steps=3,
     if not ok:
         raise SystemExit("training on the card and the CPU differ: step-3 "
                          "parameters")
+
+
+def bert_parity_model(device, seed):
+    """Phase 3i's BERT-base at two layers, dropout 0: phase 4's parity
+    model."""
+    return BertForPretraining(bert_base(vocab_size=BERT_VOCAB, num_layers=2,
+                                        dropout=0.0), device=device,
+                              seed=seed)
+
+
+def bert_parity_batch(model, seed, batch, seq, dev):
+    return bert_batch(seed + 4, batch, seq, BERT_VOCAB_SAMPLED, dev)
+
+
+def bert_parity_optimizer(model, lr):
+    return AdamW(bert_schedule(lr), parameters=model.named_parameters(),
+                 grad_clip=ClipGradByGlobalNorm(1.0))
 
 
 # the decoder's own options among a phase-4 flavor's keyword args
@@ -3116,7 +3354,8 @@ def phase_parity(seed):
         "off), per flavor; then GPT-2 training, 3 AdamW steps, without and "
         "with the fused FFN; then FusedMultiTransformer's cache decode; "
         "then LLaMA training at LLaMA-2-7B width, L=1, B=1, S=128, 3 AdamW "
-        "steps")
+        "steps; then BERT-base pretraining at L=2, B=2, S=128, 3 AdamW "
+        "steps under the scheduler and ClipGradByGlobalNorm")
     rng = np.random.default_rng(seed + 1)
     state = random_state(rng, E, H, FF, 2, V)
     reqs = [(rng.integers(0, V, int(rng.integers(20, 201))),
@@ -3235,6 +3474,10 @@ def phase_parity(seed):
     phase_train_parity(seed, build=llama_one_layer, batch=1,
                        label="train-llama",
                        kernels=tuple(LLAMA_TRAIN_LAUNCHES), logits=True)
+    phase_train_parity(seed, build=bert_parity_model, label="train-bert",
+                       kernels=tuple(BERT_TRAIN_LAUNCHES),
+                       make_batch=bert_parity_batch,
+                       make_opt=bert_parity_optimizer)
     parity_ring(seed)
 
 
@@ -3923,6 +4166,10 @@ def phase_timing(seed):
     rows.update(time_flash_train(
         rng, (LLAMA_BATCH, heads, LLAMA_SEQ,
               LLAMA_CONFIG["hidden_size"] // heads), (0.0,), "_llama"))
+    log(f"  flash attention forward and backward at phase 3i's BERT shape "
+        f"[{BERT_BATCH}, 12, {BERT_SEQ}, 64] not causal, dropout 0.1 and 0")
+    rows.update(time_flash_train(rng, (BERT_BATCH, 12, BERT_SEQ, 64),
+                                 (0.1, 0.0), "_bert", causal=False))
     log(f"  the ring chunk kernels at phase 3g's chunk [{LLAMA_BATCH}, "
         f"{heads}, {LLAMA_SEQ // 4}, {LLAMA_CONFIG['hidden_size'] // heads}] "
         "(S over n = 4), offsets full and 0")
@@ -4076,10 +4323,10 @@ def time_loop_ms(fn, reps):
 
 
 def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
-                     suffix=""):
+                     suffix="", causal=True):
     """The flash kernels at a training shape [B, H, S, D] (default GPT-2's
-    [8, 12, 1024, 64]), causal, bf16, at each of ``dropouts`` (one seed
-    for forward and backward): the dK/dV and dQ kernels, each against the
+    [8, 12, 1024, 64]), ``causal`` or not, bf16, at each of ``dropouts``
+    (one seed for forward and backward): the dK/dV and dQ kernels, each against the
     plain backward (which computes all three gradients) and the fastest
     library backward (all three gradients; sdpa_timers); the forward
     against the plain forward (o and lse) and the fastest SDPA forward.
@@ -4089,7 +4336,8 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
     b, h, s, d = shape
     q, k, v, do = (randn(rng, (b, h, s, d), torch.bfloat16)
                    for _ in range(4))
-    pairs = b * h * s * (s + 1) // 2        # attended (row, key) pairs
+    pairs = (b * h * s * (s + 1) // 2 if causal     # attended (row, key)
+             else b * h * s * s)                    # pairs
     tile = b * h * s * d * 2                # one bf16 [B, H, S, D]
     rows = {name + suffix: [] for name in (
         "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
@@ -4097,16 +4345,17 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
     tol = TOLERANCES["attention_grad_bf16"]
     for p in dropouts:
         seed = int(rng.integers(1 << 63))
-        o, lse = fa.flash_attention_fwd(q, k, v, True, None, p, seed)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, None, p, seed)
         delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, delta, True, None, p, seed)
-        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True,
-                                                None, p, seed)
-        fwd_timers, bwd_timers = sdpa_timers(q, k, v, do, True, p, 20)
+        args = (q, k, v, do, lse, delta, causal, None, p, seed)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                causal, None, p, seed)
+        fwd_timers, bwd_timers = sdpa_timers(q, k, v, do, causal, p,
+                                                 20)
         fwd_library_ms, fwd_library = fastest_ms(fwd_timers)
         library_ms, library = fastest_ms(bwd_timers)
         plain_ms = time_loop_ms(lambda i=0: fa.flash_attention_bwd_reference(
-            q, k, v, o, lse, do, True, None, p, seed), 3)
+            q, k, v, o, lse, do, causal, None, p, seed), 3)
         for name, run, parts, nbytes, flops in (
                 ("flash_attention_bwd_dkv",
                  lambda i=0: fa.flash_attention_bwd_dkv(*args), want[1:],
@@ -4129,9 +4378,10 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
                    "library": library}
             log(f"  {name} {list(shape)} " + json.dumps(row))
             rows[name + suffix].append(row)
-        run_fwd = functools.partial(fa.flash_attention_fwd, q, k, v, True,
+        run_fwd = functools.partial(fa.flash_attention_fwd, q, k, v, causal,
                                     None, p, seed)
-        fwd_ref = fa.flash_attention_reference(q, k, v, True, None, p, seed)
+        fwd_ref = fa.flash_attention_reference(q, k, v, causal, None, p,
+                                               seed)
         fwd_tol = TOLERANCES["attention_bf16"]
         got = run_fwd()
         err = max((g.float() - w.float()).abs().max().item()
@@ -4146,7 +4396,7 @@ def time_flash_train(rng, shape=(BATCH, H, SEQ, E // H), dropouts=(0.0, 0.1),
                "ms": time_ms(lambda i=0: run_fwd(), 20),
                "plain_ms": time_loop_ms(
                    lambda i=0: fa.flash_attention_reference(
-                       q, k, v, True, None, p, seed), 3),
+                       q, k, v, causal, None, p, seed), 3),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": fwd_library_ms, "library": fwd_library}
         log(f"  flash_attention_fwd {list(shape)} " + json.dumps(row))
@@ -4182,7 +4432,8 @@ def time_ring(rng, n=4):
         fwd_timers, bwd_timers = sdpa_timers(q, k, v, do, causal, 0.0, 20)
         o, lse = rca.ring_chunk_attention_fwd(q, k, v, off)
         o_ref, lse_ref = rca.ring_chunk_attention_reference(q, k, v, off)
-        check_scaled(f"{label} o", o, o_ref, "attention_bf16", seen)
+        terms = rca.ring_chunk_rounding_terms(q, k, v, o, lse, do, dlse, off)
+        check_terms(f"{label} o", o, o_ref, terms[0], "attention_bf16", seen)
         check(f"{label} lse", lse, lse_ref, "attention_lse", seen)
         rows["ring_chunk_attention_fwd"].append(timed_row(
             {"offset": off},
@@ -4198,11 +4449,14 @@ def time_ring(rng, n=4):
             q, k, v, do, lse_ref, delta_ref, off),
             *rca.ring_chunk_attention_bwd_dkv(q, k, v, do, lse_ref,
                                               delta_ref, off))
+        terms_ref = rca.ring_chunk_rounding_terms(q, k, v, o_ref, lse_ref,
+                                                  do, dlse, off)
         for j, want_ref in enumerate(rca.ring_chunk_attention_bwd_reference(
                 q, k, v, o_ref, lse_ref, do, dlse, off)):
-            check_scaled(f"{label} {('dq', 'dk', 'dv')[j]} from plain o, lse",
-                         from_ref[j], want_ref, "attention_grad_bf16", seen)
-        del from_ref
+            check_terms(f"{label} {('dq', 'dk', 'dv')[j]} from plain o, lse",
+                        from_ref[j], want_ref, terms_ref[j + 1],
+                        "attention_grad_bf16", seen)
+        del from_ref, terms_ref
         plain_ms = time_loop_ms(
             lambda i=0: rca.ring_chunk_attention_bwd_reference(
                 q, k, v, o, lse, do, dlse, off), 3)
@@ -4218,8 +4472,8 @@ def time_ring(rng, n=4):
             got = run()
             for g, j in zip(got, parts):
                 gname = ("dq", "dk", "dv")[j]
-                check_scaled(f"{label} {gname}", g, want[j],
-                             "attention_grad_bf16", seen)
+                check_terms(f"{label} {gname}", g, want[j], terms[j + 1],
+                            "attention_grad_bf16", seen)
             err = max((g.float() - want[j].float()).abs().max().item()
                       for g, j in zip(got, parts))
             bound_ms, bound_by = bound(nbytes, flops)
@@ -4524,6 +4778,7 @@ def main(argv=None):
     launches["train-llama"] = phase_train_llama(args.seed)
     launches["ring"] = phase_ring(args.seed)
     launches.update(phase_mesh(args.seed))
+    launches["train-bert"] = phase_train_bert(args.seed)[0]
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 

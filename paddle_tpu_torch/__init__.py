@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of paddle_tpu's serving path, GPT-2 and LLaMA training,
-fused layers and context parallelism.
+"""PyTorch/CUDA port of paddle_tpu's serving path, GPT-2, LLaMA and BERT
+training, fused layers and context parallelism.
 
 A second package beside ``paddle_tpu/``, mirroring its module paths:
 ``incubate.nn.layer.FusedMultiTransformer`` holds the serving weights,
@@ -10,7 +10,10 @@ and layers) and ``optimizer.AdamW`` trains; ``incubate.nn`` has the fused
 layers (``FusedFeedForward``, ``FusedMultiTransformer`` with its KV-cache
 forward) and their functionals; ``models.llama`` trains LLaMA, over
 ``distributed.fleet``'s ``sep`` mesh with ``parallel``'s ring or Ulysses
-attention under ``context_parallel``; and ``ops.decode_attention``,
+attention under ``context_parallel``; ``models.bert`` pretrains BERT over
+``nn``'s Transformer layers under ``amp`` (O1 / O2, ``GradScaler``) with
+the ``optimizer``s, ``optimizer.lr``'s schedulers, ``nn.clip`` and the
+``regularizer``s; and ``ops.decode_attention``,
 ``ops.flash_attention``, ``ops.ring_chunk_attention``, ``ops.layer_norm``,
 ``ops.fused_dequant_matmul`` and ``ops.fused_ffn`` hold the hand-written
 Hopper kernels that attention, the ring's chunk step, LayerNorm and

@@ -121,6 +121,28 @@ TOLERANCES = {
     # up to ~0.1 for |t| ~ 4 and |g| ~ 5 (at K = 1024, M = 136 this put
     # elements of |dW2| < 5 outside ffn_bf16 by up to 0.125)
     "ffn_wgrad_bf16": {"atol": 0.125, "rtol": 2e-2},
+    # an optimizer's update in fp32, the port against the JAX package on
+    # the CPU: the same formulas over O(1) parameters and gradients, a
+    # few steps, with products and sums rounded in another order (XLA's
+    # fused expressions, PyTorch's in-place ops) and the scalars (bias
+    # corrections, schedules) taken in fp32 on the host here and on the
+    # device there
+    "optimizer_fp32": {"atol": 1e-6, "rtol": 1e-5},
+    # a bf16 parameter under multi_precision: its fp32 master (held to
+    # optimizer_fp32) rounded to bf16 on each side, which lands on the
+    # neighbouring bf16 value where the two masters straddle a rounding
+    # boundary: one bf16 ulp, 2^-7 relative at most
+    "optimizer_bf16_params": {"atol": 0.0, "rtol": 2 ** -7},
+    # BERT pretraining under AMP O2 (bf16 parameters and activations,
+    # fp32 masters), the port against the JAX package on the CPU, the
+    # loss of each of 3 AdamW steps: the activations round to bf16 at
+    # other points on each side (the LayerNorm kernel's plain version
+    # rounds y once, JAX's composite after normalising, scaling and
+    # shifting; products summed in another order), 2^-8 relative each,
+    # through two layers into a mean of logsumexp minus a logit, and the
+    # masters' updates follow the bf16 gradients (bert_tiny, B 2, S 64:
+    # 4.8e-4 on 7.0, held to 4x that)
+    "bert_o2_loss_bf16": {"atol": 2e-3, "rtol": 0.0},
 }
 
 

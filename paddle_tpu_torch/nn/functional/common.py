@@ -1,5 +1,7 @@
 """``linear``, ``fused_concat_linear`` and ``dropout`` in Paddle's
-semantics. Counterpart of ``paddle_tpu/nn/functional/common.py``.
+semantics. Counterpart of ``paddle_tpu/nn/functional/common.py``; the
+first two are where O1's casts happen, as there
+(``amp.auto_cast.cast_if_amp``).
 
 Every random draw takes an explicit ``torch.Generator`` (None: PyTorch's
 default CPU generator). A draw is one 63-bit seed taken from that
@@ -10,6 +12,8 @@ seeded with it, and attention dropout hands the seed to its kernels.
 from __future__ import annotations
 
 import torch
+
+from ...amp.auto_cast import cast_if_amp
 
 __all__ = ["draw_seed", "dropout", "fused_concat_linear", "keep_mask",
            "linear"]
@@ -29,7 +33,10 @@ def keep_mask(shape, p, generator, device):
 
 
 def linear(x, weight, bias=None, name=None):
-    """``y = x @ W + b`` with W ``[in, out]`` (Paddle's layout)."""
+    """``y = x @ W + b`` with W ``[in, out]`` (Paddle's layout). Inside
+    ``amp.auto_cast`` x and W are cast to the amp dtype first (O1), and
+    the bias is added in the product's dtype."""
+    x, weight = cast_if_amp("linear", x, weight)
     y = x @ weight
     return y if bias is None else y + bias.to(y.dtype)
 
@@ -40,7 +47,8 @@ def fused_concat_linear(x, weights, biases=None):
     stay separate and autograd splits their gradients through the
     concatenation (LLaMA's fused q/k/v and gate/up). ``biases`` is None,
     or one per weight; a list mixing None and tensors raises ValueError
-    (pass zeros for the bias-less ones), as in the JAX package."""
+    (pass zeros for the bias-less ones), as in the JAX package. Under
+    ``amp.auto_cast`` it casts as ``linear`` does."""
     if biases is not None:
         n_none = sum(b is None for b in biases)
         if n_none == len(biases):

@@ -3,11 +3,20 @@
 Counterparts of ``paddle_tpu/nn/layer/common.py``: ``Linear`` keeps its
 weight as ``[in, out]`` and computes ``y = x @ W + b`` (not
 ``nn.Linear``'s ``[out, in]``), so weights cross from the JAX package
-without a transpose. Parameters are allocated uninitialised (nothing at
-all on ``device="meta"``); serving fills them through
-``paddle_tpu_torch.weights.from_jax_state`` and keeps them frozen, while
-a training model (``models.gpt``) asks for ``trainable=True`` and
-initialises them itself.
+without a transpose.
+
+A parameter is drawn from its ``ParamAttr``'s initializer, or, when the
+caller passes a ``generator`` (keyword-only, a CPU ``torch.Generator``),
+from JAX's default (``XavierNormal`` weights and zero biases for
+``Linear``, ``Normal(0, 1)`` for ``Embedding``), on the CPU from that
+generator. Otherwise it is allocated uninitialised (nothing at all on
+``device="meta"``): serving fills it through
+``paddle_tpu_torch.weights.from_jax_state`` and keeps it frozen, while a
+training model asks for ``trainable=True`` and initialises it itself. A
+``ParamAttr``'s ``learning_rate``, ``regularizer`` and ``need_clip`` go
+onto the ``nn.Parameter`` (``optimize_attr``, ``regularizer``,
+``need_clip``: what the optimizers and clips read), and its
+``trainable=False`` freezes it.
 """
 from __future__ import annotations
 
@@ -16,23 +25,33 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..functional import common as pf
+from ..initializer import Constant, Normal, XavierNormal
+from ..utils_ import ParamAttr
 
 __all__ = ["Dropout", "Embedding", "Linear"]
 
 
-def _param(shape, dtype, device, trainable=False):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=trainable)
-
-
-def _no_initializer(layer, what, attr):
-    """Refuse a ``ParamAttr`` that names an initializer (JAX's layers draw
-    from it; the port's parameters get their values from
-    ``weights.from_jax_state`` or a model's own init)."""
-    if getattr(attr, "initializer", None) is not None:
-        raise NotImplementedError(
-            f"{layer}: {what} with an initializer is not ported yet "
-            "(ROADMAP Queue 1 item 10(e))")
+def make_param(shape, attr, default_init, dtype, device, trainable=False,
+               generator=None):
+    """The parameter ``attr`` (a ``ParamAttr``, None or True) describes:
+    drawn from its initializer, or from ``default_init`` when a
+    ``generator`` is given, else uninitialised (nothing on meta)."""
+    init = getattr(attr, "initializer", None)
+    meta = torch.device(device).type == "meta" if device else False
+    if meta or (init is None and generator is None):
+        data = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        data = (init or default_init)(shape, dtype, generator=generator,
+                                      device=device)
+    p = nn.Parameter(data, requires_grad=trainable and getattr(
+        attr, "trainable", True))
+    if isinstance(attr, ParamAttr):
+        p.regularizer = attr.regularizer
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.need_clip = attr.need_clip
+        if attr.name:
+            p.name = attr.name
+    return p
 
 
 class Embedding(nn.Module):
@@ -43,18 +62,19 @@ class Embedding(nn.Module):
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *,
-                 dtype=torch.float32, device=None, trainable=False):
+                 dtype=torch.float32, device=None, trainable=False,
+                 generator=None):
         super().__init__()
         if sparse:
             raise NotImplementedError(
                 "Embedding: sparse=True is not ported yet (ROADMAP Queue 1 "
                 "item 10(e))")
-        _no_initializer("Embedding", "weight_attr", weight_attr)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
-        self.weight = _param((num_embeddings, embedding_dim), dtype, device,
-                             trainable)
+        self.weight = make_param((num_embeddings, embedding_dim),
+                                 weight_attr, Normal(0.0, 1.0), dtype, device,
+                                 trainable, generator)
         if padding_idx is not None and self.weight.device.type != "meta":
             with torch.no_grad():
                 self.weight[padding_idx] = 0
@@ -72,16 +92,17 @@ class Linear(nn.Module):
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, dtype=torch.float32,
-                 device=None, trainable=False):
+                 device=None, trainable=False, generator=None):
         super().__init__()
-        _no_initializer("Linear", "weight_attr", weight_attr)
-        _no_initializer("Linear", "bias_attr", bias_attr)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param((in_features, out_features), dtype, device,
-                             trainable)
+        self.weight = make_param((in_features, out_features), weight_attr,
+                                 XavierNormal(), dtype, device, trainable,
+                                 generator)
         self.bias = (None if bias_attr is False
-                     else _param((out_features,), dtype, device, trainable))
+                     else make_param((out_features,), bias_attr,
+                                     Constant(0.0), dtype, device, trainable,
+                                     generator))
 
     def forward(self, x):
         return pf.linear(x, self.weight, self.bias)

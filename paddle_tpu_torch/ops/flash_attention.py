@@ -41,8 +41,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "dropout_keep", "is_supported", "kernel_path", "LAUNCHES",
-           "PATH_LAUNCHES"]
+           "rounding_terms", "rounding_bound", "dropout_keep",
+           "is_supported", "kernel_path", "LAUNCHES", "PATH_LAUNCHES"]
 
 NEG_INF = -1e30
 MAX_D = 256
@@ -435,3 +435,64 @@ def _bwd_plain(q, k, v, do, lse, delta, offset, scale, dropout_p=0.0,
     dk = dk.reshape(b, hk, g, sk, d).sum(2)
     dv = dv.reshape(b, hk, g, sk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rounding_terms(q, k, v, o, lse, do, causal=False, scale=None,
+                   dropout_p=0.0, seed=0):
+    """The magnitude of the terms behind each element of (o, dq, dk, dv),
+    on the plain versions' dense fp32 arithmetic: o_i over sum_j |p m|_ij
+    |v_j|, dv_j over sum_i |p m|_ij |dO_i|, dk_j over sum_i |ds_ij| |q_i|
+    and dq_i over sum_j |ds_ij| |k_j| (p = exp(s - lse), m the keep
+    multiplier, ds as the backward takes it; dk and dv summed over each
+    GQA group). Kernel and plain version round p m and ds to the working
+    dtype after fp32 sums taken in another order, so one operand may land
+    on the neighbouring value; ``rounding_bound`` turns these into each
+    element's tolerance."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return _terms_plain(q, k, v, do, lse, delta,
+                        _diagonal(causal, q.shape[2], k.shape[2]), scale,
+                        dropout_p, seed)
+
+
+def _terms_plain(q, k, v, do, lse, delta, offset, scale, dropout_p=0.0,
+                 seed=0):
+    """``rounding_terms`` under the diagonal ``offset``, lse and delta
+    [B, H, Sq, 1], as ``_bwd_plain`` takes them."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    s, mask = _scores(q, k, offset, scale)
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    del s
+    dm = _keep_scale(q, k, dropout_p, seed)
+    vv = v.repeat_interleave(h // hk, dim=1).float()
+    kk = k.repeat_interleave(h // hk, dim=1).float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vv)
+    if dm is not None:
+        dp = dp * dm
+        pd = p * dm
+    else:
+        pd = p
+    ds = (p * (dp - delta) * scale).abs_()
+    del dp, p
+    to = torch.einsum("bhqk,bhkd->bhqd", pd, vv.abs())
+    tv = torch.einsum("bhqk,bhqd->bhkd", pd, do.float().abs())
+    tk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs())
+    tq = torch.einsum("bhqk,bhkd->bhqd", ds, kk.abs())
+    g = h // hk
+    return (to, tq, tk.reshape(b, hk, g, sk, d).sum(2),
+            tv.reshape(b, hk, g, sk, d).sum(2))
+
+
+def rounding_bound(want, terms, atol, rtol):
+    """Each element's bound on |kernel - plain version| for an output of
+    the flash or ring chunk kernels: ``atol`` times the plain output's rms,
+    ``rtol`` times the element, and one unit of the working dtype's
+    rounding (``finfo.eps``, at least the gap from a value to its
+    neighbour over the value) times the element's ``terms``
+    (``rounding_terms``): an operand of the products that the two sides
+    round to neighbouring values moves the element by at most that."""
+    w = want.float()
+    rms = w.pow(2).mean().sqrt()
+    return atol * rms + rtol * w.abs() + torch.finfo(want.dtype).eps * terms

@@ -28,12 +28,14 @@ import torch
 
 from . import _build
 from .flash_attention import (_DTYPE_CODE, MAX_D, _aligned, _bwd_plain,
-                              _fwd_plain, _on_card, kernel_path)
+                              _fwd_plain, _on_card, _terms_plain,
+                              kernel_path)
 
 __all__ = ["ring_chunk_attention", "ring_chunk_attention_fwd",
            "ring_chunk_attention_bwd_dkv", "ring_chunk_attention_bwd_dq",
            "ring_chunk_attention_reference",
-           "ring_chunk_attention_bwd_reference", "is_supported", "LAUNCHES",
+           "ring_chunk_attention_bwd_reference",
+           "ring_chunk_rounding_terms", "is_supported", "LAUNCHES",
            "PATH_LAUNCHES"]
 
 # kernel launches, counted where a kernel is launched (the plain versions
@@ -222,3 +224,15 @@ def ring_chunk_attention_bwd_reference(q, k, v, o, lse, do, dlse, offset,
     delta = (do.float() * o.float()).sum(-1) - dlse
     return _bwd_plain(q, k, v, do, lse[..., None], delta[..., None], offset,
                       scale)
+
+
+def ring_chunk_rounding_terms(q, k, v, o, lse, do, dlse, offset,
+                              scale=None):
+    """``flash_attention.rounding_terms`` for the chunk step: the
+    magnitude of the terms behind each element of (o, dq, dk, dv) under
+    the offset, with delta = rowsum(dO * O) - dlse."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    return _terms_plain(q, k, v, do, lse[..., None], delta[..., None],
+                        offset, scale)

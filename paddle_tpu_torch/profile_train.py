@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
-    python -m paddle_tpu_torch.profile_train [--model gpt2|llama]
-        [--seed N] [--steps N] [--warmup N] [--fused-ffn]
+    python -m paddle_tpu_torch.profile_train [--model gpt2|llama|bert]
+        [--seed N] [--steps N] [--warmup N] [--fused-ffn] [--bench-step]
 
 Trains ``gpt2_train_workload``, the configuration that ``chip_smoke.py``
 phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
@@ -9,17 +9,22 @@ B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), or
 with ``--fused-ffn`` phase 3d's (the same under ``FUSED_FFN_FLAGS``: the
 MLP through the fused FFN kernels, forward and backward), or with
 ``--model llama`` phase 3f's ``llama_train_workload`` (LLaMA-2 7B's
-widths at 4 layers, B=1, S=4096, bf16 with fp32 AdamW masters), for
-``--warmup`` steps, then ``--steps`` more under ``torch.profiler``. Prints
-one JSON object: per profiled step its wall time, the union of the
-device's kernel intervals inside it (busy) and the idle share; then, over
-the profiled steps, device time and launches per step by kernel name.
+widths at 4 layers, B=1, S=4096, bf16 with fp32 AdamW masters), or
+with ``--model bert`` phase 3i's ``bert_train_workload`` (BERT-base
+pretraining as ``bench.py``'s ``bench_bert`` runs it on one card, under
+AMP O2, with a schedule and a clip, or with ``--bench-step`` under
+bench_bert's own constant lr and no clip), for ``--warmup`` steps, then
+``--steps`` more under ``torch.profiler``. Prints one JSON object: per
+profiled step its wall time, the union of the device's kernel intervals
+inside it (busy) and the idle share; then, over the profiled steps,
+device time and launches per step by kernel name.
 Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import os
 import sys
@@ -27,9 +32,13 @@ import sys
 import numpy as np
 import torch
 
+from . import amp
+from .models.bert import BertForPretraining, bert_base
 from .models.gpt import gpt2_124m
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .nn import ClipGradByGlobalNorm
 from .optimizer import AdamW
+from .optimizer.lr import LinearWarmup, LRScheduler, PolynomialDecay
 from .profile_serving import busy_us
 
 # bench_gpt2's headline configuration (bench.py:463)
@@ -42,6 +51,15 @@ LLAMA_CONFIG = {"vocab_size": 32000, "hidden_size": 4096, "num_layers": 4,
                 "num_heads": 32, "intermediate_size": 11008,
                 "max_position": 4096, "rms_eps": 1e-5}
 LLAMA_BATCH, LLAMA_SEQ = 1, 4096
+# bench_bert's configuration (bench.py:544-615): BERT-base with the
+# vocabulary padded to 30720 (ids and labels drawn from the real 30522),
+# B=16, S=512, 15% MLM labels, AdamW at lr 1e-4 under AMP O2 (bf16).
+# The schedule is BERT's (linear warmup, then linear decay; Devlin et al.
+# 2019, PaddleNLP's run_pretrain.py) with its lengths cut to a run of a
+# dozen steps, so that the warmup ends and the decay shows inside it
+BERT_VOCAB, BERT_VOCAB_SAMPLED, BERT_BATCH, BERT_SEQ = 30720, 30522, 16, 512
+BERT_WARMUP_STEPS, BERT_DECAY_STEPS, BERT_MLM_SHARE = 4, 100, 0.15
+BERT_AMP_LEVEL = "O2"
 # the environment under which GPTMLP runs the fused FFN kernels, forward
 # and backward (read at each forward and backward)
 FUSED_FFN_FLAGS = {"PADDLE_TPU_FUSED_FFN": "1",
@@ -87,41 +105,117 @@ def llama_train_workload(seed, device=None):
     return model, opt, x, y
 
 
-def train_step(model, opt, x, y):
-    """One step: forward with labels, backward, AdamW, clear the grads.
-    Returns the loss (a device scalar)."""
-    loss = model(x, labels=y)
+def bert_schedule(lr=LR):
+    """LinearWarmup from 0 to ``lr`` over BERT_WARMUP_STEPS, then
+    PolynomialDecay (power 1) to 0 over BERT_DECAY_STEPS."""
+    return LinearWarmup(PolynomialDecay(lr, BERT_DECAY_STEPS, end_lr=0.0),
+                        BERT_WARMUP_STEPS, 0.0, lr)
+
+
+def bert_batch(seed, batch, seq, vocab, device):
+    """(ids [B, S], labels) drawn from ``seed``, as bench_bert draws them:
+    ids below ``vocab``; labels the model's keywords ``masked_lm_labels``
+    ([B, S], each position its own id with probability BERT_MLM_SHARE,
+    else -100) and ``next_sentence_labels`` ([B])."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq))
+    labels = np.where(rng.random((batch, seq)) < BERT_MLM_SHARE, ids, -100)
+    nsp = rng.integers(0, 2, (batch,))
+    return (torch.from_numpy(ids).to(device),
+            {"masked_lm_labels": torch.from_numpy(labels).to(device),
+             "next_sentence_labels": torch.from_numpy(nsp).to(device)})
+
+
+def bert_train_workload(seed, device=None, dtype="bfloat16", *,
+                        bench_step=False):
+    """Returns ``(model, opt, x, y)``: ``BertForPretraining(bert_base(
+    vocab_size=30720))`` (dropout 0.1) with random weights from ``seed``
+    on ``device`` (default the card), cast by ``amp.decorate(level="O2",
+    dtype=dtype)`` with fp32 AdamW masters; AdamW (weight_decay 0.01)
+    under ``bert_schedule()`` with ``ClipGradByGlobalNorm(1.0)``, or with
+    ``bench_step`` bench_bert's own AdamW (a constant lr 1e-4, no clip);
+    and one batch ``bert_batch`` [16, 512] with its MLM and NSP labels.
+    Train it with ``train_step(..., amp_level=BERT_AMP_LEVEL)``."""
+    model = BertForPretraining(bert_base(vocab_size=BERT_VOCAB),
+                               device=device, seed=seed)
+    if bench_step:
+        opt = AdamW(LR, parameters=model.named_parameters())
+    else:
+        opt = AdamW(bert_schedule(), parameters=model.named_parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    x, y = bert_batch(seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB_SAMPLED,
+                      model.mlm_bias.device)
+    return model, opt, x, y
+
+
+def train_loss(model, x, y, amp_level=None, amp_dtype="bfloat16"):
+    """The model's loss on ids ``x`` with labels ``y`` (a dict of the
+    model's label keywords, else its ``labels``), under ``amp.auto_cast(
+    level=amp_level, dtype=amp_dtype)`` when ``amp_level`` is given."""
+    with amp.auto_cast(enable=amp_level is not None,
+                       level=amp_level or "O1", dtype=amp_dtype):
+        return model(x, **y) if isinstance(y, dict) else model(x, labels=y)
+
+
+def advance_schedule(opt):
+    """Step the learning-rate scheduler that ``opt`` holds, if it holds
+    one (the schedule moves once a step, after the update)."""
+    if isinstance(opt._learning_rate, LRScheduler):
+        opt._learning_rate.step()
+
+
+def train_step(model, opt, x, y, *, amp_level=None):
+    """One step: ``train_loss``, backward, the optimizer, clear the grads,
+    ``advance_schedule``. Returns the loss (a device scalar)."""
+    loss = train_loss(model, x, y, amp_level)
     loss.backward()
     opt.step()
     opt.clear_grad()
+    advance_schedule(opt)
     return loss
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("gpt2", "llama"), default="gpt2")
+    ap.add_argument("--model", choices=("gpt2", "llama", "bert"),
+                    default="gpt2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--fused-ffn", action="store_true",
                     help="train with FUSED_FFN_FLAGS set")
+    ap.add_argument("--bench-step", action="store_true",
+                    help="with --model bert: bench_bert's own optimizer "
+                    "(a constant lr, no clip)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
         return 2
     if args.fused_ffn:
         os.environ.update(FUSED_FFN_FLAGS)
+    step = train_step
     if args.model == "llama":
         model, opt, x, y = llama_train_workload(args.seed)
         config = {**LLAMA_CONFIG, "batch": LLAMA_BATCH, "seq": LLAMA_SEQ,
                   "dtype": "bfloat16", "masters": "fp32"}
+    elif args.model == "bert":
+        model, opt, x, y = bert_train_workload(args.seed,
+                                               bench_step=args.bench_step)
+        step = functools.partial(train_step, amp_level=BERT_AMP_LEVEL)
+        config = {"vocab_size": BERT_VOCAB, "batch": BERT_BATCH,
+                  "seq": BERT_SEQ, "layers": 12, "amp": "O2 bfloat16",
+                  "masters": "fp32", "dropout": 0.1,
+                  "schedule": None if args.bench_step else [
+                      BERT_WARMUP_STEPS, BERT_DECAY_STEPS],
+                  "clip": None if args.bench_step else 1.0}
     else:
         model, opt, x, y = gpt2_train_workload(args.seed)
         config = {"batch": BATCH, "seq": SEQ, "layers": 12,
                   "dtype": "bfloat16", "masters": "fp32", "dropout": 0.1,
                   "fused_ffn": args.fused_ffn}
     for _ in range(args.warmup):
-        train_step(model, opt, x, y)
+        step(model, opt, x, y)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -129,7 +223,7 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(args.steps):
             with torch.profiler.record_function(f"train_step_{i}"):
-                losses.append(train_step(model, opt, x, y).item())
+                losses.append(step(model, opt, x, y).item())
                 torch.cuda.synchronize()
     windows, kernels = [], []
     for ev in prof.events():

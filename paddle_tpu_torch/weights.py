@@ -11,9 +11,14 @@ for the training model ``GPTForCausalLM`` (``gpt.wte.weight``,
 parameters (``linear1_weight``, ..., ``ln2_bias``), trainable, and
 ``llama_from_jax_state`` for ``LlamaForCausalLM``
 (``llama.embed_tokens.weight``, ``llama.layers.0.self_attn.q_proj.weight``,
-..., ``llama.norm.weight``, ``lm_head.weight``), trainable. These are
-the only paths by which weights cross; a caller without JAX builds the
-same dicts from numpy directly (``random_state``).
+..., ``llama.norm.weight``, ``lm_head.weight``), trainable, and
+``bert_from_jax_state`` for the BERT models (``mlm_bias``,
+``bert.embeddings.word_embeddings.weight``,
+``bert.encoder.layers.0.self_attn.q_proj.weight``, ...), trainable.
+These are the only paths by which weights cross; a caller without JAX
+builds the same dicts from numpy directly (``random_state``).
+``optimizer_state_from_jax`` carries a JAX optimizer's state (its
+moments, masters, scalars, scheduler and step) into the port's.
 """
 from __future__ import annotations
 
@@ -25,12 +30,15 @@ from torch import nn
 
 from .device import resolve_device
 from .incubate.nn.layer import FusedFeedForward, FusedMultiTransformer
+from .models.bert import (BertForPretraining, BertForSequenceClassification,
+                          BertModel)
 from .models.gpt import GPTForCausalLM
 from .models.llama import LlamaForCausalLM
 from .nn.layer.common import Embedding, Linear
 
 __all__ = ["from_jax_state", "gpt_from_jax_state",
            "feedforward_from_jax_state", "llama_from_jax_state",
+           "bert_from_jax_state", "optimizer_state_from_jax",
            "random_state"]
 
 
@@ -58,8 +66,9 @@ def _load(module, state, device, dtype, trainable=False):
                 raise ValueError(f"{type(module).__name__}.{name}: shape "
                                  f"{tuple(t.shape)} != {tuple(p.shape)}")
             owner, _, leaf = name.rpartition(".")
-            module.get_submodule(owner)._parameters[leaf] = nn.Parameter(
-                t, requires_grad=trainable)
+            new = nn.Parameter(t, requires_grad=trainable)
+            new.__dict__.update(p.__dict__)     # ParamAttr's attributes
+            module.get_submodule(owner)._parameters[leaf] = new
 
 
 def from_jax_state(fmt_np, embed_np, head_np, activation="gelu",
@@ -108,6 +117,62 @@ def llama_from_jax_state(state_np, config, device=None, dtype=None):
     model = LlamaForCausalLM(config, device="meta")
     _load(model, state_np, dev, dtype, trainable=True)
     return model
+
+
+def bert_from_jax_state(state_np, config, *, device=None, dtype=None):
+    """A JAX BERT model's ``state_dict()`` as numpy arrays -> the port's
+    model of the same kind (``BertForPretraining`` where the state has
+    ``mlm_bias``, ``BertForSequenceClassification`` where it has
+    ``classifier.weight``, else ``BertModel``) of ``config``, on
+    ``device`` (default ``cuda``) holding the same values, trainable, in
+    ``dtype`` (default: the arrays' own). The tied MLM head needs no
+    entry of its own."""
+    dev = resolve_device(device)
+    if "mlm_bias" in state_np:
+        model = BertForPretraining(config, device="meta")
+    elif "classifier.weight" in state_np:
+        model = BertForSequenceClassification(
+            config, np.shape(state_np["classifier.weight"])[1],
+            device="meta")
+    else:
+        model = BertModel(config, device="meta")
+    _load(model, state_np, dev, dtype, trainable=True)
+    return model
+
+
+def _numpy(value):
+    """A JAX tensor, array or number as numpy (no JAX import: anything
+    with ``numpy()`` is asked for it)."""
+    return np.asarray(value.numpy() if hasattr(value, "numpy") else value)
+
+
+def optimizer_state_from_jax(jax_state, jax_params, opt):
+    """Load a JAX optimizer's ``state_dict()`` into the port's ``opt``.
+
+    JAX keys a parameter's slots by ``p.name`` (``<name>_moment1``,
+    ``<name>_master``, ...), a per-process uid, so the slots are matched
+    by position: ``jax_params`` is the JAX model's parameter list (or
+    their names) in the order the port's optimizer holds its parameters
+    (``parameters()`` on both sides). The slot suffixes are JAX's;
+    ``LR_Scheduler`` and ``@step`` carry over as they are."""
+    names = [p if isinstance(p, str) else p.name for p in jax_params]
+    if len(names) != len(opt._params):
+        raise ValueError(f"{len(names)} JAX parameters for the port "
+                         f"optimizer's {len(opt._params)}")
+    state = {}
+    for key, value in jax_state.items():
+        if key in ("LR_Scheduler", "@step"):
+            state[key] = value
+            continue
+        owner = max((i for i, n in enumerate(names)
+                     if key.startswith(n + "_")),
+                    key=lambda i: len(names[i]), default=None)
+        if owner is None:
+            raise ValueError(f"JAX optimizer state {key!r} names no "
+                             "parameter of jax_params")
+        suffix = key[len(names[owner]) + 1:]
+        state[f"{opt._params[owner][0]}_{suffix}"] = _numpy(value)
+    opt.set_state_dict(state)
 
 
 def feedforward_from_jax_state(state_np, dropout_rate=0.1, epsilon=1e-5,

@@ -13,9 +13,10 @@ its own, and compares the parameters and the output.
 - ``FusedDecoder``'s ``rope_base`` (sixth, as in JAX), ``F.linear`` and
   ``F.layer_norm`` with ``name=``.
 
-Arguments that the port has not ported (an initializer in a ``ParamAttr``,
-``sparse=True``, ``*_attrs``) raise NotImplementedError naming ROADMAP
-item 10(e). Values at TOLERANCES["logits_fp32"].
+Arguments that the port has not ported (``sparse=True``, ``*_attrs``)
+raise NotImplementedError naming ROADMAP item 10(e); an initializer in a
+``ParamAttr`` draws the parameter (a ``Constant`` equal to JAX's).
+Values at TOLERANCES["logits_fp32"].
 
 Then ROADMAP Queue 3's D-I, each a case that fails on the port before
 their repair: ``FusedFeedForward``'s ``*_attr``, ``nranks``, ``ring_id``
@@ -201,14 +202,37 @@ def test_embedding_matches_jax(padding_idx):
 
 
 def test_unported_arguments_raise():
-    from paddle_tpu.nn.initializer import Constant
-    init = ParamAttr(initializer=Constant(0.5))
-    for build in (lambda: Linear(4, 8, init, device="cpu"),
-                  lambda: Linear(4, 8, None, init, device="cpu"),
-                  lambda: Embedding(10, 4, None, True, device="cpu"),
-                  lambda: Embedding(10, 4, weight_attr=init, device="cpu")):
-        with pytest.raises(NotImplementedError, match="10\\(e\\)"):
-            build()
+    """``sparse=True`` is still refused, naming ROADMAP item 10(e). A
+    ``ParamAttr`` with an initializer, refused before the training
+    surface was ported, now draws the parameter from it: a ``Constant``
+    gives JAX's values exactly, on the weight, the bias and an
+    embedding."""
+    from paddle_tpu.nn.initializer import Constant as JaxConstant
+    from paddle_tpu_torch.nn.initializer import Constant
+    from paddle_tpu_torch.nn.utils_ import ParamAttr as TorchParamAttr
+    with pytest.raises(NotImplementedError, match="10\\(e\\)"):
+        Embedding(10, 4, None, True, device="cpu")
+    jinit = ParamAttr(initializer=JaxConstant(0.5))
+    tinit = TorchParamAttr(initializer=Constant(0.5))
+    for jbuild, tbuild in (
+            (lambda: jcommon.Linear(4, 8, jinit),
+             lambda: Linear(4, 8, tinit, device="cpu")),
+            (lambda: jcommon.Linear(4, 8, None, jinit),
+             lambda: Linear(4, 8, None, tinit, device="cpu",
+                            generator=torch.Generator().manual_seed(0))),
+            (lambda: jcommon.Embedding(10, 4, weight_attr=jinit),
+             lambda: Embedding(10, 4, weight_attr=tinit, device="cpu"))):
+        paddle.seed(0)
+        jl, tl = jbuild(), tbuild()
+        jstate = {k: np.asarray(v._data) for k, v in jl.state_dict().items()}
+        tstate = {k: v.detach().numpy() for k, v in tl.state_dict().items()}
+        assert set(tstate) == set(jstate)
+        for k, v in jstate.items():
+            if np.all(v == 0.5):
+                np.testing.assert_array_equal(tstate[k], v, err_msg=k)
+        if isinstance(tl, Linear) and tl.bias is not None \
+                and np.all(jstate["bias"] == 0.5):
+            assert not tl.weight.requires_grad      # trainable=False
 
 
 def test_functional_name_arguments():

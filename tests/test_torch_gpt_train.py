@@ -303,21 +303,39 @@ def test_adam_folds_l2_decay_into_the_gradient():
                                rtol=1e-6, atol=1e-6)
 
 
-class _L2Decay:
-    """What the JAX optimizers read from a ``paddle.regularizer.L2Decay``:
-    its coefficient, as ``_coeff``."""
-    _coeff = 0.1
-
-
 @pytest.mark.parametrize("opt_cls", [Adam, AdamW])
-@pytest.mark.parametrize("decay", [_L2Decay(), lambda g, w: g + 0.1 * w],
-                         ids=["l2decay", "callable"])
-def test_weight_decay_objects_are_refused(opt_cls, decay):
-    """A weight_decay that is not a real number is refused when the
-    optimizer is built, naming its ROADMAP item, not at the first step."""
-    p = torch.nn.Parameter(torch.ones(3))
-    with pytest.raises(NotImplementedError, match=r"10\(e\)"):
-        opt_cls(0.01, parameters=[p], weight_decay=decay)
+@pytest.mark.parametrize("decay", ["l2decay", "callable"])
+def test_weight_decay_objects_are_refused(opt_cls, decay, monkeypatch):
+    """A weight_decay that is an ``L2Decay`` or a callable, refused
+    before the regularizers were ported, now gives JAX's update: 3 steps
+    of ``Adam`` (the decay folded into the gradient) and ``AdamW``
+    (decoupled: the object's ``_coeff``, and JAX's 0.01 for a callable)
+    on one parameter, against the JAX optimizer of the same name, within
+    TOLERANCES["optimizer_fp32"]."""
+    import jax.numpy as jnp
+    from paddle_tpu.regularizer import L2Decay as JaxL2Decay
+    from paddle_tpu.tensor.tensor import Parameter as JaxParameter
+    from paddle_tpu.tensor.tensor import Tensor as JaxTensor
+    from paddle_tpu_torch.regularizer import L2Decay
+    monkeypatch.setenv("PADDLE_TPU_FUSE_EAGER_STEP", "0")
+    jdecay, tdecay = {"l2decay": (JaxL2Decay(0.1), L2Decay(0.1)),
+                      "callable": ((lambda g, w: g + 0.1 * w),
+                                   (lambda g, w: g + 0.1 * w))}[decay]
+    rng = np.random.default_rng(5)
+    w0 = rng.standard_normal((3, 2)).astype(np.float32)
+    jp = JaxParameter(jnp.asarray(w0))
+    p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    jopt = getattr(paddle.optimizer, opt_cls.__name__)(
+        0.01, parameters=[jp], weight_decay=jdecay)
+    opt = opt_cls(0.01, parameters=[p], weight_decay=tdecay)
+    for _ in range(3):
+        g = rng.standard_normal((3, 2)).astype(np.float32)
+        jp.grad = JaxTensor(jnp.asarray(g))
+        p.grad = torch.from_numpy(g)
+        jopt.step()
+        opt.step()
+    np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp._data),
+                               **TOLERANCES["optimizer_fp32"])
 
 
 def test_multi_precision_keeps_fp32_masters():

@@ -352,9 +352,30 @@ def test_cross_entropy_reductions_match_jax(reduction, ignore_index):
     {"weight": torch.ones(5)}, {"soft_label": True},
     {"use_softmax": False}, {"label_smoothing": 0.1}, {"axis": 0}])
 def test_cross_entropy_refuses_what_is_not_ported(kw):
-    x, y = map(torch.from_numpy, _ce_inputs())
-    with pytest.raises(NotImplementedError, match="10\\(e\\)"):
-        F.cross_entropy(x, y, **kw)
+    """The options once refused (class weights, soft labels,
+    probabilities in, label smoothing, another class axis) now give
+    JAX's loss, each over the labels of ``_ce_inputs`` (its ignored and
+    out-of-range rows included) or, for soft labels, a distribution a
+    row; ``"none"`` and ``"mean"``."""
+    x, y = _ce_inputs()
+    kw = {k: v.numpy() if torch.is_tensor(v) else v for k, v in kw.items()}
+    if kw.get("soft_label"):
+        y = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+    if kw.get("use_softmax") is False:
+        x = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+    if kw.get("axis") == 0:
+        x = x.T.copy()                  # classes on axis 0
+    jkw = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    for reduction in ("none", "mean"):
+        want = JF.cross_entropy(paddle.to_tensor(x), paddle.to_tensor(y),
+                                reduction=reduction, **jkw).numpy()
+        got = F.cross_entropy(torch.from_numpy(x), torch.from_numpy(y),
+                              reduction=reduction, **tkw)
+        np.testing.assert_allclose(got.numpy(), want,
+                                   **TOLERANCES["train_loss_fp32"])
 
 
 def test_cross_entropy_rejects_an_unknown_reduction():

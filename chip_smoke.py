@@ -219,21 +219,32 @@ Phases, in order; any failure exits non-zero:
      kv_shard_pool_bytes the pool and (per_dev - repl) x 2 + repl the
      dense weight bytes; generated tokens/s, TTFT p50 and peak memory by
      device against mp=1, beside the card;
-  3i. BERT-base pretraining as bench.py's bench_bert runs it on one card
-     (profile_train.bert_train_workload: BertForPretraining, V=30720, B=16,
-     S=512, ids from the real 30522, 15% MLM labels and NSP labels,
-     amp.decorate(level="O2") bf16 with fp32 AdamW masters, dropout 0.1,
+  3i. BERT-base pretraining as BASELINE configs[1] runs it on one card
+     (profile_train.bert_train_workload: fleet.init over the world-1 NCCL
+     group, BertForPretraining, V=30720, B=16, S=512, ids from the real
+     30522, 15% MLM labels and NSP labels, amp.decorate(level="O2") bf16
+     with fp32 AdamW masters, then group_sharded_parallel(level="os_g"),
+     fleet.distributed_model and fleet.distributed_optimizer, dropout 0.1,
      AdamW at lr 1e-4 under LinearWarmup(PolynomialDecay) with
      ClipGradByGlobalNorm(1.0), the step under auto_cast(level="O2")): 2
      warm-up steps, then 10 timed on one repeated batch; each step must
      launch exactly 12 flash forward, 12 dK/dV, 12 dQ, 26 LayerNorm
      forward and 26 LayerNorm backward kernels and no other kernel of the
      port (flash on the tensor cores, every LayerNorm backward row-warp),
-     the losses be finite and fall, and the learning rate of each step be
-     the schedule's; step time, tokens/s and peak memory printed. Then 5
-     steps of the same model in fp16 O2 under a GradScaler: the found-inf
-     flag and the scale after each step, which must follow the scaler's
-     rule;
+     issue exactly stage 2's stated collectives (a reduce-scatter and an
+     all-gather a 32 MB bucket, the clip's all-reduce), every one over
+     NCCL, the losses be finite and fall, and the learning rate of each
+     step be the schedule's; step time, tokens/s and peak memory printed,
+     also under bench_bert's own optimizer and, without the wrapper,
+     the plain O2 step (no collective) beside stage 2's. Then 5 steps
+     of the same model in fp16 O2 under a GradScaler: the found-inf flag
+     and the scale after each step, which must follow the scaler's rule;
+  3j. every collective of distributed.communication on a tensor on the
+     card over the world-1 NCCL group (each returns its input, counts
+     once, over NCCL); then BERT-base widths at L=2, dropout 0, fp32, 3
+     AdamW steps unwrapped and through group_sharded_parallel at "os",
+     "os_g" and "p_g_os": the parameters within train_params_fp32 of the
+     unwrapped run's, stages 1 and 2 with exactly their collectives;
   4. the same engine at L=2, fp32, under the three schedulers on the card
      and the row scheduler on the CPU (plain versions there), fp and with
      kv_quant="int8", weight_quant="int4", and the row scheduler with
@@ -325,6 +336,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from paddle_tpu_torch import TOLERANCES, amp
 from paddle_tpu_torch.core import rng as trng
+from paddle_tpu_torch import distributed as pdist
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.communication import ops as collectives
+from paddle_tpu_torch.distributed.fleet.base import topology as fleet_topology
+from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
 from paddle_tpu_torch.incubate.nn import FusedFeedForward
 from paddle_tpu_torch.inference import (AdmissionFull, FusedDecoder,
                                         PrefixCache, ServingEngine)
@@ -2431,6 +2447,7 @@ def reset_launches():
                    *ln.PATH_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
+    collectives.reset_collectives()
 
 
 # the fused FFN kernels that take a design from kernel_path
@@ -2598,13 +2615,16 @@ def all_launches():
 
 
 def train_run(build, seed, steps, warmup, per_step, step=train_step,
-              lrs=None):
+              lrs=None, collectives_per_step=None):
     """Train the workload ``build(seed)`` returns (``(model, opt, x, y)``)
     with ``step``: ``warmup`` steps, then ``steps`` timed with every
     launch count zeroed just before and read just after; fail unless they
     are exactly ``per_step`` a step and the losses are finite and fall.
     The learning rate of each timed step goes into ``lrs`` when given.
-    Returns (launches, median step s, peak bytes)."""
+    ``collectives_per_step(opt)``, when given, is the design's
+    collectives a step: the run's ``COLLECTIVES`` must be exactly that
+    many a step, every one over NCCL. Returns (launches, median step s,
+    peak bytes)."""
     model, opt, x, y = build(seed)
     warm = [step(model, opt, x, y).item() for _ in range(warmup)]
     torch.cuda.synchronize()
@@ -2630,12 +2650,44 @@ def train_run(build, seed, steps, warmup, per_step, step=train_step,
         f"{ {k: v / steps for k, v in got.items()} }")
     if got != want:
         raise SystemExit(f"training launches {got}, want exactly {want}")
+    if collectives_per_step is not None:
+        check_collectives("training", collectives_per_step(opt), steps)
     check_tensor_core_path("flash attention", fa)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0] \
             or not np.mean(losses[-3:]) < np.mean(losses[:3]):
         raise SystemExit(f"training losses must be finite and decrease over "
                          f"the repeated batch: {losses}")
     return launches, med, peak
+
+
+def check_collectives(label, per_step, steps, backend="nccl"):
+    """``COLLECTIVES`` since the last reset: exactly ``per_step`` (op ->
+    calls) a step over ``steps`` steps, every call over ``backend``."""
+    got = dict(collectives.COLLECTIVES)
+    want = {k: v * steps for k, v in per_step.items()}
+    backends = dict(collectives.COLLECTIVE_BACKENDS)
+    log(f"  [{label}] collectives over {steps} steps {got} (design "
+        f"{per_step} a step), by backend {backends}")
+    if got != want or set(backends) - {backend}:
+        raise SystemExit(f"[{label}] collectives {got} by backend "
+                         f"{backends}, want exactly {want}, all over "
+                         f"{backend}")
+
+
+def reset_fleet():
+    """Forget the fleet topology a phase built (the default process group
+    stays)."""
+    fleet_topology._HYBRID_GROUP[0] = None
+    fleet._fleet_state.update(strategy=None, hcg=None)
+
+
+def sharded_step_collectives(opt, clip):
+    """A GroupSharded stage-1/2 optimizer's stated collectives a step,
+    plus the clip's one all-reduce of the shards' partials."""
+    want = dict(opt.step_counts())
+    if clip:
+        want["all_reduce"] = want.get("all_reduce", 0) + 1
+    return want
 
 
 def phase_train(seed, steps=10, warmup=2):
@@ -2660,11 +2712,15 @@ def phase_train_bert(seed, steps=10, warmup=2, fp16_steps=5):
         f"E=768, H=12, V={BERT_VOCAB}) B={BERT_BATCH} S={BERT_SEQ}, AMP O2 "
         "bf16 with fp32 AdamW masters, dropout 0.1, 15% MLM labels and NSP, "
         "AdamW under LinearWarmup(PolynomialDecay), ClipGradByGlobalNorm(1.0)"
-        f"; {warmup} warm-up steps, then {steps} timed on one repeated batch")
+        ", through fleet.init and group_sharded_parallel(level='os_g') over "
+        f"the NCCL process group; {warmup} warm-up steps, then {steps} timed "
+        "on one repeated batch")
     step = functools.partial(train_step, amp_level=BERT_AMP_LEVEL)
     lrs = []
     run = train_run(bert_train_workload, seed, steps, warmup,
-                    BERT_TRAIN_LAUNCHES, step=step, lrs=lrs)
+                    BERT_TRAIN_LAUNCHES, step=step, lrs=lrs,
+                    collectives_per_step=functools.partial(
+                        sharded_step_collectives, clip=True))
     check_ln_row_warp("BERT training", run[0])
     sched, want = bert_schedule(), []
     for i in range(warmup + steps):
@@ -2680,21 +2736,192 @@ def phase_train_bert(seed, steps=10, warmup=2, fp16_steps=5):
         "constant lr 1e-4, no clip, no schedule):")
     bench = train_run(functools.partial(bert_train_workload,
                                         bench_step=True), seed, steps,
-                      warmup, BERT_TRAIN_LAUNCHES, step=step)
+                      warmup, BERT_TRAIN_LAUNCHES, step=step,
+                      collectives_per_step=functools.partial(
+                          sharded_step_collectives, clip=False))
     log(f"  median step with the schedule and clip {1e3 * run[1]:.3f} ms, "
         f"bench_bert's own {1e3 * bench[1]:.3f} ms (ratio "
         f"{run[1] / bench[1]:.3f})")
     torch.cuda.empty_cache()
+    log("  the step with the schedule and clip without the GroupSharded "
+        "wrapper (the plain O2 step), to hold stage 2's cost at world 1:")
+    plain = train_run(functools.partial(bert_train_workload, level=None),
+                      seed, steps, warmup, BERT_TRAIN_LAUNCHES, step=step,
+                      collectives_per_step=lambda opt: {})
+    log(f"  stage 2 / unwrapped: median step {1e3 * run[1]:.3f} / "
+        f"{1e3 * plain[1]:.3f} ms ({run[1] / plain[1]:.3f}x), peak {run[2]} "
+        f"/ {plain[2]} bytes ({run[2] - plain[2]:+d})")
+    torch.cuda.empty_cache()
     bert_fp16_scaler(seed, fp16_steps)
+    reset_fleet()
     return run
+
+
+def collective_ops_world1(dev="cuda", backend="nccl"):
+    """Every op of ``distributed.communication`` on tensors on ``dev``
+    (the card) over the world-1 group: each returns its input (a world of
+    one), counts once in ``COLLECTIVES``, and every call is ``backend``'s
+    (a send to oneself is a copy into the matching receive, as in a
+    ppermute)."""
+    x = torch.arange(12.0, device=dev).reshape(3, 4)
+    reset_launches()
+    got = {}
+    for name in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = x.clone()
+        pdist.all_reduce(t, getattr(pdist.ReduceOp, name))
+        got[f"all_reduce {name}"] = t
+    outs = []
+    pdist.all_gather(outs, x)
+    got["all_gather"] = torch.stack(outs)[0]
+    for name, fn in (("broadcast", pdist.broadcast), ("reduce", pdist.reduce)):
+        t = x.clone()
+        fn(t, 0)
+        got[name] = t
+    t = torch.zeros_like(x)
+    pdist.scatter(t, [x], src=0)
+    got["scatter"] = t
+    outs = []
+    pdist.gather(x, outs, dst=0)
+    got["gather"] = outs[0]
+    outs = []
+    pdist.alltoall([x], outs)
+    got["alltoall"] = outs[0]
+    got["alltoall_single"] = pdist.alltoall_single(x)
+    t = torch.zeros_like(x)
+    pdist.send(x, dst=0)
+    pdist.recv(t, src=0)
+    got["send / recv"] = t
+    t = torch.zeros_like(x)
+    for task in (pdist.isend(x, dst=0), pdist.irecv(t, src=0)):
+        task.wait()
+    got["isend / irecv"] = t
+    t = torch.zeros_like(x)
+    for task in pdist.batch_isend_irecv([pdist.P2POp(pdist.isend, x, 0),
+                                         pdist.P2POp(pdist.irecv, t, 0)]):
+        task.wait()
+    got["batch_isend_irecv"] = t
+    t = torch.zeros(12, device=dev)
+    pdist.reduce_scatter(t, [x.reshape(-1)])
+    got["reduce_scatter list"] = t.view(3, 4)
+    t = x.clone()
+    pdist.reduce_scatter(t)
+    got["reduce_scatter"] = t
+    t = x.clone()
+    pdist.all_reduce(t, group=pdist.new_group([0]))
+    got["new_group all_reduce"] = t
+    objs = []
+    pdist.all_gather_object(objs, {"a": 1})
+    ok_objs = objs == [{"a": 1}]
+    objs = [("b", 2)]
+    pdist.broadcast_object_list(objs, src=0)
+    ok_objs &= objs == [("b", 2)]
+    objs = []
+    pdist.scatter_object_list(objs, [("c", 3)], src=0)
+    ok_objs &= objs == [("c", 3)]
+    pdist.barrier()
+    bad = [k for k, v in got.items() if not torch.equal(v, x)]
+    counts = dict(collectives.COLLECTIVES)
+    want = {"all_reduce": 6, "all_gather": 1, "broadcast": 1, "reduce": 1,
+            "scatter": 1, "gather": 1, "alltoall": 1, "alltoall_single": 1,
+            "send": 2, "recv": 2, "batch_isend_irecv": 2,
+            "reduce_scatter": 2, "all_gather_object": 1,
+            "broadcast_object_list": 1, "scatter_object_list": 1,
+            "barrier": 1}
+    backends = dict(collectives.COLLECTIVE_BACKENDS)
+    log(f"  every collective on the card at world 1 ({pdist.get_backend()}):"
+        f" {sorted(got)} and the object ones; calls {counts}, by backend "
+        f"{backends}; wrong results {bad}, objects "
+        f"{'ok' if ok_objs else 'FAIL'}")
+    if bad or not ok_objs or counts != want or set(backends) != {backend} \
+            or pdist.get_backend() != backend.upper():
+        raise SystemExit(f"the world-1 collectives on the card: wrong "
+                         f"{bad}, objects ok {ok_objs}, calls {counts} (want "
+                         f"{want}), backends {backends}")
+
+
+def phase_sharding(seed, steps=3, lr=1e-3, batch=2, seq=128, dev="cuda"):
+    """Phase 3j: ``collective_ops_world1``; then phase 4's BERT-base at
+    L=2, dropout 0, fp32 (TF32 off), trained ``steps`` steps of AdamW
+    with ClipGradByGlobalNorm(1.0) under LinearWarmup(PolynomialDecay)
+    on the card unwrapped and through ``group_sharded_parallel`` at "os",
+    "os_g" and "p_g_os" over the world-1 NCCL group: every level's
+    parameters within TOLERANCES["train_params_fp32"] of the unwrapped
+    run's (the worst gap printed), stages 1 and 2 with exactly their
+    stated collectives a step, all over NCCL."""
+    log(f"== phase 3j: the collectives and the GroupSharded stages over the "
+        f"NCCL group of one card; BERT-base widths at L=2, dropout 0, fp32, "
+        f"B={batch} S={seq}, {steps} AdamW steps per level against the "
+        "unwrapped step")
+    pdist.init_parallel_env(device=dev)
+    collective_ops_world1(dev, "nccl" if dev == "cuda" else "gloo")
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy(),
+               device=dev)
+    state = bert_parity_model(dev, seed).state_dict()
+    runs = {}
+    for level in (None, "os", "os_g", "p_g_os"):
+        model = bert_parity_model(dev, seed)
+        model.load_state_dict(state)
+        opt = bert_parity_optimizer(model, lr)
+        wrapped = model
+        if level is not None:
+            wrapped, opt, _ = group_sharded_parallel(model, opt, level=level)
+        x, y = bert_parity_batch(model, seed, batch, seq, dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(steps):
+            loss = train_loss(wrapped, x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            advance_schedule(opt)
+            losses.append(loss.item())
+        dt = time.perf_counter() - t0
+        backend = "nccl" if dev == "cuda" else "gloo"
+        if level in ("os", "os_g"):
+            check_collectives(f"stage {level}",
+                              sharded_step_collectives(opt, clip=True), steps,
+                              backend)
+        else:
+            log(f"  [{level or 'unwrapped'}] collectives "
+                f"{dict(collectives.COLLECTIVES)}, by backend "
+                f"{dict(collectives.COLLECTIVE_BACKENDS)}")
+            if set(collectives.COLLECTIVE_BACKENDS) - {backend} or (
+                    level == "p_g_os" and not (
+                        collectives.COLLECTIVES.get("all_gather")
+                        and collectives.COLLECTIVES.get("reduce_scatter"))):
+                raise SystemExit(f"[{level}] collectives "
+                                 f"{dict(collectives.COLLECTIVES)}")
+        if level == "p_g_os":
+            wrapped.get_all_parameters()
+        runs[level] = {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}
+        log(f"  [{level or 'unwrapped'}] {steps} steps in {dt:.2f} s, "
+            f"losses {losses}")
+        del model, opt, wrapped
+    tol = TOLERANCES["train_params_fp32"]
+    for level in ("os", "os_g", "p_g_os"):
+        worst = max(((runs[level][n] - w).abs().max().item(), n)
+                    for n, w in runs[None].items())
+        bad = [n for n, w in runs[None].items()
+               if not torch.allclose(runs[level][n], w, **tol)]
+        log(f"  [{level}] parameters after {steps} steps vs unwrapped: "
+            f"worst gap {worst[0]:.3e} at {worst[1]} (atol {tol['atol']}, "
+            f"rtol {tol['rtol']}) {'ok' if not bad else 'FAIL ' + str(bad)}")
+        if bad:
+            raise SystemExit(f"GroupSharded {level} on the card departs from "
+                             f"the unwrapped step: {bad}")
+    reset_fleet()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
 
 
 def bert_fp16_scaler(seed, steps, inf_step=2):
     """Phase 3i's model again in fp16 O2 under a GradScaler (its
     defaults: 2^16, halved on a step with an inf or a NaN, doubled after
     2000 finite ones), with an inf planted in one parameter's scaled
-    gradient at step ``inf_step``: the found-inf flag, the loss and the
-    scale after each step; fail unless the flag is up at the planted step
+    gradient shard at step ``inf_step``: the found-inf flag (its MAX over
+    the process group), the loss and the scale after each step; fail unless the flag is up at the planted step
     alone, that step leaves every parameter as it was, the scales follow
     the scaler's rule from the flags (so the planted step halves it) and
     the losses are finite."""
@@ -2707,7 +2934,8 @@ def bert_fp16_scaler(seed, steps, inf_step=2):
         loss = train_loss(model, x, y, BERT_AMP_LEVEL, "float16")
         scaler.scale(loss).backward()
         if i == inf_step:
-            params[0].grad.mul_(float("inf"))
+            # stage 2: the gradient lives in the first stepped shard
+            opt._params[0][1].grad.mul_(float("inf"))
             before = [p.detach().clone() for p in params]
         scaler.unscale_(opt)
         flags.append(scaler._found_inf)
@@ -4779,6 +5007,7 @@ def main(argv=None):
     launches["ring"] = phase_ring(args.seed)
     launches.update(phase_mesh(args.seed))
     launches["train-bert"] = phase_train_bert(args.seed)[0]
+    phase_sharding(args.seed)
     phase_parity(args.seed)
     rows = phase_timing(args.seed)
 

@@ -10,7 +10,9 @@ and layers) and ``optimizer.AdamW`` trains; ``incubate.nn`` has the fused
 layers (``FusedFeedForward``, ``FusedMultiTransformer`` with its KV-cache
 forward) and their functionals; ``models.llama`` trains LLaMA, over
 ``distributed.fleet``'s ``sep`` mesh with ``parallel``'s ring or Ulysses
-attention under ``context_parallel``; ``models.bert`` pretrains BERT over
+attention under ``context_parallel``; ``distributed`` runs the
+collectives, ``DataParallel`` and the GroupSharded stages over
+``torch.distributed`` process groups; ``models.bert`` pretrains BERT over
 ``nn``'s Transformer layers under ``amp`` (O1 / O2, ``GradScaler``) with
 the ``optimizer``s, ``optimizer.lr``'s schedulers, ``nn.clip`` and the
 ``regularizer``s; and ``ops.decode_attention``,

@@ -7,7 +7,9 @@ its dtype, and a step whose gradients hold an inf or a NaN is skipped.
 ``decr_every_n_nan_or_inf`` such steps in a row, or doubles it
 (``incr_ratio``) after ``incr_every_n_steps`` finite ones. The finite
 checks of all gradients fold into one flag on the device, read once a
-step (the one host sync: whether to step).
+step (the one host sync: whether to step). Where the optimizer steps shards (the GroupSharded stages) or
+more than one process trains, the flag is the MAX over every process, so
+that every rank skips the same step.
 """
 from __future__ import annotations
 
@@ -20,6 +22,17 @@ class OptimizerState:
     INIT = 0
     UNSCALED = 1
     STEPPED = 2
+
+
+def _over_world(optimizer) -> bool:
+    """Whether the found-inf flag is taken over every process: more than
+    one process trains, or the optimizer steps a shard."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return False
+    return dist.get_world_size() > 1 or any(
+        getattr(p, "_shard_info", None) is not None
+        for _, p in optimizer._params)
 
 
 class GradScaler:
@@ -64,7 +77,12 @@ class GradScaler:
             p.grad.copy_(g)
         if not finite:
             return False
-        return not bool(torch.stack(finite).all())
+        bad = (~torch.stack(finite).all()).float()
+        if _over_world(optimizer):
+            from ..distributed.communication.all_reduce import all_reduce
+            from ..distributed.communication.group import ReduceOp
+            all_reduce(bad, op=ReduceOp.MAX)
+        return bool(bad.item())
 
     def unscale_(self, optimizer):
         if not self._enable:

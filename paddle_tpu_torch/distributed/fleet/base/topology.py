@@ -9,9 +9,12 @@ builds the mesh. A data / sep topology gets a ``DeviceMesh`` from
 above 1 with every other degree 1 gets the single-controller serving
 mesh (``parallel.serving_mesh.ServingMesh``), as JAX's ``fleet.init``
 builds one process's mesh over its devices: this process is rank 0 of
-the ``mp`` shards. A pipeline or sharding degree above 1, and a model
-degree combined with another degree or spread over processes, raise
-until ROADMAP Queue 1 item 10(e) ports fleet's model-parallel layers.
+the ``mp`` shards. A data / sharding / sep topology's groups are the
+process groups of its ``DeviceMesh`` axes (the GroupSharded stages shard
+over "sharding", and dp and sharding both consume distinct data). A
+pipeline degree above 1, and a model degree combined with another degree
+or spread over processes, raise until ROADMAP Queue 1 item 10(e) ports
+fleet's model-parallel layers and pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ _AXIS_MAP = {"data": "dp", "pipe": "pp", "sharding": "sharding",
 # the mesh's axes, outer to inner (the JAX mesh's order)
 _MESH_AXES = ("pp", "dp", "sharding", "sep", "mp")
 # axes the port does not run yet -> their ROADMAP Queue 1 item
-_NOT_PORTED = {"pp": "10(e)", "sharding": "10(e)"}
+_NOT_PORTED = {"pp": "10(e)"}
 
 
 class HybridCommunicateGroup:
@@ -106,10 +109,13 @@ class HybridCommunicateGroup:
                 raise NotImplementedError(
                     f"fleet: {axis}_degree {degrees[axis]} is not ported "
                     f"yet (ROADMAP Queue 1 item {item}); the port runs "
-                    "dp, sep, and mp alone for serving")
+                    "dp, sharding, sep, and mp alone for serving")
         world = (dist.get_world_size() if dist.is_initialized()
                  else int(os.environ.get("WORLD_SIZE", "1")))
+        self._topo = topology
         self._dp_degree = degrees["dp"]
+        self._pp_degree = degrees["pp"]
+        self._sharding_degree = degrees["sharding"]
         self._sep_degree = degrees["sep"]
         self._mp_degree = degrees["mp"]
         if self._mp_degree > 1:
@@ -147,17 +153,74 @@ class HybridCommunicateGroup:
     def mesh(self):
         return self._mesh
 
-    # data parallel
-    def get_data_parallel_rank(self):
+    def get_parallel_mode(self):
+        if self._mp_degree == 1 and self._pp_degree == 1 and \
+                self._sharding_degree == 1 and self._dp_degree > 1:
+            return "data_parallel"
+        if self._sharding_degree > 1 and self._mp_degree == 1 and \
+                self._pp_degree == 1:
+            return "sharding_parallel"
+        if self._mp_degree > 1 and self._pp_degree == 1:
+            return "tensor_parallel"
+        if self._pp_degree > 1:
+            return "pipeline_parallel"
+        return "data_parallel"
+
+    def topology(self):
+        return self._topo
+
+    def get_global_rank(self):
+        """This process's rank (0 for the serving mesh's controller)."""
+        if self._mp_group is not None or not dist.is_initialized():
+            return 0
+        return dist.get_rank()
+
+    def _local_rank(self, axis):
         if self._mp_group is not None:
             return 0
-        return self._mesh.get_local_rank("dp")
+        return self._mesh.get_local_rank(axis)
+
+    def _src_rank(self, axis):
+        return dist.get_process_group_ranks(self._mesh.get_group(axis))[0]
+
+    # data parallel
+    def get_data_parallel_rank(self):
+        return self._local_rank("dp")
 
     def get_data_parallel_world_size(self):
         return self._dp_degree
 
     def get_data_parallel_group(self):
         return self._mesh.get_group("dp")
+
+    def get_data_parallel_group_src_rank(self):
+        return self._src_rank("dp")
+
+    # pipeline (a degree above 1 is refused)
+    def get_stage_id(self):
+        return 0
+
+    def get_pipe_parallel_world_size(self):
+        return self._pp_degree
+
+    def is_first_stage(self):
+        return True
+
+    def is_last_stage(self):
+        return True
+
+    # sharding
+    def get_sharding_parallel_rank(self):
+        return self._local_rank("sharding")
+
+    def get_sharding_parallel_world_size(self):
+        return self._sharding_degree
+
+    def get_sharding_parallel_group(self):
+        return self._mesh.get_group("sharding")
+
+    def get_sharding_parallel_group_src_rank(self):
+        return self._src_rank("sharding")
 
     # model (tensor) parallel: the controller's view of the serving mesh
     def get_model_parallel_rank(self):
@@ -171,9 +234,7 @@ class HybridCommunicateGroup:
 
     # sep (sequence / context parallel)
     def get_sep_parallel_rank(self):
-        if self._mp_group is not None:
-            return 0
-        return self._mesh.get_local_rank("sep")
+        return self._local_rank("sep")
 
     def get_sep_parallel_world_size(self):
         return self._sep_degree

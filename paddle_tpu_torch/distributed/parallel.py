@@ -1,6 +1,7 @@
 """The parallel environment on ``torch.distributed``. Counterpart of
 ``paddle_tpu/distributed/parallel.py``'s ``init_parallel_env``,
-``get_rank`` and ``get_world_size``.
+``get_rank``, ``get_world_size``, ``ParallelEnv`` and
+``all_reduce_gradients``.
 
 A process joins the default process group that its launcher describes
 (``torch.distributed``'s ``env://``: ``RANK``, ``WORLD_SIZE``,
@@ -18,7 +19,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["init_parallel_env", "get_rank", "get_world_size"]
+__all__ = ["init_parallel_env", "get_rank", "get_world_size", "ParallelEnv",
+           "all_reduce_gradients"]
 
 _state = {"device": None}
 
@@ -43,13 +45,74 @@ def init_parallel_env(*, device=None) -> torch.device:
     return dev
 
 
+def _pg(group):
+    return getattr(group, "pg", group)
+
+
 def get_rank(group=None) -> int:
-    """This process's rank in ``group`` (default: the world); 0 before
-    the environment is initialised."""
-    return dist.get_rank(group) if dist.is_initialized() else 0
+    """This process's rank in ``group`` (a ``Group`` or a torch
+    ProcessGroup; default: the world); 0 before the environment is
+    initialised."""
+    return dist.get_rank(_pg(group)) if dist.is_initialized() else 0
 
 
 def get_world_size(group=None) -> int:
     """The number of processes in ``group`` (default: the world); 1 before
     the environment is initialised."""
-    return dist.get_world_size(group) if dist.is_initialized() else 1
+    return dist.get_world_size(_pg(group)) if dist.is_initialized() else 1
+
+
+class ParallelEnv:
+    """This process's place in the job, from the process group and the
+    launcher's environment (``LOCAL_RANK`` or ``PADDLE_LOCAL_RANK``,
+    ``PADDLE_TRAINER_ENDPOINTS``, ``PADDLE_CURRENT_ENDPOINT``)."""
+
+    @property
+    def rank(self) -> int:
+        return get_rank()
+
+    @property
+    def world_size(self) -> int:
+        return get_world_size()
+
+    @property
+    def local_rank(self) -> int:
+        return int(os.environ.get("LOCAL_RANK",
+                                  os.environ.get("PADDLE_LOCAL_RANK", "0")))
+
+    @property
+    def nranks(self) -> int:
+        return get_world_size()
+
+    @property
+    def dev_id(self) -> int:
+        return self.local_rank
+
+    @property
+    def device_type(self) -> str:
+        dev = _state["device"]
+        return "gpu" if dev is not None and dev.type == "cuda" else "cpu"
+
+    @property
+    def trainer_endpoints(self) -> list:
+        eps = os.environ.get("PADDLE_TRAINER_ENDPOINTS", "")
+        return eps.split(",") if eps else []
+
+    @property
+    def current_endpoint(self) -> str:
+        return os.environ.get("PADDLE_CURRENT_ENDPOINT", "")
+
+
+@torch.no_grad()
+def all_reduce_gradients(params, group=None):
+    """Mean-all-reduce every ``.grad`` of ``params`` over ``group``
+    (default every process), one all-reduce a gradient; nothing at a
+    world of one, as in JAX."""
+    ws = get_world_size(group)
+    if ws <= 1:
+        return
+    from .communication.all_reduce import all_reduce
+    for p in params:
+        if p.grad is not None:
+            all_reduce(p.grad, group=group)
+            p.grad.div_(ws)

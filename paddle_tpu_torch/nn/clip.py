@@ -8,6 +8,12 @@ back to its own dtype, as in the JAX package. A parameter whose
 ``need_clip`` is False (``ParamAttr(need_clip=False)``) keeps its
 gradient as it is and, under ``ClipGradByGlobalNorm``, adds nothing to
 the norm.
+
+A gradient of a shard (its parameter carries ``_shard_info``, as the
+GroupSharded stages' shards do) adds its squares to the norm of the whole
+parameter: the shards' partials are summed over their group with one
+all-reduce a group a call, and a whole (replicated) gradient is counted
+once.
 """
 from __future__ import annotations
 
@@ -48,6 +54,23 @@ def _factor(norm, clip_norm):
                        torch.ones((), device=norm.device))
 
 
+def _sum_shards(partials):
+    """Sum each shard's partial over its group: ``partials`` is a list of
+    (param, fp32 tensor); one all-reduce per group, over the partials
+    stacked, in place of each."""
+    by_group: dict = {}
+    for i, (p, _) in enumerate(partials):
+        info = getattr(p, "_shard_info", None)
+        if info is not None:
+            by_group.setdefault(id(info.group), (info, []))[1].append(i)
+    out = [t for _, t in partials]
+    for info, idx in by_group.values():
+        summed = info.psum(torch.stack([out[i] for i in idx]))
+        for k, i in enumerate(idx):
+            out[i] = summed[k]
+    return out
+
+
 class ClipGradByNorm(ClipGradBase):
     """Each gradient scaled down to an L2 norm of at most clip_norm."""
 
@@ -55,11 +78,13 @@ class ClipGradByNorm(ClipGradBase):
         self.clip_norm = clip_norm
 
     def _dygraph_clip(self, params_grads):
+        sq = _sum_shards([(p, g.float().square().sum())
+                          for p, g in params_grads if _clipped(p, g)])
+        sq = iter(sq)
         out = []
         for p, g in params_grads:
             if _clipped(p, g):
-                norm = g.float().square().sum().sqrt()
-                g = _scaled(g, _factor(norm, self.clip_norm))
+                g = _scaled(g, _factor(next(sq).sqrt(), self.clip_norm))
             out.append((p, g))
         return out
 
@@ -76,11 +101,18 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
 
     def _global_norm_sq(self, params_grads):
-        sq = None
+        sq = shard = None
         for p, g in params_grads:
             if _clipped(p, g):
                 s = g.float().square().sum()
-                sq = s if sq is None else sq + s
+                if getattr(p, "_shard_info", None) is not None:
+                    shard = s if shard is None else shard + s
+                    info = p._shard_info
+                else:
+                    sq = s if sq is None else sq + s
+        if shard is not None:
+            shard = info.psum(shard)
+            sq = shard if sq is None else sq + shard
         return sq
 
     def _dygraph_clip(self, params_grads):

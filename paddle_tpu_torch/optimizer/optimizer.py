@@ -36,6 +36,14 @@ is updated in turn. ``state_dict`` keys are JAX's: ``<name>_<slot>``,
 ``<name>_master``, ``LR_Scheduler`` and ``@step``, where ``<name>`` is
 the name the parameter was given with (``model.named_parameters()``) or
 ``param_<i>`` by its position.
+
+A parameter may be a shard of a larger one (the GroupSharded stages step
+one shard tensor per sharded parameter; it carries ``_shard_info``). The
+elementwise updates run on it as they are; where an update reads a
+statistic of the whole parameter (``Lamb``'s trust ratio, ``Adafactor``'s
+means and RMS), the shard's partial sum is summed over the group that
+holds the shards (``_norm``, ``_mean``), so each shard takes the step of
+the whole parameter.
 """
 from __future__ import annotations
 
@@ -195,6 +203,28 @@ class Optimizer:
         """(master, decayed fp32 gradient)."""
         mw = self._master(p)
         return mw, self._decayed(p, g.float(), mw)
+
+    @staticmethod
+    def _norm(x, p):
+        """The L2 norm of ``x`` (laid out as p), over the whole parameter
+        where p is a shard."""
+        info = getattr(p, "_shard_info", None)
+        if info is None:
+            return torch.linalg.vector_norm(x)
+        return info.psum(x.float().square().sum()).sqrt()
+
+    @staticmethod
+    def _mean(x, p, dims):
+        """``x.mean(dims, keepdim=True)`` for ``x`` of p's rank, over the
+        whole parameter where p is a shard split along one of ``dims``."""
+        info = getattr(p, "_shard_info", None)
+        dims = tuple(d % x.dim() for d in dims)
+        if info is None or info.axis not in dims:
+            return x.mean(dims, keepdim=True)
+        count = 1
+        for d in dims:
+            count *= info.full_shape[d]
+        return info.psum(x.sum(dims, keepdim=True)) / count
 
     def clear_grad(self, set_to_zero: bool = False):
         """Drop every gradient, or with ``set_to_zero`` zero those that
@@ -366,6 +396,9 @@ class Adafactor(Optimizer):
     the update clipped to ``clip_threshold`` by its RMS, the lr scaled by
     the parameter's RMS with ``scale_parameter``; no relative step."""
 
+    # the factored moments: means over the last axis and the one before
+    _reduced_axes = {"vrow": -1, "vcol": -2}
+
     def __init__(self, learning_rate=1e-3, beta1=None, decay_rate=0.8,
                  epsilon1=1e-30, epsilon2=1e-3, clip_threshold=1.0,
                  scale_parameter=True, parameters=None, weight_decay=None,
@@ -384,30 +417,32 @@ class Adafactor(Optimizer):
         t = self._set("step", p, f32(self._acc("step", p, f32(0.0)) + 1))
         beta2_t = float(f32(1) - t ** f32(-self._decay_rate))
         g2 = g32 * g32 + self._eps1
+        every = tuple(range(p.dim()))
         if p.dim() >= 2:
             vr = self._acc("vrow", p, lambda: torch.zeros(
                 p.shape[:-1], device=p.device))
             vc = self._acc("vcol", p, lambda: torch.zeros(
                 (*p.shape[:-2], p.shape[-1]), device=p.device))
-            vr = self._set("vrow", p, beta2_t * vr
-                           + (1 - beta2_t) * g2.mean(-1))
-            vc = self._set("vcol", p, beta2_t * vc
-                           + (1 - beta2_t) * g2.mean(-2))
-            denom = vr.mean(-1, keepdim=True)
-            vhat = (vr / denom.clamp(min=self._eps1))[..., None] \
+            vr = self._set("vrow", p, beta2_t * vr + (1 - beta2_t)
+                           * self._mean(g2, p, (-1,)).squeeze(-1))
+            vc = self._set("vcol", p, beta2_t * vc + (1 - beta2_t)
+                           * self._mean(g2, p, (-2,)).squeeze(-2))
+            denom = self._mean(vr[..., None], p, (-2,))
+            vhat = (vr[..., None] / denom.clamp(min=self._eps1)) \
                 * vc[..., None, :]
         else:
             vhat = self._set("moment2", p, beta2_t * self._acc("moment2", p)
                              + (1 - beta2_t) * g2)
         u = g32 / vhat.clamp(min=self._eps1).sqrt()
-        rms_u = ((u * u).mean() + self._eps1).sqrt()
+        rms_u = (self._mean(u * u, p, every) + self._eps1).sqrt()
         u = u / torch.clamp(rms_u / self._clip_threshold, min=1.0)
         if self._beta1 is not None:
             u = self._set("moment1", p, self._beta1 * self._acc("moment1", p)
                           + (1 - self._beta1) * u)
         alpha = lr
         if self._scale_parameter:
-            alpha = lr * torch.clamp((mw * mw).mean().sqrt(), min=self._eps2)
+            alpha = lr * torch.clamp(self._mean(mw * mw, p, every).sqrt(),
+                                     min=self._eps2)
         self._apply(p, mw - alpha * u)
 
 
@@ -514,8 +549,8 @@ class Lamb(Optimizer):
         if self._exclude_fn is not None and self._exclude_fn(p):
             wd = 0.0
         r = mhat / (vhat.sqrt() + self._epsilon) + wd * mw
-        w_norm = torch.linalg.vector_norm(mw)
-        r_norm = torch.linalg.vector_norm(r)
+        w_norm = self._norm(mw, p)
+        r_norm = self._norm(r, p)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones((), device=mw.device))
         self._apply(p, mw - lr * trust * r)

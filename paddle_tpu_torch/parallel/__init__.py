@@ -2,12 +2,15 @@
 over the hybrid mesh.
 
 Counterpart of ``paddle_tpu/parallel/__init__.py``'s ``current_mesh``,
-``init_serving_mesh`` and its context-parallel exports
-(``parallel/context_parallel.py``). The serving mesh is the port's own
-single-controller mesh (``serving_mesh.ServingMesh``): one process drives
-``mp`` shards, as JAX's serving engine drives ``mp`` devices. The rest of
-that module (``apply_shardings``, ``shard_batch``, ...) stays with
-ROADMAP Queue 1 item 10(e).
+``init_serving_mesh``, ``data_spec``, ``shard_batch`` and its
+context-parallel exports (``parallel/context_parallel.py``). The serving
+mesh is the port's own single-controller mesh
+(``serving_mesh.ServingMesh``): one process drives ``mp`` shards, as
+JAX's serving engine drives ``mp`` devices. ``shard_batch`` gives this
+process its slice of a global batch, as JAX's places each device's.
+JAX's placement calls (``apply_shardings``, ``with_spec``) have no
+counterpart: the port's sharded state is explicit
+(``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from .context_parallel import (make_ring_attention_fn,
                                ulysses_attention)
 from .serving_mesh import ServingMesh, ShardedTensor
 
-__all__ = ["current_mesh", "init_serving_mesh", "ring_attention",
+__all__ = ["current_mesh", "init_serving_mesh", "data_spec", "shard_batch",
+           "mesh_degree", "ring_attention",
            "ulysses_attention", "make_ring_attention_fn",
            "make_ulysses_attention_fn", "ShardedTensor"]
 
@@ -126,3 +130,34 @@ def _valid_spec(arr, spec, mesh) -> bool:
         if dim >= len(arr.shape) or arr.shape[dim] % mesh.shape[name]:
             return False
     return True
+
+
+def mesh_degree(mesh, axis) -> int:
+    """The size of ``mesh``'s ``axis`` (1 without a mesh or that axis)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, ServingMesh):
+        return dict(mesh.shape).get(axis, 1)
+    names = mesh.mesh_dim_names or ()
+    return mesh.shape[names.index(axis)] if axis in names else 1
+
+
+def data_spec(ndim: int, mesh=None):
+    """The batch's layout, JAX's spec as a tuple: dim 0 over the dp and
+    sharding axes together (both consume distinct data), dp the major."""
+    return (("dp", "sharding"), *([None] * (ndim - 1)))
+
+
+def shard_batch(x, mesh=None):
+    """This process's rows of the global batch ``x`` under ``data_spec``:
+    the ``dp_rank * sharding + sharding_rank``-th of ``dp * sharding``
+    equal slices of dim 0. ``x`` as it is without a mesh, or where dim 0
+    does not divide (as JAX leaves it)."""
+    mesh = mesh or current_mesh()
+    dp, sh = mesh_degree(mesh, "dp"), mesh_degree(mesh, "sharding")
+    total = dp * sh
+    if total == 1 or x.shape[0] % total:
+        return x
+    idx = mesh.get_local_rank("dp") * sh + mesh.get_local_rank("sharding")
+    rows = x.shape[0] // total
+    return x[idx * rows:(idx + 1) * rows]

@@ -2,6 +2,7 @@
 
     python -m paddle_tpu_torch.profile_train [--model gpt2|llama|bert]
         [--seed N] [--steps N] [--warmup N] [--fused-ffn] [--bench-step]
+        [--timed-steps N] [--level os|os_g|p_g_os|none]
 
 Trains ``gpt2_train_workload``, the configuration that ``chip_smoke.py``
 phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
@@ -11,13 +12,18 @@ MLP through the fused FFN kernels, forward and backward), or with
 ``--model llama`` phase 3f's ``llama_train_workload`` (LLaMA-2 7B's
 widths at 4 layers, B=1, S=4096, bf16 with fp32 AdamW masters), or
 with ``--model bert`` phase 3i's ``bert_train_workload`` (BERT-base
-pretraining as ``bench.py``'s ``bench_bert`` runs it on one card, under
-AMP O2, with a schedule and a clip, or with ``--bench-step`` under
-bench_bert's own constant lr and no clip), for ``--warmup`` steps, then
-``--steps`` more under ``torch.profiler``. Prints one JSON object: per
-profiled step its wall time, the union of the device's kernel intervals
-inside it (busy) and the idle share; then, over the profiled steps,
-device time and launches per step by kernel name.
+pretraining as ``bench.py``'s ``bench_bert`` runs it, under AMP O2 and
+``group_sharded_parallel(level="os_g")`` over the process group, or at
+``--level``'s level, or with ``--level none`` the plain O2 step; with a
+schedule and a clip, or with ``--bench-step`` under bench_bert's own
+constant lr and no clip), for ``--warmup`` steps, then
+``--timed-steps`` more timed without the profiler (each synchronized),
+then ``--steps`` more under ``torch.profiler``. Prints one JSON object:
+the timed steps' wall times and their median, ``max_memory_allocated``;
+per profiled step its wall time, the union of the device's kernel
+intervals inside it (busy) and the idle share; then, over the profiled
+steps, device time and launches per step by kernel name, and the host's
+self time and calls per step by operator (the 25 largest).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -28,6 +34,7 @@ import functools
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -127,15 +134,36 @@ def bert_batch(seed, batch, seq, vocab, device):
 
 
 def bert_train_workload(seed, device=None, dtype="bfloat16", *,
-                        bench_step=False):
-    """Returns ``(model, opt, x, y)``: ``BertForPretraining(bert_base(
-    vocab_size=30720))`` (dropout 0.1) with random weights from ``seed``
-    on ``device`` (default the card), cast by ``amp.decorate(level="O2",
-    dtype=dtype)`` with fp32 AdamW masters; AdamW (weight_decay 0.01)
-    under ``bert_schedule()`` with ``ClipGradByGlobalNorm(1.0)``, or with
+                        bench_step=False, level="os_g"):
+    """Returns ``(model, opt, x, y)``: configs[1]'s data-parallel stage-2
+    step. ``fleet.init`` over the process group (one process alone: a
+    group of one, NCCL on the card) with every process in the sharding
+    group (ZeRO-2 data parallelism: each consumes its own rows);
+    ``BertForPretraining(bert_base(vocab_size=30720))`` (dropout 0.1)
+    with random weights from ``seed`` on ``device`` (default the card),
+    cast by ``amp.decorate(level="O2", dtype=dtype)`` with fp32 AdamW
+    masters, then ``group_sharded_parallel(level="os_g")`` (bench_bert's
+    order, bench.py:566-572), ``fleet.distributed_model`` and
+    ``fleet.distributed_optimizer``; AdamW (weight_decay 0.01) under
+    ``bert_schedule()`` with ``ClipGradByGlobalNorm(1.0)``, or with
     ``bench_step`` bench_bert's own AdamW (a constant lr 1e-4, no clip);
-    and one batch ``bert_batch`` [16, 512] with its MLM and NSP labels.
-    Train it with ``train_step(..., amp_level=BERT_AMP_LEVEL)``."""
+    ``level`` None leaves out the GroupSharded wrapper and the fleet
+    wrappers (the plain O2 step, ``BENCH_BERT_PLAIN=1``'s); and this
+    process's rows (``parallel.shard_batch``) of one batch
+    ``bert_batch`` [16, 512] with its MLM and NSP labels. Train it with
+    ``train_step(..., amp_level=BERT_AMP_LEVEL)``."""
+    import torch.distributed as dist
+
+    from .distributed import fleet
+    from .distributed.sharding import group_sharded_parallel
+    from .parallel import shard_batch
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": world,
+                               "sep_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy, device=device)
     model = BertForPretraining(bert_base(vocab_size=BERT_VOCAB),
                                device=device, seed=seed)
     if bench_step:
@@ -144,9 +172,14 @@ def bert_train_workload(seed, device=None, dtype="bfloat16", *,
         opt = AdamW(bert_schedule(), parameters=model.named_parameters(),
                     grad_clip=ClipGradByGlobalNorm(1.0))
     model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
-    x, y = bert_batch(seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB_SAMPLED,
-                      model.mlm_bias.device)
-    return model, opt, x, y
+    dev = model.mlm_bias.device
+    if level is not None:
+        model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    x, y = bert_batch(seed, BERT_BATCH, BERT_SEQ, BERT_VOCAB_SAMPLED, dev)
+    return model, opt, shard_batch(x), {k: shard_batch(v)
+                                        for k, v in y.items()}
 
 
 def train_loss(model, x, y, amp_level=None, amp_dtype="bfloat16"):
@@ -188,6 +221,13 @@ def main(argv=None):
     ap.add_argument("--bench-step", action="store_true",
                     help="with --model bert: bench_bert's own optimizer "
                     "(a constant lr, no clip)")
+    ap.add_argument("--timed-steps", type=int, default=10,
+                    help="steps timed without the profiler first (each "
+                    "synchronized), for the median step")
+    ap.add_argument("--level", choices=("os", "os_g", "p_g_os", "none"),
+                    default="os_g",
+                    help="with --model bert: the GroupSharded level, or "
+                    "none for the plain O2 step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
@@ -200,15 +240,17 @@ def main(argv=None):
         config = {**LLAMA_CONFIG, "batch": LLAMA_BATCH, "seq": LLAMA_SEQ,
                   "dtype": "bfloat16", "masters": "fp32"}
     elif args.model == "bert":
-        model, opt, x, y = bert_train_workload(args.seed,
-                                               bench_step=args.bench_step)
+        level = None if args.level == "none" else args.level
+        model, opt, x, y = bert_train_workload(
+            args.seed, bench_step=args.bench_step, level=level)
         step = functools.partial(train_step, amp_level=BERT_AMP_LEVEL)
         config = {"vocab_size": BERT_VOCAB, "batch": BERT_BATCH,
                   "seq": BERT_SEQ, "layers": 12, "amp": "O2 bfloat16",
                   "masters": "fp32", "dropout": 0.1,
                   "schedule": None if args.bench_step else [
                       BERT_WARMUP_STEPS, BERT_DECAY_STEPS],
-                  "clip": None if args.bench_step else 1.0}
+                  "clip": None if args.bench_step else 1.0,
+                  "level": level}
     else:
         model, opt, x, y = gpt2_train_workload(args.seed)
         config = {"batch": BATCH, "seq": SEQ, "layers": 12,
@@ -217,6 +259,11 @@ def main(argv=None):
     for _ in range(args.warmup):
         step(model, opt, x, y)
     torch.cuda.synchronize()
+    timed = []
+    for _ in range(args.timed_steps):
+        t0 = time.perf_counter()
+        step(model, opt, x, y).item()       # synchronizes
+        timed.append(time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     losses = []
@@ -254,10 +301,18 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "model": args.model, "config": config,
+        "timed_step_s": timed,
+        "median_timed_step_s": float(np.median(timed)) if timed else None,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "losses": losses, "steps": steps,
         "device_time_per_step_by_kernel": [
             {"name": name[:90], "s": us * 1e-6 / n, "launches": cnt / n}
             for name, (us, cnt) in top],
+        "host_self_time_per_step_by_op": [
+            {"name": ev.key[:90], "s": ev.self_cpu_time_total * 1e-6 / n,
+             "calls": ev.count / n}
+            for ev in sorted(prof.key_averages(),
+                             key=lambda ev: -ev.self_cpu_time_total)[:25]],
     }, indent=1))
     return 0
 

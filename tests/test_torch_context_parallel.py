@@ -429,9 +429,9 @@ def test_ring_needs_a_divisible_sequence():
 
 
 def test_topology_matches_jax_and_refuses_unported_degrees():
-    """CommunicateTopology (copied) maps ranks as JAX's does; a pipeline,
-    sharding or model degree above 1 raises before any process group is
-    touched."""
+    """CommunicateTopology (copied) maps ranks as JAX's does; a pipeline
+    degree above 1, or a model degree beside another one, raises before
+    any process group is touched (a sharding degree is ported)."""
     from paddle_tpu.distributed.fleet.base.topology import \
         CommunicateTopology as JaxTopology
     names = ("data", "pipe", "sharding", "sep", "model")
@@ -442,7 +442,7 @@ def test_topology_matches_jax_and_refuses_unported_degrees():
             assert got.get_comm_list(axis) == want.get_comm_list(axis)
         assert [got.get_coord(r) for r in range(got.world_size())] == \
             [want.get_coord(r) for r in range(want.world_size())]
-    for dims in ((1, 2, 1, 2, 1), (1, 1, 2, 2, 1), (1, 1, 1, 2, 2)):
+    for dims in ((1, 2, 1, 2, 1), (1, 2, 2, 1, 1), (1, 1, 1, 2, 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             topology.HybridCommunicateGroup(
                 topology.CommunicateTopology(names, dims), device_type="cpu")

@@ -99,7 +99,8 @@ class ShardInfo:
 
 
 _SHARD_ATTRS = ("optimize_attr", "regularizer", "need_clip",
-                "trainable", "is_distributed")
+                "trainable", "is_distributed", "split_axis", "_mp_group",
+                "_pp_shared_copy")
 
 
 def shard_leaf(p, chunk, axis, group):
@@ -109,9 +110,10 @@ def shard_leaf(p, chunk, axis, group):
     s = chunk.detach()
     s.requires_grad_(p.requires_grad)
     for a in _SHARD_ATTRS:
-        if hasattr(p, a):
-            setattr(s, a, getattr(p, a))
+        if a in vars(p):        # not torch.Tensor's own is_distributed()
+            setattr(s, a, vars(p)[a])
     s._shard_info = ShardInfo(axis, p.shape, group)
+    p._shard = s
     return s
 
 
@@ -362,7 +364,9 @@ class Reducer:
                 e.param.grad = None
             if not had:
                 continue
-            if e.shard.grad is None:
+            # stage 1: the parameter holds the whole accumulated mean, so
+            # its chunk replaces the shard's; stage 2's accumulate
+            if e.shard.grad is None or b.kind == "all_reduce":
                 e.shard.grad = g
             else:
                 e.shard.grad.add_(g)

@@ -9,7 +9,10 @@ optimizer; its ``step`` mean-all-reduces over the dp group the
 gradients that no reducer owns (``DataParallel`` and the GroupSharded
 stages reduce theirs after backward, and a second mean would count only
 in the collectives). A global-norm clip needs no wrapper: ``nn.clip``
-sums the shards' squared-norm partials over their group.
+sums the shards' squared-norm partials over their sharding group, the
+mp slices' over their model-parallel group (a parameter replicated over
+mp counted once) and each stage's total over the pipe group (a shared
+weight once).
 ``HybridParallelGradScaler`` steps the wrapped optimizer; its found-inf
 flag is the MAX over every process (``amp.GradScaler`` takes it so
 wherever more than one process trains or a shard is stepped), so every
@@ -24,8 +27,12 @@ class HybridParallelOptimizer:
     def __init__(self, optimizer, hcg=None, strategy=None):
         from ...meta_parallel.sharding.group_sharded import \
             DygraphShardingOptimizer
+        # a stage-3 optimizer already steps shards (its parameters carry
+        # _shard_info): it is not wrapped again
         if hcg is not None and hcg.get_sharding_parallel_world_size() > 1 \
-                and not isinstance(optimizer, DygraphShardingOptimizer):
+                and not isinstance(optimizer, DygraphShardingOptimizer) \
+                and not any(getattr(p, "_shard_info", None) is not None
+                            for _, p in optimizer._params):
             optimizer = DygraphShardingOptimizer(optimizer, hcg)
         self._inner_opt = optimizer
         self._hcg = hcg

@@ -6,8 +6,11 @@ sharding degree: the model broadcast from the first rank of the sharding
 group and then of the dp group (every rank starts from global rank 0's
 parameters and buffers); the sharded state is the optimizer's
 (``fleet.distributed_optimizer`` or ``group_sharded_parallel``).
-``TensorParallel`` waits for fleet's model-parallel layers (ROADMAP
-Queue 1 item 10(e)).
+``TensorParallel`` (a model degree over processes) broadcasts the
+parameters that are not split over mp (those without ``is_distributed``)
+from the mp group's first rank, then every parameter and floating buffer
+from the dp group's first rank: each mp rank keeps its own slice of a
+distributed parameter, the same across dp.
 """
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ class MetaParallelBase(nn.Module):
 
 class TensorParallel(MetaParallelBase):
     def _prepare_for_model(self):
-        raise NotImplementedError(
-            "TensorParallel: fleet's model-parallel training layers are not "
-            "ported yet (ROADMAP Queue 1 item 10(e)); the port's model "
-            "degree serves over the single-controller mesh")
+        from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                                  broadcast_mp_parameters)
+        broadcast_mp_parameters(self._layers, self._hcg)
+        broadcast_dp_parameters(self._layers, self._hcg)
 
 
 class ShardingParallel(MetaParallelBase):

@@ -38,6 +38,18 @@ gradient (or shard) is then all-reduced over it too, and the mean is
 over the sharding times the dp ranks, the ranks that consume distinct
 data (``parallel.data_spec``).
 
+Under fleet's model-parallel layers each rank's parameter is its mp
+slice; a stage splits it over the sharding group along the axis
+``augment_spec_for`` adds to its ``sharding_spec`` (the largest axis the
+mp split leaves free that divides, JAX's choice on the logical shape;
+``sharded_axis``), so a rank rests 1/(mp sharding) of it, and a Column
+bias, whose one axis mp takes, stays whole over sharding. Under a
+pipeline the groups are the stage's and the stage's parameters are what
+a stage shards. A model run unwrapped (a pipeline's stage, or
+``fleet.distributed_model`` on the inner model) runs under the same
+stage-3 forward context (``stage3_forward``; the model carries it), and
+its replicated gradients' reducer lives as long as the model.
+
 Collectives a step issues (``COLLECTIVES``; ``b_s`` / ``b_r`` the
 buckets of the sharded / replicated parameters, ``communication.
 reducer.bucket_plan`` at 32 MB; ``dp`` 1 where the dp group has more
@@ -49,7 +61,12 @@ than one rank, else 0):
 - "p_g_os": all_gather one per module forward per sharded parameter it
           owns plus one per other read, and one per saved view unpacked
           in backward; reduce_scatter one per gather of the forward, each
-          with an all_reduce where dp; all_reduce b_r (1 + dp);
+          with an all_reduce where dp; all_reduce b_r (1 + dp); all
+          per backward: with M micro-batches a step, M times, and
+          under recompute one more all_gather a micro-batch for each
+          sharded parameter of a recomputed module (its saved views are
+          the recomputation's, made outside the saved-tensor hooks, and
+          are not gathered again);
 
 plus, in any stage, one all_reduce for ``ClipGradByGlobalNorm`` /
 ``ClipGradByNorm`` (the shards' squared-norm partials), one for a
@@ -65,6 +82,7 @@ and ``sync_buffers`` are taken and ignored with one warning a process
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
@@ -82,7 +100,7 @@ __all__ = ["GroupShardedStage2", "GroupShardedStage3",
            "GroupShardedOptimizerStage2", "DygraphShardingOptimizer",
            "shard_spec_for", "augment_spec_for",
            "annotate_optimizer_sharding", "sharding_step_counts",
-           "gather_optimizer_state"]
+           "gather_optimizer_state", "sharded_axis", "stage3_forward"]
 
 
 def shard_spec_for(t, axis_name: str = "sharding"):
@@ -97,24 +115,39 @@ def shard_spec_for(t, axis_name: str = "sharding"):
     return tuple(spec)
 
 
-def augment_spec_for(t, axis_name: str = "sharding"):
+def augment_spec_for(t, axis_name: str = "sharding", *, degree=None):
     """``t.sharding_spec`` (if any) with ``axis_name`` added on the largest
-    axis it leaves free that divides by the active mesh's degree of
-    ``axis_name``; None where no axis is free."""
+    axis it leaves free that divides by ``degree`` (default the active
+    mesh's degree of ``axis_name``); None where no axis is free. The
+    free axes are whole in an mp slice, so the choice is JAX's on the
+    logical shape."""
     shape = tuple(t.shape)
     if not shape:
         return None
     prior = getattr(t, "sharding_spec", None)
     prior = list(prior) if prior is not None else [None] * len(shape)
     prior += [None] * (len(shape) - len(prior))
-    from .....parallel import current_mesh, mesh_degree
-    degree = mesh_degree(current_mesh(), axis_name)
+    if degree is None:
+        from .....parallel import current_mesh, mesh_degree
+        degree = mesh_degree(current_mesh(), axis_name)
     free = [i for i in range(len(shape))
             if prior[i] is None and shape[i] % degree == 0]
     if not free:
         return None
     prior[max(free, key=lambda i: shape[i])] = axis_name
     return tuple(prior)
+
+
+def sharded_axis(p, degree):
+    """The axis along which a GroupSharded stage splits ``p`` over
+    ``degree`` ranks, as JAX places it: a parameter of fleet's
+    model-parallel layers (it carries a ``sharding_spec``) on the axis
+    ``augment_spec_for`` adds, any other by ``shard_axis`` (the largest,
+    where it divides); None where it stays whole."""
+    if getattr(p, "sharding_spec", None) is None:
+        return shard_axis(p.shape, degree)
+    spec = augment_spec_for(p, degree=degree)
+    return None if spec is None else spec.index("sharding")
 
 
 def annotate_optimizer_sharding(optimizer, axis_name: str = "sharding"):
@@ -270,7 +303,7 @@ class DygraphShardingOptimizer:
         n = self._group.nranks
         params = [p for _, p in optimizer._params]
         _sync_from_first(params, self._group, self._dp_group)
-        self._entries = [Entry(p, shard_axis(p.shape, n)) for p in params
+        self._entries = [Entry(p, sharded_axis(p, n)) for p in params
                          if p.requires_grad]
         self._reducer = Reducer(self._entries, self._group, self._dp_group,
                                 scatter=self._scatter)
@@ -529,6 +562,24 @@ class _Stage3State:
         return obj
 
 
+@contextlib.contextmanager
+def stage3_forward(state):
+    """A forward of a stage-3 model (``state`` its ``_Stage3State``; None:
+    nothing): a gathered parameter saved for backward is packed as a
+    token, a parameter read outside its module is gathered for that op,
+    and the gathered copies are forgotten after."""
+    if state is None:
+        yield
+        return
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(state.pack,
+                                                      state.unpack), \
+                _RestGuard(state):
+            yield
+    finally:
+        state._live.clear()
+
+
 def _placeholder(p):
     """A one-element stride-0 tensor of p's shape, dtype and device."""
     return torch.zeros((), dtype=p.dtype, device=p.device).expand(p.shape)
@@ -576,7 +627,7 @@ class GroupShardedStage3(_Wrapper):
                     continue
                 e = st.at_rest.get(id(p))
                 if e is None:
-                    axis = shard_axis(p.shape, group.nranks)
+                    axis = sharded_axis(p, group.nranks)
                     if axis is None or id(p) in excluded:
                         if all(r is not p for r in replicated):
                             replicated.append(p)
@@ -585,6 +636,7 @@ class GroupShardedStage3(_Wrapper):
                     st.at_rest[id(p)] = e
                     shards[id(p)] = (p, e.shard)
                     p.data = _placeholder(p)
+                    p._stage3 = True
                 own.append((pname, e))
             if own:
                 mod.register_forward_pre_hook(self._pre_hook(own))
@@ -592,6 +644,12 @@ class GroupShardedStage3(_Wrapper):
         self._entries = list(st.at_rest.values())
         self._reducer = Reducer([Entry(p) for p in replicated], group,
                                 dp_group)
+        # the forward context of whatever runs the model unwrapped (a
+        # pipeline's stage, fleet.distributed_model on the inner model);
+        # the replicated gradients' reducer lives as long as the model,
+        # not the wrapper
+        st.reducer = self._reducer
+        layer._stage3_state = st
         self._gathered = False
         if optimizer is not None:
             _shard_optimizer(optimizer, shards)
@@ -613,14 +671,8 @@ class GroupShardedStage3(_Wrapper):
     def forward(self, *inputs, **kwargs):
         if self._gathered:
             self._release()
-        st = self._state
-        try:
-            with torch.autograd.graph.saved_tensors_hooks(st.pack,
-                                                          st.unpack), \
-                    _RestGuard(st):
-                return self._layers(*inputs, **kwargs)
-        finally:
-            st._live.clear()
+        with stage3_forward(self._state):
+            return self._layers(*inputs, **kwargs)
 
     def peak_gathered_bytes(self):
         return self._state.peak_bytes

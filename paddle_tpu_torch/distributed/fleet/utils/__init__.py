@@ -1,6 +1,8 @@
-"""fleet.utils: the hybrid-parallel gradient and parameter helpers
-(recompute and the sequence-parallel helpers stay with ROADMAP Queue 1
+"""fleet.utils: activation recompute and the hybrid-parallel gradient and
+parameter helpers (``sequence_parallel_utils`` stays with ROADMAP Queue 1
 item 10(e))."""
-from . import hybrid_parallel_util
+from . import hybrid_parallel_util, recompute_mod
+from .recompute_mod import recompute, recompute_sequential
 
-__all__ = ["hybrid_parallel_util"]
+__all__ = ["hybrid_parallel_util", "recompute_mod", "recompute",
+           "recompute_sequential"]

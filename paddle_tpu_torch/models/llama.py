@@ -11,31 +11,42 @@ ported ``fused_rotary_position_embedding``; the projections are
 ``torch.matmul`` on cuBLAS, as the JAX package leaves them to XLA.
 
 Both of the JAX model's layouts are ported. ``tensor_parallel=True`` (its
-default) has separate q/k/v/o and gate/up/down projections and the
-vocab-parallel loss; the port has no model-parallel group for training
-(ROADMAP Queue 1 item 10(e), fleet's model-parallel layers), so they run
-at world size 1: plain projections, and the dense
-``cross_entropy(..., reduction="none")`` that JAX's
-``ParallelCrossEntropy`` computes below mp 2. ``tensor_parallel=False``
-runs q/k/v as one matmul and gate/up as one (``fused_concat_linear``),
-with the parameters kept separate. ``context_parallel`` (True or
+default) builds fleet's model-parallel layers, as JAX's does: q/k/v and
+gate/up as ``ColumnParallelLinear`` (outputs split), o and down as
+``RowParallelLinear`` (inputs split, partial sums all-reduced), a
+``VocabParallelEmbedding``, a ``ColumnParallelLinear`` head with its
+logits left split on the vocabulary, and ``ParallelCrossEntropy``. Under
+a fleet topology with a model degree over processes each mp rank runs
+``num_heads / mp`` query heads and ``num_kv_heads / mp`` K/V heads
+through the flash kernels, and returns its vocabulary slice of the
+logits; at mp 1 the layers are plain projections and the loss the dense
+``cross_entropy(..., reduction="none")``. A tied head is ``F.linear`` on
+the (vocab-split) embedding, behind ``_c_identity`` so that its input's
+gradient is summed over mp. ``num_kv_heads % mp != 0`` raises
+(ROADMAP Queue 1 item 10(f)). ``tensor_parallel=False`` runs q/k/v as
+one matmul and gate/up as one (``fused_concat_linear``), with the
+parameters kept separate. ``context_parallel`` (True or
 "ring", or "ulysses") runs attention over the active fleet mesh's ``sep``
 axis when its degree is 2 or more (``parallel.context_parallel``: the ring
 chunk kernels, or the flash kernels under Ulysses) and dense attention
 otherwise; ``sequence_parallel`` does what the JAX model does without a
-mesh: no sharding constraint.
+mesh: no sharding constraint. ``recompute`` recomputes each block's
+activations in backward through ``fleet.utils.recompute``, as JAX's block
+does.
 
 The initial weights are drawn from the model's ``generator``, a CPU
-``torch.Generator`` seeded from ``seed``, so a seed gives the same model on
-every device.
+``torch.Generator`` seeded from ``seed``, each at its full logical shape
+(an mp rank keeps its slice), so a seed gives the same model on every
+device and at every model-parallel degree.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.fleet.layers.mpu import mp_layers as mpl
+from ..distributed.fleet.layers.mpu.mp_ops import _Identity, _run
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.layer.common import Embedding, Linear
@@ -75,12 +86,49 @@ def _linear(n_in, n_out, device, dtype):
                   trainable=True)
 
 
+def _column(c, n_in, n_out, device, dtype):
+    """A column-split projection (its output split over mp) under
+    ``tensor_parallel``, else a plain one."""
+    if not c.tensor_parallel:
+        return _linear(n_in, n_out, device, dtype)
+    return mpl.ColumnParallelLinear(n_in, n_out, has_bias=False,
+                                    gather_output=False, dtype=dtype,
+                                    device=device)
+
+
+def _row(c, n_in, n_out, device, dtype):
+    """A row-split projection (its input split over mp) under
+    ``tensor_parallel``, else a plain one."""
+    if not c.tensor_parallel:
+        return _linear(n_in, n_out, device, dtype)
+    return mpl.RowParallelLinear(n_in, n_out, has_bias=False,
+                                 input_is_parallel=True, dtype=dtype,
+                                 device=device)
+
+
+def _mp_degree(c):
+    """The model-parallel degree the model's layers split over."""
+    if not c.tensor_parallel:
+        return 1
+    from ..distributed.fleet.layers.mpu.mp_ops import mp_group
+    g = mp_group()
+    return 1 if g is None else g.nranks
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, c: LlamaConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        self.num_heads = c.num_heads
-        self.num_kv_heads = c.num_kv_heads
+        mp = _mp_degree(c)
+        if c.num_kv_heads % mp:
+            raise NotImplementedError(
+                f"LlamaAttention: num_kv_heads {c.num_kv_heads} over a "
+                f"model-parallel degree {mp} that does not divide it (K/V "
+                "heads replicated across mp ranks) is not ported (ROADMAP "
+                "Queue 1 item 10(f))")
+        # this rank's heads: all of them below mp 2
+        self.num_heads = c.num_heads // mp
+        self.num_kv_heads = c.num_kv_heads // mp
         self.head_dim = c.hidden_size // c.num_heads
         self.rope_base = c.rope_base
         self.context_parallel = c.context_parallel
@@ -88,11 +136,11 @@ class LlamaAttention(nn.Module):
         # one matmul for q, k and v (the JAX model's non-TP fast path)
         self.fused = not c.tensor_parallel
         h = c.hidden_size
-        kv_out = self.num_kv_heads * self.head_dim
-        self.q_proj = _linear(h, h, device, dtype)
-        self.k_proj = _linear(h, kv_out, device, dtype)
-        self.v_proj = _linear(h, kv_out, device, dtype)
-        self.o_proj = _linear(h, h, device, dtype)
+        kv_out = c.num_kv_heads * self.head_dim
+        self.q_proj = _column(c, h, h, device, dtype)
+        self.k_proj = _column(c, h, kv_out, device, dtype)
+        self.v_proj = _column(c, h, kv_out, device, dtype)
+        self.o_proj = _row(c, h, h, device, dtype)
 
     def _ring_fn(self):
         """Sequence-parallel attention over the active mesh's 'sep' axis
@@ -167,9 +215,9 @@ class LlamaMLP(nn.Module):
         h, inter = c.hidden_size, c.intermediate_size
         # gate and up as one matmul (the JAX model's non-TP fast path)
         self.fused = not c.tensor_parallel
-        self.gate_proj = _linear(h, inter, device, dtype)
-        self.up_proj = _linear(h, inter, device, dtype)
-        self.down_proj = _linear(inter, h, device, dtype)
+        self.gate_proj = _column(c, h, inter, device, dtype)
+        self.up_proj = _column(c, h, inter, device, dtype)
+        self.down_proj = _row(c, inter, h, device, dtype)
 
     def forward(self, x):
         if self.fused:
@@ -199,9 +247,8 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x):
         if self._recompute and self.training:
-            # the block's activations are recomputed in the backward
-            # (JAX: fleet.utils.recompute)
-            return checkpoint(self._body, x, use_reentrant=False)
+            from ..distributed.fleet.utils.recompute_mod import recompute
+            return recompute(self._body, x)
         return self._body(x)
 
 
@@ -210,9 +257,12 @@ class LlamaModel(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.config = c
-        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size,
-                                      dtype=dtype, device=device,
-                                      trainable=True)
+        self.embed_tokens = (
+            mpl.VocabParallelEmbedding(c.vocab_size, c.hidden_size,
+                                       dtype=dtype, device=device)
+            if c.tensor_parallel else
+            Embedding(c.vocab_size, c.hidden_size, dtype=dtype,
+                      device=device, trainable=True))
         self.layers = nn.ModuleList([LlamaBlock(c, device=device, dtype=dtype)
                                      for _ in range(c.num_layers)])
         self.norm = RMSNorm(c.hidden_size, c.rms_eps, dtype=dtype,
@@ -223,6 +273,10 @@ class LlamaModel(nn.Module):
         for blk in self.layers:
             x = blk(x)
         return self.norm(x)
+
+
+_MP_LAYERS = (mpl.ColumnParallelLinear, mpl.RowParallelLinear,
+              mpl.VocabParallelEmbedding)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -245,7 +299,10 @@ class LlamaForCausalLM(nn.Module):
         self.generator.manual_seed(seed)
         self.llama = LlamaModel(c, device=dev, dtype=dtype)
         if not c.tie_word_embeddings:
-            self.lm_head = _linear(c.hidden_size, c.vocab_size, dev, dtype)
+            self.lm_head = _column(c, c.hidden_size, c.vocab_size, dev,
+                                   dtype)
+        if c.tensor_parallel:
+            self.parallel_loss = mpl.ParallelCrossEntropy()
         if dev.type != "meta":
             self.init_weights()
 
@@ -256,20 +313,30 @@ class LlamaForCausalLM(nn.Module):
         initializer_range); the RMSNorm weights start at 1 when built."""
         std = self.config.initializer_range
         for module in self.modules():
-            if isinstance(module, (Linear, Embedding)):
-                module.weight.copy_(torch.empty(module.weight.shape).normal_(
-                    0.0, std, generator=self.generator))
+            if isinstance(module, (Linear, Embedding, *_MP_LAYERS)):
+                w = module.weight
+                full = torch.empty(mpl.logical_shape(w)).normal_(
+                    0.0, std, generator=self.generator)
+                w.copy_(mpl.local_slice(full, getattr(w, "split_axis", None),
+                                        mpl.mp_split(w)))
 
     def forward(self, input_ids, labels=None, loss_mask=None):
         h = self.llama(input_ids)
         if self.config.tie_word_embeddings:
-            logits = F.linear(h, self.llama.embed_tokens.weight.t())
+            emb = self.llama.embed_tokens
+            if self.config.tensor_parallel:
+                h = _run(_Identity, h, emb._group)
+            logits = F.linear(h, emb.weight.t())
         else:
             logits = self.lm_head(h)
         if labels is None:
             return logits
-        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
-                               labels.reshape(-1), reduction="none")
+        if self.config.tensor_parallel:
+            loss = self.parallel_loss(logits.reshape(-1, logits.shape[-1]),
+                                      labels.reshape(-1))
+        else:
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   labels.reshape(-1), reduction="none")
         if loss_mask is None:
             return loss.mean()
         m = loss_mask.reshape(-1).to(loss.dtype)

@@ -13,7 +13,13 @@ A gradient of a shard (its parameter carries ``_shard_info``, as the
 GroupSharded stages' shards do) adds its squares to the norm of the whole
 parameter: the shards' partials are summed over their group with one
 all-reduce a group a call, and a whole (replicated) gradient is counted
-once.
+once. Likewise a gradient of an mp slice (``is_distributed``, from
+fleet's model-parallel layers) is summed over its model-parallel group,
+one all-reduce a group a call, while a parameter replicated over mp is
+counted once, not mp times. Under a pipeline of more than one stage the
+global norm's square is summed over the pipe group (one all-reduce), a
+shared weight's copy off its owner stage (``_pp_shared_copy``) adding
+nothing, so every stage clips by the same factor.
 """
 from __future__ import annotations
 
@@ -54,21 +60,50 @@ def _factor(norm, clip_norm):
                        torch.ones((), device=norm.device))
 
 
-def _sum_shards(partials):
-    """Sum each shard's partial over its group: ``partials`` is a list of
-    (param, fp32 tensor); one all-reduce per group, over the partials
-    stacked, in place of each."""
-    by_group: dict = {}
-    for i, (p, _) in enumerate(partials):
-        info = getattr(p, "_shard_info", None)
-        if info is not None:
-            by_group.setdefault(id(info.group), (info, []))[1].append(i)
-    out = [t for _, t in partials]
-    for info, idx in by_group.values():
-        summed = info.psum(torch.stack([out[i] for i in idx]))
+def _groups(p):
+    """(sharding ``Group`` or None, mp ``Group`` or None) over which
+    ``p``'s gradient's partials are summed."""
+    from ..distributed.fleet.layers.mpu.mp_layers import mp_split
+    info = getattr(p, "_shard_info", None)
+    return (info.group if info is not None else None), mp_split(p)
+
+
+def _psum_by(values, groups):
+    """``values`` (fp32 scalars) with each one that has a group summed
+    over it: one all-reduce a distinct group, of its values stacked."""
+    from ..distributed.communication.group import ReduceOp
+    from ..distributed.communication.ops import _all_reduce
+    out = list(values)
+    by: dict = {}
+    for i, g in enumerate(groups):
+        if g is not None:       # one entry a process group
+            by.setdefault(id(g.pg), (g, []))[1].append(i)
+    for g, idx in by.values():
+        summed = torch.stack([out[i] for i in idx])
+        _all_reduce(summed, ReduceOp.SUM, g)
         for k, i in enumerate(idx):
             out[i] = summed[k]
     return out
+
+
+def _sum_shards(partials):
+    """Sum each partial over its parameter's sharding group, then over
+    its mp group where it is an mp slice: ``partials`` is a list of
+    (param, fp32 tensor)."""
+    groups = [_groups(p) for p, _ in partials]
+    out = _psum_by([t for _, t in partials], [g[0] for g in groups])
+    return _psum_by(out, [g[1] for g in groups])
+
+
+def _pipe_group():
+    """The pipe group where a pipeline of more than one stage runs."""
+    from ..distributed.fleet.base.topology import _HYBRID_GROUP
+    hcg = _HYBRID_GROUP[0]
+    if hcg is None or hcg.is_serving_mesh() or \
+            hcg.get_pipe_parallel_world_size() == 1:
+        return None
+    from ..distributed.communication.group import as_group
+    return as_group(hcg.get_pipe_parallel_group())
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -101,18 +136,23 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
 
     def _global_norm_sq(self, params_grads):
-        sq = shard = None
-        for p, g in params_grads:
-            if _clipped(p, g):
-                s = g.float().square().sum()
-                if getattr(p, "_shard_info", None) is not None:
-                    shard = s if shard is None else shard + s
-                    info = p._shard_info
-                else:
-                    sq = s if sq is None else sq + s
-        if shard is not None:
-            shard = info.psum(shard)
-            sq = shard if sq is None else sq + shard
+        """The square of the global norm: every clipped gradient's fp32
+        squares, each partial summed over its groups (``_sum_shards``),
+        then over the pipe group; None where there is nothing to clip
+        and no pipeline."""
+        kept = [(p, g.float().square().sum()) for p, g in params_grads
+                if _clipped(p, g) and not getattr(p, "_pp_shared_copy",
+                                                  False)]
+        sq = None
+        for t in _sum_shards(kept):
+            sq = t if sq is None else sq + t
+        pipe = _pipe_group()
+        if pipe is not None:
+            from ..distributed.communication.group import ReduceOp
+            from ..distributed.communication.ops import _all_reduce
+            if sq is None:
+                sq = torch.zeros((), device=params_grads[0][0].device)
+            _all_reduce(sq, ReduceOp.SUM, pipe)
         return sq
 
     def _dygraph_clip(self, params_grads):

@@ -9,8 +9,11 @@ phase 3c also trains (GPT-2 124M as ``bench.py``'s ``bench_gpt2`` runs it:
 B=8, S=1024, bf16 parameters with fp32 AdamW masters, dropout 0.1), or
 with ``--fused-ffn`` phase 3d's (the same under ``FUSED_FFN_FLAGS``: the
 MLP through the fused FFN kernels, forward and backward), or with
-``--model llama`` phase 3f's ``llama_train_workload`` (LLaMA-2 7B's
-widths at 4 layers, B=1, S=4096, bf16 with fp32 AdamW masters), or
+``--model llama`` phase 3f's ``llama_train_workload`` (configs[2]'s
+step: LLaMA-2 7B's widths at 4 layers, B=1, S=4096, bf16 with fp32
+AdamW masters, fleet's model-parallel layers, through ``fleet.init`` and
+``group_sharded_parallel(level="p_g_os")`` over the process group, or
+at ``--level``'s level, or with ``--level none`` unwrapped), or
 with ``--model bert`` phase 3i's ``bert_train_workload`` (BERT-base
 pretraining as ``bench.py``'s ``bench_bert`` runs it, under AMP O2 and
 ``group_sharded_parallel(level="os_g")`` over the process group, or at
@@ -91,22 +94,41 @@ def gpt2_train_workload(seed, device=None):
     return model, opt, x, y
 
 
-def llama_train_workload(seed, device=None):
-    """Returns ``(model, opt, x, y)``: ``LlamaForCausalLM(LLAMA_CONFIG)``
-    (the default ``tensor_parallel=True``, as ``llama2_7b`` and
-    bench_llama build it) with random weights from ``seed`` on ``device``
-    (default the card) in bf16; AdamW at lr 1e-4 (weight_decay 0.01) with
-    fp32 masters, as bench_llama builds it (bench.py:645-648); and one
-    batch of token ids [1, 4096] drawn below 32000 and its next-token
-    labels."""
+def llama_train_workload(seed, device=None, *, level="p_g_os"):
+    """Returns ``(model, opt, x, y)``: configs[2]'s step as bench_llama
+    builds it (bench.py:641-652). ``fleet.init`` over the process group
+    (one process alone: a group of one, NCCL on the card) with every
+    degree 1 (configs[2]'s mp 2 x pp 2 needs four cards, ROADMAP item
+    12); ``LlamaForCausalLM(LLAMA_CONFIG)`` with ``tensor_parallel=True``
+    (fleet's model-parallel layers and ``ParallelCrossEntropy``, as
+    ``llama2_7b`` and bench_llama build it) with random weights from
+    ``seed`` on ``device`` (default the card) in bf16; AdamW at lr 1e-4
+    (weight_decay 0.01) with fp32 masters; then
+    ``group_sharded_parallel(level=level)`` (default "p_g_os", stage 3),
+    ``fleet.distributed_model`` and ``fleet.distributed_optimizer``;
+    ``level`` None leaves out the fleet and the wrappers (the unwrapped
+    step). And one batch of token ids [1, 4096] drawn below 32000 and
+    its next-token labels."""
+    if level is not None:
+        from .distributed import fleet
+        from .distributed.sharding import group_sharded_parallel
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                                   "pp_degree": 1, "sharding_degree": 1,
+                                   "sep_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy, device=device)
     model = LlamaForCausalLM(LlamaConfig(**LLAMA_CONFIG), device=device,
                              seed=seed)
     model.to(torch.bfloat16)
     opt = AdamW(LR, parameters=model.named_parameters(),
                 multi_precision=True)
+    dev = model.llama.embed_tokens.weight.device
+    if level is not None:
+        model, opt, _ = group_sharded_parallel(model, opt, level=level)
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
     ids = np.random.default_rng(seed).integers(
         0, LLAMA_CONFIG["vocab_size"], (LLAMA_BATCH, LLAMA_SEQ + 1))
-    dev = model.llama.embed_tokens.weight.device
     x = torch.from_numpy(ids[:, :-1]).to(dev)
     y = torch.from_numpy(ids[:, 1:]).to(dev)
     return model, opt, x, y
@@ -225,22 +247,26 @@ def main(argv=None):
                     help="steps timed without the profiler first (each "
                     "synchronized), for the median step")
     ap.add_argument("--level", choices=("os", "os_g", "p_g_os", "none"),
-                    default="os_g",
-                    help="with --model bert: the GroupSharded level, or "
-                    "none for the plain O2 step")
+                    default=None,
+                    help="the GroupSharded level (bert: default os_g; "
+                    "llama: default p_g_os), or none for the unwrapped "
+                    "step")
     args = ap.parse_args(argv)
+    default = "p_g_os" if args.model == "llama" else "os_g"
+    args.level = args.level or default
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
         return 2
     if args.fused_ffn:
         os.environ.update(FUSED_FFN_FLAGS)
     step = train_step
+    level = None if args.level == "none" else args.level
     if args.model == "llama":
-        model, opt, x, y = llama_train_workload(args.seed)
+        model, opt, x, y = llama_train_workload(args.seed, level=level)
         config = {**LLAMA_CONFIG, "batch": LLAMA_BATCH, "seq": LLAMA_SEQ,
-                  "dtype": "bfloat16", "masters": "fp32"}
+                  "dtype": "bfloat16", "masters": "fp32",
+                  "level": level}
     elif args.model == "bert":
-        level = None if args.level == "none" else args.level
         model, opt, x, y = bert_train_workload(
             args.seed, bench_step=args.bench_step, level=level)
         step = functools.partial(train_step, amp_level=BERT_AMP_LEVEL)

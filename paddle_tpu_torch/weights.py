@@ -38,6 +38,7 @@ from .nn.layer.common import Embedding, Linear
 
 __all__ = ["from_jax_state", "gpt_from_jax_state",
            "feedforward_from_jax_state", "llama_from_jax_state",
+           "module_from_jax_state", "gather_full_state",
            "bert_from_jax_state", "optimizer_state_from_jax",
            "random_state"]
 
@@ -112,11 +113,114 @@ def llama_from_jax_state(state_np, config, device=None, dtype=None):
     """The JAX ``LlamaForCausalLM``'s ``state_dict()`` as numpy arrays ->
     the port's ``LlamaForCausalLM(config)`` on ``device`` (default
     ``cuda``) holding the same values, trainable, in ``dtype`` (default:
-    the arrays' own). A tied head needs no entry of its own."""
+    the arrays' own). A tied head needs no entry of its own. Under a
+    fleet topology with a model degree over processes each
+    model-parallel parameter takes this rank's slice
+    (``module_from_jax_state``)."""
     dev = resolve_device(device)
     model = LlamaForCausalLM(config, device="meta")
-    _load(model, state_np, dev, dtype, trainable=True)
+    module_from_jax_state(model, state_np, device=dev, dtype=dtype,
+                          strict=True)
     return model
+
+
+def _holder(p):
+    """(tensor to write, split axis of a stage-3 shard or None, its
+    group): a GroupSharded stage-3 parameter at rest is written through
+    its shard."""
+    if getattr(p, "_stage3", False):
+        info = p._shard._shard_info
+        return p._shard, info.axis, info.group
+    return p, None, None
+
+
+def module_from_jax_state(module, state_np, *, device=None, dtype=None,
+                          strict=False):
+    """Load a JAX model's full ``state_dict()`` (numpy arrays by name)
+    into ``module``, this rank's part of it: each parameter of fleet's
+    model-parallel layers takes its slice along ``split_axis``; a
+    pipeline stage's ``PipelineLayer`` holds only its own keys (the
+    global names), and only those are read; a GroupSharded stage-3
+    parameter at rest takes its shard of that slice. A parameter on the
+    meta device is replaced by a trainable one on ``device`` (default
+    the card) in ``dtype`` (default the array's); any other is written
+    in place. ``strict``: the module's keys must be the state's."""
+    from .distributed.fleet.layers.mpu.mp_layers import local_slice, mp_split
+    own = dict(module.named_parameters())
+    missing = sorted(set(own) - set(state_np))
+    if missing or (strict and set(own) != set(state_np)):
+        raise ValueError(
+            f"{type(module).__name__}: state keys differ — missing "
+            f"{missing}, unexpected {sorted(set(state_np) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            full = _tensor(state_np[name], "cpu", None)
+            t = local_slice(full, getattr(p, "split_axis", None),
+                            mp_split(p))
+            dst, axis, group = _holder(p)
+            if axis is not None:
+                t = local_slice(t, axis, group)
+            if tuple(t.shape) != tuple(dst.shape):
+                raise ValueError(f"{type(module).__name__}.{name}: shape "
+                                 f"{tuple(t.shape)} != {tuple(dst.shape)}")
+            if dst.device.type != "meta":
+                dst.copy_(t)
+                continue
+            owner, _, leaf = name.rpartition(".")
+            new = nn.Parameter(
+                t.to(device=resolve_device(device), dtype=dtype or t.dtype),
+                requires_grad=True)
+            new.__dict__.update(p.__dict__)     # ParamAttr's, mp attributes
+            module.get_submodule(owner)._parameters[leaf] = new
+
+
+def gather_full_state(module):
+    """``module``'s state as JAX's full ``state_dict()`` names and shapes
+    (CPU tensors): a GroupSharded stage-3 model's parameters gathered,
+    each model-parallel slice all-gathered along its ``split_axis`` over
+    its mp group, and under a pipeline every stage's keys gathered over
+    the pipe group (a shared weight once). A collective: every rank of
+    those groups calls it."""
+    from .distributed.communication.ops import _all_gather_flat
+    from .distributed.fleet.base.topology import _HYBRID_GROUP
+    from .distributed.fleet.meta_parallel.sharding.group_sharded import (
+        GroupShardedStage3, _placeholder)
+    layers = getattr(module, "_layers", module)
+    if isinstance(module, GroupShardedStage3):
+        sd = module.state_dict()
+    else:
+        st = getattr(layers, "_stage3_state", None)
+        for e in (st.at_rest.values() if st is not None else ()):
+            e.param.data = e.gather()
+        sd = layers.state_dict()
+        for e in (st.at_rest.values() if st is not None else ()):
+            e.param.data = _placeholder(e.param)
+    from .distributed.fleet.layers.mpu.mp_layers import mp_split
+    params = dict(layers.named_parameters())
+    out = {}
+    for name, t in sd.items():
+        p = params.get(name)
+        g = None if p is None else mp_split(p)
+        t = t.detach()
+        if g is not None:
+            axis = p.split_axis
+            moved = t.movedim(axis, 0).contiguous()
+            buf = moved.new_empty((g.nranks * moved.shape[0],
+                                   *moved.shape[1:]))
+            _all_gather_flat(buf, moved, g)
+            t = buf.movedim(0, axis)
+        out[name] = t.cpu().contiguous()
+    hcg = _HYBRID_GROUP[0]
+    if hcg is not None and not hcg.is_serving_mesh() and \
+            hcg.get_pipe_parallel_world_size() > 1:
+        import torch.distributed as dist
+        parts = [None] * hcg.get_pipe_parallel_world_size()
+        dist.all_gather_object(parts, out,
+                               group=hcg.get_pipe_parallel_group())
+        for part in parts:
+            for k, v in part.items():
+                out.setdefault(k, v)
+    return out
 
 
 def bert_from_jax_state(state_np, config, *, device=None, dtype=None):

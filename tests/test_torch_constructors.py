@@ -377,7 +377,8 @@ def test_dropout_name_and_embedding_x():
     Dropout(0.1, name="d")
     with pytest.raises(TypeError):
         Dropout(0.1, None, "upscale_in_train", "d", torch.Generator())
-    emb = Embedding(10, 4, device="cpu")
+    emb = Embedding(10, 4, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
     ids = torch.tensor([[1, 2]])
     assert torch.equal(emb(x=ids), emb(ids))
 
